@@ -1,0 +1,619 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (incubator_predictionio_tpu_torch).
+
+Run from the repo root on a machine with one NVIDIA card, the CUDA toolkit
+(``nvcc``) and PyTorch built for CUDA::
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from ``csrc/`` (into ``build/kernels/``),
+holds each kernel against its plain PyTorch version on the card at the
+shapes the serving path gives it, and then serves the recommendation engine
+through the port's QueryServer on the card at the full width of the repo's
+``retrieval_scale`` bench configuration: rank 32, 10,000 users and a
+1,000,000-item mixture-of-concepts catalog (weights random, from a seed).
+Exact serving runs kernel K1 (int8 catalog scorer); two-stage serving runs
+kernel K2 (int8 IVF coarse probe). Every check failure raises: the script
+catches nothing, and a non-zero exit is the verdict. Its last line is one
+JSON object, ``{"ok": true, "device": {...}}``; the line before it names the
+card and its power limit; a ``{"kernels": [...]}`` line before that gives
+each kernel's launches on the main path, its error against the plain
+version and its times. ``chiprun_out/chip_smoke.json`` keeps the whole
+record.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import contextlib
+import gc
+import json
+import os
+import socket
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+#: the reference's kernel tolerances (tests/test_retrieval_kernel.py:42, :291)
+K1_TOL = 2e-2
+K2_RTOL, K2_ATOL = 3e-7, 1e-6
+#: an H100 SXM's published peaks (NVIDIA data sheet, dense), at 700 W
+HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
+RECALL_FLOOR = 0.95  # tests/test_two_stage_retrieval.py
+N_USERS, N_ITEMS, RANK = 10_000, 1_000_000, 32
+FACTORY = ("incubator_predictionio_tpu_torch.templates.recommendation."
+           "RecommendationEngine")
+OUT = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke.json"
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def smi_name_power() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 20, inner: int = 5, warm: int = 3) -> float:
+    """Time of one call as the card sees it: CUDA events around ``inner``
+    back-to-back calls, divided by ``inner``; the median over ``reps`` such
+    runs. For a kernel shorter than its wrapper's host work this is the
+    host's enqueue rate (:func:`device_ms` gives the kernel alone)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def device_ms(fn, kernel: str, calls: int = 20):
+    """Device time of one launch of the CUDA kernel whose name contains
+    ``kernel``, from ``torch.profiler`` (CUPTI) — without the host time of
+    the Python wrapper that back-to-back timing of a tiny kernel measures.
+    None when the profiler recorded no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel in e.key]
+    n = sum(e.count for e in hits)
+    if not n:
+        return None
+    return sum(e.device_time_total for e in hits) / n / 1e3
+
+
+def fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def pct(xs, p):
+    return float(np.percentile(np.asarray(xs) * 1e3, p)) if xs else None
+
+
+def max_err_with_infs(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max |got - want| over the finite entries; the -inf entries (masked
+    and padded items) must sit at the same places."""
+    fin = torch.isfinite(want)
+    check(bool((torch.isfinite(got) == fin).all()), "non-finite entries differ")
+    check(bool((got[~fin] == want[~fin]).all()), "masked entries differ")
+    return float((got[fin] - want[fin]).abs().max())
+
+
+# -- the model of the bench's retrieval_scale lane ---------------------------
+
+def towers():
+    """bench.py bench_retrieval_scale at 1M items: √N concepts, σ 0.5,
+    default_rng(11) — the clustered geometry trained factors have."""
+    rng = np.random.default_rng(11)
+    n_concepts = max(64, int(round(np.sqrt(N_ITEMS))))
+    concepts = rng.standard_normal((n_concepts, RANK)).astype(np.float32)
+    item = concepts[rng.integers(0, n_concepts, N_ITEMS)] \
+        + 0.5 * rng.standard_normal((N_ITEMS, RANK)).astype(np.float32)
+    user = concepts[rng.integers(0, n_concepts, N_USERS)] \
+        + 0.5 * rng.standard_normal((N_USERS, RANK)).astype(np.float32)
+    user_bias = (rng.standard_normal(N_USERS) * 0.1).astype(np.float32)
+    item_bias = (rng.standard_normal(N_ITEMS) * 0.1).astype(np.float32)
+    eval_users = rng.integers(0, N_USERS, 256)
+    return user, item, user_bias, item_bias, eval_users
+
+
+# -- phase 3: each kernel against its plain version ---------------------------
+
+def k1_case(R, q, items_q, scales, bias, mask, row_mask=None):
+    b, d = q.shape
+    n = items_q.shape[0]
+    got = R.score_catalog_quantized(q, items_q, scales, bias, mask, row_mask)
+    want = R.score_catalog_reference(q, items_q, scales, bias, mask, row_mask)
+    torch.cuda.synchronize()
+    err = max_err_with_infs(got, want)
+    check(err <= K1_TOL, f"K1 B={b} N={n} D={d}: max abs err {err} > {K1_TOL}")
+    out = {"B": b, "N": n, "D": d, "row_mask": row_mask is not None,
+           "max_abs_err": err, "tolerance": K1_TOL}
+    del got, want
+    out["ms"] = time_ms(lambda: R.score_catalog_quantized(
+        q, items_q, scales, bias, mask, row_mask))
+    out["device_ms"] = device_ms(lambda: R.score_catalog_quantized(
+        q, items_q, scales, bias, mask, row_mask), "score_catalog_kernel")
+    out["plain_ms"] = time_ms(lambda: R.score_catalog_reference(
+        q, items_q, scales, bias, mask, row_mask))
+    # library yardstick: one fp32 matmul over the dequantized operands
+    qf = q.to(torch.bfloat16).float()
+    deq_t = (items_q.float() * scales[:, None]).T.contiguous()
+    out["library_ms"] = time_ms(lambda: torch.matmul(qf, deq_t))
+    del qf, deq_t
+    nbytes = (b * d * 4 + n * d + 3 * n * 4 + b * n * 4
+              + (b * n * 4 if row_mask is not None else 0))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * b * n * d / BF16_OPS_PER_S * 1e3
+    out["bound_ms"] = max(t_bytes, t_ops)
+    out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"K1 B={b:<4d} N={n} D={d:<3d} row_mask={row_mask is not None!s:<5} "
+        f"max_abs_err={err:.3e} (tol {K1_TOL}) ms={out['ms']:.4f} "
+        f"device_ms={fmt(out['device_ms'])} "
+        f"plain_ms={out['plain_ms']:.4f} matmul_ms={out['library_ms']:.4f} "
+        f"bound_ms={out['bound_ms']:.4f}")
+    return out
+
+
+def k2_case(R, q_q, q_s, cq, cs, cb):
+    b, d = q_q.shape
+    c = cq.shape[0]
+    got = R.score_centroids_quantized(q_q, q_s, cq, cs, cb)
+    want = R.score_centroids_reference(q_q, q_s, cq, cs, cb)
+    torch.cuda.synchronize()
+    err = max_err_with_infs(got, want)
+    fin = torch.isfinite(want)
+    check(bool(((got[fin] - want[fin]).abs()
+                <= K2_ATOL + K2_RTOL * want[fin].abs()).all()),
+          f"K2 B={b} C={c} D={d}: max abs err {err} beyond rtol {K2_RTOL} "
+          f"atol {K2_ATOL}")
+    out = {"B": b, "C": c, "D": d, "max_abs_err": err,
+           "tolerance": {"rtol": K2_RTOL, "atol": K2_ATOL},
+           "bitwise_equal": bool(torch.equal(got, want))}
+    out["ms"] = time_ms(lambda: R.score_centroids_quantized(q_q, q_s, cq, cs, cb))
+    out["device_ms"] = device_ms(lambda: R.score_centroids_quantized(
+        q_q, q_s, cq, cs, cb), "score_centroids_kernel")
+    out["plain_ms"] = time_ms(lambda: R.score_centroids_reference(
+        q_q, q_s, cq, cs, cb))
+    qf, cf_t = q_q.float(), cq.float().T.contiguous()
+    out["library_ms"] = time_ms(lambda: torch.matmul(qf, cf_t))
+    nbytes = b * d + b * 4 + c * d + 2 * c * 4 + b * c * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * b * c * d / INT8_OPS_PER_S * 1e3
+    out["bound_ms"] = max(t_bytes, t_ops)
+    out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"K2 B={b:<4d} C={c} D={d:<3d} max_abs_err={err:.3e} "
+        f"(rtol {K2_RTOL}, atol {K2_ATOL}) bitwise={out['bitwise_equal']} "
+        f"ms={out['ms']:.4f} device_ms={fmt(out['device_ms'])} "
+        f"plain_ms={out['plain_ms']:.4f} matmul_ms={out['library_ms']:.4f} "
+        f"bound_ms={out['bound_ms']:.6f}")
+    return out
+
+
+def kernel_checks(R, user, item, item_bias, ivf, dev):
+    """K1 at the exact path's shapes (D 32, N 1,000,448, B 1/8/64/128 and
+    the row-mask variant at B 8) and at the recommendation_scaled width
+    (D 128, N 100,352); K2 at the coarse probe's (D 32, C 1024, B 8/64/128).
+    The catalog is the served one, quantized on the card."""
+    items_q, scales, bias, mask = R.quantize_catalog_device(
+        torch.from_numpy(item).to(dev), torch.from_numpy(item_bias).to(dev))
+    hq, hs = R.quantize_rows(item)
+    check(np.array_equal(items_q[:N_ITEMS].cpu().numpy(), hq)
+          and np.array_equal(scales[:N_ITEMS].cpu().numpy(), hs),
+          "device quantization differs from quantize_rows")
+    log("quantize_catalog_device == quantize_rows bitwise on the served catalog")
+    users = torch.from_numpy(user[:128]).to(dev)
+    k1 = []
+    for b in (1, 8, 64, 128):
+        k1.append(k1_case(R, users[:b].contiguous(), items_q, scales, bias, mask))
+    rng = np.random.default_rng(5)
+    rm = np.zeros((8, items_q.shape[0]), np.float32)
+    rm[np.arange(8)[:, None], rng.integers(0, N_ITEMS, (8, 16))] = -np.inf
+    k1.append(k1_case(R, users[:8].contiguous(), items_q, scales, bias, mask,
+                      torch.from_numpy(rm).to(dev)))
+    n128, d128 = 100_000, 128
+    it128 = rng.standard_normal((n128, d128)).astype(np.float32)
+    q128 = torch.from_numpy(rng.standard_normal((64, d128)).astype(np.float32)).to(dev)
+    k1.append(k1_case(R, q128, *R.quantize_catalog_device(
+        torch.from_numpy(it128).to(dev),
+        torch.from_numpy(rng.standard_normal(n128).astype(np.float32)).to(dev))))
+    cent_q, cent_s = R.quantize_rows(np.asarray(ivf.centroids[:, :-1], np.float32))
+    cq, cs, cb = (torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                  for v in R.pad_centroids(
+                      cent_q, cent_s, np.asarray(ivf.centroids[:, -1], np.float32)))
+    k2 = []
+    for b in (8, 64, 128):
+        q_q, q_s = R.quantize_rows(user[:b])
+        k2.append(k2_case(R, torch.from_numpy(q_q).to(dev),
+                          torch.from_numpy(q_s).to(dev), cq, cs, cb))
+    del items_q, scales, bias, mask
+    return k1, k2
+
+
+# -- phase 4: the main path through the QueryServer ---------------------------
+
+@contextlib.contextmanager
+def retrieval_mode(mode: str):
+    """PIO_RETRIEVAL_MODE for one phase, restored after it."""
+    prev = os.environ.get("PIO_RETRIEVAL_MODE")
+    os.environ["PIO_RETRIEVAL_MODE"] = mode
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("PIO_RETRIEVAL_MODE")
+        else:
+            os.environ["PIO_RETRIEVAL_MODE"] = prev
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+async def post_all(session, url, payloads, concurrent: bool):
+    """POST each payload; returns (bodies, latencies in s). All must be 200."""
+    async def one(p):
+        t0 = time.perf_counter()
+        async with session.post(url, json=p) as resp:
+            body = await resp.json()
+            check(resp.status == 200, f"status {resp.status} for {p}: {body}")
+        return body, time.perf_counter() - t0
+
+    if concurrent:
+        got = await asyncio.gather(*[one(p) for p in payloads])
+    else:
+        got = [await one(p) for p in payloads]
+    return [g[0] for g in got], [g[1] for g in got]
+
+
+async def profiled_burst(session, url, payloads) -> dict:
+    """One concurrent burst under ``torch.profiler`` with CUDA activity
+    (CUPTI sees every kernel and copy of the process, whichever serving
+    thread launched it): the device's busy share of the burst's wall time
+    and the device time by kernel name. The profiler's host cost is inside
+    the wall time, so the share is a lower bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        await post_all(session, url, payloads, True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+    return {"queries": len(payloads), "wall_ms": wall * 1e3,
+            "device_busy_ms": busy, "device_busy_share": busy / (wall * 1e3),
+            "top_device_ms": top}
+
+
+def log_window(name: str, w: dict) -> None:
+    log(f"[{name}] profiled burst of {w['queries']}: wall {w['wall_ms']:.2f} ms, "
+        f"device busy {w['device_busy_ms']:.3f} ms "
+        f"(share {w['device_busy_share']:.4f}); top device ms: "
+        + ", ".join(f"{k[:60]}={v:.3f}" for k, v in w["top_device_ms"].items()))
+
+
+def ids_of(body) -> list[str]:
+    return [s["item"] for s in body["itemScores"]]
+
+
+async def serve_phase(name, variant_path, storage, ctx, body_fn):
+    """Deploy a QueryServer (prepare + warmup run in its constructor), run
+    ``body_fn(session, url, server)``, shut it down."""
+    from incubator_predictionio_tpu_torch.server.query_server import (
+        QueryServer,
+        ServerConfig,
+    )
+
+    t0 = time.perf_counter()
+    server = QueryServer(
+        ServerConfig(engine_variant=variant_path, ip="127.0.0.1",
+                     port=free_port()),
+        storage=storage, ctx=ctx)
+    torch.cuda.synchronize()
+    deploy_s = time.perf_counter() - t0
+    log(f"[{name}] deployed in {deploy_s:.2f} s: "
+        f"{json.dumps(server.deployed.models[0].serving_info())}")
+    await server.start()
+    import aiohttp
+
+    try:
+        async with aiohttp.ClientSession() as session:
+            url = f"http://127.0.0.1:{server.config.port}/queries.json"
+            result = await body_fn(session, url, server)
+    finally:
+        await server.shutdown()
+    result["deploy_s"] = deploy_s
+    result["batches_served"] = server.batcher.batches_served
+    result["max_batch_seen"] = server.batcher.max_batch_seen
+    return result
+
+
+async def main_path(R, variant_path, storage, ctx, model_arrays, eval_users):
+    from incubator_predictionio_tpu_torch.models.two_tower import (
+        TwoTowerConfig,
+        TwoTowerMF,
+        TwoTowerModel,
+    )
+
+    user, item, user_bias, item_bias = model_arrays
+    lat = {}
+
+    async def exact(session, url, server):
+        info = server.deployed.models[0].serving_info()
+        check(info["path"] == "device-int8" and info["device"].startswith("cuda"),
+              f"not on the int8 device path: {info}")
+        check(info["retrieval_mode"] == "exact", f"not exact: {info}")
+        check(R.score_catalog_quantized.launches > 0,
+              "K1 did not launch during warmup")
+        log(f"[exact] K1 launches after deploy+warmup: "
+            f"{R.score_catalog_quantized.launches}")
+        singles = [{"user": f"u{u}", "num": 10} for u in eval_users[:16]]
+        b_single, lat["exact_single"] = await post_all(session, url, singles, False)
+        burst = [{"user": f"u{u}", "num": 10} for u in eval_users[16:80]]
+        _, lat["exact_burst64"] = await post_all(session, url, burst, True)
+        banned = {}
+        bl = []
+        for u, body in zip(eval_users[:8], b_single[:8]):
+            ban = ids_of(body)[:3] + [f"i{(int(u) * 7919) % N_ITEMS}"]
+            banned[f"u{u}"] = set(ban)
+            bl.append({"user": f"u{u}", "num": 10, "blackList": ban})
+        b_bl, lat["exact_blacklist"] = await post_all(session, url, bl, True)
+        for p, body in zip(bl, b_bl):
+            got = ids_of(body)
+            check(len(got) == 10, f"short blackList answer {body}")
+            check(not set(got) & banned[p["user"]], f"banned id served: {body}")
+        oracle = {}
+        for lo in range(0, len(eval_users), 64):
+            payload = [{"user": f"u{u}", "num": 10}
+                       for u in eval_users[lo:lo + 64]]
+            bodies, ls = await post_all(session, url, payload, True)
+            lat.setdefault("exact_eval", []).extend(ls)
+            for p, body in zip(payload, bodies):
+                oracle[p["user"]] = ids_of(body)
+        for body in b_single + bodies:
+            check(len(body["itemScores"]) == 10, f"short answer {body}")
+        # the port's plain CPU path on the same towers, for the 16 singles
+        cpu = TwoTowerModel(user_emb=user, item_emb=item, user_bias=user_bias,
+                            item_bias=item_bias, mean=3.0,
+                            config=TwoTowerConfig(rank=RANK))
+        cpu.prepare_for_serving(quantize=True, host_max_elements=0,
+                                device="cpu", build_index=False)
+        # top-12 on the CPU: an id may cross the 10th place only through a
+        # near-tie (the two sum in different orders, fp32 roundoff)
+        ci, cs = TwoTowerMF.recommend_batch(
+            cpu, np.asarray(eval_users[:16], np.int32), 12)
+        same_order = same_set = 0
+        for r, body in enumerate(b_single):
+            got = ids_of(body)
+            want = [f"i{i}" for i in ci[r][:10]]
+            cpu_score = dict(zip([f"i{i}" for i in ci[r]], cs[r].tolist()))
+            for iid in set(got) ^ set(want):
+                check(iid in cpu_score
+                      and abs(cpu_score[iid] - float(cs[r][9])) <= 1e-4,
+                      f"top-10 differs from the CPU path for u{eval_users[r]} "
+                      f"beyond a near-tie: {got} vs {want}")
+            for s in body["itemScores"]:
+                check(abs(s["score"] - cpu_score[s["item"]]) <= 1e-4,
+                      f"score {s} vs CPU {cpu_score[s['item']]}")
+            same_set += set(got) == set(want)
+            same_order += got == want
+        log(f"[exact] top-10 of 16 users vs the plain CPU path: same ids for "
+            f"{same_set}/16, same order for {same_order}/16, scores within 1e-4")
+        window = await profiled_burst(session, url, payload)
+        log_window("exact", window)
+        return {"oracle": oracle, "cpu_same_ids": same_set,
+                "cpu_same_order": same_order, "profiled_burst": window}
+
+    R.reset_launches()
+    with retrieval_mode("exact"):
+        res_a = await serve_phase("exact", variant_path, storage, ctx, exact)
+    gc.collect()
+    torch.cuda.empty_cache()
+    oracle = res_a.pop("oracle")
+    k1_after_a = R.score_catalog_quantized.launches
+
+    async def two_stage(session, url, server):
+        info = server.deployed.models[0].serving_info()
+        check(info["retrieval_mode"] == "two_stage", f"not two-stage: {info}")
+        check((info["index"] or {}).get("coarse_device", "").startswith("cuda"),
+              f"coarse stage not on the card: {info}")
+        k2_deploy = R.score_centroids_quantized.launches
+        hits = total = 0
+        for lo in range(0, len(eval_users), 64):
+            payload = [{"user": f"u{u}", "num": 10}
+                       for u in eval_users[lo:lo + 64]]
+            bodies, ls = await post_all(session, url, payload, True)
+            lat.setdefault("two_stage", []).extend(ls)
+            for p, body in zip(payload, bodies):
+                got = ids_of(body)
+                check(len(got) == 10, f"short answer {body}")
+                hits += len(set(got) & set(oracle[p["user"]]))
+                total += 10
+        recall = hits / total
+        check(R.score_centroids_quantized.launches > k2_deploy,
+              "K2 did not launch on the two-stage queries")
+        check(recall >= RECALL_FLOOR, f"recall@10 {recall} < {RECALL_FLOOR}")
+        log(f"[two_stage] recall@10 vs the exact answers: {recall:.4f} "
+            f"(floor {RECALL_FLOOR}); K2 launches at deploy {k2_deploy}, "
+            f"after 256 queries {R.score_centroids_quantized.launches}")
+        window = await profiled_burst(session, url, payload)
+        log_window("two_stage", window)
+        return {"recall_at_10": recall, "index": info["index"],
+                "profiled_burst": window}
+
+    # the default mode: two-stage at this catalog size
+    with retrieval_mode("auto"):
+        res_b = await serve_phase("two_stage", variant_path, storage, ctx,
+                                  two_stage)
+    launches = {"score_catalog_quantized": R.score_catalog_quantized.launches,
+                "score_centroids_quantized": R.score_centroids_quantized.launches}
+    check(k1_after_a > 0, "K1 never launched on the main path")
+    check(launches["score_centroids_quantized"] > 0,
+          "K2 never launched on the main path")
+    latency = {k: {"n": len(v), "p50_ms": pct(v, 50), "p99_ms": pct(v, 99)}
+               for k, v in lat.items()}
+    for k, v in latency.items():
+        log(f"latency {k:<16s} n={v['n']:<4d} p50={v['p50_ms']:.2f} ms "
+            f"p99={v['p99_ms']:.2f} ms")
+    return launches, {"exact": res_a, "two_stage": res_b, "latency": latency}
+
+
+def main() -> int:
+    t_start = time.perf_counter()
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script runs on a "
+              "card only", file=sys.stderr)
+        return 1
+    from incubator_predictionio_tpu_torch import convert
+    from incubator_predictionio_tpu_torch.data.storage import (
+        EngineInstance,
+        Model,
+        Storage,
+    )
+    from incubator_predictionio_tpu_torch.ops import _build
+    from incubator_predictionio_tpu_torch.ops import retrieval as R
+    from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext
+    from incubator_predictionio_tpu_torch.serving import ann
+    from incubator_predictionio_tpu_torch.utils.serialization import (
+        serialize_model,
+    )
+
+    # fp32 matmuls stay fp32 (the plain versions and the library yardstick)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = smi_name_power()
+    nvcc_v = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
+                            text=True, check=True).stdout.strip().splitlines()[-1]
+    log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+        f"cuda {torch.version.cuda}  nvcc: {nvcc_v}")
+    log(f"card: {smi}  (torch: {torch.cuda.get_device_name(0)}, "
+        f"{torch.cuda.device_count()} visible)")
+    log("tf32: torch.backends.cuda.matmul.allow_tf32 = False, "
+        "torch.backends.cudnn.allow_tf32 = False")
+    for k in sorted(k for k in os.environ if k.startswith("PIO_RETRIEVAL_")):
+        log(f"note: {k}={os.environ[k]} is set in the environment")
+
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    _build.library("retrieval")
+    build_s = time.perf_counter() - t0
+    log(f"kernel build: {built or 'cached'} in {build_s:.2f} s "
+        f"({_build.library_path('retrieval').name})")
+
+    ctx = DeviceContext.create()
+    dev = ctx.device
+    t0 = time.perf_counter()
+    user, item, user_bias, item_bias, eval_users = towers()
+    ivf = ann.build_ivf(item, item_bias, key=ann.build_key(N_ITEMS))
+    log(f"towers {N_USERS}x{RANK} / {N_ITEMS}x{RANK}; IVF index built once: "
+        f"{ivf.n_partitions} partitions in {ivf.build_seconds:.2f} s "
+        f"(setup {time.perf_counter() - t0:.2f} s)")
+
+    k1, k2 = kernel_checks(R, user, item, item_bias, ivf, dev)
+
+    # persist: convert → RecModel (index attached) → blob → memory storage
+    rec = convert.rec_model_from_arrays(
+        user, item, user_bias, item_bias, 3.0, RANK,
+        [f"u{i}" for i in range(N_USERS)], [f"i{i}" for i in range(N_ITEMS)])
+    rec.mf._ivf = ivf
+    storage = Storage({"PIO_STORAGE_SOURCES_MEM_TYPE": "memory"})
+    with tempfile.TemporaryDirectory() as tmp:
+        variant_path = os.path.join(tmp, "engine.json")
+        with open(variant_path, "w") as f:
+            json.dump({"id": "default", "version": "1",
+                       "engineFactory": FACTORY,
+                       "algorithms": [{"name": "als",
+                                       "params": {"rank": RANK}}]}, f)
+        import datetime as dt
+
+        now = dt.datetime.now(dt.timezone.utc)
+        iid = storage.get_meta_data_engine_instances().insert(EngineInstance(
+            id="", status="COMPLETED", start_time=now, end_time=now,
+            engine_id="default", engine_version="1",
+            engine_variant=os.path.abspath(variant_path),
+            engine_factory=FACTORY))
+        storage.get_model_data_models().insert(
+            Model(iid, serialize_model([rec])))
+        del rec
+        launches, main = asyncio.run(main_path(
+            R, variant_path, storage, ctx,
+            (user, item, user_bias, item_bias), eval_users))
+
+    def entry(name, replaces, cases, main_case):
+        return {"name": name, "route": "cuda",
+                "source": "incubator_predictionio_tpu_torch/csrc/retrieval.cu",
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": max(c["max_abs_err"] for c in cases),
+                "ms": main_case["ms"], "device_ms": main_case["device_ms"],
+                "plain_ms": main_case["plain_ms"],
+                "bound_ms": main_case["bound_ms"],
+                "bound_by": main_case["bound_by"],
+                "library_ms": main_case["library_ms"],
+                "shape": {k: main_case[k] for k in main_case
+                          if k in ("B", "N", "C", "D")}}
+
+    kernels = [
+        entry("score_catalog_quantized",
+              "incubator_predictionio_tpu/ops/retrieval.py:97", k1,
+              next(c for c in k1 if c["B"] == 64 and c["D"] == RANK)),
+        entry("score_centroids_quantized",
+              "incubator_predictionio_tpu/ops/retrieval.py:188", k2,
+              next(c for c in k2 if c["B"] == 64)),
+    ]
+    record = {"card": smi, "torch": torch.__version__,
+              "cuda": torch.version.cuda, "build_s": build_s,
+              "k1_cases": k1, "k2_cases": k2, "main_path": main,
+              "kernels": kernels,
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "wall_s": time.perf_counter() - t_start}
+    OUT.parent.mkdir(parents=True, exist_ok=True)
+    OUT.write_text(json.dumps(record, indent=1, default=str))
+    log(f"total wall time {record['wall_s']:.1f} s; peak device memory "
+        f"{record['max_memory_allocated_bytes'] / 2**30:.2f} GiB")
+    print(json.dumps({"kernels": kernels}))
+    print(f"nvidia-smi: {smi}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

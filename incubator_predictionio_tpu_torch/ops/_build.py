@@ -1,0 +1,117 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
+
+Each source file compiles with ``nvcc`` into its own shared library with a
+plain C interface, loaded with :mod:`ctypes` — no PyTorch headers, so a
+build takes seconds. Libraries land in ``build/kernels/`` at the repo root,
+named by a hash of the source and the compiler flags: an edited source
+builds anew, an unchanged one loads what is there. Nothing here runs at
+import time, and a failed build raises (the port never falls back to the
+plain PyTorch version on a card).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: C signatures of every exported function, per source file
+SIGNATURES: dict[str, dict[str, tuple[list, object]]] = {
+    "retrieval": {
+        "pio_error_string": ([_I], ctypes.c_char_p),
+        # q, items, scale, bias, mask, row_mask, out, B, N, D, stream
+        "pio_score_catalog": ([_P] * 7 + [_I] * 3 + [_P], _I),
+        # q_q, q_scales, cent_q, cent_scales, cent_bias, out, B, C, D, stream
+        "pio_score_centroids": ([_P] * 6 + [_I] * 3 + [_P], _I),
+    },
+}
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
+            "of incubator_predictionio_tpu_torch build only where the CUDA "
+            "toolkit is installed")
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def _start(name: str):
+    """Start ``nvcc`` for one source; returns (process, temp path, final path)
+    or None when the library is already built."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> None:
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent builder loads a whole file
+
+
+def build_all() -> list[str]:
+    """Build every source that is not built yet, one ``nvcc`` per source,
+    all started together. Returns the names that were compiled."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    with _lock:
+        started = {n: s for n in names if (s := _start(n)) is not None}
+        for n, s in started.items():
+            _finish(n, s)
+    return sorted(started)
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            started = _start(name)
+            if started is not None:
+                _finish(name, started)
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, (argtypes, restype) in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            _loaded[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise when a launcher returned a CUDA error code."""
+    if err != 0:
+        msg = lib.pio_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
