@@ -7,19 +7,26 @@ Run from the repo root on a machine with one NVIDIA card, the CUDA toolkit
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``csrc/`` (into ``build/kernels/``),
-holds each kernel against its plain PyTorch version on the card at the
-shapes the serving path gives it, and then serves the recommendation engine
-through the port's QueryServer on the card at the full width of the repo's
-``retrieval_scale`` bench configuration: rank 32, 10,000 users and a
-1,000,000-item mixture-of-concepts catalog (weights random, from a seed).
-Exact serving runs kernel K1 (int8 catalog scorer); two-stage serving runs
-kernel K2 (int8 IVF coarse probe). Every check failure raises: the script
-catches nothing, and a non-zero exit is the verdict. Its last line is one
-JSON object, ``{"ok": true, "device": {...}}``; the line before it names the
-card and its power limit; a ``{"kernels": [...]}`` line before that gives
-each kernel's launches on the main path, its error against the plain
-version and its times. ``chiprun_out/chip_smoke.json`` keeps the whole
-record.
+one ``nvcc`` a source, all started together, and holds each kernel against
+its plain PyTorch version on the card at the shapes the serving paths give
+it. Then it serves, through the port's QueryServer on the card, with weights
+random from a seed:
+
+- the recommendation engine at the width of the repo's ``retrieval_scale``
+  bench configuration (rank 32, 10,000 users, a 1,000,000-item
+  mixture-of-concepts catalog): exact serving runs kernel K1 (int8 catalog
+  scorer), two-stage serving kernel K2 (int8 IVF coarse probe);
+- the sequential template at the width of the repo's ``bench_sequential``
+  configuration (vocab 10,000, d_model 512, 6 layers, 8 heads of 64):
+  at ``max_len`` 512 every attention runs kernel K4 (small-head causal
+  MHA), at ``max_len`` 1024 kernel K5 (causal flash attention).
+
+Every check failure raises: the script catches nothing, and a non-zero exit
+is the verdict. Its last line is one JSON object, ``{"ok": true, "device":
+{...}}``; the line before it names the card and its power limit; a
+``{"kernels": [...]}`` line before that gives each kernel's launches on the
+main path, its error against the plain version and its times.
+``chiprun_out/chip_smoke.json`` keeps the whole record.
 """
 
 from __future__ import annotations
@@ -51,6 +58,16 @@ RECALL_FLOOR = 0.95  # tests/test_two_stage_retrieval.py
 N_USERS, N_ITEMS, RANK = 10_000, 1_000_000, 32
 FACTORY = ("incubator_predictionio_tpu_torch.templates.recommendation."
            "RecommendationEngine")
+#: the reference's attention tolerance (tests/test_small_head_attention.py:34,
+#: tests/test_ring_attention.py:90)
+ATT_TOL = 2e-2
+#: bench.py bench_sequential's full-size configuration
+SEQ_VOCAB, SEQ_D, SEQ_LAYERS, SEQ_HEADS = 10_000, 512, 6, 8
+#: served scores of the kernel path vs the same model with the plain
+#: attention versions, on the card: absolute, on bf16-valued scores
+SEQ_SCORE_TOL = 2e-2
+SEQ_FACTORY = ("incubator_predictionio_tpu_torch.templates.sequential."
+               "SequentialEngine")
 OUT = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke.json"
 
 
@@ -258,6 +275,69 @@ def kernel_checks(R, user, item, item_bias, ivf, dev):
                           torch.from_numpy(q_s).to(dev), cq, cs, cb))
     del items_q, scales, bias, mask
     return k1, k2
+
+
+#: (B, H, L, D) of each attention case: the serving batches (1, 8, 64) at
+#: the sequential phases' lengths, and the reference's other shapes
+K4_SHAPES = ((1, 8, 512, 64), (8, 8, 512, 64), (64, 8, 512, 64),
+             (3, 8, 128, 128))
+K5_SHAPES = ((64, 8, 1024, 64), (8, 8, 768, 64), (8, 8, 640, 32),
+             (8, 8, 512, 32))
+
+
+def attention_case(A, name, shape, seed):
+    """One attention kernel against its plain version on the same bf16
+    tensors of the card (tolerance :data:`ATT_TOL`, absolute and relative,
+    as the reference's kernel tests), with its times beside the bound and
+    ``scaled_dot_product_attention`` as the library yardstick."""
+    from incubator_predictionio_tpu_torch.parallel.ring import flash_block_size
+
+    b, h, l, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    if name == "causal_mha_small_head":
+        kernel = lambda: A.causal_mha_small_head(q, k, v)  # noqa: E731
+        plain = lambda: A.causal_mha_small_head_reference(q, k, v)  # noqa: E731
+    else:
+        block = flash_block_size(l)
+        kernel = lambda: A.flash_causal_attention(q, k, v, block)  # noqa: E731
+        plain = lambda: A.flash_causal_attention_reference(q, k, v, block)  # noqa: E731
+    got, want = kernel().float(), plain().float()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"{name} {shape}: non-finite output")
+    err = float((got - want).abs().max())
+    ok = bool(((got - want).abs() <= ATT_TOL + ATT_TOL * want.abs()).all())
+    check(ok, f"{name} {shape}: max abs err {err} beyond {ATT_TOL}")
+    del got, want
+    out = {"B": b, "H": h, "L": l, "D": d, "max_abs_err": err,
+           "tolerance": ATT_TOL}
+    out["ms"] = time_ms(kernel, reps=5, inner=3)
+    out["device_ms"] = device_ms(kernel, "causal_attention_kernel", calls=5)
+    out["plain_ms"] = time_ms(plain, reps=3, inner=2, warm=1)
+    out["library_ms"] = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True), reps=5, inner=3)
+    # the causal half: q·kᵀ and p·v over L²/2 entries
+    t_ops = 4.0 * b * h * l * l * d / 2 / BF16_OPS_PER_S * 1e3
+    t_bytes = 4.0 * b * h * l * d * 2 / HBM_BYTES_PER_S * 1e3
+    out["bound_ms"] = max(t_ops, t_bytes)
+    out["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"{name:<22s} B={b:<3d} H={h} L={l:<5d} D={d:<4d} max_abs_err={err:.3e} "
+        f"(tol {ATT_TOL}) ms={out['ms']:.4f} device_ms={fmt(out['device_ms'])} "
+        f"plain_ms={out['plain_ms']:.4f} sdpa_ms={out['library_ms']:.4f} "
+        f"bound_ms={out['bound_ms']:.4f}")
+    return out
+
+
+def attention_checks(A):
+    k4 = [attention_case(A, "causal_mha_small_head", s, 100 + i)
+          for i, s in enumerate(K4_SHAPES)]
+    k5 = [attention_case(A, "flash_causal_attention", s, 200 + i)
+          for i, s in enumerate(K5_SHAPES)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k4, k5
 
 
 # -- phase 4: the main path through the QueryServer ---------------------------
@@ -495,6 +575,205 @@ async def main_path(R, variant_path, storage, ctx, model_arrays, eval_users):
     return launches, {"exact": res_a, "two_stage": res_b, "latency": latency}
 
 
+# -- phases 5 and 6: the sequential template through the QueryServer ---------
+
+def deploy_storage(factory, variant_params, algo_name, model, tmp):
+    """A memory storage holding one COMPLETED instance of ``model`` and its
+    variant file; returns (storage, variant path)."""
+    import datetime as dt
+
+    from incubator_predictionio_tpu_torch.data.storage import (
+        EngineInstance,
+        Model,
+        Storage,
+    )
+    from incubator_predictionio_tpu_torch.utils.serialization import (
+        serialize_model,
+    )
+
+    storage = Storage({"PIO_STORAGE_SOURCES_MEM_TYPE": "memory"})
+    variant_path = os.path.join(tmp, f"{algo_name}-engine.json")
+    with open(variant_path, "w") as f:
+        json.dump({"id": algo_name, "version": "1", "engineFactory": factory,
+                   "algorithms": [{"name": algo_name,
+                                   "params": variant_params}]}, f)
+    now = dt.datetime.now(dt.timezone.utc)
+    iid = storage.get_meta_data_engine_instances().insert(EngineInstance(
+        id="", status="COMPLETED", start_time=now, end_time=now,
+        engine_id=algo_name, engine_version="1",
+        engine_variant=os.path.abspath(variant_path), engine_factory=factory))
+    storage.get_model_data_models().insert(Model(iid, serialize_model([model])))
+    return storage, variant_path
+
+
+def sessions(rng, n):
+    """``recentItems`` sessions of 5–512 items (rows shorter than max_len
+    are left-padded)."""
+    return [[f"i{i}" for i in rng.integers(0, SEQ_VOCAB - 1, int(m))]
+            for m in rng.integers(5, 513, n)]
+
+
+def check_answers(payloads, bodies):
+    for p, body in zip(payloads, bodies):
+        got = ids_of(body)
+        check(len(got) == p["num"], f"short answer {len(got)} for num {p['num']}")
+        check(not set(got) & set(p["recentItems"]),
+              f"a history item was served: {set(got) & set(p['recentItems'])}")
+
+
+def check_against_plain(model, payloads, bodies):
+    """The served answers (kernel attention) against the same model's
+    forward with the plain attention version, on the card: every served
+    score within :data:`SEQ_SCORE_TOL` of the plain score of that item, and
+    the ids equal up to near-ties at the last place (the scores are bf16
+    values, so ties are common). Returns the largest score difference and
+    the counts of equal id sets and orders."""
+    from incubator_predictionio_tpu_torch.models.transformer import (
+        TransformerRecommender,
+    )
+    from incubator_predictionio_tpu_torch.parallel.ring import (
+        causal_attention_reference,
+    )
+    from incubator_predictionio_tpu_torch.templates.sequential import (
+        encode_session,
+    )
+
+    rows = np.stack([encode_session(p["recentItems"], model.item_map,
+                                    model.config.max_len) for p in payloads])
+    plain = TransformerRecommender.next_item_scores(
+        model, rows, attention=causal_attention_reference)
+    inv = model.item_map.inverse()
+    worst, same_set, same_order = 0.0, 0, 0
+    for p, body, s in zip(payloads, bodies, plain):
+        s = s.copy()
+        s[0] = -np.inf
+        for iid in p["recentItems"]:
+            s[model.item_map[iid]] = -np.inf
+        num = p["num"]
+        top = np.argsort(-s, kind="stable")[:num]
+        want = [inv[int(t)] for t in top]
+        got = ids_of(body)
+        for iid in set(got) ^ set(want):
+            check(abs(float(s[model.item_map[iid]]) - float(s[top[-1]]))
+                  <= SEQ_SCORE_TOL,
+                  f"top-{num} differs from the plain path beyond a near-tie: "
+                  f"{got} vs {want}")
+        for x in body["itemScores"]:
+            diff = abs(x["score"] - float(s[model.item_map[x["item"]]]))
+            worst = max(worst, diff)
+            check(diff <= SEQ_SCORE_TOL,
+                  f"score {x} vs plain {float(s[model.item_map[x['item']]])}")
+        same_set += set(got) == set(want)
+        same_order += got == want
+    return worst, same_set, same_order
+
+
+async def sequential_phase(name, max_len, ctx, seed, n_singles, n_bursts):
+    """Deploy the sequential template at the bench width and ``max_len``
+    (weights at the reference's init scales from ``default_rng(seed)``)
+    and drive it; returns (launches of K4 and K5 in the phase, record)."""
+    from incubator_predictionio_tpu_torch import convert
+    from incubator_predictionio_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params_numpy,
+    )
+    from incubator_predictionio_tpu_torch.ops import attention as A
+    from incubator_predictionio_tpu_torch.parallel.ring import attention_route
+
+    route = attention_route(64, max_len, SEQ_HEADS, SEQ_D // SEQ_HEADS)
+    expect = {"small_head": A.causal_mha_small_head,
+              "flash": A.flash_causal_attention}[route]
+    other = next(w for w in A.KERNEL_WRAPPERS if w is not expect)
+    params = init_params_numpy(TransformerConfig(
+        vocab_size=SEQ_VOCAB, max_len=max_len, d_model=SEQ_D,
+        n_heads=SEQ_HEADS, n_layers=SEQ_LAYERS), seed)
+    model = convert.transformer_model_from_params(
+        params, [f"i{j}" for j in range(SEQ_VOCAB - 1)], n_heads=SEQ_HEADS)
+    del params
+    rng = np.random.default_rng(seed)
+    singles = [{"recentItems": s, "num": 10} for s in sessions(rng, n_singles)]
+    bursts = [[{"recentItems": s, "num": 10} for s in sessions(rng, 64)]
+              for _ in range(n_bursts)]
+    cold = {"recentItems": ["never-seen", "unknown-2"], "num": 10}
+    lat: dict[str, list] = {}
+
+    async def body(session, url, server):
+        served = server.deployed.models[0]
+        info = served.serving_info()
+        check(info["device"].startswith("cuda"), f"not on the card: {info}")
+        check(expect.launches == SEQ_LAYERS,
+              f"warmup launched {expect.__name__} {expect.launches} times, "
+              f"not {SEQ_LAYERS}")
+        b_single, lat[f"{name}_single"] = await post_all(
+            session, url, singles, False)
+        check_answers(singles, b_single)
+        for burst in bursts:
+            b_burst, ls = await post_all(session, url, burst, True)
+            lat.setdefault(f"{name}_burst64", []).extend(ls)
+            check_answers(burst, b_burst)
+        (b_cold,), _ = await post_all(session, url, [cold], False)
+        check(b_cold["itemScores"] == [], f"cold session answered {b_cold}")
+        worst, same_set, same_order = check_against_plain(
+            served, singles, b_single)
+        log(f"[{name}] {len(singles)} singles vs the plain attention path on "
+            f"the card: same ids {same_set}/{len(singles)}, same order "
+            f"{same_order}/{len(singles)}, max score diff {worst:.3e} "
+            f"(tol {SEQ_SCORE_TOL})")
+        # time each batch dispatch of the profiled burst on the server side
+        # (bind, forward, D2H, top-k): the rest of the wall is HTTP and JSON
+        deployed, dispatches = server.deployed, []
+
+        def timed_predict_batch(payloads, _inner=deployed.predict_batch):
+            t0 = time.perf_counter()
+            try:
+                return _inner(payloads)
+            finally:
+                dispatches.append((len(payloads), time.perf_counter() - t0))
+
+        deployed.predict_batch = timed_predict_batch
+        try:
+            window = await profiled_burst(session, url, bursts[0])
+        finally:
+            del deployed.predict_batch
+        window["dispatches"] = [{"queries": n, "ms": t * 1e3}
+                                for n, t in dispatches]
+        log_window(name, window)
+        log(f"[{name}] server-side dispatches of the profiled burst "
+            f"(queries, ms): " + ", ".join(
+                f"({d['queries']}, {d['ms']:.2f})" for d in window["dispatches"]))
+        batches = server.batcher.batches_served
+        check(expect.launches == SEQ_LAYERS * (1 + batches),
+              f"{expect.__name__} launched {expect.launches} times for "
+              f"{batches} served batches + warmup; {SEQ_LAYERS} a batch expected")
+        check(other.launches == 0,
+              f"{other.__name__} launched {other.launches} times at max_len {max_len}")
+        return {"route": route, "plain_max_score_diff": worst,
+                "plain_same_ids": same_set, "plain_same_order": same_order,
+                "queries": len(singles) + 64 * (n_bursts + 1) + 1,
+                "profiled_burst": window}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        storage, variant_path = deploy_storage(
+            SEQ_FACTORY, {"maxLen": max_len, "dModel": SEQ_D,
+                          "nHeads": SEQ_HEADS, "nLayers": SEQ_LAYERS},
+            "transformer", model, tmp)
+        del model
+        A.reset_launches()
+        res = await serve_phase(name, variant_path, storage, ctx, body)
+        launches = {w.__name__: w.launches for w in A.KERNEL_WRAPPERS}
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{name}] launches in the phase: {launches} "
+        f"({res['batches_served']} batches served + warmup)")
+    res["launches"] = launches
+    res["latency"] = {k: {"n": len(v), "p50_ms": pct(v, 50), "p99_ms": pct(v, 99)}
+                      for k, v in lat.items()}
+    for k, v in res["latency"].items():
+        log(f"latency {k:<16s} n={v['n']:<4d} p50={v['p50_ms']:.2f} ms "
+            f"p99={v['p99_ms']:.2f} ms")
+    return launches, res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -502,18 +781,11 @@ def main() -> int:
               "card only", file=sys.stderr)
         return 1
     from incubator_predictionio_tpu_torch import convert
-    from incubator_predictionio_tpu_torch.data.storage import (
-        EngineInstance,
-        Model,
-        Storage,
-    )
     from incubator_predictionio_tpu_torch.ops import _build
     from incubator_predictionio_tpu_torch.ops import retrieval as R
     from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext
+    from incubator_predictionio_tpu_torch.ops import attention as A
     from incubator_predictionio_tpu_torch.serving import ann
-    from incubator_predictionio_tpu_torch.utils.serialization import (
-        serialize_model,
-    )
 
     # fp32 matmuls stay fp32 (the plain versions and the library yardstick)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -531,11 +803,13 @@ def main() -> int:
         log(f"note: {k}={os.environ[k]} is set in the environment")
 
     t0 = time.perf_counter()
-    built = _build.build_all()
-    _build.library("retrieval")
+    built = _build.build_all()  # one nvcc a source, all started together
+    libs = []
+    for n in ("retrieval", "attention"):
+        _build.library(n)
+        libs.append(_build.library_path(n).name)
     build_s = time.perf_counter() - t0
-    log(f"kernel build: {built or 'cached'} in {build_s:.2f} s "
-        f"({_build.library_path('retrieval').name})")
+    log(f"kernel build: {built or 'cached'} in {build_s:.2f} s ({libs})")
 
     ctx = DeviceContext.create()
     dev = ctx.device
@@ -547,38 +821,36 @@ def main() -> int:
         f"(setup {time.perf_counter() - t0:.2f} s)")
 
     k1, k2 = kernel_checks(R, user, item, item_bias, ivf, dev)
+    k4, k5 = attention_checks(A)
 
     # persist: convert → RecModel (index attached) → blob → memory storage
     rec = convert.rec_model_from_arrays(
         user, item, user_bias, item_bias, 3.0, RANK,
         [f"u{i}" for i in range(N_USERS)], [f"i{i}" for i in range(N_ITEMS)])
     rec.mf._ivf = ivf
-    storage = Storage({"PIO_STORAGE_SOURCES_MEM_TYPE": "memory"})
     with tempfile.TemporaryDirectory() as tmp:
-        variant_path = os.path.join(tmp, "engine.json")
-        with open(variant_path, "w") as f:
-            json.dump({"id": "default", "version": "1",
-                       "engineFactory": FACTORY,
-                       "algorithms": [{"name": "als",
-                                       "params": {"rank": RANK}}]}, f)
-        import datetime as dt
-
-        now = dt.datetime.now(dt.timezone.utc)
-        iid = storage.get_meta_data_engine_instances().insert(EngineInstance(
-            id="", status="COMPLETED", start_time=now, end_time=now,
-            engine_id="default", engine_version="1",
-            engine_variant=os.path.abspath(variant_path),
-            engine_factory=FACTORY))
-        storage.get_model_data_models().insert(
-            Model(iid, serialize_model([rec])))
+        storage, variant_path = deploy_storage(FACTORY, {"rank": RANK}, "als",
+                                               rec, tmp)
         del rec
         launches, main = asyncio.run(main_path(
             R, variant_path, storage, ctx,
             (user, item, user_bias, item_bias), eval_users))
+    del user, item, user_bias, item_bias, ivf, storage
+    gc.collect()
+    torch.cuda.empty_cache()
+    # each sequential phase runs with the counts at 0 and reads them after
+    k4_launches, main["sequential_512"] = asyncio.run(sequential_phase(
+        "seq512", 512, ctx, seed=512, n_singles=16, n_bursts=2))
+    k5_launches, main["sequential_1024"] = asyncio.run(sequential_phase(
+        "seq1024", 1024, ctx, seed=1024, n_singles=8, n_bursts=1))
+    launches["causal_mha_small_head"] = k4_launches["causal_mha_small_head"]
+    launches["flash_causal_attention"] = k5_launches["flash_causal_attention"]
+    check(launches["causal_mha_small_head"] > 0, "K4 never launched at max_len 512")
+    check(launches["flash_causal_attention"] > 0, "K5 never launched at max_len 1024")
 
-    def entry(name, replaces, cases, main_case):
+    def entry(name, source, replaces, cases, main_case):
         return {"name": name, "route": "cuda",
-                "source": "incubator_predictionio_tpu_torch/csrc/retrieval.cu",
+                "source": f"incubator_predictionio_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": main_case["ms"], "device_ms": main_case["device_ms"],
@@ -587,20 +859,26 @@ def main() -> int:
                 "bound_by": main_case["bound_by"],
                 "library_ms": main_case["library_ms"],
                 "shape": {k: main_case[k] for k in main_case
-                          if k in ("B", "N", "C", "D")}}
+                          if k in ("B", "H", "L", "N", "C", "D")}}
 
     kernels = [
-        entry("score_catalog_quantized",
+        entry("score_catalog_quantized", "retrieval.cu",
               "incubator_predictionio_tpu/ops/retrieval.py:97", k1,
               next(c for c in k1 if c["B"] == 64 and c["D"] == RANK)),
-        entry("score_centroids_quantized",
+        entry("score_centroids_quantized", "retrieval.cu",
               "incubator_predictionio_tpu/ops/retrieval.py:188", k2,
               next(c for c in k2 if c["B"] == 64)),
+        entry("causal_mha_small_head", "attention.cu",
+              "incubator_predictionio_tpu/ops/attention.py:117", k4,
+              next(c for c in k4 if c["B"] == 64)),
+        entry("flash_causal_attention", "attention.cu",
+              "incubator_predictionio_tpu/parallel/ring.py:152", k5,
+              next(c for c in k5 if c["B"] == 64)),
     ]
     record = {"card": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
-              "k1_cases": k1, "k2_cases": k2, "main_path": main,
-              "kernels": kernels,
+              "k1_cases": k1, "k2_cases": k2, "k4_cases": k4, "k5_cases": k5,
+              "main_path": main, "kernels": kernels,
               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
               "wall_s": time.perf_counter() - t_start}
     OUT.parent.mkdir(parents=True, exist_ok=True)

@@ -1,11 +1,16 @@
-"""Carry a recommendation model's weights across from the JAX package.
+"""Carry a model's weights across from the JAX package.
 
 The port cannot unpickle the JAX package's model blobs (they name its
 classes), and it imports nothing of that package. So weights cross as plain
-numpy: the reference ``RecModel``'s towers (``mf.user_emb``, ``item_emb``,
-``user_bias``, ``item_bias``, ``mean``, ``config.rank``) and the id lists of
-its two BiMaps in index order. :func:`rec_model_from_arrays` builds the
-port's ``RecModel`` from them, so both packages serve the same model.
+numpy, with the id lists of the model's BiMaps in index order:
+
+- :func:`rec_model_from_arrays`: the reference ``RecModel``'s towers
+  (``mf.user_emb``, ``item_emb``, ``user_bias``, ``item_bias``, ``mean``,
+  ``config.rank``) → the port's ``RecModel``;
+- :func:`transformer_model_from_params`: the reference
+  ``TransformerModel``'s parameter pytree → the port's ``TransformerModel``.
+
+Both packages then serve the same model.
 """
 
 from __future__ import annotations
@@ -15,6 +20,10 @@ from typing import Sequence
 import numpy as np
 
 from incubator_predictionio_tpu_torch.data.bimap import BiMap
+from incubator_predictionio_tpu_torch.models.transformer import (
+    TransformerConfig,
+    TransformerModel,
+)
 from incubator_predictionio_tpu_torch.models.two_tower import (
     TwoTowerConfig,
     TwoTowerModel,
@@ -55,3 +64,53 @@ def rec_model_from_arrays(
         BiMap({u: i for i, u in enumerate(user_ids)}),
         BiMap({t: i for i, t in enumerate(item_ids)}),
     )
+
+
+_LAYER_MATRICES = ("wq", "wk", "wv", "wo", "w1", "w2")
+
+
+def transformer_model_from_params(params: dict, item_ids: Sequence[str],
+                                  **config) -> TransformerModel:
+    """The port's TransformerModel over the reference's dense parameter
+    pytree (``models/transformer.py:84 _init_params``: ``item_emb``,
+    ``pos_emb``, ``ln_f{g,b}`` and ``layers[i]{ln1, wq, wk, wv, wo, ln2, w1,
+    b1, w2, b2}``) as numpy arrays. ``item_ids[j]`` is the item of token
+    ``j + 1`` (token 0 is padding). ``vocab_size``, ``max_len``, ``d_model``
+    and ``n_layers`` come from the arrays; ``config`` gives the rest of
+    :class:`TransformerConfig` (``n_heads`` at least)."""
+    f32 = np.float32
+    item_emb = np.ascontiguousarray(params["item_emb"], f32)
+    pos_emb = np.ascontiguousarray(params["pos_emb"], f32)
+    vocab, d = item_emb.shape
+    if vocab != len(item_ids) + 1:
+        raise ValueError(f"item_emb has {vocab} rows; {len(item_ids)} item "
+                         f"ids + the padding token make {len(item_ids) + 1}")
+    if pos_emb.shape[1] != d:
+        raise ValueError(f"pos_emb width {pos_emb.shape[1]} != d_model {d}")
+
+    def norm(p):
+        return {"g": np.ascontiguousarray(p["g"], f32),
+                "b": np.ascontiguousarray(p["b"], f32)}
+
+    layers = []
+    for i, layer in enumerate(params["layers"]):
+        if "w1" not in layer:
+            raise ValueError(f"layer {i} has no dense FFN (w1/w2): "
+                             "mixture-of-experts layers are not ported yet")
+        out = {name: np.ascontiguousarray(layer[name], f32)
+               for name in (*_LAYER_MATRICES, "b1", "b2")}
+        out["ln1"], out["ln2"] = norm(layer["ln1"]), norm(layer["ln2"])
+        for name in ("wq", "wk", "wv", "wo"):
+            if out[name].shape != (d, d):
+                raise ValueError(f"layer {i} {name} shape {out[name].shape} "
+                                 f"!= ({d}, {d})")
+        layers.append(out)
+    cfg = TransformerConfig(vocab_size=vocab, max_len=pos_emb.shape[0],
+                            d_model=d, n_layers=len(layers), **config)
+    if d % cfg.n_heads:
+        raise ValueError(f"d_model {d} does not split into {cfg.n_heads} heads")
+    return TransformerModel(
+        {"item_emb": item_emb, "pos_emb": pos_emb,
+         "ln_f": norm(params["ln_f"]), "layers": layers},
+        BiMap({iid: j + 1 for j, iid in enumerate(item_ids)}),
+        cfg)

@@ -27,6 +27,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C signatures of every exported function, per source file
 SIGNATURES: dict[str, dict[str, tuple[list, object]]] = {
+    "attention": {
+        "pio_error_string": ([_I], ctypes.c_char_p),
+        # q, k, v, out, B, H, L, D, stream
+        "pio_causal_mha_small_head": ([_P] * 4 + [_I] * 4 + [_P], _I),
+        "pio_flash_causal": ([_P] * 4 + [_I] * 4 + [_P], _I),
+    },
     "retrieval": {
         "pio_error_string": ([_I], ctypes.c_char_p),
         # q, items, scale, bias, mask, row_mask, out, B, N, D, stream

@@ -4,7 +4,7 @@ Counterpart of ``incubator_predictionio_tpu/templates/recommendation.py``
 (the scala-parallel-recommendation template): the query and result types,
 :class:`RecModel` with its serving preparation, ``ALSAlgorithm.predict`` /
 ``batch_predict`` and :class:`RecommendationEngine`. Reading events and
-training come with the training slice (ROADMAP.md Queue 1 item 1); until
+training come with the training slice (ROADMAP.md Queue 1 item 3); until
 then a model reaches the port through ``convert.py``.
 
 Query ``{"user": U, "num": N, "blackList": [...]}`` → PredictedResult
@@ -43,7 +43,7 @@ logger = logging.getLogger(__name__)
 
 #: what raises in the stages this slice does not port
 _TRAINING_SLICE = ("the training slice of the PyTorch port (ROADMAP.md "
-                   "Queue 1, item 1: two_tower fit, sqlite storage, the "
+                   "Queue 1, item 3: two_tower fit, sqlite storage, the "
                    "CLI train verb)")
 
 
