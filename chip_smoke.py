@@ -21,6 +21,17 @@ random from a seed:
   at ``max_len`` 512 every attention runs kernel K4 (small-head causal
   MHA), at ``max_len`` 1024 kernel K5 (causal flash attention).
 
+Then it trains the sequential template on the card, through
+``DataSource._build_fold`` and ``TransformerAlgorithm.train``, on
+cycle-structured sessions from a seed: ``bench_sequential``'s full
+configuration at ``max_len`` 512 (2,048 rows, batch 64, 2 epochs: 64
+steps; K4 forward and backward), a one-step parity check of the kernels
+against the plain attention on the card, and a deploy of the trained model
+that answers queries; and the same widths at ``max_len`` 1024 (256 rows, 4
+steps; K5 forward with statistics, its dk/dv and dq backward kernels, the
+chunked cross-entropy). Before that it holds each backward kernel against
+its plain version at the training shapes.
+
 Every check failure raises: the script catches nothing, and a non-zero exit
 is the verdict. Its last line is one JSON object, ``{"ok": true, "device":
 {...}}``; the line before it names the card and its power limit; a
@@ -68,6 +79,17 @@ SEQ_VOCAB, SEQ_D, SEQ_LAYERS, SEQ_HEADS = 10_000, 512, 6, 8
 SEQ_SCORE_TOL = 2e-2
 SEQ_FACTORY = ("incubator_predictionio_tpu_torch.templates.sequential."
                "SequentialEngine")
+#: the reference's attention-gradient tolerance, relative to each
+#: gradient's max abs (tests/test_small_head_attention.py:55-58)
+GRAD_TOL = 2e-2
+#: bench_sequential's full-size training (bench.py:897-898): rows, batch,
+#: epochs, adam's default learning rate
+TRAIN_ROWS, TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_LR = 2048, 64, 2, 1e-3
+#: the max_len 1024 training phase: the same widths, 4 steps
+TRAIN_ROWS_1024, TRAIN_EPOCHS_1024 = 256, 1
+#: one training step with the kernels against one with the plain attention
+#: versions, on the card, from the same init: the loss, relative
+STEP_LOSS_RTOL = 1e-2
 OUT = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke.json"
 
 
@@ -109,24 +131,61 @@ def time_ms(fn, reps: int = 20, inner: int = 5, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str, calls: int = 20):
-    """Device time of one launch of the CUDA kernel whose name contains
-    ``kernel``, from ``torch.profiler`` (CUPTI) — without the host time of
-    the Python wrapper that back-to-back timing of a tiny kernel measures.
-    None when the profiler recorded no such kernel."""
+@contextlib.contextmanager
+def cuda_profile():
+    """Profile the block's CUDA activity with ``torch.profiler`` (CUPTI sees
+    every kernel and copy of the process, whichever thread launched it).
+    The yielded dict is filled on exit: device ms by kernel or copy name,
+    summed over the block."""
     from torch.profiler import ProfilerActivity, profile
 
+    by_name: dict[str, float] = {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield by_name
+        torch.cuda.synchronize()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+
+
+def busy_record(by_name: dict, wall_s: float, top: int) -> dict:
+    """The device's busy share of a profiled wall time, and the ``top``
+    names by device ms."""
+    busy = sum(by_name.values())
+    return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy,
+            "device_busy_share": busy / (wall_s * 1e3),
+            "top_device_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top])}
+
+
+def device_busy(fn, calls: int = 3):
+    """Device time per call of everything ``fn`` runs on the card (every
+    kernel and copy), from ``torch.profiler``, and the time by name."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with cuda_profile() as by_name:
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel in e.key]
-    n = sum(e.count for e in hits)
-    if not n:
-        return None
-    return sum(e.device_time_total for e in hits) / n / 1e3
+    by_name = {n: t / calls for n, t in by_name.items()}
+    return sum(by_name.values()), by_name
+
+
+def device_ms(fn, kernel: str, calls: int = 20):
+    """Device time a call of the CUDA kernels whose names contain
+    ``kernel`` (a wrapper may launch more than one), from ``torch.profiler``
+    — without the host time of the Python wrapper that back-to-back timing
+    of a tiny kernel measures. None when the profiler recorded no such
+    kernel."""
+    _, by_name = device_busy(fn, calls)
+    hits = [t for n, t in by_name.items() if kernel in n]
+    return sum(hits) if hits else None
+
+
+def bound(n_bytes: float, n_ops: float):
+    """The least time of the work on the card: (ms, "bytes" or
+    "operations"), against the data sheet's HBM rate and bf16 peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / BF16_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def fmt(ms) -> str:
@@ -340,6 +399,132 @@ def attention_checks(A):
     return k4, k5
 
 
+#: (B, H, L, D) of each K4 backward case and (B, H, L, D, block) of each
+#: K5 one: the training shapes at max_len 512 and 1024, and the
+#: reference's other head width
+K4_BWD_SHAPES = ((64, 8, 512, 64), (3, 8, 128, 128))
+K5_BWD_SHAPES = ((64, 8, 1024, 64, 512), (2, 8, 256, 128, 256))
+
+
+def sdpa_bwd_ms(q, k, v, do) -> float:
+    """Device time of the backward of ``scaled_dot_product_attention(
+    is_causal=True)`` on these inputs (the library yardstick, used nowhere
+    in the port): the profiler's device time of forward + backward less
+    that of the forward alone, both with gradients wanted."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    fwd, _ = device_busy(lambda: sdpa(qr, kr, vr, is_causal=True))
+    both, _ = device_busy(lambda: torch.autograd.grad(
+        sdpa(qr, kr, vr, is_causal=True), (qr, kr, vr), do))
+    return both - fwd
+
+
+def grad_errors(got, want):
+    """Max abs error of each of (dq, dk, dv) against the plain backward,
+    and the same relative to the plain gradient's max abs."""
+    out = {}
+    for n, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(bool(torch.isfinite(g.float()).all()), f"{n}: non-finite")
+        err = float((g.float() - w.float()).abs().max())
+        out[n] = (err, err / float(w.float().abs().max()))
+    return out
+
+
+def attention_bwd_case(A, name, shape, seed):
+    """One backward kernel against its plain backward on the same bf16
+    tensors of the card (:data:`GRAD_TOL` of each gradient's max abs), with
+    its times beside its bound and SDPA's backward. The forward's
+    statistics come from the forward kernel with statistics, whose output
+    must be bitwise the serving kernel's."""
+    b, h, l, d = shape[:4]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((b, h, l, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    bhld, bhl2d, bhl = b * h * l * d, b * h * l * l * d, b * h * l
+    out = {"B": b, "H": h, "L": l, "D": d, "tolerance": GRAD_TOL}
+    if name == "causal_mha_small_head_bwd":
+        o_serve = A.causal_mha_small_head(q, k, v)
+        o, m, l_sum = A.causal_mha_small_head_with_stats(q, k, v)
+    else:
+        block = out["block"] = shape[4]
+        o_serve = A.flash_causal_attention(q, k, v, block)
+        o, m, l_sum = A.flash_causal_attention_with_stats(q, k, v, block)
+    torch.cuda.synchronize()
+    out["o_bitwise_with_stats"] = bool(torch.equal(o, o_serve))
+    check(out["o_bitwise_with_stats"], f"{name} {shape}: the forward's output "
+          "with statistics differs from the serving kernel's")
+    # bytes of the whole backward: q, k, v, do in, dq, dk, dv out, m and l
+    # in; 5 matmuls over the causal half
+    out["bwd_bound_ms"], out["bwd_bound_by"] = bound(7 * bhld * 2 + 2 * bhl * 4,
+                                                     5 * bhl2d)
+    if name == "causal_mha_small_head_bwd":
+        errs = grad_errors(A.causal_mha_small_head_bwd(q, k, v, do, m, l_sum),
+                           A.causal_mha_small_head_bwd_reference(q, k, v, do))
+        plain = lambda: A.causal_mha_small_head_bwd_reference(q, k, v, do)  # noqa: E731
+        parts = {name: (lambda: A.causal_mha_small_head_bwd(q, k, v, do, m, l_sum),
+                        plain, "attention_bwd_", 7 * bhld * 2 + 2 * bhl * 4, 5 * bhl2d)}
+    else:
+        di = (o.float() * do.float()).sum(-1)
+        errs = grad_errors(
+            A.flash_causal_attention_bwd(q, k, v, o, do, m, l_sum, block),
+            A.flash_causal_attention_bwd_reference(q, k, v, o, do, m, l_sum, block))
+        plain = lambda: A.flash_causal_attention_bwd_reference(  # noqa: E731
+            q, k, v, o, do, m, l_sum, block)
+        stats = 3 * bhl * 4
+        args = (q, k, v, do, m, l_sum, di, block)
+        parts = {
+            "flash_causal_attention_bwd_dkv": (
+                lambda: A.flash_causal_attention_bwd_dkv(*args),
+                lambda: A.flash_causal_attention_bwd_dkv_reference(*args),
+                "attention_bwd_dkv_kernel", 6 * bhld * 2 + stats, 4 * bhl2d),
+            "flash_causal_attention_bwd_dq": (
+                lambda: A.flash_causal_attention_bwd_dq(*args),
+                lambda: A.flash_causal_attention_bwd_dq_reference(*args),
+                "attention_bwd_dq_kernel", 5 * bhld * 2 + stats, 3 * bhl2d)}
+    torch.cuda.synchronize()
+    out["errors"] = {n: {"max_abs_err": e, "rel_err": r} for n, (e, r) in errs.items()}
+    out["max_abs_err"] = max(e for e, _ in errs.values())
+    worst = max(r for _, r in errs.values())
+    check(worst <= GRAD_TOL, f"{name} {shape}: gradient error {worst} of the "
+          f"max abs beyond {GRAD_TOL}")
+    # the whole backward (dq, dk, dv): plain, and SDPA's as the library
+    out["plain_ms"] = time_ms(plain, reps=3, inner=1, warm=1)
+    out["library_ms"] = sdpa_bwd_ms(q, k, v, do)
+    out["kernels"] = {}
+    for part, (fn, part_plain, kname, n_bytes, n_ops) in parts.items():
+        rec = {"ms": time_ms(fn, reps=5, inner=3),
+               "device_ms": device_ms(fn, kname, calls=5),
+               # one kernel's part alone: no library call computes only it
+               "plain_ms": (out["plain_ms"] if len(parts) == 1
+                            else time_ms(part_plain, reps=3, inner=1, warm=1)),
+               "library_ms": out["library_ms"] if len(parts) == 1 else None}
+        rec["bound_ms"], rec["bound_by"] = bound(n_bytes, n_ops)
+        out["kernels"][part] = rec
+        log(f"{part:<31s} B={b:<3d} H={h} L={l:<5d} D={d:<4d} "
+            + " ".join(f"{n}_err={e:.3e}({r:.1e})" for n, (e, r) in errs.items())
+            + f" ms={rec['ms']:.4f} device_ms={fmt(rec['device_ms'])} "
+            f"plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
+            f"({rec['bound_by']})")
+    recs = out["kernels"].values()
+    out["bwd_device_ms"] = (None if any(r["device_ms"] is None for r in recs)
+                            else sum(r["device_ms"] for r in recs))
+    log(f"{name:<31s} whole backward: device_ms={fmt(out['bwd_device_ms'])} "
+        f"plain_ms={out['plain_ms']:.4f} sdpa_bwd_ms={out['library_ms']:.4f} "
+        f"bound_ms={out['bwd_bound_ms']:.4f} ({out['bwd_bound_by']})")
+    del q, k, v, do
+    return out
+
+
+def attention_bwd_checks(A):
+    k4 = [attention_bwd_case(A, "causal_mha_small_head_bwd", s, 300 + i)
+          for i, s in enumerate(K4_BWD_SHAPES)]
+    k5 = [attention_bwd_case(A, "flash_causal_attention_bwd", s, 400 + i)
+          for i, s in enumerate(K5_BWD_SHAPES)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k4, k5
+
+
 # -- phase 4: the main path through the QueryServer ---------------------------
 
 @contextlib.contextmanager
@@ -379,27 +564,16 @@ async def post_all(session, url, payloads, concurrent: bool):
 
 
 async def profiled_burst(session, url, payloads) -> dict:
-    """One concurrent burst under ``torch.profiler`` with CUDA activity
-    (CUPTI sees every kernel and copy of the process, whichever serving
-    thread launched it): the device's busy share of the burst's wall time
-    and the device time by kernel name. The profiler's host cost is inside
-    the wall time, so the share is a lower bound."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    """One concurrent burst under :func:`cuda_profile` (it sees the
+    serving threads' kernels too): the device's busy share of the burst's
+    wall time and the device time by kernel name. The profiler's host cost
+    is inside the wall time, so the share is a lower bound."""
+    with cuda_profile() as by_name:
         t0 = time.perf_counter()
         await post_all(session, url, payloads, True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    busy = sum(by_name.values())
-    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
-    return {"queries": len(payloads), "wall_ms": wall * 1e3,
-            "device_busy_ms": busy, "device_busy_share": busy / (wall * 1e3),
-            "top_device_ms": top}
+    return {"queries": len(payloads), **busy_record(by_name, wall, 6)}
 
 
 def log_window(name: str, w: dict) -> None:
@@ -683,7 +857,7 @@ async def sequential_phase(name, max_len, ctx, seed, n_singles, n_bursts):
     route = attention_route(64, max_len, SEQ_HEADS, SEQ_D // SEQ_HEADS)
     expect = {"small_head": A.causal_mha_small_head,
               "flash": A.flash_causal_attention}[route]
-    other = next(w for w in A.KERNEL_WRAPPERS if w is not expect)
+    others = [w for w in A.KERNEL_WRAPPERS if w is not expect]
     params = init_params_numpy(TransformerConfig(
         vocab_size=SEQ_VOCAB, max_len=max_len, d_model=SEQ_D,
         n_heads=SEQ_HEADS, n_layers=SEQ_LAYERS), seed)
@@ -745,8 +919,9 @@ async def sequential_phase(name, max_len, ctx, seed, n_singles, n_bursts):
         check(expect.launches == SEQ_LAYERS * (1 + batches),
               f"{expect.__name__} launched {expect.launches} times for "
               f"{batches} served batches + warmup; {SEQ_LAYERS} a batch expected")
-        check(other.launches == 0,
-              f"{other.__name__} launched {other.launches} times at max_len {max_len}")
+        for w in others:  # the other forward, and no backward when serving
+            check(w.launches == 0,
+                  f"{w.__name__} launched {w.launches} times at max_len {max_len}")
         return {"route": route, "plain_max_score_diff": worst,
                 "plain_same_ids": same_set, "plain_same_order": same_order,
                 "queries": len(singles) + 64 * (n_bursts + 1) + 1,
@@ -771,6 +946,234 @@ async def sequential_phase(name, max_len, ctx, seed, n_singles, n_bursts):
     for k, v in res["latency"].items():
         log(f"latency {k:<16s} n={v['n']:<4d} p50={v['p50_ms']:.2f} ms "
             f"p99={v['p99_ms']:.2f} ms")
+    return launches, res
+
+
+# -- phases 7-9: training the sequential template on the card ------------------
+
+def cycle_sessions(rng, n: int, max_len: int):
+    """Sessions with something to learn: over the 9,999 items, a random
+    start and a length of 5 to ``max_len + 1``, each item followed by the
+    next of the cycle, ``next(i_k) = i_{k+1 mod 9999}``."""
+    n_items = SEQ_VOCAB - 1
+    starts = rng.integers(0, n_items, n)
+    lengths = rng.integers(5, max_len + 2, n)
+    return [[f"i{(int(s) + j) % n_items}" for j in range(int(m))]
+            for s, m in zip(starts, lengths)]
+
+
+def profiled_step(net, batch, lr) -> dict:
+    """One training step under :func:`cuda_profile`, after one unprofiled
+    step: the device's busy share of the step's wall time and the device
+    time by kernel."""
+    from incubator_predictionio_tpu_torch.models.transformer import train_step
+    from incubator_predictionio_tpu_torch.utils.optim import adam_init
+
+    state = adam_init(list(net.parameters()), net.cfg.adam_moments_dtype)
+    train_step(net, state, batch, lr)
+    torch.cuda.synchronize()
+    with cuda_profile() as by_name:
+        t0 = time.perf_counter()
+        train_step(net, state, batch, lr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return busy_record(by_name, wall, 12)
+
+
+def step_parity(cfg, batch, dev) -> dict:
+    """One step with the kernels against one step with the plain attention
+    versions, on the card, from the same init. What the backward kernels
+    produce is held by the gradients: each parameter's within
+    :data:`GRAD_TOL` of that gradient's max abs. The loss (the forward's)
+    must agree within :data:`STEP_LOSS_RTOL`, and after adam every
+    parameter within 2·lr — a band adam's first step (±lr·|g|/(|g|+eps) an
+    element) keeps whatever the gradient, so it checks only that the update
+    ran; the mean difference is recorded beside it."""
+    from incubator_predictionio_tpu_torch.models import transformer as T
+    from incubator_predictionio_tpu_torch.parallel.ring import (
+        causal_attention_reference,
+    )
+    from incubator_predictionio_tpu_torch.utils.optim import adam_init, adam_update
+
+    init = T._init_params(cfg, torch.Generator(device=dev).manual_seed(cfg.seed), dev)
+    res = {}
+    for name, att in (("kernels", T.causal_attention),
+                      ("plain", causal_attention_reference)):
+        net = T.TransformerNet(init, cfg, dev, trainable=True)
+        names, params = zip(*net.named_parameters())
+        state = adam_init(list(params), cfg.adam_moments_dtype)
+        loss = T.train_loss(net, *batch, attention=att)
+        grads = torch.autograd.grad(loss, params)
+        adam_update(list(params), grads, state, cfg.learning_rate)
+        res[name] = (float(loss.detach()), grads, [p.detach() for p in params])
+        del net, state, loss
+    (lk, gk, pk), (lp, gp, pp) = res["kernels"], res["plain"]
+    grad_rel = {n: float((a - b).abs().max()) / float(b.abs().max())
+                for n, a, b in zip(names, gk, gp)}
+    worst = max(grad_rel, key=grad_rel.get)
+    diff = max(float((a - b).abs().max()) for a, b in zip(pk, pp))
+    mean = (sum(float((a - b).abs().sum()) for a, b in zip(pk, pp))
+            / sum(a.numel() for a in pk))
+    out = {"loss_kernels": lk, "loss_plain": lp,
+           "loss_rel_diff": abs(lk - lp) / abs(lp),
+           "grad_rel_err": grad_rel, "grad_worst": worst,
+           "grad_worst_rel_err": grad_rel[worst],
+           "param_max_abs_diff": diff, "param_mean_abs_diff": mean,
+           "param_band": 2 * cfg.learning_rate}
+    check(out["loss_rel_diff"] <= STEP_LOSS_RTOL,
+          f"step loss {lk} (kernels) vs {lp} (plain) beyond {STEP_LOSS_RTOL}")
+    check(grad_rel[worst] <= GRAD_TOL,
+          f"the gradient of {worst} differs by {grad_rel[worst]} of its max "
+          f"abs between the kernels and the plain attention (> {GRAD_TOL})")
+    check(diff <= out["param_band"],
+          f"a parameter differs by {diff} > 2·lr after one step")
+    return out
+
+
+def train_phase(name, max_len, n_rows, epochs, ctx, seed, parity=False,
+                deploy=False):
+    """Train the sequential template at the bench width on cycle sessions
+    from ``default_rng(seed)``, through ``DataSource._build_fold`` and
+    ``TransformerAlgorithm.train``, with the kernel counts at 0 just before
+    and read just after; then profile one step and, where asked, run the
+    step-parity check and deploy the trained model. Returns (launches in
+    the fit, launches in the deploy phase, record)."""
+    from incubator_predictionio_tpu_torch.models.transformer import TransformerNet
+    from incubator_predictionio_tpu_torch.ops import attention as A
+    from incubator_predictionio_tpu_torch.parallel.ring import attention_route
+    from incubator_predictionio_tpu_torch.templates.sequential import (
+        DataSource,
+        DataSourceParams,
+        TransformerAlgorithm,
+        TransformerAlgorithmParams,
+    )
+
+    dev = ctx.device
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    td = DataSource(DataSourceParams(app_name="chip-smoke", max_len=max_len)) \
+        ._build_fold(ctx, cycle_sessions(rng, n_rows, max_len), False)
+    td.sanity_check()
+    fold_s = time.perf_counter() - t0
+    algo = TransformerAlgorithm(TransformerAlgorithmParams(
+        app_name="chip-smoke", max_len=max_len, d_model=SEQ_D, n_heads=SEQ_HEADS,
+        n_layers=SEQ_LAYERS, learning_rate=TRAIN_LR, batch_size=TRAIN_BATCH,
+        epochs=epochs))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    t0 = time.perf_counter()
+    model = algo.train(ctx, td)
+    fit_s = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in A.KERNEL_WRAPPERS}
+    peak = torch.cuda.max_memory_allocated()
+    cfg = model.config
+    n = len(td.sequences)
+    steps = epochs * -(-n // TRAIN_BATCH)
+    tokens = epochs * n * max_len
+    train_sec = model.timings["train_sec"]
+    # bench.py:913-920: non-embedding params, 6 FLOPs a param a token, plus
+    # attention's 12 · layers · d · L
+    flops_per_token = 6 * 12 * SEQ_LAYERS * SEQ_D ** 2 + 12 * SEQ_LAYERS * SEQ_D * max_len
+    rec = {"max_len": max_len, "rows": n, "vocab": cfg.vocab_size,
+           "batch": TRAIN_BATCH, "epochs": epochs, "steps": steps,
+           "fold_s": fold_s, "fit_s": fit_s, "timings": model.timings,
+           "train_tokens_per_s": tokens / train_sec,
+           "mfu": tokens * flops_per_token / train_sec / BF16_OPS_PER_S,
+           "first_step_loss": float(model.step_losses[0, 0]),
+           "final_loss": model.final_loss,
+           "peak_device_bytes": peak, "launches": launches}
+    check(np.isfinite(model.final_loss), f"[{name}] final loss {model.final_loss}")
+    check(bool(np.isfinite(model.step_losses).all()), f"[{name}] a step loss is not finite")
+    route = attention_route(TRAIN_BATCH, max_len, SEQ_HEADS, SEQ_D // SEQ_HEADS)
+    ran = ({"small_head": ("causal_mha_small_head", "causal_mha_small_head_bwd"),
+            "flash": ("flash_causal_attention", "flash_causal_attention_bwd_dkv",
+                      "flash_causal_attention_bwd_dq")}[route])
+    for w, count in launches.items():
+        want = SEQ_LAYERS * steps if w in ran else 0
+        check(count == want, f"[{name}] {w} launched {count} times in the fit, "
+              f"{want} expected ({SEQ_LAYERS} layers × {steps} steps)")
+    log(f"[{name}] fit: {n} rows of {max_len + 1} tokens (vocab {cfg.vocab_size}), "
+        f"batch {TRAIN_BATCH}, {epochs} epochs = {steps} steps in "
+        f"{train_sec:.3f} s (train_sec; fit {fit_s:.3f} s, fold {fold_s:.2f} s): "
+        f"{rec['train_tokens_per_s']:.1f} train tokens/s, MFU {rec['mfu']:.4f}; "
+        f"loss first step {rec['first_step_loss']:.4f}, final {model.final_loss:.4f}; "
+        f"peak device memory {peak / 2**30:.2f} GiB; launches {launches}")
+    if epochs > 1:
+        check(model.final_loss < rec["first_step_loss"],
+              f"[{name}] final loss {model.final_loss} not below the first "
+              f"step's {rec['first_step_loss']}")
+    batch = (torch.from_numpy(td.sequences[:TRAIN_BATCH, :-1].astype(np.int64)).to(dev),
+             torch.arange(max_len, device=dev).expand(TRAIN_BATCH, max_len),
+             torch.from_numpy(td.sequences[:TRAIN_BATCH, 1:].astype(np.int64)).to(dev),
+             torch.from_numpy(((td.sequences[:TRAIN_BATCH, 1:] != 0)
+                               & (td.sequences[:TRAIN_BATCH, :-1] != 0))
+                              .astype(np.float32)).to(dev))
+    rec["profiled_step"] = profiled_step(
+        TransformerNet(model.params, cfg, dev, trainable=True), batch, cfg.learning_rate)
+    w = rec["profiled_step"]
+    log(f"[{name}] profiled step: wall {w['wall_ms']:.2f} ms, device busy "
+        f"{w['device_busy_ms']:.3f} ms (share {w['device_busy_share']:.4f}); top "
+        "device ms: " + ", ".join(f"{k[:60]}={v:.3f}" for k, v in w["top_device_ms"].items()))
+    if parity:
+        rec["step_parity"] = step_parity(cfg, batch, dev)
+        sp = rec["step_parity"]
+        log(f"[{name}] one step, kernels vs plain attention from the same init: "
+            f"loss {sp['loss_kernels']:.6f} vs {sp['loss_plain']:.6f} (rel "
+            f"{sp['loss_rel_diff']:.2e}, tol {STEP_LOSS_RTOL}); worst gradient "
+            f"{sp['grad_worst']} {sp['grad_worst_rel_err']:.2e} of its max abs "
+            f"(tol {GRAD_TOL}); params max abs diff "
+            f"{sp['param_max_abs_diff']:.3e} (band 2·lr = {sp['param_band']}), mean "
+            f"{sp['param_mean_abs_diff']:.3e}")
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_launches = {}
+    if deploy:
+        serve_launches, rec["deploy"] = asyncio.run(
+            deploy_trained(name, model, max_len, ctx, rng))
+    return launches, serve_launches, rec
+
+
+async def deploy_trained_body(name, payloads, expected, session, url, server):
+    info = server.deployed.models[0].serving_info()
+    check(info["device"].startswith("cuda"), f"not on the card: {info}")
+    bodies, ls = await post_all(session, url, payloads, False)
+    check_answers(payloads, bodies)
+    hits = sum(int(e in ids_of(b)) for e, b in zip(expected, bodies))
+    log(f"[{name}-serve] {len(payloads)} recentItems queries answered, no "
+        f"history item served; the next item of the cycle in the top 10 for "
+        f"{hits}/{len(payloads)}")
+    return {"queries": len(payloads), "next_item_in_top10": hits,
+            "latency_p50_ms": pct(ls, 50), "latency_p99_ms": pct(ls, 99)}
+
+
+async def deploy_trained(name, model, max_len, ctx, rng):
+    """The trained model through the port's QueryServer (memory storage):
+    16 ``recentItems`` queries of cycle sessions, each answered in full
+    with no history item."""
+    from incubator_predictionio_tpu_torch.ops import attention as A
+
+    n_items = SEQ_VOCAB - 1
+    payloads, expected = [], []
+    for s in cycle_sessions(rng, 16, max_len):
+        payloads.append({"recentItems": s, "num": 10})
+        expected.append(f"i{(int(s[-1][1:]) + 1) % n_items}")
+    with tempfile.TemporaryDirectory() as tmp:
+        storage, variant_path = deploy_storage(
+            SEQ_FACTORY, {"maxLen": max_len, "dModel": SEQ_D,
+                          "nHeads": SEQ_HEADS, "nLayers": SEQ_LAYERS},
+            "transformer", model, tmp)
+        A.reset_launches()
+        res = await serve_phase(
+            f"{name}-serve", variant_path, storage, ctx,
+            lambda session, url, server: deploy_trained_body(
+                name, payloads, expected, session, url, server))
+        launches = {w.__name__: w.launches for w in A.KERNEL_WRAPPERS}
+    for w, count in launches.items():
+        check((count > 0) == (w == "causal_mha_small_head"),
+              f"[{name}-serve] {w} launched {count} times")
     return launches, res
 
 
@@ -822,6 +1225,7 @@ def main() -> int:
 
     k1, k2 = kernel_checks(R, user, item, item_bias, ivf, dev)
     k4, k5 = attention_checks(A)
+    k4b, k5b = attention_bwd_checks(A)
 
     # persist: convert → RecModel (index attached) → blob → memory storage
     rec = convert.rec_model_from_arrays(
@@ -838,15 +1242,30 @@ def main() -> int:
     del user, item, user_bias, item_bias, ivf, storage
     gc.collect()
     torch.cuda.empty_cache()
-    # each sequential phase runs with the counts at 0 and reads them after
-    k4_launches, main["sequential_512"] = asyncio.run(sequential_phase(
-        "seq512", 512, ctx, seed=512, n_singles=16, n_bursts=2))
-    k5_launches, main["sequential_1024"] = asyncio.run(sequential_phase(
-        "seq1024", 1024, ctx, seed=1024, n_singles=8, n_bursts=1))
-    launches["causal_mha_small_head"] = k4_launches["causal_mha_small_head"]
-    launches["flash_causal_attention"] = k5_launches["flash_causal_attention"]
-    check(launches["causal_mha_small_head"] > 0, "K4 never launched at max_len 512")
-    check(launches["flash_causal_attention"] > 0, "K5 never launched at max_len 1024")
+    # each sequential phase runs with the counts at 0 and reads them after;
+    # a kernel's launches on the main path are the sum over the phases
+    att_launches = {w.__name__: 0 for w in A.KERNEL_WRAPPERS}
+
+    def add(counts):
+        for k, c in counts.items():
+            att_launches[k] += c
+
+    for name, max_len, seed, n_singles, n_bursts in (
+            ("seq512", 512, 512, 16, 2), ("seq1024", 1024, 1024, 8, 1)):
+        counts, main[f"sequential_{max_len}"] = asyncio.run(sequential_phase(
+            name, max_len, ctx, seed=seed, n_singles=n_singles, n_bursts=n_bursts))
+        add(counts)
+    fit_counts, serve_counts, main["train_512"] = train_phase(
+        "seq-train512", 512, TRAIN_ROWS, TRAIN_EPOCHS, ctx, seed=11,
+        parity=True, deploy=True)
+    add(fit_counts)
+    add(serve_counts)
+    fit_counts, _, main["train_1024"] = train_phase(
+        "seq-train1024", 1024, TRAIN_ROWS_1024, TRAIN_EPOCHS_1024, ctx, seed=12)
+    add(fit_counts)
+    launches.update(att_launches)
+    for name, count in launches.items():
+        check(count > 0, f"{name} never launched on the main path")
 
     def entry(name, source, replaces, cases, main_case):
         return {"name": name, "route": "cuda",
@@ -861,6 +1280,14 @@ def main() -> int:
                 "shape": {k: main_case[k] for k in main_case
                           if k in ("B", "H", "L", "N", "C", "D")}}
 
+    def bwd_entry(name, replaces, cases, grads=("dq", "dk", "dv")):
+        main_case = cases[0]  # the training shape
+        e = entry(name, "attention.cu", replaces, cases,
+                  {**main_case, **main_case["kernels"][name]})
+        e["max_abs_err"] = max(c["errors"][g]["max_abs_err"]
+                               for c in cases for g in grads)
+        return e
+
     kernels = [
         entry("score_catalog_quantized", "retrieval.cu",
               "incubator_predictionio_tpu/ops/retrieval.py:97", k1,
@@ -869,21 +1296,31 @@ def main() -> int:
               "incubator_predictionio_tpu/ops/retrieval.py:188", k2,
               next(c for c in k2 if c["B"] == 64)),
         entry("causal_mha_small_head", "attention.cu",
-              "incubator_predictionio_tpu/ops/attention.py:117", k4,
+              "incubator_predictionio_tpu/ops/attention.py:122", k4,
               next(c for c in k4 if c["B"] == 64)),
+        bwd_entry("causal_mha_small_head_bwd",
+                  "incubator_predictionio_tpu/ops/attention.py:136", k4b),
         entry("flash_causal_attention", "attention.cu",
-              "incubator_predictionio_tpu/parallel/ring.py:152", k5,
+              "incubator_predictionio_tpu/parallel/ring.py:201", k5,
               next(c for c in k5 if c["B"] == 64)),
+        bwd_entry("flash_causal_attention_bwd_dkv",
+                  "jax/experimental/pallas/ops/tpu/flash_attention.py:1121", k5b,
+                  ("dk", "dv")),
+        bwd_entry("flash_causal_attention_bwd_dq",
+                  "jax/experimental/pallas/ops/tpu/flash_attention.py:1456", k5b,
+                  ("dq",)),
     ]
     record = {"card": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "k1_cases": k1, "k2_cases": k2, "k4_cases": k4, "k5_cases": k5,
+              "k4_bwd_cases": k4b, "k5_bwd_cases": k5b,
               "main_path": main, "kernels": kernels,
               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
               "wall_s": time.perf_counter() - t_start}
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(record, indent=1, default=str))
     log(f"total wall time {record['wall_s']:.1f} s; peak device memory "
+        f"since the last training phase began "
         f"{record['max_memory_allocated_bytes'] / 2**30:.2f} GiB")
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")

@@ -1,15 +1,18 @@
-"""Sequential-recommendation transformer — the serving side.
+"""Sequential-recommendation transformer — training and serving.
 
 Counterpart of ``incubator_predictionio_tpu/models/transformer.py``
 (SASRec/Transformer4Rec-style: a causal transformer over left-padded
-session item sequences, next-item logits tied to the item embedding). This
-slice ports what serving runs: :class:`TransformerConfig`, the dense
-forward (``_ln``, ``_bf16_matmul``, ``_apply_layer``, ``_forward``,
-``_serve_scores``), :class:`TransformerModel` and
-``TransformerRecommender.next_item_scores``. Training (``fit``, the K4/K5
-backward kernels, ``ops/xent.py``, adam) is the sequential training slice
-(ROADMAP.md Queue 1, item 1); MoE serving and ring attention come with
-the sharding slice (item 4).
+session item sequences, next-item logits tied to the item embedding):
+:class:`TransformerConfig`, the dense forward (``_ln``, ``_bf16_matmul``,
+``_apply_layer``, ``_forward``, ``_serve_scores``) as one
+:class:`TransformerNet` that serves (bf16 buffers) and trains (fp32
+parameters), :class:`TransformerModel` and :class:`TransformerRecommender`
+(``fit`` on one device, ``next_item_scores``). A training step is forward →
+``ops/xent.py:weighted_xent_sum`` → backward through the attention
+kernels' backwards → ``utils/optim.py`` adam (optax's). MoE, ring
+attention, pipeline and tensor parallelism and mid-training checkpoints
+come with the sharding slice (ROADMAP.md Queue 1, item 4) and raise until
+then.
 
 Numerics follow the reference: every matmul rounds both operands and the
 product to bf16 (``_bf16_matmul``), so served scores are bf16 values and
@@ -22,20 +25,23 @@ positions), exactly as in the reference.
 from __future__ import annotations
 
 import dataclasses
+import math
+import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from incubator_predictionio_tpu_torch.ops.xent import weighted_xent_sum
 from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext
 from incubator_predictionio_tpu_torch.parallel.ring import causal_attention
+from incubator_predictionio_tpu_torch.utils.optim import adam_init, adam_update
 
-#: what raises in the stages this slice does not port
-TRAINING_SLICE = ("the sequential training slice of the PyTorch port "
-                  "(ROADMAP.md Queue 1, item 1: fit, the K4/K5 backward "
-                  "kernels, ops/xent.py, adam)")
+#: what raises in the training options this slice does not port
+SHARDING_SLICE = "the sharding slice of the PyTorch port (ROADMAP.md Queue 1, item 4)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +105,36 @@ def init_params_numpy(cfg: TransformerConfig, seed: int) -> dict:
     return params
 
 
+def _init_params(cfg: TransformerConfig, generator: torch.Generator,
+                 device) -> dict:
+    """transformer.py:84 ``_init_params``, dense: the reference's tree and
+    init scales (normal × 0.02 for the embeddings, × fan_in^-0.5 for the
+    projections, ones/zeros for the norms and biases), drawn from
+    ``generator`` on ``device`` in the reference's key order."""
+    d, dh = cfg.d_model, cfg.d_model * 4
+
+    def init(shape, scale):
+        return torch.randn(shape, generator=generator, device=device) * scale
+
+    def norm():
+        return {"g": torch.ones(d, device=device),
+                "b": torch.zeros(d, device=device)}
+
+    params = {"item_emb": init((cfg.vocab_size, d), 0.02),
+              "pos_emb": init((cfg.max_len, d), 0.02),
+              "ln_f": norm(), "layers": []}
+    for _ in range(cfg.n_layers):
+        params["layers"].append({
+            "ln1": norm(),
+            "wq": init((d, d), d ** -0.5), "wk": init((d, d), d ** -0.5),
+            "wv": init((d, d), d ** -0.5), "wo": init((d, d), d ** -0.5),
+            "ln2": norm(),
+            "w1": init((d, dh), d ** -0.5), "b1": torch.zeros(dh, device=device),
+            "w2": init((dh, d), dh ** -0.5), "b2": torch.zeros(d, device=device),
+        })
+    return params
+
+
 def _ln(x, g, b):
     """transformer.py:123: ``(x - mean) · rsqrt(var + 1e-6) · g + b`` with
     the population variance."""
@@ -107,75 +143,100 @@ def _ln(x, g, b):
     return (x - mu) * torch.rsqrt(var + 1e-6) * g + b
 
 
-def _bf16_matmul(x, w_bf16):
+def _bf16_matmul(x, w):
     """transformer.py:129: both operands and the product in bf16 (the
-    product accumulates in fp32 and rounds once), upcast to fp32. The
-    weight arrives already in bf16."""
-    return torch.matmul(x.to(torch.bfloat16), w_bf16).float()
+    product accumulates in fp32 and rounds once), upcast to fp32. The cast
+    of ``w`` is a no-op for the serving net's bf16 buffers."""
+    return torch.matmul(x.to(torch.bfloat16), w.to(torch.bfloat16)).float()
+
+
+def _put(module: nn.Module, name: str, a, device, trainable: bool,
+         dtype=torch.float32) -> None:
+    """An fp32 ``nn.Parameter`` when training, else a buffer in ``dtype``."""
+    t = torch.as_tensor(a).to(device=device, dtype=torch.float32)
+    if trainable:
+        module.register_parameter(name, nn.Parameter(t.clone()))
+    else:
+        module.register_buffer(name, t.to(dtype))
+
+
+class _Norm(nn.Module):
+    """A layer norm's ``{"g", "b"}``."""
+
+    def __init__(self, p: dict, device, trainable: bool):
+        super().__init__()
+        _put(self, "g", p["g"], device, trainable)
+        _put(self, "b", p["b"], device, trainable)
+
+
+_LAYER_MATRICES = ("wq", "wk", "wv", "wo", "w1", "w2")
 
 
 class _Layer(nn.Module):
-    """One dense transformer block's weights (the reference's ``layers[i]``
-    dict): projections kept in bf16 (``_bf16_matmul`` rounds them on every
-    call; rounding once at deploy gives the same values), norms and biases
-    in fp32. Buffers, not parameters: serving computes no gradient."""
+    """One dense transformer block's weights, the reference's
+    ``layers[i]`` dict and names. Serving keeps them as buffers, the
+    projections pre-rounded to bf16 (``_bf16_matmul`` rounds them on every
+    call; rounding once at deploy gives the same values); training keeps
+    fp32 parameters."""
 
-    def __init__(self, layer: dict, device: torch.device):
+    def __init__(self, layer: dict, device, trainable: bool = False):
         super().__init__()
-
-        def put(name, a, dtype=torch.float32):
-            self.register_buffer(name, torch.as_tensor(
-                np.asarray(a, np.float32)).to(device=device, dtype=dtype))
-
-        for name in ("wq", "wk", "wv", "wo", "w1", "w2"):
-            put(name, layer[name], torch.bfloat16)
-        put("ln1_g", layer["ln1"]["g"])
-        put("ln1_b", layer["ln1"]["b"])
-        put("ln2_g", layer["ln2"]["g"])
-        put("ln2_b", layer["ln2"]["b"])
-        put("b1", layer["b1"])
-        put("b2", layer["b2"])
+        self.ln1 = _Norm(layer["ln1"], device, trainable)
+        self.ln2 = _Norm(layer["ln2"], device, trainable)
+        for name in _LAYER_MATRICES:
+            _put(self, name, layer[name], device, trainable, torch.bfloat16)
+        _put(self, "b1", layer["b1"], device, trainable)
+        _put(self, "b2", layer["b2"], device, trainable)
 
     def forward(self, h, n_heads: int, attention: Callable):
         """transformer.py:196 ``_apply_layer``, the dense branch."""
         b, l, d = h.shape
         dh = d // n_heads
-        x = _ln(h, self.ln1_g, self.ln1_b)
+        x = _ln(h, self.ln1.g, self.ln1.b)
         q = _bf16_matmul(x, self.wq).reshape(b, l, n_heads, dh)
         k = _bf16_matmul(x, self.wk).reshape(b, l, n_heads, dh)
         v = _bf16_matmul(x, self.wv).reshape(b, l, n_heads, dh)
         att = attention(q, k, v)
         h = h + _bf16_matmul(att.reshape(b, l, d), self.wo)
-        x = _ln(h, self.ln2_g, self.ln2_b)
+        x = _ln(h, self.ln2.g, self.ln2.b)
         x = F.gelu(_bf16_matmul(x, self.w1) + self.b1, approximate="tanh")
         return h + _bf16_matmul(x, self.w2) + self.b2
 
 
 class TransformerNet(nn.Module):
-    """The served layer stack on one explicit device."""
+    """The dense layer stack on one explicit device: buffers to serve, or
+    (``trainable=True``) fp32 parameters to train. ``params`` is the
+    reference's tree, of numpy arrays or tensors."""
 
-    def __init__(self, params: dict, cfg: TransformerConfig,
-                 device: torch.device):
+    def __init__(self, params: dict, cfg: TransformerConfig, device,
+                 trainable: bool = False):
         super().__init__()
         self.cfg = cfg
-
-        def t(a):
-            return torch.as_tensor(np.asarray(a, np.float32)).to(device)
-
-        self.register_buffer("item_emb", t(params["item_emb"]))
-        self.register_buffer("item_emb_bf16", self.item_emb.to(torch.bfloat16))
-        self.register_buffer("pos_emb", t(params["pos_emb"]))
-        self.register_buffer("lnf_g", t(params["ln_f"]["g"]))
-        self.register_buffer("lnf_b", t(params["ln_f"]["b"]))
-        self.layers = nn.ModuleList(_Layer(p, device) for p in params["layers"])
+        _put(self, "item_emb", params["item_emb"], device, trainable)
+        _put(self, "pos_emb", params["pos_emb"], device, trainable)
+        self.ln_f = _Norm(params["ln_f"], device, trainable)
+        self.layers = nn.ModuleList(_Layer(p, device, trainable)
+                                    for p in params["layers"])
+        if not trainable:
+            self.register_buffer("item_emb_bf16", self.item_emb.to(torch.bfloat16))
 
     def forward(self, tokens, positions, attention: Callable = causal_attention):
         """transformer.py:218 ``_forward``: tokens, positions ``[B, L]``
-        int → hidden ``[B, L, D]`` fp32 after the final norm."""
-        h = self.item_emb[tokens] + self.pos_emb[positions]
+        int → hidden ``[B, L, D]`` fp32 after the final norm. With
+        ``cfg.remat`` and a gradient wanted, each block recomputes its
+        activations in the backward (``jax.checkpoint``, :225-229). The
+        lookups are ``F.embedding``: its backward sums the rows of a
+        repeated index (the padding token, every position) in parallel
+        segments, where indexing's backward walks them one by one."""
+        h = F.embedding(tokens, self.item_emb) + F.embedding(positions, self.pos_emb)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            h = layer(h, self.cfg.n_heads, attention)
-        return _ln(h, self.lnf_g, self.lnf_b)
+            if remat:
+                h = checkpoint(layer, h, self.cfg.n_heads, attention,
+                               use_reentrant=False)
+            else:
+                h = layer(h, self.cfg.n_heads, attention)
+        return _ln(h, self.ln_f.g, self.ln_f.b)
 
     def serve_scores(self, tokens, attention: Callable = causal_attention):
         """transformer.py:624 ``_serve_scores``: the newest (last) position's
@@ -186,6 +247,58 @@ class TransformerNet(nn.Module):
         positions = torch.arange(l, device=tokens.device).expand(b, l)
         last = self.forward(tokens, positions, attention)[:, -1, :]
         return _bf16_matmul(last, self.item_emb_bf16.T)
+
+    def params_numpy(self) -> dict:
+        """The weights as the reference's tree of fp32 numpy arrays (one
+        device-to-host copy of the whole model)."""
+        flat = torch.cat([t.detach().float().reshape(-1)
+                          for t in self._tree_tensors()]).cpu().numpy()
+        arrays, off = [], 0
+        for t in self._tree_tensors():
+            arrays.append(flat[off:off + t.numel()].reshape(tuple(t.shape)).copy())
+            off += t.numel()
+        it = iter(arrays)
+
+        def norm():
+            return {"g": next(it), "b": next(it)}
+
+        out = {"item_emb": next(it), "pos_emb": next(it), "ln_f": norm(),
+               "layers": []}
+        for _ in self.layers:
+            layer = {"ln1": norm(), "ln2": norm()}
+            layer.update({n: next(it) for n in (*_LAYER_MATRICES, "b1", "b2")})
+            out["layers"].append(layer)
+        return out
+
+    def _tree_tensors(self) -> list:
+        out = [self.item_emb, self.pos_emb, self.ln_f.g, self.ln_f.b]
+        for layer in self.layers:
+            out += [layer.ln1.g, layer.ln1.b, layer.ln2.g, layer.ln2.b]
+            out += [getattr(layer, n) for n in (*_LAYER_MATRICES, "b1", "b2")]
+        return out
+
+
+def train_loss(net: TransformerNet, tokens, positions, targets, weights,
+               attention: Callable = causal_attention):
+    """transformer.py:285 ``loss_fn``, dense: ``Σ w·xent / max(Σw, 1)``
+    over the tied item embedding (the router's auxiliary loss is 0 without
+    experts)."""
+    h = net(tokens, positions, attention)
+    loss_sum = weighted_xent_sum(h.reshape(-1, h.shape[-1]), net.item_emb,
+                                 targets.reshape(-1), weights.reshape(-1))
+    return loss_sum / torch.clamp(weights.sum(), min=1.0)
+
+
+def train_step(net: TransformerNet, opt_state, batch, lr: float,
+               attention: Callable = causal_attention):
+    """One step (transformer.py:306 ``step``): loss, gradients, adam in
+    place. ``batch`` is (tokens, positions, targets, weights) on the net's
+    device. Returns the loss as a device scalar — no host sync."""
+    params = list(net.parameters())
+    loss = train_loss(net, *batch, attention=attention)
+    grads = torch.autograd.grad(loss, params)
+    adam_update(params, grads, opt_state, lr)
+    return loss.detach()
 
 
 @dataclasses.dataclass
@@ -244,9 +357,78 @@ class TransformerRecommender:
     def __init__(self, config: TransformerConfig):
         self.config = config
 
-    def fit(self, ctx, sequences, item_map, rows_are_local: bool = False):
-        raise NotImplementedError(
-            f"TransformerRecommender.fit is ported by {TRAINING_SLICE}")
+    def _refuse_unported(self, ctx: DeviceContext, rows_are_local: bool):
+        cfg = self.config
+        unported = [
+            (cfg.attention == "ring", "ring attention (attention='ring')"),
+            (cfg.n_experts > 0, f"mixture-of-experts (n_experts={cfg.n_experts})"),
+            (cfg.pipeline_stages > 0,
+             f"pipeline parallelism (pipeline_stages={cfg.pipeline_stages})"),
+            (cfg.tensor_parallel, "tensor parallelism"),
+            (cfg.checkpoint_dir is not None,
+             "mid-training checkpoints (checkpoint_dir)"),
+            (rows_are_local and ctx.process_count > 1,
+             f"per-process rows (rows_are_local over {ctx.process_count} "
+             "processes)"),
+        ]
+        for hit, what in unported:
+            if hit:
+                raise NotImplementedError(
+                    f"TransformerRecommender.fit: {what} is not ported yet; "
+                    f"it comes with {SHARDING_SLICE}")
+
+    def fit(self, ctx: DeviceContext, sequences: np.ndarray, item_map,
+            rows_are_local: bool = False) -> TransformerModel:
+        """transformer.py:423 ``fit`` on one device. sequences: ``[N,
+        max_len+1]`` int token rows (0-padded on the left), each row a
+        session; position t predicts position t+1. Batches are the rows in
+        order (zero-weight zero rows pad the last), staged on the device
+        once; one host sync for the whole fit (the final loss)."""
+        cfg = self.config
+        self._refuse_unported(ctx, rows_are_local)
+        sequences = np.asarray(sequences)
+        tokens, targets = sequences[:, :-1], sequences[:, 1:]
+        weights = (targets != 0).astype(np.float32) * (tokens != 0).astype(np.float32)
+        n, l = tokens.shape
+        if l != cfg.max_len:
+            raise ValueError(f"sequences must be max_len+1 = {cfg.max_len + 1} wide")
+        global_batch = ctx.pad_to_batch_multiple(min(cfg.batch_size, max(n, 1)))
+        n_batches = max(1, -(-n // global_batch))
+        pad = n_batches * global_batch - n
+        dev = ctx.device
+
+        def stage(a, dtype):
+            a = np.concatenate([a, np.zeros((pad, l), a.dtype)])
+            return torch.from_numpy(np.ascontiguousarray(
+                a.reshape(n_batches, global_batch, l))).to(dev, dtype)
+
+        tb, yb = stage(tokens, torch.int64), stage(targets, torch.int64)
+        wb = stage(weights, torch.float32)
+        positions = torch.arange(l, device=dev).expand(global_batch, l)
+
+        generator = torch.Generator(device=dev).manual_seed(cfg.seed)
+        net = TransformerNet(_init_params(cfg, generator, dev), cfg, dev,
+                             trainable=True)
+        opt_state = adam_init(list(net.parameters()), cfg.adam_moments_dtype)
+        losses = torch.zeros((cfg.epochs, n_batches), device=dev)
+        t_train = time.perf_counter()
+        for epoch in range(cfg.epochs):
+            for i in range(n_batches):
+                losses[epoch, i] = train_step(
+                    net, opt_state, (tb[i], positions, yb[i], wb[i]),
+                    cfg.learning_rate)
+        # the mean of the last epoch's step losses (transformer.py:314);
+        # float() is the fit's one sync
+        final_loss = float(losses[-1].mean()) if cfg.epochs else math.nan
+        t_train = time.perf_counter() - t_train
+        t_gather = time.perf_counter()
+        params = net.params_numpy()
+        model = TransformerModel(params, item_map, cfg)
+        model.final_loss = final_loss
+        model.step_losses = losses.cpu().numpy()
+        model.timings = {"train_sec": round(t_train, 4),
+                         "gather_sec": round(time.perf_counter() - t_gather, 4)}
+        return model
 
     @staticmethod
     def next_item_scores(model: TransformerModel, history_tokens: np.ndarray,

@@ -1,9 +1,10 @@
 """DeviceContext — the execution context handed to the serving stages.
 
 Counterpart of ``incubator_predictionio_tpu/parallel/mesh.py:MeshContext``,
-cut to the surface the deploy and query path uses (``is_primary``,
-``device``, ``create()``). Where the reference owns a ``jax.sharding.Mesh``,
-this port owns one ``torch.device``: the card the served tables live on.
+cut to the surface the deploy, query and single-device training paths use
+(``is_primary``, ``device``, ``process_count``, ``pad_to_batch_multiple``,
+``create()``). Where the reference owns a ``jax.sharding.Mesh``, this port
+owns one ``torch.device``: the card the tables and the model live on.
 Multi-process meshes come with the sharding slice (ROADMAP.md).
 """
 
@@ -21,10 +22,16 @@ class DeviceContext:
 
     device: torch.device
     process_index: int = 0  # multi-process runs come with the sharding slice
+    process_count: int = 1
 
     @property
     def is_primary(self) -> bool:
         return self.process_index == 0
+
+    def pad_to_batch_multiple(self, n: int) -> int:
+        """mesh.py:271: the smallest multiple of the data axis ≥ n. One
+        device is a data axis of size 1, so ``n`` itself."""
+        return n
 
     @staticmethod
     def create(device: Optional[Union[str, torch.device]] = None

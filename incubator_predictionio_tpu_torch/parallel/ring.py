@@ -1,10 +1,12 @@
 """Single-device causal attention and its routing to the attention kernels.
 
 Counterpart of ``incubator_predictionio_tpu/parallel/ring.py``, cut to the
-single-device part the serving path runs: :func:`flash_block_size`,
-:func:`causal_attention` and :func:`causal_attention_reference`. Ring
-attention (sequence parallelism over a ``seq`` mesh axis) comes with the
-sharding slice (ROADMAP.md).
+single-device part that serving and training run: :func:`flash_block_size`,
+:func:`causal_attention` and :func:`causal_attention_reference`. Both
+kernel routes carry gradients (the kernels are autograd Functions, and the
+transposes and casts around them are autograd ops). Ring attention
+(sequence parallelism over a ``seq`` mesh axis) comes with the sharding
+slice (ROADMAP.md).
 
 Layout here is the reference's ``[B, L, H, D]``; the kernels in
 :mod:`incubator_predictionio_tpu_torch.ops.attention` take ``[B, H, L, D]``.

@@ -1,12 +1,15 @@
-"""Sequential recommender template — the serving side.
+"""Sequential recommender template — training and serving.
 
 Counterpart of ``incubator_predictionio_tpu/templates/sequential.py``
 (next-item prediction with a Transformer4Rec-style causal transformer): the
-query and result types, :func:`encode_session`,
-``TransformerAlgorithm.predict`` / ``batch_predict`` and
-:class:`SequentialEngine`. Training comes with the sequential training
-slice (ROADMAP.md Queue 1, item 1) and reading events with the events DAO
-(item 3); until then a model reaches the port through ``convert.py``.
+query and result types, :func:`encode_session`, :class:`TrainingData`,
+``DataSource._build_fold`` (sessions → token space and left-padded rows),
+``TransformerAlgorithm.train`` / ``predict`` / ``batch_predict`` and
+:class:`SequentialEngine`. Reading the sessions from events
+(``DataSource.read_training``, ``_collect_sessions``) waits for the events
+DAO (ROADMAP.md Queue 1, item 3): until then the caller hands
+``_build_fold`` its sessions, or a model reaches the port through
+``convert.py``.
 
 Query ``{"recentItems": [...], "num": N}`` scores the next item after an
 explicit session → ``{"itemScores": [{"item": I, "score": S}, …]}``, never
@@ -34,7 +37,8 @@ from incubator_predictionio_tpu_torch.core import (
 )
 from incubator_predictionio_tpu_torch.data.bimap import BiMap
 from incubator_predictionio_tpu_torch.models.transformer import (
-    TRAINING_SLICE,
+    SHARDING_SLICE,
+    TransformerConfig,
     TransformerModel,
     TransformerRecommender,
 )
@@ -98,8 +102,46 @@ class DataSourceParams(Params):
     eval_num: int = 10
 
 
+@dataclasses.dataclass
+class TrainingData:
+    """sequential.py:85: ``sequences`` ``[n, max_len+1]`` int32 tokens,
+    0-padded on the left; ``item_map`` item id → token (1-based, 0 is
+    padding); ``rows_are_local`` / ``n_rows_global`` describe a
+    multi-process sharded read (the sharding slice)."""
+
+    sequences: np.ndarray
+    item_map: BiMap
+    rows_are_local: bool = False
+    n_rows_global: Optional[int] = None
+
+    def sanity_check(self) -> None:
+        total = (self.n_rows_global if self.n_rows_global is not None
+                 else len(self.sequences))
+        if total == 0:
+            raise ValueError("no sessions found")
+
+
 class DataSource(PDataSource):
     params_class = DataSourceParams
+
+    def _build_fold(self, ctx: DeviceContext, sessions_list: list[list[str]],
+                    sharded: bool) -> TrainingData:
+        """sequential.py:139, the single-process branch: the token space
+        from the sessions in first-seen order (token 0 reserved for
+        padding), and one row per session of at least 2 items, left-padded
+        to ``max_len + 1``."""
+        if sharded:
+            raise NotImplementedError(
+                f"a sharded read (a global vocabulary over processes) comes "
+                f"with {SHARDING_SLICE}")
+        base = BiMap.string_int([i for items in sessions_list for i in items])
+        item_map = BiMap({k: v + 1 for k, v in base.items()})
+        width = self.params.max_len + 1
+        rows = [encode_session(items, item_map, width)
+                for items in sessions_list if len(items) >= 2]
+        return TrainingData(
+            sequences=np.stack(rows) if rows else np.zeros((0, width), np.int32),
+            item_map=item_map)
 
     def read_training(self, ctx: DeviceContext):
         raise NotImplementedError(
@@ -139,9 +181,31 @@ class TransformerAlgorithm(PAlgorithm):
     serving_thread_safe = True  # read-only served tensors, one forward a call
     query_cls = Query
 
-    def train(self, ctx: DeviceContext, pd) -> TransformerModel:
-        raise NotImplementedError(
-            f"TransformerAlgorithm.train is ported by {TRAINING_SLICE}")
+    def train(self, ctx: DeviceContext, pd: TrainingData) -> TransformerModel:
+        """sequential.py:264: the config from the params and the token
+        space, then ``TransformerRecommender.fit`` on ``ctx.device``."""
+        p = self.params
+        cfg = TransformerConfig(
+            vocab_size=len(pd.item_map) + 1,
+            max_len=p.max_len,
+            d_model=p.d_model,
+            n_heads=p.n_heads,
+            n_layers=p.n_layers,
+            learning_rate=p.learning_rate,
+            batch_size=p.batch_size,
+            epochs=p.epochs,
+            seed=p.seed,
+            attention=p.attention,
+            n_experts=p.num_experts,
+            pipeline_stages=p.pipeline_stages,
+            pipeline_microbatches=p.pipeline_microbatches,
+            remat=p.remat,
+            tensor_parallel=p.tensor_parallel,
+            checkpoint_dir=p.checkpoint_dir,
+            checkpoint_every=p.checkpoint_every,
+        )
+        return TransformerRecommender(cfg).fit(
+            ctx, pd.sequences, pd.item_map, rows_are_local=pd.rows_are_local)
 
     def _history(self, query: Query, model: TransformerModel) -> list[str]:
         if query.recent_items is not None:

@@ -306,11 +306,21 @@ def test_unported_stages_raise_and_name_the_roadmap():
     moe = ttr.TransformerModel(_params(32), tseq.BiMap({}), cfg)
     with pytest.raises(NotImplementedError, match="mixture-of-experts.*ROADMAP"):
         moe.prepare_for_serving(CPU)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ttr.TransformerRecommender(cfg).fit(CPU, np.zeros((2, 33), np.int32), None)
-    algo = tseq.TransformerAlgorithm(tseq.TransformerAlgorithmParams())
-    with pytest.raises(NotImplementedError, match="training slice"):
-        algo.train(CPU, None)
+    rows = np.zeros((2, 33), np.int32)
+    # training options of the sharding slice raise in fit, and never train
+    # without them
+    for field, value, what in (("n_experts", 4, "mixture-of-experts"),
+                               ("attention", "ring", "ring attention"),
+                               ("pipeline_stages", 2, "pipeline parallelism"),
+                               ("tensor_parallel", True, "tensor parallelism"),
+                               ("checkpoint_dir", "ckpt", "checkpoints")):
+        c = dataclasses.replace(cfg, **{"n_experts": 0, field: value})
+        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
+            ttr.TransformerRecommender(c).fit(CPU, rows, None)
+    algo = tseq.TransformerAlgorithm(tseq.TransformerAlgorithmParams(
+        max_len=32, num_experts=2))
+    with pytest.raises(NotImplementedError, match="mixture-of-experts.*ROADMAP"):
+        algo.train(CPU, tseq.TrainingData(rows, tseq.BiMap({"i0": 1})))
     with pytest.raises(NotImplementedError, match="events DAO"):
         tseq.DataSource(tseq.DataSourceParams()).read_training(CPU)
     _, tm = _pair(32)
