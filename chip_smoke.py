@@ -32,6 +32,18 @@ steps; K5 forward with statistics, its dk/dv and dq backward kernels, the
 chunked cross-entropy). Before that it holds each backward kernel against
 its plain version at the training shapes.
 
+Then it streams live events into the served recommendation model, as the
+repo's ``bench_streaming_freshness`` does: a ``StreamUpdater`` tails a
+PIOLOG01 log written with the port's codec, folds each batch on the card
+through kernel K3 (row-block adam), archives each delta and ships it over
+a real socket to the QueryServer's ``POST /delta``, which builds the
+delta-applied engine beside the live one and swaps it in: 8 rounds of 25
+events (event-visible latency), then a backlog of 8,000 (32 micro-batches,
+updater events/s). It holds K3 (and its table-resident form) against the
+plain version, the trainer's state against a host replay, the answers after
+the stream against the plain CPU path (exact) and the exact answers
+(two-stage), and the replica's exactly-once checks.
+
 Every check failure raises: the script catches nothing, and a non-zero exit
 is the verdict. Its last line is one JSON object, ``{"ok": true, "device":
 {...}}``; the line before it names the card and its power limit; a
@@ -65,6 +77,7 @@ K2_RTOL, K2_ATOL = 3e-7, 1e-6
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
+FP32_OPS_PER_S = 67e12  # outside the tensor cores
 RECALL_FLOOR = 0.95  # tests/test_two_stage_retrieval.py
 N_USERS, N_ITEMS, RANK = 10_000, 1_000_000, 32
 FACTORY = ("incubator_predictionio_tpu_torch.templates.recommendation."
@@ -90,6 +103,21 @@ TRAIN_ROWS_1024, TRAIN_EPOCHS_1024 = 256, 1
 #: one training step with the kernels against one with the plain attention
 #: versions, on the card, from the same init: the loss, relative
 STEP_LOSS_RTOL = 1e-2
+#: K3's (R, D) checks: a fold micro-batch of 256 events at rank 32 touches
+#: at most 512 rows of D 33; the others are the reference's test shapes
+K3_SHAPES = ((1, 33), (37, 17), (265, 8), (512, 33), (4096, 33))
+K3_MAIN = (512, 33)
+#: the reference's band for its compiled adam engines
+#: (tests/test_sparse_update.py:62-70), if K3 is not bitwise
+K3_RTOL, K3_ATOL = 2e-5, 1e-7
+#: bench.py bench_streaming_freshness (:3147-3150, :3196): 8 freshness
+#: rounds of 25 events, a sustained backlog of 8,000, micro-batches of 256
+STREAM_ROUNDS, STREAM_ROUND_EVENTS, STREAM_BACKLOG, STREAM_MICRO = 8, 25, 8000, 256
+#: users of the backlog queried after the stream: all of them for the
+#: two-stage recall, the first 16 against the plain CPU path
+STREAM_EVAL_USERS, STREAM_CPU_USERS = 256, 16
+#: the learning rate of the served model's config (the reference's default)
+STREAM_LR = 3e-2
 OUT = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke.json"
 
 
@@ -619,13 +647,48 @@ async def serve_phase(name, variant_path, storage, ctx, body_fn):
     return result
 
 
-async def main_path(R, variant_path, storage, ctx, model_arrays, eval_users):
+def check_vs_cpu(name, towers_, users, bodies):
+    """The served top-10 of ``users`` (exact mode) against the port's plain
+    CPU path on the same towers (``(user, item, user_bias, item_bias,
+    mean)``): the CPU's top-12, so that an id may cross the 10th place only
+    through a near-tie (the two sum in different orders, fp32 roundoff);
+    every served score within 1e-4. Returns the counts of equal id sets and
+    equal orders."""
     from incubator_predictionio_tpu_torch.models.two_tower import (
         TwoTowerConfig,
         TwoTowerMF,
         TwoTowerModel,
     )
 
+    user, item, user_bias, item_bias, mean = towers_
+    cpu = TwoTowerModel(user_emb=user, item_emb=item, user_bias=user_bias,
+                        item_bias=item_bias, mean=mean,
+                        config=TwoTowerConfig(rank=RANK))
+    cpu.prepare_for_serving(quantize=True, host_max_elements=0,
+                            device="cpu", build_index=False)
+    ci, cs = TwoTowerMF.recommend_batch(cpu, np.asarray(users, np.int32), 12)
+    same_order = same_set = 0
+    for r, body in enumerate(bodies):
+        got = ids_of(body)
+        want = [f"i{i}" for i in ci[r][:10]]
+        cpu_score = dict(zip([f"i{i}" for i in ci[r]], cs[r].tolist()))
+        for iid in set(got) ^ set(want):
+            check(iid in cpu_score
+                  and abs(cpu_score[iid] - float(cs[r][9])) <= 1e-4,
+                  f"[{name}] top-10 differs from the CPU path for "
+                  f"u{users[r]} beyond a near-tie: {got} vs {want}")
+        for s in body["itemScores"]:
+            check(abs(s["score"] - cpu_score[s["item"]]) <= 1e-4,
+                  f"[{name}] score {s} vs CPU {cpu_score[s['item']]}")
+        same_set += set(got) == set(want)
+        same_order += got == want
+    log(f"[{name}] top-10 of {len(bodies)} users vs the plain CPU path: same "
+        f"ids for {same_set}/{len(bodies)}, same order for "
+        f"{same_order}/{len(bodies)}, scores within 1e-4")
+    return same_set, same_order
+
+
+async def main_path(R, variant_path, storage, ctx, model_arrays, eval_users):
     user, item, user_bias, item_bias = model_arrays
     lat = {}
 
@@ -664,32 +727,9 @@ async def main_path(R, variant_path, storage, ctx, model_arrays, eval_users):
         for body in b_single + bodies:
             check(len(body["itemScores"]) == 10, f"short answer {body}")
         # the port's plain CPU path on the same towers, for the 16 singles
-        cpu = TwoTowerModel(user_emb=user, item_emb=item, user_bias=user_bias,
-                            item_bias=item_bias, mean=3.0,
-                            config=TwoTowerConfig(rank=RANK))
-        cpu.prepare_for_serving(quantize=True, host_max_elements=0,
-                                device="cpu", build_index=False)
-        # top-12 on the CPU: an id may cross the 10th place only through a
-        # near-tie (the two sum in different orders, fp32 roundoff)
-        ci, cs = TwoTowerMF.recommend_batch(
-            cpu, np.asarray(eval_users[:16], np.int32), 12)
-        same_order = same_set = 0
-        for r, body in enumerate(b_single):
-            got = ids_of(body)
-            want = [f"i{i}" for i in ci[r][:10]]
-            cpu_score = dict(zip([f"i{i}" for i in ci[r]], cs[r].tolist()))
-            for iid in set(got) ^ set(want):
-                check(iid in cpu_score
-                      and abs(cpu_score[iid] - float(cs[r][9])) <= 1e-4,
-                      f"top-10 differs from the CPU path for u{eval_users[r]} "
-                      f"beyond a near-tie: {got} vs {want}")
-            for s in body["itemScores"]:
-                check(abs(s["score"] - cpu_score[s["item"]]) <= 1e-4,
-                      f"score {s} vs CPU {cpu_score[s['item']]}")
-            same_set += set(got) == set(want)
-            same_order += got == want
-        log(f"[exact] top-10 of 16 users vs the plain CPU path: same ids for "
-            f"{same_set}/16, same order for {same_order}/16, scores within 1e-4")
+        same_set, same_order = check_vs_cpu(
+            "exact", (user, item, user_bias, item_bias, 3.0),
+            eval_users[:16], b_single)
         window = await profiled_burst(session, url, payload)
         log_window("exact", window)
         return {"oracle": oracle, "cpu_same_ids": same_set,
@@ -1177,6 +1217,512 @@ async def deploy_trained(name, model, max_len, ctx, rng):
     return launches, res
 
 
+# -- phase 10: streaming live events into the served model ---------------------
+
+def adam_problem(r: int, d: int, seed: int):
+    """A stacked touched-row problem as the reference's tests make it
+    (tests/test_sparse_update.py:43): fresh rows (t 1) beside rows trained
+    up to 500 steps."""
+    rng = np.random.default_rng(seed)
+    rows = rng.normal(size=(r, d)).astype(np.float32)
+    m = (rng.normal(size=(r, d)) * 0.01).astype(np.float32)
+    v = np.abs(rng.normal(size=(r, d)) * 1e-4).astype(np.float32)
+    g = rng.normal(size=(r, d)).astype(np.float32)
+    t = rng.integers(1, 501, r).astype(np.int64)
+    t[:3] = 1
+    return rows, m, v, g, t
+
+
+def max_ulps(a: np.ndarray, b: np.ndarray) -> int:
+    """The largest distance between two float32 arrays in units of the
+    last place (0 when bitwise equal, -0.0 and 0.0 alike)."""
+    def ordered(x):
+        i = np.ascontiguousarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int(np.abs(ordered(a) - ordered(b)).max()) if a.size else 0
+
+
+def host_ms(fn, reps: int = 30, warm: int = 3) -> float:
+    """Median host wall time of one call (for host work, and for calls that
+    end in a device→host copy)."""
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def fused_adam_library(S, stack, t):
+    """K3's library yardstick: one ``torch._fused_adam_`` call over the R
+    rows as R tensors of [D], each with its own step count, so each row
+    gets its own bias corrections (the library takes them in fp32 on the
+    card, K3 from the host's double). Returns (the call on clones of the
+    stack — it updates them in place — and the result of its first call,
+    [3, R, D] as K3's)."""
+    rows, m, v, g = stack.clone().unbind(0)
+    steps = [torch.tensor(float(x), device=stack.device) for x in t]
+    views = [list(a.unbind(0)) for a in (rows, m, v, g)]
+
+    def call():
+        torch._fused_adam_(views[0], views[3], views[1], views[2], [], steps,
+                           lr=STREAM_LR, beta1=S.ADAM_B1, beta2=S.ADAM_B2,
+                           weight_decay=0.0, eps=S.ADAM_EPS, amsgrad=False,
+                           maximize=False)
+
+    call()
+    return call, torch.stack([rows, m, v]).cpu().numpy()
+
+
+def k3_case(S, r, d, seed, dev) -> dict:
+    """K3 against its plain version on the same tensors of the card: bitwise,
+    or the reference's band; and against the host fused pass."""
+    rows, m, v, g, t = adam_problem(r, d, seed)
+    bc1, bc2 = S.adam_bias_corrections(t)
+    stack = torch.from_numpy(np.stack([rows, m, v, g])).to(dev)
+    bc = torch.from_numpy(np.stack([bc1, bc2])).to(dev)
+    got = S.adam_rows(stack, bc, STREAM_LR).cpu().numpy()
+    want = S.adam_rows_reference(stack, bc, STREAM_LR).cpu().numpy()
+    host = np.stack(S.fused_adam_rows(rows, m, v, g, t, STREAM_LR))
+    check(bool(np.isfinite(got).all()), f"K3 R={r} D={d}: non-finite")
+    out = {"R": r, "D": d, "max_abs_err": float(np.abs(got - want).max()),
+           "max_ulps": max_ulps(got, want),
+           "bitwise_plain": got.tobytes() == want.tobytes(),
+           "max_ulps_host": max_ulps(got, host),
+           "bitwise_host": got.tobytes() == host.tobytes(),
+           "tolerance": {"rtol": K3_RTOL, "atol": K3_ATOL}}
+    check(out["bitwise_plain"]
+          or bool(np.allclose(got, want, rtol=K3_RTOL, atol=K3_ATOL)),
+          f"K3 R={r} D={d}: max abs err {out['max_abs_err']} "
+          f"({out['max_ulps']} ulps) beyond rtol {K3_RTOL} atol {K3_ATOL}")
+    if (r, d) == K3_MAIN:
+        out["ms"] = time_ms(lambda: S.adam_rows(stack, bc, STREAM_LR))
+        out["device_ms"] = device_ms(lambda: S.adam_rows(stack, bc, STREAM_LR),
+                                     "adam_rows_kernel")
+        out["plain_ms"] = time_ms(lambda: S.adam_rows_reference(stack, bc,
+                                                                STREAM_LR))
+        lib_call, lib_out = fused_adam_library(S, stack, t)
+        out["library_max_abs_err"] = float(np.abs(lib_out - got).max())
+        check(bool(np.allclose(lib_out, got, rtol=1e-5, atol=1e-6)),
+              f"torch._fused_adam_ is not K3's function: max abs err "
+              f"{out['library_max_abs_err']}")
+        out["library_ms"] = time_ms(lib_call)
+        out["library_device_ms"] = device_ms(lib_call, "multi_tensor_apply")
+        out["host_fused_ms"] = host_ms(
+            lambda: S.fused_adam_rows(rows, m, v, g, t, STREAM_LR))
+        # the device engine as the fold calls it: pack, one copy up, K3,
+        # one copy down
+        out["device_engine_ms"] = host_ms(
+            lambda: S.fused_adam_rows_device(rows, m, v, g, t, STREAM_LR,
+                                             device=dev))
+        # bytes: rows, m, v, g and the two corrections in, rows, m, v out;
+        # ~12 fp32 operations an element, outside the tensor cores
+        t_bytes = (7 * r * d + 2 * r) * 4 / HBM_BYTES_PER_S * 1e3
+        t_ops = 12.0 * r * d / FP32_OPS_PER_S * 1e3
+        out["bound_ms"] = max(t_bytes, t_ops)
+        out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"K3 adam_rows R={r:<5d} D={d:<3d} max_abs_err={out['max_abs_err']:.3e} "
+        f"ulps={out['max_ulps']} bitwise_plain={out['bitwise_plain']} "
+        f"bitwise_host={out['bitwise_host']}"
+        + (f" ms={out['ms']:.4f} device_ms={fmt(out['device_ms'])} "
+           f"plain_ms={out['plain_ms']:.4f} fused_adam_ms={out['library_ms']:.4f} "
+           f"fused_adam_device_ms={fmt(out['library_device_ms'])} "
+           f"(err {out['library_max_abs_err']:.3e}) "
+           f"host_fused_ms={out['host_fused_ms']:.4f} "
+           f"device_engine_ms={out['device_engine_ms']:.4f} "
+           f"bound_ms={out['bound_ms']:.6f} ({out['bound_by']})"
+           if "ms" in out else ""))
+    return out
+
+
+def k3b_check(S, dev) -> dict:
+    """K3's table-resident form (``fused_gather_adam_scatter``) on the card:
+    the touched rows equal K3 on the gathered rows, bit for bit; every
+    untouched row and the input tables are unchanged."""
+    rng = np.random.default_rng(7)
+    n, d, r = 100_000, RANK + 1, 512
+    tabs = [rng.normal(size=(n, d)).astype(np.float32),
+            (rng.normal(size=(n, d)) * 0.01).astype(np.float32),
+            np.abs(rng.normal(size=(n, d)) * 1e-4).astype(np.float32)]
+    idx = np.sort(rng.choice(n, r, replace=False))
+    g = rng.normal(size=(r, d)).astype(np.float32)
+    bc1, bc2 = S.adam_bias_corrections(rng.integers(1, 501, r))
+    T = [torch.from_numpy(a).to(dev) for a in (*tabs, idx, g, bc1, bc2)]
+    new = S.fused_gather_adam_scatter(*T, lr=STREAM_LR)
+    i = T[3]
+    direct = S.adam_rows(torch.stack([T[0][i], T[1][i], T[2][i], T[4]]),
+                         torch.stack([T[5], T[6]]), STREAM_LR)
+    keep = torch.ones(n, dtype=torch.bool, device=dev)
+    keep[i] = False
+    for k in range(3):
+        check(torch.equal(new[k][i], direct[k]),
+              "K3b touched rows differ from K3 on the gathered rows")
+        check(torch.equal(new[k][keep], T[k][keep]), "K3b moved an untouched row")
+        check(np.array_equal(T[k].cpu().numpy(), tabs[k]), "K3b mutated its input")
+    log(f"K3b fused_gather_adam_scatter N={n} D={d} R={r}: touched rows bitwise "
+        "K3's, untouched rows and inputs unchanged")
+    return {"N": n, "D": d, "R": r, "touched_bitwise_k3": True,
+            "untouched_unchanged": True}
+
+
+def k3_checks(S, dev):
+    cases = [k3_case(S, r, d, 500 + i, dev) for i, (r, d) in enumerate(K3_SHAPES)]
+    return cases, k3b_check(S, dev)
+
+
+def live_events(rng, n: int):
+    """bench.py:3159-3169: ``rate`` events of random users and items, rating
+    1 + 4·U(0, 1), stamped now."""
+    import datetime as dt
+
+    from incubator_predictionio_tpu_torch.data.event import DataMap, Event
+
+    now = dt.datetime.now(dt.timezone.utc)
+    return [Event(event="rate", entity_type="user",
+                  entity_id=f"u{rng.integers(0, N_USERS)}",
+                  target_entity_type="item",
+                  target_entity_id=f"i{rng.integers(0, N_ITEMS)}",
+                  properties=DataMap({"rating": float(1 + 4 * rng.random())}),
+                  event_time=now)
+            for _ in range(n)]
+
+
+@contextlib.contextmanager
+def gc_pauses():
+    """The process's garbage collections inside the block, through
+    ``gc.callbacks``: a list, filled as they happen, of (generation, start,
+    seconds) on the ``time.perf_counter`` clock."""
+    pauses, started = [], {}
+
+    def hook(phase, info):
+        if phase == "start":
+            started["t"] = time.perf_counter()
+        elif "t" in started:
+            t0 = started.pop("t")
+            pauses.append((info["generation"], t0, time.perf_counter() - t0))
+
+    gc.callbacks.append(hook)
+    try:
+        yield pauses
+    finally:
+        gc.callbacks.remove(hook)
+
+
+def gc_record(pauses, lo=-np.inf, hi=np.inf) -> dict:
+    """Count and seconds, by generation, of the collections that started in
+    [lo, hi]."""
+    out = {}
+    for gen, t0, s in pauses:
+        if lo <= t0 <= hi:
+            n, total = out.get(gen, (0, 0.0))
+            out[gen] = (n + 1, total + s)
+    return {f"gen{g}": {"n": n, "s": s} for g, (n, s) in sorted(out.items())}
+
+
+def replay_check(up, folds) -> dict:
+    """The trainer's state after the stream against a replay of the same
+    events, fold by fold, into a CPU trainer on the host fused pass
+    (``PIO_STREAM_FUSED=1``): the same keys, step counts exact, rows and
+    moments bitwise (or within K3's band)."""
+    from incubator_predictionio_tpu_torch.streaming.trainer import DeltaTrainer
+
+    tr = up.trainer
+    (ue, ub), (ie, ib) = tr._base["u"], tr._base["i"]
+    os.environ["PIO_STREAM_FUSED"] = "1"
+    try:
+        rep = DeltaTrainer(ue, ub, ie, ib, tr.mean, tr.user_index,
+                           tr.item_index, learning_rate=tr.lr, reg=tr.reg,
+                           event_names=tr.event_names,
+                           default_values=tr.default_values,
+                           micro_batch=tr.micro_batch, device="cpu")
+        for events in folds:
+            rep.fold(events)
+    finally:
+        del os.environ["PIO_STREAM_FUSED"]
+    check(set(rep.rows) == set(tr.rows), "replay touched other rows")
+    check(rep.t == tr.t, "replay step counts differ")
+    ulps = bitwise = 0
+    for key in tr.rows:
+        for a, b in ((tr.rows, rep.rows), (tr.m, rep.m), (tr.v, rep.v)):
+            bitwise += a[key].tobytes() == b[key].tobytes()
+            ulps = max(ulps, max_ulps(a[key], b[key]))
+            check(bool(np.allclose(a[key], b[key], rtol=K3_RTOL, atol=K3_ATOL)),
+                  f"trainer row {key} beyond K3's band of the host replay")
+    n = 3 * len(tr.rows)
+    log(f"[stream] trainer state vs a host replay (mode 1): {len(tr.rows)} rows, "
+        f"step counts exact, {bitwise}/{n} arrays bitwise, max {ulps} ulps")
+    return {"rows": len(tr.rows), "arrays_bitwise": bitwise, "arrays": n,
+            "max_ulps": ulps}
+
+
+async def stream_phase(R, S, variant_path, storage, ctx, tmp):
+    """Stream live events into the served model (bench_streaming_freshness
+    at the retrieval_scale width), with every count at 0 just before and
+    read just after; returns (launches, record)."""
+    import dataclasses
+
+    import aiohttp
+
+    from incubator_predictionio_tpu_torch.native import format as pfmt
+    from incubator_predictionio_tpu_torch.server.query_server import (
+        QueryServer,
+        ServerConfig,
+    )
+    from incubator_predictionio_tpu_torch.streaming import delta as deltas
+    from incubator_predictionio_tpu_torch.streaming.updater import (
+        StreamUpdater,
+        UpdaterConfig,
+        load_base_model,
+    )
+
+    check("PIO_STREAM_FUSED" not in os.environ,
+          "PIO_STREAM_FUSED is set: the phase runs the default (auto)")
+    log_path = os.path.join(tmp, "live.piolog")
+    with open(log_path, "wb") as f:
+        f.write(pfmt.MAGIC)
+    interner, written = pfmt.Interner(), [0]
+
+    def append(events):
+        with open(log_path, "ab") as f:
+            for e in events:
+                written[0] += 1
+                f.write(pfmt.encode_event(e, f"ev{written[0]:010d}", interner))
+
+    rng = np.random.default_rng(5)
+    # the events of every round (the last one profiled) and the backlog,
+    # drawn in the order they are appended
+    rounds = [live_events(rng, STREAM_ROUND_EVENTS)
+              for _ in range(STREAM_ROUNDS + 1)]
+    backlog = live_events(rng, STREAM_BACKLOG)
+    users = list(dict.fromkeys(int(e.entity_id[1:]) for e in backlog))
+    users = users[:STREAM_EVAL_USERS]
+    payloads = [{"user": f"u{u}", "num": 10} for u in users]
+    loop = asyncio.get_running_loop()
+    R.reset_launches()
+    S.reset_launches()
+    t0 = time.perf_counter()
+    server = QueryServer(ServerConfig(engine_variant=variant_path, ip="127.0.0.1",
+                                      port=free_port()), storage=storage, ctx=ctx)
+    torch.cuda.synchronize()
+    rec = {"deploy_s": time.perf_counter() - t0}
+    await server.start()
+    url = f"http://127.0.0.1:{server.config.port}"
+    try:
+        t0 = time.perf_counter()
+        model, inst, names, defaults = await loop.run_in_executor(
+            None, lambda: load_base_model(variant_path, storage, ctx))
+        up = StreamUpdater(
+            UpdaterConfig(state_dir=os.path.join(tmp, "stream-state"),
+                          feed_path=log_path, replicas=(url,),
+                          batch_events=16_384, micro_batch=STREAM_MICRO),
+            model, inst, event_names=names, default_values=defaults, ctx=ctx)
+        rec["updater_setup_s"] = time.perf_counter() - t0
+        check(up.trainer.device.type == "cuda", f"trainer on {up.trainer.device}")
+        # the start-up heap (torch, the server, the model, the earlier
+        # phases' survivors) leaves the collector's reach, as a long-lived
+        # updater's would: otherwise one full collection, ~0.2 s on the
+        # H100 machine's host, lands wherever the traffic happens to
+        # trigger it (PERF.md §6)
+        gc.collect()
+        gc.freeze()
+        visible = []
+        # where a round's time goes on the updater's side: the fold, the
+        # ships (the replica's /delta: copy, prepare on the card, swap) and
+        # the commit; the rest of run_once is the archive, the updater's
+        # own delta apply and the guard
+        stages: dict[str, list] = {"run_once": [], "fold": [], "ship": [],
+                                   "commit": []}
+        starts: dict[str, list] = {k: [] for k in stages}
+
+        def timed(name, fn):
+            def wrapper(*a, **k):
+                t0 = time.perf_counter()
+                starts[name].append(t0)
+                try:
+                    return fn(*a, **k)
+                finally:
+                    stages[name].append(time.perf_counter() - t0)
+            return wrapper
+
+        up.trainer.fold = timed("fold", up.trainer.fold)
+        up.ship_all = timed("ship", up.ship_all)
+        up._commit = timed("commit", up._commit)
+        run_once = timed("run_once", up.run_once)
+        async with aiohttp.ClientSession() as s:
+            async def health():
+                async with s.get(f"{url}/health") as r:
+                    return (await r.json())["deployment"]["streaming"]
+
+            async def answers():
+                """The backlog users' top-10, exact (K1) then two-stage
+                (K2), and the two-stage recall@10 against the exact."""
+                out = {}
+                for mode in ("exact", "auto"):
+                    with retrieval_mode(mode):
+                        bodies, lat = [], []
+                        for lo in range(0, len(payloads), 64):
+                            b, ls = await post_all(
+                                s, f"{url}/queries.json",
+                                payloads[lo:lo + 64], True)
+                            bodies += b
+                            lat += ls
+                        out[mode] = (bodies, lat)
+                hits = sum(len(set(ids_of(a)) & set(ids_of(b)))
+                           for a, b in zip(out["auto"][0], out["exact"][0]))
+                return out, hits / (10 * len(payloads))
+
+            _, rec["recall_before_stream"] = await answers()
+            for batch in rounds[:STREAM_ROUNDS]:
+                t0 = time.perf_counter()
+                await loop.run_in_executor(None, append, batch)
+                out = await loop.run_in_executor(None, run_once)
+                check(out["status"] == "applied", f"round: {out}")
+                check((await health())["lastDeltaSeq"] == out["toSeq"],
+                      f"the replica did not reach {out['toSeq']}")
+                visible.append(time.perf_counter() - t0)
+            # one more round under the profiler: the device's busy share of
+            # a delta's whole path (kept out of the event-visible numbers)
+            batch = rounds[-1]
+            with cuda_profile() as by_name:
+                t0 = time.perf_counter()
+                await loop.run_in_executor(None, append, batch)
+                out = await loop.run_in_executor(None, up.run_once)
+                check(out["status"] == "applied", f"profiled round: {out}")
+                check((await health())["lastDeltaSeq"] == out["toSeq"],
+                      "the replica did not reach the profiled round's delta")
+                wall = time.perf_counter() - t0
+            rec["profiled_round"] = busy_record(by_name, wall, 8)
+            log_window("stream round", {"queries": STREAM_ROUND_EVENTS,
+                                        **rec["profiled_round"]})
+            k3_rounds = S.adam_rows.launches
+            await loop.run_in_executor(None, append, backlog)
+            with gc_pauses() as pauses:
+                t0 = time.perf_counter()
+                out = await loop.run_in_executor(None, up.run_once)
+                sustained_s = time.perf_counter() - t0
+            check(out["status"] == "applied" and out["events"] == STREAM_BACKLOG,
+                  f"backlog: {out}")
+            check((await health())["lastDeltaSeq"] == out["toSeq"],
+                  "the replica did not reach the backlog's delta")
+            phases = dict(up.trainer.last_phases)
+            # the collections of the whole run_once, and of the fold's
+            # assemble phase (which opens the fold)
+            fold0 = starts["fold"][-1]
+            gc_backlog = {"run_once": gc_record(pauses),
+                          "assemble": gc_record(pauses, fold0,
+                                                fold0 + phases["assemble"])}
+            k3_backlog = S.adam_rows.launches - k3_rounds
+            check(k3_backlog == -(-STREAM_BACKLOG // STREAM_MICRO),
+                  f"K3 launched {k3_backlog} times for the backlog")
+            # exactly-once: a re-ship dedupes, a broken chain is refused
+            last = deltas.list_archived(up.config.state_dir)[-1][2]
+            with open(last, "rb") as f:
+                payload = f.read()
+            ans = await loop.run_in_executor(None, up.transport.ship, url, payload)
+            check(ans.get("status") == "duplicate", f"re-ship answered {ans}")
+            d = deltas.load_delta(last)
+            bad = deltas.encode_delta(dataclasses.replace(
+                d, from_seq=d.from_seq + 1, to_seq=d.to_seq + 1))
+            ans2 = await loop.run_in_executor(None, up.transport.ship, url, bad)
+            check(ans2.get("httpStatus") == 409
+                  and ans2.get("reason") == "out-of-order",
+                  f"a delta off the chain answered {ans2}")
+            st = await health()
+            check(st["applied"] == STREAM_ROUNDS + 2 and st["deduped"] == 1,
+                  f"replica counts {st}")
+            served = server.deployed.models[0]
+            mf, umf = served.mf, up.model.mf
+            for name in ("user_emb", "item_emb", "user_bias", "item_bias"):
+                check(np.array_equal(getattr(mf, name), getattr(umf, name)),
+                      f"served {name} differs from the updater's applied model")
+            replay = replay_check(up, [*rounds, backlog])
+            touched_users = sorted(i for k, i in up.trainer.rows if k == "u")
+            touched_items = {f"i{i}" for k, i in up.trainer.rows if k == "i"}
+            info = served.serving_info()
+            check(info["retrieval_mode"] == "two_stage"
+                  and (info["index"] or {}).get("coarse_device", "").startswith("cuda"),
+                  f"not two-stage on the card: {info}")
+            k1 = R.score_catalog_quantized.launches
+            k2 = R.score_centroids_quantized.launches
+            out, recall = await answers()
+            (exact, lat_exact), (two, lat_two) = out["exact"], out["auto"]
+            check(R.score_catalog_quantized.launches > k1,
+                  "K1 did not launch on the exact queries after the stream")
+            check(R.score_centroids_quantized.launches > k2,
+                  "K2 did not launch on the two-stage queries after the stream")
+            same_set, same_order = check_vs_cpu(
+                "stream-exact", (umf.user_emb, umf.item_emb, umf.user_bias,
+                                 umf.item_bias, umf.mean),
+                users[:STREAM_CPU_USERS], exact[:STREAM_CPU_USERS])
+            check(recall >= RECALL_FLOOR, f"recall@10 {recall} < {RECALL_FLOOR}")
+            seen = 0
+            for u, body in zip(users, two):
+                for x in body["itemScores"]:
+                    if x["item"] in touched_items:
+                        j = int(x["item"][1:])
+                        want = float(umf.user_emb[u] @ umf.item_emb[j]
+                                     + umf.item_bias[j] + umf.user_bias[u]
+                                     + umf.mean)
+                        check(abs(x["score"] - want) <= 1e-4,
+                              f"touched item {x} vs its current row's {want}")
+                        seen += 1
+            ivf = mf._ivf
+            stale = {f"i{i}" for i in ivf.stale_ids.tolist()}
+            check(stale == touched_items, "the IVF overlay does not hold "
+                  "exactly the touched items")
+            check(np.array_equal(ivf.stale_emb, umf.item_emb[ivf.stale_ids])
+                  and np.array_equal(ivf.stale_bias, umf.item_bias[ivf.stale_ids]),
+                  "the IVF overlay rows are not the current rows")
+            log(f"[stream] two-stage after the stream: recall@10 {recall:.4f} vs "
+                f"exact over {len(users)} backlog users (floor {RECALL_FLOOR}; "
+                f"{rec['recall_before_stream']:.4f} before the stream); {seen} "
+                f"touched items served, each "
+                f"at its current row's score; overlay holds {len(stale)} rows")
+    finally:
+        gc.unfreeze()
+        await server.shutdown()
+    launches = {"score_catalog_quantized": R.score_catalog_quantized.launches,
+                "score_centroids_quantized": R.score_centroids_quantized.launches,
+                "adam_rows": S.adam_rows.launches}
+    for name, count in launches.items():
+        check(count > 0, f"[stream] {name} never launched in the phase")
+    check(launches["adam_rows"] >= STREAM_ROUNDS + 1 + STREAM_BACKLOG // STREAM_MICRO,
+          f"K3 launched {launches['adam_rows']} times")
+    apply_ms = [t * 1e3 for t in server.delta_apply_s]
+    rec.update({
+        "event_visible_ms": {"n": len(visible), "p50": pct(visible, 50),
+                             "p99": pct(visible, 99), "all": [t * 1e3 for t in visible]},
+        "updater_events_per_sec": STREAM_BACKLOG / sustained_s,
+        "backlog_run_once_s": sustained_s, "backlog_fold_phases_s": phases,
+        "backlog_gc": gc_backlog, "backlog_k3_launches": k3_backlog,
+        "delta_apply_ms": {"n": len(apply_ms), "p50": float(np.median(apply_ms)),
+                           "max": max(apply_ms), "all": apply_ms},
+        "touched_users": len(touched_users), "touched_items": len(touched_items),
+        "replay": replay, "exact_cpu_same_ids": same_set,
+        "exact_cpu_same_order": same_order, "two_stage_recall_at_10": recall,
+        "touched_items_served": seen,
+        "round_stages_ms": {k: {"p50": pct(v[:STREAM_ROUNDS], 50),
+                                "max": pct(v[:STREAM_ROUNDS], 100)}
+                            for k, v in stages.items()},
+        "latency_ms": {"exact_p50": pct(lat_exact, 50), "two_stage_p50": pct(lat_two, 50)},
+        "launches": launches})
+    v = rec["event_visible_ms"]
+    log(f"[stream] event visible p50 {v['p50']:.1f} ms p99 {v['p99']:.1f} ms "
+        f"({STREAM_ROUNDS} rounds of {STREAM_ROUND_EVENTS}); backlog of "
+        f"{STREAM_BACKLOG}: {rec['updater_events_per_sec']:.1f} events/s "
+        f"(run_once {sustained_s:.3f} s; fold phases "
+        + ", ".join(f"{k} {t:.3f} s" for k, t in phases.items())
+        + f"; {k3_backlog} K3 launches; garbage collections {gc_backlog}); "
+        "a round's stages p50 (ms): "
+        + ", ".join(f"{k} {v['p50']:.1f}" for k, v in rec["round_stages_ms"].items())
+        + "; delta apply on the replica p50 "
+        f"{rec['delta_apply_ms']['p50']:.1f} ms max {rec['delta_apply_ms']['max']:.1f} ms; "
+        f"launches {launches}")
+    return launches, rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1188,6 +1734,7 @@ def main() -> int:
     from incubator_predictionio_tpu_torch.ops import retrieval as R
     from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext
     from incubator_predictionio_tpu_torch.ops import attention as A
+    from incubator_predictionio_tpu_torch.ops import sparse_update as S
     from incubator_predictionio_tpu_torch.serving import ann
 
     # fp32 matmuls stay fp32 (the plain versions and the library yardstick)
@@ -1208,7 +1755,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all()  # one nvcc a source, all started together
     libs = []
-    for n in ("retrieval", "attention"):
+    for n in ("retrieval", "attention", "sparse_update"):
         _build.library(n)
         libs.append(_build.library_path(n).name)
     build_s = time.perf_counter() - t0
@@ -1226,6 +1773,7 @@ def main() -> int:
     k1, k2 = kernel_checks(R, user, item, item_bias, ivf, dev)
     k4, k5 = attention_checks(A)
     k4b, k5b = attention_bwd_checks(A)
+    k3, k3b = k3_checks(S, dev)
 
     # persist: convert → RecModel (index attached) → blob → memory storage
     rec = convert.rec_model_from_arrays(
@@ -1239,6 +1787,14 @@ def main() -> int:
         launches, main = asyncio.run(main_path(
             R, variant_path, storage, ctx,
             (user, item, user_bias, item_bias), eval_users))
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the stream phase reuses the persisted model and its IVF index
+        with retrieval_mode("auto"):
+            counts, main["stream"] = asyncio.run(stream_phase(
+                R, S, variant_path, storage, ctx, tmp))
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
     del user, item, user_bias, item_bias, ivf, storage
     gc.collect()
     torch.cuda.empty_cache()
@@ -1278,7 +1834,7 @@ def main() -> int:
                 "bound_by": main_case["bound_by"],
                 "library_ms": main_case["library_ms"],
                 "shape": {k: main_case[k] for k in main_case
-                          if k in ("B", "H", "L", "N", "C", "D")}}
+                          if k in ("B", "H", "L", "N", "C", "R", "D")}}
 
     def bwd_entry(name, replaces, cases, grads=("dq", "dk", "dv")):
         main_case = cases[0]  # the training shape
@@ -1295,6 +1851,10 @@ def main() -> int:
         entry("score_centroids_quantized", "retrieval.cu",
               "incubator_predictionio_tpu/ops/retrieval.py:188", k2,
               next(c for c in k2 if c["B"] == 64)),
+        {**entry("adam_rows", "sparse_update.cu",
+                 "incubator_predictionio_tpu/ops/sparse_update.py:93", k3,
+                 next(c for c in k3 if (c["R"], c["D"]) == K3_MAIN)),
+         "host_fused_ms": next(c for c in k3 if "ms" in c)["host_fused_ms"]},
         entry("causal_mha_small_head", "attention.cu",
               "incubator_predictionio_tpu/ops/attention.py:122", k4,
               next(c for c in k4 if c["B"] == 64)),
@@ -1314,6 +1874,7 @@ def main() -> int:
               "cuda": torch.version.cuda, "build_s": build_s,
               "k1_cases": k1, "k2_cases": k2, "k4_cases": k4, "k5_cases": k5,
               "k4_bwd_cases": k4b, "k5_bwd_cases": k5b,
+              "k3_cases": k3, "k3b": k3b,
               "main_path": main, "kernels": kernels,
               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
               "wall_s": time.perf_counter() - t_start}

@@ -8,9 +8,12 @@ numpy, with the id lists of the model's BiMaps in index order:
   (``mf.user_emb``, ``item_emb``, ``user_bias``, ``item_bias``, ``mean``,
   ``config.rank``) → the port's ``RecModel``;
 - :func:`transformer_model_from_params`: the reference
-  ``TransformerModel``'s parameter pytree → the port's ``TransformerModel``.
+  ``TransformerModel``'s parameter pytree → the port's ``TransformerModel``;
+- :func:`trainer_state_from_reference`: the reference streaming
+  ``DeltaTrainer.to_state()`` → a state the port's ``DeltaTrainer.load_state``
+  takes, so a stream continues in the port where it stopped.
 
-Both packages then serve the same model.
+Both packages then serve (and stream into) the same model.
 """
 
 from __future__ import annotations
@@ -40,9 +43,12 @@ def rec_model_from_arrays(
     rank: int,
     user_ids: Sequence[str],
     item_ids: Sequence[str],
+    learning_rate: float = 3e-2,
+    reg: float = 1e-4,
 ) -> RecModel:
     """The port's RecModel over the given towers; ``user_ids[i]`` names row
-    ``i`` of ``user_emb`` (likewise items)."""
+    ``i`` of ``user_emb`` (likewise items). ``learning_rate`` and ``reg``
+    are the reference config's, which the streaming fold trains with."""
     user_emb = np.ascontiguousarray(user_emb, np.float32)
     item_emb = np.ascontiguousarray(item_emb, np.float32)
     user_bias = np.ascontiguousarray(user_bias, np.float32)
@@ -57,7 +63,9 @@ def rec_model_from_arrays(
     mf = TwoTowerModel(
         user_emb=user_emb, item_emb=item_emb,
         user_bias=user_bias, item_bias=item_bias,
-        mean=float(mean), config=TwoTowerConfig(rank=int(rank)),
+        mean=float(mean),
+        config=TwoTowerConfig(rank=int(rank), learning_rate=float(learning_rate),
+                              reg=float(reg)),
     )
     return RecModel(
         mf,
@@ -114,3 +122,33 @@ def transformer_model_from_params(params: dict, item_ids: Sequence[str],
          "ln_f": norm(params["ln_f"]), "layers": layers},
         BiMap({iid: j + 1 for j, iid in enumerate(item_ids)}),
         cfg)
+
+
+def trainer_state_from_reference(state: dict) -> dict:
+    """The reference ``DeltaTrainer.to_state()`` (``rows``, ``m``, ``v``:
+    ``{(kind, index): [rank+1] f32}``; ``t``: ``{key: int}``; ``n_folded``;
+    ``coldstart``: its ``ColdStartBuckets`` or None) → the dict the port's
+    ``DeltaTrainer.load_state`` takes. Arrays are copied as float32; the
+    cold-start buckets, a class of the other package, are rebuilt from
+    their ``user_rows``, ``item_rows`` and ``seed``."""
+    from incubator_predictionio_tpu_torch.streaming.coldstart import (
+        ColdStartBuckets,
+    )
+
+    def rows(d: dict) -> dict:
+        return {(str(k[0]), int(k[1])): np.array(v, np.float32, copy=True)
+                for k, v in d.items()}
+
+    cs = state.get("coldstart")
+    if cs is not None:
+        cs = ColdStartBuckets(
+            user_rows=np.array(cs.user_rows, np.float32, copy=True),
+            item_rows=np.array(cs.item_rows, np.float32, copy=True),
+            seed=int(cs.seed))
+    return {
+        "rows": rows(state["rows"]), "m": rows(state["m"]),
+        "v": rows(state["v"]),
+        "t": {(str(k[0]), int(k[1])): int(t) for k, t in state["t"].items()},
+        "n_folded": int(state["n_folded"]),
+        "coldstart": cs,
+    }

@@ -14,7 +14,9 @@ paths, chosen as in the reference:
 - with two-stage retrieval enabled (``serving/ann.py``) the IVF index
   prunes first, and its coarse stage runs kernel K2 on a CUDA device.
 
-Training (``fit``), streaming row updates and sharded serving come in later
+Streaming deltas land through :meth:`TwoTowerModel.with_row_updates`
+(build-beside: a NEW model over copied tables, the IVF index overlaid with
+the moved rows). Training (``fit``) and sharded serving come in later
 slices (ROADMAP.md).
 
 Tie order: ``lax.top_k`` breaks ties toward the lowest index and
@@ -39,10 +41,13 @@ DeviceLike = Union[str, torch.device, None]
 
 @dataclasses.dataclass(frozen=True)
 class TwoTowerConfig:
-    """Serving needs the rank only; the reference's training fields come
-    with the training slice."""
+    """Serving needs the rank; the streaming fold reads the learning rate
+    and the L2 weight. The reference's other training fields come with the
+    training slice."""
 
     rank: int = 32                  # ALS "rank" (ALSAlgorithm.scala params)
+    learning_rate: float = 3e-2
+    reg: float = 1e-4               # ALS "lambda"
 
 
 #: Micro-batch bucket ladder for serving: every request batch is padded up to
@@ -249,6 +254,90 @@ class TwoTowerModel:
     def n_users(self) -> int:
         return self.user_emb.shape[0]
 
+    @property
+    def prepared(self) -> bool:
+        """Whether :meth:`prepare_for_serving` has built the scoring state."""
+        return (self._device_items is not None
+                or self._device_items_q is not None
+                or self._host_items is not None)
+
+    def with_row_updates(
+        self,
+        user_rows: Optional[dict] = None,
+        item_rows: Optional[dict] = None,
+    ) -> "TwoTowerModel":
+        """A NEW model with the given fused ``[rank+1]`` rows scattered in
+        — the streaming delta-apply primitive.
+
+        Build-beside semantics: the receiver (possibly the live serving
+        model) is never mutated; the tables are copied, rows assigned, and
+        the caller swaps the new model in. The new model is unprepared:
+        serving it runs :meth:`prepare_for_serving` again, which uploads
+        (and on a CUDA device quantizes) the whole catalog anew.
+
+        Item rows that moved are overlaid on the IVF index
+        (:meth:`serving.ann.IVFIndex.with_updated_rows`); past
+        ``PIO_STREAM_STALE_REBUILD_FRAC`` of the catalog stale, the index is
+        re-clustered from the updated table instead."""
+        if self.user_emb is None:
+            raise NotImplementedError(
+                "delta apply on a sharded model comes with the sharding "
+                "slice of the PyTorch port (ROADMAP.md Queue 1, item 4)")
+        k = self.config.rank
+        new = TwoTowerModel(
+            user_emb=np.array(self.user_emb, np.float32, copy=True),
+            item_emb=np.array(self.item_emb, np.float32, copy=True),
+            user_bias=np.array(self.user_bias, np.float32, copy=True),
+            item_bias=np.array(self.item_bias, np.float32, copy=True),
+            mean=self.mean,
+            config=self.config,
+        )
+
+        def scatter(emb, bias, rows, n):
+            for idx, row in rows.items():
+                idx = int(idx)
+                if not (0 <= idx < n):
+                    raise ValueError(f"delta row index {idx} outside "
+                                     f"[0, {n})")
+                row = np.asarray(row, np.float32)
+                if row.shape != (k + 1,):
+                    raise ValueError(
+                        f"delta row shape {row.shape} != ({k + 1},)")
+                emb[idx] = row[:k]
+                bias[idx] = row[k]
+
+        if user_rows:
+            scatter(new.user_emb, new.user_bias, user_rows, new.n_users)
+        if item_rows:
+            scatter(new.item_emb, new.item_bias, item_rows, new.n_items)
+        if self._ivf is not None:
+            if item_rows:
+                new._ivf = self._updated_index(new, item_rows)
+            else:
+                new._ivf = self._ivf  # shared read-only: nothing moved
+        return new
+
+    def _updated_index(self, new: "TwoTowerModel", item_rows: dict):
+        """Overlay the moved item rows on the shared IVF index, or rebuild
+        past the staleness threshold."""
+        import os
+
+        from incubator_predictionio_tpu_torch.serving import ann
+
+        ids = np.asarray(sorted(int(i) for i in item_rows), np.int64)
+        rows = np.stack([np.asarray(item_rows[int(i)], np.float32)
+                         for i in ids])
+        k = self.config.rank
+        overlaid = self._ivf.with_updated_rows(ids, rows[:, :k], rows[:, k])
+        frac = float(os.environ.get("PIO_STREAM_STALE_REBUILD_FRAC", "0.25"))
+        if overlaid.stale_fraction > frac and ann.two_stage_enabled(
+                new.n_items):
+            return ann.build_ivf(
+                np.asarray(new.item_emb, np.float32),
+                np.asarray(new.item_bias, np.float32),
+                key=ann.build_key(new.n_items))
+        return overlaid
+
     def serving_info(self) -> dict:
         """Which serving path this model runs (status-page observability)."""
         if self._device_items_q is not None:
@@ -310,8 +399,7 @@ class TwoTowerMF:
         if num <= 0:
             return (np.zeros((len(user_idx), 0), np.int64),
                     np.zeros((len(user_idx), 0), np.float32))
-        if (model._device_items is None and model._device_items_q is None
-                and model._host_items is None):
+        if not model.prepared:
             model.prepare_for_serving()
         if row_mask is not None and row_mask.shape != (len(user_idx), model.n_items):
             raise ValueError(

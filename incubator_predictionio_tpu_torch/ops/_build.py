@@ -24,7 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C signatures of every exported function, per source file
 SIGNATURES: dict[str, dict[str, tuple[list, object]]] = {
     "attention": {
@@ -45,6 +45,12 @@ SIGNATURES: dict[str, dict[str, tuple[list, object]]] = {
         "pio_score_catalog": ([_P] * 7 + [_I] * 3 + [_P], _I),
         # q_q, q_scales, cent_q, cent_scales, cent_bias, out, B, C, D, stream
         "pio_score_centroids": ([_P] * 6 + [_I] * 3 + [_P], _I),
+    },
+    "sparse_update": {
+        "pio_error_string": ([_I], ctypes.c_char_p),
+        # in [4, R, D], bc [2, R], out [3, R, D], R, D, lr, b1, 1 - b1, b2,
+        # 1 - b2, eps, stream
+        "pio_adam_rows": ([_P] * 3 + [_I] * 2 + [_F] * 6 + [_P], _I),
     },
 }
 

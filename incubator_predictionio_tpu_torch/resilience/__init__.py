@@ -1,0 +1,2 @@
+"""Counterpart of ``incubator_predictionio_tpu/resilience``: the WAL frame
+format the streaming dead letters use."""

@@ -1,12 +1,14 @@
 """Engine (query) server — the ``pio deploy`` surface.
 
 Counterpart of ``incubator_predictionio_tpu/server/query_server.py``
-(workflow/CreateServer.scala:106-695), cut to the deploy → query path:
-:class:`ServerConfig`, :class:`DeployedEngine` (prepare + warmup + predict /
-batch predict), :class:`MicroBatcher`, :func:`load_deployed_engine` and
-:class:`QueryServer` with ``GET /``, ``GET /health`` and
-``POST /queries.json``. Circuit breakers, admission control, reload,
-streaming deltas, tenancy and plugins come in later slices (ROADMAP.md).
+(workflow/CreateServer.scala:106-695), cut to the deploy → query path and
+streaming deltas: :class:`ServerConfig`, :class:`DeployedEngine` (prepare +
+warmup + predict / batch predict), :class:`MicroBatcher`,
+:func:`load_deployed_engine` and :class:`QueryServer` with ``GET /``,
+``GET /health``, ``POST /queries.json`` and ``POST /delta``. Circuit
+breakers, admission control, reload (with the smoke gate, probation and
+rollback that the reference's ``/delta`` shares with it), tenancy and
+plugins come in later slices (ROADMAP.md).
 
 Models become device-resident once at deploy: ``prepare_for_serving(ctx)``
 receives the server's :class:`DeviceContext`, so the served tables land on
@@ -16,6 +18,7 @@ its device (the reference's models ask JAX for the platform instead).
 from __future__ import annotations
 
 import asyncio
+import collections
 import dataclasses
 import json
 import logging
@@ -47,6 +50,10 @@ from incubator_predictionio_tpu_torch.utils.serialization import (
 
 logger = logging.getLogger(__name__)
 
+#: largest streaming delta body ``POST /delta`` reads; every other route
+#: keeps aiohttp's 1 MiB default
+DELTA_MAX_BYTES = 64 << 20
+
 #: query-semantic rejections: the query is bad, not the engine (→ 400)
 _BAD_QUERY = (TypeError, ValueError, KeyError)
 
@@ -59,6 +66,7 @@ class ServerConfig:
     ip: str = "0.0.0.0"
     port: int = 8000
     max_batch: int = 64  # micro-batch cap for /queries.json (1 = no batching)
+    server_access_key: Optional[str] = None  # guards /delta
 
 
 class DeployedEngine:
@@ -72,6 +80,7 @@ class DeployedEngine:
         models: list[Any],
         ctx: DeviceContext,
         max_batch: int = 64,
+        warmup: bool = True,
     ):
         self.engine = engine
         self.engine_params = engine_params
@@ -83,7 +92,8 @@ class DeployedEngine:
         self.query_cls = next(
             (a.query_class() for a in algorithms if a.query_class() is not None), None
         )
-        self.warmup(max_batch)
+        if warmup:
+            self.warmup(max_batch)
 
     @staticmethod
     def _prepare(model, ctx: DeviceContext):
@@ -255,9 +265,11 @@ def load_deployed_engine(
     config: ServerConfig,
     storage: Optional[Storage] = None,
     ctx: Optional[DeviceContext] = None,
+    warmup: bool = True,
 ) -> DeployedEngine:
     """variant → engine factory → latest COMPLETED instance → live models
-    (createServerActorWithEngine, CreateServer.scala:187-246)."""
+    (createServerActorWithEngine, CreateServer.scala:187-246); ``warmup``
+    False skips the deploy-time dispatch of every batch bucket."""
     storage = storage or get_storage()
     ctx = ctx or DeviceContext.create()
     variant = variant_from_file(config.engine_variant)
@@ -280,7 +292,7 @@ def load_deployed_engine(
     logger.info("deployed engine instance %s (trained %s) on %s", instance.id,
                 instance.start_time, ctx.device)
     return DeployedEngine(engine, engine_params, instance, models, ctx,
-                          max_batch=config.max_batch)
+                          max_batch=config.max_batch, warmup=warmup)
 
 
 def effective_max_in_flight(config: ServerConfig, deployed: DeployedEngine) -> int:
@@ -309,6 +321,16 @@ class QueryServer:
             self.deployed, max_batch=config.max_batch,
             max_in_flight=effective_max_in_flight(config, self.deployed))
         self.request_count = 0
+        # streaming delta state: which [from_seq, to_seq) range of the
+        # updater's chain this replica has applied; None until the first
+        # delta lands
+        self._delta_state: Optional[dict] = None
+        # one delta at a time: the chain checks must still hold when the
+        # delta-applied engine is swapped in
+        self._delta_lock = asyncio.Lock()
+        #: server-side seconds of the latest applied deltas: build the
+        #: delta-applied engine (copy, prepare on the device) and swap
+        self.delta_apply_s: collections.deque = collections.deque(maxlen=1024)
         self._start_time = time.monotonic()
         self._runner: Optional[web.AppRunner] = None
 
@@ -317,6 +339,7 @@ class QueryServer:
         app.router.add_get("/", self.handle_status)
         app.router.add_get("/health", self.handle_health)
         app.router.add_post("/queries.json", self.handle_query)
+        app.router.add_post("/delta", self.handle_delta)
         return app
 
     async def handle_health(self, request: web.Request) -> web.Response:
@@ -328,6 +351,8 @@ class QueryServer:
                 "instanceId": inst.id,
                 "engineId": inst.engine_id,
                 "engineVersion": inst.engine_version,
+                # the delta-chain position the updater's ship-resync keys on
+                "streaming": self._streaming_health(),
             },
         })
 
@@ -371,6 +396,167 @@ class QueryServer:
         self.request_count += 1
         # camelCase field names: the reference's response shape
         return web.json_response(to_jsonable(prediction, camelize_fields=True))
+
+    def _swap_in(self, new: DeployedEngine) -> None:
+        """Atomic engine swap: in-flight dispatches hold their own
+        reference to the old engine and finish on it; everything after the
+        assignment serves the new one. The batcher captured the old engine
+        at construction, so it is repointed too."""
+        self.deployed = new
+        self.batcher.deployed = new
+
+    def _streaming_health(self) -> Optional[dict]:
+        """Delta-chain position + freshness for /health.deployment (None
+        until a streaming delta has been applied to this base)."""
+        st = self._delta_state
+        if not st:
+            return None
+        staleness = None
+        if st.get("maxEventTimeUs"):
+            staleness = max(0.0, time.time() - st["maxEventTimeUs"] / 1e6)
+        return {
+            "lastDeltaSeq": st["lastDeltaSeq"],
+            "chainBase": st["chainBase"],
+            "applied": st["applied"],
+            "deduped": st["deduped"],
+            "maxEventTimeUs": st["maxEventTimeUs"],
+            "stalenessSeconds": staleness,
+        }
+
+    async def handle_delta(self, request: web.Request) -> web.Response:
+        """Streaming delta deploy: build the delta-applied engine BESIDE the
+        live one (in an executor, without warmup) and swap it in.
+
+        Exactly-once enforcement: every delta names its ``[from_seq,
+        to_seq)`` event range and the base instance it applies to. A
+        wrong-base, out-of-order or non-finite delta is rejected 409 (with
+        this replica's position, so the updater resyncs the chain); an
+        already-applied range answers 200 ``duplicate`` and is counted,
+        never re-applied."""
+        from incubator_predictionio_tpu_torch.streaming.delta import (
+            decode_delta,
+        )
+
+        if not self._authorized(request):
+            return web.json_response({"message": "Unauthorized"}, status=401)
+        body = await self._read_delta_body(request)
+        if body is None:
+            return web.json_response(
+                {"status": "rejected",
+                 "message": f"delta body over {DELTA_MAX_BYTES} bytes"},
+                status=413)
+        try:
+            delta = decode_delta(body)
+        except Exception as e:  # noqa: BLE001 - bad/foreign artifact
+            return web.json_response(
+                {"status": "rejected", "message": f"bad delta: {e}"},
+                status=400)
+        async with self._delta_lock:
+            return await self._apply_delta(delta)
+
+    def _authorized(self, request: web.Request) -> bool:
+        import hmac
+
+        key = self.config.server_access_key
+        if not key:
+            return True
+        # bytes operands: compare_digest rejects non-ASCII str
+        return hmac.compare_digest(
+            request.query.get("accessKey", "").encode(), key.encode())
+
+    @staticmethod
+    async def _read_delta_body(request: web.Request) -> Optional[bytes]:
+        """The body, or None past :data:`DELTA_MAX_BYTES`. A delta grows
+        with the rows its batch touched (~130 bytes a row at rank 32: a
+        16,384-event batch is ~4 MB), past the app's 1 MiB limit, which
+        ``request.read()`` would enforce; the stream read is bounded here
+        instead, for this route alone."""
+        if (request.content_length or 0) > DELTA_MAX_BYTES:
+            return None
+        body = bytearray()
+        async for chunk in request.content.iter_chunked(1 << 20):
+            body += chunk
+            if len(body) > DELTA_MAX_BYTES:
+                return None
+        return bytes(body)
+
+    async def _apply_delta(self, delta) -> web.Response:
+        inst_id = self.deployed.instance.id
+        st = self._delta_state
+        last = st["lastDeltaSeq"] if st else None
+        if delta.base_instance != inst_id:
+            return web.json_response({
+                "status": "rejected", "reason": "base-mismatch",
+                "message": f"delta targets instance {delta.base_instance}, "
+                           f"this replica serves {inst_id}",
+                "instanceId": inst_id, "lastDeltaSeq": last,
+            }, status=409)
+        if last is not None and delta.to_seq <= last:
+            # already applied (the updater crashed between ship and cursor
+            # commit and is replaying): idempotent ack, counted
+            st["deduped"] += 1
+            return web.json_response(
+                {"status": "duplicate", "lastDeltaSeq": last})
+        expected = last if last is not None else delta.chain_base
+        if delta.from_seq != expected:
+            return web.json_response({
+                "status": "rejected", "reason": "out-of-order",
+                "message": f"expected from_seq {expected}, got "
+                           f"{delta.from_seq} — resync the chain",
+                "lastDeltaSeq": last, "instanceId": inst_id,
+            }, status=409)
+        if not delta.finite():
+            return web.json_response({
+                "status": "rejected", "reason": "non-finite",
+                "message": "delta carries non-finite rows; quarantine the "
+                           "stream",
+                "lastDeltaSeq": last,
+            }, status=409)
+        live = self.deployed
+
+        def build() -> DeployedEngine:
+            models = []
+            applied = False
+            for m in live.models:
+                if hasattr(m, "apply_delta"):
+                    m = m.apply_delta(delta)
+                    applied = True
+                models.append(m)
+            if not applied:
+                raise LookupError("no deployed model supports streaming "
+                                  "deltas (apply_delta)")
+            return DeployedEngine(
+                live.engine, live.engine_params, live.instance, models,
+                self.ctx, max_batch=self.config.max_batch, warmup=False)
+
+        t0 = time.perf_counter()
+        try:
+            new = await asyncio.get_running_loop().run_in_executor(None, build)
+        except LookupError as e:
+            return web.json_response(
+                {"status": "rejected", "message": str(e)}, status=409)
+        except (ValueError, RuntimeError) as e:
+            return web.json_response({
+                "status": "rejected", "reason": "apply-failed",
+                "message": str(e), "lastDeltaSeq": last,
+            }, status=409)
+        self._swap_in(new)
+        self.delta_apply_s.append(time.perf_counter() - t0)
+        st = self._delta_state
+        self._delta_state = {
+            "lastDeltaSeq": delta.to_seq,
+            "chainBase": delta.chain_base,
+            "maxEventTimeUs": max(st["maxEventTimeUs"] if st else 0,
+                                  delta.max_event_time_us),
+            "applied": (st["applied"] if st else 0) + 1,
+            "deduped": st["deduped"] if st else 0,
+        }
+        return web.json_response({
+            "status": "applied",
+            "lastDeltaSeq": delta.to_seq,
+            "rows": delta.n_rows,
+            "engineInstanceId": inst_id,
+        })
 
     async def start(self) -> None:
         self._runner = web.AppRunner(self.make_app())

@@ -23,7 +23,14 @@ Rule filters (``exclude`` / ``row_mask``) land on the rerank scores in
 candidate-index space after the gather. Mode selection reads the
 reference's knobs (``PIO_RETRIEVAL_MODE`` = ``exact`` | ``two_stage`` |
 ``auto`` and the rest below; docs/configuration.md). The reference's
-metrics counters and its streaming staleness overlay are not ported yet.
+metrics counters are not ported yet.
+
+Streaming staleness: a delta deploy moves item rows after the index was
+built. :meth:`IVFIndex.with_updated_rows` returns a view of the index with
+the moved rows' CURRENT values overlaid; :meth:`IVFIndex.search` rescores
+every gathered stale candidate from the overlay in fp32 (the other
+candidates keep their int8 rerank scores) and appends the stale ids the
+probe missed, so a pruned probe never serves a pre-update embedding.
 """
 
 from __future__ import annotations
@@ -147,6 +154,14 @@ class IVFIndex:
     build_seconds: float = 0.0
     #: where the coarse stage runs: a CUDA device → kernel K2
     device: Optional[torch.device] = None
+    # -- streaming staleness overlay ---------------------------------------
+    # Rows a delta deploy updated AFTER this index was built: the k-means
+    # assignment and the member-order rerank tables (shared with older
+    # deployed models) hold their PRE-update embeddings; the overlay keeps
+    # the current rows (see the module docstring).
+    stale_ids: Optional[np.ndarray] = None      # sorted int64 catalog ids
+    stale_emb: Optional[np.ndarray] = None      # [S, D] f32 current rows
+    stale_bias: Optional[np.ndarray] = None     # [S] f32 current biases
 
     @property
     def n_partitions(self) -> int:
@@ -236,6 +251,63 @@ class IVFIndex:
             self.bias_m = bias_m
         return self
 
+    # -- streaming staleness ----------------------------------------------
+    @property
+    def stale_count(self) -> int:
+        return 0 if self.stale_ids is None else int(len(self.stale_ids))
+
+    @property
+    def stale_fraction(self) -> float:
+        n = self.n_items
+        return (self.stale_count / n) if n else 0.0
+
+    def with_updated_rows(self, ids: np.ndarray, emb_rows: np.ndarray,
+                          bias_rows: np.ndarray) -> "IVFIndex":
+        """A NEW index view with ``ids``' current rows overlaid. The big
+        arrays (centroids, member layout, rerank tables) are shared with
+        this index, which keeps serving its own view untouched. The view is
+        a ``dataclasses.replace``: it keeps ``device`` and drops the cached
+        device copy of the centroids, which the next probe uploads again."""
+        ids = np.asarray(ids, np.int64)
+        emb_rows = np.asarray(emb_rows, np.float32).reshape(len(ids), -1)
+        bias_rows = np.asarray(bias_rows, np.float32).reshape(len(ids))
+        merged: dict[int, tuple[np.ndarray, float]] = {}
+        if self.stale_ids is not None:
+            for i, sid in enumerate(self.stale_ids):
+                merged[int(sid)] = (self.stale_emb[i], float(self.stale_bias[i]))
+        for i, sid in enumerate(ids):
+            merged[int(sid)] = (emb_rows[i], float(bias_rows[i]))
+        order = np.asarray(sorted(merged), np.int64)
+        return dataclasses.replace(
+            self,
+            stale_ids=order,
+            stale_emb=np.stack([merged[int(s)][0] for s in order]).astype(
+                np.float32),
+            stale_bias=np.asarray(
+                [merged[int(s)][1] for s in order], np.float32),
+        )
+
+    def _apply_stale_overlay(
+        self, ids: np.ndarray, scores: np.ndarray, qrow: np.ndarray,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Rescore gathered stale candidates from the overlay and append
+        the stale ids this probe missed (pre-bias score space)."""
+        s_ids = self.stale_ids
+        pos = np.minimum(np.searchsorted(s_ids, ids), len(s_ids) - 1)
+        hit = s_ids[pos] == ids
+        if hit.any():
+            sel = pos[hit]
+            scores[hit] = self.stale_emb[sel] @ qrow + self.stale_bias[sel]
+        present = np.zeros(len(s_ids), bool)
+        present[pos[hit]] = True
+        missing = ~present
+        if missing.any():
+            add_scores = (self.stale_emb[missing] @ qrow
+                          + self.stale_bias[missing])
+            ids = np.concatenate([ids, s_ids[missing]])
+            scores = np.concatenate([scores, add_scores])
+        return ids, scores
+
     def stats(self) -> dict:
         """Partition-shape summary for status pages."""
         sizes = np.diff(self.offsets)
@@ -257,6 +329,7 @@ class IVFIndex:
             "rerank_bytes": int(rerank_bytes),
             "default_nprobe": resolved_nprobe(self.n_partitions),
             "build_seconds": round(self.build_seconds, 2),
+            "stale_rows": self.stale_count,
         }
 
     # -- search -----------------------------------------------------------
@@ -431,6 +504,8 @@ class IVFIndex:
                     scores[pos:pos + m] = \
                         self.emb_m[lo:hi] @ qrow + self.bias_m[lo:hi]
                 pos += m
+            if self.stale_ids is not None and len(self.stale_ids):
+                ids, scores = self._apply_stale_overlay(ids, scores, qrow)
             scores += user_bias[r] + mean
             if excl_sorted is not None:
                 pos = np.minimum(np.searchsorted(excl_sorted, ids),

@@ -9,7 +9,9 @@ then a model reaches the port through ``convert.py``.
 
 Query ``{"user": U, "num": N, "blackList": [...]}`` → PredictedResult
 ``{"itemScores": [{"item": I, "score": S}, …]}``; an unknown user gets the
-reference's empty answer.
+reference's empty answer, or with ``PIO_COLDSTART_MODE=hash`` an answer
+from its cold-start bucket row (``streaming/coldstart.py``). Streaming
+deltas land through :meth:`RecModel.apply_delta`.
 """
 
 from __future__ import annotations
@@ -80,6 +82,12 @@ class DataSourceParams(Params):
     event_names: tuple[str, ...] = ("rate", "buy")
     default_ratings: Optional[dict[str, float]] = None
 
+    def rating_defaults(self) -> dict[str, float]:
+        """Implicit ratings of events without a ``rating`` property."""
+        if self.default_ratings is not None:
+            return {k: float(v) for k, v in self.default_ratings.items()}
+        return {"buy": self.buy_rating}
+
 
 class DataSource(PDataSource):
     params_class = DataSourceParams
@@ -136,6 +144,65 @@ class RecModel(PersistentModel):
     def serving_info(self) -> dict:
         return self.mf.serving_info()
 
+    # -- streaming deltas -------------------------------------------------
+    def apply_delta(self, delta) -> "RecModel":
+        """Build-beside application of a streaming delta: a NEW RecModel
+        with the delta's absolute rows scattered into copied tables (and
+        cold-start bucket rows merged); the receiver is never mutated. The
+        id maps are shared: a delta never grows the vocabulary."""
+        mf = self.mf.with_row_updates(delta.user_rows, delta.item_rows)
+        cs = getattr(self, "coldstart", None)
+        if delta.cold_user_rows or delta.cold_item_rows:
+            from incubator_predictionio_tpu_torch.streaming.coldstart import (
+                ColdStartBuckets,
+            )
+
+            cs = (cs.copy() if cs is not None
+                  else ColdStartBuckets.build(self.mf.config.rank))
+            for rows, table in ((delta.cold_user_rows, cs.user_rows),
+                                (delta.cold_item_rows, cs.item_rows)):
+                for b, row in rows.items():
+                    b = int(b)
+                    if not (0 <= b < table.shape[0]):
+                        raise ValueError(
+                            f"cold-start bucket {b} outside "
+                            f"[0, {table.shape[0]}) — set "
+                            "PIO_COLDSTART_BUCKETS identically on the "
+                            "updater and every replica")
+                    table[b] = np.asarray(row, np.float32)
+        new = RecModel(mf, self.user_map, self.item_map)
+        new.coldstart = cs
+        return new
+
+    def coldstart_buckets(self):
+        """The hash-bucket cold-start rows when ``PIO_COLDSTART_MODE=hash``,
+        else None. Deterministic build; delta deploys overwrite them with
+        trained values."""
+        from incubator_predictionio_tpu_torch.streaming.coldstart import (
+            ColdStartBuckets,
+            coldstart_mode,
+        )
+
+        if coldstart_mode() != "hash":
+            return None
+        cs = getattr(self, "coldstart", None)
+        if cs is None:
+            cs = self.coldstart = ColdStartBuckets.build(self.mf.config.rank)
+        return cs
+
+    def _cold_item_table(self):
+        """Cached host (item_emb, item_bias) for cold-start scoring."""
+        cached = getattr(self, "_cold_items_cache", None)
+        if cached is None:
+            cached = self.mf._host_item_table()
+            self._cold_items_cache = cached
+        return cached
+
+    def __getstate__(self):
+        # the cold-item-table cache is derived state; never serialize it
+        return {k: v for k, v in self.__dict__.items()
+                if k != "_cold_items_cache"}
+
 
 class ALSAlgorithm(PAlgorithm):
     """MLlib ALS slot (ALSAlgorithm.scala:50-93) filled by two-tower MF."""
@@ -157,10 +224,41 @@ class ALSAlgorithm(PAlgorithm):
             if (idx := model.item_map.get(b)) is not None
         }
 
+    @staticmethod
+    def _coldstart_predict(model: RecModel, query: Query,
+                           banned: set[int]) -> PredictedResult:
+        """Unknown-user answer from the hash-bucket cold-start row
+        (``PIO_COLDSTART_MODE=hash``): score the catalog with the user's
+        bucket embedding in host numpy. Known users never take this path."""
+        cs = model.coldstart_buckets()
+        if cs is None:
+            # reference behavior: unknown user → empty itemScores
+            return PredictedResult()
+        row = cs.user_rows[cs.user_bucket(query.user)]
+        k = model.mf.config.rank
+        item_emb, item_bias = model._cold_item_table()
+        scores = item_emb @ row[:k] + item_bias + row[k] + model.mf.mean
+        if banned:
+            scores = scores.copy()
+            scores[np.fromiter(banned, np.int64)] = -np.inf
+        num = min(query.num, len(scores))
+        if num <= 0:
+            return PredictedResult()
+        part = np.argpartition(-scores, num - 1)[:num]
+        order = part[np.argsort(-scores[part])]
+        inv = model.item_map.inverse()
+        return PredictedResult(tuple(
+            ItemScore(inv[int(i)], float(scores[i]))
+            for i in order if np.isfinite(scores[i])
+        ))
+
     def predict(self, model: RecModel, query: Query) -> PredictedResult:
         uidx = model.user_map.get(query.user)
         if uidx is None:
-            return PredictedResult()  # unknown user → empty itemScores
+            # unknown user → cold-start bucket row when enabled, else the
+            # reference's empty result
+            return self._coldstart_predict(
+                model, query, self._banned(model, query))
         banned = self._banned(model, query)
         idx, scores = TwoTowerMF.recommend(
             model.mf, uidx, query.num,
@@ -177,8 +275,10 @@ class ALSAlgorithm(PAlgorithm):
         if not queries:
             return []
         known = [(qi, q) for qi, q in queries if q.user in model.user_map]
+        # unknown users: cold-start bucket scoring when enabled, else the
+        # reference's empty result
         out: list[tuple[int, PredictedResult]] = [
-            (qi, PredictedResult())
+            (qi, self._coldstart_predict(model, q, self._banned(model, q)))
             for qi, q in queries if q.user not in model.user_map
         ]
         if known:

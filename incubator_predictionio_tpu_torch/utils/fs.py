@@ -1,0 +1,44 @@
+"""Crash-safe file writes.
+
+Counterpart of ``incubator_predictionio_tpu/utils/fs.py`` (:27, :44), cut
+to the two functions the streaming slice needs: the state dir's cursor,
+trainer state, delta archive and quarantine marker are all written through
+:func:`atomic_write_bytes`.
+"""
+
+from __future__ import annotations
+
+import os
+
+
+def fsync_dir(path: str) -> None:
+    """fsync a directory so a just-renamed entry survives a power cut —
+    rename() alone only orders the metadata in the page cache. Best-effort:
+    some filesystems refuse O_RDONLY dir fsync."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
+def atomic_write_bytes(path: str, data: bytes, durable: bool = True) -> None:
+    """Crash-safe file write: tmp in the same directory → flush → fsync →
+    rename over the target → directory fsync. Readers see either the old
+    complete file or the new complete file, never a torn one; with
+    ``durable`` the new content also survives an immediate power cut."""
+    d = os.path.dirname(os.path.abspath(path))
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+        f.flush()
+        if durable:
+            os.fsync(f.fileno())
+    os.replace(tmp, path)
+    if durable:
+        fsync_dir(d)
