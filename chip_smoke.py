@@ -177,12 +177,17 @@ def cuda_profile():
 
 
 def busy_record(by_name: dict, wall_s: float, top: int) -> dict:
-    """The device's busy share of a profiled wall time, and the ``top``
-    names by device ms."""
+    """The device's busy share of a profiled wall time, the ``top`` names
+    by device ms, and the device ms of each attention kernel that ran
+    (:data:`KERNEL_SYMBOLS`)."""
     busy = sum(by_name.values())
     return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy,
             "device_busy_share": busy / (wall_s * 1e3),
-            "top_device_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top])}
+            "top_device_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top]),
+            "attention_device_ms": {
+                w: sum(t for n, t in by_name.items() if sym in n)
+                for w, sym in KERNEL_SYMBOLS.items()
+                if any(sym in n for n in by_name)}}
 
 
 def device_busy(fn, calls: int = 3):
@@ -368,26 +373,35 @@ def kernel_checks(R, user, item, item_bias, ivf, dev):
 #: the sequential phases' lengths, and the reference's other shapes
 K4_SHAPES = ((1, 8, 512, 64), (8, 8, 512, 64), (64, 8, 512, 64),
              (3, 8, 128, 128))
+#: K5's also (B, H, L, D, block) where the block is not the reference's
+#: flash block: L 576 gives the kernel a ragged last 128-row query tile
 K5_SHAPES = ((64, 8, 1024, 64), (8, 8, 768, 64), (8, 8, 640, 32),
-             (8, 8, 512, 32))
+             (8, 8, 512, 32), (8, 8, 576, 64, 64))
+#: each kernel's symbol in the profiler's kernel names
+KERNEL_SYMBOLS = {"causal_mha_small_head": "causal_attention_kernel",
+                  "flash_causal_attention": "flash_fwd_kernel",
+                  "causal_mha_small_head_bwd": "attention_bwd_",
+                  "flash_causal_attention_bwd_dkv": "flash_bwd_dkv_kernel",
+                  "flash_causal_attention_bwd_dq": "flash_bwd_dq_kernel"}
 
 
 def attention_case(A, name, shape, seed):
     """One attention kernel against its plain version on the same bf16
     tensors of the card (tolerance :data:`ATT_TOL`, absolute and relative,
     as the reference's kernel tests), with its times beside the bound and
-    ``scaled_dot_product_attention`` as the library yardstick."""
+    ``scaled_dot_product_attention`` as the library yardstick (its device
+    time, as the kernel's; its CUDA-event time beside it)."""
     from incubator_predictionio_tpu_torch.parallel.ring import flash_block_size
 
-    b, h, l, d = shape
+    b, h, l, d = shape[:4]
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-               for _ in range(3))
+    q, k, v = (torch.randn((b, h, l, d), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
     if name == "causal_mha_small_head":
         kernel = lambda: A.causal_mha_small_head(q, k, v)  # noqa: E731
         plain = lambda: A.causal_mha_small_head_reference(q, k, v)  # noqa: E731
     else:
-        block = flash_block_size(l)
+        block = shape[4] if len(shape) > 4 else flash_block_size(l)
         kernel = lambda: A.flash_causal_attention(q, k, v, block)  # noqa: E731
         plain = lambda: A.flash_causal_attention_reference(q, k, v, block)  # noqa: E731
     got, want = kernel().float(), plain().float()
@@ -399,12 +413,17 @@ def attention_case(A, name, shape, seed):
     del got, want
     out = {"B": b, "H": h, "L": l, "D": d, "max_abs_err": err,
            "tolerance": ATT_TOL}
+    if name != "causal_mha_small_head":
+        out["block"] = block
     out["ms"] = time_ms(kernel, reps=5, inner=3)
-    out["device_ms"] = device_ms(kernel, "causal_attention_kernel", calls=5)
+    out["device_ms"] = device_ms(kernel, KERNEL_SYMBOLS[name], calls=5)
+    check(out["device_ms"] is not None,
+          f"{name} {shape}: the profiler saw no {KERNEL_SYMBOLS[name]}")
     out["plain_ms"] = time_ms(plain, reps=3, inner=2, warm=1)
-    out["library_ms"] = time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True), reps=5, inner=3)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True)
+    out["library_event_ms"] = time_ms(sdpa, reps=5, inner=3)
+    out["library_ms"] = device_busy(sdpa, calls=5)[0]
     # the causal half: q·kᵀ and p·v over L²/2 entries
     t_ops = 4.0 * b * h * l * l * d / 2 / BF16_OPS_PER_S * 1e3
     t_bytes = 4.0 * b * h * l * d * 2 / HBM_BYTES_PER_S * 1e3
@@ -412,8 +431,8 @@ def attention_case(A, name, shape, seed):
     out["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
     log(f"{name:<22s} B={b:<3d} H={h} L={l:<5d} D={d:<4d} max_abs_err={err:.3e} "
         f"(tol {ATT_TOL}) ms={out['ms']:.4f} device_ms={fmt(out['device_ms'])} "
-        f"plain_ms={out['plain_ms']:.4f} sdpa_ms={out['library_ms']:.4f} "
-        f"bound_ms={out['bound_ms']:.4f}")
+        f"plain_ms={out['plain_ms']:.4f} sdpa_device_ms={out['library_ms']:.4f} "
+        f"sdpa_ms={out['library_event_ms']:.4f} bound_ms={out['bound_ms']:.4f}")
     return out
 
 
@@ -431,7 +450,8 @@ def attention_checks(A):
 #: K5 one: the training shapes at max_len 512 and 1024, and the
 #: reference's other head width
 K4_BWD_SHAPES = ((64, 8, 512, 64), (3, 8, 128, 128))
-K5_BWD_SHAPES = ((64, 8, 1024, 64, 512), (2, 8, 256, 128, 256))
+K5_BWD_SHAPES = ((64, 8, 1024, 64, 512), (2, 8, 256, 128, 256),
+                 (8, 8, 576, 64, 64))
 
 
 def sdpa_bwd_ms(q, k, v, do) -> float:
@@ -490,7 +510,7 @@ def attention_bwd_case(A, name, shape, seed):
                            A.causal_mha_small_head_bwd_reference(q, k, v, do))
         plain = lambda: A.causal_mha_small_head_bwd_reference(q, k, v, do)  # noqa: E731
         parts = {name: (lambda: A.causal_mha_small_head_bwd(q, k, v, do, m, l_sum),
-                        plain, "attention_bwd_", 7 * bhld * 2 + 2 * bhl * 4, 5 * bhl2d)}
+                        plain, 7 * bhld * 2 + 2 * bhl * 4, 5 * bhl2d)}
     else:
         di = (o.float() * do.float()).sum(-1)
         errs = grad_errors(
@@ -504,11 +524,11 @@ def attention_bwd_case(A, name, shape, seed):
             "flash_causal_attention_bwd_dkv": (
                 lambda: A.flash_causal_attention_bwd_dkv(*args),
                 lambda: A.flash_causal_attention_bwd_dkv_reference(*args),
-                "attention_bwd_dkv_kernel", 6 * bhld * 2 + stats, 4 * bhl2d),
+                6 * bhld * 2 + stats, 4 * bhl2d),
             "flash_causal_attention_bwd_dq": (
                 lambda: A.flash_causal_attention_bwd_dq(*args),
                 lambda: A.flash_causal_attention_bwd_dq_reference(*args),
-                "attention_bwd_dq_kernel", 5 * bhld * 2 + stats, 3 * bhl2d)}
+                5 * bhld * 2 + stats, 3 * bhl2d)}
     torch.cuda.synchronize()
     out["errors"] = {n: {"max_abs_err": e, "rel_err": r} for n, (e, r) in errs.items()}
     out["max_abs_err"] = max(e for e, _ in errs.values())
@@ -519,13 +539,15 @@ def attention_bwd_case(A, name, shape, seed):
     out["plain_ms"] = time_ms(plain, reps=3, inner=1, warm=1)
     out["library_ms"] = sdpa_bwd_ms(q, k, v, do)
     out["kernels"] = {}
-    for part, (fn, part_plain, kname, n_bytes, n_ops) in parts.items():
+    for part, (fn, part_plain, n_bytes, n_ops) in parts.items():
         rec = {"ms": time_ms(fn, reps=5, inner=3),
-               "device_ms": device_ms(fn, kname, calls=5),
+               "device_ms": device_ms(fn, KERNEL_SYMBOLS[part], calls=5),
                # one kernel's part alone: no library call computes only it
                "plain_ms": (out["plain_ms"] if len(parts) == 1
                             else time_ms(part_plain, reps=3, inner=1, warm=1)),
                "library_ms": out["library_ms"] if len(parts) == 1 else None}
+        check(rec["device_ms"] is not None,
+              f"{part} {shape}: the profiler saw no {KERNEL_SYMBOLS[part]}")
         rec["bound_ms"], rec["bound_by"] = bound(n_bytes, n_ops)
         out["kernels"][part] = rec
         log(f"{part:<31s} B={b:<3d} H={h} L={l:<5d} D={d:<4d} "
@@ -607,7 +629,9 @@ async def profiled_burst(session, url, payloads) -> dict:
 def log_window(name: str, w: dict) -> None:
     log(f"[{name}] profiled burst of {w['queries']}: wall {w['wall_ms']:.2f} ms, "
         f"device busy {w['device_busy_ms']:.3f} ms "
-        f"(share {w['device_busy_share']:.4f}); top device ms: "
+        f"(share {w['device_busy_share']:.4f}); attention kernels' device ms: "
+        + ", ".join(f"{k}={v:.3f}" for k, v in w["attention_device_ms"].items())
+        + "; top device ms: "
         + ", ".join(f"{k[:60]}={v:.3f}" for k, v in w["top_device_ms"].items()))
 
 
@@ -1154,8 +1178,11 @@ def train_phase(name, max_len, n_rows, epochs, ctx, seed, parity=False,
         TransformerNet(model.params, cfg, dev, trainable=True), batch, cfg.learning_rate)
     w = rec["profiled_step"]
     log(f"[{name}] profiled step: wall {w['wall_ms']:.2f} ms, device busy "
-        f"{w['device_busy_ms']:.3f} ms (share {w['device_busy_share']:.4f}); top "
-        "device ms: " + ", ".join(f"{k[:60]}={v:.3f}" for k, v in w["top_device_ms"].items()))
+        f"{w['device_busy_ms']:.3f} ms (share {w['device_busy_share']:.4f}); "
+        "attention kernels' device ms: "
+        + ", ".join(f"{k}={v:.3f}" for k, v in w["attention_device_ms"].items())
+        + "; top device ms: "
+        + ", ".join(f"{k[:60]}={v:.3f}" for k, v in w["top_device_ms"].items()))
     if parity:
         rec["step_parity"] = step_parity(cfg, batch, dev)
         sp = rec["step_parity"]
@@ -1755,7 +1782,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all()  # one nvcc a source, all started together
     libs = []
-    for n in ("retrieval", "attention", "sparse_update"):
+    for n in ("retrieval", "attention", "flash_attention", "sparse_update"):
         _build.library(n)
         libs.append(_build.library_path(n).name)
     build_s = time.perf_counter() - t0
@@ -1836,9 +1863,9 @@ def main() -> int:
                 "shape": {k: main_case[k] for k in main_case
                           if k in ("B", "H", "L", "N", "C", "R", "D")}}
 
-    def bwd_entry(name, replaces, cases, grads=("dq", "dk", "dv")):
+    def bwd_entry(name, source, replaces, cases, grads=("dq", "dk", "dv")):
         main_case = cases[0]  # the training shape
-        e = entry(name, "attention.cu", replaces, cases,
+        e = entry(name, source, replaces, cases,
                   {**main_case, **main_case["kernels"][name]})
         e["max_abs_err"] = max(c["errors"][g]["max_abs_err"]
                                for c in cases for g in grads)
@@ -1858,15 +1885,15 @@ def main() -> int:
         entry("causal_mha_small_head", "attention.cu",
               "incubator_predictionio_tpu/ops/attention.py:122", k4,
               next(c for c in k4 if c["B"] == 64)),
-        bwd_entry("causal_mha_small_head_bwd",
+        bwd_entry("causal_mha_small_head_bwd", "attention.cu",
                   "incubator_predictionio_tpu/ops/attention.py:136", k4b),
-        entry("flash_causal_attention", "attention.cu",
+        entry("flash_causal_attention", "flash_attention.cu",
               "incubator_predictionio_tpu/parallel/ring.py:201", k5,
               next(c for c in k5 if c["B"] == 64)),
-        bwd_entry("flash_causal_attention_bwd_dkv",
+        bwd_entry("flash_causal_attention_bwd_dkv", "flash_attention.cu",
                   "jax/experimental/pallas/ops/tpu/flash_attention.py:1121", k5b,
                   ("dk", "dv")),
-        bwd_entry("flash_causal_attention_bwd_dq",
+        bwd_entry("flash_causal_attention_bwd_dq", "flash_attention.cu",
                   "jax/experimental/pallas/ops/tpu/flash_attention.py:1456", k5b,
                   ("dq",)),
     ]

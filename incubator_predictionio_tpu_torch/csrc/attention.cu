@@ -1,7 +1,11 @@
 // Causal multi-head attention of the sequential recommender, written by hand
 // for Hopper (sm_90a), bound to PyTorch through a plain C interface (ctypes).
 //
-// One templated forward kernel, two instantiations, one per TPU kernel:
+// One templated forward kernel and two templated backward kernels, written
+// for two TPU kernels; only K4 instantiates them now. K5 (the library flash
+// kernel's counterpart) was redesigned for Hopper in csrc/flash_attention.cu;
+// its flag values (kTwoPass = false, kSmallHead = false) are no longer
+// compiled. What the template was written for:
 //
 // K4  pio_causal_mha_small_head  replaces incubator_predictionio_tpu/ops/
 //                                attention.py causal_mha_small_head (Pallas
@@ -13,7 +17,7 @@
 //                                and accumulates p.v in fp32 — the TPU
 //                                kernel's rounding, at the cost of one extra
 //                                q.k^T.
-// K5  pio_flash_causal           replaces the library Pallas flash_attention
+// K5  (kTwoPass = false)         replaced the library Pallas flash_attention
 //                                that incubator_predictionio_tpu/parallel/
 //                                ring.py causal_attention calls for long
 //                                sequences: one pass of online softmax, a
@@ -41,8 +45,8 @@
 //                                term, then dq — and leaves the row term in
 //                                fp32 scratch for the dk/dv kernel. Two
 //                                launches, dq first.
-// K5 bwd  pio_flash_causal_bwd_dkv,      replace the library flash_attention's
-//         pio_flash_causal_bwd_dq        _flash_attention_bwd_dkv and _dq:
+// K5 bwd  (kSmallHead = false)          replaced the library flash_attention's
+//                                        _flash_attention_bwd_dkv and _dq:
 //                                p = exp(s - m) * (1 / l) from the forward's m
 //                                and l, the row term di = rowsum(o . do) from
 //                                the bf16 o (a torch reduction in the wrapper,
@@ -646,13 +650,6 @@ int pio_causal_mha_small_head(const void* q, const void* k, const void* v,
   return dispatch<true>(q, k, v, out, m, l, B, H, L, D, stream);
 }
 
-int pio_flash_causal(const void* q, const void* k, const void* v, void* out,
-                     void* m, void* l, int B, int H, int L, int D,
-                     void* stream) {
-  if ((m == nullptr) != (l == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<false>(q, k, v, out, m, l, B, H, L, D, stream);
-}
-
 // K4 backward: m, l from the forward; t is fp32 [B, H, L] scratch the dq
 // kernel fills
 int pio_causal_mha_small_head_bwd(const void* q, const void* k, const void* v,
@@ -665,28 +662,6 @@ int pio_causal_mha_small_head_bwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch_bwd<true>(BwdArgs{q, k, v, dout, m, l, t, dq, dk, dv}, B, H,
                             L, D, stream);
-}
-
-// K5 backward, dk and dv: m, l from the forward, di = rowsum(o . do)
-int pio_flash_causal_bwd_dkv(const void* q, const void* k, const void* v,
-                             const void* dout, const void* m, const void* l,
-                             const void* di, void* dk, void* dv, int B, int H,
-                             int L, int D, void* stream) {
-  if (dk == nullptr || dv == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch_bwd<false>(
-      BwdArgs{q, k, v, dout, m, l, const_cast<void*>(di), nullptr, dk, dv},
-      B, H, L, D, stream);
-}
-
-// K5 backward, dq
-int pio_flash_causal_bwd_dq(const void* q, const void* k, const void* v,
-                            const void* dout, const void* m, const void* l,
-                            const void* di, void* dq, int B, int H, int L,
-                            int D, void* stream) {
-  if (dq == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch_bwd<false>(
-      BwdArgs{q, k, v, dout, m, l, const_cast<void*>(di), dq, nullptr, nullptr},
-      B, H, L, D, stream);
 }
 
 }  // extern "C"

@@ -31,9 +31,13 @@ SIGNATURES: dict[str, dict[str, tuple[list, object]]] = {
         "pio_error_string": ([_I], ctypes.c_char_p),
         # q, k, v, out, m, l (both null when serving), B, H, L, D, stream
         "pio_causal_mha_small_head": ([_P] * 6 + [_I] * 4 + [_P], _I),
-        "pio_flash_causal": ([_P] * 6 + [_I] * 4 + [_P], _I),
         # q, k, v, do, m, l, t (scratch), dq, dk, dv, B, H, L, D, stream
         "pio_causal_mha_small_head_bwd": ([_P] * 10 + [_I] * 4 + [_P], _I),
+    },
+    "flash_attention": {
+        "pio_error_string": ([_I], ctypes.c_char_p),
+        # q, k, v, out, m, l (both null when serving), B, H, L, D, stream
+        "pio_flash_causal": ([_P] * 6 + [_I] * 4 + [_P], _I),
         # q, k, v, do, m, l, di, dk, dv, B, H, L, D, stream
         "pio_flash_causal_bwd_dkv": ([_P] * 9 + [_I] * 4 + [_P], _I),
         # q, k, v, do, m, l, di, dq, B, H, L, D, stream

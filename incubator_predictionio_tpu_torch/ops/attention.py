@@ -24,8 +24,9 @@ Both take the reference kernels' layout: q, k, v ``[B, H, L, D]`` bf16 in,
   and ``di = rowsum(o · do)`` and runs :func:`flash_causal_attention_bwd_dkv`
   and :func:`flash_causal_attention_bwd_dq`.
 
-The kernels live in ``csrc/attention.cu`` (built by :mod:`._build`); the
-note there says what bounds them on an H100. Beside each sits its plain
+K4's kernels live in ``csrc/attention.cu``, K5's in
+``csrc/flash_attention.cu`` (both built by :mod:`._build`); the notes there
+say what bounds them on an H100. Beside each sits its plain
 PyTorch version (``*_reference``). The wrappers take the plain version only
 for tensors on the CPU; given CUDA tensors they launch the kernel or raise.
 Each kernel wrapper counts its launches in ``launches``
@@ -47,8 +48,8 @@ from incubator_predictionio_tpu_torch.ops.retrieval import (
     _ptr,
 )
 
-#: query rows (and key columns) per tile of the CUDA kernels; L must be a
-#: multiple of it
+#: key columns per tile of the CUDA kernels (K4's query tiles too); L must
+#: be a multiple of it
 TILE = 64
 #: head widths the kernels are instantiated for
 HEAD_DIMS = (32, 64, 128)
@@ -269,8 +270,10 @@ def _bf16_grad(what: str, q, do):
     return do.to(torch.bfloat16).contiguous()
 
 
-def _call(what: str, fn_name: str, wrapper, tensors, shape) -> None:
-    """Launch ``fn_name`` of the attention library on the current stream of
+def _call(what: str, lib_name: str, fn_name: str, wrapper, tensors,
+          shape) -> None:
+    """Launch ``fn_name`` of the library ``lib_name`` (``csrc/<lib_name>.cu``:
+    "attention" for K4, "flash_attention" for K5) on the current stream of
     the tensors' card, with the pointers of ``tensors`` (None: a null
     pointer) and ``shape`` (B, H, L, D), and count the launch on
     ``wrapper``. Raises on a CPU tensor, on a tensor of another card and on
@@ -281,7 +284,7 @@ def _call(what: str, fn_name: str, wrapper, tensors, shape) -> None:
     for t in tensors:
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{what}: tensors must be 16-byte aligned")
-    lib = _build.library("attention")
+    lib = _build.library(lib_name)
     dev = tensors[0].device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -295,7 +298,8 @@ def _rows(q):
     return torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
 
 
-def _launch(what: str, fn_name: str, wrapper, q, k, v, stats: bool = False):
+def _launch(what: str, lib_name: str, fn_name: str, wrapper, q, k, v,
+            stats: bool = False):
     """Launch one of the attention forward kernels on q's current stream
     and count the launch: out, or with ``stats`` (out, m, l) — each row's
     max and sum, written beside an ``out`` that stays bitwise the same.
@@ -304,7 +308,7 @@ def _launch(what: str, fn_name: str, wrapper, q, k, v, stats: bool = False):
     out = torch.empty_like(q)
     m, l = (_rows(q), _rows(q)) if stats else (None, None)
     if q.numel():
-        _call(what, fn_name, wrapper, (q, k, v, out, m, l), shape)
+        _call(what, lib_name, fn_name, wrapper, (q, k, v, out, m, l), shape)
     return (out, m, l) if stats else out
 
 
@@ -316,10 +320,13 @@ def _forward(kernel: str, q, k, v, block: int, stats: bool):
         res = (_small_head_reference(q, k, v) if kernel == "small_head"
                else _flash_reference(q, k, v, block))
         return res if stats else res[0]
-    wrapper = causal_mha_small_head if kernel == "small_head" else flash_causal_attention
-    fn_name = ("pio_causal_mha_small_head" if kernel == "small_head"
-               else "pio_flash_causal")
-    return _launch(wrapper.__name__, fn_name, wrapper, q, k, v, stats)
+    if kernel == "small_head":
+        wrapper, lib_name, fn_name = (causal_mha_small_head, "attention",
+                                      "pio_causal_mha_small_head")
+    else:
+        wrapper, lib_name, fn_name = (flash_causal_attention, "flash_attention",
+                                      "pio_flash_causal")
+    return _launch(wrapper.__name__, lib_name, fn_name, wrapper, q, k, v, stats)
 
 
 class _Attention(torch.autograd.Function):
@@ -384,7 +391,8 @@ def causal_mha_small_head_bwd(q, k, v, do, m, l):
         return causal_mha_small_head_bwd_reference(q, k, v, do)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if q.numel():
-        _call(what, "pio_causal_mha_small_head_bwd", causal_mha_small_head_bwd,
+        _call(what, "attention", "pio_causal_mha_small_head_bwd",
+              causal_mha_small_head_bwd,
               (q, k, v, do, m, l, _rows(q), dq, dk, dv), shape)
     return dq, dk, dv
 
@@ -429,7 +437,7 @@ def _flash_bwd_args(what, q, k, v, do, m, l, di, block):
 
 def flash_causal_attention_bwd_dkv(q, k, v, do, m, l, di, block: int):
     """K5's backward, dk and dv (bf16): the kernel ``pio_flash_causal_bwd_dkv``
-    on CUDA tensors (one block per 64-key tile, walking the query tiles at
+    on CUDA tensors (one block per 64-key tile, walking the query rows at
     or below the diagonal), the plain version on CPU tensors. ``m``, ``l``
     are the forward's statistics, ``di = rowsum(o · do)``."""
     what = "flash_causal_attention_bwd_dkv"
@@ -438,7 +446,8 @@ def flash_causal_attention_bwd_dkv(q, k, v, do, m, l, di, block: int):
         return flash_causal_attention_bwd_dkv_reference(q, k, v, do, m, l, di, block)
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     if q.numel():
-        _call(what, "pio_flash_causal_bwd_dkv", flash_causal_attention_bwd_dkv,
+        _call(what, "flash_attention", "pio_flash_causal_bwd_dkv",
+              flash_causal_attention_bwd_dkv,
               (q, k, v, do, m, l, di, dk, dv), shape)
     return dk, dv
 
@@ -448,7 +457,7 @@ flash_causal_attention_bwd_dkv.launches = 0
 
 def flash_causal_attention_bwd_dq(q, k, v, do, m, l, di, block: int):
     """K5's backward, dq (bf16): the kernel ``pio_flash_causal_bwd_dq`` on
-    CUDA tensors (one block per 64-query tile, walking the key tiles up to
+    CUDA tensors (one block per query tile, walking the key tiles up to
     the diagonal), the plain version on CPU tensors."""
     what = "flash_causal_attention_bwd_dq"
     shape, do = _flash_bwd_args(what, q, k, v, do, m, l, di, block)
@@ -456,7 +465,8 @@ def flash_causal_attention_bwd_dq(q, k, v, do, m, l, di, block: int):
         return flash_causal_attention_bwd_dq_reference(q, k, v, do, m, l, di, block)
     dq = torch.empty_like(q)
     if q.numel():
-        _call(what, "pio_flash_causal_bwd_dq", flash_causal_attention_bwd_dq,
+        _call(what, "flash_attention", "pio_flash_causal_bwd_dq",
+              flash_causal_attention_bwd_dq,
               (q, k, v, do, m, l, di, dq), shape)
     return dq
 

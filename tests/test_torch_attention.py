@@ -185,10 +185,13 @@ def test_flash_block_must_divide_the_sequence():
 def test_launcher_refuses_cpu_tensors(fn):
     """The launch path never takes a CPU tensor (no plain-version fallback
     behind it), and a refused call counts no launch."""
+    lib = {"pio_causal_mha_small_head": "attention",
+           "pio_flash_causal": "flash_attention"}[fn]  # K4's source, K5's
+    assert fn in tatt._build.SIGNATURES[lib]
     q, k, v = _torch_bf16(*_qkv((1, 1, 128, 64), seed=5))
     tatt.reset_launches()
     with pytest.raises(ValueError, match="CUDA tensor"):
-        tatt._launch("t", fn, tatt.causal_mha_small_head, q, k, v)
+        tatt._launch("t", lib, fn, tatt.causal_mha_small_head, q, k, v)
     assert tatt.causal_mha_small_head.launches == 0
     # the plain versions on the CPU count no launch either
     tatt.causal_mha_small_head(q, k, v)

@@ -211,9 +211,11 @@ def test_backward_launchers_refuse_cpu_tensors(fn, wrapper):
     behind it), and a refused call counts no launch; the plain backwards
     on the CPU count no launch either."""
     q, k, v, do, st = _bwd_bad_inputs()
+    lib = "flash_attention" if "flash" in fn else "attention"  # K5's source, K4's
+    assert fn in tatt._build.SIGNATURES[lib]
     tatt.reset_launches()
     with pytest.raises(ValueError, match="CUDA tensor"):
-        tatt._call("t", fn, getattr(tatt, wrapper), (q, k, v, do, st, st),
+        tatt._call("t", lib, fn, getattr(tatt, wrapper), (q, k, v, do, st, st),
                    (1, 2, 128, 64))
     tatt.causal_mha_small_head_bwd(q, k, v, do, *tatt.causal_mha_small_head_with_stats(
         q, k, v)[1:])
@@ -233,5 +235,6 @@ def test_kernel_wrappers_list_every_launch_counter():
     for fn in ("pio_causal_mha_small_head", "pio_flash_causal",
                "pio_causal_mha_small_head_bwd", "pio_flash_causal_bwd_dkv",
                "pio_flash_causal_bwd_dq"):
-        assert fn in _build.SIGNATURES["attention"]
-        assert f"int {fn}(" in (_build.CSRC / "attention.cu").read_text()
+        lib = "flash_attention" if "flash" in fn else "attention"
+        assert fn in _build.SIGNATURES[lib]
+        assert f"int {fn}(" in (_build.CSRC / f"{lib}.cu").read_text()
