@@ -179,25 +179,31 @@ def cuda_profile():
 def busy_record(by_name: dict, wall_s: float, top: int) -> dict:
     """The device's busy share of a profiled wall time, the ``top`` names
     by device ms, and the device ms of each attention kernel that ran
-    (:data:`KERNEL_SYMBOLS`)."""
+    (:data:`KERNEL_SYMBOLS`, with K4's backward also by its two kernels)."""
     busy = sum(by_name.values())
     return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy,
             "device_busy_share": busy / (wall_s * 1e3),
             "top_device_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top]),
             "attention_device_ms": {
                 w: sum(t for n, t in by_name.items() if sym in n)
-                for w, sym in KERNEL_SYMBOLS.items()
+                for w, sym in {**KERNEL_SYMBOLS, **K4_BWD_PART_SYMBOLS}.items()
                 if any(sym in n for n in by_name)}}
 
 
 def device_busy(fn, calls: int = 3):
     """Device time per call of everything ``fn`` runs on the card (every
-    kernel and copy), from ``torch.profiler``, and the time by name."""
+    kernel and copy), from ``torch.profiler``, and the time by name. Every
+    ``fn`` given here launches work on the card, so a profiled run that
+    comes back with no record at all (seen on the H100 machine) is run
+    again, up to three runs in all."""
     fn()
     torch.cuda.synchronize()
-    with cuda_profile() as by_name:
-        for _ in range(calls):
-            fn()
+    for _ in range(3):
+        with cuda_profile() as by_name:
+            for _ in range(calls):
+                fn()
+        if by_name:
+            break
     by_name = {n: t / calls for n, t in by_name.items()}
     return sum(by_name.values()), by_name
 
@@ -207,10 +213,28 @@ def device_ms(fn, kernel: str, calls: int = 20):
     ``kernel`` (a wrapper may launch more than one), from ``torch.profiler``
     — without the host time of the Python wrapper that back-to-back timing
     of a tiny kernel measures. None when the profiler recorded no such
-    kernel."""
-    _, by_name = device_busy(fn, calls)
-    hits = [t for n, t in by_name.items() if kernel in n]
-    return sum(hits) if hits else None
+    kernel (in :func:`device_ms_of`'s repeated runs)."""
+    return device_ms_of(fn, [kernel], calls)[kernel]
+
+
+def device_ms_of(fn, symbols, calls: int = 5, tries: int = 3) -> dict:
+    """Device time a call of the kernels whose names contain each of
+    ``symbols``, all from one profiled run of ``fn`` (a wrapper may launch
+    several kernels). On the H100 machine the profiler came back from a
+    run with no record of a kernel that had run (once one of K4's two
+    backward kernels, once every kernel of the run), so a run that misses a
+    symbol is repeated, up to ``tries`` runs in all, and each repeat is
+    logged; a symbol still missing maps to None."""
+    for attempt in range(tries):
+        _, by_name = device_busy(fn, calls)
+        got = {s: (sum(t for n, t in by_name.items() if s in n)
+                   if any(s in n for n in by_name) else None) for s in symbols}
+        if all(v is not None for v in got.values()):
+            break
+        log(f"profiler run {attempt + 1} of {tries} saw no "
+            f"{[s for s, v in got.items() if v is None]}; kernels seen: "
+            f"{sorted(n[:48] for n in by_name)}")
+    return got
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -369,20 +393,109 @@ def kernel_checks(R, user, item, item_bias, ivf, dev):
     return k1, k2
 
 
+def topk_tie_check(dev) -> dict:
+    """The device top-k of both device paths (int8 through K1,
+    ``_topk_quantized``; bf16, ``_topk_scores``) on a catalog above the
+    host path's size, with constructed ties, against a numpy lexsort on
+    (-score, index) over the same scores — ``jax.lax.top_k``'s answer.
+    Ties: every item row is one of 25,000 rows drawn with repeats (equal
+    rows score bitwise equal), and an exclude set that leaves 25 items
+    unmasked for a top-40 (15 places at -inf). Also the repair's cost:
+    device ms of the ordered top-k against ``torch.topk`` alone on the
+    exact burst's shape."""
+    from incubator_predictionio_tpu_torch.models import two_tower as T
+    from incubator_predictionio_tpu_torch.ops import retrieval as R
+
+    rng = np.random.default_rng(21)
+    n_items, b = 100_000, 64  # 3.3M table elements: above the host path's 2M
+    rows = rng.integers(0, n_items // 4, n_items)
+    base = rng.standard_normal((n_items // 4, RANK)).astype(np.float32)
+    base_bias = (rng.standard_normal(n_items // 4) * 0.1).astype(np.float32)
+    model = T.TwoTowerModel(
+        user_emb=rng.standard_normal((b, RANK)).astype(np.float32),
+        item_emb=base[rows], user_bias=np.zeros(b, np.float32),
+        item_bias=base_bias[rows], mean=3.0, config=T.TwoTowerConfig(rank=RANK))
+    keep = rng.choice(n_items, 25, replace=False)
+    excluded = np.setdiff1d(np.arange(n_items), keep)
+    uidx = torch.arange(b, device=dev)
+    out = {"n_items": n_items, "batch": b, "cases": []}
+    for quantize in (True, False):
+        model.prepare_for_serving(quantize=quantize, host_max_elements=None,
+                                  build_index=False, device=dev)
+        path = model.serving_info()["path"]
+        check(path == ("device-int8" if quantize else "device-bf16"),
+              f"tie check not on the device path: {path}")
+        ue, ub = model._device_users
+        for num, exclude in ((10, None), (40, excluded)):
+            if quantize:
+                items_q, scales, bias, mask = model._device_items_q
+            else:
+                item_t, item_b, mask = model._device_items
+            if exclude is not None:
+                m = np.zeros(mask.shape[0], np.float32)
+                m[exclude] = -np.inf
+                mask = mask + torch.from_numpy(m).to(dev)
+            if quantize:
+                idx, vals = T._topk_quantized(uidx, ue, ub, items_q, scales, bias,
+                                              mask, None, model.mean, num, n_items)
+                scores = R.score_catalog_quantized(ue[uidx].float(), items_q, scales,
+                                                   bias, mask, None)
+                scores = scores.add_(ub[uidx][:, None]).add_(model.mean)[:, :n_items]
+            else:
+                idx, vals = T._topk_scores(uidx, ue, ub, item_t, item_b, model.mean,
+                                           mask, None, num)
+                scores = (ue[uidx].float() @ item_t + item_b[None, :]
+                          + ub[uidx][:, None] + model.mean + mask[None, :])
+            s = scores.cpu().numpy()
+            idx, vals = idx.cpu().numpy(), vals.cpu().numpy()
+            bad = 0
+            ties = 0
+            for r in range(b):
+                want = np.lexsort((np.arange(n_items), -s[r]))[:num]
+                bad += not (np.array_equal(idx[r], want)
+                            and np.array_equal(vals[r], s[r][want]))
+                ties += int((s[r] == s[r][want[-1]]).sum() > 1)
+            check(bad == 0, f"device top-k ({path}, num {num}): {bad} rows differ "
+                  "from lax.top_k's order")
+            check(ties > 0, f"tie check ({path}, num {num}): no tie at the k-th place")
+            out["cases"].append({"path": path, "num": num,
+                                 "excluded": 0 if exclude is None else len(exclude),
+                                 "rows_tied_at_kth": ties, "rows_differing": bad})
+            log(f"device top-k {path} num={num} excluded="
+                f"{0 if exclude is None else len(exclude)}: {b} rows equal the "
+                f"lexsort oracle ({ties} tied at the k-th place)")
+    del model
+    from incubator_predictionio_tpu_torch.models.two_tower import _top_k
+
+    s = torch.randn((64, N_ITEMS), device=dev)
+    out["torch_topk_device_ms"] = device_busy(lambda: torch.topk(s, 10, dim=1), 5)[0]
+    out["ordered_top_k_device_ms"] = device_busy(lambda: _top_k(s, 10), 5)[0]
+    log(f"top-k of [64, {N_ITEMS}], k 10, device ms: torch.topk "
+        f"{out['torch_topk_device_ms']:.4f}, in lax.top_k's order "
+        f"{out['ordered_top_k_device_ms']:.4f}")
+    return out
+
+
 #: (B, H, L, D) of each attention case: the serving batches (1, 8, 64) at
 #: the sequential phases' lengths, and the reference's other shapes
 K4_SHAPES = ((1, 8, 512, 64), (8, 8, 512, 64), (64, 8, 512, 64),
-             (3, 8, 128, 128))
+             (3, 8, 128, 128), (8, 8, 192, 64))
 #: K5's also (B, H, L, D, block) where the block is not the reference's
 #: flash block: L 576 gives the kernel a ragged last 128-row query tile
 K5_SHAPES = ((64, 8, 1024, 64), (8, 8, 768, 64), (8, 8, 640, 32),
              (8, 8, 512, 32), (8, 8, 576, 64, 64))
-#: each kernel's symbol in the profiler's kernel names
-KERNEL_SYMBOLS = {"causal_mha_small_head": "causal_attention_kernel",
+#: each kernel wrapper's symbol in the profiler's kernel names (K4's in
+#: csrc/attention.cu, K5's in csrc/flash_attention.cu; none is part of a
+#: name in the other source)
+KERNEL_SYMBOLS = {"causal_mha_small_head": "small_head_fwd_kernel",
                   "flash_causal_attention": "flash_fwd_kernel",
-                  "causal_mha_small_head_bwd": "attention_bwd_",
+                  "causal_mha_small_head_bwd": "small_head_bwd_",
                   "flash_causal_attention_bwd_dkv": "flash_bwd_dkv_kernel",
                   "flash_causal_attention_bwd_dq": "flash_bwd_dq_kernel"}
+#: the two kernels of K4's backward wrapper: dq (with the row term's walk),
+#: then dk/dv
+K4_BWD_PART_SYMBOLS = {"causal_mha_small_head_bwd_dq": "small_head_bwd_dq_kernel",
+                       "causal_mha_small_head_bwd_dkv": "small_head_bwd_dkv_kernel"}
 
 
 def attention_case(A, name, shape, seed):
@@ -448,8 +561,9 @@ def attention_checks(A):
 
 #: (B, H, L, D) of each K4 backward case and (B, H, L, D, block) of each
 #: K5 one: the training shapes at max_len 512 and 1024, and the
-#: reference's other head width
-K4_BWD_SHAPES = ((64, 8, 512, 64), (3, 8, 128, 128))
+#: reference's other head width; L 192 (K4) and 576 (K5) give the kernels
+#: a ragged last 128-row query tile
+K4_BWD_SHAPES = ((64, 8, 512, 64), (3, 8, 128, 128), (8, 8, 192, 64))
 K5_BWD_SHAPES = ((64, 8, 1024, 64, 512), (2, 8, 256, 128, 256),
                  (8, 8, 576, 64, 64))
 
@@ -511,6 +625,10 @@ def attention_bwd_case(A, name, shape, seed):
         plain = lambda: A.causal_mha_small_head_bwd_reference(q, k, v, do)  # noqa: E731
         parts = {name: (lambda: A.causal_mha_small_head_bwd(q, k, v, do, m, l_sum),
                         plain, 7 * bhld * 2 + 2 * bhl * 4, 5 * bhl2d)}
+        # its kernels' work: dq and the row term (reads q, k, v, do, m, l;
+        # writes dq, t), then dk and dv (reads q, k, v, do, m, l, t)
+        split = {"causal_mha_small_head_bwd_dq": (5 * bhld * 2 + 3 * bhl * 4, 3 * bhl2d),
+                 "causal_mha_small_head_bwd_dkv": (6 * bhld * 2 + 3 * bhl * 4, 4 * bhl2d)}
     else:
         di = (o.float() * do.float()).sum(-1)
         errs = grad_errors(
@@ -540,8 +658,12 @@ def attention_bwd_case(A, name, shape, seed):
     out["library_ms"] = sdpa_bwd_ms(q, k, v, do)
     out["kernels"] = {}
     for part, (fn, part_plain, n_bytes, n_ops) in parts.items():
+        # K4's one wrapper: its two kernels from the same profiled runs
+        syms = [KERNEL_SYMBOLS[part]] + (list(K4_BWD_PART_SYMBOLS.values())
+                                         if part == "causal_mha_small_head_bwd" else [])
+        seen = device_ms_of(fn, syms)
         rec = {"ms": time_ms(fn, reps=5, inner=3),
-               "device_ms": device_ms(fn, KERNEL_SYMBOLS[part], calls=5),
+               "device_ms": seen[KERNEL_SYMBOLS[part]],
                # one kernel's part alone: no library call computes only it
                "plain_ms": (out["plain_ms"] if len(parts) == 1
                             else time_ms(part_plain, reps=3, inner=1, warm=1)),
@@ -555,6 +677,16 @@ def attention_bwd_case(A, name, shape, seed):
             + f" ms={rec['ms']:.4f} device_ms={fmt(rec['device_ms'])} "
             f"plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
             f"({rec['bound_by']})")
+        if part == "causal_mha_small_head_bwd":
+            # one wrapper, two kernels: each one's device time by its symbol
+            rec["parts"] = {}
+            for sub, sym in K4_BWD_PART_SYMBOLS.items():
+                check(seen[sym] is not None, f"{sub} {shape}: the profiler saw no {sym}")
+                b_ms, b_by = bound(*split[sub])
+                rec["parts"][sub] = {"device_ms": seen[sym], "bound_ms": b_ms,
+                                     "bound_by": b_by}
+                log(f"{sub:<31s} B={b:<3d} H={h} L={l:<5d} D={d:<4d} "
+                    f"device_ms={seen[sym]:.4f} bound_ms={b_ms:.4f} ({b_by})")
     recs = out["kernels"].values()
     out["bwd_device_ms"] = (None if any(r["device_ms"] is None for r in recs)
                             else sum(r["device_ms"] for r in recs))
@@ -1798,6 +1930,7 @@ def main() -> int:
         f"(setup {time.perf_counter() - t0:.2f} s)")
 
     k1, k2 = kernel_checks(R, user, item, item_bias, ivf, dev)
+    topk = topk_tie_check(dev)
     k4, k5 = attention_checks(A)
     k4b, k5b = attention_bwd_checks(A)
     k3, k3b = k3_checks(S, dev)
@@ -1869,6 +2002,8 @@ def main() -> int:
                   {**main_case, **main_case["kernels"][name]})
         e["max_abs_err"] = max(c["errors"][g]["max_abs_err"]
                                for c in cases for g in grads)
+        if "parts" in main_case["kernels"][name]:
+            e["parts"] = main_case["kernels"][name]["parts"]
         return e
 
     kernels = [
@@ -1901,7 +2036,7 @@ def main() -> int:
               "cuda": torch.version.cuda, "build_s": build_s,
               "k1_cases": k1, "k2_cases": k2, "k4_cases": k4, "k5_cases": k5,
               "k4_bwd_cases": k4b, "k5_bwd_cases": k5b,
-              "k3_cases": k3, "k3b": k3b,
+              "k3_cases": k3, "k3b": k3b, "topk_tie_check": topk,
               "main_path": main, "kernels": kernels,
               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
               "wall_s": time.perf_counter() - t_start}

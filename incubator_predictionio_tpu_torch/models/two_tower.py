@@ -19,12 +19,13 @@ Streaming deltas land through :meth:`TwoTowerModel.with_row_updates`
 the moved rows). Training (``fit``) and sharded serving come in later
 slices (ROADMAP.md).
 
-Tie order: ``lax.top_k`` breaks ties toward the lowest index and
-``torch.topk`` promises no order among equal scores. The parity tests use
-continuous random weights, where exact ties have probability ~0; -inf
-entries (masked items) may come back in another order, and the padded
-columns of the int8 catalog are sliced off before top-k so a padded id can
-never be returned.
+Tie order: the device paths answer what ``lax.top_k`` answers — among
+equal scores the lowest indices are taken and come first, -inf entries
+(masked items) included — though ``torch.topk`` promises no order among
+equal scores (:func:`_top_k` repairs it on the device). The padded columns
+of the int8 catalog are sliced off before top-k, so a padded id can never
+be returned (the reference keeps them at -inf, above every real index).
+The host path keeps the reference's numpy code and its order.
 """
 
 from __future__ import annotations
@@ -540,7 +541,7 @@ def _topk_quantized(uidx, ue_tab, ub_tab, items_q, scales, bias, mask,
     q = ue_tab[uidx].float()  # bf16 rows widen exactly
     scores = score_catalog_quantized(q, items_q, scales, bias, mask, row_mask)
     scores.add_(ub_tab[uidx][:, None]).add_(mean)
-    values, indices = torch.topk(scores[:, :n_items], num, dim=1)
+    values, indices = _top_k(scores[:, :n_items], num)
     return indices, values
 
 
@@ -558,5 +559,26 @@ def _topk_scores(uidx, ue_tab, ub_tab, item_t, item_b, mean, mask, row_mask,
     )
     if row_mask is not None:
         scores = scores + row_mask
-    values, indices = torch.topk(scores, num, dim=1)
+    values, indices = _top_k(scores, num)
     return indices, values
+
+
+def _top_k(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` of each row of ``scores`` [B, N]: (values,
+    indices) of the ``k`` largest, by score descending, then index
+    ascending; where entries tie at the k-th score, the lowest indices are
+    the ones taken. ``torch.topk`` finds the k-th score but leaves open
+    which tied entries it takes and in what order. So a second top-k over
+    an int32 key takes the k: every entry above the k-th score (key
+    ``2N - index``), then the entries equal to it (``N - index``, the
+    lowest index first; 0 elsewhere), each group in index order; a stable
+    sort by score descending orders them. On the device, with no
+    synchronisation: the caller's one copy to the host stays the only
+    one."""
+    n = scores.shape[1]
+    kth = torch.topk(scores, k, dim=1)[0][:, -1:]
+    rank = torch.arange(n, 0, -1, dtype=torch.int32, device=scores.device)
+    key = torch.where(scores > kth, rank + n, torch.where(scores == kth, rank, 0))
+    idx = torch.topk(key, k, dim=1)[1]
+    values, order = scores.gather(1, idx).sort(dim=1, descending=True, stable=True)
+    return values, idx.gather(1, order)

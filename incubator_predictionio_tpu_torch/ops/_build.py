@@ -2,9 +2,10 @@
 
 Each source file compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded with :mod:`ctypes` — no PyTorch headers, so a
-build takes seconds. Libraries land in ``build/kernels/`` at the repo root,
-named by a hash of the source and the compiler flags: an edited source
-builds anew, an unchanged one loads what is there. Nothing here runs at
+build takes seconds. A source may include the shared headers of ``csrc/``
+(``*.cuh``). Libraries land in ``build/kernels/`` at the repo root, named by
+a hash of the source, every shared header and the compiler flags: an edited
+source or header builds anew, an unchanged one loads what is there. Nothing here runs at
 import time, and a failed build raises (the port never falls back to the
 plain PyTorch version on a card).
 """
@@ -73,9 +74,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where the library of ``csrc/<name>.cu`` is built: named by a hash of
+    the source, every ``csrc/*.cuh`` (an edited header rebuilds every
+    library, never loads a stale one) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -25,8 +25,10 @@ Both take the reference kernels' layout: q, k, v ``[B, H, L, D]`` bf16 in,
   and :func:`flash_causal_attention_bwd_dq`.
 
 K4's kernels live in ``csrc/attention.cu``, K5's in
-``csrc/flash_attention.cu`` (both built by :mod:`._build`); the notes there
-say what bounds them on an H100. Beside each sits its plain
+``csrc/flash_attention.cu``, both on the Hopper building blocks (wgmma,
+cp.async into swizzled tiles) and backward bodies of the shared header
+``csrc/attention_sm90.cuh``; :mod:`._build` builds them, and the notes
+there say what bounds them on an H100. Beside each sits its plain
 PyTorch version (``*_reference``). The wrappers take the plain version only
 for tensors on the CPU; given CUDA tensors they launch the kernel or raise.
 Each kernel wrapper counts its launches in ``launches``

@@ -1,0 +1,163 @@
+"""PyTorch port, the CUDA sources of the attention kernels (K4 in
+``csrc/attention.cu``, K5 in ``csrc/flash_attention.cu``, their shared
+Hopper building blocks in ``csrc/*.cuh``):
+
+- the build hash covers the shared headers: editing a header rebuilds every
+  library, editing one source only its own;
+- the kernel names that ``chip_smoke.py`` reads in the profiler's output
+  name kernels of the library each wrapper launches, and none of the other
+  attention library, so that K4's and K5's device times never mix;
+- the Hopper building blocks are defined once, in the header.
+
+The kernels themselves compile and run only on a card (``chip_smoke.py``).
+"""
+
+import importlib.util
+import re
+import shutil
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from incubator_predictionio_tpu_torch.ops import _build  # noqa: E402
+from incubator_predictionio_tpu_torch.ops import attention as tatt  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+ATTENTION = ("attention", "flash_attention")
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _kernels(name: str) -> list[str]:
+    """The ``__global__`` functions defined in csrc/<name>.cu, parsed from
+    the source text."""
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    text = re.sub(r"__launch_bounds__\((?:[^()]|\([^()]*\))*\)", "", text)
+    return re.findall(r"__global__\s+void\s+(\w+)\s*\(", text)
+
+
+def _routes() -> dict[str, str]:
+    """Each kernel wrapper's library, as the wrappers launch it: tensors on
+    the meta device take the launch path without a card, and a recording
+    ``_call`` launches nothing."""
+    routes = {}
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tatt, "_call", lambda what, lib, fn, wrapper, tensors, shape:
+               routes.setdefault(wrapper.__name__, lib))
+    try:
+        q, k, v, do = (torch.empty((1, 1, 128, 64), dtype=torch.bfloat16, device="meta")
+                       for _ in range(4))
+        st = torch.empty((1, 1, 128), device="meta")
+        tatt.causal_mha_small_head(q, k, v)
+        tatt.causal_mha_small_head_bwd(q, k, v, do, st, st)
+        tatt.flash_causal_attention(q, k, v, 128)
+        tatt.flash_causal_attention_bwd(q, k, v, q, do, st, st, 128)
+    finally:
+        mp.undo()
+    return routes
+
+
+@pytest.fixture
+def csrc_copy(tmp_path, monkeypatch):
+    dst = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, dst)
+    monkeypatch.setattr(_build, "CSRC", dst)
+    return dst
+
+
+def _paths() -> dict[str, Path]:
+    return {p.stem: _build.library_path(p.stem) for p in _build.CSRC.glob("*.cu")}
+
+
+def test_editing_a_header_rebuilds_every_library(csrc_copy):
+    headers = sorted(csrc_copy.glob("*.cuh"))
+    assert [h.name for h in headers] == ["attention_sm90.cuh"]
+    before = _paths()
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    after = _paths()
+    assert sorted(before) == sorted(after) == sorted(p.stem for p in csrc_copy.glob("*.cu"))
+    assert all(after[n] != before[n] for n in before)
+
+
+def test_a_new_header_rebuilds_every_library(csrc_copy):
+    before = _paths()
+    (csrc_copy / "other.cuh").write_text("#pragma once\n")
+    after = _paths()
+    assert all(after[n] != before[n] for n in before)
+
+
+@pytest.mark.parametrize("edited", ["attention", "flash_attention", "retrieval",
+                                    "sparse_update"])
+def test_editing_a_source_rebuilds_only_its_library(csrc_copy, edited):
+    before = _paths()
+    src = csrc_copy / f"{edited}.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    after = _paths()
+    assert {n for n in before if after[n] != before[n]} == {edited}
+
+
+def test_unchanged_sources_keep_their_library():
+    assert _paths() == _paths()
+
+
+def test_wrappers_route_to_the_attention_libraries():
+    assert _routes() == {
+        "causal_mha_small_head": "attention",
+        "causal_mha_small_head_bwd": "attention",
+        "flash_causal_attention": "flash_attention",
+        "flash_causal_attention_bwd_dkv": "flash_attention",
+        "flash_causal_attention_bwd_dq": "flash_attention"}
+
+
+def _symbol_cases():
+    smoke = _chip_smoke()
+    cases = [(w, sym, w) for w, sym in smoke.KERNEL_SYMBOLS.items()]
+    cases += [(part, sym, "causal_mha_small_head_bwd")
+              for part, sym in smoke.K4_BWD_PART_SYMBOLS.items()]
+    return cases
+
+
+@pytest.mark.parametrize("name,symbol,wrapper", _symbol_cases())
+def test_profiler_symbol_names_a_kernel_of_its_library_only(name, symbol, wrapper):
+    lib = _routes()[wrapper]
+    other = next(n for n in ATTENTION if n != lib)
+    assert any(symbol in k for k in _kernels(lib)), (name, symbol, _kernels(lib))
+    assert not any(symbol in k for k in _kernels(other)), (name, symbol, _kernels(other))
+
+
+def test_every_k4_kernel_has_a_symbol():
+    """Each K4 kernel is read in the profiler by the forward's symbol or by
+    one of the backward's two."""
+    smoke = _chip_smoke()
+    syms = [smoke.KERNEL_SYMBOLS["causal_mha_small_head"],
+            *smoke.K4_BWD_PART_SYMBOLS.values()]
+    kernels = _kernels("attention")
+    assert len(kernels) == 3
+    assert sorted(k for k in kernels if any(s in k for s in syms)) == sorted(kernels)
+
+
+@pytest.mark.parametrize("block", ["wgmma_ss_n64", "wgmma_rs_n128", "gmma_desc",
+                                   "copy_rows", "to_a", "store_rows", "quad_max",
+                                   "quad_sum", "dq_rows", "dkv_keys"])
+def test_hopper_building_blocks_are_defined_once(block):
+    """Defined in the shared header, used (never redefined) by both
+    attention sources."""
+    define = re.compile(r"__device__ __forceinline__ [\w:<>, ]+?\b" + block + r"\(")
+    texts = {p.name: p.read_text() for p in [*_build.CSRC.glob("*.cu"),
+                                             *_build.CSRC.glob("*.cuh")]}
+    assert [n for n, t in texts.items() if define.search(t)] == ["attention_sm90.cuh"]
+    for name in ATTENTION:
+        assert '#include "attention_sm90.cuh"' in texts[f"{name}.cu"]
+
+
+def test_no_wmma_template_is_left():
+    for name in ATTENTION:
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert "nvcuda" not in text and "<mma.h>" not in text
