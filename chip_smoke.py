@@ -296,13 +296,16 @@ def k1_case(R, q, items_q, scales, bias, mask, row_mask=None):
     out["ms"] = time_ms(lambda: R.score_catalog_quantized(
         q, items_q, scales, bias, mask, row_mask))
     out["device_ms"] = device_ms(lambda: R.score_catalog_quantized(
-        q, items_q, scales, bias, mask, row_mask), "score_catalog_kernel")
+        q, items_q, scales, bias, mask, row_mask),
+        RETRIEVAL_SYMBOLS["score_catalog_quantized"])
     out["plain_ms"] = time_ms(lambda: R.score_catalog_reference(
         q, items_q, scales, bias, mask, row_mask))
-    # library yardstick: one fp32 matmul over the dequantized operands
+    # library yardstick: one fp32 matmul over the dequantized operands, its
+    # device time as the kernel's (its CUDA-event time beside it)
     qf = q.to(torch.bfloat16).float()
     deq_t = (items_q.float() * scales[:, None]).T.contiguous()
-    out["library_ms"] = time_ms(lambda: torch.matmul(qf, deq_t))
+    out["library_event_ms"] = time_ms(lambda: torch.matmul(qf, deq_t))
+    out["library_ms"] = device_busy(lambda: torch.matmul(qf, deq_t), calls=5)[0]
     del qf, deq_t
     nbytes = (b * d * 4 + n * d + 3 * n * 4 + b * n * 4
               + (b * n * 4 if row_mask is not None else 0))
@@ -313,8 +316,8 @@ def k1_case(R, q, items_q, scales, bias, mask, row_mask=None):
     log(f"K1 B={b:<4d} N={n} D={d:<3d} row_mask={row_mask is not None!s:<5} "
         f"max_abs_err={err:.3e} (tol {K1_TOL}) ms={out['ms']:.4f} "
         f"device_ms={fmt(out['device_ms'])} "
-        f"plain_ms={out['plain_ms']:.4f} matmul_ms={out['library_ms']:.4f} "
-        f"bound_ms={out['bound_ms']:.4f}")
+        f"plain_ms={out['plain_ms']:.4f} matmul_device_ms={out['library_ms']:.4f} "
+        f"matmul_ms={out['library_event_ms']:.4f} bound_ms={out['bound_ms']:.4f}")
     return out
 
 
@@ -335,11 +338,12 @@ def k2_case(R, q_q, q_s, cq, cs, cb):
            "bitwise_equal": bool(torch.equal(got, want))}
     out["ms"] = time_ms(lambda: R.score_centroids_quantized(q_q, q_s, cq, cs, cb))
     out["device_ms"] = device_ms(lambda: R.score_centroids_quantized(
-        q_q, q_s, cq, cs, cb), "score_centroids_kernel")
+        q_q, q_s, cq, cs, cb), RETRIEVAL_SYMBOLS["score_centroids_quantized"])
     out["plain_ms"] = time_ms(lambda: R.score_centroids_reference(
         q_q, q_s, cq, cs, cb))
     qf, cf_t = q_q.float(), cq.float().T.contiguous()
-    out["library_ms"] = time_ms(lambda: torch.matmul(qf, cf_t))
+    out["library_event_ms"] = time_ms(lambda: torch.matmul(qf, cf_t))
+    out["library_ms"] = device_busy(lambda: torch.matmul(qf, cf_t), calls=5)[0]
     nbytes = b * d + b * 4 + c * d + 2 * c * 4 + b * c * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2.0 * b * c * d / INT8_OPS_PER_S * 1e3
@@ -348,16 +352,18 @@ def k2_case(R, q_q, q_s, cq, cs, cb):
     log(f"K2 B={b:<4d} C={c} D={d:<3d} max_abs_err={err:.3e} "
         f"(rtol {K2_RTOL}, atol {K2_ATOL}) bitwise={out['bitwise_equal']} "
         f"ms={out['ms']:.4f} device_ms={fmt(out['device_ms'])} "
-        f"plain_ms={out['plain_ms']:.4f} matmul_ms={out['library_ms']:.4f} "
-        f"bound_ms={out['bound_ms']:.6f}")
+        f"plain_ms={out['plain_ms']:.4f} matmul_device_ms={out['library_ms']:.4f} "
+        f"matmul_ms={out['library_event_ms']:.4f} bound_ms={out['bound_ms']:.6f}")
     return out
 
 
 def kernel_checks(R, user, item, item_bias, ivf, dev):
-    """K1 at the exact path's shapes (D 32, N 1,000,448, B 1/8/64/128 and
-    the row-mask variant at B 8) and at the recommendation_scaled width
-    (D 128, N 100,352); K2 at the coarse probe's (D 32, C 1024, B 8/64/128).
-    The catalog is the served one, quantized on the card."""
+    """K1 at the exact path's shapes (D 32, N 1,000,448, B 1/8/64/128/256 —
+    the serving buckets' ladder up to the top bucket — and the row-mask
+    variant at B 8 and 64), at the recommendation_scaled width (D 128, N
+    100,352) and at a D that is not a multiple of 16 (D 40, N 100,352); K2
+    at the coarse probe's (D 32, C 1024, B 8/64/128). The catalog is the
+    served one, quantized on the card."""
     items_q, scales, bias, mask = R.quantize_catalog_device(
         torch.from_numpy(item).to(dev), torch.from_numpy(item_bias).to(dev))
     hq, hs = R.quantize_rows(item)
@@ -365,21 +371,24 @@ def kernel_checks(R, user, item, item_bias, ivf, dev):
           and np.array_equal(scales[:N_ITEMS].cpu().numpy(), hs),
           "device quantization differs from quantize_rows")
     log("quantize_catalog_device == quantize_rows bitwise on the served catalog")
-    users = torch.from_numpy(user[:128]).to(dev)
+    users = torch.from_numpy(user[:256]).to(dev)
     k1 = []
-    for b in (1, 8, 64, 128):
+    for b in (1, 8, 64, 128, 256):
         k1.append(k1_case(R, users[:b].contiguous(), items_q, scales, bias, mask))
     rng = np.random.default_rng(5)
-    rm = np.zeros((8, items_q.shape[0]), np.float32)
-    rm[np.arange(8)[:, None], rng.integers(0, N_ITEMS, (8, 16))] = -np.inf
-    k1.append(k1_case(R, users[:8].contiguous(), items_q, scales, bias, mask,
-                      torch.from_numpy(rm).to(dev)))
-    n128, d128 = 100_000, 128
-    it128 = rng.standard_normal((n128, d128)).astype(np.float32)
-    q128 = torch.from_numpy(rng.standard_normal((64, d128)).astype(np.float32)).to(dev)
-    k1.append(k1_case(R, q128, *R.quantize_catalog_device(
-        torch.from_numpy(it128).to(dev),
-        torch.from_numpy(rng.standard_normal(n128).astype(np.float32)).to(dev))))
+    for b in (8, 64):
+        rm = np.zeros((b, items_q.shape[0]), np.float32)
+        rm[np.arange(b)[:, None], rng.integers(0, N_ITEMS, (b, 16))] = -np.inf
+        k1.append(k1_case(R, users[:b].contiguous(), items_q, scales, bias, mask,
+                          torch.from_numpy(rm).to(dev)))
+        del rm
+    n_small = 100_000
+    for d in (128, 40):
+        it = rng.standard_normal((n_small, d)).astype(np.float32)
+        qd = torch.from_numpy(rng.standard_normal((64, d)).astype(np.float32)).to(dev)
+        k1.append(k1_case(R, qd, *R.quantize_catalog_device(
+            torch.from_numpy(it).to(dev),
+            torch.from_numpy(rng.standard_normal(n_small).astype(np.float32)).to(dev))))
     cent_q, cent_s = R.quantize_rows(np.asarray(ivf.centroids[:, :-1], np.float32))
     cq, cs, cb = (torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                   for v in R.pad_centroids(
@@ -484,6 +493,9 @@ K4_SHAPES = ((1, 8, 512, 64), (8, 8, 512, 64), (64, 8, 512, 64),
 #: flash block: L 576 gives the kernel a ragged last 128-row query tile
 K5_SHAPES = ((64, 8, 1024, 64), (8, 8, 768, 64), (8, 8, 640, 32),
              (8, 8, 512, 32), (8, 8, 576, 64, 64))
+#: K1's and K2's symbols in the profiler's kernel names (csrc/retrieval.cu)
+RETRIEVAL_SYMBOLS = {"score_catalog_quantized": "score_catalog_kernel",
+                     "score_centroids_quantized": "score_centroids_kernel"}
 #: each kernel wrapper's symbol in the profiler's kernel names (K4's in
 #: csrc/attention.cu, K5's in csrc/flash_attention.cu; none is part of a
 #: name in the other source)
@@ -2009,7 +2021,8 @@ def main() -> int:
     kernels = [
         entry("score_catalog_quantized", "retrieval.cu",
               "incubator_predictionio_tpu/ops/retrieval.py:97", k1,
-              next(c for c in k1 if c["B"] == 64 and c["D"] == RANK)),
+              next(c for c in k1 if c["B"] == 64 and c["D"] == RANK
+                   and not c["row_mask"])),
         entry("score_centroids_quantized", "retrieval.cu",
               "incubator_predictionio_tpu/ops/retrieval.py:188", k2,
               next(c for c in k2 if c["B"] == 64)),

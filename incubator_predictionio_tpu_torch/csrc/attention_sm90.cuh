@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the causal-attention kernels: shared by
 // csrc/attention.cu (K4, the small-head kernel) and csrc/flash_attention.cu
 // (K5, the flash kernel), each of which includes it into its own library.
+// csrc/retrieval.cu (K1) includes it for its PTX wrappers alone.
 //
 // - PTX wrappers: cp.async into shared memory, the async-proxy fence, wgmma
 //   fences and waits, ex2.approx, bf16 packing;

@@ -34,8 +34,10 @@ ITEM_BLOCK = 512  # catalog rows per block of the reference's grid; N pads to it
 #: computes the int32 accumulation bit-exactly.
 INT8_EXACT_MAX_RANK = (1 << 24) // (127 * 127)
 
-#: Widest rank the K1 kernel takes: its [tile, D] fp32 query tile must fit
-#: the 48 KB of static shared memory at the largest tile (32 queries).
+#: Widest rank the K1 kernel takes: it is built for up to 16 K steps of 16
+#: dims (a step's catalog words stay in registers), and at 256 the bf16
+#: query fragments of 128 queries (64 KB) still stage once a block beside
+#: its catalog ring, so every batch up to 128 reads the catalog once.
 KERNEL_MAX_RANK = 256
 
 _LAUNCH_LOCK = threading.Lock()

@@ -1,12 +1,13 @@
-"""PyTorch port, the CUDA sources of the attention kernels (K4 in
-``csrc/attention.cu``, K5 in ``csrc/flash_attention.cu``, their shared
-Hopper building blocks in ``csrc/*.cuh``):
+"""PyTorch port, the CUDA sources of the kernels (K1 and K2 in
+``csrc/retrieval.cu``, K4 in ``csrc/attention.cu``, K5 in
+``csrc/flash_attention.cu``, their shared Hopper building blocks in
+``csrc/*.cuh``):
 
 - the build hash covers the shared headers: editing a header rebuilds every
   library, editing one source only its own;
 - the kernel names that ``chip_smoke.py`` reads in the profiler's output
-  name kernels of the library each wrapper launches, and none of the other
-  attention library, so that K4's and K5's device times never mix;
+  name kernels of the library each wrapper launches, and of no other
+  library, so that no two kernels' device times mix;
 - the Hopper building blocks are defined once, in the header.
 
 The kernels themselves compile and run only on a card (``chip_smoke.py``).
@@ -23,6 +24,7 @@ torch = pytest.importorskip("torch")
 
 from incubator_predictionio_tpu_torch.ops import _build  # noqa: E402
 from incubator_predictionio_tpu_torch.ops import attention as tatt  # noqa: E402
+from incubator_predictionio_tpu_torch.ops import retrieval as tret  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 ATTENTION = ("attention", "flash_attention")
@@ -59,6 +61,40 @@ def _routes() -> dict[str, str]:
         tatt.causal_mha_small_head_bwd(q, k, v, do, st, st)
         tatt.flash_causal_attention(q, k, v, 128)
         tatt.flash_causal_attention_bwd(q, k, v, q, do, st, st, 128)
+    finally:
+        mp.undo()
+    return routes
+
+
+class _Routed(Exception):
+    pass
+
+
+def _retrieval_routes() -> dict[str, str]:
+    """K1's and K2's library, as their wrappers launch it: meta tensors with
+    the CUDA checks lifted take the launch path, and a recording
+    ``_build.library`` stops it there."""
+    routes = {}
+
+    def library(name):
+        raise _Routed(name)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tret, "_check_cuda", lambda what, **tensors: None)
+    mp.setattr(_build, "library", library)
+    try:
+        m = lambda *shape, dtype=torch.float32: torch.empty(  # noqa: E731
+            shape, dtype=dtype, device="meta")
+        n = tret.ITEM_BLOCK
+        for wrapper, args in (
+                (tret.score_catalog_quantized,
+                 (m(2, 32), m(n, 32, dtype=torch.int8), m(n), m(n), m(n))),
+                (tret.score_centroids_quantized,
+                 (m(2, 32, dtype=torch.int8), m(2), m(n, 32, dtype=torch.int8),
+                  m(n), m(n)))):
+            with pytest.raises(_Routed) as routed:
+                wrapper(*args)
+            routes[wrapper.__name__] = routed.value.args[0]
     finally:
         mp.undo()
     return routes
@@ -116,20 +152,26 @@ def test_wrappers_route_to_the_attention_libraries():
         "flash_causal_attention_bwd_dq": "flash_attention"}
 
 
+def test_wrappers_route_to_the_retrieval_library():
+    assert _retrieval_routes() == {"score_catalog_quantized": "retrieval",
+                                   "score_centroids_quantized": "retrieval"}
+
+
 def _symbol_cases():
     smoke = _chip_smoke()
     cases = [(w, sym, w) for w, sym in smoke.KERNEL_SYMBOLS.items()]
     cases += [(part, sym, "causal_mha_small_head_bwd")
               for part, sym in smoke.K4_BWD_PART_SYMBOLS.items()]
+    cases += [(w, sym, w) for w, sym in smoke.RETRIEVAL_SYMBOLS.items()]
     return cases
 
 
 @pytest.mark.parametrize("name,symbol,wrapper", _symbol_cases())
 def test_profiler_symbol_names_a_kernel_of_its_library_only(name, symbol, wrapper):
-    lib = _routes()[wrapper]
-    other = next(n for n in ATTENTION if n != lib)
+    lib = {**_routes(), **_retrieval_routes()}[wrapper]
     assert any(symbol in k for k in _kernels(lib)), (name, symbol, _kernels(lib))
-    assert not any(symbol in k for k in _kernels(other)), (name, symbol, _kernels(other))
+    for other in sorted(p.stem for p in _build.CSRC.glob("*.cu") if p.stem != lib):
+        assert not any(symbol in k for k in _kernels(other)), (name, symbol, other)
 
 
 def test_every_k4_kernel_has_a_symbol():
@@ -141,6 +183,19 @@ def test_every_k4_kernel_has_a_symbol():
     kernels = _kernels("attention")
     assert len(kernels) == 3
     assert sorted(k for k in kernels if any(s in k for s in syms)) == sorted(kernels)
+
+
+def test_every_retrieval_kernel_has_a_symbol():
+    """Both K1 kernels (the staged one and the one for batches of up to 8)
+    are read in the profiler by K1's symbol, K2's kernel by K2's."""
+    smoke = _chip_smoke()
+    k1, k2 = (smoke.RETRIEVAL_SYMBOLS[w] for w in ("score_catalog_quantized",
+                                                   "score_centroids_quantized"))
+    kernels = _kernels("retrieval")
+    assert len(kernels) == 3
+    assert sorted(k for k in kernels if k1 in k) == ["score_catalog_kernel",
+                                                     "score_catalog_kernel_b8"]
+    assert [k for k in kernels if k2 in k] == ["score_centroids_kernel"]
 
 
 @pytest.mark.parametrize("block", ["wgmma_ss_n64", "wgmma_rs_n128", "gmma_desc",

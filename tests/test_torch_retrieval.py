@@ -58,7 +58,10 @@ def _assert_close_with_infs(got, want, rtol, atol):
 
 
 @pytest.mark.parametrize("row_mask", [False, True], ids=["plain", "row_mask"])
-@pytest.mark.parametrize("b,d,n", [(8, 32, 1000), (3, 128, 700), (16, 32, 4096)])
+@pytest.mark.parametrize("b,d,n", [(8, 32, 1000), (3, 128, 700), (16, 32, 4096),
+                                   # the top serving bucket (the kernel loops
+                                   # over 64-query tiles); a D that pads K
+                                   (256, 32, 600), (5, 40, 900)])
 def test_k1_plain_matches_jax_kernel_and_oracle(b, d, n, row_mask):
     args = _catalog(b, d, n, seed=b + d, row_mask=row_mask)
     got = tr.score_catalog_quantized(*_torch(*args)).numpy()
