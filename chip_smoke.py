@@ -34,15 +34,19 @@ its plain version at the training shapes.
 
 Then it streams live events into the served recommendation model, as the
 repo's ``bench_streaming_freshness`` does: a ``StreamUpdater`` tails a
-PIOLOG01 log written with the port's codec, folds each batch on the card
-through kernel K3 (row-block adam), archives each delta and ships it over
-a real socket to the QueryServer's ``POST /delta``, which builds the
-delta-applied engine beside the live one and swaps it in: 8 rounds of 25
-events (event-visible latency), then a backlog of 8,000 (32 micro-batches,
-updater events/s). It holds K3 (and its table-resident form) against the
-plain version, the trainer's state against a host replay, the answers after
-the stream against the plain CPU path (exact) and the exact answers
-(two-stage), and the replica's exactly-once checks.
+PIOLOG01 log written with the port's codec, folds each batch, archives each
+delta and ships it over a real socket to the QueryServer's ``POST
+/delta``, which builds the delta-applied engine beside the live one and
+swaps it in: 8 rounds of 25 events (event-visible latency), then a backlog
+of 8,000 (32 micro-batches, updater events/s), all under the default
+``PIO_STREAM_FUSED=auto``, the host fused pass (no K3 launch); then a
+second backlog of 8,000 under ``PIO_STREAM_FUSED=device``, each
+micro-batch through kernel K3 (row-block adam) on the card. It holds K3
+(and its table-resident form) against the plain version, the trainer's
+state against a host replay, the answers after the stream against the
+plain CPU path (exact) and the exact answers (two-stage), and the
+replica's exactly-once checks. It measures the card's launch floor (the
+device time of the smallest launch) beside the kernels.
 
 Every check failure raises: the script catches nothing, and a non-zero exit
 is the verdict. Its last line is one JSON object, ``{"ok": true, "device":
@@ -73,6 +77,9 @@ import torch
 #: the reference's kernel tolerances (tests/test_retrieval_kernel.py:42, :291)
 K1_TOL = 2e-2
 K2_RTOL, K2_ATOL = 3e-7, 1e-6
+#: K2's probe buckets held against its plain version, bitwise: the
+#: smallest, the two-stage serving burst's and a large one
+K2_BUCKETS = (8, 64, 256)
 #: an H100 SXM's published peaks (NVIDIA data sheet, dense), at 700 W
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
@@ -335,7 +342,9 @@ def k2_case(R, q_q, q_s, cq, cs, cb):
           f"atol {K2_ATOL}")
     out = {"B": b, "C": c, "D": d, "max_abs_err": err,
            "tolerance": {"rtol": K2_RTOL, "atol": K2_ATOL},
-           "bitwise_equal": bool(torch.equal(got, want))}
+           "bitwise_equal": got.cpu().numpy().tobytes() == want.cpu().numpy().tobytes()}
+    check(out["bitwise_equal"], f"K2 B={b} C={c} D={d}: not bitwise equal to "
+          f"its plain version (max abs err {err})")
     out["ms"] = time_ms(lambda: R.score_centroids_quantized(q_q, q_s, cq, cs, cb))
     out["device_ms"] = device_ms(lambda: R.score_centroids_quantized(
         q_q, q_s, cq, cs, cb), RETRIEVAL_SYMBOLS["score_centroids_quantized"])
@@ -362,8 +371,9 @@ def kernel_checks(R, user, item, item_bias, ivf, dev):
     the serving buckets' ladder up to the top bucket — and the row-mask
     variant at B 8 and 64), at the recommendation_scaled width (D 128, N
     100,352) and at a D that is not a multiple of 16 (D 40, N 100,352); K2
-    at the coarse probe's (D 32, C 1024, B 8/64/128). The catalog is the
-    served one, quantized on the card."""
+    at the coarse probe's (D 32, C 1024, the probe buckets
+    :data:`K2_BUCKETS`). The catalog is the served one, quantized on the
+    card."""
     items_q, scales, bias, mask = R.quantize_catalog_device(
         torch.from_numpy(item).to(dev), torch.from_numpy(item_bias).to(dev))
     hq, hs = R.quantize_rows(item)
@@ -394,7 +404,7 @@ def kernel_checks(R, user, item, item_bias, ivf, dev):
                   for v in R.pad_centroids(
                       cent_q, cent_s, np.asarray(ivf.centroids[:, -1], np.float32)))
     k2 = []
-    for b in (8, 64, 128):
+    for b in K2_BUCKETS:
         q_q, q_s = R.quantize_rows(user[:b])
         k2.append(k2_case(R, torch.from_numpy(q_q).to(dev),
                           torch.from_numpy(q_s).to(dev), cq, cs, cb))
@@ -496,6 +506,10 @@ K5_SHAPES = ((64, 8, 1024, 64), (8, 8, 768, 64), (8, 8, 640, 32),
 #: K1's and K2's symbols in the profiler's kernel names (csrc/retrieval.cu)
 RETRIEVAL_SYMBOLS = {"score_catalog_quantized": "score_catalog_kernel",
                      "score_centroids_quantized": "score_centroids_kernel"}
+#: K3's symbol (csrc/sparse_update.cu): both entries, stacked and indexed,
+#: launch the one kernel template
+SPARSE_SYMBOLS = {"adam_rows": "adam_rows_kernel",
+                  "adam_rows_indexed": "adam_rows_kernel"}
 #: each kernel wrapper's symbol in the profiler's kernel names (K4's in
 #: csrc/attention.cu, K5's in csrc/flash_attention.cu; none is part of a
 #: name in the other source)
@@ -1457,21 +1471,27 @@ def k3_case(S, r, d, seed, dev) -> dict:
     got = S.adam_rows(stack, bc, STREAM_LR).cpu().numpy()
     want = S.adam_rows_reference(stack, bc, STREAM_LR).cpu().numpy()
     host = np.stack(S.fused_adam_rows(rows, m, v, g, t, STREAM_LR))
+    # the device engine's staged entry (copy up, K3, copy down, one call)
+    engine = np.stack(S.fused_adam_rows_device(rows, m, v, g, t, STREAM_LR,
+                                               device=dev))
     check(bool(np.isfinite(got).all()), f"K3 R={r} D={d}: non-finite")
     out = {"R": r, "D": d, "max_abs_err": float(np.abs(got - want).max()),
            "max_ulps": max_ulps(got, want),
            "bitwise_plain": got.tobytes() == want.tobytes(),
            "max_ulps_host": max_ulps(got, host),
            "bitwise_host": got.tobytes() == host.tobytes(),
+           "bitwise_engine_host": engine.tobytes() == host.tobytes(),
            "tolerance": {"rtol": K3_RTOL, "atol": K3_ATOL}}
-    check(out["bitwise_plain"]
-          or bool(np.allclose(got, want, rtol=K3_RTOL, atol=K3_ATOL)),
-          f"K3 R={r} D={d}: max abs err {out['max_abs_err']} "
-          f"({out['max_ulps']} ulps) beyond rtol {K3_RTOL} atol {K3_ATOL}")
+    for name, a, ref in (("plain", got, want), ("host", got, host),
+                         ("engine_host", engine, host)):
+        check(out[f"bitwise_{name}"]
+              or bool(np.allclose(a, ref, rtol=K3_RTOL, atol=K3_ATOL)),
+              f"K3 R={r} D={d} ({name}): {max_ulps(a, ref)} ulps, beyond "
+              f"rtol {K3_RTOL} atol {K3_ATOL}")
     if (r, d) == K3_MAIN:
         out["ms"] = time_ms(lambda: S.adam_rows(stack, bc, STREAM_LR))
         out["device_ms"] = device_ms(lambda: S.adam_rows(stack, bc, STREAM_LR),
-                                     "adam_rows_kernel")
+                                     SPARSE_SYMBOLS["adam_rows"])
         out["plain_ms"] = time_ms(lambda: S.adam_rows_reference(stack, bc,
                                                                 STREAM_LR))
         lib_call, lib_out = fused_adam_library(S, stack, t)
@@ -1496,7 +1516,8 @@ def k3_case(S, r, d, seed, dev) -> dict:
         out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     log(f"K3 adam_rows R={r:<5d} D={d:<3d} max_abs_err={out['max_abs_err']:.3e} "
         f"ulps={out['max_ulps']} bitwise_plain={out['bitwise_plain']} "
-        f"bitwise_host={out['bitwise_host']}"
+        f"bitwise_host={out['bitwise_host']} "
+        f"engine_bitwise_host={out['bitwise_engine_host']}"
         + (f" ms={out['ms']:.4f} device_ms={fmt(out['device_ms'])} "
            f"plain_ms={out['plain_ms']:.4f} fused_adam_ms={out['library_ms']:.4f} "
            f"fused_adam_device_ms={fmt(out['library_device_ms'])} "
@@ -1509,9 +1530,12 @@ def k3_case(S, r, d, seed, dev) -> dict:
 
 
 def k3b_check(S, dev) -> dict:
-    """K3's table-resident form (``fused_gather_adam_scatter``) on the card:
-    the touched rows equal K3 on the gathered rows, bit for bit; every
-    untouched row and the input tables are unchanged."""
+    """K3's table-resident form (``fused_gather_adam_scatter``) on the card,
+    at the fold's micro-batch (R 512, D 33) against a 100,000-row table: the
+    touched rows equal K3 on the gathered rows, bit for bit; every
+    untouched row and the input tables are unchanged; each call is one K3
+    launch (its indexed entry) beside the tables' copies. Then its device
+    time a call (every kernel and copy it runs) and its host time."""
     rng = np.random.default_rng(7)
     n, d, r = 100_000, RANK + 1, 512
     tabs = [rng.normal(size=(n, d)).astype(np.float32),
@@ -1521,7 +1545,10 @@ def k3b_check(S, dev) -> dict:
     g = rng.normal(size=(r, d)).astype(np.float32)
     bc1, bc2 = S.adam_bias_corrections(rng.integers(1, 501, r))
     T = [torch.from_numpy(a).to(dev) for a in (*tabs, idx, g, bc1, bc2)]
+    before = S.adam_rows.launches
     new = S.fused_gather_adam_scatter(*T, lr=STREAM_LR)
+    check(S.adam_rows.launches == before + 1,
+          f"K3b launched K3 {S.adam_rows.launches - before} times, not once")
     i = T[3]
     direct = S.adam_rows(torch.stack([T[0][i], T[1][i], T[2][i], T[4]]),
                          torch.stack([T[5], T[6]]), STREAM_LR)
@@ -1532,10 +1559,42 @@ def k3b_check(S, dev) -> dict:
               "K3b touched rows differ from K3 on the gathered rows")
         check(torch.equal(new[k][keep], T[k][keep]), "K3b moved an untouched row")
         check(np.array_equal(T[k].cpu().numpy(), tabs[k]), "K3b mutated its input")
+    del new, direct
+
+    def call():
+        return S.fused_gather_adam_scatter(*T, lr=STREAM_LR)
+
+    busy, by_name = device_busy(call, calls=10)
+    # bytes: the three tables read and three new ones written (the function
+    # is functional), idx, g and the two corrections read
+    t_bytes = (6 * n * d * 4 + r * 8 + r * d * 4 + 2 * r * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = 12.0 * r * d / FP32_OPS_PER_S * 1e3
+    out = {"N": n, "D": d, "R": r, "touched_bitwise_k3": True,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "untouched_unchanged": True, "launches_a_call": 1,
+           "device_ms": busy, "device_ms_by_name": by_name,
+           "kernel_device_ms": sum(t for nm, t in by_name.items()
+                                   if SPARSE_SYMBOLS["adam_rows_indexed"] in nm),
+           "ms": time_ms(call)}
     log(f"K3b fused_gather_adam_scatter N={n} D={d} R={r}: touched rows bitwise "
-        "K3's, untouched rows and inputs unchanged")
-    return {"N": n, "D": d, "R": r, "touched_bitwise_k3": True,
-            "untouched_unchanged": True}
+        f"K3's, untouched rows and inputs unchanged, one K3 launch a call; "
+        f"device ms a call {busy:.4f} (K3 {out['kernel_device_ms']:.4f}; "
+        f"bound {out['bound_ms']:.4f}, {out['bound_by']}; "
+        f"{sorted(n_[:40] for n_ in by_name)}), ms {out['ms']:.4f}")
+    return out
+
+
+def launch_floor() -> dict:
+    """The card's smallest launch: the profiler's device time of a
+    ``fill_`` of a one-element CUDA tensor, and its CUDA-event time."""
+    x = torch.empty(1, device="cuda")
+    busy, by_name = device_busy(lambda: x.fill_(1.0), calls=50)
+    out = {"device_ms": busy, "names": sorted(by_name),
+           "event_ms": time_ms(lambda: x.fill_(1.0))}
+    log(f"launch floor: fill_ of a one-element tensor, device ms "
+        f"{busy:.5f}, event ms {out['event_ms']:.5f}")
+    return out
 
 
 def k3_checks(S, dev):
@@ -1649,7 +1708,7 @@ async def stream_phase(R, S, variant_path, storage, ctx, tmp):
     )
 
     check("PIO_STREAM_FUSED" not in os.environ,
-          "PIO_STREAM_FUSED is set: the phase runs the default (auto)")
+          "PIO_STREAM_FUSED is set: the phase runs the default (auto) first")
     log_path = os.path.join(tmp, "live.piolog")
     with open(log_path, "wb") as f:
         f.write(pfmt.MAGIC)
@@ -1667,6 +1726,8 @@ async def stream_phase(R, S, variant_path, storage, ctx, tmp):
     rounds = [live_events(rng, STREAM_ROUND_EVENTS)
               for _ in range(STREAM_ROUNDS + 1)]
     backlog = live_events(rng, STREAM_BACKLOG)
+    # the second backlog, folded by the device engine (PIO_STREAM_FUSED=device)
+    backlog_dev = live_events(rng, STREAM_BACKLOG)
     users = list(dict.fromkeys(int(e.entity_id[1:]) for e in backlog))
     users = users[:STREAM_EVAL_USERS]
     payloads = [{"user": f"u{u}", "num": 10} for u in users]
@@ -1767,7 +1828,8 @@ async def stream_phase(R, S, variant_path, storage, ctx, tmp):
             rec["profiled_round"] = busy_record(by_name, wall, 8)
             log_window("stream round", {"queries": STREAM_ROUND_EVENTS,
                                         **rec["profiled_round"]})
-            k3_rounds = S.adam_rows.launches
+            check(S.adam_rows.launches == 0, f"K3 launched "
+                  f"{S.adam_rows.launches} times on the host pass's rounds")
             await loop.run_in_executor(None, append, backlog)
             with gc_pauses() as pauses:
                 t0 = time.perf_counter()
@@ -1784,9 +1846,26 @@ async def stream_phase(R, S, variant_path, storage, ctx, tmp):
             gc_backlog = {"run_once": gc_record(pauses),
                           "assemble": gc_record(pauses, fold0,
                                                 fold0 + phases["assemble"])}
-            k3_backlog = S.adam_rows.launches - k3_rounds
+            check(S.adam_rows.launches == 0, f"K3 launched "
+                  f"{S.adam_rows.launches} times on the host pass's backlog")
+            # the same traffic again, fresh events, through the device
+            # engine: one K3 launch a micro-batch
+            await loop.run_in_executor(None, append, backlog_dev)
+            os.environ["PIO_STREAM_FUSED"] = "device"
+            try:
+                t0 = time.perf_counter()
+                out = await loop.run_in_executor(None, up.run_once)
+                device_s = time.perf_counter() - t0
+            finally:
+                del os.environ["PIO_STREAM_FUSED"]
+            check(out["status"] == "applied" and out["events"] == STREAM_BACKLOG,
+                  f"device backlog: {out}")
+            check((await health())["lastDeltaSeq"] == out["toSeq"],
+                  "the replica did not reach the device backlog's delta")
+            phases_dev = dict(up.trainer.last_phases)
+            k3_backlog = S.adam_rows.launches
             check(k3_backlog == -(-STREAM_BACKLOG // STREAM_MICRO),
-                  f"K3 launched {k3_backlog} times for the backlog")
+                  f"K3 launched {k3_backlog} times for the device backlog")
             # exactly-once: a re-ship dedupes, a broken chain is refused
             last = deltas.list_archived(up.config.state_dir)[-1][2]
             with open(last, "rb") as f:
@@ -1801,14 +1880,14 @@ async def stream_phase(R, S, variant_path, storage, ctx, tmp):
                   and ans2.get("reason") == "out-of-order",
                   f"a delta off the chain answered {ans2}")
             st = await health()
-            check(st["applied"] == STREAM_ROUNDS + 2 and st["deduped"] == 1,
+            check(st["applied"] == STREAM_ROUNDS + 3 and st["deduped"] == 1,
                   f"replica counts {st}")
             served = server.deployed.models[0]
             mf, umf = served.mf, up.model.mf
             for name in ("user_emb", "item_emb", "user_bias", "item_bias"):
                 check(np.array_equal(getattr(mf, name), getattr(umf, name)),
                       f"served {name} differs from the updater's applied model")
-            replay = replay_check(up, [*rounds, backlog])
+            replay = replay_check(up, [*rounds, backlog, backlog_dev])
             touched_users = sorted(i for k, i in up.trainer.rows if k == "u")
             touched_items = {f"i{i}" for k, i in up.trainer.rows if k == "i"}
             info = served.serving_info()
@@ -1859,15 +1938,19 @@ async def stream_phase(R, S, variant_path, storage, ctx, tmp):
                 "adam_rows": S.adam_rows.launches}
     for name, count in launches.items():
         check(count > 0, f"[stream] {name} never launched in the phase")
-    check(launches["adam_rows"] >= STREAM_ROUNDS + 1 + STREAM_BACKLOG // STREAM_MICRO,
-          f"K3 launched {launches['adam_rows']} times")
+    check(launches["adam_rows"] == k3_backlog,
+          f"K3 launched {launches['adam_rows']} times in the phase, "
+          f"{k3_backlog} of them in the device backlog")
     apply_ms = [t * 1e3 for t in server.delta_apply_s]
     rec.update({
         "event_visible_ms": {"n": len(visible), "p50": pct(visible, 50),
                              "p99": pct(visible, 99), "all": [t * 1e3 for t in visible]},
         "updater_events_per_sec": STREAM_BACKLOG / sustained_s,
         "backlog_run_once_s": sustained_s, "backlog_fold_phases_s": phases,
-        "backlog_gc": gc_backlog, "backlog_k3_launches": k3_backlog,
+        "backlog_gc": gc_backlog,
+        "device_backlog": {"updater_events_per_sec": STREAM_BACKLOG / device_s,
+                           "run_once_s": device_s, "fold_phases_s": phases_dev,
+                           "k3_launches": k3_backlog},
         "delta_apply_ms": {"n": len(apply_ms), "p50": float(np.median(apply_ms)),
                            "max": max(apply_ms), "all": apply_ms},
         "touched_users": len(touched_users), "touched_items": len(touched_items),
@@ -1885,7 +1968,14 @@ async def stream_phase(R, S, variant_path, storage, ctx, tmp):
         f"{STREAM_BACKLOG}: {rec['updater_events_per_sec']:.1f} events/s "
         f"(run_once {sustained_s:.3f} s; fold phases "
         + ", ".join(f"{k} {t:.3f} s" for k, t in phases.items())
-        + f"; {k3_backlog} K3 launches; garbage collections {gc_backlog}); "
+        + f"; garbage collections {gc_backlog}); ")
+    log(f"[stream] backlogs of {STREAM_BACKLOG}, host pass (auto) | device "
+        f"engine (device, {k3_backlog} K3 launches): events/s "
+        f"{rec['updater_events_per_sec']:.1f} | "
+        f"{rec['device_backlog']['updater_events_per_sec']:.1f}; run_once "
+        f"{sustained_s:.3f} | {device_s:.3f} s; fold compute "
+        f"{phases['compute']:.4f} | {phases_dev['compute']:.4f} s")
+    log("[stream] "
         "a round's stages p50 (ms): "
         + ", ".join(f"{k} {v['p50']:.1f}" for k, v in rec["round_stages_ms"].items())
         + "; delta apply on the replica p50 "
@@ -1946,6 +2036,7 @@ def main() -> int:
     k4, k5 = attention_checks(A)
     k4b, k5b = attention_bwd_checks(A)
     k3, k3b = k3_checks(S, dev)
+    floor = launch_floor()
 
     # persist: convert → RecModel (index attached) → blob → memory storage
     rec = convert.rec_model_from_arrays(
@@ -2005,6 +2096,7 @@ def main() -> int:
                 "bound_ms": main_case["bound_ms"],
                 "bound_by": main_case["bound_by"],
                 "library_ms": main_case["library_ms"],
+                "launch_floor_ms": floor["device_ms"],
                 "shape": {k: main_case[k] for k in main_case
                           if k in ("B", "H", "L", "N", "C", "R", "D")}}
 
@@ -2029,7 +2121,9 @@ def main() -> int:
         {**entry("adam_rows", "sparse_update.cu",
                  "incubator_predictionio_tpu/ops/sparse_update.py:93", k3,
                  next(c for c in k3 if (c["R"], c["D"]) == K3_MAIN)),
-         "host_fused_ms": next(c for c in k3 if "ms" in c)["host_fused_ms"]},
+         "host_fused_ms": next(c for c in k3 if "ms" in c)["host_fused_ms"],
+         "device_engine_ms": next(c for c in k3 if "ms" in c)["device_engine_ms"],
+         "k3b_device_ms": k3b["device_ms"]},
         entry("causal_mha_small_head", "attention.cu",
               "incubator_predictionio_tpu/ops/attention.py:122", k4,
               next(c for c in k4 if c["B"] == 64)),
@@ -2049,7 +2143,8 @@ def main() -> int:
               "cuda": torch.version.cuda, "build_s": build_s,
               "k1_cases": k1, "k2_cases": k2, "k4_cases": k4, "k5_cases": k5,
               "k4_bwd_cases": k4b, "k5_bwd_cases": k5b,
-              "k3_cases": k3, "k3b": k3b, "topk_tie_check": topk,
+              "k3_cases": k3, "k3b": k3b, "launch_floor": floor,
+              "topk_tie_check": topk,
               "main_path": main, "kernels": kernels,
               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
               "wall_s": time.perf_counter() - t_start}
@@ -2058,6 +2153,8 @@ def main() -> int:
     log(f"total wall time {record['wall_s']:.1f} s; peak device memory "
         f"since the last training phase began "
         f"{record['max_memory_allocated_bytes'] / 2**30:.2f} GiB")
+    log(f"launch floor (fill_ of one element, device ms): "
+        f"{floor['device_ms']:.5f}")
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {

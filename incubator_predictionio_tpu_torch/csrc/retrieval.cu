@@ -47,11 +47,19 @@
 // A D that is not a multiple of 16 pads K with zeros in registers (zero
 // products add exactly 0).
 //
-// K2 is small (C = 1024 centroids at 1M items). Its dot products run with
-// __dp4a on 4 int8 lanes into an exact int32 accumulator; the epilogue is
-// written with __fmul_rn / __fadd_rn so no FMA contraction moves the last
-// bit: the scores equal the host probe math (int8_matmul_exact, then the
-// rescale and the bias) bit for bit, and so do the probe sets.
+// K2 is small (C = 1024 centroids at 1M items, B 64: 64 K dot products of
+// 32 bytes, 0.3 MB of traffic), so at the probe's sizes a launch's fixed cost
+// and the latency of its memory round trips bound it, not HBM. The design
+// keeps one round trip a thread and fills the card: a thread scores one
+// centroid row against Q queries and issues every load before its first
+// product (the row and the queries as 16-byte loads, the scales and the bias
+// beside them; no shared memory and no barrier); blocks of 64 rows and Q of
+// 2 queries up to B 128 (B 64: 512 blocks on 132 SMs), 4 above. The dot
+// products run with __dp4a on 4 int8 lanes into an exact int32 accumulator;
+// the epilogue is written with __fmul_rn / __fadd_rn so no FMA contraction
+// moves the last bit: the scores equal the host probe math
+// (int8_matmul_exact, then the rescale and the bias) bit for bit, and so do
+// the probe sets.
 //
 // Every launch returns cudaGetLastError() and the Python wrapper raises when
 // it is not 0.
@@ -67,8 +75,6 @@
 #include "attention_sm90.cuh"  // smem_addr, cp_async16, cp_async_commit, pack_bf16
 
 namespace {
-
-constexpr int kThreads = 128;  // K2: centroid rows per block (one per thread)
 
 // -- K1 -----------------------------------------------------------------------
 
@@ -466,56 +472,99 @@ constexpr auto catalog_launchers(std::integer_sequence<int, I...>) {
 
 // -- K2 -----------------------------------------------------------------------
 
-constexpr int kCentroidTile = 8;  // queries per block; probe batches are 8·2^k
+constexpr int kCentThreads = 64;  // centroid rows a block, one a thread
+constexpr int kCentChunks = 2;    // 16-byte chunks of a row a pass: D 32 in one
 
-__global__ void __launch_bounds__(kThreads)
+// One thread scores one centroid row against the block's Q queries. Every
+// global load of a pass is issued before its arithmetic: the row's scale
+// and bias, the Q query scales, then the row and the Q query rows as 16-byte
+// loads (the queries are the same addresses across the block: one
+// broadcast). At D <= 32 a thread makes one memory round trip, then
+// 4 Q kCentChunks __dp4a, then Q stores. kVec16: D % 16 == 0 and both int8
+// tables 16-byte aligned; otherwise a bytewise loop (exact all the same).
+template <int Q, bool kVec16>
+__global__ void __launch_bounds__(kCentThreads)
 score_centroids_kernel(const int8_t* __restrict__ q_q,
                        const float* __restrict__ q_scales,
                        const int8_t* __restrict__ cent_q,
                        const float* __restrict__ cent_scales,
                        const float* __restrict__ cent_bias,
                        float* __restrict__ out, int B, int C, int D) {
-  extern __shared__ __align__(16) int8_t qq_s[];  // [kCentroidTile, D] int8
-  const int b0 = blockIdx.y * kCentroidTile;
-  for (int i = threadIdx.x; i < kCentroidTile * D; i += blockDim.x) {
-    const int b = b0 + i / D;
-    qq_s[i] = (b < B) ? q_q[(size_t)b0 * D + i] : (int8_t)0;
-  }
-  __syncthreads();
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int c = blockIdx.x * kCentThreads + threadIdx.x;
+  const int b0 = blockIdx.y * Q;
   if (c >= C) return;
-
-  int acc[kCentroidTile];
+  const float cs = __ldg(cent_scales + c), cb = __ldg(cent_bias + c);
+  float qs[Q];
 #pragma unroll
-  for (int bt = 0; bt < kCentroidTile; ++bt) acc[bt] = 0;
-  const int8_t* row = cent_q + (size_t)c * D;
-  if ((D & 3) == 0) {
-    const int* row4 = reinterpret_cast<const int*>(row);
-    const int* q4 = reinterpret_cast<const int*>(qq_s);
-    const int D4 = D >> 2;
-    for (int w = 0; w < D4; ++w) {
-      const int x = row4[w];
+  for (int j = 0; j < Q; ++j) qs[j] = b0 + j < B ? __ldg(q_scales + b0 + j) : 0.f;
+  int acc[Q];
 #pragma unroll
-      for (int bt = 0; bt < kCentroidTile; ++bt)
-        acc[bt] = __dp4a(x, q4[bt * D4 + w], acc[bt]);
+  for (int j = 0; j < Q; ++j) acc[j] = 0;
+  if constexpr (kVec16) {
+    const int chunks = D >> 4;
+    const uint4* row = reinterpret_cast<const uint4*>(cent_q + (size_t)c * D);
+    const uint4* qrow = reinterpret_cast<const uint4*>(q_q + (size_t)b0 * D);
+    for (int k0 = 0; k0 < chunks; k0 += kCentChunks) {
+      uint4 x[kCentChunks], y[Q][kCentChunks];
+#pragma unroll
+      for (int k = 0; k < kCentChunks; ++k) {
+        const bool in = k0 + k < chunks;
+        x[k] = in ? __ldg(row + k0 + k) : make_uint4(0, 0, 0, 0);
+#pragma unroll
+        for (int j = 0; j < Q; ++j)
+          y[j][k] = in && b0 + j < B ? __ldg(qrow + j * chunks + k0 + k)
+                                     : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int k = 0; k < kCentChunks; ++k)
+#pragma unroll
+        for (int j = 0; j < Q; ++j) {
+          acc[j] = __dp4a((int)x[k].x, (int)y[j][k].x, acc[j]);
+          acc[j] = __dp4a((int)x[k].y, (int)y[j][k].y, acc[j]);
+          acc[j] = __dp4a((int)x[k].z, (int)y[j][k].z, acc[j]);
+          acc[j] = __dp4a((int)x[k].w, (int)y[j][k].w, acc[j]);
+        }
     }
   } else {
+    const int8_t* row = cent_q + (size_t)c * D;
     for (int d = 0; d < D; ++d) {
       const int x = row[d];
 #pragma unroll
-      for (int bt = 0; bt < kCentroidTile; ++bt)
-        acc[bt] += x * (int)qq_s[bt * D + d];
+      for (int j = 0; j < Q; ++j)
+        if (b0 + j < B) acc[j] += x * (int)q_q[(size_t)(b0 + j) * D + d];
     }
   }
-  const float cs = cent_scales[c], cb = cent_bias[c];
 #pragma unroll
-  for (int bt = 0; bt < kCentroidTile; ++bt) {
-    const int b = b0 + bt;
-    if (b >= B) break;
+  for (int j = 0; j < Q; ++j) {
+    if (b0 + j >= B) break;
     // acc * (q_scale * c_scale) + c_bias, each step rounded on its own
-    out[(size_t)b * C + c] = __fadd_rn(
-        __fmul_rn(__int2float_rn(acc[bt]), __fmul_rn(q_scales[b], cs)), cb);
+    out[(size_t)(b0 + j) * C + c] = __fadd_rn(
+        __fmul_rn(__int2float_rn(acc[j]), __fmul_rn(qs[j], cs)), cb);
   }
+}
+
+template <int Q, bool kVec16>
+cudaError_t launch_centroids(const int8_t* q_q, const float* q_scales,
+                             const int8_t* cent_q, const float* cent_scales,
+                             const float* cent_bias, float* out, int B, int C,
+                             int D, cudaStream_t stream) {
+  const dim3 grid((C + kCentThreads - 1) / kCentThreads, (B + Q - 1) / Q);
+  score_centroids_kernel<Q, kVec16><<<grid, kCentThreads, 0, stream>>>(
+      q_q, q_scales, cent_q, cent_scales, cent_bias, out, B, C, D);
+  return cudaGetLastError();
+}
+
+template <int Q>
+cudaError_t launch_centroid_tiles(const int8_t* q_q, const float* q_scales,
+                             const int8_t* cent_q, const float* cent_scales,
+                             const float* cent_bias, float* out, int B, int C,
+                             int D, cudaStream_t stream) {
+  const bool vec16 = D % 16 == 0 && reinterpret_cast<uintptr_t>(q_q) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(cent_q) % 16 == 0;
+  return vec16 ? launch_centroids<Q, true>(q_q, q_scales, cent_q, cent_scales,
+                                           cent_bias, out, B, C, D, stream)
+               : launch_centroids<Q, false>(q_q, q_scales, cent_q, cent_scales,
+                                            cent_bias, out, B, C, D, stream);
 }
 
 }  // namespace
@@ -547,17 +596,21 @@ int pio_score_centroids(const void* q_q, const void* q_scales,
                         const void* cent_q, const void* cent_scales,
                         const void* cent_bias, void* out, int B, int C, int D,
                         void* stream) {
-  const dim3 grid((C + kThreads - 1) / kThreads,
-                  (B + kCentroidTile - 1) / kCentroidTile);
-  const size_t smem = (size_t)kCentroidTile * D;
-  score_centroids_kernel<<<grid, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q_q), static_cast<const float*>(q_scales),
-      static_cast<const int8_t*>(cent_q),
-      static_cast<const float*>(cent_scales),
-      static_cast<const float*>(cent_bias), static_cast<float*>(out), B, C,
-      D);
-  return static_cast<int>(cudaGetLastError());
+  if (B < 0 || C < 0 || D < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || C == 0) return static_cast<int>(cudaSuccess);
+  const auto* a = static_cast<const int8_t*>(q_q);
+  const auto* qs = static_cast<const float*>(q_scales);
+  const auto* cq = static_cast<const int8_t*>(cent_q);
+  const auto* cs = static_cast<const float*>(cent_scales);
+  const auto* cb = static_cast<const float*>(cent_bias);
+  auto* o = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  // queries a block, chosen on the card at C 1024, D 32 against 1, 4 and 8
+  // at every probe bucket: 2 up to B 128 (B 64: 512 blocks), 4 above
+  const cudaError_t err =
+      B <= 128 ? launch_centroid_tiles<2>(a, qs, cq, cs, cb, o, B, C, D, st)
+               : launch_centroid_tiles<4>(a, qs, cq, cs, cb, o, B, C, D, st);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

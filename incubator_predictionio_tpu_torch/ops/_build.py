@@ -56,6 +56,15 @@ SIGNATURES: dict[str, dict[str, tuple[list, object]]] = {
         # in [4, R, D], bc [2, R], out [3, R, D], R, D, lr, b1, 1 - b1, b2,
         # 1 - b2, eps, stream
         "pio_adam_rows": ([_P] * 3 + [_I] * 2 + [_F] * 6 + [_P], _I),
+        # host_in [4 R D + 2 R], dev_in, dev_out [3, R, D], host_out, R, D,
+        # lr, b1, 1 - b1, b2, 1 - b2, eps, stream
+        "pio_adam_rows_staged": ([_P] * 4 + [_I] * 2 + [_F] * 6 + [_P], _I),
+        # table, m_tab, v_tab, idx, idx bytes (4 or 8), g, bc1, bc2,
+        # table_out, m_out, v_out, N, R, D, lr, b1, 1 - b1, b2, 1 - b2, eps,
+        # stream
+        "pio_adam_rows_indexed": ([_P] * 4 + [_I] + [_P] * 6
+                                  + [ctypes.c_longlong] + [_I] * 2 + [_F] * 6
+                                  + [_P], _I),
     },
 }
 

@@ -265,8 +265,6 @@ def _launch_score_centroids(q_q, q_scales, cent_q, cent_scales, cent_bias):
     b, c, d = _centroid_shapes(q_q, q_scales, cent_q, cent_scales, cent_bias)
     if d > INT8_EXACT_MAX_RANK:
         raise ValueError(f"{what}: rank {d} > {INT8_EXACT_MAX_RANK}")
-    if d % 4 == 0 and cent_q.data_ptr() % 4:
-        raise ValueError(f"{what}: cent_q must be 4-byte aligned")
     out = torch.empty((b, c), dtype=torch.float32, device=q_q.device)
     if b == 0:
         return out
@@ -295,6 +293,57 @@ def score_centroids_quantized(q_q, q_scales, cent_q, cent_scales, cent_bias):
 
 
 score_centroids_quantized.launches = 0
+
+
+def probe_bucket(b: int) -> int:
+    """The coarse probe's batch bucket: the next power of two, at least 8
+    (the reference's ``_probe_tpu`` buckets)."""
+    return 1 << max(3, (b - 1).bit_length())
+
+
+def _probe_layout(bp: int, d: int) -> tuple[int, int]:
+    """(byte offset of the scales, total bytes) of a packed probe batch:
+    the [bp, D] int8 queries, padded to 16 bytes, then [bp] fp32 scales."""
+    off = -(-bp * d // 16) * 16
+    return off, off + 4 * bp
+
+
+def probe_packed_bytes(b: int, d: int) -> int:
+    """Bytes of a batch of ``b`` queries of width ``d`` packed by
+    :func:`pack_probe_queries`."""
+    return _probe_layout(probe_bucket(b), d)[1]
+
+
+def pack_probe_queries(q_q: np.ndarray, q_scales: np.ndarray,
+                       out: torch.Tensor) -> torch.Tensor:
+    """Pad a probe batch (``q_q`` [B, D] int8, ``q_scales`` [B] f32) to its
+    :func:`probe_bucket` with zero rows and zero scales and pack both into
+    ``out``, a uint8 host buffer of at least :func:`probe_packed_bytes`
+    (pinned for a fast copy), so that the batch crosses to the card in one
+    copy; returns the packed bytes (a view of ``out``).
+    :func:`unpack_probe_queries` gives the two tensors back."""
+    b, d = q_q.shape
+    bp = probe_bucket(b)
+    off, size = _probe_layout(bp, d)
+    buf = out[:size].numpy()
+    qq = buf[:bp * d].view(np.int8).reshape(bp, d)
+    qq[:b] = q_q
+    qq[b:] = 0
+    qs = buf[off:size].view(np.float32)
+    qs[:b] = q_scales
+    qs[b:] = 0.0
+    return out[:size]
+
+
+def unpack_probe_queries(packed: torch.Tensor, b: int,
+                         d: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The padded ``(q_q [bp, D] int8, q_scales [bp] f32)`` of a batch of
+    ``b`` queries packed by :func:`pack_probe_queries`, as views of
+    ``packed`` (on whichever device it lies)."""
+    bp = probe_bucket(b)
+    off, size = _probe_layout(bp, d)
+    return (packed[:bp * d].view(torch.int8).view(bp, d),
+            packed[off:size].view(torch.float32))
 
 #: the wrappers whose ``launches`` count kernel launches
 KERNEL_WRAPPERS = (score_catalog_quantized, score_centroids_quantized)

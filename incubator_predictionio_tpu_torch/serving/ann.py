@@ -184,12 +184,16 @@ class IVFIndex:
         self._rehydrate_lock = threading.Lock()
         self._cent_quant = None
         self._cent_device = None
+        self._probe_lock = threading.Lock()
+        self._probe_stage = None
 
     def __getstate__(self):
         state = dict(self.__dict__)
         state.pop("_rehydrate_lock", None)
         state.pop("_cent_quant", None)
         state.pop("_cent_device", None)
+        state.pop("_probe_lock", None)
+        state.pop("_probe_stage", None)
         state["device"] = None
         for k in ("emb_m", "emb_q", "scales_m", "bias_m"):
             state[k] = None
@@ -200,6 +204,8 @@ class IVFIndex:
         self._rehydrate_lock = threading.Lock()
         self._cent_quant = None
         self._cent_device = None
+        self._probe_lock = threading.Lock()
+        self._probe_stage = None
 
     def _coarse_quant(self) -> tuple[np.ndarray, np.ndarray]:
         """Lazy ``(cent_q [C, D] int8, cent_scales [C] f32)`` — the quantized
@@ -366,11 +372,16 @@ class IVFIndex:
     def _probe_cuda(self, q_q: np.ndarray, q_scales: np.ndarray) -> np.ndarray:
         """Coarse scores through kernel K2 on a resident device copy of the
         padded quantized centroid table. The batch pads to a power-of-two
-        bucket (≥ 8), as the reference's ``_probe_tpu`` does; centroid
+        bucket (≥ 8), as the reference's ``_probe_tpu`` does, and its
+        queries and scales cross to the card packed in one pinned host
+        buffer, in one copy; one copy brings the scores back. Centroid
         padding carries -inf bias and can never win a probe slot."""
         from incubator_predictionio_tpu_torch.ops.retrieval import (
+            pack_probe_queries,
             pad_centroids,
+            probe_packed_bytes,
             score_centroids_quantized,
+            unpack_probe_queries,
         )
 
         dev = self._cent_device
@@ -389,16 +400,23 @@ class IVFIndex:
                         torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                         for v in (cq, cs, cb))
         cq, cs, cb = dev
-        b = q_q.shape[0]
-        bp = 1 << max(3, (b - 1).bit_length())
-        qq = np.zeros((bp, q_q.shape[1]), np.int8)
-        qq[:b] = q_q
-        qs = np.zeros(bp, np.float32)
-        qs[:b] = q_scales
-        out = score_centroids_quantized(
-            torch.from_numpy(qq).to(self.device),
-            torch.from_numpy(qs).to(self.device), cq, cs, cb)
-        return out[:b, : self.n_partitions].cpu().numpy()
+        b, d = q_q.shape
+        nbytes = probe_packed_bytes(b, d)
+        # the pinned staging buffer is reused, grown on demand: held until
+        # the scores are back (the copy down synchronizes, so the copy up
+        # has finished with it)
+        with self._probe_lock:
+            stage = self._probe_stage
+            if stage is None or stage.numel() < nbytes:
+                stage = self._probe_stage = torch.empty(
+                    1 << (nbytes - 1).bit_length(), dtype=torch.uint8,
+                    pin_memory=self.device.type == "cuda")
+            packed = pack_probe_queries(q_q, q_scales, stage)
+            packed = packed.to(self.device, non_blocking=True)
+            out = score_centroids_quantized(
+                *unpack_probe_queries(packed, b, d), cq, cs, cb)
+            # whole leading rows: one contiguous copy down
+            return out[:b].cpu().numpy()[:, : self.n_partitions]
 
     def _int8_partition_scores(
         self, probe: np.ndarray, q_quant: tuple,

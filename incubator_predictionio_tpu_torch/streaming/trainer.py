@@ -19,13 +19,11 @@ state.
   ``PoisonEvent``; the updater diverts it to the dead-letter file.
 
 The trainer has a ``device`` (CUDA unless the caller names another). Its
-micro-batch adam step runs where ``PIO_STREAM_FUSED`` says: ``0`` the
-per-row loop, ``1`` the host fused pass (``ops/sparse_update.py``
-``fused_adam_rows``), ``device`` kernel K3 on the trainer's device
-(``fused_adam_rows_device``), and ``auto`` — the default — the device
-engine when the trainer's device is CUDA and the host fused pass
-otherwise. That ``auto`` is the port's one deviation from the reference,
-where ``auto`` always means the host pass. The phase timings of the last
+micro-batch adam step runs where ``PIO_STREAM_FUSED`` says, as in the
+reference: ``auto`` (the default) and ``1`` the host fused pass
+(``ops/sparse_update.py`` ``fused_adam_rows``), ``0`` the per-row loop,
+and ``device`` kernel K3 on the trainer's device
+(``fused_adam_rows_device``). The phase timings of the last
 fold (assemble / compute / gather, seconds) are kept in
 :attr:`DeltaTrainer.last_phases`; the performance plane that records them
 in the reference comes with the tooling slice.
@@ -53,10 +51,10 @@ from incubator_predictionio_tpu_torch.streaming.coldstart import (
 def fused_fold_mode() -> str:
     """``PIO_STREAM_FUSED``: ``auto`` | ``1`` | ``0`` | ``device``.
 
-    ``1`` steps each touched-row micro-batch through the host fused pass
-    (bitwise the per-row loop), ``0`` keeps the per-row reference loop,
-    ``device`` runs kernel K3 on the trainer's device, and ``auto`` picks
-    the device engine on a CUDA trainer and the host pass otherwise."""
+    ``auto`` and ``1`` step each touched-row micro-batch through the host
+    fused pass (bitwise the per-row loop), whatever the trainer's device,
+    ``0`` keeps the per-row reference loop, and ``device`` runs kernel K3
+    on the trainer's device."""
     val = os.environ.get("PIO_STREAM_FUSED", "auto").strip().lower()
     if val not in ("auto", "1", "0", "device"):
         raise ValueError(
@@ -300,9 +298,7 @@ class DeltaTrainer:
             for key, g in grads.items():
                 self._adam(key, g)
         else:
-            device = mode == "device" or (
-                mode == "auto" and self.device.type == "cuda")
-            self._fused_adam(grads, device=device)
+            self._fused_adam(grads, device=(mode == "device"))
         return set(grads)
 
     def _fused_adam(self, grads: dict[tuple, np.ndarray],

@@ -13,6 +13,7 @@
 The kernels themselves compile and run only on a card (``chip_smoke.py``).
 """
 
+import ctypes
 import importlib.util
 import re
 import shutil
@@ -25,6 +26,7 @@ torch = pytest.importorskip("torch")
 from incubator_predictionio_tpu_torch.ops import _build  # noqa: E402
 from incubator_predictionio_tpu_torch.ops import attention as tatt  # noqa: E402
 from incubator_predictionio_tpu_torch.ops import retrieval as tret  # noqa: E402
+from incubator_predictionio_tpu_torch.ops import sparse_update as tsu  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 ATTENTION = ("attention", "flash_attention")
@@ -100,6 +102,34 @@ def _retrieval_routes() -> dict[str, str]:
     return routes
 
 
+def _sparse_routes() -> dict[str, str]:
+    """K3's two entries' library, as their wrappers launch them (meta
+    tensors, the CUDA checks lifted, a recording ``_build.library``)."""
+    routes = {}
+
+    def library(name):
+        raise _Routed(name)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tsu, "_check_cuda", lambda what, **tensors: None)
+    mp.setattr(_build, "library", library)
+    try:
+        m = lambda *shape, dtype=torch.float32: torch.empty(  # noqa: E731
+            shape, dtype=dtype, device="meta")
+        tabs = (m(16, 33), m(16, 33), m(16, 33))
+        for name, call in (
+                ("adam_rows", lambda: tsu.adam_rows(m(4, 8, 33), m(2, 8), 0.1)),
+                ("adam_rows_indexed", lambda: tsu.adam_rows_indexed(
+                    tabs, m(8, dtype=torch.int64), m(8, 33), m(8), m(8),
+                    tabs, 0.1))):
+            with pytest.raises(_Routed) as routed:
+                call()
+            routes[name] = routed.value.args[0]
+    finally:
+        mp.undo()
+    return routes
+
+
 @pytest.fixture
 def csrc_copy(tmp_path, monkeypatch):
     dst = tmp_path / "csrc"
@@ -157,18 +187,24 @@ def test_wrappers_route_to_the_retrieval_library():
                                    "score_centroids_quantized": "retrieval"}
 
 
+def test_wrappers_route_to_the_sparse_update_library():
+    assert _sparse_routes() == {"adam_rows": "sparse_update",
+                                "adam_rows_indexed": "sparse_update"}
+
+
 def _symbol_cases():
     smoke = _chip_smoke()
     cases = [(w, sym, w) for w, sym in smoke.KERNEL_SYMBOLS.items()]
     cases += [(part, sym, "causal_mha_small_head_bwd")
               for part, sym in smoke.K4_BWD_PART_SYMBOLS.items()]
     cases += [(w, sym, w) for w, sym in smoke.RETRIEVAL_SYMBOLS.items()]
+    cases += [(w, sym, w) for w, sym in smoke.SPARSE_SYMBOLS.items()]
     return cases
 
 
 @pytest.mark.parametrize("name,symbol,wrapper", _symbol_cases())
 def test_profiler_symbol_names_a_kernel_of_its_library_only(name, symbol, wrapper):
-    lib = {**_routes(), **_retrieval_routes()}[wrapper]
+    lib = {**_routes(), **_retrieval_routes(), **_sparse_routes()}[wrapper]
     assert any(symbol in k for k in _kernels(lib)), (name, symbol, _kernels(lib))
     for other in sorted(p.stem for p in _build.CSRC.glob("*.cu") if p.stem != lib):
         assert not any(symbol in k for k in _kernels(other)), (name, symbol, other)
@@ -196,6 +232,46 @@ def test_every_retrieval_kernel_has_a_symbol():
     assert sorted(k for k in kernels if k1 in k) == ["score_catalog_kernel",
                                                      "score_catalog_kernel_b8"]
     assert [k for k in kernels if k2 in k] == ["score_centroids_kernel"]
+
+
+def test_every_sparse_update_kernel_has_a_symbol():
+    """K3's one kernel template (both entries launch it) is read in the
+    profiler by K3's symbol."""
+    smoke = _chip_smoke()
+    assert set(smoke.SPARSE_SYMBOLS.values()) == {"adam_rows_kernel"}
+    assert _kernels("sparse_update") == ["adam_rows_kernel"]
+
+
+_CTYPES = {"int": ctypes.c_int, "float": ctypes.c_float,
+           "long long": ctypes.c_longlong}
+
+
+def _c_parameters(name: str) -> dict[str, list]:
+    """Each ``extern "C"`` function of csrc/<name>.cu with the ctypes type
+    of each parameter, parsed from the source text."""
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    block = text.split('extern "C" {', 1)[1].split('}  // extern "C"', 1)[0]
+    out = {}
+    for fn, params in re.findall(r"\b(pio_\w+)\(([^)]*)\)\s*\{", block):
+        types = []
+        for p in (x.strip() for x in params.split(",") if x.strip()):
+            # a pointer, or the type words before the parameter's name
+            types.append(ctypes.c_void_p if "*" in p
+                         else _CTYPES[p.rsplit(None, 1)[0]])
+        out[fn] = types
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_ctypes_signatures_match_the_c_parameters(name):
+    """Each argument type in ``_build.SIGNATURES`` is the C parameter's (a
+    pointer a ``c_void_p``, an ``int`` a ``c_int``, a ``long long`` a
+    ``c_longlong``): a wrong count or width would pass garbage through
+    ctypes without an error."""
+    params = _c_parameters(name)
+    assert sorted(params) == sorted(_build.SIGNATURES[name])
+    for fn, (argtypes, _) in _build.SIGNATURES[name].items():
+        assert argtypes == params[fn], fn
 
 
 @pytest.mark.parametrize("block", ["wgmma_ss_n64", "wgmma_rs_n128", "gmma_desc",

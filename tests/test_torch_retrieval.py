@@ -176,3 +176,59 @@ def test_kernel_source_and_build_need_no_nvcc_at_import(tmp_path):
     # content-keyed: the library name follows the source and the flags
     assert _build.library_path("retrieval").name.startswith("libretrieval-")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("b,d", [(1, 32), (8, 32), (50, 32), (64, 32),
+                                 (200, 32), (3, 24), (9, 40)])
+def test_packed_probe_batch_unpacks_to_the_padded_queries(b, d):
+    """K2's packed probe batch (one buffer, one copy to the card) unpacks
+    to the bucket-padded ``q_q`` and scales, bitwise: zero rows and zero
+    scales past ``b``, the scales 16-byte aligned after the queries."""
+    rng = np.random.default_rng(b * d)
+    q_q, q_s = tr.quantize_rows(rng.normal(size=(b, d)).astype(np.float32))
+    bp = tr.probe_bucket(b)
+    assert bp >= max(8, b) and bp & (bp - 1) == 0 and bp < 2 * max(8, b)
+    want_q = np.zeros((bp, d), np.int8)
+    want_q[:b] = q_q
+    want_s = np.zeros(bp, np.float32)
+    want_s[:b] = q_s
+    # a dirty, oversized staging buffer: the padding must be rewritten
+    stage = torch.full((tr.probe_packed_bytes(b, d) + 64,), 0xAB,
+                       dtype=torch.uint8)
+    packed = tr.pack_probe_queries(q_q, q_s, stage)
+    assert packed.numel() == tr.probe_packed_bytes(b, d)
+    assert packed.data_ptr() == stage.data_ptr()
+    got_q, got_s = tr.unpack_probe_queries(packed, b, d)
+    assert got_q.dtype == torch.int8 and tuple(got_q.shape) == (bp, d)
+    assert got_s.dtype == torch.float32 and tuple(got_s.shape) == (bp,)
+    assert got_q.numpy().tobytes() == want_q.tobytes()
+    assert got_s.numpy().tobytes() == want_s.tobytes()
+    assert (got_s.data_ptr() - packed.data_ptr()) % 16 == 0
+
+
+def test_staged_probe_path_equals_the_host_probe():
+    """``IVFIndex._probe_cuda``'s path (the packed staging buffer, K2's
+    wrapper, the copy down) run on a CPU-device index takes K2's plain
+    version: its coarse scores and probe sets equal the host probe's,
+    bitwise, batch after batch through the reused buffer."""
+    from incubator_predictionio_tpu_torch.serving import ann
+
+    rng = np.random.default_rng(3)
+    items = rng.normal(size=(3000, 16)).astype(np.float32)
+    ivf = ann.build_ivf(items, rng.normal(size=3000).astype(np.float32))
+    cent_q, cent_s = ivf._coarse_quant()
+    for b in (5, 64, 9):
+        q_q, q_s = tr.quantize_rows(rng.normal(size=(b, 16)).astype(np.float32))
+        host = (tr.int8_matmul_exact(q_q, cent_q)
+                * (q_s[:, None] * cent_s[None, :]) + ivf.centroids[:, -1][None, :])
+        ivf.device = torch.device("cpu")
+        got = ivf._probe_cuda(q_q, q_s)
+        assert got.shape == (b, ivf.n_partitions)
+        assert got.tobytes() == host.astype(np.float32).tobytes()
+        ivf.device = None
+        nprobe = 4
+        want = ivf.probe(np.zeros((b, 16), np.float32), nprobe, (q_q, q_s))
+        np.testing.assert_array_equal(
+            np.sort(np.argpartition(-got, nprobe - 1, axis=1)[:, :nprobe], 1),
+            np.sort(want, 1))
+    assert tr.score_centroids_quantized.launches == 0

@@ -89,6 +89,19 @@ def test_host_engine_bitwise_jax(shape):
     np.testing.assert_array_equal(m, m2)
 
 
+@pytest.mark.parametrize("r", [0, 1, 512, 4096])
+def test_bias_corrections_bitwise_jax(r):
+    """The per-row bias corrections (one scalar double ``**`` per distinct
+    step count, spread by a gather) equal the JAX package's, dtype and
+    bytes, from no rows to many distinct step counts."""
+    t = np.random.default_rng(r).integers(1, 501, r)
+    for got, want in zip(tsu.adam_bias_corrections(t),
+                         jsu.adam_bias_corrections(t)):
+        assert got.dtype == want.dtype == np.float32
+        assert got.shape == want.shape == (r,)
+        assert got.tobytes() == want.tobytes()
+
+
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
 def test_device_engine_plain_vs_pallas_interpret(shape):
     """The port's device engine on CPU tensors (K3's plain version) against
@@ -151,6 +164,111 @@ def test_fused_gather_adam_scatter_vs_jax():
         assert new[untouched].tobytes() == old[untouched].tobytes()
     rng2 = np.random.default_rng(4)
     assert table.tobytes() == rng2.normal(size=(n, d)).astype(np.float32).tobytes()
+
+
+#: (N, D, R, idx dtype) of the table-resident form: the reference test's
+#: shape, and the fold's widest micro-batch at rank 32 against a table
+INDEXED = ((64, 9, 12, np.int32), (1000, 33, 512, np.int64),
+           (300, 17, 37, np.int64))
+
+
+@pytest.mark.parametrize("n,d,r,idx_dtype", INDEXED,
+                         ids=lambda v: getattr(v, "__name__", str(v)))
+def test_indexed_plain_vs_jax_interpret(n, d, r, idx_dtype):
+    """K3's indexed entry on CPU tensors (its plain version, through
+    ``fused_gather_adam_scatter``) against the JAX table-resident engine
+    with its Pallas kernel in interpret mode: touched rows bitwise, else
+    within the reference's band; untouched rows and the inputs unchanged."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(n + d)
+    tabs = [rng.normal(size=(n, d)).astype(np.float32),
+            (rng.normal(size=(n, d)) * 0.01).astype(np.float32),
+            np.abs(rng.normal(size=(n, d)) * 1e-4).astype(np.float32)]
+    keep = [a.copy() for a in tabs]
+    idx = rng.choice(n, r, replace=False).astype(idx_dtype)
+    g = rng.normal(size=(r, d)).astype(np.float32)
+    bc1, bc2 = tsu.adam_bias_corrections(rng.integers(1, 500, r))
+    T = torch.from_numpy
+    before = tsu.adam_rows.launches
+    got = [a.numpy() for a in tsu.fused_gather_adam_scatter(
+        *map(T, tabs), T(idx), T(g), T(bc1), T(bc2), lr=0.05)]
+    assert tsu.adam_rows.launches == before  # the plain version: no launch
+    want = [np.asarray(a) for a in jsu.fused_gather_adam_scatter(
+        *map(jnp.asarray, (*tabs, idx, g, bc1, bc2)), lr=0.05,
+        interpret=True)]
+    touched = [a[idx] for a in got]
+    if any(a.tobytes() != b[idx].tobytes() for a, b in zip(touched, want)):
+        _band(touched, [b[idx] for b in want])
+    untouched = np.setdiff1d(np.arange(n), idx)
+    for new, old, w in zip(got, keep, want):
+        assert new[untouched].tobytes() == old[untouched].tobytes()
+        assert w[untouched].tobytes() == old[untouched].tobytes()
+    for a, b in zip(tabs, keep):
+        assert a.tobytes() == b.tobytes()  # the inputs are never mutated
+
+
+def test_indexed_writes_only_its_rows_and_checks_shapes():
+    """``adam_rows_indexed`` writes the touched rows into ``out`` and
+    nothing else; the rows equal the stacked step on the gathered rows, bit
+    for bit; shapes are checked, and a CPU tensor never reaches the
+    launcher."""
+    rng = np.random.default_rng(9)
+    n, d, r = 40, 6, 7
+    tabs = [torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+            for _ in range(3)]
+    tabs[2] = tabs[2].abs()
+    idx = torch.from_numpy(rng.choice(n, r, replace=False))
+    g = torch.from_numpy(rng.normal(size=(r, d)).astype(np.float32))
+    bc1, bc2 = (torch.from_numpy(a) for a in
+                tsu.adam_bias_corrections(rng.integers(1, 9, r)))
+    out = [torch.full((n, d), 7.0) for _ in range(3)]
+    tsu.adam_rows_indexed(tabs, idx, g, bc1, bc2, out, 0.05)
+    direct = tsu.adam_rows(torch.stack([t[idx] for t in tabs] + [g]),
+                           torch.stack([bc1, bc2]), 0.05)
+    rest = torch.ones(n, dtype=torch.bool)
+    rest[idx] = False
+    for o, x in zip(out, direct):
+        assert o[idx].numpy().tobytes() == x.numpy().tobytes()
+        assert bool((o[rest] == 7.0).all())
+    with pytest.raises(ValueError, match="g shape"):
+        tsu.adam_rows_indexed(tabs, idx, g[:, :3], bc1, bc2, out, 0.05)
+    with pytest.raises(ValueError, match="bc2 shape"):
+        tsu.adam_rows_indexed(tabs, idx, g, bc1, bc2[:3], out, 0.05)
+    with pytest.raises(ValueError, match="m_out shape"):
+        tsu.adam_rows_indexed(tabs, idx, g, bc1, bc2,
+                              (out[0], out[1][:5], out[2]), 0.05)
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="must be a CUDA tensor"):
+            tsu._launch_adam_rows_indexed(tabs, idx, g, bc1, bc2, out,
+                                          0.05, 0.9, 0.999, 1e-8)
+
+
+def test_device_engine_staging_bitwise_and_reused(monkeypatch):
+    """The device engine on ``device="cpu"`` through its staging buffers:
+    bitwise the host pass at growing and shrinking sizes; the buffers grow
+    on demand and are reused, and a result never aliases them (an earlier
+    result survives the next call)."""
+    monkeypatch.setattr(tsu, "_STAGING", {})
+    results = []
+    for i, shape in enumerate(((5, 4), (512, 33), (37, 17), (512, 33))):
+        rows, m, v, g, t = _stack_problem(*shape, seed=10 + i)
+        got = tsu.fused_adam_rows_device(rows, m, v, g, t, lr=0.05,
+                                         device="cpu")
+        want = tsu.fused_adam_rows(rows, m, v, g, t, lr=0.05)
+        _bitwise(got, want)
+        results.append((got, [a.copy() for a in want]))
+        st = tsu._STAGING[torch.device("cpu")]
+        r, d = shape
+        assert st.up.numel() >= 4 * r * d + 2 * r
+        assert st.down.numel() >= 3 * r * d
+        assert st.dev is None  # no device buffer for the CPU
+        if i == 1:
+            grown = (st.up.data_ptr(), st.down.data_ptr())
+        if i > 1:  # smaller and equal sizes reuse the grown buffers
+            assert (st.up.data_ptr(), st.down.data_ptr()) == grown
+    for got, want in results:
+        _bitwise(got, want)
 
 
 # -- the fold, both packages on the same events -----------------------------------
@@ -236,28 +354,59 @@ def test_fold_device_mode_cpu_band_and_t_exact(monkeypatch):
 
 
 def test_auto_resolves_by_the_trainers_device(monkeypatch):
+    """``auto`` (the default) is the host fused pass on any trainer device,
+    a CUDA trainer included, as in the JAX trainer; ``device`` takes the
+    device engine (stubbed onto the CPU here)."""
     monkeypatch.delenv("PIO_STREAM_FUSED", raising=False)
     assert ttr.fused_fold_mode() == "auto"
     calls = []
     real = tsu.fused_adam_rows_device
     monkeypatch.setattr(tsu, "fused_adam_rows_device",
-                        lambda *a, **k: calls.append(k["device"]) or real(*a, **k))
+                        lambda *a, **k: calls.append(k["device"]) or real(
+                            *a, **{**k, "device": "cpu"}))
+    host = []
+    real_host = tsu.fused_adam_rows
+    monkeypatch.setattr(tsu, "fused_adam_rows",
+                        lambda *a, **k: host.append(1) or real_host(*a, **k))
     before = stream_metrics.FUSED_STEPS.value
     tr = _port_trainer()
     tr.fold(_events(Event, DataMap, [("u0", "i1", 4.0)]))
-    assert calls == [] and stream_metrics.FUSED_STEPS.value == before + 1
-    tr.device = torch.device("cuda")  # a CUDA trainer takes the device engine
-    monkeypatch.setattr(tsu, "fused_adam_rows_device",
-                        lambda *a, **k: calls.append(k["device"]) or real(
-                            *a, **{**k, "device": "cpu"}))
+    assert calls == [] and host == [1]
+    assert stream_metrics.FUSED_STEPS.value == before + 1
+    tr.device = torch.device("cuda")  # a CUDA trainer: still the host pass
     tr.fold(_events(Event, DataMap, [("u0", "i1", 4.0)]))
-    assert calls == [torch.device("cuda")]
+    assert calls == [] and host == [1, 1]
+    monkeypatch.setenv("PIO_STREAM_FUSED", "auto")
+    tr.fold(_events(Event, DataMap, [("u0", "i1", 4.0)]))
+    assert calls == [] and host == [1, 1, 1]
+    monkeypatch.setenv("PIO_STREAM_FUSED", "device")
+    tr.fold(_events(Event, DataMap, [("u0", "i1", 4.0)]))
+    assert calls == [torch.device("cuda")] and host == [1, 1, 1]
     monkeypatch.setenv("PIO_STREAM_FUSED", "0")
     tr.fold(_events(Event, DataMap, [("u0", "i1", 4.0)]))
-    assert stream_metrics.FUSED_STEPS.value == before + 2
+    assert stream_metrics.FUSED_STEPS.value == before + 4
     monkeypatch.setenv("PIO_STREAM_FUSED", "turbo")
     with pytest.raises(ValueError, match="PIO_STREAM_FUSED"):
         ttr.fused_fold_mode()
+
+
+def test_auto_folds_like_the_jax_trainer_on_a_cuda_trainer(monkeypatch):
+    """A CUDA-labelled trainer under ``auto`` folds bitwise as the JAX
+    trainer under ``auto`` (its host pass) and never calls the device
+    engine."""
+    monkeypatch.setattr(tsu, "fused_adam_rows_device", lambda *a, **k: (
+        pytest.fail("auto took the device engine")))
+    monkeypatch.delenv("PIO_STREAM_FUSED", raising=False)
+    pt = _port_trainer()
+    pt.device = torch.device("cuda")
+    jt = _jax_trainer()
+    for tr, cls, dm in ((pt, Event, DataMap), (jt, JEvent, JDataMap)):
+        tr.fold(_events(cls, dm, FOLD1))
+        tr.fold(_events(cls, dm, FOLD2))
+    assert pt.t == jt.t and set(pt.rows) == set(jt.rows)
+    for key in jt.rows:
+        for got, want in ((pt.rows, jt.rows), (pt.m, jt.m), (pt.v, jt.v)):
+            assert got[key].tobytes() == want[key].tobytes(), key
 
 
 @pytest.mark.parametrize("coldstart", ["off", "hash"])
@@ -302,3 +451,28 @@ def test_k3_on_the_card_matches_its_plain_version():
         got = tsu.fused_adam_rows_device(rows, m, v, g, t, lr=0.05)
         assert tsu.adam_rows.launches == before + 1
         _band(got, tsu.fused_adam_rows(rows, m, v, g, t, lr=0.05))
+
+
+@pytest.mark.cuda
+def test_k3_indexed_on_the_card_matches_its_plain_version():
+    """K3's indexed entry (``fused_gather_adam_scatter``) on the card
+    against the same call on CPU tensors: one launch, the new tables
+    bitwise (or in the band), the inputs untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("K3 runs on an NVIDIA card only; chip_smoke.py checks it")
+    for n, d, r, idx_dtype in INDEXED:
+        rng = np.random.default_rng(n)
+        tabs = [rng.normal(size=(n, d)).astype(np.float32) for _ in range(3)]
+        tabs[2] = np.abs(tabs[2])
+        idx = rng.choice(n, r, replace=False).astype(idx_dtype)
+        g = rng.normal(size=(r, d)).astype(np.float32)
+        bc = tsu.adam_bias_corrections(rng.integers(1, 500, r))
+        args = (*tabs, idx, g, *bc)
+        want = tsu.fused_gather_adam_scatter(*map(torch.from_numpy, args), lr=0.05)
+        dev = [torch.from_numpy(a).cuda() for a in args]
+        before = tsu.adam_rows.launches
+        got = tsu.fused_gather_adam_scatter(*dev, lr=0.05)
+        assert tsu.adam_rows.launches == before + 1
+        _band([a.cpu().numpy() for a in got], [a.numpy() for a in want])
+        for t, a in zip(dev, tabs):
+            assert t.cpu().numpy().tobytes() == a.tobytes()

@@ -561,7 +561,7 @@ def _updater(tmp_path, storage, variant_path, transport=None, **kw):
 
 
 def test_updater_streams_into_the_served_model(tmp_path, monkeypatch):
-    monkeypatch.delenv("PIO_STREAM_FUSED", raising=False)  # auto → host on CPU
+    monkeypatch.delenv("PIO_STREAM_FUSED", raising=False)  # auto → the host pass
     storage, variant_path = _deploy_env(tmp_path, _port_model())
     log = _PortLog(str(tmp_path / "live.piolog"))
     log.append([_trate("u0", "i0", 3.0)])  # before the updater: never folded
