@@ -48,6 +48,24 @@ plain CPU path (exact) and the exact answers (two-stage), and the
 replica's exactly-once checks. It measures the card's launch floor (the
 device time of the smallest launch) beside the kernels.
 
+Then it trains the recommendation template on the card. ``rec-train``
+runs the repo's ``bench_recommendation_scaled`` configuration, not cut
+(1,000,000 users, 100,000 items, rank 128, 4,000,000 events from
+``default_rng(9)``, batch 65,536, 4 epochs = 248 steps, bf16 adam
+moments), through ``TwoTowerMF.fit``: a warm-up fit, the timed fit (train
+events/s, ``hbm_util`` and MFU by bench.py's formula), a 1-epoch fit whose
+loss is recorded beside it, one step's device time by op, one step and a
+3-epoch fit held against the CPU at cut sizes; then ``RecModel.save`` → ``load``
+(tables bitwise) and a deploy of the device-resident model through the
+QueryServer: exact answers through K1 at D 128 held against the plain CPU
+path, two-stage answers through K2 (recall against exact printed), and K1
+and K2 held against their plain versions at those shapes.
+``rec-workflow`` runs the normal entry points in-process on sqlite
+storage: CLI ``app new``, ``import`` of 100,050 events at the MovieLens-1M
+shape, ``train`` on the card (its loss below a 1-iteration fit's),
+deploy, queries over a socket held against numpy scoring of the trained
+tables.
+
 Every check failure raises: the script catches nothing, and a non-zero exit
 is the verdict. Its last line is one JSON object, ``{"ok": true, "device":
 {...}}``; the line before it names the card and its power limit; a
@@ -62,6 +80,7 @@ import asyncio
 import contextlib
 import gc
 import json
+import logging
 import os
 import socket
 import statistics
@@ -845,7 +864,7 @@ def check_vs_cpu(name, towers_, users, bodies):
     user, item, user_bias, item_bias, mean = towers_
     cpu = TwoTowerModel(user_emb=user, item_emb=item, user_bias=user_bias,
                         item_bias=item_bias, mean=mean,
-                        config=TwoTowerConfig(rank=RANK))
+                        config=TwoTowerConfig(rank=user.shape[1]))
     cpu.prepare_for_serving(quantize=True, host_max_elements=0,
                             device="cpu", build_index=False)
     ci, cs = TwoTowerMF.recommend_batch(cpu, np.asarray(users, np.int32), 12)
@@ -1984,6 +2003,660 @@ async def stream_phase(R, S, variant_path, storage, ctx, tmp):
     return launches, rec
 
 
+# -- phases 11 and 12: training the recommendation template on the card -------
+
+#: bench.py bench_recommendation_scaled's full configuration (:196-207):
+#: 1,000,000 users, 100,000 items, rank 128, 4,000,000 events drawn as
+#: _bench_two_tower draws them (:142-145, default_rng(9)), batch 65,536,
+#: 4 epochs, bf16 adam moments
+REC_USERS, REC_ITEMS, REC_RANK = 1_000_000, 100_000, 128
+REC_EVENTS, REC_BATCH, REC_EPOCHS, REC_MOMENTS = 4_000_000, 65_536, 4, "bfloat16"
+#: the one-step check of the card against the CPU, cut to tables the CPU
+#: steps through in a second (one batch of 65,536 at rank 128)
+REC_STEP_USERS, REC_STEP_ITEMS = 20_000, 5_000
+#: each table's gradient on the card within this share of the CPU's max
+#: abs (tests/test_torch_two_tower_training.py's band against JAX), the
+#: loss within REC_STEP_LOSS_RTOL
+REC_GRAD_TOL, REC_STEP_LOSS_RTOL = 4e-3, 1e-4
+#: a 3-epoch fit on the card against the same fit on the CPU from the same
+#: tables, at a cut size (20,000 users, 5,000 items, rank 128, 80,000
+#: events, batch 32,768: 9 steps): the last epoch's loss within
+#: REC_FIT_LOSS_RTOL relative, each table within REC_FIT_TABLE_RTOL
+#: relative Frobenius error: tests/test_torch_two_tower_training.py's
+#: bands for the port against JAX
+REC_FIT_USERS, REC_FIT_ITEMS, REC_FIT_EVENTS, REC_FIT_BATCH = 20_000, 5_000, 80_000, 32_768
+REC_FIT_LOSS_RTOL, REC_FIT_TABLE_RTOL = 1e-4, 1e-2
+#: users queried after the deploy: 16 singles held against the plain CPU
+#: path, 64 more in a burst, all 80 for two-stage recall
+REC_EVAL_USERS = 80
+#: rec-workflow: bench.py's MovieLens-1M shape (:108-110) through the CLI,
+#: 100,000 rate events (cut from the bench's 1,000,000 for the phase's
+#: time) and a few buys; rank 64, 20 iterations, batch 65,536
+WF_USERS, WF_ITEMS, WF_EVENTS, WF_BUYS = 6040, 3706, 100_000, 50
+WF_RANK, WF_ITERS, WF_BATCH = 64, 20, 65_536
+
+
+def two_tower_flops_bytes(n_events, rank, batch, epochs, n_users, n_items,
+                          moment_bytes):
+    """bench.py:_two_tower_flops_bytes: (steps, FLOPs, HBM bytes) of a fit
+    — per step 12·rank·batch + 12·params FLOPs, and each table read and
+    written once, each moment read and written once at its storage width,
+    plus the batch's row gathers."""
+    n_batches = max(1, -(-n_events // batch))
+    steps = epochs * n_batches
+    n_params = (n_users + n_items) * (rank + 1)
+    flops_step = 12 * rank * batch + 12 * n_params
+    bytes_step = n_params * (4 * 2 + moment_bytes * 4) + batch * rank * 4 * 4
+    return steps, steps * flops_step, steps * bytes_step
+
+
+def rec_fit(ctx, data, seed, epochs=REC_EPOCHS):
+    from incubator_predictionio_tpu_torch.models.two_tower import (
+        TwoTowerConfig,
+        TwoTowerMF,
+    )
+
+    users, items, ratings = data
+    return TwoTowerMF(TwoTowerConfig(
+        rank=REC_RANK, batch_size=REC_BATCH, epochs=epochs, seed=seed,
+        adam_moments_dtype=REC_MOMENTS)).fit(
+            ctx, users, items, ratings, REC_USERS, REC_ITEMS)
+
+
+def rec_step_by_op(model, data, dev) -> dict:
+    """One step of the fit on a copy of the trained tables (its first
+    staged batch), on the card: the device time of its loss-and-gradient
+    half by kind (the row gathers, the gradients' zeroing, the
+    scatter-add, the rest: the loss and the backward's elementwise work)
+    and of its adam half, from ``torch.profiler``; then one whole step's
+    device busy share of its wall time."""
+    from incubator_predictionio_tpu_torch.models.two_tower import (
+        _loss_and_grads,
+        _stage_batches,
+    )
+    from incubator_predictionio_tpu_torch.utils.optim import (
+        adam_apply,
+        adam_tree_init,
+    )
+
+    cfg = model.config
+    staged = _stage_batches(cfg, *data)
+    batch = [torch.from_numpy(a[0].copy()).to(dev) for a in staged[:4]]
+    tables = [model._tables["ue"].clone(), model._tables["ie"].clone()]
+    grads = [torch.empty_like(t) for t in tables]
+    state = adam_tree_init(tables, cfg.adam_moments_dtype)
+
+    def loss_half():
+        _loss_and_grads(tables, grads, *batch, cfg.reg)
+
+    def adam_half():
+        adam_apply(tables, grads, state, cfg.learning_rate)
+
+    def step():
+        loss_half()
+        adam_half()
+
+    loss_ms, loss_by = device_busy(loss_half)
+    adam_ms, adam_by = device_busy(adam_half)
+    kinds = {"gather": ("indexSelect", "_scatter_gather_elementwise"),
+             "scatter_add": ("indexFunc", "index_add"),
+             "zero": ("FillFunctor", "fill_")}
+    by_kind = {k: sum(t for n, t in loss_by.items() if any(s in n for s in syms))
+               for k, syms in kinds.items()}
+    by_kind["loss_elementwise"] = loss_ms - sum(by_kind.values())
+    by_kind["adam"] = adam_ms
+    step()
+    torch.cuda.synchronize()
+    with cuda_profile() as by_name:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rec = {"device_ms_by_op": by_kind, "step_device_ms": loss_ms + adam_ms,
+           "loss_top_device_ms": dict(sorted(loss_by.items(), key=lambda kv: -kv[1])[:8]),
+           "adam_top_device_ms": dict(sorted(adam_by.items(), key=lambda kv: -kv[1])[:8]),
+           "profiled_step": busy_record(by_name, wall, 8)}
+    del tables, grads, state, batch
+    return rec
+
+
+def rec_step_parity(dev) -> dict:
+    """One step of the fit on the card against the same step on the CPU,
+    from the same initial tables, at a cut size (:data:`REC_STEP_USERS` ×
+    :data:`REC_STEP_ITEMS` at rank 128, one batch of 65,536 events): each
+    table's gradient within :data:`REC_GRAD_TOL` of the CPU's max abs (the
+    card sums duplicate rows with atomics, in no fixed order), the loss
+    within :data:`REC_STEP_LOSS_RTOL`."""
+    from incubator_predictionio_tpu_torch.models.two_tower import (
+        TwoTowerConfig,
+        _init_tables,
+        _loss_and_grads,
+        _stage_batches,
+    )
+
+    rng = np.random.default_rng(13)
+    n = REC_BATCH
+    data = (rng.integers(0, REC_STEP_USERS, n).astype(np.int32),
+            rng.integers(0, REC_STEP_ITEMS, n).astype(np.int32),
+            (1.0 + 4.0 * rng.random(n)).astype(np.float32))
+    cfg = TwoTowerConfig(rank=REC_RANK, batch_size=REC_BATCH, seed=2)
+    staged = _stage_batches(cfg, *data)
+    init = _init_tables(cfg, REC_STEP_USERS, REC_STEP_ITEMS, "cpu",
+                        torch.Generator().manual_seed(2))
+    out = {}
+    for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        tables = [t.to(d, copy=True) for t in init]
+        grads = [torch.empty_like(t) for t in tables]
+        batch = [torch.from_numpy(a[0].copy()).to(d) for a in staged[:4]]
+        loss = _loss_and_grads(tables, grads, *batch, cfg.reg)
+        out[name] = (float(loss), [g.cpu() for g in grads])
+    (lc, gc_), (lg, gg) = out["cpu"], out["card"]
+    rel = {k: float((a - b).abs().max() / b.abs().max())
+           for k, a, b in zip(("ue", "ie"), gg, gc_)}
+    res = {"users": REC_STEP_USERS, "items": REC_STEP_ITEMS, "rank": REC_RANK,
+           "batch": n, "loss_card": lg, "loss_cpu": lc,
+           "loss_rel_diff": abs(lg - lc) / abs(lc), "grad_rel_err": rel,
+           "grad_tol": REC_GRAD_TOL}
+    check(res["loss_rel_diff"] <= REC_STEP_LOSS_RTOL,
+          f"[rec-train] step loss on the card {lg} vs the CPU {lc}")
+    for k, e in rel.items():
+        check(e <= REC_GRAD_TOL, f"[rec-train] the {k} gradient on the card "
+              f"differs from the CPU's by {e} of its max abs (> {REC_GRAD_TOL})")
+    log(f"[rec-train] one step, card vs CPU from the same tables "
+        f"({REC_STEP_USERS}x{REC_STEP_ITEMS}, rank {REC_RANK}, batch {n}): loss "
+        f"{lg:.6f} vs {lc:.6f} (rel {res['loss_rel_diff']:.2e}); gradients "
+        + ", ".join(f"{k} {e:.2e}" for k, e in rel.items())
+        + f" of their max abs (tol {REC_GRAD_TOL})")
+    return res
+
+
+def rec_fit_parity(dev) -> dict:
+    """A 3-epoch fit on the card against the same fit on the CPU, from the
+    same initial tables and staged batches, at a cut size (the
+    ``REC_FIT_*`` constants): the whole loop — gathers, loss, scatter-add,
+    the dense adam with bf16 moments — through ``_train_epochs`` on each
+    device. Checks the last epoch's loss and every table."""
+    from incubator_predictionio_tpu_torch.models.two_tower import (
+        TwoTowerConfig,
+        _init_tables,
+        _stage_batches,
+        _train_epochs,
+    )
+    from incubator_predictionio_tpu_torch.utils.optim import adam_tree_init
+
+    rng = np.random.default_rng(17)
+    n = REC_FIT_EVENTS
+    data = (rng.integers(0, REC_FIT_USERS, n).astype(np.int32),
+            rng.integers(0, REC_FIT_ITEMS, n).astype(np.int32),
+            (1.0 + 4.0 * rng.random(n)).astype(np.float32))
+    cfg = TwoTowerConfig(rank=REC_RANK, batch_size=REC_FIT_BATCH, epochs=3,
+                         seed=3, adam_moments_dtype=REC_MOMENTS)
+    staged = _stage_batches(cfg, *data)
+    init = _init_tables(cfg, REC_FIT_USERS, REC_FIT_ITEMS, "cpu",
+                        torch.Generator().manual_seed(3))
+    out = {}
+    for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        tables = [t.to(d, copy=True) for t in init]
+        grads = [torch.empty_like(t) for t in tables]
+        state = adam_tree_init(tables, cfg.adam_moments_dtype)
+        batches = [torch.from_numpy(a).to(d) for a in staged[:4]]
+        loss = _train_epochs(tables, grads, state, *batches, cfg.learning_rate,
+                             cfg.reg, cfg.epochs)
+        out[name] = (float(loss), [t.cpu() for t in tables])
+    (lc, tc), (lg, tg) = out["cpu"], out["card"]
+    rel = {k: float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+           for k, a, b in zip(("ue", "ie"), tg, tc)}
+    res = {"users": REC_FIT_USERS, "items": REC_FIT_ITEMS, "events": n,
+           "batch": REC_FIT_BATCH, "epochs": cfg.epochs,
+           "steps": cfg.epochs * staged[0].shape[0], "loss_card": lg,
+           "loss_cpu": lc, "loss_rel_diff": abs(lg - lc) / abs(lc),
+           "table_rel_err": rel}
+    check(np.isfinite(lg), f"[rec-train] cut fit loss on the card {lg}")
+    check(res["loss_rel_diff"] <= REC_FIT_LOSS_RTOL,
+          f"[rec-train] cut fit: loss on the card {lg} vs the CPU {lc}")
+    for k, e in rel.items():
+        check(e <= REC_FIT_TABLE_RTOL, f"[rec-train] cut fit: table {k} on the "
+              f"card {e} relative Frobenius from the CPU's (> {REC_FIT_TABLE_RTOL})")
+    log(f"[rec-train] {cfg.epochs}-epoch fit, card vs CPU from the same tables "
+        f"({REC_FIT_USERS}x{REC_FIT_ITEMS}, rank {REC_RANK}, {n} events, "
+        f"{res['steps']} steps): loss {lg:.6f} vs {lc:.6f} (rel "
+        f"{res['loss_rel_diff']:.2e}, tol {REC_FIT_LOSS_RTOL}); tables "
+        + ", ".join(f"{k} {e:.2e}" for k, e in rel.items())
+        + f" (tol {REC_FIT_TABLE_RTOL})")
+    return res
+
+
+def rec_kernel_cases(R, mf, dev) -> tuple[list, list]:
+    """K1 and K2 held against their plain versions at the trained model's
+    shapes (D 128): K1 at B 64 over the trained catalog quantized on the
+    card, K2 at the probe buckets over its IVF centroids."""
+    k = mf.config.rank
+    ie = mf._tables["ie"][: mf._n_items]
+    items_q, scales, bias, mask = R.quantize_catalog_device(
+        ie[:, :k].contiguous(), ie[:, k].contiguous())
+    q = mf._tables["ue"][:64, :k].contiguous()
+    k1 = [k1_case(R, q, items_q, scales, bias, mask)]
+    ivf = mf._ivf
+    cent_q, cent_s = R.quantize_rows(np.asarray(ivf.centroids[:, :-1], np.float32))
+    cq, cs, cb = (torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                  for v in R.pad_centroids(
+                      cent_q, cent_s, np.asarray(ivf.centroids[:, -1], np.float32)))
+    user = mf._tables["ue"][:256, :k].cpu().numpy()
+    k2 = []
+    for b in K2_BUCKETS:
+        q_q, q_s = R.quantize_rows(user[:b])
+        k2.append(k2_case(R, torch.from_numpy(q_q).to(dev),
+                          torch.from_numpy(q_s).to(dev), cq, cs, cb))
+    return k1, k2
+
+
+@contextlib.contextmanager
+def env_vars(**values):
+    """Environment variables for one phase, restored after it."""
+    prev = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+async def rec_serve(R, variant_path, storage, ctx, towers_, eval_users):
+    """Deploy the persisted trained model through the QueryServer, exact
+    (K1) then two-stage (K2), with the counts at 0 just before and read
+    just after; returns (launches, record)."""
+    lat = {}
+    oracle = {}
+
+    async def exact(session, url, server):
+        info = server.deployed.models[0].serving_info()
+        check(info["path"] == "device-int8" and info["device"].startswith("cuda")
+              and info["device_resident"],
+              f"[rec-exact] not on the device int8 path of a resident model: {info}")
+        check(info["retrieval_mode"] == "exact", f"[rec-exact] not exact: {info}")
+        singles = [{"user": f"u{u}", "num": 10} for u in eval_users[:16]]
+        b_single, lat["rec_exact_single"] = await post_all(session, url, singles, False)
+        burst = [{"user": f"u{u}", "num": 10} for u in eval_users[16:]]
+        b_burst, lat["rec_exact_burst64"] = await post_all(session, url, burst, True)
+        for p, body in zip(singles + burst, b_single + b_burst):
+            check(len(body["itemScores"]) == 10, f"[rec-exact] short answer {body}")
+            oracle[p["user"]] = ids_of(body)
+        bl = [{"user": p["user"], "num": 10, "blackList": oracle[p["user"]][:3]}
+              for p in singles[:8]]
+        b_bl, lat["rec_exact_blacklist"] = await post_all(session, url, bl, True)
+        for p, body in zip(bl, b_bl):
+            got = ids_of(body)
+            check(len(got) == 10 and not set(got) & set(p["blackList"]),
+                  f"[rec-exact] banned id served: {body}")
+        same_set, same_order = check_vs_cpu("rec-exact", towers_,
+                                            eval_users[:16], b_single)
+        return {"cpu_same_ids": same_set, "cpu_same_order": same_order}
+
+    async def two_stage(session, url, server):
+        info = server.deployed.models[0].serving_info()
+        check(info["retrieval_mode"] == "two_stage",
+              f"[rec-two-stage] not two-stage: {info}")
+        check((info["index"] or {}).get("coarse_device", "").startswith("cuda"),
+              f"[rec-two-stage] coarse stage not on the card: {info}")
+        k2_deploy = R.score_centroids_quantized.launches
+        payload = [{"user": f"u{u}", "num": 10} for u in eval_users]
+        bodies, lat["rec_two_stage"] = await post_all(session, url, payload, True)
+        hits = 0
+        for p, body in zip(payload, bodies):
+            got = ids_of(body)
+            check(len(got) == 10, f"[rec-two-stage] short answer {body}")
+            hits += len(set(got) & set(oracle[p["user"]]))
+        check(R.score_centroids_quantized.launches > k2_deploy,
+              "[rec-two-stage] K2 did not launch on the queries")
+        recall = hits / (10 * len(payload))
+        log(f"[rec-two-stage] recall@10 vs the exact answers: {recall:.4f} "
+            "(no floor: tables trained on uniform random events have no "
+            f"cluster structure); index {info['index']}")
+        return {"recall_at_10": recall, "index": info["index"]}
+
+    R.reset_launches()
+    with retrieval_mode("exact"):
+        res_a = await serve_phase("rec-exact", variant_path, storage, ctx, exact)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with retrieval_mode("auto"):
+        res_b = await serve_phase("rec-two-stage", variant_path, storage, ctx,
+                                  two_stage)
+    launches = {"score_catalog_quantized": R.score_catalog_quantized.launches,
+                "score_centroids_quantized": R.score_centroids_quantized.launches}
+    for name, count in launches.items():
+        check(count > 0, f"[rec-train] {name} never launched serving the "
+              "trained model")
+    latency = {k: {"n": len(v), "p50_ms": pct(v, 50), "p99_ms": pct(v, 99)}
+               for k, v in lat.items()}
+    for k, v in latency.items():
+        log(f"latency {k:<20s} n={v['n']:<4d} p50={v['p50_ms']:.2f} ms "
+            f"p99={v['p99_ms']:.2f} ms")
+    return launches, {"exact": res_a, "two_stage": res_b, "latency": latency}
+
+
+def rec_train_phase(R, ctx, tmp):
+    """Train the recommendation template's model at bench_recommendation_
+    scaled's full configuration through the port's ``TwoTowerMF.fit`` on
+    the card (a warm-up fit with seed 0, the timed fit with seed 1, a
+    1-epoch fit to compare the loss with), profile one step by op, hold
+    one step against the CPU, persist the device-resident model, load it
+    back, deploy it through the QueryServer (K1, K2 at D 128) and hold K1
+    and K2 against their plain versions at its shapes. Returns (launches,
+    record)."""
+    import datetime as dt
+
+    from incubator_predictionio_tpu_torch.core.controller import class_path
+    from incubator_predictionio_tpu_torch.core import PersistentModelManifest
+    from incubator_predictionio_tpu_torch.data.bimap import BiMap
+    from incubator_predictionio_tpu_torch.data.storage import (
+        EngineInstance,
+        Model,
+        Storage,
+    )
+    from incubator_predictionio_tpu_torch.templates.recommendation import (
+        ALSAlgorithmParams,
+        RecModel,
+    )
+    from incubator_predictionio_tpu_torch.utils.serialization import (
+        serialize_model,
+    )
+
+    dev = ctx.device
+    rng = np.random.default_rng(9)
+    data = (rng.integers(0, REC_USERS, REC_EVENTS).astype(np.int32),
+            rng.integers(0, REC_ITEMS, REC_EVENTS).astype(np.int32),
+            (1.0 + 4.0 * rng.random(REC_EVENTS)).astype(np.float32))
+    t0 = time.perf_counter()
+    warm = rec_fit(ctx, data, seed=0)
+    warm_s = time.perf_counter() - t0
+    del warm
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = rec_fit(ctx, data, seed=1)
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    one = rec_fit(ctx, data, seed=1, epochs=1)
+    loss_1 = one.final_loss
+    del one
+    steps, flops, nbytes = two_tower_flops_bytes(
+        REC_EVENTS, REC_RANK, REC_BATCH, REC_EPOCHS, REC_USERS, REC_ITEMS,
+        moment_bytes=2 if REC_MOMENTS == "bfloat16" else 4)
+    t_train = model.timings["train_sec"]
+    bound_step_ms = nbytes / steps / HBM_BYTES_PER_S * 1e3
+    rec = {"users": REC_USERS, "items": REC_ITEMS, "rank": REC_RANK,
+           "events": REC_EVENTS, "batch": REC_BATCH, "epochs": REC_EPOCHS,
+           "steps": steps, "adam_moments_dtype": REC_MOMENTS,
+           "warmup_fit_s": warm_s, "fit_s": fit_s, "timings": model.timings,
+           "events_per_sec": REC_EPOCHS * REC_EVENTS / fit_s,
+           "train_events_per_sec": REC_EPOCHS * REC_EVENTS / t_train,
+           "step_ms": t_train / steps * 1e3,
+           "hbm_util": nbytes / t_train / HBM_BYTES_PER_S,
+           "mfu": flops / t_train / BF16_OPS_PER_S,
+           "bytes_per_step": nbytes / steps, "bound_step_ms": bound_step_ms,
+           "bound_train_events_per_sec": REC_EPOCHS * REC_EVENTS
+           / (bound_step_ms * steps / 1e3),
+           "final_loss": model.final_loss, "one_epoch_loss": loss_1,
+           "peak_device_bytes": peak}
+    check(model.device_resident, "[rec-train] the trained tables are not resident")
+    check(np.isfinite(model.final_loss) and np.isfinite(loss_1),
+          f"[rec-train] final loss {model.final_loss}, 1-epoch {loss_1}")
+    # no check that the loss falls: at this configuration (rank 128, four
+    # events a user) the reference's fit raises its training loss from the
+    # first epoch to the fourth too; rec_fit_parity holds the whole loop
+    # against the CPU, and rec-workflow holds a falling loss
+    log(f"[rec-train] fit {REC_USERS}x{REC_ITEMS} rank {REC_RANK}, {REC_EVENTS} "
+        f"events x {REC_EPOCHS} epochs = {steps} steps of {REC_BATCH} "
+        f"({REC_MOMENTS} moments): fit {fit_s:.3f} s (warm-up {warm_s:.3f} s), "
+        f"timings {model.timings}; {rec['events_per_sec']:.1f} events/s, "
+        f"{rec['train_events_per_sec']:.1f} train events/s, "
+        f"{rec['step_ms']:.3f} ms a step (bound {bound_step_ms:.3f} ms), "
+        f"hbm_util {rec['hbm_util']:.4f}, mfu {rec['mfu']:.5f}; loss "
+        f"{model.final_loss:.6f} (1 epoch: {loss_1:.6f}); peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    rec["step_by_op"] = rec_step_by_op(model, data, dev)
+    w = rec["step_by_op"]
+    log(f"[rec-train] one step's device ms by op: "
+        + ", ".join(f"{k}={v:.4f}" for k, v in w["device_ms_by_op"].items())
+        + f"; profiled step wall {w['profiled_step']['wall_ms']:.3f} ms, busy "
+        f"{w['profiled_step']['device_busy_ms']:.3f} ms (share "
+        f"{w['profiled_step']['device_busy_share']:.4f}); adam top: "
+        + ", ".join(f"{k[:50]}={v:.4f}" for k, v in w["adam_top_device_ms"].items()))
+    rec["step_parity"] = rec_step_parity(dev)
+    rec["fit_parity"] = rec_fit_parity(dev)
+    del data
+    gc.collect()
+
+    # persist → load → deploy, under this phase's own PIO_FS_BASEDIR
+    fs = os.path.join(tmp, "rec-train-fs")
+    with env_vars(PIO_FS_BASEDIR=fs), retrieval_mode("auto"):
+        t0 = time.perf_counter()
+        user_map = BiMap({f"u{i}": i for i in range(REC_USERS)})
+        item_map = BiMap({f"i{j}": j for j in range(REC_ITEMS)})
+        model._prepare_index()  # as ALSAlgorithm.train: the IVF persists
+        recm = RecModel(model, user_map, item_map)
+        rec["index_build_s"] = time.perf_counter() - t0
+        storage = Storage({"PIO_STORAGE_SOURCES_MEM_TYPE": "memory"})
+        variant_path = os.path.join(tmp, "rec-train-engine.json")
+        with open(variant_path, "w") as f:
+            json.dump({"id": "rec-train", "version": "1", "engineFactory": FACTORY,
+                       "algorithms": [{"name": "als",
+                                       "params": {"rank": REC_RANK}}]}, f)
+        now = dt.datetime.now(dt.timezone.utc)
+        iid = storage.get_meta_data_engine_instances().insert(EngineInstance(
+            id="", status="COMPLETED", start_time=now, end_time=now,
+            engine_id="rec-train", engine_version="1",
+            engine_variant=os.path.abspath(variant_path), engine_factory=FACTORY))
+        params = ALSAlgorithmParams(rank=REC_RANK)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(recm.save(f"{iid}_0", params, ctx), "[rec-train] save did not persist")
+        rec["persist_sec"] = time.perf_counter() - t0
+        storage.get_model_data_models().insert(Model(iid, serialize_model(
+            [PersistentModelManifest(class_path(RecModel))])))
+        t0 = time.perf_counter()
+        back = RecModel.load(f"{iid}_0", params, ctx)
+        torch.cuda.synchronize()
+        rec["deploy_load_sec"] = time.perf_counter() - t0
+        for k in ("ue", "ie"):
+            check(torch.equal(back.mf._tables[k], model._tables[k]),
+                  f"[rec-train] table {k} differs after save → load")
+        del back
+        log(f"[rec-train] IVF index {model._ivf.n_partitions} partitions "
+            f"(+ maps) {rec['index_build_s']:.2f} s; persist {rec['persist_sec']:.3f} s, "
+            f"load {rec['deploy_load_sec']:.3f} s; tables bitwise after save → load")
+        k = REC_RANK
+        ue = model._tables["ue"].cpu().numpy()
+        ie = model._tables["ie"].cpu().numpy()
+        towers_ = (ue[:, :k].copy(), ie[:, :k].copy(), ue[:, k].copy(),
+                   ie[:, k].copy(), model.mean)
+        del ue, ie
+        eval_users = np.random.default_rng(21).integers(0, REC_USERS, REC_EVAL_USERS)
+        launches, rec["serve"] = asyncio.run(rec_serve(
+            R, variant_path, storage, ctx, towers_, eval_users))
+        del towers_
+        rec["k1_cases"], rec["k2_cases"] = rec_kernel_cases(R, model, dev)
+    del recm, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def one_iteration_loss(variant_path, ctx) -> float:
+    """The final loss of the variant's training for one iteration, on the
+    same events (read anew through its DataSource): what the trained
+    model's loss must fall below."""
+    from incubator_predictionio_tpu_torch.core.controller import (
+        resolve_engine_factory,
+        variant_from_file,
+    )
+
+    variant = variant_from_file(variant_path)
+    engine = resolve_engine_factory(variant["engineFactory"])()
+    ep = engine.engine_params_from_variant(variant)
+    ds, _, (algo,), _ = engine._instantiate(ep)
+    import dataclasses
+
+    algo.params = dataclasses.replace(algo.params, num_iterations=1)
+    return float(algo.train(ctx, ds.read_training(ctx)).mf.final_loss)
+
+
+async def rec_workflow_body(one_loss, session, url, server):
+    """The trained model's loss below a 1-iteration fit's; 16 users'
+    served top-10 against numpy scoring of the trained tables (up to
+    near-ties at the 10th place, scores within 1e-4), and a blackList
+    never served."""
+    model = server.deployed.models[0]
+    check(np.isfinite(model.mf.final_loss) and model.mf.final_loss < one_loss,
+          f"[rec-workflow] the trained loss {model.mf.final_loss} is not below "
+          f"a 1-iteration fit's {one_loss}")
+    info = model.serving_info()
+    check(info["path"] == "host-numpy", f"[rec-workflow] serving path {info}")
+    mf = model.mf.ensure_host()
+    inv = model.item_map.inverse()
+    users = [f"u{u}" for u in range(0, WF_USERS, WF_USERS // 16)][:16]
+    payloads = [{"user": u, "num": 10} for u in users]
+    bodies, ls = await post_all(session, url, payloads, False)
+    same = 0
+    for u, body in zip(users, bodies):
+        r = model.user_map[u]
+        s = (mf.user_emb[r] @ mf.item_emb.T + mf.item_bias + mf.user_bias[r]
+             + mf.mean)
+        top = np.argsort(-s, kind="stable")[:12]
+        want = [inv[int(i)] for i in top[:10]]
+        got = ids_of(body)
+        for iid in set(got) ^ set(want):
+            j = model.item_map[iid]
+            check(abs(float(s[j]) - float(s[top[9]])) <= 1e-4,
+                  f"[rec-workflow] top-10 of {u} differs from numpy beyond a "
+                  f"near-tie: {got} vs {want}")
+        for item in body["itemScores"]:
+            check(abs(item["score"] - float(s[model.item_map[item["item"]]])) <= 1e-4,
+                  f"[rec-workflow] score {item} vs numpy")
+        same += got == want
+    bl = [{"user": u, "num": 10, "blackList": ids_of(b)[:3]}
+          for u, b in zip(users[:8], bodies[:8])]
+    b_bl, _ = await post_all(session, url, bl, True)
+    for p, body in zip(bl, b_bl):
+        check(len(ids_of(body)) == 10 and not set(ids_of(body)) & set(p["blackList"]),
+              f"[rec-workflow] banned id served: {body}")
+    log(f"[rec-workflow] top-10 of 16 users equal to numpy scoring of the "
+        f"trained tables for {same}/16 (the rest up to near-ties); no "
+        f"blackList id served")
+    return {"same_top10": same, "final_loss": model.mf.final_loss,
+            "timings": getattr(model.mf, "timings", None),
+            "latency_p50_ms": pct(ls, 50), "latency_p99_ms": pct(ls, 99)}
+
+
+def rec_workflow_phase(R, ctx, tmp):
+    """The normal entry points, in-process, on sqlite storage under this
+    phase's own ``PIO_FS_BASEDIR``: CLI ``app new``, ``import`` of a
+    JSON-lines file of 100,000 rate events at the MovieLens-1M shape
+    (``default_rng(42)`` as bench.py draws them) and a few buys, CLI
+    ``train`` (on the card) with an engine.json of rank 64, 20 iterations,
+    batch 65,536, then a deploy through the QueryServer and queries over a
+    socket. Returns (launches, record)."""
+    import datetime as dt
+    import io
+
+    from incubator_predictionio_tpu_torch.data.storage import registry
+    from incubator_predictionio_tpu_torch.tools import cli
+
+    wf = os.path.join(tmp, "rec-workflow")
+    os.makedirs(wf, exist_ok=True)
+    env = {"PIO_FS_BASEDIR": wf, "PIO_STORAGE_SOURCES_WF_TYPE": "sqlite",
+           "PIO_STORAGE_SOURCES_WF_PATH": os.path.join(wf, "pio.db")}
+    for repo in ("METADATA", "EVENTDATA", "MODELDATA"):
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_NAME"] = f"pio_{repo.lower()}"
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE"] = "WF"
+    rng = np.random.default_rng(42)
+    users = rng.integers(0, WF_USERS, WF_EVENTS)
+    items = rng.integers(0, WF_ITEMS, WF_EVENTS)
+    ratings = (1.0 + 4.0 * rng.random(WF_EVENTS)).astype(np.float32)
+    t0 = dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc)
+    events_path = os.path.join(wf, "events.json")
+    with open(events_path, "w") as f:
+        for j, (u, i, r) in enumerate(zip(users, items, ratings)):
+            f.write(json.dumps({
+                "event": "rate", "entityType": "user", "entityId": f"u{u}",
+                "targetEntityType": "item", "targetEntityId": f"i{i}",
+                "properties": {"rating": float(r)},
+                "eventTime": (t0 + dt.timedelta(seconds=j)).isoformat()}) + "\n")
+        for j in range(WF_BUYS):
+            f.write(json.dumps({
+                "event": "buy", "entityType": "user", "entityId": f"u{j}",
+                "targetEntityType": "item", "targetEntityId": f"i{(j * 7) % WF_ITEMS}",
+                "eventTime": (t0 + dt.timedelta(seconds=WF_EVENTS + j)).isoformat()})
+                + "\n")
+    variant_path = os.path.join(wf, "engine.json")
+    with open(variant_path, "w") as f:
+        json.dump({"id": "rec-workflow", "version": "1", "engineFactory": FACTORY,
+                   "datasource": {"params": {"appName": "ml1m"}},
+                   "algorithms": [{"name": "als", "params": {
+                       "rank": WF_RANK, "numIterations": WF_ITERS,
+                       "batchSize": WF_BATCH}}]}, f)
+
+    def run(argv) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        check(rc == 0, f"[rec-workflow] {argv} exited {rc}: {buf.getvalue()}")
+        return buf.getvalue()
+
+    rec = {"events": WF_EVENTS, "buys": WF_BUYS, "rank": WF_RANK,
+           "iterations": WF_ITERS, "batch": WF_BATCH}
+    # the CLI's own logging set-up (INFO) must not flood the rest of the
+    # run: warnings only, as before it
+    logging.basicConfig(level=logging.WARNING,
+                        format="[%(levelname)s] [%(name)s] %(message)s")
+    prev = registry.use_storage(None)
+    try:
+        with env_vars(**env):
+            out = run(["app", "new", "ml1m"])
+            app_id = int(out.split("ID: ")[-1].split()[0])
+            s0 = time.perf_counter()
+            out = run(["import", "--appid", str(app_id), "--input", events_path])
+            rec["import_s"] = time.perf_counter() - s0
+            check(f"Imported {WF_EVENTS + WF_BUYS} events." in out,
+                  f"[rec-workflow] import: {out}")
+            s0 = time.perf_counter()
+            out = run(["train", "-v", variant_path, "--device", str(ctx.device)])
+            rec["train_s"] = time.perf_counter() - s0
+            iid = out.split("Engine instance ID: ")[-1].strip()
+            storage = registry.get_storage()
+            inst = storage.get_meta_data_engine_instances().get(iid)
+            check(inst is not None and inst.status == "COMPLETED",
+                  f"[rec-workflow] instance {iid}: {inst}")
+            check(storage.get_model_data_models().get(iid) is not None,
+                  f"[rec-workflow] instance {iid} has no model row")
+            rec["one_iteration_loss"] = one_iteration_loss(variant_path, ctx)
+            R.reset_launches()
+            with retrieval_mode("auto"):  # the default: exact at this size
+                res = asyncio.run(serve_phase(
+                    "rec-workflow", variant_path, storage, ctx,
+                    lambda session, url, server: rec_workflow_body(
+                        rec["one_iteration_loss"], session, url, server)))
+            launches = {"score_catalog_quantized": R.score_catalog_quantized.launches,
+                        "score_centroids_quantized": R.score_centroids_quantized.launches}
+            rec.update(res)
+    finally:
+        s = registry.use_storage(prev)
+        if s is not None:
+            s.close()
+    log(f"[rec-workflow] app new → import {WF_EVENTS + WF_BUYS} events in "
+        f"{rec['import_s']:.2f} s → train on the card in {rec['train_s']:.2f} s "
+        f"(instance COMPLETED; loss {rec['final_loss']:.6f}, 1 iteration "
+        f"{rec['one_iteration_loss']:.6f}) → deploy → 16 + 8 queries over a "
+        f"socket; launches {launches}")
+    return launches, rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2061,6 +2734,17 @@ def main() -> int:
     del user, item, user_bias, item_bias, ivf, storage
     gc.collect()
     torch.cuda.empty_cache()
+    # the recommendation template trained on the card: the bench's scaled
+    # configuration through fit, persist, load and deploy, then the
+    # normal entry points (CLI app new, import, train, deploy) on sqlite
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, phase in (("rec_train", rec_train_phase),
+                            ("rec_workflow", rec_workflow_phase)):
+            counts, main[name] = phase(R, ctx, tmp)
+            for k, c in counts.items():
+                launches[k] = launches.get(k, 0) + c
+    k1 = k1 + main["rec_train"].pop("k1_cases")
+    k2 = k2 + main["rec_train"].pop("k2_cases")
     # each sequential phase runs with the counts at 0 and reads them after;
     # a kernel's launches on the main path are the sum over the phases
     att_launches = {w.__name__: 0 for w in A.KERNEL_WRAPPERS}

@@ -11,9 +11,14 @@ numpy, with the id lists of the model's BiMaps in index order:
   ``TransformerModel``'s parameter pytree → the port's ``TransformerModel``;
 - :func:`trainer_state_from_reference`: the reference streaming
   ``DeltaTrainer.to_state()`` → a state the port's ``DeltaTrainer.load_state``
-  takes, so a stream continues in the port where it stopped.
+  takes, so a stream continues in the port where it stopped;
+- :func:`two_tower_tables_from_jax`: the two-tower trainer's fused
+  ``{"ue", "ie"}`` ``[N, rank+1]`` tables → the port's table tensors;
+- :func:`adam_state_from_jax`: its adam state ``(count, m, v)`` → the
+  port's ``utils/optim.py:AdamTreeState``.
 
-Both packages then serve (and stream into) the same model.
+Both packages then serve (and stream into, and train on from) the same
+model.
 """
 
 from __future__ import annotations
@@ -122,6 +127,47 @@ def transformer_model_from_params(params: dict, item_ids: Sequence[str],
          "ln_f": norm(params["ln_f"]), "layers": layers},
         BiMap({iid: j + 1 for j, iid in enumerate(item_ids)}),
         cfg)
+
+
+def _tensor(a, device, dtype=None):
+    """A numpy array (bf16 ones from ml_dtypes included) as a torch tensor
+    on ``device``; a bf16 array stays bf16 (widened to fp32 and back,
+    both exact)."""
+    import torch
+
+    a = np.asarray(a)
+    bf16 = a.dtype.name == "bfloat16"
+    t = torch.from_numpy(np.array(a, np.float32, copy=True)).to(device)
+    if dtype is not None:
+        return t.to(dtype)
+    return t.to(torch.bfloat16) if bf16 else t
+
+
+def two_tower_tables_from_jax(tables: dict, device="cpu") -> tuple:
+    """The reference's fused tables (``{"ue": [n_users, rank+1], "ie":
+    [n_items, rank+1]}``, the bias in the last column, as numpy) → the
+    port's ``(ue, ie)`` fp32 tensors on ``device``, the layout
+    ``models/two_tower.py:_init_tables`` returns."""
+    import torch
+
+    ue, ie = (_tensor(tables[k], device, torch.float32) for k in ("ue", "ie"))
+    if ue.shape[1] != ie.shape[1]:
+        raise ValueError(f"table widths differ: ue {tuple(ue.shape)}, "
+                         f"ie {tuple(ie.shape)}")
+    return ue, ie
+
+
+def adam_state_from_jax(state, device="cpu"):
+    """The reference's ``utils/optim.py`` adam state ``(count, m, v)``,
+    ``m`` and ``v`` dicts ``{"ue", "ie"}`` of numpy arrays in the moments'
+    storage dtype → the port's ``AdamTreeState`` (moments ``[ue, ie]``)."""
+    from incubator_predictionio_tpu_torch.utils.optim import AdamTreeState
+
+    count, m, v = state
+    return AdamTreeState(
+        int(np.asarray(count)),
+        [_tensor(m[k], device) for k in ("ue", "ie")],
+        [_tensor(v[k], device) for k in ("ue", "ie")])
 
 
 def trainer_state_from_reference(state: dict) -> dict:

@@ -6,6 +6,7 @@ from incubator_predictionio_tpu_torch.core.base import (
     BaseDataSource,
     BasePreparator,
     BaseServing,
+    SanityCheck,
 )
 from incubator_predictionio_tpu_torch.core.controller import (
     Engine,
@@ -18,6 +19,7 @@ from incubator_predictionio_tpu_torch.core.controller import (
     PDataSource,
     PersistentModel,
     PersistentModelManifest,
+    WorkflowParams,
     resolve_engine_factory,
     variant_from_file,
 )
@@ -27,6 +29,6 @@ __all__ = [
     "BaseAlgorithm", "BaseDataSource", "BasePreparator", "BaseServing",
     "EmptyParams", "Engine", "EngineFactory", "EngineParams", "FirstServing",
     "IdentityPreparator", "LServing", "PAlgorithm", "PDataSource", "Params",
-    "PersistentModel", "PersistentModelManifest",
-    "resolve_engine_factory", "variant_from_file",
+    "PersistentModel", "PersistentModelManifest", "SanityCheck",
+    "WorkflowParams", "resolve_engine_factory", "variant_from_file",
 ]

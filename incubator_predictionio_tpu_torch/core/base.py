@@ -3,7 +3,7 @@
 Counterpart of ``incubator_predictionio_tpu/core/base.py``. The execution
 context is a :class:`~incubator_predictionio_tpu_torch.parallel.mesh.DeviceContext`
 (``ctx``) where the reference passes a ``MeshContext``. The evaluator SPI
-comes with the training slice (ROADMAP.md).
+comes with the evaluation slice (ROADMAP.md Queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -38,6 +38,15 @@ def doer(cls: Type[AbstractDoer], params: Params) -> AbstractDoer:
     return cls(params)
 
 
+class SanityCheck(abc.ABC):
+    """Opt-in hook: TD/PD/models implementing this get checked after each
+    stage (controller/SanityCheck.scala:30; enforcement Engine.scala:650-706)."""
+
+    @abc.abstractmethod
+    def sanity_check(self) -> None:
+        """Raise on inconsistent data."""
+
+
 class BaseDataSource(AbstractDoer, Generic[TD, EI, Q, A]):
     """(core/BaseDataSource.scala:43-55)"""
 
@@ -69,6 +78,13 @@ class BaseAlgorithm(AbstractDoer, Generic[PD, M, Q, P]):
     def batch_predict(self, model: M, queries: Sequence[tuple[int, Q]]) -> list[tuple[int, P]]:
         """Bulk scoring. Default: loop; P-flavored algorithms override."""
         return [(i, self.predict(model, q)) for i, q in queries]
+
+    def make_persistent_model(self, ctx: DeviceContext, model_id: str, model: M):
+        """The model's persisted form (BaseAlgorithm.makePersistentModel):
+        the model itself (pickled into MODELDATA), a
+        ``PersistentModelManifest`` (it saved itself), or None (retrained at
+        deploy)."""
+        return model
 
     def query_class(self) -> Optional[type]:
         """Query type for JSON binding, if the algorithm declares one."""

@@ -2,10 +2,10 @@
 
 Counterpart of ``incubator_predictionio_tpu/core/controller.py``: the stage
 flavors, the PersistentModel SPI, :class:`EngineParams`, :class:`Engine`
-(``prepare_deploy`` / ``serving_and_algorithms`` /
+(``train`` with the sanity checks and :class:`WorkflowParams`,
+``models_for_persistence``, ``prepare_deploy``, ``serving_and_algorithms``,
 ``engine_params_from_variant``), :class:`EngineFactory` and the import-path
-resolution of factories. Evaluation and ``models_for_persistence`` come with
-the training slice (ROADMAP.md).
+resolution of factories. Evaluation comes with ROADMAP.md Queue 1, item 5.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from incubator_predictionio_tpu_torch.core.base import (
     BaseServing,
     EI,
     M,
+    SanityCheck,
     P,
     PD,
     Q,
@@ -37,6 +38,37 @@ from incubator_predictionio_tpu_torch.utils.params import (
 )
 
 logger = logging.getLogger(__name__)
+
+
+# ---------------------------------------------------------------------------
+# Workflow params and sanity checks
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class WorkflowParams:
+    """(workflow/WorkflowParams.scala:29-45)"""
+
+    batch: str = ""
+    verbose: int = 0
+    skip_sanity_check: bool = False
+    stop_after_read: bool = False
+    stop_after_prepare: bool = False
+
+
+class StopAfterReadInterruption(Exception):
+    """Raised when --stop-after-read is requested (Engine.scala:664-668)."""
+
+
+class StopAfterPrepareInterruption(Exception):
+    """Raised when --stop-after-prepare is requested (Engine.scala:680-684)."""
+
+
+def _sanity_check(obj: Any, label: str, params: WorkflowParams) -> None:
+    if params.skip_sanity_check:
+        return
+    if isinstance(obj, SanityCheck):
+        logger.info("sanity check: %s", label)
+        obj.sanity_check()
 
 
 # ---------------------------------------------------------------------------
@@ -99,6 +131,10 @@ class PersistentModel:
     @classmethod
     def load(cls, model_id: str, params: Params, ctx: DeviceContext) -> "PersistentModel":
         raise NotImplementedError
+
+
+def class_path(cls: type) -> str:
+    return f"{cls.__module__}:{cls.__qualname__}"
 
 
 def load_class(path: str) -> type:
@@ -203,14 +239,51 @@ class Engine(Generic[TD, EI, Q, P, A]):
         serving = doer(self._pick(self.serving_class_map, serv_name, "serving"), serv_params)
         return data_source, preparator, algorithms, serving
 
-    def train(self, ctx: DeviceContext, engine_params: EngineParams,
-              params: Any = None) -> list[Any]:
-        """read → prepare → train each algorithm (Engine.scala:623-712,
-        without the sanity-check and stop-after flags of the workflow)."""
+    def train(
+        self,
+        ctx: DeviceContext,
+        engine_params: EngineParams,
+        params: WorkflowParams = WorkflowParams(),
+    ) -> list[Any]:
+        """read → prepare → train each algorithm, with the sanity checks
+        and the stop-after flags (object Engine.train, Engine.scala:623-712)."""
         data_source, preparator, algorithms, _ = self._instantiate(engine_params)
         td = data_source.read_training(ctx)
+        _sanity_check(td, "training data", params)
+        if params.stop_after_read:
+            raise StopAfterReadInterruption()
         pd = preparator.prepare(ctx, td)
-        return [algo.train(ctx, pd) for algo in algorithms]
+        _sanity_check(pd, "prepared data", params)
+        if params.stop_after_prepare:
+            raise StopAfterPrepareInterruption()
+        models = []
+        for i, algo in enumerate(algorithms):
+            logger.info("training algorithm %d/%d: %s", i + 1, len(algorithms),
+                        type(algo).__name__)
+            model = algo.train(ctx, pd)
+            _sanity_check(model, f"model[{i}]", params)
+            models.append(model)
+        return models
+
+    def models_for_persistence(
+        self,
+        ctx: DeviceContext,
+        models: Sequence[Any],
+        instance_id: str,
+        engine_params: EngineParams,
+    ) -> list[Any]:
+        """Each model's persisted form (Engine.makeSerializableModels,
+        Engine.scala:284): a :class:`PersistentModel` that saves itself
+        leaves a manifest, the others their ``make_persistent_model``."""
+        _, _, algorithms, _ = self._instantiate(engine_params)
+        out = []
+        for i, (algo, model) in enumerate(zip(algorithms, models)):
+            if isinstance(model, PersistentModel):
+                if model.save(f"{instance_id}_{i}", algo.params, ctx):
+                    out.append(PersistentModelManifest(class_path(type(model))))
+                    continue
+            out.append(algo.make_persistent_model(ctx, f"{instance_id}_{i}", model))
+        return out
 
     def prepare_deploy(
         self,

@@ -1,16 +1,19 @@
-"""The event model: ``Event``, ``DataMap``, ``epoch_micros``.
+"""The event model: ``Event``, ``DataMap``, ``epoch_micros``, validation.
 
 Counterpart of ``incubator_predictionio_tpu/data/event.py`` (:27, :91,
-:216), cut to what the streaming feed and the fold read: the immutable
-event, its property bag, the exact epoch-microseconds
-conversion and the JSON form dead letters are written in. Validation and
-JSON parsing come with the event server.
+:216, :268, :318), cut to what the streaming feed, the fold, the sqlite
+event store and ``import`` read: the immutable event, its property bag,
+the exact epoch-microseconds conversion, the time-prefixed event id, the
+JSON forms (``to_json_dict``, ``from_json``) and :func:`validate_event`.
+The typed getters of ``DataMap`` and ``PropertyMap`` come with the event
+server.
 """
 
 from __future__ import annotations
 
 import datetime as _dt
 import json
+import os
 from collections.abc import Iterator, Mapping
 from dataclasses import dataclass, field
 from typing import Any
@@ -27,6 +30,56 @@ def epoch_micros(t: _dt.datetime) -> int:
     if t.tzinfo is None:
         t = t.replace(tzinfo=UTC)
     return (t - EPOCH) // _US_TD
+
+
+def time_prefixed_event_id(creation_time: _dt.datetime) -> str:
+    """Server-generated event id: 15 hex chars of creation micros + 16
+    random hex + '0' (ids append at the btree's right edge)."""
+    return f"{epoch_micros(creation_time):015x}" + os.urandom(8).hex() + "0"
+
+
+# Reserved name prefixes (Event.scala:77-78).
+_RESERVED_PREFIXES = ("$", "pio_")
+
+#: Special single-entity event names (Event.scala:83).
+SPECIAL_EVENTS = frozenset({"$set", "$unset", "$delete"})
+
+#: Built-in entity types permitted despite the reserved prefix (Event.scala:146).
+BUILTIN_ENTITY_TYPES = frozenset({"pio_pr"})
+
+#: Built-in property names permitted despite the reserved prefix (Event.scala:149).
+BUILTIN_PROPERTIES: frozenset[str] = frozenset()
+
+
+class EventValidationError(ValueError):
+    """Raised when an event violates the validation contract."""
+
+
+def is_reserved_prefix(name: str) -> bool:
+    return name.startswith(_RESERVED_PREFIXES)
+
+
+def is_special_event(name: str) -> bool:
+    return name in SPECIAL_EVENTS
+
+
+def _parse_time(value: Any) -> _dt.datetime:
+    """Parse an ISO-8601 timestamp (or pass through a datetime), defaulting
+    to UTC."""
+    if value is None:
+        return _dt.datetime.now(UTC)
+    if isinstance(value, _dt.datetime):
+        return value if value.tzinfo else value.replace(tzinfo=UTC)
+    if isinstance(value, (int, float)):
+        return _dt.datetime.fromtimestamp(value, UTC)
+    if isinstance(value, str):
+        s = value.replace("Z", "+00:00")
+        try:
+            t = _dt.datetime.fromisoformat(s)
+        except ValueError as e:
+            raise EventValidationError(f"Cannot convert {value!r} to a timestamp") from e
+        return t if t.tzinfo else t.replace(tzinfo=UTC)
+    raise EventValidationError(f"Cannot convert {value!r} to a timestamp")
 
 
 class DataMap(Mapping[str, Any]):
@@ -62,6 +115,9 @@ class DataMap(Mapping[str, Any]):
 
     def get(self, name: str, default: Any = None) -> Any:
         return self._fields.get(name, default)
+
+    def is_empty(self) -> bool:
+        return not self._fields
 
     def to_dict(self) -> dict[str, Any]:
         return dict(self._fields)
@@ -101,3 +157,97 @@ class Event:
             "targetEntityId": self.target_entity_id,
         }
         return {k: v for k, v in d.items() if v is not None}
+
+    @staticmethod
+    def from_json_dict(
+        d: Mapping[str, Any],
+        creation_time: _dt.datetime | None = None,
+    ) -> "Event":
+        """The camelCase JSON form → an Event. Trusts ``creationTime`` when
+        present (the storage round trip); ``creation_time`` wins over it."""
+        def _req_str(key: str) -> str:
+            v = d.get(key)
+            if v is None or not isinstance(v, str):
+                raise EventValidationError(f"field {key} is required and must be a string")
+            return v
+
+        tags = d.get("tags", [])
+        if not isinstance(tags, list):
+            raise EventValidationError("tags must be a list of strings")
+        props = d.get("properties", {})
+        if props is None:
+            props = {}
+        if not isinstance(props, Mapping):
+            raise EventValidationError("properties must be a JSON object")
+        return Event(
+            event=_req_str("event"),
+            entity_type=_req_str("entityType"),
+            entity_id=_req_str("entityId"),
+            target_entity_type=d.get("targetEntityType"),
+            target_entity_id=d.get("targetEntityId"),
+            properties=DataMap(props),
+            event_time=_parse_time(d.get("eventTime")),
+            tags=tuple(str(t) for t in tags),
+            pr_id=d.get("prId"),
+            event_id=d.get("eventId"),
+            creation_time=(creation_time if creation_time is not None
+                           else _parse_time(d.get("creationTime"))),
+        )
+
+    @staticmethod
+    def from_json(s: str | bytes) -> "Event":
+        try:
+            d = json.loads(s)
+        except json.JSONDecodeError as e:
+            raise EventValidationError(f"invalid JSON: {e}") from e
+        if not isinstance(d, dict):
+            raise EventValidationError("event JSON must be an object")
+        return Event.from_json_dict(d)
+
+
+def validate_event(e: Event) -> Event:
+    """Validate an event, raising :class:`EventValidationError` on a
+    violation — the reference validator's rules (Event.scala:112-167)."""
+    def req(cond: bool, msg: str) -> None:
+        if not cond:
+            raise EventValidationError(msg)
+
+    req(bool(e.event), "event must not be empty.")
+    req(bool(e.entity_type), "entityType must not be empty string.")
+    req(bool(e.entity_id), "entityId must not be empty string.")
+    req(e.target_entity_type != "", "targetEntityType must not be empty string")
+    req(e.target_entity_id != "", "targetEntityId must not be empty string.")
+    req(
+        (e.target_entity_type is None) == (e.target_entity_id is None),
+        "targetEntityType and targetEntityId must be specified together.",
+    )
+    req(
+        not (e.event == "$unset" and e.properties.is_empty()),
+        "properties cannot be empty for $unset event",
+    )
+    req(
+        not is_reserved_prefix(e.event) or is_special_event(e.event),
+        f"{e.event} is not a supported reserved event name.",
+    )
+    req(
+        not is_special_event(e.event)
+        or (e.target_entity_type is None and e.target_entity_id is None),
+        f"Reserved event {e.event} cannot have targetEntity",
+    )
+    req(
+        not is_reserved_prefix(e.entity_type) or e.entity_type in BUILTIN_ENTITY_TYPES,
+        f"The entityType {e.entity_type} is not allowed. 'pio_' is a reserved name prefix.",
+    )
+    req(
+        e.target_entity_type is None
+        or not is_reserved_prefix(e.target_entity_type)
+        or e.target_entity_type in BUILTIN_ENTITY_TYPES,
+        f"The targetEntityType {e.target_entity_type} is not allowed. "
+        "'pio_' is a reserved name prefix.",
+    )
+    for k in e.properties:
+        req(
+            not is_reserved_prefix(k) or k in BUILTIN_PROPERTIES,
+            f"The property {k} is not allowed. 'pio_' is a reserved name prefix.",
+        )
+    return e

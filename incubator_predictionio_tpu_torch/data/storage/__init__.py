@@ -1,8 +1,12 @@
 """Storage layer of the port (counterpart of
 ``incubator_predictionio_tpu/data/storage``): the memory backend of the
-engine-instance and model repositories."""
+engine-instance and model repositories, and the sqlite backend of all
+three repositories."""
 
 from incubator_predictionio_tpu_torch.data.storage.base import (
+    AccessKey,
+    App,
+    Channel,
     EngineInstance,
     EngineInstancesStore,
     Model,
@@ -17,6 +21,7 @@ from incubator_predictionio_tpu_torch.data.storage.registry import (
 )
 
 __all__ = [
-    "EngineInstance", "EngineInstancesStore", "Model", "ModelsStore",
+    "AccessKey", "App", "Channel", "EngineInstance", "EngineInstancesStore",
+    "Model", "ModelsStore",
     "Storage", "StorageClient", "StorageError", "get_storage", "use_storage",
 ]

@@ -1,22 +1,263 @@
-"""Storage contracts the deploy path reads: engine instances and model blobs.
+"""Storage contracts: the event store, the metadata DAOs, the model store.
 
 Counterpart of ``incubator_predictionio_tpu/data/storage/base.py``, cut to
-:class:`EngineInstance`, :class:`Model`, :class:`EngineInstancesStore`,
-:class:`ModelsStore` and :class:`StorageClient`. The event store, the other
-metadata DAOs and their dump/load contract come with the training slice
-(ROADMAP.md).
+what training and deploy read: :class:`EventStore` with the reference's
+default :meth:`~EventStore.assemble_triples` (:241-368) and
+``_coerce_value``; the records :class:`App`, :class:`AccessKey`,
+:class:`Channel`, :class:`EngineInstance`, :class:`Model`; the stores'
+contracts (:class:`AppsStore`, :class:`AccessKeysStore`,
+:class:`ChannelsStore`, :class:`EngineInstancesStore`,
+:class:`ModelsStore`) and :class:`StorageClient`. Sharded reads, property
+aggregation, jobs, evaluation instances and the dump/load contract come in
+later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import abc
 import datetime as _dt
+import re
+import secrets
+from collections.abc import Iterator, Sequence
 from dataclasses import dataclass, field
 from typing import Any, Optional
+
+import numpy as np
+
+from incubator_predictionio_tpu_torch.data.event import Event
 
 
 class StorageError(Exception):
     """Raised on backend failures (reference StorageException)."""
+
+
+#: Sentinel distinguishing "no filter" from "filter for None" in target-entity
+#: filters (the reference models this as Option[Option[String]] —
+#: PEvents.scala:56-60).
+UNSET: Any = object()
+
+
+# ---------------------------------------------------------------------------
+# Event store
+# ---------------------------------------------------------------------------
+
+class EventStore(abc.ABC):
+    """Behavioral contract for EVENTDATA backends (LEvents.scala:40,
+    PEvents.scala:38). All methods are synchronous."""
+
+    @abc.abstractmethod
+    def init(self, app_id: int, channel_id: Optional[int] = None) -> bool:
+        """Initialize the store for an app/channel; idempotent."""
+
+    @abc.abstractmethod
+    def remove(self, app_id: int, channel_id: Optional[int] = None) -> bool:
+        """Remove all data for an app/channel."""
+
+    def close(self) -> None:
+        """Release backend resources."""
+
+    @abc.abstractmethod
+    def insert(self, event: Event, app_id: int, channel_id: Optional[int] = None) -> str:
+        """Insert one event; returns the assigned event id."""
+
+    def insert_batch(
+        self, events: Sequence[Event], app_id: int, channel_id: Optional[int] = None
+    ) -> list[str]:
+        """Insert many events; default loops, backends may override."""
+        return [self.insert(e, app_id, channel_id) for e in events]
+
+    @abc.abstractmethod
+    def get(
+        self, event_id: str, app_id: int, channel_id: Optional[int] = None
+    ) -> Optional[Event]: ...
+
+    @abc.abstractmethod
+    def delete(
+        self, event_id: str, app_id: int, channel_id: Optional[int] = None
+    ) -> bool: ...
+
+    @abc.abstractmethod
+    def find(
+        self,
+        app_id: int,
+        channel_id: Optional[int] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        entity_type: Optional[str] = None,
+        entity_id: Optional[str] = None,
+        event_names: Optional[Sequence[str]] = None,
+        target_entity_type: Any = UNSET,
+        target_entity_id: Any = UNSET,
+        limit: Optional[int] = None,
+        reversed: bool = False,
+    ) -> Iterator[Event]:
+        """Iterate events in event-time order (descending when ``reversed``).
+
+        ``limit=None`` or a negative limit returns everything. Target-entity
+        filters accept :data:`UNSET` (no filter), ``None`` (must be absent),
+        or a string (must equal).
+        """
+
+    def assemble_triples(
+        self,
+        app_id: int,
+        channel_id: Optional[int] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        entity_type: Optional[str] = None,
+        event_names: Optional[Sequence[str]] = None,
+        target_entity_type: Any = UNSET,
+        value_property: Optional[str] = None,
+        default_values: Optional[dict] = None,
+        missing_value: float = 0.0,
+        dedup: bool = False,
+        chunk_rows: int = 262_144,
+    ):
+        """Matching events → columnar (entity, target, value) training triples.
+
+        Returns ``(entity_vocab, target_vocab, entity_idx, target_idx,
+        values)``: two object arrays of distinct ids in first-emitted order,
+        two int32 index arrays into them, and a float32 value array.
+
+        Per event the value is ``default_values[event_name]`` when present,
+        else the numeric coercion of ``value_property`` (numbers, bools, and
+        fully-numeric strings), else ``missing_value``. Events without a
+        target entity are skipped. ``dedup=True`` keeps one row per
+        (entity, target) pair — the latest event wins, rows in pair-first-seen
+        order; ``dedup=False`` emits one row per event in time order. Rows
+        accumulate into fixed-size numpy chunks (``chunk_rows``).
+        """
+        defaults = dict(default_values or {})
+        evocab: dict[str, int] = {}
+        tvocab: dict[str, int] = {}
+        pair_row: dict[tuple[int, int], int] = {}
+        chunks: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+        ce = np.empty(chunk_rows, np.int32)
+        ct = np.empty(chunk_rows, np.int32)
+        cv = np.empty(chunk_rows, np.float32)
+        fill = 0
+        n_rows = 0
+
+        def flush():
+            nonlocal fill
+            if fill:
+                chunks.append((ce[:fill].copy(), ct[:fill].copy(), cv[:fill].copy()))
+                fill = 0
+
+        def set_row(row: int, v: float) -> None:
+            # dedup overwrite: the row may live in a flushed chunk
+            chunk, off = divmod(row, chunk_rows)
+            if chunk < len(chunks):
+                chunks[chunk][2][off] = v
+            else:
+                cv[off] = v
+
+        events = self.find(
+            app_id, channel_id, start_time, until_time, entity_type, None,
+            event_names, target_entity_type,
+        )
+        for e in events:
+            if e.target_entity_id is None:
+                continue
+            if e.event in defaults:
+                v = float(defaults[e.event])
+            else:
+                raw = (
+                    e.properties.get(value_property)
+                    if value_property is not None else None
+                )
+                v = _coerce_value(raw, missing_value)
+            ui = evocab.setdefault(e.entity_id, len(evocab))
+            ti = tvocab.setdefault(e.target_entity_id, len(tvocab))
+            if dedup:
+                row = pair_row.get((ui, ti))
+                if row is not None:
+                    set_row(row, v)
+                    continue
+                pair_row[(ui, ti)] = n_rows
+            ce[fill], ct[fill], cv[fill] = ui, ti, v
+            fill += 1
+            n_rows += 1
+            if fill == chunk_rows:
+                flush()
+        flush()
+        if not chunks:
+            e_idx = np.empty(0, np.int32)
+            t_idx = np.empty(0, np.int32)
+            vals = np.empty(0, np.float32)
+        else:
+            e_idx = np.concatenate([c[0] for c in chunks])
+            t_idx = np.concatenate([c[1] for c in chunks])
+            vals = np.concatenate([c[2] for c in chunks])
+        return (
+            np.asarray(list(evocab), object),
+            np.asarray(list(tvocab), object),
+            e_idx,
+            t_idx,
+            vals,
+        )
+
+
+# Strict decimal grammar of the reference (shared there with its native
+# scanner): digits with optional '.'/exponent, or inf/infinity/nan.
+_DECIMAL_RE = re.compile(
+    r"[+-]?((\d+(\.\d*)?|\.\d+)([eE][+-]?\d+)?|inf(inity)?|nan)",
+    re.ASCII | re.IGNORECASE,
+)
+
+
+def _coerce_value(raw: Any, missing_value: float) -> float:
+    """Numeric coercion for assemble_triples property values."""
+    if raw is None:
+        return missing_value
+    if isinstance(raw, str):
+        s = raw.strip(" \t\n\r\v\f")
+        return float(s) if _DECIMAL_RE.fullmatch(s) else missing_value
+    try:
+        return float(raw)
+    except (TypeError, ValueError):
+        return missing_value
+
+
+def entity_shard(entity_id: str, n_shards: int) -> int:
+    """Stable entity→shard assignment (zlib.crc32; hash() is salted per-process)."""
+    import zlib
+
+    return zlib.crc32(entity_id.encode()) % n_shards
+
+
+# ---------------------------------------------------------------------------
+# Meta-data records
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class App:
+    """(Apps.scala:28-34)"""
+    id: int
+    name: str
+    description: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class AccessKey:
+    """(AccessKeys.scala:29-37); empty ``events`` whitelist = all events allowed."""
+    key: str
+    app_id: int
+    events: tuple[str, ...] = ()
+
+
+@dataclass(frozen=True)
+class Channel:
+    """(Channels.scala:28-42)"""
+    id: int
+    name: str
+    app_id: int
+
+    NAME_RE = re.compile(r"^[a-zA-Z0-9-]{1,16}$")
+
+    @staticmethod
+    def is_valid_name(name: str) -> bool:
+        return bool(Channel.NAME_RE.match(name))
 
 
 @dataclass(frozen=True)
@@ -46,6 +287,77 @@ class Model:
     models: bytes
 
 
+# ---------------------------------------------------------------------------
+# Meta-data DAO contracts
+# ---------------------------------------------------------------------------
+
+class AppsStore(abc.ABC):
+    """(Apps.scala:40-75)"""
+
+    @abc.abstractmethod
+    def insert(self, app: App) -> Optional[int]:
+        """Insert; id 0 means auto-assign. Returns the assigned id."""
+
+    @abc.abstractmethod
+    def get(self, app_id: int) -> Optional[App]: ...
+
+    @abc.abstractmethod
+    def get_by_name(self, name: str) -> Optional[App]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> list[App]: ...
+
+    @abc.abstractmethod
+    def update(self, app: App) -> bool: ...
+
+    @abc.abstractmethod
+    def delete(self, app_id: int) -> bool: ...
+
+
+class AccessKeysStore(abc.ABC):
+    """(AccessKeys.scala:42-77)"""
+
+    @abc.abstractmethod
+    def insert(self, access_key: AccessKey) -> Optional[str]:
+        """Insert; empty key → auto-generate. Returns the key."""
+
+    @abc.abstractmethod
+    def get(self, key: str) -> Optional[AccessKey]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> list[AccessKey]: ...
+
+    @abc.abstractmethod
+    def get_by_app_id(self, app_id: int) -> list[AccessKey]: ...
+
+    @abc.abstractmethod
+    def update(self, access_key: AccessKey) -> bool: ...
+
+    @abc.abstractmethod
+    def delete(self, key: str) -> bool: ...
+
+    @staticmethod
+    def generate_key() -> str:
+        """64 url-safe chars (reference: Random.alphanumeric, AccessKeys.scala:55)."""
+        return secrets.token_urlsafe(48)[:64]
+
+
+class ChannelsStore(abc.ABC):
+    """(Channels.scala:47-80)"""
+
+    @abc.abstractmethod
+    def insert(self, channel: Channel) -> Optional[int]: ...
+
+    @abc.abstractmethod
+    def get(self, channel_id: int) -> Optional[Channel]: ...
+
+    @abc.abstractmethod
+    def get_by_app_id(self, app_id: int) -> list[Channel]: ...
+
+    @abc.abstractmethod
+    def delete(self, channel_id: int) -> bool: ...
+
+
 class EngineInstancesStore(abc.ABC):
     """(EngineInstances.scala:55-95)"""
 
@@ -58,6 +370,12 @@ class EngineInstancesStore(abc.ABC):
 
     @abc.abstractmethod
     def get_all(self) -> list[EngineInstance]: ...
+
+    @abc.abstractmethod
+    def update(self, instance: EngineInstance) -> bool: ...
+
+    @abc.abstractmethod
+    def delete(self, instance_id: str) -> bool: ...
 
     def get_latest_completed(
         self, engine_id: str, engine_version: str, engine_variant: str
@@ -84,6 +402,13 @@ class ModelsStore(abc.ABC):
     @abc.abstractmethod
     def get(self, model_id: str) -> Optional[Model]: ...
 
+    @abc.abstractmethod
+    def delete(self, model_id: str) -> bool: ...
+
+
+# ---------------------------------------------------------------------------
+# Backend client
+# ---------------------------------------------------------------------------
 
 class StorageClient(abc.ABC):
     """One configured backend instance; provides whichever DAOs it supports
@@ -92,8 +417,20 @@ class StorageClient(abc.ABC):
     def __init__(self, config: dict[str, str]):
         self.config = config
 
+    def apps(self) -> AppsStore:
+        raise NotImplementedError(f"{type(self).__name__} does not serve METADATA")
+
+    def access_keys(self) -> AccessKeysStore:
+        raise NotImplementedError(f"{type(self).__name__} does not serve METADATA")
+
+    def channels(self) -> ChannelsStore:
+        raise NotImplementedError(f"{type(self).__name__} does not serve METADATA")
+
     def engine_instances(self) -> EngineInstancesStore:
         raise NotImplementedError(f"{type(self).__name__} does not serve METADATA")
+
+    def events(self) -> EventStore:
+        raise NotImplementedError(f"{type(self).__name__} does not serve EVENTDATA")
 
     def models(self) -> ModelsStore:
         raise NotImplementedError(f"{type(self).__name__} does not serve MODELDATA")

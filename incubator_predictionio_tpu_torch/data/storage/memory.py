@@ -39,6 +39,17 @@ class MemEngineInstances(EngineInstancesStore):
     def get_all(self) -> list[EngineInstance]:
         return list(self._instances.values())
 
+    def update(self, instance: EngineInstance) -> bool:
+        with self._lock:
+            if instance.id not in self._instances:
+                return False
+            self._instances[instance.id] = instance
+            return True
+
+    def delete(self, instance_id: str) -> bool:
+        with self._lock:
+            return self._instances.pop(instance_id, None) is not None
+
 
 class MemModels(ModelsStore):
     def __init__(self) -> None:
@@ -49,6 +60,9 @@ class MemModels(ModelsStore):
 
     def get(self, model_id: str) -> Optional[Model]:
         return self._models.get(model_id)
+
+    def delete(self, model_id: str) -> bool:
+        return self._models.pop(model_id, None) is not None
 
 
 class MemoryStorageClient(StorageClient):

@@ -3,10 +3,11 @@
 Counterpart of ``incubator_predictionio_tpu/data/storage/registry.py``: the
 same ``PIO_STORAGE_SOURCES_<NAME>_TYPE`` /
 ``PIO_STORAGE_REPOSITORIES_<REPO>_{NAME,SOURCE}`` surface, resolved the same
-way. Only the ``memory`` backend is ported so far; a source of any other
-type (the reference's default is sqlite) raises :class:`StorageError` naming
-what is registered. sqlite and the network backends come with the training
-slice (ROADMAP.md).
+way. The ``memory`` and ``sqlite`` backends are ported; a source of any
+other type raises :class:`StorageError` naming what is registered (the
+eventlog, network and cloud backends come with ROADMAP.md Queue 1 item 7).
+With no storage configuration at all, every repository is sqlite under
+``$PIO_FS_BASEDIR``, as in the reference.
 """
 
 from __future__ import annotations
@@ -18,13 +19,20 @@ import threading
 from typing import Callable, Optional
 
 from incubator_predictionio_tpu_torch.data.storage.base import (
+    AccessKeysStore,
+    AppsStore,
+    ChannelsStore,
     EngineInstancesStore,
+    EventStore,
     ModelsStore,
     StorageClient,
     StorageError,
 )
 from incubator_predictionio_tpu_torch.data.storage.memory import (
     MemoryStorageClient,
+)
+from incubator_predictionio_tpu_torch.data.storage.sqlite_backend import (
+    SqliteStorageClient,
 )
 
 logger = logging.getLogger(__name__)
@@ -34,6 +42,7 @@ REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
 #: type name -> StorageClient factory
 BACKEND_TYPES: dict[str, Callable[[dict[str, str]], StorageClient]] = {
     "memory": MemoryStorageClient,
+    "sqlite": SqliteStorageClient,
 }
 
 _SOURCE_RE = re.compile(r"^PIO_STORAGE_SOURCES_([^_]+)_(.+)$")
@@ -97,8 +106,21 @@ class Storage:
                 self._clients[source] = BACKEND_TYPES[type_name](cfg)
             return self._clients[source]
 
+    def get_meta_data_apps(self) -> AppsStore:
+        return self._client_for("METADATA").apps()
+
+    def get_meta_data_access_keys(self) -> AccessKeysStore:
+        return self._client_for("METADATA").access_keys()
+
+    def get_meta_data_channels(self) -> ChannelsStore:
+        return self._client_for("METADATA").channels()
+
     def get_meta_data_engine_instances(self) -> EngineInstancesStore:
         return self._client_for("METADATA").engine_instances()
+
+    def get_events(self) -> EventStore:
+        """The EVENTDATA store (both the L and P read paths of the reference)."""
+        return self._client_for("EVENTDATA").events()
 
     def get_model_data_models(self) -> ModelsStore:
         return self._client_for("MODELDATA").models()
@@ -130,3 +152,10 @@ def use_storage(storage: Optional[Storage]) -> Optional[Storage]:
     with _singleton_lock:
         prev, _storage_singleton = _storage_singleton, storage
         return prev
+
+
+def storage_env_vars(env: Optional[dict[str, str]] = None) -> dict[str, str]:
+    """The PIO_* env subset an engine instance records (reference
+    Runner.pioEnvVars, Runner.scala:217-219)."""
+    env = env if env is not None else dict(os.environ)
+    return {k: v for k, v in env.items() if k.startswith("PIO_")}

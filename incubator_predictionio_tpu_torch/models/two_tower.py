@@ -1,9 +1,24 @@
-"""Two-tower matrix factorization — the serving side.
+"""Two-tower matrix factorization — training and serving.
 
 Counterpart of ``incubator_predictionio_tpu/models/two_tower.py``: the model
-container, its serving preparation and warmup, and top-k retrieval over the
-catalog (``TwoTowerMF.recommend`` / ``recommend_batch``). Three serving
-paths, chosen as in the reference:
+container, its training (:meth:`TwoTowerMF.fit`), its serving preparation
+and warmup, and top-k retrieval over the catalog (``TwoTowerMF.recommend``
+/ ``recommend_batch``).
+
+Training is the reference's ``fit`` and ``_train_epochs`` on one device:
+triples are permuted, padded with weight-0 rows and user-sorted per batch
+in numpy (:func:`_sort_batches_by_entity`), staged on the device once, and
+every step gathers rows (the bias is the last column of each table), takes
+the weighted MSE + L2 with the embedding parts rounded to bf16, scatters
+the gradients into dense table gradients and runs the reference's dense
+adam (``utils/optim.py:adam_apply``) over every row. The backward is
+written out (:func:`_loss_and_grads`) with the casts JAX's autodiff puts
+in: the prediction's and the embeddings' cotangents are rounded to bf16.
+Large catalogs stay device-resident after the fit (``gather="auto"``, as
+the reference): the model then holds its fused tables on the card
+(``_tables``) and serving state is derived device-to-device.
+
+Three serving paths, chosen as in the reference:
 
 - catalogs up to :data:`HOST_SERVE_MAX_ELEMENTS` table elements score in
   host numpy (:func:`_recommend_batch_host`);
@@ -16,8 +31,9 @@ paths, chosen as in the reference:
 
 Streaming deltas land through :meth:`TwoTowerModel.with_row_updates`
 (build-beside: a NEW model over copied tables, the IVF index overlaid with
-the moved rows). Training (``fit``) and sharded serving come in later
-slices (ROADMAP.md).
+the moved rows). Sharded training and serving, mid-training checkpoints
+and row updates of a device-resident model come in later slices
+(ROADMAP.md).
 
 Tie order: the device paths answer what ``lax.top_k`` answers — among
 equal scores the lowest indices are taken and come first, -inf entries
@@ -32,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Optional, Union
 
 import numpy as np
@@ -40,15 +57,37 @@ import torch
 DeviceLike = Union[str, torch.device, None]
 
 
+#: what raises in the training options this slice does not port
+SHARDING_SLICE = ("the sharding slice of the PyTorch port (ROADMAP.md "
+                  "Queue 1, item 4)")
+#: what raises on a device-resident model's streaming path
+RESIDENT_ROWS = ("row updates of a device-resident model (ROADMAP.md "
+                 "Queue 1, what item 3 leaves)")
+
+
 @dataclasses.dataclass(frozen=True)
 class TwoTowerConfig:
-    """Serving needs the rank; the streaming fold reads the learning rate
-    and the L2 weight. The reference's other training fields come with the
-    training slice."""
+    """The reference's config (two_tower.py:41-65), every field.
+    ``implicit_negatives`` is carried only: the reference's ``fit`` never
+    reads it."""
 
     rank: int = 32                  # ALS "rank" (ALSAlgorithm.scala params)
     learning_rate: float = 3e-2
     reg: float = 1e-4               # ALS "lambda"
+    epochs: int = 20                # ALS "numIterations"
+    batch_size: int = 8192          # global batch
+    implicit_negatives: int = 0
+    seed: int = 0
+    # mid-training checkpoints come with the sharding slice; 0 = off
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 0
+    checkpoint_keep: int = 3
+    # adam moment STORAGE dtype ("float32" | "bfloat16"); the math is fp32
+    adam_moments_dtype: str = "float32"
+    # after the fit: "host" pulls the tables to numpy, "device" keeps them
+    # resident; "auto" keeps them when the CATALOG exceeds
+    # HOST_SERVE_MAX_ELEMENTS, the criterion serving uses
+    gather: str = "auto"
 
 
 #: Micro-batch bucket ladder for serving: every request batch is padded up to
@@ -82,7 +121,17 @@ def _resolve_device(device: DeviceLike) -> torch.device:
 
 @dataclasses.dataclass
 class TwoTowerModel:
-    """user/item factor tables + biases + global mean, as host numpy.
+    """user/item factor tables + biases + global mean.
+
+    Two residency modes, as in the reference:
+
+    - **host**: ``user_emb``/``item_emb``/biases are host numpy and pickle
+      into MODELDATA;
+    - **device** (``TwoTowerConfig.gather="device"``, or "auto" with a
+      large catalog): the fused tables stay on the card in ``_tables``
+      (``{"ue": [n_users, k+1], "ie": [n_items, k+1]}`` fp32 tensors) and
+      the host fields are None until :meth:`ensure_host`. Persistence goes
+      through ``RecModel.save`` (``torch.save`` of the tables).
 
     Serving buffers (``_device_*``, ``_host_items``) are derived by
     :meth:`prepare_for_serving` and never pickle; the IVF index is host
@@ -96,6 +145,9 @@ class TwoTowerModel:
     mean: float = 0.0
     config: TwoTowerConfig = dataclasses.field(default_factory=TwoTowerConfig)
 
+    _tables = None  # device-resident fused tables (device mode)
+    _n_users = 0  # row counts in device mode
+    _n_items = 0
     _device = None  # torch.device the device buffers live on
     # (item_embᵀ as bf16-rounded fp32 [k, n], item_bias, zero mask)
     _device_items = None
@@ -105,12 +157,33 @@ class TwoTowerModel:
     _serve_k = 0  # top-k the device path computes when num fits under it
     _ivf = None  # two-stage retrieval index (serving/ann.py), host numpy
 
+    @property
+    def device_resident(self) -> bool:
+        return self._tables is not None
+
+    def ensure_host(self) -> "TwoTowerModel":
+        """Materialize the host numpy views of a device-resident model (one
+        full-table device→host copy; only consumers that need host arrays,
+        such as default pickling, land here)."""
+        if self.user_emb is not None or self._tables is None:
+            return self
+        k = self.config.rank
+        ue = self._tables["ue"][: self._n_users].cpu().numpy()
+        ie = self._tables["ie"][: self._n_items].cpu().numpy()
+        self.user_emb = np.ascontiguousarray(ue[:, :k])
+        self.user_bias = np.ascontiguousarray(ue[:, k])
+        self.item_emb = np.ascontiguousarray(ie[:, :k])
+        self.item_bias = np.ascontiguousarray(ie[:, k])
+        return self
+
     def __getstate__(self):
-        # device handles and serving buffers never serialize — deploy
-        # rebuilds them
+        # default pickling always ships host arrays; device handles and
+        # serving buffers never serialize — deploy rebuilds them
+        self.ensure_host()
         return {k: v for k, v in self.__dict__.items()
-                if k not in ("_device", "_device_items", "_device_items_q",
-                             "_device_users", "_host_items")}
+                if k not in ("_tables", "_device", "_device_items",
+                             "_device_items_q", "_device_users",
+                             "_host_items")}
 
     def prepare_for_serving(
         self, quantize: bool = False, serve_k: int = 128,
@@ -147,9 +220,17 @@ class TwoTowerModel:
         self._ivf.device = self._device
 
     def _host_item_table(self) -> tuple[np.ndarray, np.ndarray]:
-        """Host ``(item_emb, item_bias)`` as float32."""
-        return (np.asarray(self.item_emb, np.float32),
-                np.asarray(self.item_bias, np.float32))
+        """Host ``(item_emb, item_bias)`` as float32. A device-resident
+        model pulls its item table alone, each call (``ensure_host`` would
+        also pull the user table and take the model off its
+        device-to-device serving preparation)."""
+        if self.item_emb is not None:
+            return (np.asarray(self.item_emb, np.float32),
+                    np.asarray(self.item_bias, np.float32))
+        k = self.config.rank
+        ie = self._tables["ie"][: self._n_items].cpu().numpy()
+        return (np.ascontiguousarray(ie[:, :k]),
+                np.ascontiguousarray(ie[:, k]))
 
     def _prepare_scoring(
         self, quantize: bool = False, serve_k: int = 128,
@@ -165,19 +246,34 @@ class TwoTowerModel:
                     else host_max_elements)
         # host check first: ``quantize`` applies to device-resident catalogs
         if self.n_items * (self.config.rank + 1) <= host_max:
+            self.ensure_host()  # no-op unless device mode on a small catalog
             self._host_items = (
                 np.ascontiguousarray(np.asarray(self.item_emb, np.float32).T),
                 np.asarray(self.item_bias, np.float32),
             )
             return self
         dev = self._device
-        self._device_users = (
-            torch.from_numpy(np.asarray(self.user_emb, np.float32)).to(dev)
-            .to(torch.bfloat16),
-            torch.from_numpy(np.asarray(self.user_bias, np.float32)).to(dev),
-        )
-        item_emb = torch.from_numpy(np.asarray(self.item_emb, np.float32)).to(dev)
-        item_bias = torch.from_numpy(np.asarray(self.item_bias, np.float32)).to(dev)
+        if self.device_resident and self.user_emb is None:
+            # device→device: slice and cast the resident fused tables
+            k = self.config.rank
+            ue = self._tables["ue"].to(dev)
+            ie = self._tables["ie"].to(dev)
+            self._device_users = (
+                ue[: self._n_users, :k].to(torch.bfloat16),
+                ue[: self._n_users, k].contiguous(),
+            )
+            item_emb = ie[: self._n_items, :k].contiguous()
+            item_bias = ie[: self._n_items, k].contiguous()
+        else:
+            self._device_users = (
+                torch.from_numpy(np.asarray(self.user_emb, np.float32)).to(dev)
+                .to(torch.bfloat16),
+                torch.from_numpy(np.asarray(self.user_bias, np.float32)).to(dev),
+            )
+            item_emb = torch.from_numpy(
+                np.asarray(self.item_emb, np.float32)).to(dev)
+            item_bias = torch.from_numpy(
+                np.asarray(self.item_bias, np.float32)).to(dev)
         if quantize:
             from incubator_predictionio_tpu_torch.ops.retrieval import (
                 quantize_catalog_device,
@@ -249,11 +345,11 @@ class TwoTowerModel:
 
     @property
     def n_items(self) -> int:
-        return self.item_emb.shape[0]
+        return self._n_items if self.item_emb is None else self.item_emb.shape[0]
 
     @property
     def n_users(self) -> int:
-        return self.user_emb.shape[0]
+        return self._n_users if self.user_emb is None else self.user_emb.shape[0]
 
     @property
     def prepared(self) -> bool:
@@ -280,6 +376,10 @@ class TwoTowerModel:
         (:meth:`serving.ann.IVFIndex.with_updated_rows`); past
         ``PIO_STREAM_STALE_REBUILD_FRAC`` of the catalog stale, the index is
         re-clustered from the updated table instead."""
+        if self.user_emb is None and self.device_resident:
+            raise NotImplementedError(
+                f"delta apply on a device-resident model: {RESIDENT_ROWS}; "
+                "the streaming path serves a host model")
         if self.user_emb is None:
             raise NotImplementedError(
                 "delta apply on a sharded model comes with the sharding "
@@ -355,6 +455,7 @@ class TwoTowerModel:
         return {"path": path, "serve_k": self._serve_k,
                 "catalog_rows": self.n_items,
                 "device": None if self._device is None else str(self._device),
+                "device_resident": self.device_resident,
                 "retrieval_mode": "two_stage" if two_stage else "exact",
                 "index": self._ivf.stats() if self._ivf is not None else None}
 
@@ -362,6 +463,93 @@ class TwoTowerModel:
 class TwoTowerMF:
     def __init__(self, config: TwoTowerConfig = TwoTowerConfig()):
         self.config = config
+
+    def fit(
+        self,
+        ctx,
+        users: np.ndarray,     # [n] int32 user indices
+        items: np.ndarray,     # [n] int32 item indices
+        ratings: np.ndarray,   # [n] float32
+        n_users: int,
+        n_items: int,
+        rows_are_local: bool = False,
+    ) -> TwoTowerModel:
+        """two_tower.py:677 ``fit`` on ``ctx.device``: stage the batches
+        once, run ``epochs × n_batches`` steps, keep the tables resident or
+        pull them to the host (``gather``). ``final_loss`` is the last
+        epoch's mean loss: the one host sync of the fit. ``timings`` has the
+        reference's four phases (``stage_sec``, ``init_sec``, ``train_sec``,
+        ``gather_sec``)."""
+        cfg = self.config
+        if cfg.checkpoint_every > 0:
+            raise NotImplementedError(
+                f"TwoTowerMF.fit: mid-training checkpoints (checkpoint_every="
+                f"{cfg.checkpoint_every}) are not ported yet; they come with "
+                f"{SHARDING_SLICE}")
+        if rows_are_local and ctx.process_count > 1:
+            raise NotImplementedError(
+                "TwoTowerMF.fit: per-process staging of entity-sharded rows "
+                f"(_stage_local) comes with {SHARDING_SLICE}")
+        n = len(users)
+        if not (len(items) == len(ratings) == n):
+            raise ValueError("users/items/ratings must be equal length")
+        dev = ctx.device
+
+        t_stage = time.perf_counter()
+        ub, ib, rb, wb, mean = _stage_batches(
+            cfg, np.asarray(users), np.asarray(items), np.asarray(ratings),
+            ctx.pad_to_batch_multiple)
+        ub, ib, rb, wb = (torch.from_numpy(a).to(dev) for a in (ub, ib, rb, wb))
+        _sync(dev)
+        t_stage = time.perf_counter() - t_stage
+
+        from incubator_predictionio_tpu_torch.utils.optim import adam_tree_init
+
+        t_init = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        tables = list(_init_tables(cfg, n_users, n_items, dev, gen))
+        state = adam_tree_init(tables, cfg.adam_moments_dtype)
+        grads = [torch.empty_like(t) for t in tables]
+        _sync(dev)
+        t_init = time.perf_counter() - t_init
+
+        t_train = time.perf_counter()
+        loss = _train_epochs(tables, grads, state, ub, ib, rb, wb,
+                             cfg.learning_rate, cfg.reg, cfg.epochs)
+        loss = np.inf if loss is None else float(loss)  # the one sync
+        t_train = time.perf_counter() - t_train
+        del grads, state, ub, ib, rb, wb
+
+        t_gather = time.perf_counter()
+        # auto keys on the unpadded CATALOG size, the criterion
+        # prepare_for_serving uses to pick host or device serving
+        keep_device = cfg.gather == "device" or (
+            cfg.gather == "auto"
+            and n_items * (cfg.rank + 1) > HOST_SERVE_MAX_ELEMENTS)
+        if keep_device and ctx.process_count > 1:
+            keep_device = False
+        k = cfg.rank
+        if keep_device:
+            model = TwoTowerModel(mean=mean, config=cfg)
+            model._tables = {"ue": tables[0], "ie": tables[1]}
+            model._n_users = n_users
+            model._n_items = n_items
+            model._device = dev
+        else:
+            ue, ie = (t.cpu().numpy() for t in tables)
+            model = TwoTowerModel(
+                user_emb=ue[:n_users, :k], item_emb=ie[:n_items, :k],
+                user_bias=ue[:n_users, k], item_bias=ie[:n_items, k],
+                mean=mean, config=cfg)
+        t_gather = time.perf_counter() - t_gather
+        model.final_loss = loss
+        model.timings = {
+            "stage_sec": round(t_stage, 4),
+            "init_sec": round(t_init, 4),
+            "train_sec": round(t_train, 4),
+            "gather_sec": round(t_gather, 4),
+        }
+        return model
 
     # -- scoring ----------------------------------------------------------
     @staticmethod
@@ -496,8 +684,16 @@ def _recommend_batch_two_stage(
     if not model._ivf.hydrated:
         model._ivf.rehydrate(*model._host_item_table())
     uidx = np.asarray(user_idx, np.int64)
-    q = np.asarray(model.user_emb, np.float32)[uidx]
-    ub = np.asarray(model.user_bias, np.float32)[uidx]
+    if model.user_emb is None:
+        # device-resident: copy the batch's user rows, not the table (the
+        # reference pulls the whole table here, ensure_host)
+        k = model.config.rank
+        ue = model._tables["ue"]
+        rows = ue[torch.from_numpy(uidx).to(ue.device)].cpu().numpy()
+        q, ub = np.ascontiguousarray(rows[:, :k]), np.ascontiguousarray(rows[:, k])
+    else:
+        q = np.asarray(model.user_emb, np.float32)[uidx]
+        ub = np.asarray(model.user_bias, np.float32)[uidx]
     return model._ivf.search(
         q, ub, model.mean, num, exclude=exclude, row_mask=row_mask)
 
@@ -525,6 +721,151 @@ def _recommend_batch_host(
     ordr = np.argsort(-scores[row, part], axis=1)
     idx = part[row, ordr]
     return idx, scores[row, idx]
+
+
+def _sort_batches_by_entity(
+    order: np.ndarray, w: np.ndarray, entities: np.ndarray,
+    n_batches: int, batch: int,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Sort each batch's rows by entity (user) index, at staging
+    (two_tower.py:1128). Batch composition, and so the math, is unchanged;
+    only the order within a batch, so the user-table gather and its
+    scatter-add walk the table quasi-sequentially. ``w`` rides along so
+    padding rows keep weight 0. The argsort is stable."""
+    o2 = order.reshape(n_batches, batch)
+    keys = entities[o2] if len(entities) else o2
+    srt = np.argsort(keys, axis=1, kind="stable")
+    return (
+        np.take_along_axis(o2, srt, 1).reshape(-1),
+        np.take_along_axis(w.reshape(n_batches, batch), srt, 1).reshape(-1),
+    )
+
+
+def _stage_batches(cfg: TwoTowerConfig, users, items, ratings,
+                   pad_to_batch_multiple=lambda n: n):
+    """The reference's single-process staging (two_tower.py:705-728), in
+    numpy: ``[n_batches, batch]`` arrays of user indices, item indices,
+    centred ratings and weights (1 for a triple, 0 for a padding row drawn
+    with ``rng.integers``), and the mean rating. The permutation and the
+    padding come from ``default_rng(cfg.seed)``, so they are the
+    reference's, bitwise."""
+    n = len(users)
+    mean = float(ratings.mean()) if n else 0.0
+    global_batch = pad_to_batch_multiple(min(cfg.batch_size, max(n, 1)))
+    n_batches = max(1, (n + global_batch - 1) // global_batch)
+    n_pad = n_batches * global_batch
+    rng = np.random.default_rng(cfg.seed)
+    perm = rng.permutation(n)
+    pad_idx = rng.integers(0, max(n, 1), n_pad - n)
+    order = np.concatenate([perm, pad_idx])
+    w = np.concatenate(
+        [np.ones(n, np.float32), np.zeros(n_pad - n, np.float32)])
+    order, w = _sort_batches_by_entity(
+        order, w, np.asarray(users, np.int32), n_batches, global_batch)
+
+    def stage(a, dtype):
+        a = np.asarray(a, dtype)[order] if len(a) == n else np.asarray(a, dtype)
+        return np.ascontiguousarray(a.reshape(n_batches, global_batch))
+
+    return (stage(users, np.int32), stage(items, np.int32),
+            stage(ratings.astype(np.float32) - mean, np.float32),
+            np.ascontiguousarray(w.reshape(n_batches, global_batch)), mean)
+
+
+def _init_tables(cfg: TwoTowerConfig, n_users: int, n_items: int,
+                 device, generator: torch.Generator):
+    """The initial fused tables ``(ue, ie)``, ``[max(n, 1), rank+1]`` fp32
+    on ``device`` — the one-device counterpart of the reference's
+    ``sharding/table.py:ShardedTable.init_train`` (:247-270): columns
+    ``:rank`` normal × ``1/sqrt(rank)`` from ``generator`` (users first,
+    then items), the bias column zero. The draws are torch's, not
+    ``jax.random``'s: tests inject the reference's tables here."""
+    scale = float(1.0 / np.sqrt(cfg.rank))
+    out = []
+    for n in (n_users, n_items):
+        t = torch.zeros(max(n, 1), cfg.rank + 1, dtype=torch.float32,
+                        device=device)
+        t[:, : cfg.rank] = torch.randn(
+            max(n, 1), cfg.rank, generator=generator, device=device,
+            dtype=torch.float32) * scale
+        out.append(t)
+    return tuple(out)
+
+
+def _sync(device) -> None:
+    """A phase fence: the card's queued work bills to the phase that
+    queued it."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _loss_and_grads(tables, grads, bu, bi, br, bw, reg: float) -> torch.Tensor:
+    """The loss of one batch (two_tower.py:1159-1178) and its gradient,
+    written into ``grads`` (dense, table-shaped; overwritten). Returns the
+    loss as a 0-d device tensor.
+
+    Forward, as the reference: rows gathered with the bias in the last
+    column; the embedding parts rounded to bf16; their products (exact in
+    fp32) summed in fp32 and the sum rounded to bf16 — what XLA computes
+    for ``jnp.sum(ue * ie)`` of bf16 arrays, which keeps the product's
+    precision inside the fusion and rounds the sum's bf16 result; ``pred =
+    dot + user bias + item bias``; ``loss = Σ w·(pred − r)² / max(Σ w, 1)
+    + reg·(Σ ue² + Σ ie²) / max(Σ w, 1)`` over the bf16-rounded rows, the
+    weight-0 padding rows included in the L2 sum.
+
+    Backward, as JAX's autodiff of it: ``dpred = (w / denom)·(2·diff)``
+    in fp32; the product's cotangent ``bf16(dpred)``; each embedding's
+    cotangent ``dprod·other`` (bf16) plus the L2 term's ``bf16((reg /
+    denom)·(2·row))``, added in bf16; then widened to fp32, the bias column
+    ``dpred``, and scatter-added into the zeroed table gradients
+    (``index_add_``: atomics on the card, so its sums of duplicate rows are
+    not deterministic there)."""
+    ue_t, ie_t = tables
+    k = ue_t.shape[1] - 1
+    gu = ue_t.index_select(0, bu)
+    gi = ie_t.index_select(0, bi)
+    ub = gu[:, :k].to(torch.bfloat16)
+    ib = gi[:, :k].to(torch.bfloat16)
+    ubf, ibf = ub.float(), ib.float()
+    dot = (ubf * ibf).sum(-1).to(torch.bfloat16).float()
+    diff = dot + gu[:, k] + gi[:, k] - br
+    denom = bw.sum().clamp(min=1.0)
+    mse = (diff * diff * bw).sum() / denom
+    l2 = reg * ((ubf * ubf).sum() + (ibf * ibf).sum()) / denom
+    loss = mse + l2
+    inv = 1.0 / denom
+    dpred = (inv * bw) * (2.0 * diff)
+    dprod = dpred.to(torch.bfloat16)[:, None]
+    c = reg * inv
+    dub = (((2.0 * ubf) * c).to(torch.bfloat16) + dprod * ib).float()
+    dib = (((2.0 * ibf) * c).to(torch.bfloat16) + dprod * ub).float()
+    for g, rows, d_emb, idx in ((grads[0], gu, dub, bu), (grads[1], gi, dib, bi)):
+        rows[:, :k] = d_emb  # the gathered rows are scratch now
+        rows[:, k] = dpred
+        g.zero_()
+        g.index_add_(0, idx, rows)
+    return loss
+
+
+def _train_epochs(tables, grads, state, ub, ib, rb, wb, lr: float,
+                  reg: float, n_epochs: int) -> Optional[torch.Tensor]:
+    """two_tower.py:1149 ``_train_epochs``: ``n_epochs`` passes over the
+    staged batches, each step :func:`_loss_and_grads` then the dense adam
+    (``utils/optim.py:adam_apply``), in place on ``tables`` and ``state``.
+    Returns the last epoch's mean loss as a 0-d device tensor (None for no
+    epochs); nothing in the loop waits for the card."""
+    from incubator_predictionio_tpu_torch.utils.optim import adam_apply
+
+    last = None
+    for epoch in range(n_epochs):
+        losses = []
+        for b in range(ub.shape[0]):
+            losses.append(_loss_and_grads(tables, grads, ub[b], ib[b],
+                                          rb[b], wb[b], reg))
+            adam_apply(tables, grads, state, lr)
+        if epoch == n_epochs - 1:
+            last = torch.stack(losses).mean()
+    return last
 
 
 def _topk_quantized(uidx, ue_tab, ub_tab, items_q, scales, bias, mask,

@@ -4,8 +4,9 @@ Counterpart of ``incubator_predictionio_tpu/server/query_server.py``
 (workflow/CreateServer.scala:106-695), cut to the deploy → query path and
 streaming deltas: :class:`ServerConfig`, :class:`DeployedEngine` (prepare +
 warmup + predict / batch predict), :class:`MicroBatcher`,
-:func:`load_deployed_engine` and :class:`QueryServer` with ``GET /``,
-``GET /health``, ``POST /queries.json`` and ``POST /delta``. Circuit
+:func:`load_deployed_engine`, :class:`QueryServer` with ``GET /``,
+``GET /health``, ``POST /queries.json`` and ``POST /delta``, and
+:func:`serve_forever` (the CLI ``deploy`` verb). Circuit
 breakers, admission control, reload (with the smoke gate, probation and
 rollback that the reference's ``/delta`` shares with it), tenancy and
 plugins come in later slices (ROADMAP.md).
@@ -571,3 +572,24 @@ class QueryServer:
             await self._runner.cleanup()
             self._runner = None
         await self.batcher.stop()
+
+
+def serve_forever(config: ServerConfig, storage: Optional[Storage] = None,
+                  ctx: Optional[DeviceContext] = None) -> None:
+    """Blocking entry of the CLI ``deploy`` verb: serve until SIGINT or
+    SIGTERM, then shut the server down (in-flight micro-batches finish)."""
+    import signal
+
+    async def main():
+        server = QueryServer(config, storage, ctx)
+        await server.start()
+        stop = asyncio.Event()
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            loop.add_signal_handler(sig, stop.set)
+        try:
+            await stop.wait()
+        finally:
+            await server.shutdown()
+
+    asyncio.run(main())

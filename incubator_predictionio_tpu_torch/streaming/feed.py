@@ -12,7 +12,7 @@ Torn-tail semantics: a record the writer has only half-appended is "wait
 and re-poll", never corruption and never a skip — the poll stops at the
 last complete record and the next poll resumes from exactly there.
 ``resolve_feed_path`` (the eventlog storage backend's file for an app)
-comes with the event-store slice (ROADMAP.md Queue 1 item 3).
+is left by ROADMAP.md Queue 1 item 3 (it needs the eventlog backend).
 """
 
 from __future__ import annotations

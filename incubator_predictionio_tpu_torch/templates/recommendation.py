@@ -1,11 +1,14 @@
-"""Recommendation template — the serving side.
+"""Recommendation template — training and serving.
 
 Counterpart of ``incubator_predictionio_tpu/templates/recommendation.py``
 (the scala-parallel-recommendation template): the query and result types,
-:class:`RecModel` with its serving preparation, ``ALSAlgorithm.predict`` /
-``batch_predict`` and :class:`RecommendationEngine`. Reading events and
-training come with the training slice (ROADMAP.md Queue 1 item 3); until
-then a model reaches the port through ``convert.py``.
+:class:`TrainingData`, ``DataSource.read_training`` (rate and buy events
+from the event store, the latest event of a pair wins, a buy without a
+rating counts ``buy_rating``), ``ALSAlgorithm.train`` (two-tower MF on the
+card, ``models/two_tower.py``), :class:`RecModel` with its persistence and
+serving preparation, ``ALSAlgorithm.predict`` / ``batch_predict`` and
+:class:`RecommendationEngine`. Sharded reads and evaluation folds come in
+later slices (ROADMAP.md Queue 1, items 4 and 5).
 
 Query ``{"user": U, "num": N, "blackList": [...]}`` → PredictedResult
 ``{"itemScores": [{"item": I, "score": S}, …]}``; an unknown user gets the
@@ -31,10 +34,14 @@ from incubator_predictionio_tpu_torch.core import (
     Params,
     PDataSource,
     PersistentModel,
+    SanityCheck,
 )
 from incubator_predictionio_tpu_torch.data.bimap import BiMap
+from incubator_predictionio_tpu_torch.data.store import PEventStore
 from incubator_predictionio_tpu_torch.models.two_tower import (
     ROW_MASK_MAX_ELEMENTS,
+    SHARDING_SLICE,
+    TwoTowerConfig,
     TwoTowerMF,
     TwoTowerModel,
     serve_bucket,
@@ -42,11 +49,6 @@ from incubator_predictionio_tpu_torch.models.two_tower import (
 from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext
 
 logger = logging.getLogger(__name__)
-
-#: what raises in the stages this slice does not port
-_TRAINING_SLICE = ("the training slice of the PyTorch port (ROADMAP.md "
-                   "Queue 1, item 3: two_tower fit, sqlite storage, the "
-                   "CLI train verb)")
 
 
 # -- queries / results ------------------------------------------------------
@@ -89,12 +91,62 @@ class DataSourceParams(Params):
         return {"buy": self.buy_rating}
 
 
+@dataclasses.dataclass
+class TrainingData(SanityCheck):
+    """Rating triples, columnar-indexed (the RDD[Rating] counterpart):
+    vocabularies of distinct ids plus int32 index arrays into them, the
+    layout :meth:`PEventStore.assemble_triples` produces."""
+
+    user_idx: np.ndarray    # [n] int32 into user_vocab
+    item_idx: np.ndarray    # [n] int32 into item_vocab
+    ratings: np.ndarray     # [n] float32
+    user_vocab: np.ndarray  # [U] str
+    item_vocab: np.ndarray  # [I] str
+    # multi-process sharded reads come with the sharding slice
+    rows_are_local: bool = False
+    n_rows_global: Optional[int] = None
+
+    def sanity_check(self) -> None:
+        total = (
+            self.n_rows_global if self.n_rows_global is not None
+            else len(self.ratings)
+        )
+        if total == 0:
+            raise ValueError("TrainingData is empty (no rate/buy events found)")
+
+
 class DataSource(PDataSource):
     params_class = DataSourceParams
 
-    def read_training(self, ctx: DeviceContext):
+    def __init__(self, params: DataSourceParams):
+        super().__init__(params)
+        self._store = PEventStore()
+
+    def _read(self) -> TrainingData:
+        # latest event of a (user, item) pair wins (dedup=True); "buy" implies
+        # a fixed rating, "rate" carries it in properties (DataSource.scala:45-77)
+        user_vocab, item_vocab, user_idx, item_idx, ratings = (
+            self._store.assemble_triples(
+                self.params.app_name,
+                entity_type="user",
+                event_names=tuple(self.params.event_names),
+                target_entity_type="item",
+                value_property="rating",
+                default_values=self.params.rating_defaults(),
+                dedup=True,
+            )
+        )
+        return TrainingData(user_idx, item_idx, ratings, user_vocab, item_vocab)
+
+    def read_training(self, ctx: DeviceContext) -> TrainingData:
+        if ctx.process_count > 1:
+            return self._read_sharded(ctx)
+        return self._read()
+
+    def _read_sharded(self, ctx: DeviceContext) -> TrainingData:
         raise NotImplementedError(
-            f"DataSource.read_training is ported by {_TRAINING_SLICE}")
+            "DataSource: per-process entity-sharded reads come with "
+            f"{SHARDING_SLICE}")
 
 
 # -- algorithm --------------------------------------------------------------
@@ -118,16 +170,85 @@ class ALSAlgorithmParams(Params):
 class RecModel(PersistentModel):
     """TwoTowerModel + id vocabularies (reference ALSModel: factors + BiMaps).
 
-    Host models persist through default MODELDATA pickling (``save`` returns
-    False); the reference's device-resident orbax path comes with the
-    training slice."""
+    Persistence (PersistentModel SPI): host models fall back to default
+    MODELDATA pickling (``save`` returns False). Device-resident models
+    write their fused tables with ``torch.save`` from the card, plus a
+    pickled sidecar (config, mean, row counts, BiMaps, IVF index,
+    cold-start rows: the reference's ``sidecar.pkl`` keys without its shard
+    fields) under ``utils/fs.subdir("device_models")/<model_id>``; ``load``
+    restores the tables straight onto ``ctx.device``. The reference writes
+    an orbax checkpoint there instead."""
 
     mf: TwoTowerModel
     user_map: BiMap
     item_map: BiMap
 
+    @staticmethod
+    def _device_dir(model_id: str) -> str:
+        import os
+
+        from incubator_predictionio_tpu_torch.utils.fs import subdir
+
+        return os.path.join(subdir("device_models"), model_id)
+
     def save(self, model_id: str, params: Params, ctx: DeviceContext) -> bool:
-        return False  # host model → default MODELDATA pickling
+        if not self.mf.device_resident:
+            return False  # host model → default MODELDATA pickling
+        import os
+        import pickle
+
+        import torch
+
+        from incubator_predictionio_tpu_torch.utils.fs import atomic_write_bytes
+
+        d = self._device_dir(model_id)
+        os.makedirs(d, exist_ok=True)
+        # a retrain reuses the instance id: both files are replaced whole
+        torch.save(dict(self.mf._tables), os.path.join(d, "tables.pt.tmp"))
+        os.replace(os.path.join(d, "tables.pt.tmp"), os.path.join(d, "tables.pt"))
+        meta = {
+            "config": self.mf.config,
+            "mean": self.mf.mean,
+            "n_users": self.mf._n_users,
+            "n_items": self.mf._n_items,
+            "table_rows": {k: int(v.shape[0])
+                           for k, v in self.mf._tables.items()},
+            "user_map": self.user_map,
+            "item_map": self.item_map,
+            # two-stage retrieval index (host numpy; built at train end when
+            # the catalog qualifies, else None)
+            "ivf": self.mf._ivf,
+            "coldstart": getattr(self, "coldstart", None),
+        }
+        atomic_write_bytes(os.path.join(d, "sidecar.pkl"), pickle.dumps(meta))
+        return True
+
+    @classmethod
+    def load(cls, model_id: str, params: Params, ctx: DeviceContext) -> "RecModel":
+        import os
+        import pickle
+
+        import torch
+
+        d = cls._device_dir(model_id)
+        with open(os.path.join(d, "sidecar.pkl"), "rb") as f:
+            meta = pickle.load(f)
+        tables = torch.load(os.path.join(d, "tables.pt"),
+                            map_location=ctx.device, weights_only=True)
+        for k, rows in meta["table_rows"].items():
+            if tuple(tables[k].shape) != (rows, meta["config"].rank + 1):
+                raise ValueError(f"persisted table {k} has shape "
+                                 f"{tuple(tables[k].shape)}; the sidecar says "
+                                 f"{rows} rows of rank {meta['config'].rank} + 1")
+        mf = TwoTowerModel(mean=meta["mean"], config=meta["config"])
+        mf._tables = tables
+        mf._n_users = meta["n_users"]
+        mf._n_items = meta["n_items"]
+        mf._device = ctx.device
+        mf._ivf = meta.get("ivf")
+        model = cls(mf, meta["user_map"], meta["item_map"])
+        model.coldstart = meta.get("coldstart")
+        return model
 
     def prepare_for_serving(self, ctx: DeviceContext) -> "RecModel":
         # on a CUDA device the catalog is int8-quantized on the card and
@@ -211,9 +332,40 @@ class ALSAlgorithm(PAlgorithm):
     serving_thread_safe = True  # read-only served tensors; per-thread scratch
     query_cls = Query
 
-    def train(self, ctx: DeviceContext, pd) -> RecModel:
-        raise NotImplementedError(
-            f"ALSAlgorithm.train is ported by {_TRAINING_SLICE}")
+    def train(self, ctx: DeviceContext, pd: TrainingData) -> RecModel:
+        p = self.params
+        if p.num_iterations > 30:
+            # parity with the reference guardrail (ALSAlgorithm.scala:44-48)
+            logger.warning(
+                "ALSAlgorithmParams.num_iterations = %d > 30: long schedules "
+                "rarely help MF; consider lowering", p.num_iterations,
+            )
+        user_map = BiMap({u: i for i, u in enumerate(pd.user_vocab)})
+        item_map = BiMap({t: i for i, t in enumerate(pd.item_vocab)})
+        cfg = TwoTowerConfig(
+            rank=p.rank,
+            learning_rate=p.learning_rate,
+            reg=p.lambda_,
+            epochs=p.num_iterations,
+            batch_size=p.batch_size,
+            seed=p.seed if p.seed is not None else 0,
+            checkpoint_dir=p.checkpoint_dir,
+            checkpoint_every=p.checkpoint_every,
+            gather=p.gather,
+        )
+        mf = TwoTowerMF(cfg).fit(
+            ctx,
+            pd.user_idx,
+            pd.item_idx,
+            pd.ratings,
+            n_users=len(user_map),
+            n_items=len(item_map),
+            rows_are_local=pd.rows_are_local,
+        )
+        # two-stage retrieval: cluster the catalog here when it qualifies,
+        # so the index persists with the model and deploys reuse it
+        mf._prepare_index()
+        return RecModel(mf, user_map, item_map)
 
     @staticmethod
     def _banned(model: RecModel, query: Query) -> set[int]:

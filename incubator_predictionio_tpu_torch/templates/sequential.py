@@ -6,17 +6,19 @@ query and result types, :func:`encode_session`, :class:`TrainingData`,
 ``DataSource._build_fold`` (sessions → token space and left-padded rows),
 ``TransformerAlgorithm.train`` / ``predict`` / ``batch_predict`` and
 :class:`SequentialEngine`. Reading the sessions from events
-(``DataSource.read_training``, ``_collect_sessions``) waits for the events
-DAO (ROADMAP.md Queue 1, item 3): until then the caller hands
-``_build_fold`` its sessions, or a model reaches the port through
-``convert.py``.
+(``DataSource.read_training``, ``_collect_sessions``) through the events
+DAO is left by ROADMAP.md Queue 1 item 3 (the sqlite event store and
+``PEventStore`` are ported; these reads and ``LEventStore`` are not):
+until then the caller hands ``_build_fold`` its sessions, or a model
+reaches the port through ``convert.py``.
 
 Query ``{"recentItems": [...], "num": N}`` scores the next item after an
 explicit session → ``{"itemScores": [{"item": I, "score": S}, …]}``, never
 a history item; a session with no known item gets the reference's empty
 answer. ``{"user": U}`` queries read the user's recent events from the
-event store in the reference; the port has no event store yet, so they
-raise ``NotImplementedError`` (ROADMAP.md) — never an empty answer.
+event store (``LEventStore``) in the reference; the port has not ported
+that read yet, so they raise ``NotImplementedError`` (ROADMAP.md) — never
+an empty answer.
 """
 
 from __future__ import annotations
@@ -45,8 +47,8 @@ from incubator_predictionio_tpu_torch.models.transformer import (
 from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext
 
 #: what reads events in the reference, not ported yet
-EVENTS_DAO = ("the events DAO of the PyTorch port (ROADMAP.md Queue 1, "
-              "item 3)")
+EVENTS_DAO = ("the sequential template's reads through the events DAO of "
+              "the PyTorch port (ROADMAP.md Queue 1, what item 3 leaves)")
 #: why a ``{"user": U}`` query raises
 USER_QUERIES = ("a {\"user\": U} query reads the user's recent events from "
                 f"the event store (LEventStore), which waits for {EVENTS_DAO}; "

@@ -1,14 +1,27 @@
-"""Crash-safe file writes.
+"""Filesystem locations and crash-safe file writes.
 
-Counterpart of ``incubator_predictionio_tpu/utils/fs.py`` (:27, :44), cut
-to the two functions the streaming slice needs: the state dir's cursor,
-trainer state, delta archive and quarantine marker are all written through
-:func:`atomic_write_bytes`.
+Counterpart of ``incubator_predictionio_tpu/utils/fs.py``: the
+``PIO_FS_BASEDIR`` convention (:func:`base_dir`, :func:`subdir`; a
+device-resident model's tables persist under ``subdir("device_models")``)
+and the crash-safe writes the streaming state dir's cursor, trainer state,
+delta archive and quarantine marker go through (:func:`atomic_write_bytes`).
 """
 
 from __future__ import annotations
 
 import os
+
+
+def base_dir() -> str:
+    """``PIO_FS_BASEDIR`` or ``~/.pio_store``."""
+    return os.environ.get("PIO_FS_BASEDIR", os.path.expanduser("~/.pio_store"))
+
+
+def subdir(*parts: str) -> str:
+    """A directory under :func:`base_dir`, created on demand."""
+    d = os.path.join(base_dir(), *parts)
+    os.makedirs(d, exist_ok=True)
+    return d
 
 
 def fsync_dir(path: str) -> None:

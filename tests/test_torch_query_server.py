@@ -193,8 +193,15 @@ def test_deploy_without_completed_instance_raises(tmp_path):
 
 
 def test_training_stages_name_the_slice_that_ports_them():
-    algo = trec.ALSAlgorithm(trec.ALSAlgorithmParams())
-    with pytest.raises(NotImplementedError, match="training slice"):
-        algo.train(DeviceContext.create(device="cpu"), None)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        trec.DataSource(trec.DataSourceParams()).read_training(None)
+    """Training is ported; what it leaves (mid-training checkpoints, the
+    per-process sharded read) names the sharding slice."""
+    cpu = DeviceContext.create(device="cpu")
+    td = trec.TrainingData(np.zeros(4, np.int32), np.arange(4, dtype=np.int32),
+                           np.ones(4, np.float32), np.array(["u0"], object),
+                           np.array([f"i{j}" for j in range(4)], object))
+    algo = trec.ALSAlgorithm(trec.ALSAlgorithmParams(checkpoint_every=1))
+    with pytest.raises(NotImplementedError, match="sharding slice"):
+        algo.train(cpu, td)
+    with pytest.raises(NotImplementedError, match="sharding slice"):
+        trec.DataSource(trec.DataSourceParams()).read_training(
+            DeviceContext(cpu.device, process_index=1, process_count=2))
