@@ -66,6 +66,24 @@ shape, ``train`` on the card (its loss below a 1-iteration fit's),
 deploy, queries over a socket held against numpy scoring of the trained
 tables.
 
+Between those two, ``rec-stream`` streams into rec-train's persisted
+model, deployed resident on the card, through a storage whose EVENTDATA
+is the ``eventlog`` backend: ``bench_streaming_freshness``'s traffic goes
+in through ``EventLogEvents.insert_batch``, the updater's feed is
+``resolve_feed_path``'s file, and the ``stream`` phase's rounds, backlogs
+(K3 at D 129 under ``device``) and checks run at 1,000,000 × 100,000, rank
+128. After the sequential training phases, ``seq-workflow`` runs the
+sequential template through the CLI from stored events (``app new``,
+``import`` of 2,048 users' cycle sessions of 16-128 ``view`` events,
+``train`` at ``max_len`` 512 on the card, deploy), holds the sessions read
+back from the store against the arrays, and each ``{"user": U}`` answer
+against the ``recentItems`` answer of the same history; ``ckpt-resume``
+interrupts a two-tower fit (rec-train's cut size) and a sequential fit
+(seq-train512's widths, 256 rows), resumes each from its checkpoint, holds
+the restored state bitwise against what was saved and the resumed fit
+against an uninterrupted one, and times one checkpoint at rec-train's full
+shape.
+
 Every check failure raises: the script catches nothing, and a non-zero exit
 is the verdict. Its last line is one JSON object, ``{"ok": true, "device":
 {...}}``; the line before it names the card and its power limit; a
@@ -131,8 +149,10 @@ TRAIN_ROWS_1024, TRAIN_EPOCHS_1024 = 256, 1
 STEP_LOSS_RTOL = 1e-2
 #: K3's (R, D) checks: a fold micro-batch of 256 events at rank 32 touches
 #: at most 512 rows of D 33; the others are the reference's test shapes
-K3_SHAPES = ((1, 33), (37, 17), (265, 8), (512, 33), (4096, 33))
+K3_SHAPES = ((1, 33), (37, 17), (265, 8), (512, 33), (4096, 33), (512, 129))
 K3_MAIN = (512, 33)
+#: the same micro-batch at rank 128 (D 129): rec-stream's, on rec-train's model
+K3_REC = (512, 129)
 #: the reference's band for its compiled adam engines
 #: (tests/test_sparse_update.py:62-70), if K3 is not bitwise
 K3_RTOL, K3_ATOL = 2e-5, 1e-7
@@ -1192,13 +1212,15 @@ async def sequential_phase(name, max_len, ctx, seed, n_singles, n_bursts):
 
 # -- phases 7-9: training the sequential template on the card ------------------
 
-def cycle_sessions(rng, n: int, max_len: int):
+def cycle_sessions(rng, n: int, max_len: int, lengths=None):
     """Sessions with something to learn: over the 9,999 items, a random
-    start and a length of 5 to ``max_len + 1``, each item followed by the
-    next of the cycle, ``next(i_k) = i_{k+1 mod 9999}``."""
+    start and a length of 5 to ``max_len + 1`` (or ``lengths``, an
+    inclusive (low, high)), each item followed by the next of the cycle,
+    ``next(i_k) = i_{k+1 mod 9999}``."""
     n_items = SEQ_VOCAB - 1
     starts = rng.integers(0, n_items, n)
-    lengths = rng.integers(5, max_len + 2, n)
+    lo, hi = lengths or (5, max_len + 1)
+    lengths = rng.integers(lo, hi + 1, n)
     return [[f"i{(int(s) + j) % n_items}" for j in range(int(m))]
             for s, m in zip(starts, lengths)]
 
@@ -1507,7 +1529,7 @@ def k3_case(S, r, d, seed, dev) -> dict:
               or bool(np.allclose(a, ref, rtol=K3_RTOL, atol=K3_ATOL)),
               f"K3 R={r} D={d} ({name}): {max_ulps(a, ref)} ulps, beyond "
               f"rtol {K3_RTOL} atol {K3_ATOL}")
-    if (r, d) == K3_MAIN:
+    if (r, d) in (K3_MAIN, K3_REC):
         out["ms"] = time_ms(lambda: S.adam_rows(stack, bc, STREAM_LR))
         out["device_ms"] = device_ms(lambda: S.adam_rows(stack, bc, STREAM_LR),
                                      SPARSE_SYMBOLS["adam_rows"])
@@ -1621,7 +1643,7 @@ def k3_checks(S, dev):
     return cases, k3b_check(S, dev)
 
 
-def live_events(rng, n: int):
+def live_events(rng, n: int, n_users: int = N_USERS, n_items: int = N_ITEMS):
     """bench.py:3159-3169: ``rate`` events of random users and items, rating
     1 + 4·U(0, 1), stamped now."""
     import datetime as dt
@@ -1630,9 +1652,9 @@ def live_events(rng, n: int):
 
     now = dt.datetime.now(dt.timezone.utc)
     return [Event(event="rate", entity_type="user",
-                  entity_id=f"u{rng.integers(0, N_USERS)}",
+                  entity_id=f"u{rng.integers(0, n_users)}",
                   target_entity_type="item",
-                  target_entity_id=f"i{rng.integers(0, N_ITEMS)}",
+                  target_entity_id=f"i{rng.integers(0, n_items)}",
                   properties=DataMap({"rating": float(1 + 4 * rng.random())}),
                   event_time=now)
             for _ in range(n)]
@@ -1670,7 +1692,7 @@ def gc_record(pauses, lo=-np.inf, hi=np.inf) -> dict:
     return {f"gen{g}": {"n": n, "s": s} for g, (n, s) in sorted(out.items())}
 
 
-def replay_check(up, folds) -> dict:
+def replay_check(name, up, folds) -> dict:
     """The trainer's state after the stream against a replay of the same
     events, fold by fold, into a CPU trainer on the host fused pass
     (``PIO_STREAM_FUSED=1``): the same keys, step counts exact, rows and
@@ -1700,21 +1722,45 @@ def replay_check(up, folds) -> dict:
             check(bool(np.allclose(a[key], b[key], rtol=K3_RTOL, atol=K3_ATOL)),
                   f"trainer row {key} beyond K3's band of the host replay")
     n = 3 * len(tr.rows)
-    log(f"[stream] trainer state vs a host replay (mode 1): {len(tr.rows)} rows, "
+    log(f"[{name}] trainer state vs a host replay (mode 1): {len(tr.rows)} rows, "
         f"step counts exact, {bitwise}/{n} arrays bitwise, max {ulps} ulps")
     return {"rows": len(tr.rows), "arrays_bitwise": bitwise, "arrays": n,
             "max_ulps": ulps}
 
 
-async def stream_phase(R, S, variant_path, storage, ctx, tmp):
-    """Stream live events into the served model (bench_streaming_freshness
-    at the retrieval_scale width), with every count at 0 just before and
-    read just after; returns (launches, record)."""
+class CodecLog:
+    """A PIOLOG01 log written with the port's codec alone (the ``stream``
+    phase's feed)."""
+
+    def __init__(self, path: str):
+        from incubator_predictionio_tpu_torch.native import format as pfmt
+
+        self.path, self._fmt = path, pfmt
+        self._interner, self._written = pfmt.Interner(), 0
+        with open(path, "wb") as f:
+            f.write(pfmt.MAGIC)
+
+    def append(self, events) -> None:
+        with open(self.path, "ab") as f:
+            for e in events:
+                self._written += 1
+                f.write(self._fmt.encode_event(e, f"ev{self._written:010d}",
+                                               self._interner))
+
+
+async def stream_phase(R, S, variant_path, storage, ctx, tmp, feed, *,
+                       name="stream", n_users=N_USERS, n_items=N_ITEMS,
+                       recall_floor=RECALL_FLOOR, guard=None):
+    """Stream live events into the served model (bench_streaming_freshness's
+    traffic over ``n_users`` × ``n_items``), with every count at 0 just
+    before and read just after. ``feed`` is the log the events go to
+    (``.path``, ``.append(events)``); the two-stage recall after the stream
+    is held to ``recall_floor`` unless it is None. Returns (launches,
+    record)."""
     import dataclasses
 
     import aiohttp
 
-    from incubator_predictionio_tpu_torch.native import format as pfmt
     from incubator_predictionio_tpu_torch.server.query_server import (
         QueryServer,
         ServerConfig,
@@ -1728,25 +1774,15 @@ async def stream_phase(R, S, variant_path, storage, ctx, tmp):
 
     check("PIO_STREAM_FUSED" not in os.environ,
           "PIO_STREAM_FUSED is set: the phase runs the default (auto) first")
-    log_path = os.path.join(tmp, "live.piolog")
-    with open(log_path, "wb") as f:
-        f.write(pfmt.MAGIC)
-    interner, written = pfmt.Interner(), [0]
-
-    def append(events):
-        with open(log_path, "ab") as f:
-            for e in events:
-                written[0] += 1
-                f.write(pfmt.encode_event(e, f"ev{written[0]:010d}", interner))
-
+    log_path, append = feed.path, feed.append
     rng = np.random.default_rng(5)
     # the events of every round (the last one profiled) and the backlog,
     # drawn in the order they are appended
-    rounds = [live_events(rng, STREAM_ROUND_EVENTS)
+    rounds = [live_events(rng, STREAM_ROUND_EVENTS, n_users, n_items)
               for _ in range(STREAM_ROUNDS + 1)]
-    backlog = live_events(rng, STREAM_BACKLOG)
+    backlog = live_events(rng, STREAM_BACKLOG, n_users, n_items)
     # the second backlog, folded by the device engine (PIO_STREAM_FUSED=device)
-    backlog_dev = live_events(rng, STREAM_BACKLOG)
+    backlog_dev = live_events(rng, STREAM_BACKLOG, n_users, n_items)
     users = list(dict.fromkeys(int(e.entity_id[1:]) for e in backlog))
     users = users[:STREAM_EVAL_USERS]
     payloads = [{"user": f"u{u}", "num": 10} for u in users]
@@ -1757,18 +1793,29 @@ async def stream_phase(R, S, variant_path, storage, ctx, tmp):
     server = QueryServer(ServerConfig(engine_variant=variant_path, ip="127.0.0.1",
                                       port=free_port()), storage=storage, ctx=ctx)
     torch.cuda.synchronize()
-    rec = {"deploy_s": time.perf_counter() - t0}
+    rec = {"deploy_s": time.perf_counter() - t0,
+           "served_resident_at_deploy": server.deployed.models[0].mf.device_resident}
     await server.start()
     url = f"http://127.0.0.1:{server.config.port}"
     try:
         t0 = time.perf_counter()
         model, inst, names, defaults = await loop.run_in_executor(
             None, lambda: load_base_model(variant_path, storage, ctx))
+        rec["updater_model_resident"] = model.mf.device_resident
+        # a resident model's one pull of its tables to the host, which the
+        # updater's trainer folds on (reference updater.py:170)
+        t1 = time.perf_counter()
+        model.mf.ensure_host()
+        rec["ensure_host_s"] = time.perf_counter() - t1
+        rec["ensure_host_bytes"] = (
+            (model.mf.n_users + model.mf.n_items) * (model.mf.config.rank + 1) * 4
+            if rec["updater_model_resident"] else 0)
         up = StreamUpdater(
-            UpdaterConfig(state_dir=os.path.join(tmp, "stream-state"),
+            UpdaterConfig(state_dir=os.path.join(tmp, f"{name}-state"),
                           feed_path=log_path, replicas=(url,),
                           batch_events=16_384, micro_batch=STREAM_MICRO),
-            model, inst, event_names=names, default_values=defaults, ctx=ctx)
+            model, inst, event_names=names, default_values=defaults, ctx=ctx,
+            guard=guard)
         rec["updater_setup_s"] = time.perf_counter() - t0
         check(up.trainer.device.type == "cuda", f"trainer on {up.trainer.device}")
         # the start-up heap (torch, the server, the model, the earlier
@@ -1845,8 +1892,8 @@ async def stream_phase(R, S, variant_path, storage, ctx, tmp):
                       "the replica did not reach the profiled round's delta")
                 wall = time.perf_counter() - t0
             rec["profiled_round"] = busy_record(by_name, wall, 8)
-            log_window("stream round", {"queries": STREAM_ROUND_EVENTS,
-                                        **rec["profiled_round"]})
+            log_window(f"{name} round", {"queries": STREAM_ROUND_EVENTS,
+                                         **rec["profiled_round"]})
             check(S.adam_rows.launches == 0, f"K3 launched "
                   f"{S.adam_rows.launches} times on the host pass's rounds")
             await loop.run_in_executor(None, append, backlog)
@@ -1903,10 +1950,11 @@ async def stream_phase(R, S, variant_path, storage, ctx, tmp):
                   f"replica counts {st}")
             served = server.deployed.models[0]
             mf, umf = served.mf, up.model.mf
-            for name in ("user_emb", "item_emb", "user_bias", "item_bias"):
-                check(np.array_equal(getattr(mf, name), getattr(umf, name)),
-                      f"served {name} differs from the updater's applied model")
-            replay = replay_check(up, [*rounds, backlog, backlog_dev])
+            for table in ("user_emb", "item_emb", "user_bias", "item_bias"):
+                check(np.array_equal(getattr(mf, table), getattr(umf, table)),
+                      f"[{name}] served {table} differs from the updater's "
+                      "applied model")
+            replay = replay_check(name, up, [*rounds, backlog, backlog_dev])
             touched_users = sorted(i for k, i in up.trainer.rows if k == "u")
             touched_items = {f"i{i}" for k, i in up.trainer.rows if k == "i"}
             info = served.serving_info()
@@ -1922,10 +1970,11 @@ async def stream_phase(R, S, variant_path, storage, ctx, tmp):
             check(R.score_centroids_quantized.launches > k2,
                   "K2 did not launch on the two-stage queries after the stream")
             same_set, same_order = check_vs_cpu(
-                "stream-exact", (umf.user_emb, umf.item_emb, umf.user_bias,
-                                 umf.item_bias, umf.mean),
+                f"{name}-exact", (umf.user_emb, umf.item_emb, umf.user_bias,
+                                  umf.item_bias, umf.mean),
                 users[:STREAM_CPU_USERS], exact[:STREAM_CPU_USERS])
-            check(recall >= RECALL_FLOOR, f"recall@10 {recall} < {RECALL_FLOOR}")
+            check(recall_floor is None or recall >= recall_floor,
+                  f"[{name}] recall@10 {recall} < {recall_floor}")
             seen = 0
             for u, body in zip(users, two):
                 for x in body["itemScores"]:
@@ -1944,19 +1993,39 @@ async def stream_phase(R, S, variant_path, storage, ctx, tmp):
             check(np.array_equal(ivf.stale_emb, umf.item_emb[ivf.stale_ids])
                   and np.array_equal(ivf.stale_bias, umf.item_bias[ivf.stale_ids]),
                   "the IVF overlay rows are not the current rows")
-            log(f"[stream] two-stage after the stream: recall@10 {recall:.4f} vs "
-                f"exact over {len(users)} backlog users (floor {RECALL_FLOOR}; "
+            log(f"[{name}] two-stage after the stream: recall@10 {recall:.4f} vs "
+                f"exact over {len(users)} backlog users (floor {recall_floor}; "
                 f"{rec['recall_before_stream']:.4f} before the stream); {seen} "
                 f"touched items served, each "
                 f"at its current row's score; overlay holds {len(stale)} rows")
+            # a delta's two halves on the replica, apart: the host copy of
+            # the tables (with_row_updates of no rows) and the re-prepare
+            # of the copy on the card, profiled
+            t0 = time.perf_counter()
+            copy = mf.with_row_updates({}, {})
+            rec["delta_host_copy_ms"] = (time.perf_counter() - t0) * 1e3
+            with cuda_profile() as by_name:
+                t0 = time.perf_counter()
+                copy.prepare_for_serving(quantize=True, device=ctx.device,
+                                         build_index=False)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            rec["delta_reprepare"] = busy_record(by_name, wall, 6)
+            del copy
+            w = rec["delta_reprepare"]
+            log(f"[{name}] a delta's halves on the replica: the host copy of "
+                f"the tables {rec['delta_host_copy_ms']:.1f} ms; the re-prepare "
+                f"on the card {w['wall_ms']:.1f} ms wall, {w['device_busy_ms']:.3f} "
+                "ms device: " + ", ".join(f"{k[:40]}={v:.3f}"
+                                          for k, v in w["top_device_ms"].items()))
     finally:
         gc.unfreeze()
         await server.shutdown()
     launches = {"score_catalog_quantized": R.score_catalog_quantized.launches,
                 "score_centroids_quantized": R.score_centroids_quantized.launches,
                 "adam_rows": S.adam_rows.launches}
-    for name, count in launches.items():
-        check(count > 0, f"[stream] {name} never launched in the phase")
+    for kernel, count in launches.items():
+        check(count > 0, f"[{name}] {kernel} never launched in the phase")
     check(launches["adam_rows"] == k3_backlog,
           f"K3 launched {launches['adam_rows']} times in the phase, "
           f"{k3_backlog} of them in the device backlog")
@@ -1970,7 +2039,9 @@ async def stream_phase(R, S, variant_path, storage, ctx, tmp):
         "device_backlog": {"updater_events_per_sec": STREAM_BACKLOG / device_s,
                            "run_once_s": device_s, "fold_phases_s": phases_dev,
                            "k3_launches": k3_backlog},
-        "delta_apply_ms": {"n": len(apply_ms), "p50": float(np.median(apply_ms)),
+        "delta_apply_ms": {"n": len(apply_ms),
+                           "p50": pct(server.delta_apply_s, 50),
+                           "p99": pct(server.delta_apply_s, 99),
                            "max": max(apply_ms), "all": apply_ms},
         "touched_users": len(touched_users), "touched_items": len(touched_items),
         "replay": replay, "exact_cpu_same_ids": same_set,
@@ -1982,24 +2053,26 @@ async def stream_phase(R, S, variant_path, storage, ctx, tmp):
         "latency_ms": {"exact_p50": pct(lat_exact, 50), "two_stage_p50": pct(lat_two, 50)},
         "launches": launches})
     v = rec["event_visible_ms"]
-    log(f"[stream] event visible p50 {v['p50']:.1f} ms p99 {v['p99']:.1f} ms "
+    log(f"[{name}] event visible p50 {v['p50']:.1f} ms p99 {v['p99']:.1f} ms "
         f"({STREAM_ROUNDS} rounds of {STREAM_ROUND_EVENTS}); backlog of "
         f"{STREAM_BACKLOG}: {rec['updater_events_per_sec']:.1f} events/s "
         f"(run_once {sustained_s:.3f} s; fold phases "
         + ", ".join(f"{k} {t:.3f} s" for k, t in phases.items())
         + f"; garbage collections {gc_backlog}); ")
-    log(f"[stream] backlogs of {STREAM_BACKLOG}, host pass (auto) | device "
+    log(f"[{name}] backlogs of {STREAM_BACKLOG}, host pass (auto) | device "
         f"engine (device, {k3_backlog} K3 launches): events/s "
         f"{rec['updater_events_per_sec']:.1f} | "
         f"{rec['device_backlog']['updater_events_per_sec']:.1f}; run_once "
         f"{sustained_s:.3f} | {device_s:.3f} s; fold compute "
         f"{phases['compute']:.4f} | {phases_dev['compute']:.4f} s")
-    log("[stream] "
+    log(f"[{name}] "
         "a round's stages p50 (ms): "
         + ", ".join(f"{k} {v['p50']:.1f}" for k, v in rec["round_stages_ms"].items())
         + "; delta apply on the replica p50 "
-        f"{rec['delta_apply_ms']['p50']:.1f} ms max {rec['delta_apply_ms']['max']:.1f} ms; "
-        f"launches {launches}")
+        f"{rec['delta_apply_ms']['p50']:.1f} ms p99 {rec['delta_apply_ms']['p99']:.1f} "
+        f"ms max {rec['delta_apply_ms']['max']:.1f} ms; the updater model's "
+        f"table pull (ensure_host) {rec['ensure_host_s']:.3f} s, "
+        f"{rec['ensure_host_bytes']} bytes; launches {launches}")
     return launches, rec
 
 
@@ -2485,6 +2558,8 @@ def rec_train_phase(R, ctx, tmp):
     del recm, model
     gc.collect()
     torch.cuda.empty_cache()
+    # rec-stream deploys the persisted model again (popped by main)
+    rec["persisted"] = {"fs": fs, "iid": iid, "variant_path": variant_path}
     return launches, rec
 
 
@@ -2657,6 +2732,469 @@ def rec_workflow_phase(R, ctx, tmp):
     return launches, rec
 
 
+# -- phases 13-15: the event store under the ported paths -------------------
+
+def rec_stream_phase(R, S, ctx, tmp, persisted):
+    """Stream live events into rec-train's persisted model (1,000,000 ×
+    100,000, rank 128), deployed resident on the card, through a storage
+    whose EVENTDATA is the ``eventlog`` backend: the events go in through
+    ``EventLogEvents.insert_batch`` and the updater's feed is
+    ``resolve_feed_path``'s file. The traffic and checks are the
+    ``stream`` phase's (:func:`stream_phase`) at these tables, K3 at D 129
+    under ``device``. Returns (launches, record)."""
+    import datetime as dt
+
+    from incubator_predictionio_tpu_torch.core import PersistentModelManifest
+    from incubator_predictionio_tpu_torch.core.controller import class_path
+    from incubator_predictionio_tpu_torch.data.storage import (
+        EngineInstance,
+        Model,
+        Storage,
+    )
+    from incubator_predictionio_tpu_torch.data.storage.base import App
+    from incubator_predictionio_tpu_torch.data.storage.eventlog_backend import (
+        EventLogEvents,
+    )
+    from incubator_predictionio_tpu_torch.native import format as pfmt
+    from incubator_predictionio_tpu_torch.streaming.feed import resolve_feed_path
+    from incubator_predictionio_tpu_torch.streaming.guard import (
+        DivergenceGuard,
+        GuardConfig,
+    )
+    from incubator_predictionio_tpu_torch.templates.recommendation import RecModel
+    from incubator_predictionio_tpu_torch.utils.serialization import (
+        serialize_model,
+    )
+
+    d = os.path.join(tmp, "rec-stream")
+    env = {"PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+           "PIO_STORAGE_SOURCES_DB_PATH": os.path.join(d, "pio.db"),
+           "PIO_STORAGE_SOURCES_LOG_TYPE": "eventlog",
+           "PIO_STORAGE_SOURCES_LOG_PATH": os.path.join(d, "eventlog")}
+    for repo, src in (("METADATA", "DB"), ("EVENTDATA", "LOG"),
+                      ("MODELDATA", "DB")):
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_NAME"] = f"pio_{repo.lower()}"
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE"] = src
+    os.makedirs(d, exist_ok=True)
+    storage = Storage(env)
+    events = storage.get_events()
+    check(isinstance(events, EventLogEvents), f"[rec-stream] EVENTDATA {events}")
+    app_id = storage.get_meta_data_apps().insert(App(0, "rec-stream"))
+    events.init(app_id)
+    # the persisted instance, under the same id as in rec-train, so that
+    # RecModel.load finds its tables under PIO_FS_BASEDIR
+    iid, variant_path = persisted["iid"], persisted["variant_path"]
+    now = dt.datetime.now(dt.timezone.utc)
+    storage.get_meta_data_engine_instances().insert(EngineInstance(
+        id=iid, status="COMPLETED", start_time=now, end_time=now,
+        engine_id="rec-train", engine_version="1",
+        engine_variant=os.path.abspath(variant_path), engine_factory=FACTORY))
+    storage.get_model_data_models().insert(Model(iid, serialize_model(
+        [PersistentModelManifest(class_path(RecModel))])))
+    path = resolve_feed_path(storage, "rec-stream")
+    check(path == events.log_path(app_id), f"[rec-stream] feed path {path}")
+
+    class StoreFeed:
+        """The eventlog backend as the stream's writer."""
+
+        def __init__(self):
+            self.path = path
+
+        def append(self, evs):
+            events.insert_batch(evs, app_id)
+
+    # rec-train's tables have no cluster structure: their IVF's recall is
+    # ~0.02 before any delta, so the guard's two-stage recall probe runs
+    # with a floor of 0 (the norm and finiteness checks keep theirs)
+    guard = DivergenceGuard(GuardConfig(recall_floor=0.0))
+    try:
+        with env_vars(PIO_FS_BASEDIR=persisted["fs"]), retrieval_mode("auto"):
+            launches, rec = asyncio.run(stream_phase(
+                R, S, variant_path, storage, ctx, d, StoreFeed(),
+                name="rec-stream", n_users=REC_USERS, n_items=REC_ITEMS,
+                recall_floor=None, guard=guard))
+    finally:
+        storage.close()
+    check(rec["served_resident_at_deploy"] and rec["updater_model_resident"],
+          f"[rec-stream] the deployed model was not resident: {rec}")
+    with open(path, "rb") as f:
+        buf = f.read()
+    rec["log_records"] = sum(kind == pfmt.KIND_EVENT
+                             for _, kind, _ in pfmt.iter_records(buf))
+    rec["log_bytes"] = len(buf)
+    return launches, rec
+
+
+#: seq-workflow: bench_sequential's widths (bench.py:897-899) trained from
+#: events in the store; 2,048 users' cycle sessions of 16-128 items (~150k
+#: view events: the session count is the cut, for the import's time at
+#: ~58 µs an event)
+SEQ_WF_USERS, SEQ_WF_LENGTHS, SEQ_WF_MAX_LEN = 2048, (16, 128), 512
+
+
+async def seq_workflow_body(sessions_, session, url, server):
+    """16 ``{"user": U}`` singles against 16 ``recentItems`` singles of the
+    same users' last 512 items: the same top-10, scores within 1e-4; then a
+    burst of 64 user queries. The trained loss falls over the 2 epochs."""
+    model = server.deployed.models[0]
+    info = model.serving_info()
+    check(info["device"].startswith("cuda"), f"[seq-workflow] not on the card: {info}")
+    first, final = float(model.step_losses[0, 0]), model.final_loss
+    check(np.isfinite(final) and np.isfinite(model.step_losses).all()
+          and final < first,
+          f"[seq-workflow] loss first step {first}, final {final}")
+    picked = list(range(0, SEQ_WF_USERS, SEQ_WF_USERS // 16))[:16]
+    users = [{"user": f"u{k}", "num": 10} for k in picked]
+    recent = [{"recentItems": sessions_[k][-SEQ_WF_MAX_LEN:], "num": 10}
+              for k in picked]
+    b_user, l_user = await post_all(session, url, users, False)
+    b_recent, l_recent = await post_all(session, url, recent, False)
+    check_answers(recent, b_user)  # the user's history is never served
+    worst = 0.0
+    for p, a, b in zip(users, b_user, b_recent):
+        check(ids_of(a) == ids_of(b),
+              f"[seq-workflow] {p['user']}: {ids_of(a)} vs recentItems {ids_of(b)}")
+        for x, y in zip(a["itemScores"], b["itemScores"]):
+            worst = max(worst, abs(x["score"] - y["score"]))
+    check(worst <= 1e-4, f"[seq-workflow] user vs recentItems scores {worst}")
+    burst = [{"user": f"u{k}", "num": 10} for k in range(64)]
+    b_burst, l_burst = await post_all(session, url, burst, True)
+    check_answers([{"recentItems": sessions_[k], "num": 10} for k in range(64)],
+                  b_burst)
+    n_items = SEQ_VOCAB - 1
+    hits = sum(f"i{(int(sessions_[k][-1][1:]) + 1) % n_items}" in ids_of(b)
+               for k, b in zip(picked, b_user))
+    log(f"[seq-workflow] 16 user queries equal to the recentItems queries of "
+        f"the same histories (max score diff {worst:.2e}); the next item of "
+        f"the cycle in the top 10 for {hits}/16; loss first step {first:.4f}, "
+        f"final {final:.4f}")
+    return {"user_vs_recent_max_score_diff": worst, "next_item_in_top10": hits,
+            "first_step_loss": first, "final_loss": final,
+            "latency_ms": {k: {"n": len(v), "p50": pct(v, 50), "p99": pct(v, 99)}
+                           for k, v in (("user_single", l_user),
+                                        ("recent_single", l_recent),
+                                        ("user_burst64", l_burst))}}
+
+
+def seq_workflow_phase(ctx, tmp):
+    """The sequential template through the normal entry points, in-process,
+    on sqlite: CLI ``app new``, ``import`` of the sessions' ``view`` events,
+    ``train`` on the card at bench_sequential's widths (``max_len`` 512,
+    batch 64, 2 epochs), the sessions read back from the store held against
+    the same sessions folded directly, a deploy and queries over a socket.
+    Returns (launches of the attention kernels, record)."""
+    import datetime as dt
+    import io
+
+    from incubator_predictionio_tpu_torch.data.storage import registry
+    from incubator_predictionio_tpu_torch.ops import attention as A
+    from incubator_predictionio_tpu_torch.templates.sequential import (
+        DataSource,
+        DataSourceParams,
+    )
+    from incubator_predictionio_tpu_torch.tools import cli
+
+    wf = os.path.join(tmp, "seq-workflow")
+    os.makedirs(wf, exist_ok=True)
+    env = {"PIO_FS_BASEDIR": wf, "PIO_STORAGE_SOURCES_WF_TYPE": "sqlite",
+           "PIO_STORAGE_SOURCES_WF_PATH": os.path.join(wf, "pio.db")}
+    for repo in ("METADATA", "EVENTDATA", "MODELDATA"):
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_NAME"] = f"pio_{repo.lower()}"
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE"] = "WF"
+    sessions_ = cycle_sessions(np.random.default_rng(31), SEQ_WF_USERS,
+                               SEQ_WF_MAX_LEN, SEQ_WF_LENGTHS)
+    n_events = sum(len(x) for x in sessions_)
+    t0 = dt.datetime(2026, 3, 1, tzinfo=dt.timezone.utc)
+    events_path = os.path.join(wf, "events.json")
+    with open(events_path, "w") as f:
+        j = 0
+        for k, items in enumerate(sessions_):
+            for item in items:
+                f.write(json.dumps({
+                    "event": "view", "entityType": "user", "entityId": f"u{k}",
+                    "targetEntityType": "item", "targetEntityId": item,
+                    "eventTime": (t0 + dt.timedelta(seconds=j)).isoformat()})
+                    + "\n")
+                j += 1
+    params = {"appName": "seq", "maxLen": SEQ_WF_MAX_LEN, "dModel": SEQ_D,
+              "nHeads": SEQ_HEADS, "nLayers": SEQ_LAYERS,
+              "learningRate": TRAIN_LR, "batchSize": TRAIN_BATCH,
+              "epochs": TRAIN_EPOCHS}
+    variant_path = os.path.join(wf, "engine.json")
+    with open(variant_path, "w") as f:
+        json.dump({"id": "seq-workflow", "version": "1",
+                   "engineFactory": SEQ_FACTORY,
+                   "datasource": {"params": {"appName": "seq",
+                                             "maxLen": SEQ_WF_MAX_LEN}},
+                   "algorithms": [{"name": "transformer", "params": params}]}, f)
+
+    def run(argv) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        check(rc == 0, f"[seq-workflow] {argv} exited {rc}: {buf.getvalue()}")
+        return buf.getvalue()
+
+    rec = {"users": SEQ_WF_USERS, "events": n_events,
+           "session_lengths": SEQ_WF_LENGTHS, "max_len": SEQ_WF_MAX_LEN,
+           "batch": TRAIN_BATCH, "epochs": TRAIN_EPOCHS}
+    prev = registry.use_storage(None)
+    try:
+        with env_vars(**env):
+            out = run(["app", "new", "seq"])
+            app_id = int(out.split("ID: ")[-1].split()[0])
+            s0 = time.perf_counter()
+            out = run(["import", "--appid", str(app_id), "--input", events_path])
+            rec["import_s"] = time.perf_counter() - s0
+            check(f"Imported {n_events} events." in out, f"[seq-workflow] import: {out}")
+            # the sessions read back from the store, against the same
+            # sessions folded directly from the arrays
+            ds = DataSource(DataSourceParams(app_name="seq", max_len=SEQ_WF_MAX_LEN))
+            want = ds._build_fold(ctx, sessions_, False)
+            s0 = time.perf_counter()
+            got = ds.read_training(ctx)
+            rec["read_training_s"] = time.perf_counter() - s0
+            check(dict(got.item_map.items()) == dict(want.item_map.items())
+                  and got.sequences.tobytes() == want.sequences.tobytes(),
+                  "[seq-workflow] read_training's sessions differ from the "
+                  "arrays'")
+            rec["rows"], rec["vocab"] = len(got.sequences), len(got.item_map) + 1
+            del got, want
+            A.reset_launches()
+            s0 = time.perf_counter()
+            out = run(["train", "-v", variant_path, "--device", str(ctx.device)])
+            rec["train_s"] = time.perf_counter() - s0
+            fit_launches = {w.__name__: w.launches for w in A.KERNEL_WRAPPERS}
+            for w in ("causal_mha_small_head", "causal_mha_small_head_bwd"):
+                check(fit_launches[w] > 0, f"[seq-workflow] {w} never launched "
+                      f"in the CLI train: {fit_launches}")
+            iid = out.split("Engine instance ID: ")[-1].strip()
+            storage = registry.get_storage()
+            inst = storage.get_meta_data_engine_instances().get(iid)
+            check(inst is not None and inst.status == "COMPLETED",
+                  f"[seq-workflow] instance {iid}: {inst}")
+            A.reset_launches()
+            res = asyncio.run(serve_phase(
+                "seq-workflow", variant_path, storage, ctx,
+                lambda session, url, server: seq_workflow_body(
+                    sessions_, session, url, server)))
+            serve_launches = {w.__name__: w.launches for w in A.KERNEL_WRAPPERS}
+            rec.update(res)
+    finally:
+        s = registry.use_storage(prev)
+        if s is not None:
+            s.close()
+    launches = {k: fit_launches[k] + serve_launches[k] for k in fit_launches}
+    rec["launches"] = {"train": fit_launches, "serve": serve_launches}
+    lat = rec["latency_ms"]
+    log(f"[seq-workflow] app new → import {n_events} view events of "
+        f"{SEQ_WF_USERS} users in {rec['import_s']:.2f} s → read_training "
+        f"{rec['read_training_s']:.2f} s ({rec['rows']} rows, vocab "
+        f"{rec['vocab']}, equal to the arrays') → train on the card "
+        f"{rec['train_s']:.2f} s → deploy → queries: user p50 "
+        f"{lat['user_single']['p50']:.2f} p99 {lat['user_single']['p99']:.2f} ms, "
+        f"recentItems p50 {lat['recent_single']['p50']:.2f} p99 "
+        f"{lat['recent_single']['p99']:.2f} ms, user burst of 64 p50 "
+        f"{lat['user_burst64']['p50']:.2f} ms; launches {rec['launches']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def _tree_rel(got, want) -> tuple[bool, float]:
+    """(bitwise, worst relative Frobenius error) over lists of tensors."""
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+    rel = max(float(torch.linalg.norm((a - b).float()) / torch.linalg.norm(b.float()))
+              for a, b in zip(got, want))
+    return bitwise, rel
+
+
+def _resume_verdict(name, resumed, straight, again, loss) -> dict:
+    """Resumed against uninterrupted: bitwise, or rec-train's cut-fit band
+    (loss 1e-4 relative, each tensor 1e-2 relative Frobenius); two
+    uninterrupted fits beside it, the card's own noise."""
+    bitwise, rel = _tree_rel(resumed, straight)
+    noise_bitwise, noise_rel = _tree_rel(again, straight)
+    loss_rel = abs(loss[0] - loss[1]) / abs(loss[1])
+    out = {"bitwise": bitwise, "rel_frobenius": rel, "loss_rel": loss_rel,
+           "uninterrupted_twice_bitwise": noise_bitwise,
+           "uninterrupted_twice_rel_frobenius": noise_rel,
+           "uninterrupted_twice_loss_rel": abs(loss[2] - loss[1]) / abs(loss[1])}
+    check(bitwise or (loss_rel <= REC_FIT_LOSS_RTOL and rel <= REC_FIT_TABLE_RTOL),
+          f"[ckpt-resume] {name}: resumed vs uninterrupted {out}")
+    log(f"[ckpt-resume] {name}: resumed vs uninterrupted bitwise {bitwise}, "
+        f"worst rel Frobenius {rel:.3e}, loss rel {loss_rel:.3e} (band "
+        f"{REC_FIT_TABLE_RTOL} / {REC_FIT_LOSS_RTOL}); two uninterrupted fits: "
+        f"bitwise {noise_bitwise}, rel {noise_rel:.3e}, loss rel "
+        f"{out['uninterrupted_twice_loss_rel']:.3e}")
+    return out
+
+
+def ckpt_resume_phase(ctx, tmp):
+    """Interrupted fits resumed on the card: the two-tower fit at
+    rec-train's cut size (20,000 × 5,000, rank 128, batch 65,536, resident,
+    bf16 moments) stopped after 2 of 4 epochs with ``checkpoint_every=1``
+    and resumed; the sequential fit at seq-train512's widths on 256 rows
+    stopped after 1 of 2 epochs and resumed (K4 forward and backward). Each
+    restored state is held bitwise against what was saved, and each resumed
+    fit against an uninterrupted one. Then one checkpoint's save time and
+    bytes at rec-train's full shape. Returns (attention launches, record)."""
+    from incubator_predictionio_tpu_torch.models.transformer import (
+        TransformerNet,
+        _init_params,
+    )
+    from incubator_predictionio_tpu_torch.models.two_tower import (
+        TwoTowerConfig,
+        TwoTowerMF,
+        _init_tables,
+    )
+    from incubator_predictionio_tpu_torch.ops import attention as A
+    from incubator_predictionio_tpu_torch.templates.sequential import (
+        DataSource,
+        DataSourceParams,
+        TransformerAlgorithm,
+        TransformerAlgorithmParams,
+    )
+    from incubator_predictionio_tpu_torch.utils.checkpoint import (
+        TrainCheckpointer,
+        scalar,
+    )
+    from incubator_predictionio_tpu_torch.utils.optim import adam_init, adam_tree_init
+
+    dev = ctx.device
+    rec = {}
+    rng = np.random.default_rng(17)
+    n = REC_FIT_EVENTS
+    data = (rng.integers(0, REC_FIT_USERS, n).astype(np.int32),
+            rng.integers(0, REC_FIT_ITEMS, n).astype(np.int32),
+            (1.0 + 4.0 * rng.random(n)).astype(np.float32))
+
+    def two_tower(epochs, d=None, every=0):
+        return TwoTowerMF(TwoTowerConfig(
+            rank=REC_RANK, batch_size=REC_BATCH, epochs=epochs, seed=3,
+            adam_moments_dtype=REC_MOMENTS, gather="device",
+            checkpoint_dir=d, checkpoint_every=every)).fit(
+                ctx, *data, REC_FIT_USERS, REC_FIT_ITEMS)
+
+    straight, again = two_tower(4), two_tower(4)
+    d = os.path.join(tmp, "ckpt-rec")
+    partial = two_tower(2, d, 1)
+    ck = TrainCheckpointer(d)
+    check(ck.all_steps() == [1, 2], f"[ckpt-resume] steps {ck.all_steps()}")
+    n_batches = -(-n // REC_BATCH)
+    like_t = list(_init_tables(TwoTowerConfig(rank=REC_RANK), REC_FIT_USERS,
+                               REC_FIT_ITEMS, dev,
+                               torch.Generator(device=dev).manual_seed(0)))
+    like = {"params": like_t, "opt": adam_tree_init(like_t, REC_MOMENTS),
+            "epoch": scalar(0)}
+    state = ck.restore(2, like=like)
+    saved = ck.restore(2)  # the file as written, on the host
+    st = state["opt"]
+    check(all(torch.equal(state["params"][i], partial._tables[k])
+              for i, k in enumerate(("ue", "ie"))),
+          "[ckpt-resume] restored tables differ from the fit's")
+    check(st.count == saved["opt"]["count"] == 2 * n_batches,
+          f"[ckpt-resume] adam's step count {st.count}")
+    check(all(t.device == dev and t.dtype == torch.bfloat16
+              and torch.equal(t.cpu(), w)
+              for t, w in zip(st.m + st.v, saved["opt"]["m"] + saved["opt"]["v"])),
+          "[ckpt-resume] restored moments are not bitwise the saved bf16 ones")
+    del state, saved, like, like_t, st
+    resumed = two_tower(4, d, 1)
+    rec["two_tower"] = {"users": REC_FIT_USERS, "items": REC_FIT_ITEMS,
+                        "events": n, "steps_per_epoch": n_batches,
+                        "restored_bitwise": True,
+                        **_resume_verdict(
+                            "two-tower", [resumed._tables[k] for k in ("ue", "ie")],
+                            [straight._tables[k] for k in ("ue", "ie")],
+                            [again._tables[k] for k in ("ue", "ie")],
+                            (resumed.final_loss, straight.final_loss,
+                             again.final_loss))}
+    del straight, again, partial, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the sequential fit: seq-train512's widths, 256 rows, 1 of 2 epochs
+    td = DataSource(DataSourceParams(app_name="ckpt", max_len=512))._build_fold(
+        ctx, cycle_sessions(np.random.default_rng(12), 256, 512), False)
+
+    def seq(epochs, d=None, every=0):
+        return TransformerAlgorithm(TransformerAlgorithmParams(
+            app_name="ckpt", max_len=512, d_model=SEQ_D, n_heads=SEQ_HEADS,
+            n_layers=SEQ_LAYERS, learning_rate=TRAIN_LR, batch_size=TRAIN_BATCH,
+            epochs=epochs, checkpoint_dir=d, checkpoint_every=every)).train(ctx, td)
+
+    A.reset_launches()
+    straight, again = seq(2), seq(2)
+    d = os.path.join(tmp, "ckpt-seq")
+    partial = seq(1, d, 1)
+    cfg = partial.config
+    net = TransformerNet(_init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                      dev), cfg, dev, trainable=True)
+    params = list(net.parameters())
+    ck = TrainCheckpointer(d)
+    state = ck.restore(1, like={"params": params,
+                                "opt": adam_init(params, cfg.adam_moments_dtype),
+                                "epoch": scalar(0)})
+    want = list(TransformerNet(partial.params, cfg, dev, trainable=True).parameters())
+    check(all(torch.equal(a, b) for a, b in zip(state["params"], want)),
+          "[ckpt-resume] restored transformer parameters differ from the fit's")
+    steps = -(-len(td.sequences) // TRAIN_BATCH)
+    check(state["opt"].count == steps,
+          f"[ckpt-resume] transformer adam count {state['opt'].count}")
+    del net, params, state, want
+    resumed = seq(2, d, 1)
+    launches = {w.__name__: w.launches for w in A.KERNEL_WRAPPERS}
+    for w in ("causal_mha_small_head", "causal_mha_small_head_bwd"):
+        check(launches[w] > 0, f"[ckpt-resume] {w} never launched: {launches}")
+
+    def leaves(m):
+        return list(TransformerNet(m.params, cfg, dev, trainable=True).parameters())
+
+    with torch.no_grad():
+        rec["transformer"] = {"rows": len(td.sequences), "steps_per_epoch": steps,
+                              "restored_bitwise": True, **_resume_verdict(
+                                  "transformer", leaves(resumed), leaves(straight),
+                                  leaves(again), (resumed.final_loss,
+                                                  straight.final_loss,
+                                                  again.final_loss))}
+    del straight, again, partial, resumed, td
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one checkpoint at rec-train's full shape: both tables fp32, bf16 moments
+    tables = [torch.randn(REC_USERS, REC_RANK + 1, device=dev),
+              torch.randn(REC_ITEMS, REC_RANK + 1, device=dev)]
+    opt = adam_tree_init(tables, REC_MOMENTS)
+    opt.count = 248
+    ck = TrainCheckpointer(os.path.join(tmp, "ckpt-full"), max_to_keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save(4, {"params": tables, "opt": opt, "epoch": scalar(4)})
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(os.path.join(ck.directory, "step-4.pt"))
+    t0 = time.perf_counter()
+    back = ck.restore(4, like={"params": [torch.empty_like(t) for t in tables],
+                               "opt": adam_tree_init(tables, REC_MOMENTS),
+                               "epoch": scalar(0)})
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(all(torch.equal(a, b) for a, b in zip(back["params"], tables))
+          and back["opt"].count == 248, "[ckpt-resume] full-shape restore")
+    rec["full_shape"] = {"users": REC_USERS, "items": REC_ITEMS,
+                         "rank": REC_RANK, "moments": REC_MOMENTS,
+                         "bytes": nbytes, "save_s": save_s,
+                         "restore_s": restore_s}
+    log(f"[ckpt-resume] one checkpoint at {REC_USERS}x{REC_ITEMS}, rank "
+        f"{REC_RANK} + bias, {REC_MOMENTS} moments: {nbytes} bytes, save "
+        f"{save_s:.3f} s, restore onto the card {restore_s:.3f} s")
+    del tables, opt, back
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["launches"] = launches
+    return launches, rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2728,7 +3266,8 @@ def main() -> int:
         # the stream phase reuses the persisted model and its IVF index
         with retrieval_mode("auto"):
             counts, main["stream"] = asyncio.run(stream_phase(
-                R, S, variant_path, storage, ctx, tmp))
+                R, S, variant_path, storage, ctx, tmp,
+                CodecLog(os.path.join(tmp, "live.piolog"))))
         for k, c in counts.items():
             launches[k] = launches.get(k, 0) + c
     del user, item, user_bias, item_bias, ivf, storage
@@ -2738,11 +3277,19 @@ def main() -> int:
     # configuration through fit, persist, load and deploy, then the
     # normal entry points (CLI app new, import, train, deploy) on sqlite
     with tempfile.TemporaryDirectory() as tmp:
-        for name, phase in (("rec_train", rec_train_phase),
-                            ("rec_workflow", rec_workflow_phase)):
-            counts, main[name] = phase(R, ctx, tmp)
-            for k, c in counts.items():
-                launches[k] = launches.get(k, 0) + c
+        counts, main["rec_train"] = rec_train_phase(R, ctx, tmp)
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
+        # streaming into the card-trained model, through the eventlog backend
+        counts, main["rec_stream"] = rec_stream_phase(
+            R, S, ctx, tmp, main["rec_train"].pop("persisted"))
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts, main["rec_workflow"] = rec_workflow_phase(R, ctx, tmp)
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
     k1 = k1 + main["rec_train"].pop("k1_cases")
     k2 = k2 + main["rec_train"].pop("k2_cases")
     # each sequential phase runs with the counts at 0 and reads them after;
@@ -2766,6 +3313,13 @@ def main() -> int:
     fit_counts, _, main["train_1024"] = train_phase(
         "seq-train1024", 1024, TRAIN_ROWS_1024, TRAIN_EPOCHS_1024, ctx, seed=12)
     add(fit_counts)
+    # the sequential template from stored events, then interrupted fits
+    # resumed from their checkpoints
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, phase in (("seq_workflow", seq_workflow_phase),
+                            ("ckpt_resume", ckpt_resume_phase)):
+            counts, main[name] = phase(ctx, tmp)
+            add(counts)
     launches.update(att_launches)
     for name, count in launches.items():
         check(count > 0, f"{name} never launched on the main path")
@@ -2807,7 +3361,12 @@ def main() -> int:
                  next(c for c in k3 if (c["R"], c["D"]) == K3_MAIN)),
          "host_fused_ms": next(c for c in k3 if "ms" in c)["host_fused_ms"],
          "device_engine_ms": next(c for c in k3 if "ms" in c)["device_engine_ms"],
-         "k3b_device_ms": k3b["device_ms"]},
+         "k3b_device_ms": k3b["device_ms"],
+         "d129": {k: v for k, v in next(
+             c for c in k3 if (c["R"], c["D"]) == K3_REC).items()
+             if k in ("max_abs_err", "max_ulps", "bitwise_plain", "ms",
+                      "device_ms", "plain_ms", "library_ms", "bound_ms",
+                      "bound_by", "host_fused_ms", "device_engine_ms")}},
         entry("causal_mha_small_head", "attention.cu",
               "incubator_predictionio_tpu/ops/attention.py:122", k4,
               next(c for c in k4 if c["B"] == 64)),

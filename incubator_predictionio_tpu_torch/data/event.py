@@ -1,12 +1,13 @@
 """The event model: ``Event``, ``DataMap``, ``epoch_micros``, validation.
 
 Counterpart of ``incubator_predictionio_tpu/data/event.py`` (:27, :91,
-:216, :268, :318), cut to what the streaming feed, the fold, the sqlite
-event store and ``import`` read: the immutable event, its property bag,
-the exact epoch-microseconds conversion, the time-prefixed event id, the
-JSON forms (``to_json_dict``, ``from_json``) and :func:`validate_event`.
-The typed getters of ``DataMap`` and ``PropertyMap`` come with the event
-server.
+:179, :216, :268, :318), cut to what the streaming feed, the fold, the
+event stores and ``import`` read: the immutable event, its property bag,
+the aggregation snapshot :class:`PropertyMap`, the exact
+epoch-microseconds conversion, the time-prefixed event id, the JSON forms
+(``to_json_dict``, ``from_json``), ``with_id`` and
+:func:`validate_event`. The typed getters of ``DataMap`` come with the
+event server.
 """
 
 from __future__ import annotations
@@ -123,6 +124,40 @@ class DataMap(Mapping[str, Any]):
         return dict(self._fields)
 
 
+class PropertyMap(DataMap):
+    """Aggregation result: a DataMap plus first/last update times
+    (reference PropertyMap.scala:36-99)."""
+
+    __slots__ = ("first_updated", "last_updated")
+
+    def __init__(
+        self,
+        fields: Mapping[str, Any] | None,
+        first_updated: _dt.datetime,
+        last_updated: _dt.datetime,
+    ):
+        super().__init__(fields)
+        object.__setattr__(self, "first_updated", first_updated)
+        object.__setattr__(self, "last_updated", last_updated)
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return (
+            f"PropertyMap({self.to_dict()!r}, first_updated={self.first_updated}, "
+            f"last_updated={self.last_updated})"
+        )
+
+    def __eq__(self, other: object) -> bool:
+        if isinstance(other, PropertyMap):
+            return (
+                self.to_dict() == other.to_dict()
+                and self.first_updated == other.first_updated
+                and self.last_updated == other.last_updated
+            )
+        return super().__eq__(other)
+
+    __hash__ = DataMap.__hash__
+
+
 @dataclass(frozen=True)
 class Event:
     """One immutable event (reference Event.scala:42-66). ``event_time`` is
@@ -140,6 +175,14 @@ class Event:
     pr_id: str | None = None
     event_id: str | None = None
     creation_time: _dt.datetime = field(default_factory=lambda: _dt.datetime.now(UTC))
+
+    def with_id(self, event_id: str) -> "Event":
+        """A copy with ``event_id`` set (a dict copy: ``dataclasses.replace``
+        re-runs the frozen ``__init__`` on the ingestion path)."""
+        e = object.__new__(Event)
+        e.__dict__.update(self.__dict__)
+        e.__dict__["event_id"] = event_id
+        return e
 
     def to_json_dict(self) -> dict[str, Any]:
         """The reference's camelCase JSON form, absent fields dropped."""

@@ -1,15 +1,19 @@
 """Storage contracts: the event store, the metadata DAOs, the model store.
 
 Counterpart of ``incubator_predictionio_tpu/data/storage/base.py``, cut to
-what training and deploy read: :class:`EventStore` with the reference's
-default :meth:`~EventStore.assemble_triples` (:241-368) and
-``_coerce_value``; the records :class:`App`, :class:`AccessKey`,
+what training, deploy and serving read: :class:`EventStore` with the
+reference's defaults of :meth:`~EventStore.find_by_entities` (:113) and its
+shared grouping loop :meth:`~EventStore.group_events_by_entity` (:156),
+:meth:`~EventStore.aggregate_properties` (:201) and
+:meth:`~EventStore.assemble_triples` (:241-368), ``_coerce_value`` and
+:func:`filter_events` (:879); the records :class:`App`, :class:`AccessKey`,
 :class:`Channel`, :class:`EngineInstance`, :class:`Model`; the stores'
 contracts (:class:`AppsStore`, :class:`AccessKeysStore`,
 :class:`ChannelsStore`, :class:`EngineInstancesStore`,
-:class:`ModelsStore`) and :class:`StorageClient`. Sharded reads, property
-aggregation, jobs, evaluation instances and the dump/load contract come in
-later slices (ROADMAP.md).
+:class:`ModelsStore`) and :class:`StorageClient`. Sharded reads
+(``find_sharded``, the ``n_shards`` options) come with the sharding slice
+(ROADMAP.md Queue 1, item 4); jobs, evaluation instances and the dump/load
+contract with item 7.
 """
 
 from __future__ import annotations
@@ -18,13 +22,17 @@ import abc
 import datetime as _dt
 import re
 import secrets
-from collections.abc import Iterator, Sequence
+from collections.abc import Iterable, Iterator, Sequence
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import numpy as np
 
-from incubator_predictionio_tpu_torch.data.event import Event
+from incubator_predictionio_tpu_torch.data.aggregator import (
+    AGGREGATOR_EVENT_NAMES,
+    aggregate_properties as _aggregate,
+)
+from incubator_predictionio_tpu_torch.data.event import Event, PropertyMap
 
 
 class StorageError(Exception):
@@ -97,6 +105,78 @@ class EventStore(abc.ABC):
         filters accept :data:`UNSET` (no filter), ``None`` (must be absent),
         or a string (must equal).
         """
+
+    def find_by_entities(
+        self,
+        app_id: int,
+        entity_type: str,
+        entity_ids: Sequence[str],
+        channel_id: Optional[int] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        event_names: Optional[Sequence[str]] = None,
+        target_entity_type: Any = UNSET,
+        target_entity_id: Any = UNSET,
+        limit_per_entity: Optional[int] = None,
+        reversed: bool = False,
+    ) -> dict[str, list[Event]]:
+        """Batched per-entity read: one storage round trip for many
+        entities. Returns ``{entity_id: [events]}`` with every requested id
+        present (eventless ids map to ``[]``); each list is ordered and
+        truncated exactly as ``find(entity_id=..., limit=limit_per_entity,
+        reversed=reversed)`` would. The default loops :meth:`find` per
+        entity; backends with a bulk path override it."""
+        return {
+            eid: list(self.find(
+                app_id, channel_id, start_time, until_time, entity_type,
+                eid, event_names, target_entity_type, target_entity_id,
+                limit_per_entity, reversed=reversed,
+            ))
+            for eid in dict.fromkeys(entity_ids)
+        }
+
+    @staticmethod
+    def group_events_by_entity(
+        events: Iterable[Event],
+        entity_ids: Sequence[str],
+        limit_per_entity: Optional[int],
+    ) -> dict[str, list[Event]]:
+        """The shared grouping/cap loop of :meth:`find_by_entities`
+        overrides: bucket an (already ordered) event stream per entity,
+        keeping at most ``limit_per_entity`` each; events of entities
+        outside ``entity_ids`` are dropped, every requested id is
+        present."""
+        out: dict[str, list[Event]] = {eid: [] for eid in entity_ids}
+        limit = (limit_per_entity if limit_per_entity is not None
+                 and limit_per_entity >= 0 else None)
+        for e in events:
+            bucket = out.get(e.entity_id)
+            if bucket is None:
+                continue
+            if limit is None or len(bucket) < limit:
+                bucket.append(e)
+        return out
+
+    def aggregate_properties(
+        self,
+        app_id: int,
+        entity_type: str,
+        channel_id: Optional[int] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        required: Optional[Sequence[str]] = None,
+    ) -> dict[str, PropertyMap]:
+        """Fold ``$set/$unset/$delete`` into per-entity snapshots
+        (LEvents.scala:264-296); with ``required``, only entities whose
+        snapshot holds every required key."""
+        agg = _aggregate(self.find(
+            app_id, channel_id, start_time, until_time, entity_type, None,
+            AGGREGATOR_EVENT_NAMES,
+        ))
+        if required:
+            req = set(required)
+            agg = {k: v for k, v in agg.items() if req <= set(v.keys())}
+        return agg
 
     def assemble_triples(
         self,
@@ -217,6 +297,36 @@ def _coerce_value(raw: Any, missing_value: float) -> float:
         return float(raw)
     except (TypeError, ValueError):
         return missing_value
+
+
+def filter_events(
+    events: Iterable[Event],
+    start_time: Optional[_dt.datetime] = None,
+    until_time: Optional[_dt.datetime] = None,
+    entity_type: Optional[str] = None,
+    entity_id: Optional[str] = None,
+    event_names: Optional[Sequence[str]] = None,
+    target_entity_type: Any = UNSET,
+    target_entity_id: Any = UNSET,
+) -> Iterator[Event]:
+    """The in-memory predicate filter of backends without indexes."""
+    names = set(event_names) if event_names is not None else None
+    for e in events:
+        if start_time is not None and e.event_time < start_time:
+            continue
+        if until_time is not None and e.event_time >= until_time:
+            continue
+        if entity_type is not None and e.entity_type != entity_type:
+            continue
+        if entity_id is not None and e.entity_id != entity_id:
+            continue
+        if names is not None and e.event not in names:
+            continue
+        if target_entity_type is not UNSET and e.target_entity_type != target_entity_type:
+            continue
+        if target_entity_id is not UNSET and e.target_entity_id != target_entity_id:
+            continue
+        yield e
 
 
 def entity_shard(entity_id: str, n_shards: int) -> int:

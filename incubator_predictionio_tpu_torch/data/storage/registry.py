@@ -3,9 +3,10 @@
 Counterpart of ``incubator_predictionio_tpu/data/storage/registry.py``: the
 same ``PIO_STORAGE_SOURCES_<NAME>_TYPE`` /
 ``PIO_STORAGE_REPOSITORIES_<REPO>_{NAME,SOURCE}`` surface, resolved the same
-way. The ``memory`` and ``sqlite`` backends are ported; a source of any
-other type raises :class:`StorageError` naming what is registered (the
-eventlog, network and cloud backends come with ROADMAP.md Queue 1 item 7).
+way. The ``memory``, ``sqlite`` and ``eventlog`` backends are ported; a
+source of any other type raises :class:`StorageError` naming what is
+registered (the network and cloud backends come with ROADMAP.md Queue 1
+item 7).
 With no storage configuration at all, every repository is sqlite under
 ``$PIO_FS_BASEDIR``, as in the reference.
 """
@@ -28,6 +29,9 @@ from incubator_predictionio_tpu_torch.data.storage.base import (
     StorageClient,
     StorageError,
 )
+from incubator_predictionio_tpu_torch.data.storage.eventlog_backend import (
+    EventLogStorageClient,
+)
 from incubator_predictionio_tpu_torch.data.storage.memory import (
     MemoryStorageClient,
 )
@@ -43,6 +47,7 @@ REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
 BACKEND_TYPES: dict[str, Callable[[dict[str, str]], StorageClient]] = {
     "memory": MemoryStorageClient,
     "sqlite": SqliteStorageClient,
+    "eventlog": EventLogStorageClient,
 }
 
 _SOURCE_RE = re.compile(r"^PIO_STORAGE_SOURCES_([^_]+)_(.+)$")

@@ -317,6 +317,57 @@ class SqliteEvents(EventStore):
             ) from e
         return (_row_to_event(r) for r in rows)
 
+    def find_by_entities(
+        self,
+        app_id: int,
+        entity_type: str,
+        entity_ids: Sequence[str],
+        channel_id: Optional[int] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        event_names: Optional[Sequence[str]] = None,
+        target_entity_type: Any = UNSET,
+        target_entity_id: Any = UNSET,
+        limit_per_entity: Optional[int] = None,
+        reversed: bool = False,
+    ) -> dict[str, list[Event]]:
+        """One ``entity_id IN (...)`` query for the whole batch, the
+        per-entity cap pushed into SQL (a ``ROW_NUMBER`` window), rows in
+        the ``ORDER BY event_time, id`` a per-entity :meth:`find` uses."""
+        ids = list(dict.fromkeys(entity_ids))
+        if not ids:
+            return {}
+        sql, params = self._find_sql(
+            app_id, channel_id, start_time, until_time, entity_type, None,
+            event_names, target_entity_type, target_entity_id,
+        )
+        clause = f"entity_id IN ({','.join('?' * len(ids))})"
+        sql += (" AND " if " WHERE " in sql else " WHERE ") + clause
+        params.extend(ids)
+        order = "DESC" if reversed else "ASC"
+        limit = (limit_per_entity if limit_per_entity is not None
+                 and limit_per_entity >= 0 else None)
+        if limit is not None:
+            prefix = f"SELECT {_EVENT_COLS} FROM "
+            inner = (
+                f"SELECT {_EVENT_COLS}, ROW_NUMBER() OVER ("
+                f"PARTITION BY entity_id "
+                f"ORDER BY event_time {order}, id {order}) AS rn "
+                f"FROM {sql[len(prefix):]}")
+            sql = f"SELECT {_EVENT_COLS} FROM ({inner}) WHERE rn <= ?"
+            params.append(limit)
+        sql += f" ORDER BY event_time {order}, id {order}"
+        try:
+            rows = self._db.query(sql, params)
+        except sqlite3.OperationalError as e:
+            if "no such table" not in str(e):
+                raise
+            raise StorageError(
+                f"event table for app {app_id} channel {channel_id} not initialized"
+            ) from e
+        return self.group_events_by_entity(
+            (_row_to_event(r) for r in rows), ids, limit_per_entity)
+
 
 class SqliteApps(AppsStore):
     def __init__(self, db: _Db):

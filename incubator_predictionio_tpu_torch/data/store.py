@@ -1,10 +1,11 @@
 """Developer-facing event stores — what engine templates call.
 
-Counterpart of ``incubator_predictionio_tpu/data/store.py``, cut to
-:class:`PEventStore`'s bulk reads for training (``find``,
-``assemble_triples``; reference PEventStore.scala:35-121). ``LEventStore``
-(the serving-time reads) comes with the slice that serves ``{"user": U}``
-sequential queries (ROADMAP.md Queue 1, what item 3 leaves).
+Counterpart of ``incubator_predictionio_tpu/data/store.py``:
+:class:`LEventStore`, the serving-time reads (:44-122: ``find_by_entity``,
+``find_by_entities``, ``find``), and :class:`PEventStore`'s bulk reads for
+training (``find``, ``assemble_triples``; reference
+PEventStore.scala:35-121). Sharded reads and property snapshots of
+``PEventStore`` come with the sharding slice (ROADMAP.md Queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -40,6 +41,77 @@ class _BaseStore:
             if c.name == channel_name:
                 return app.id, c.id
         raise ValueError(f"Invalid channel name {channel_name} for app {app_name}")
+
+
+class LEventStore(_BaseStore):
+    """Low-latency single-entity reads for serving-time business rules."""
+
+    def find_by_entity(
+        self,
+        app_name: str,
+        entity_type: str,
+        entity_id: str,
+        channel_name: Optional[str] = None,
+        event_names: Optional[Sequence[str]] = None,
+        target_entity_type: Any = UNSET,
+        target_entity_id: Any = UNSET,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        limit: Optional[int] = None,
+        latest: bool = True,
+    ) -> Iterator[Event]:
+        """(LEventStore.scala:74-118): newest first when ``latest``."""
+        app_id, channel_id = self._resolve(app_name, channel_name)
+        return self.storage.get_events().find(
+            app_id, channel_id, start_time, until_time, entity_type,
+            entity_id, event_names, target_entity_type, target_entity_id,
+            limit, reversed=latest,
+        )
+
+    def find_by_entities(
+        self,
+        app_name: str,
+        entity_type: str,
+        entity_ids: Sequence[str],
+        channel_name: Optional[str] = None,
+        event_names: Optional[Sequence[str]] = None,
+        target_entity_type: Any = UNSET,
+        target_entity_id: Any = UNSET,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        limit_per_entity: Optional[int] = None,
+        latest: bool = True,
+    ) -> dict[str, list[Event]]:
+        """Batched :meth:`find_by_entity`: many entities' histories in one
+        storage round trip, each ordered and capped as the single read
+        (:meth:`EventStore.find_by_entities
+        <incubator_predictionio_tpu_torch.data.storage.base.EventStore.find_by_entities>`)."""
+        app_id, channel_id = self._resolve(app_name, channel_name)
+        return self.storage.get_events().find_by_entities(
+            app_id, entity_type, entity_ids, channel_id, start_time,
+            until_time, event_names, target_entity_type, target_entity_id,
+            limit_per_entity, reversed=latest,
+        )
+
+    def find(
+        self,
+        app_name: str,
+        channel_name: Optional[str] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        entity_type: Optional[str] = None,
+        entity_id: Optional[str] = None,
+        event_names: Optional[Sequence[str]] = None,
+        target_entity_type: Any = UNSET,
+        target_entity_id: Any = UNSET,
+        limit: Optional[int] = None,
+    ) -> Iterator[Event]:
+        """(LEventStore.scala:120-145)"""
+        app_id, channel_id = self._resolve(app_name, channel_name)
+        return self.storage.get_events().find(
+            app_id, channel_id, start_time, until_time, entity_type, entity_id,
+            event_names, target_entity_type, target_entity_id, limit,
+        )
 
 
 class PEventStore(_BaseStore):

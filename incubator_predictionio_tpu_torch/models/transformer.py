@@ -9,10 +9,11 @@ session item sequences, next-item logits tied to the item embedding):
 parameters), :class:`TransformerModel` and :class:`TransformerRecommender`
 (``fit`` on one device, ``next_item_scores``). A training step is forward →
 ``ops/xent.py:weighted_xent_sum`` → backward through the attention
-kernels' backwards → ``utils/optim.py`` adam (optax's). MoE, ring
-attention, pipeline and tensor parallelism and mid-training checkpoints
-come with the sharding slice (ROADMAP.md Queue 1, item 4) and raise until
-then.
+kernels' backwards → ``utils/optim.py`` adam (optax's); with
+``checkpoint_dir`` the epochs run in chunks through
+``utils/checkpoint.py:checkpointed_epochs``. MoE, ring attention, pipeline
+and tensor parallelism come with the sharding slice (ROADMAP.md Queue 1,
+item 4) and raise until then.
 
 Numerics follow the reference: every matmul rounds both operands and the
 product to bf16 (``_bf16_matmul``), so served scores are bf16 values and
@@ -47,9 +48,8 @@ SHARDING_SLICE = "the sharding slice of the PyTorch port (ROADMAP.md Queue 1, it
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Copy of the reference's config (transformer.py:44), every field, so a
-    variant or a persisted config binds unchanged. Serving reads the model
-    shape; the training, parallelism and checkpoint fields wait for their
-    slices."""
+    variant or a persisted config binds unchanged. The parallelism fields
+    wait for the sharding slice."""
 
     vocab_size: int = 1024        # items + 1 (0 is padding)
     max_len: int = 64
@@ -365,8 +365,6 @@ class TransformerRecommender:
             (cfg.pipeline_stages > 0,
              f"pipeline parallelism (pipeline_stages={cfg.pipeline_stages})"),
             (cfg.tensor_parallel, "tensor parallelism"),
-            (cfg.checkpoint_dir is not None,
-             "mid-training checkpoints (checkpoint_dir)"),
             (rows_are_local and ctx.process_count > 1,
              f"per-process rows (rows_are_local over {ctx.process_count} "
              "processes)"),
@@ -383,7 +381,9 @@ class TransformerRecommender:
         max_len+1]`` int token rows (0-padded on the left), each row a
         session; position t predicts position t+1. Batches are the rows in
         order (zero-weight zero rows pad the last), staged on the device
-        once; one host sync for the whole fit (the final loss)."""
+        once; one host sync for the whole fit (the final loss) without
+        checkpoints, a save after every ``checkpoint_every`` epochs with
+        them."""
         cfg = self.config
         self._refuse_unported(ctx, rows_are_local)
         sequences = np.asarray(sequences)
@@ -409,23 +409,41 @@ class TransformerRecommender:
         generator = torch.Generator(device=dev).manual_seed(cfg.seed)
         net = TransformerNet(_init_params(cfg, generator, dev), cfg, dev,
                              trainable=True)
-        opt_state = adam_init(list(net.parameters()), cfg.adam_moments_dtype)
-        losses = torch.zeros((cfg.epochs, n_batches), device=dev)
+        params = list(net.parameters())
+        opt_state = adam_init(params, cfg.adam_moments_dtype)
+        chunks = []  # [epochs, n_batches] step losses of each chunk run
+
+        def train_epochs(p, o, n_epochs):
+            # p is `params`: a restore copies into the net's own tensors
+            losses = torch.zeros((n_epochs, n_batches), device=dev)
+            for epoch in range(n_epochs):
+                for i in range(n_batches):
+                    losses[epoch, i] = train_step(
+                        net, o, (tb[i], positions, yb[i], wb[i]),
+                        cfg.learning_rate)
+            chunks.append(losses)
+            # the mean of the last epoch's step losses (transformer.py:314)
+            return p, o, losses[-1].mean()
+
+        from incubator_predictionio_tpu_torch.utils.checkpoint import (
+            checkpointed_epochs,
+        )
+
         t_train = time.perf_counter()
-        for epoch in range(cfg.epochs):
-            for i in range(n_batches):
-                losses[epoch, i] = train_step(
-                    net, opt_state, (tb[i], positions, yb[i], wb[i]),
-                    cfg.learning_rate)
-        # the mean of the last epoch's step losses (transformer.py:314);
-        # float() is the fit's one sync
-        final_loss = float(losses[-1].mean()) if cfg.epochs else math.nan
+        # chunks of checkpoint_every epochs, resumed from checkpoint_dir's
+        # latest step (transformer.py:587-596)
+        _, _, loss = checkpointed_epochs(
+            cfg.checkpoint_dir, cfg.checkpoint_every, cfg.checkpoint_keep,
+            cfg.epochs, params, opt_state, train_epochs)
+        final_loss = float(loss) if loss is not None else math.nan  # a sync
         t_train = time.perf_counter() - t_train
         t_gather = time.perf_counter()
         params = net.params_numpy()
         model = TransformerModel(params, item_map, cfg)
         model.final_loss = final_loss
-        model.step_losses = losses.cpu().numpy()
+        # the epochs this call ran (a resumed fit skips the restored ones)
+        model.step_losses = (torch.cat(chunks).cpu().numpy() if chunks
+                             else np.zeros((0, n_batches), np.float32))
         model.timings = {"train_sec": round(t_train, 4),
                          "gather_sec": round(time.perf_counter() - t_gather, 4)}
         return model

@@ -30,10 +30,12 @@ Three serving paths, chosen as in the reference:
   prunes first, and its coarse stage runs kernel K2 on a CUDA device.
 
 Streaming deltas land through :meth:`TwoTowerModel.with_row_updates`
-(build-beside: a NEW model over copied tables, the IVF index overlaid with
-the moved rows). Sharded training and serving, mid-training checkpoints
-and row updates of a device-resident model come in later slices
-(ROADMAP.md).
+(build-beside: a NEW model over copied host tables, the IVF index
+overlaid with the moved rows; a device-resident model pulls its tables to
+the host once first, as the reference does). Mid-training checkpoints run
+through ``utils/checkpoint.py:checkpointed_epochs`` in chunks of
+``checkpoint_every`` epochs. Sharded training and serving come with the
+sharding slice (ROADMAP.md Queue 1, item 4).
 
 Tie order: the device paths answer what ``lax.top_k`` answers — among
 equal scores the lowest indices are taken and come first, -inf entries
@@ -60,9 +62,6 @@ DeviceLike = Union[str, torch.device, None]
 #: what raises in the training options this slice does not port
 SHARDING_SLICE = ("the sharding slice of the PyTorch port (ROADMAP.md "
                   "Queue 1, item 4)")
-#: what raises on a device-resident model's streaming path
-RESIDENT_ROWS = ("row updates of a device-resident model (ROADMAP.md "
-                 "Queue 1, what item 3 leaves)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,7 +77,7 @@ class TwoTowerConfig:
     batch_size: int = 8192          # global batch
     implicit_negatives: int = 0
     seed: int = 0
-    # mid-training checkpoints come with the sharding slice; 0 = off
+    # mid-training checkpoints (utils/checkpoint.py); 0 = off
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 0
     checkpoint_keep: int = 3
@@ -368,22 +367,23 @@ class TwoTowerModel:
 
         Build-beside semantics: the receiver (possibly the live serving
         model) is never mutated; the tables are copied, rows assigned, and
-        the caller swaps the new model in. The new model is unprepared:
-        serving it runs :meth:`prepare_for_serving` again, which uploads
-        (and on a CUDA device quantizes) the whole catalog anew.
+        the caller swaps the new model in. As in the reference (:481), a
+        device-resident receiver first pulls its tables to the host once
+        (:meth:`ensure_host`), so the new model is a host model. It is
+        unprepared: serving it runs :meth:`prepare_for_serving` again,
+        which uploads (and on a CUDA device quantizes) the whole catalog
+        anew.
 
         Item rows that moved are overlaid on the IVF index
         (:meth:`serving.ann.IVFIndex.with_updated_rows`); past
         ``PIO_STREAM_STALE_REBUILD_FRAC`` of the catalog stale, the index is
         re-clustered from the updated table instead."""
-        if self.user_emb is None and self.device_resident:
-            raise NotImplementedError(
-                f"delta apply on a device-resident model: {RESIDENT_ROWS}; "
-                "the streaming path serves a host model")
+        self.ensure_host()
         if self.user_emb is None:
+            # neither host nor resident tables: the reference's sharded
+            # layout (its _with_row_updates_sharded, :529)
             raise NotImplementedError(
-                "delta apply on a sharded model comes with the sharding "
-                "slice of the PyTorch port (ROADMAP.md Queue 1, item 4)")
+                f"delta apply on a sharded model comes with {SHARDING_SLICE}")
         k = self.config.rank
         new = TwoTowerModel(
             user_emb=np.array(self.user_emb, np.float32, copy=True),
@@ -475,17 +475,15 @@ class TwoTowerMF:
         rows_are_local: bool = False,
     ) -> TwoTowerModel:
         """two_tower.py:677 ``fit`` on ``ctx.device``: stage the batches
-        once, run ``epochs × n_batches`` steps, keep the tables resident or
-        pull them to the host (``gather``). ``final_loss`` is the last
-        epoch's mean loss: the one host sync of the fit. ``timings`` has the
+        once, run ``epochs × n_batches`` steps (in chunks of
+        ``checkpoint_every`` epochs with a checkpoint after each when
+        ``checkpoint_dir`` is set, resuming from its latest step), keep the
+        tables resident or pull them to the host (``gather``).
+        ``final_loss`` is the last epoch's mean loss: the one host sync of
+        the fit without checkpoints. ``timings`` has the
         reference's four phases (``stage_sec``, ``init_sec``, ``train_sec``,
         ``gather_sec``)."""
         cfg = self.config
-        if cfg.checkpoint_every > 0:
-            raise NotImplementedError(
-                f"TwoTowerMF.fit: mid-training checkpoints (checkpoint_every="
-                f"{cfg.checkpoint_every}) are not ported yet; they come with "
-                f"{SHARDING_SLICE}")
         if rows_are_local and ctx.process_count > 1:
             raise NotImplementedError(
                 "TwoTowerMF.fit: per-process staging of entity-sharded rows "
@@ -513,9 +511,20 @@ class TwoTowerMF:
         _sync(dev)
         t_init = time.perf_counter() - t_init
 
+        from incubator_predictionio_tpu_torch.utils.checkpoint import (
+            checkpointed_epochs,
+        )
+
+        def train(p, o, n):
+            return p, o, _train_epochs(p, grads, o, ub, ib, rb, wb,
+                                       cfg.learning_rate, cfg.reg, n)
+
         t_train = time.perf_counter()
-        loss = _train_epochs(tables, grads, state, ub, ib, rb, wb,
-                             cfg.learning_rate, cfg.reg, cfg.epochs)
+        # chunks of checkpoint_every epochs with a save after each, resumed
+        # from checkpoint_dir's latest step (two_tower.py:772-780)
+        tables, state, loss = checkpointed_epochs(
+            cfg.checkpoint_dir, cfg.checkpoint_every, cfg.checkpoint_keep,
+            cfg.epochs, tables, state, train)
         loss = np.inf if loss is None else float(loss)  # the one sync
         t_train = time.perf_counter() - t_train
         del grads, state, ub, ib, rb, wb

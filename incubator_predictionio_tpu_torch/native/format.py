@@ -1,11 +1,13 @@
 """The PIOLOG01 binary event-log codec.
 
-Counterpart of ``incubator_predictionio_tpu/native/format.py`` (:56-372):
-the record framing, the TLV property codec, the writer-side string table
-and the event/tombstone records. The streaming feed (``streaming/feed.py``)
-tails such a log; :func:`encode_event` returns framed records ready to
-append, so a log can be written with the port alone. The reference's C++
-scanner and its index fold are not part of the port.
+Counterpart of ``incubator_predictionio_tpu/native/format.py`` (:56-405):
+the record framing, the TLV property codec, the writer-side string table,
+the event/tombstone records and the one-pass index fold (:func:`read_log`,
+:func:`apply_records`). The ``eventlog`` storage backend
+(``data/storage/eventlog_backend.py``) writes and scans such a log, and the
+streaming feed (``streaming/feed.py``) tails it; the bytes are the
+reference's. The reference's C++ scanner is not part of the port: every
+read here is the reference's pure-Python path.
 
 Layout (all integers little-endian)::
 
@@ -158,6 +160,10 @@ def _from_us_tz(us: int, tz_min: int) -> _dt.datetime:
     return (_EPOCH + _dt.timedelta(microseconds=us)).astimezone(tz)
 
 
+def time_to_us(t: _dt.datetime) -> int:
+    return _to_us_tz(t)[0]
+
+
 # -- record encoding ------------------------------------------------------------
 
 def _str16(s: str, out: bytearray) -> None:
@@ -303,6 +309,22 @@ def iter_records(buf: bytes) -> Iterator[tuple[int, int, bytes]]:
         pos += 4 + plen
 
 
+def read_log(
+    buf: bytes,
+) -> tuple[dict[int, str], dict[str, int], set[str]]:
+    """One pass: (string table, event_id→offset of live events, tombstoned
+    ids). Tombstones apply in file order: a TOMBSTONE kills only *prior*
+    events with that id, so an id re-inserted after a delete is live
+    again."""
+    if buf[:8] != MAGIC:
+        raise ValueError("not a PIOLOG01 file")
+    strings: dict[int, str] = {}
+    offsets: dict[str, int] = {}
+    dead: set[str] = set()
+    apply_records(buf[8:], 8, strings, offsets, dead)
+    return strings, offsets, dead
+
+
 def valid_extent(buf: bytes) -> int:
     """Byte offset just past the last complete record (where a torn or
     zeroed tail begins; == len(buf) when the log is clean)."""
@@ -322,3 +344,38 @@ def record_run_end(buf: bytes, pos: int) -> int:
             break
         pos += 4 + plen
     return pos
+
+
+def apply_records(
+    chunk: bytes,
+    base_off: int,
+    strings: dict[int, str],
+    index: dict[str, int],
+    dead: Optional[set] = None,
+) -> int:
+    """Fold a raw record run (no magic header) starting at absolute file
+    offset ``base_off`` into ``strings``/``index`` in place: :func:`read_log`
+    feeds it a whole file, a read-only log view just the suffix the writer
+    appended since its last refresh. Returns the absolute offset just past
+    the last complete record (the next tail position)."""
+    pos = 0
+    n = len(chunk)
+    while pos + 4 <= n:
+        (plen,) = struct.unpack_from("<I", chunk, pos)
+        if pos + 4 + plen > n or plen == 0:
+            break  # torn tail: retry from here next refresh
+        payload = chunk[pos + 4:pos + 4 + plen]
+        kind = payload[0]
+        if kind == KIND_INTERN:
+            sid, slen = struct.unpack_from("<IH", payload, 1)
+            strings[sid] = payload[7:7 + slen].decode()
+        elif kind == KIND_EVENT:
+            eid, _ = _read_str16(payload, 1)
+            index[eid] = base_off + pos
+        elif kind == KIND_TOMBSTONE:
+            eid, _ = _read_str16(payload, 1)
+            index.pop(eid, None)
+            if dead is not None:
+                dead.add(eid)
+        pos += 4 + plen
+    return base_off + pos

@@ -11,8 +11,8 @@ hands the updater batches of decoded events tagged ``[from_seq, to_seq)``
 Torn-tail semantics: a record the writer has only half-appended is "wait
 and re-poll", never corruption and never a skip — the poll stops at the
 last complete record and the next poll resumes from exactly there.
-``resolve_feed_path`` (the eventlog storage backend's file for an app)
-is left by ROADMAP.md Queue 1 item 3 (it needs the eventlog backend).
+:func:`resolve_feed_path` (reference :198-225) finds the file behind an app
+in a storage configuration whose EVENTDATA is the ``eventlog`` backend.
 """
 
 from __future__ import annotations
@@ -193,3 +193,32 @@ class EventLogFeed:
             waiting = tail_partial and not bounded
             return FeedBatch(events, from_seq, self._next, waiting=waiting)
 
+
+
+def resolve_feed_path(storage, app_name: str,
+                      channel_name: Optional[str] = None) -> str:
+    """The eventlog file behind ``app_name`` in this storage config.
+    Raises if EVENTDATA is not an eventlog backend: only the append-only
+    log gives the byte-offset ordering the exactly-once contract needs."""
+    from incubator_predictionio_tpu_torch.data.storage.eventlog_backend import (
+        EventLogEvents,
+    )
+
+    events = storage.get_events()
+    if not isinstance(events, EventLogEvents):
+        raise ValueError(
+            "streaming requires the 'eventlog' EVENTDATA backend (the "
+            "append-only log IS the change feed); got "
+            f"{type(events).__name__}")
+    app = storage.get_meta_data_apps().get_by_name(app_name)
+    if app is None:
+        raise ValueError(f"app {app_name!r} not found")
+    channel_id = None
+    if channel_name:
+        for ch in storage.get_meta_data_channels().get_by_app_id(app.id):
+            if ch.name == channel_name:
+                channel_id = ch.id
+                break
+        else:
+            raise ValueError(f"channel {channel_name!r} not found")
+    return events.log_path(app.id, channel_id)

@@ -181,6 +181,7 @@ def compare_to_reference(inc_model, ref_model, sample_users: int = 64,
 
     inc, ref = inc_model.mf, ref_model.mf
     for m in (inc, ref):
+        m.ensure_host()
         if not m.prepared:
             m.prepare_for_serving(device=device)
     n_users = min(inc.n_users, ref.n_users)

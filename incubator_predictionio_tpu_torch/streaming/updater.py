@@ -155,6 +155,7 @@ class StreamUpdater:
         self.model = model
         self._handle_instance_change()
         mf = model.mf
+        mf.ensure_host()  # a device-resident model's one table pull
         self.trainer = DeltaTrainer(
             mf.user_emb, mf.user_bias, mf.item_emb, mf.item_bias, mf.mean,
             dict(model.user_map.items()), dict(model.item_map.items()),

@@ -3,22 +3,20 @@
 Counterpart of ``incubator_predictionio_tpu/templates/sequential.py``
 (next-item prediction with a Transformer4Rec-style causal transformer): the
 query and result types, :func:`encode_session`, :class:`TrainingData`,
-``DataSource._build_fold`` (sessions → token space and left-padded rows),
+``DataSource._collect_sessions`` (each user's ``view``/``buy`` items in
+event-time order, from the event store), ``_build_fold`` (sessions → token
+space and left-padded rows), ``read_training``,
 ``TransformerAlgorithm.train`` / ``predict`` / ``batch_predict`` and
-:class:`SequentialEngine`. Reading the sessions from events
-(``DataSource.read_training``, ``_collect_sessions``) through the events
-DAO is left by ROADMAP.md Queue 1 item 3 (the sqlite event store and
-``PEventStore`` are ported; these reads and ``LEventStore`` are not):
-until then the caller hands ``_build_fold`` its sessions, or a model
-reaches the port through ``convert.py``.
+:class:`SequentialEngine`.
 
 Query ``{"recentItems": [...], "num": N}`` scores the next item after an
-explicit session → ``{"itemScores": [{"item": I, "score": S}, …]}``, never
-a history item; a session with no known item gets the reference's empty
-answer. ``{"user": U}`` queries read the user's recent events from the
-event store (``LEventStore``) in the reference; the port has not ported
-that read yet, so they raise ``NotImplementedError`` (ROADMAP.md) — never
-an empty answer.
+explicit session; ``{"user": U, "num": N}`` reads the user's latest
+``max_len`` ``recent_events`` from the event store (``LEventStore``) and
+scores the next item after them. Either answers ``{"itemScores": [{"item":
+I, "score": S}, …]}``, never a history item; a session with no known item
+(a user the store does not know) gets the reference's empty answer.
+Multi-process sharded reads come with the sharding slice (ROADMAP.md
+Queue 1, item 4) and raise until then.
 """
 
 from __future__ import annotations
@@ -38,6 +36,7 @@ from incubator_predictionio_tpu_torch.core import (
     PDataSource,
 )
 from incubator_predictionio_tpu_torch.data.bimap import BiMap
+from incubator_predictionio_tpu_torch.data.store import LEventStore, PEventStore
 from incubator_predictionio_tpu_torch.models.transformer import (
     SHARDING_SLICE,
     TransformerConfig,
@@ -45,15 +44,6 @@ from incubator_predictionio_tpu_torch.models.transformer import (
     TransformerRecommender,
 )
 from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext
-
-#: what reads events in the reference, not ported yet
-EVENTS_DAO = ("the sequential template's reads through the events DAO of "
-              "the PyTorch port (ROADMAP.md Queue 1, what item 3 leaves)")
-#: why a ``{"user": U}`` query raises
-USER_QUERIES = ("a {\"user\": U} query reads the user's recent events from "
-                f"the event store (LEventStore), which waits for {EVENTS_DAO}; "
-                "send {\"recentItems\": [...]} instead")
-
 
 # -- queries / results ------------------------------------------------------
 
@@ -126,6 +116,31 @@ class TrainingData:
 class DataSource(PDataSource):
     params_class = DataSourceParams
 
+    def __init__(self, params: DataSourceParams):
+        super().__init__(params)
+        self._store = PEventStore()
+
+    def _collect_sessions(self, ctx: DeviceContext) -> tuple[dict[str, list[str]], bool]:
+        """sequential.py:116: user → ordered item list, from every
+        ``events`` event of a user on an item (``find`` is event-time
+        ordered). One process reads the whole store; the sharded read of
+        one process's users comes with the sharding slice."""
+        p = self.params
+        if ctx.process_count > 1:
+            raise NotImplementedError(
+                f"a sharded read of the sessions ({ctx.process_count} "
+                f"processes) comes with {SHARDING_SLICE}")
+        sessions: dict[str, list[str]] = {}
+        events = self._store.find(
+            p.app_name, entity_type="user", event_names=tuple(p.events),
+            target_entity_type="item",
+        )
+        for e in events:
+            if e.target_entity_type != "item":
+                continue
+            sessions.setdefault(e.entity_id, []).append(e.target_entity_id)
+        return sessions, False
+
     def _build_fold(self, ctx: DeviceContext, sessions_list: list[list[str]],
                     sharded: bool) -> TrainingData:
         """sequential.py:139, the single-process branch: the token space
@@ -145,10 +160,11 @@ class DataSource(PDataSource):
             sequences=np.stack(rows) if rows else np.zeros((0, width), np.int32),
             item_map=item_map)
 
-    def read_training(self, ctx: DeviceContext):
-        raise NotImplementedError(
-            f"sequential DataSource.read_training reads events: it waits "
-            f"for {EVENTS_DAO}")
+    def read_training(self, ctx: DeviceContext) -> TrainingData:
+        """sequential.py:174: the sessions from the event store, folded
+        into the token space and rows."""
+        sessions, sharded = self._collect_sessions(ctx)
+        return self._build_fold(ctx, list(sessions.values()), sharded)
 
 
 # -- algorithm --------------------------------------------------------------
@@ -183,6 +199,10 @@ class TransformerAlgorithm(PAlgorithm):
     serving_thread_safe = True  # read-only served tensors, one forward a call
     query_cls = Query
 
+    def __init__(self, params: TransformerAlgorithmParams):
+        super().__init__(params)
+        self._levents = LEventStore()
+
     def train(self, ctx: DeviceContext, pd: TrainingData) -> TransformerModel:
         """sequential.py:264: the config from the params and the token
         space, then ``TransformerRecommender.fit`` on ``ctx.device``."""
@@ -214,7 +234,18 @@ class TransformerAlgorithm(PAlgorithm):
             return list(query.recent_items)
         if query.user is None:
             return []
-        raise NotImplementedError(USER_QUERIES)
+        # sequential.py:289-303: the user's latest max_len events, newest
+        # last; an app the store does not know answers empty
+        try:
+            events = list(self._levents.find_by_entity(
+                self.params.app_name, "user", query.user,
+                event_names=tuple(self.params.recent_events),
+                target_entity_type="item",
+                limit=model.config.max_len, latest=True,
+            ))
+        except ValueError:
+            return []
+        return [e.target_entity_id for e in reversed(events) if e.target_entity_id]
 
     def predict(self, model: TransformerModel, query: Query) -> PredictedResult:
         return self.batch_predict(model, [(0, query)])[0][1]
@@ -222,9 +253,8 @@ class TransformerAlgorithm(PAlgorithm):
     def batch_predict(
         self, model: TransformerModel, queries: Sequence[tuple[int, Query]]
     ) -> list[tuple[int, PredictedResult]]:
-        """One forward for the whole batch (sequential.py:308-338). A
-        ``user`` query raises before the forward; the query server then
-        answers the batch's queries one by one, so it fails alone."""
+        """One forward for the whole batch (sequential.py:308-338); each
+        ``user`` query reads its history from the event store first."""
         if not queries:
             return []
         histories = [self._history(q, model) for _, q in queries]

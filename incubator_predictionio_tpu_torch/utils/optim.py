@@ -117,7 +117,9 @@ class AdamTreeState:
     count: int
     m: list
     v: list
-    scratch: list = dataclasses.field(default_factory=list)
+    # not checkpointed (utils/checkpoint.py): rebuilt at the first step
+    scratch: list = dataclasses.field(default_factory=list,
+                                      metadata={"checkpoint": False})
 
 
 def adam_tree_init(params, moments_dtype: str = "float32") -> AdamTreeState:

@@ -193,15 +193,18 @@ def test_deploy_without_completed_instance_raises(tmp_path):
 
 
 def test_training_stages_name_the_slice_that_ports_them():
-    """Training is ported; what it leaves (mid-training checkpoints, the
-    per-process sharded read) names the sharding slice."""
+    """Training is ported, mid-training checkpoints too; what it leaves
+    (per-process staging and the per-process sharded read) names the
+    sharding slice."""
     cpu = DeviceContext.create(device="cpu")
     td = trec.TrainingData(np.zeros(4, np.int32), np.arange(4, dtype=np.int32),
                            np.ones(4, np.float32), np.array(["u0"], object),
-                           np.array([f"i{j}" for j in range(4)], object))
+                           np.array([f"i{j}" for j in range(4)], object),
+                           rows_are_local=True)
     algo = trec.ALSAlgorithm(trec.ALSAlgorithmParams(checkpoint_every=1))
     with pytest.raises(NotImplementedError, match="sharding slice"):
-        algo.train(cpu, td)
+        algo.train(DeviceContext(cpu.device, process_index=0,
+                                 process_count=2), td)
     with pytest.raises(NotImplementedError, match="sharding slice"):
         trec.DataSource(trec.DataSourceParams()).read_training(
             DeviceContext(cpu.device, process_index=1, process_count=2))

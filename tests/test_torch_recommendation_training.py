@@ -211,9 +211,14 @@ def test_resident_model_round_trips_bitwise(stores, tmp_path, monkeypatch):
 
 def test_train_refuses_what_is_not_ported(stores):
     td = trec.DataSource(trec.DataSourceParams(app_name="rec")).read_training(CPU)
+    # mid-training checkpoints are ported (tests/test_torch_checkpoint.py);
+    # per-process staging of a sharded read is not
+    td.rows_are_local = True
     with pytest.raises(NotImplementedError, match="item 4"):
         trec.ALSAlgorithm(trec.ALSAlgorithmParams(
-            rank=4, num_iterations=2, checkpoint_every=1)).train(CPU, td)
+            rank=4, num_iterations=2, checkpoint_every=1)).train(
+                DeviceContext(torch.device("cpu"), process_index=0,
+                              process_count=2), td)
     with pytest.raises(NotImplementedError, match="item 4"):
         trec.DataSource(trec.DataSourceParams(app_name="rec")).read_training(
             DeviceContext(torch.device("cpu"), process_index=0, process_count=2))

@@ -24,6 +24,8 @@ Tolerances, with their reasons:
   layout rather than the gradients.
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -245,6 +247,14 @@ def test_init_params_draws_the_reference_tree_from_the_seed():
 ])
 def test_fit_refuses_what_is_not_ported(field, value, match):
     cfg = ttr.TransformerConfig(**{**FIT, field: value})
+    if field == "checkpoint_dir":
+        # ported (tests/test_torch_checkpoint.py): a directory without
+        # checkpoint_every leaves checkpoints off and the directory alone,
+        # as the reference's maybe_resume does
+        assert np.isfinite(ttr.TransformerRecommender(cfg).fit(
+            CPU, _rows(), None).final_loss)
+        assert not os.path.exists(value)
+        return
     with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP.md Queue 1, item 4"):
         ttr.TransformerRecommender(cfg).fit(CPU, _rows(), None)
 

@@ -736,3 +736,99 @@ def test_guard_recall_probe_and_reference_compare(monkeypatch):
         jm.apply_delta(_delta(jdeltas.ModelDelta, **rows)), jm, sample_users=8)
     assert got["topk_overlap"] == want["topk_overlap"] < 1.0
     np.testing.assert_allclose(got["score_rmse"], want["score_rmse"], rtol=1e-6)
+
+
+# -- a device-resident (card-trained) model -------------------------------------
+
+def _resident(model):
+    """``model`` with its tables resident (the layout ``TwoTowerMF.fit``
+    leaves with ``gather="device"``): fused ``[n, rank+1]`` tensors, no
+    host arrays."""
+    mf = model.mf
+    res = ttt.TwoTowerModel(mean=mf.mean, config=mf.config)
+    res._tables = {
+        "ue": torch.from_numpy(np.column_stack([mf.user_emb, mf.user_bias])),
+        "ie": torch.from_numpy(np.column_stack([mf.item_emb, mf.item_bias]))}
+    res._n_users, res._n_items = mf.n_users, mf.n_items
+    res._device = torch.device("cpu")
+    out = trec.RecModel(res, model.user_map, model.item_map)
+    out.coldstart = None
+    return out
+
+
+def test_resident_model_takes_a_delta_like_jax():
+    """with_row_updates on a resident model pulls its tables once
+    (ensure_host, as reference two_tower.py:481) and scatters on the host:
+    the delta-applied tables are bitwise the JAX model's."""
+    row = np.arange(9, dtype=np.float32)
+    rows = {"user_rows": {3: row, 19: -row}, "item_rows": {5: row * 2, 29: -row}}
+    jm, tm = _jax_model(), _resident(_port_model())
+    assert tm.mf.device_resident and tm.mf.user_emb is None
+    jn = jm.apply_delta(_delta(jdeltas.ModelDelta, **rows))
+    tn = tm.apply_delta(_delta(tdeltas.ModelDelta, **rows))
+    for name in ("user_emb", "item_emb", "user_bias", "item_bias"):
+        assert getattr(tn.mf, name).tobytes() == getattr(jn.mf, name).tobytes()
+    assert not tn.mf.device_resident and tm.mf.device_resident  # build-beside
+    assert torch.equal(tm.mf._tables["ue"][3, :8], torch.from_numpy(
+        _arrays()[0][3]))  # the receiver's tables are untouched
+
+
+def test_updater_and_guard_start_on_a_resident_model(tmp_path, monkeypatch):
+    """The card-trained path on the CPU: a resident model persisted with
+    ``RecModel.save`` deploys resident; the updater starts on it (its one
+    table pull), folds a round and ships it to ``/delta``, where the served
+    resident model takes the delta; the served tables equal the JAX
+    delta-applied model's bitwise. The guard's reference comparison runs on
+    resident models and agrees with the JAX package's."""
+    from incubator_predictionio_tpu.streaming import guard as jguards
+    from incubator_predictionio_tpu_torch.core import PersistentModelManifest
+    from incubator_predictionio_tpu_torch.core.controller import class_path
+
+    monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path / "fs"))
+    monkeypatch.setenv("PIO_STREAM_FUSED", "1")
+    storage, variant_path = _deploy_env(tmp_path, _port_model())
+    iid = storage.get_meta_data_engine_instances().get_all()[0].id
+    assert _resident(_port_model()).save(
+        f"{iid}_0", trec.ALSAlgorithmParams(rank=8), CPU)
+    storage.get_model_data_models().insert(Model(iid, serialize_model(
+        [PersistentModelManifest(class_path(trec.RecModel))])))
+    log = _PortLog(str(tmp_path / "live.piolog"))
+    jm = _jax_model()
+    jt = jtr.DeltaTrainer(jm.mf.user_emb, jm.mf.user_bias, jm.mf.item_emb,
+                          jm.mf.item_bias, jm.mf.mean,
+                          dict(jm.user_map.items()), dict(jm.item_map.items()),
+                          learning_rate=LR, reg=REG, micro_batch=2)
+
+    async def body(server, url):
+        loop = asyncio.get_running_loop()
+        assert server.deployed.models[0].mf.device_resident
+        up = _updater(tmp_path, storage, variant_path, replicas=(url,),
+                      from_start=True)
+        assert up.model.mf.device_resident and up.model.mf.user_emb is not None
+        log.append(_events_of(ROUND2, Event, DataMap, 0))
+        out = await loop.run_in_executor(None, up.run_once)
+        assert out["status"] == "applied", out
+        jres, _ = jt.fold(_events_of(ROUND2, JEvent, JDataMap, 0))
+        want = jm.apply_delta(jdeltas.ModelDelta(
+            base_instance="x", chain_base=0, from_seq=out["fromSeq"],
+            to_seq=out["toSeq"], user_rows=jres.user_rows,
+            item_rows=jres.item_rows))
+        served = server.deployed.models[0].mf
+        assert not served.device_resident  # the delta-applied host model
+        for name in ("user_emb", "item_emb", "user_bias", "item_bias"):
+            assert getattr(served, name).tobytes() == \
+                getattr(want.mf, name).tobytes() == \
+                getattr(up.model.mf, name).tobytes()
+
+    _serve(storage, variant_path, body)
+    row = np.full(9, 0.5, np.float32)
+    rows = {"user_rows": {1: row}, "item_rows": {3: row, 7: -row}}
+    base = _resident(_port_model())
+    got = tguards.compare_to_reference(
+        _resident(base.apply_delta(_delta(tdeltas.ModelDelta, **rows))),
+        _resident(_port_model()), sample_users=8, device="cpu")
+    want = jguards.compare_to_reference(
+        _jax_model().apply_delta(_delta(jdeltas.ModelDelta, **rows)),
+        _jax_model(), sample_users=8)
+    assert got["topk_overlap"] == want["topk_overlap"] < 1.0
+    np.testing.assert_allclose(got["score_rmse"], want["score_rmse"], rtol=1e-6)

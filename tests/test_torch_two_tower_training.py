@@ -249,7 +249,9 @@ def test_sparse_fit_loss_moves_like_jax(monkeypatch, rank, rises):
 def test_fit_keeps_large_catalogs_on_the_device(monkeypatch):
     """gather="auto" keeps the tables resident when the catalog passes
     HOST_SERVE_MAX_ELEMENTS (here lowered); the resident model serves,
-    pickles through its host views, and refuses row updates."""
+    pickles through its host views, and takes row updates through them
+    (the reference's ensure_host, two_tower.py:481): the updated model is
+    a host model."""
     monkeypatch.setattr(ttt, "HOST_SERVE_MAX_ELEMENTS", 100)
     users, items, ratings = _triples(n=600)
     cfg = ttt.TwoTowerConfig(rank=RANK, epochs=1, batch_size=256)
@@ -261,8 +263,13 @@ def test_fit_keeps_large_catalogs_on_the_device(monkeypatch):
     assert model.user_emb is None  # prepared device to device
     idx, _ = ttt.TwoTowerMF.recommend_batch(model, np.arange(4, dtype=np.int32), 5)
     assert idx.shape == (4, 5)
-    with pytest.raises(NotImplementedError, match="device-resident"):
-        model.with_row_updates({0: np.zeros(RANK + 1, np.float32)})
+    row = np.arange(RANK + 1, dtype=np.float32)
+    new = model.with_row_updates({0: row})
+    assert not new.device_resident and model.device_resident
+    np.testing.assert_array_equal(new.user_emb[0], row[:RANK])
+    assert new.user_bias[0] == row[RANK]
+    np.testing.assert_array_equal(
+        new.user_emb[1:], model._tables["ue"][1:N_USERS, :RANK].numpy())
     import pickle
 
     host = pickle.loads(pickle.dumps(model))
@@ -272,9 +279,13 @@ def test_fit_keeps_large_catalogs_on_the_device(monkeypatch):
 
 
 def test_fit_refuses_what_is_not_ported():
+    """Per-process staging of entity-sharded rows waits for the sharding
+    slice (mid-training checkpoints are ported:
+    tests/test_torch_checkpoint.py)."""
     users, items, ratings = _triples(n=100)
+    two = DeviceContext(torch.device("cpu"), process_index=0, process_count=2)
     with pytest.raises(NotImplementedError, match="item 4"):
         ttt.TwoTowerMF(ttt.TwoTowerConfig(checkpoint_every=1)).fit(
-            CPU, users, items, ratings, N_USERS, N_ITEMS)
+            two, users, items, ratings, N_USERS, N_ITEMS, rows_are_local=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DeviceContext.create()
