@@ -84,6 +84,28 @@ the restored state bitwise against what was saved and the resumed fit
 against an uninterrupted one, and times one checkpoint at rec-train's full
 shape.
 
+Last, the similar-product, recommended-user, e-commerce and classification
+templates (no kernel of the repo lies on their paths: cuBLAS products,
+elementwise passes and the two-tower trainer). ``sim-train`` runs
+bench.py's ``bench_similarproduct`` configuration, not cut (10,000 x 10,000,
+250,000 positives from ``default_rng(7)`` and 3 sampled negatives each,
+rank 64, batch 65,536, 10 epochs) through ``TwoTowerMF.fit`` (a warm-up
+fit, the timed fit, one step by op, a cut fit against the CPU), deploys
+the cosine model through the QueryServer (queries of 1-5 items with the
+category, white- and blackList filters: singles and a burst of 64, held
+against the CPU path and against serial serving) and trains
+``CooccurrenceAlgorithm`` on the positives, its top lists held exactly
+against scipy's int64 ``Uᵀ U`` rounded to bf16. ``sim-workflow`` drives
+the template through the CLI on sqlite (``als``, then ``likealgo`` on
+like/dislike events), ``recuser-workflow`` the recommended-user template
+(100,000 follows), ``ecomm`` bench.py's ``bench_ecommerce_retrieval``
+configuration (serial ``predict`` against ``batch_predict``, bitwise, then
+the same events through the CLI with the ALS fit on the card),
+``cls-train`` bench.py's ``bench_classification`` configuration through
+``MLPClassifier.fit`` (one step against the CPU) and ``cls-workflow`` the
+classification template through the CLI (``mlp``; ``nb`` + ``mlp`` under
+``vote``).
+
 Every check failure raises: the script catches nothing, and a non-zero exit
 is the verdict. Its last line is one JSON object, ``{"ok": true, "device":
 {...}}``; the line before it names the card and its power limit; a
@@ -2136,13 +2158,14 @@ def rec_fit(ctx, data, seed, epochs=REC_EPOCHS):
             ctx, users, items, ratings, REC_USERS, REC_ITEMS)
 
 
-def rec_step_by_op(model, data, dev) -> dict:
+def rec_step_by_op(model, data, dev, tables=None) -> dict:
     """One step of the fit on a copy of the trained tables (its first
     staged batch), on the card: the device time of its loss-and-gradient
     half by kind (the row gathers, the gradients' zeroing, the
     scatter-add, the rest: the loss and the backward's elementwise work)
     and of its adam half, from ``torch.profiler``; then one whole step's
-    device busy share of its wall time."""
+    device busy share of its wall time. ``tables`` (fused ``[ue, ie]`` on
+    the card) stands in for a host model's."""
     from incubator_predictionio_tpu_torch.models.two_tower import (
         _loss_and_grads,
         _stage_batches,
@@ -2155,7 +2178,8 @@ def rec_step_by_op(model, data, dev) -> dict:
     cfg = model.config
     staged = _stage_batches(cfg, *data)
     batch = [torch.from_numpy(a[0].copy()).to(dev) for a in staged[:4]]
-    tables = [model._tables["ue"].clone(), model._tables["ie"].clone()]
+    if tables is None:
+        tables = [model._tables["ue"].clone(), model._tables["ie"].clone()]
     grads = [torch.empty_like(t) for t in tables]
     state = adam_tree_init(tables, cfg.adam_moments_dtype)
 
@@ -2249,13 +2273,7 @@ def rec_fit_parity(dev) -> dict:
     ``REC_FIT_*`` constants): the whole loop — gathers, loss, scatter-add,
     the dense adam with bf16 moments — through ``_train_epochs`` on each
     device. Checks the last epoch's loss and every table."""
-    from incubator_predictionio_tpu_torch.models.two_tower import (
-        TwoTowerConfig,
-        _init_tables,
-        _stage_batches,
-        _train_epochs,
-    )
-    from incubator_predictionio_tpu_torch.utils.optim import adam_tree_init
+    from incubator_predictionio_tpu_torch.models.two_tower import TwoTowerConfig
 
     rng = np.random.default_rng(17)
     n = REC_FIT_EVENTS
@@ -2264,9 +2282,26 @@ def rec_fit_parity(dev) -> dict:
             (1.0 + 4.0 * rng.random(n)).astype(np.float32))
     cfg = TwoTowerConfig(rank=REC_RANK, batch_size=REC_FIT_BATCH, epochs=3,
                          seed=3, adam_moments_dtype=REC_MOMENTS)
+    return fit_parity(dev, "rec-train", data, REC_FIT_USERS, REC_FIT_ITEMS, cfg)
+
+
+def fit_parity(dev, tag, data, n_users, n_items, cfg) -> dict:
+    """``cfg.epochs`` of ``_train_epochs`` on the card against the same on
+    the CPU, from the same initial tables (seed ``cfg.seed``) and staged
+    batches of ``data``: the last epoch's loss within
+    :data:`REC_FIT_LOSS_RTOL` relative, each table within
+    :data:`REC_FIT_TABLE_RTOL` relative Frobenius error."""
+    from incubator_predictionio_tpu_torch.models.two_tower import (
+        _init_tables,
+        _stage_batches,
+        _train_epochs,
+    )
+    from incubator_predictionio_tpu_torch.utils.optim import adam_tree_init
+
+    n = len(data[0])
     staged = _stage_batches(cfg, *data)
-    init = _init_tables(cfg, REC_FIT_USERS, REC_FIT_ITEMS, "cpu",
-                        torch.Generator().manual_seed(3))
+    init = _init_tables(cfg, n_users, n_items, "cpu",
+                        torch.Generator().manual_seed(cfg.seed))
     out = {}
     for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
         tables = [t.to(d, copy=True) for t in init]
@@ -2279,19 +2314,20 @@ def rec_fit_parity(dev) -> dict:
     (lc, tc), (lg, tg) = out["cpu"], out["card"]
     rel = {k: float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
            for k, a, b in zip(("ue", "ie"), tg, tc)}
-    res = {"users": REC_FIT_USERS, "items": REC_FIT_ITEMS, "events": n,
-           "batch": REC_FIT_BATCH, "epochs": cfg.epochs,
+    res = {"users": n_users, "items": n_items, "rank": cfg.rank, "events": n,
+           "batch": cfg.batch_size, "epochs": cfg.epochs,
+           "adam_moments_dtype": cfg.adam_moments_dtype,
            "steps": cfg.epochs * staged[0].shape[0], "loss_card": lg,
            "loss_cpu": lc, "loss_rel_diff": abs(lg - lc) / abs(lc),
            "table_rel_err": rel}
-    check(np.isfinite(lg), f"[rec-train] cut fit loss on the card {lg}")
+    check(np.isfinite(lg), f"[{tag}] cut fit loss on the card {lg}")
     check(res["loss_rel_diff"] <= REC_FIT_LOSS_RTOL,
-          f"[rec-train] cut fit: loss on the card {lg} vs the CPU {lc}")
+          f"[{tag}] cut fit: loss on the card {lg} vs the CPU {lc}")
     for k, e in rel.items():
-        check(e <= REC_FIT_TABLE_RTOL, f"[rec-train] cut fit: table {k} on the "
+        check(e <= REC_FIT_TABLE_RTOL, f"[{tag}] cut fit: table {k} on the "
               f"card {e} relative Frobenius from the CPU's (> {REC_FIT_TABLE_RTOL})")
-    log(f"[rec-train] {cfg.epochs}-epoch fit, card vs CPU from the same tables "
-        f"({REC_FIT_USERS}x{REC_FIT_ITEMS}, rank {REC_RANK}, {n} events, "
+    log(f"[{tag}] {cfg.epochs}-epoch fit, card vs CPU from the same tables "
+        f"({n_users}x{n_items}, rank {cfg.rank}, {n} events, "
         f"{res['steps']} steps): loss {lg:.6f} vs {lc:.6f} (rel "
         f"{res['loss_rel_diff']:.2e}, tol {REC_FIT_LOSS_RTOL}); tables "
         + ", ".join(f"{k} {e:.2e}" for k, e in rel.items())
@@ -2320,6 +2356,15 @@ def rec_kernel_cases(R, mf, dev) -> tuple[list, list]:
         q_q, q_s = R.quantize_rows(user[:b])
         k2.append(k2_case(R, torch.from_numpy(q_q).to(dev),
                           torch.from_numpy(q_s).to(dev), cq, cs, cb))
+    for c in k1 + k2:
+        c["trained_shape"] = True
+    a, b = k1[0], next(c for c in k2 if c["B"] == 64)
+    log(f"[rec-train] trained shapes: K1 B 64 N {a['N']} D {a['D']} device "
+        f"{fmt(a['device_ms'])} ms, library (torch.matmul, dequantized) "
+        f"{a['library_ms']:.4f} ms, bound {a['bound_ms']:.4f} ms ({a['bound_by']}); "
+        f"K2 B 64 C {b['C']} ({ivf.n_partitions} centroids padded) D {b['D']} device "
+        f"{fmt(b['device_ms'])} ms, library {b['library_ms']:.4f} ms, bound "
+        f"{b['bound_ms']:.6f} ms ({b['bound_by']})")
     return k1, k2
 
 
@@ -3195,6 +3240,1137 @@ def ckpt_resume_phase(ctx, tmp):
     return launches, rec
 
 
+# -- phases 16-21: the similar-product, recommended-user, e-commerce and
+#    classification templates on the card --------------------------------------
+
+#: bench.py bench_similarproduct (:242-277), not cut: 10,000 x 10,000,
+#: 250,000 positives from default_rng(7), 3 sampled negatives each, rank
+#: 64, batch 65,536, 10 epochs
+SIM_USERS, SIM_ITEMS, SIM_POS, SIM_NEGS = 10_000, 10_000, 250_000, 3
+SIM_RANK, SIM_BATCH, SIM_EPOCHS = 64, 65_536, 10
+SIM_FACTORY = ("incubator_predictionio_tpu_torch.templates.similarproduct."
+               "SimilarProductEngine")
+#: the catalog's categories (c0..c7, an item's i % 8), the query mix's
+#: singles and burst
+SIM_CATS, SIM_SINGLES, SIM_BURST = 8, 32, 64
+#: the card's cosine answers against the CPU path of the same model:
+#: bf16-rounded products summed over ≤ 5 rows, absolute
+SIM_SCORE_TOL = 1e-2
+#: sim-train's cut fit against the CPU: 2,000 x 2,000 at rank 64, 20,000
+#: positives + 60,000 negatives, batch 65,536 (2 batches), 3 epochs
+SIM_FIT_USERS, SIM_FIT_ITEMS, SIM_FIT_POS = 2_000, 2_000, 20_000
+#: sim-workflow: 100,000 view events over sim-train's 10,000 x 10,000 (cut
+#: from 1,000,000 for the import's time), then 20,000 like/dislike events
+SIMWF_VIEWS, SIMWF_LIKES = 100_000, 20_000
+#: recuser-workflow: 10,000 users, 100,000 follow events
+RU_USERS, RU_FOLLOWS = 10_000, 100_000
+RU_FACTORY = ("incubator_predictionio_tpu_torch.templates.recommended_user."
+              "RecommendedUserEngine")
+#: bench.py bench_ecommerce_retrieval's full configuration (:354-420)
+EC_USERS, EC_ITEMS, EC_RANK, EC_VIEWS, EC_UNAVAILABLE = 500, 4_000, 32, 40, 40
+EC_SERIAL, EC_BATCHED, EC_BATCH = 256, 4_064, 128
+EC_FACTORY = "incubator_predictionio_tpu_torch.templates.ecommerce.ECommerceEngine"
+#: bench.py bench_classification (:328-347), not cut
+CLS_ROWS, CLS_HIDDEN, CLS_EPOCHS, CLS_BATCH = 100_000, (128, 128), 40, 4_096
+#: one MLP step on the card against the CPU from the same parameters
+CLS_GRAD_TOL, CLS_LOSS_RTOL = 4e-3, 1e-4
+#: cls-workflow: 10,000 users' $set events (cut from the bench's 100,000
+#: rows for the import's time); labels on the card vs the CPU path
+CLSWF_USERS, CLS_LABEL_AGREE = 10_000, 0.99
+CLS_FACTORY = ("incubator_predictionio_tpu_torch.templates.classification."
+               "ClassificationEngine")
+
+
+def sqlite_env(root: str) -> dict:
+    """Every repository on one sqlite file under ``root`` (also the
+    phase's ``PIO_FS_BASEDIR``)."""
+    env = {"PIO_FS_BASEDIR": root, "PIO_STORAGE_SOURCES_WF_TYPE": "sqlite",
+           "PIO_STORAGE_SOURCES_WF_PATH": os.path.join(root, "pio.db")}
+    for repo in ("METADATA", "EVENTDATA", "MODELDATA"):
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_NAME"] = f"pio_{repo.lower()}"
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE"] = "WF"
+    return env
+
+
+@contextlib.contextmanager
+def cli_storage(root: str):
+    """The process storage from :func:`sqlite_env` for the block (what the
+    CLI and ``LEventStore()`` read), closed after it."""
+    from incubator_predictionio_tpu_torch.data.storage import registry
+
+    os.makedirs(root, exist_ok=True)
+    logging.basicConfig(level=logging.WARNING,
+                        format="[%(levelname)s] [%(name)s] %(message)s")
+    prev = registry.use_storage(None)
+    try:
+        with env_vars(**sqlite_env(root)):
+            yield registry
+    finally:
+        s = registry.use_storage(prev)
+        if s is not None:
+            s.close()
+        # the CLI sets INFO; the rest of the run logs warnings only
+        logging.getLogger().setLevel(logging.WARNING)
+
+
+def cli_run(tag: str, argv) -> str:
+    import io
+
+    from incubator_predictionio_tpu_torch.tools import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    logging.getLogger().setLevel(logging.WARNING)
+    check(rc == 0, f"[{tag}] {argv} exited {rc}: {buf.getvalue()}")
+    return buf.getvalue()
+
+
+def write_events(path: str, dicts) -> int:
+    with open(path, "w") as f:
+        n = 0
+        for d in dicts:
+            f.write(json.dumps(d) + "\n")
+            n += 1
+    return n
+
+
+def cli_app_import(tag, root, name, dicts) -> tuple[int, dict]:
+    """CLI ``app new`` + ``import`` of ``dicts``; (app id, timings)."""
+    out = cli_run(tag, ["app", "new", name])
+    app_id = int(out.split("ID: ")[-1].split()[0])
+    path = os.path.join(root, f"{name}-events.json")
+    n = write_events(path, dicts)
+    t0 = time.perf_counter()
+    out = cli_run(tag, ["import", "--appid", str(app_id), "--input", path])
+    import_s = time.perf_counter() - t0
+    check(f"Imported {n} events." in out, f"[{tag}] import: {out}")
+    return app_id, {"events": n, "import_s": import_s,
+                    "import_us_per_event": import_s / n * 1e6}
+
+
+def cli_train(tag, registry, variant_path, ctx) -> tuple[str, float]:
+    t0 = time.perf_counter()
+    out = cli_run(tag, ["train", "-v", variant_path, "--device", str(ctx.device)])
+    train_s = time.perf_counter() - t0
+    iid = out.split("Engine instance ID: ")[-1].strip()
+    storage = registry.get_storage()
+    inst = storage.get_meta_data_engine_instances().get(iid)
+    check(inst is not None and inst.status == "COMPLETED",
+          f"[{tag}] instance {iid}: {inst}")
+    blob = storage.get_model_data_models().get(iid)
+    check(blob is not None, f"[{tag}] instance {iid} has no model row")
+    check(not pickle_names_torch(blob.models),
+          f"[{tag}] the persisted models hold a torch object")
+    return iid, train_s
+
+
+def write_variant(path, factory, app, algorithms, serving=None) -> str:
+    v = {"id": os.path.basename(path).split(".")[0], "version": "1",
+         "engineFactory": factory, "datasource": {"params": {"appName": app}},
+         "algorithms": algorithms}
+    if serving:
+        v["serving"] = {"name": serving}
+    with open(path, "w") as f:
+        json.dump(v, f)
+    return path
+
+
+def pickle_names_torch(blob: bytes) -> bool:
+    """Whether a pickle refers to the torch module (a tensor in it would:
+    ``torch._utils._rebuild_tensor_v2``)."""
+    import pickletools
+
+    return any(isinstance(arg, str) and (arg == "torch" or arg.startswith("torch."))
+               for _, arg, _ in pickletools.genops(blob))
+
+
+def cpu_copy(model):
+    """The same model through MODELDATA's pickling, prepared on the CPU:
+    the port's plain CPU path."""
+    from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext
+    from incubator_predictionio_tpu_torch.utils.serialization import (
+        deserialize_model,
+        serialize_model,
+    )
+
+    blob = serialize_model(model)
+    check(not pickle_names_torch(blob), "a served model pickles a torch object")
+    return deserialize_model(blob).prepare_for_serving(DeviceContext.create("cpu"))
+
+
+def near_tie_check(tag, got, want, full, tol, key="item"):
+    """``got`` / ``want``: lists of {key, score}; ``full``: id → the
+    reference's score. Ids equal up to near-ties at the last place, shared
+    ids' scores within ``tol``. Returns whether the lists are equal."""
+    g = [s[key] for s in got]
+    w = [s[key] for s in want]
+    check(abs(len(g) - len(w)) <= 1, f"[{tag}] answer lengths {len(g)} vs {len(w)}")
+    if w:
+        last = want[-1]["score"]
+        for x in set(g) ^ set(w):
+            check(abs(full.get(x, -np.inf) - last) <= tol,
+                  f"[{tag}] answers differ beyond a near-tie: {g} vs {w}")
+    for a in got:
+        if a[key] in full:
+            check(abs(a["score"] - full[a[key]]) <= tol,
+                  f"[{tag}] score {a} vs {full[a[key]]}")
+    return g == w
+
+
+def as_dicts(result, field="item_scores", key="item"):
+    return [{key: getattr(s, key), "score": s.score} for s in getattr(result, field)]
+
+
+def lat_record(xs) -> dict:
+    return {"n": len(xs), "p50_ms": pct(xs, 50), "p99_ms": pct(xs, 99)}
+
+
+def sim_data(seed=7, n_users=None, n_items=None, n_pos=None):
+    """bench_similarproduct's events: positives uniform over users and
+    items, SIM_NEGS sampled negatives each (``sample_negatives``)."""
+    from incubator_predictionio_tpu_torch.models.negative_sampling import (
+        sample_negatives,
+    )
+
+    n_users, n_items = n_users or SIM_USERS, n_items or SIM_ITEMS
+    n_pos = n_pos or SIM_POS
+    rng = np.random.default_rng(seed)
+    pos_u = rng.integers(0, n_users, n_pos).astype(np.int32)
+    pos_i = rng.integers(0, n_items, n_pos).astype(np.int32)
+    neg_u, neg_i = sample_negatives(pos_u, pos_i, n_items, SIM_NEGS, rng)
+    data = (np.concatenate([pos_u, neg_u]), np.concatenate([pos_i, neg_i]),
+            np.concatenate([np.ones(n_pos, np.float32),
+                            np.zeros(len(neg_u), np.float32)]))
+    return pos_u, pos_i, data
+
+
+def sim_queries(rng, n, item_ids, cats=8):
+    """Queries of 1-5 items with the four filter kinds in turn."""
+    out = []
+    n_items = len(item_ids)
+    for j in range(n):
+        p = {"items": [item_ids[int(i)] for i in rng.choice(n_items, 1 + j % 5,
+                                                              replace=False)],
+             "num": 10}
+        kind = j % 4
+        if kind == 1:
+            p["categories"] = [f"c{j % cats}", f"c{(j + 3) % cats}"]
+        elif kind == 2:
+            p["categoryBlackList"] = [f"c{j % cats}"]
+            p["blackList"] = [item_ids[int(i)] for i in rng.integers(0, n_items, 5)]
+        elif kind == 3:
+            p["whiteList"] = [item_ids[int(i)] for i in rng.integers(0, n_items, 500)]
+            p["blackList"] = p["whiteList"][:3]
+        out.append(p)
+    return out
+
+
+def sim_filters_hold(tag, model, payloads, bodies):
+    for p, body in zip(payloads, bodies):
+        got = ids_of(body)
+        check(len(got) == p["num"], f"[{tag}] short answer {body} for {p}")
+        check(not set(got) & set(p["items"]), f"[{tag}] a query item served: {p}")
+        check(not set(got) & set(p.get("blackList") or ()),
+              f"[{tag}] a blackList item served: {p}")
+        if "whiteList" in p:
+            check(set(got) <= set(p["whiteList"]), f"[{tag}] outside the whiteList")
+        for iid in got:
+            c = set(model.categories.get(iid, ()))
+            if "categories" in p:
+                check(c & set(p["categories"]), f"[{tag}] {iid} {c} not in {p}")
+            if "categoryBlackList" in p:
+                check(not c & set(p["categoryBlackList"]), f"[{tag}] {iid} {c} banned")
+
+
+def sim_full_scores(model, p) -> dict:
+    """The CPU model's summed scores of one query, every catalog id."""
+    from incubator_predictionio_tpu_torch.templates import _similarity as sim
+    from incubator_predictionio_tpu_torch.templates import similarproduct as sp
+
+    q = query_of(sp.Query, p)
+    known = [model.item_map[i] for i in q.items if i in model.item_map]
+    s = sim.sim_scores(model.item_vecs[known], model._device_vt,
+                       sp._category_mask(model, q))
+    inv = model.item_map.inverse()
+    return {inv[j]: float(v) for j, v in enumerate(s) if np.isfinite(v)}
+
+
+def query_of(cls, payload: dict):
+    """A /queries.json body bound to the template's Query as the server
+    binds it (camelCase keys), its lists as tuples."""
+    import dataclasses
+
+    from incubator_predictionio_tpu_torch.utils.params import params_from_json
+
+    q = params_from_json(cls, payload)
+    return dataclasses.replace(q, **{
+        f.name: tuple(getattr(q, f.name)) for f in dataclasses.fields(q)
+        if isinstance(getattr(q, f.name), list)})
+
+
+def sim_vs_cpu(tag, model, payloads, bodies) -> dict:
+    """Served answers against the plain CPU path of the same model."""
+    from incubator_predictionio_tpu_torch.templates import similarproduct as sp
+
+    cpu = cpu_copy(model)
+    same = 0
+    for p, body in zip(payloads, bodies):
+        want = sp._similar_items(cpu, query_of(sp.Query, p))
+        same += near_tie_check(tag, body["itemScores"], as_dicts(want),
+                               sim_full_scores(cpu, p), SIM_SCORE_TOL)
+    return {"cpu_same_ids": same, "queries": len(payloads)}
+
+
+def stacked_vs_serial(model, payloads) -> dict:
+    """The burst's stacked product against the serial products of the same
+    queries, on the card: bitwise or not, the largest difference in fp32
+    ulps and absolute."""
+    from incubator_predictionio_tpu_torch.templates import _similarity as sim
+
+    qs = [[model.item_map[i] for i in p["items"]] for p in payloads]
+    stacked = sim.sim_scores_stacked(model.item_vecs[np.concatenate(qs)],
+                                     [len(q) for q in qs], model._device_vt)
+    serial = np.stack([sim.sim_scores(model.item_vecs[q], model._device_vt, 0.0)
+                       for q in qs])
+    return {"bitwise": stacked.tobytes() == serial.tobytes(),
+            "equal": bool(np.array_equal(stacked, serial)),
+            "max_ulps": max_ulps(stacked, serial),
+            "max_abs": float(np.abs(stacked - serial).max())}
+
+
+async def sim_serve_body(tag, payloads, session, url, server):
+    from incubator_predictionio_tpu_torch.templates import similarproduct as sp
+
+    model = server.deployed.models[0]
+    info = model.serving_info()
+    check(info["device"].startswith("cuda"), f"[{tag}] catalog not on the card: {info}")
+    singles, burst = payloads[:SIM_SINGLES], payloads[SIM_SINGLES:]
+    b_single, l_single = await post_all(session, url, singles, False)
+    b_burst, l_burst = await post_all(session, url, burst, True)
+    sim_filters_hold(tag, model, payloads, b_single + b_burst)
+    rec = sim_vs_cpu(tag, model, payloads, b_single + b_burst)
+    # the burst (stacked products of coalesced batches) against the same
+    # queries served one at a time on the card
+    same = 0
+    for p, body in zip(burst, b_burst):
+        q = query_of(sp.Query, p)
+        serial = as_dicts(sp._similar_items(model, q))
+        same += body["itemScores"] == serial
+        near_tie_check(f"{tag}-burst", body["itemScores"], serial,
+                       {s["item"]: s["score"] for s in serial}, SIM_SCORE_TOL)
+    rec["burst_equal_serial"] = same
+    rec["stacked_vs_serial"] = stacked_vs_serial(model, burst)
+    rec["latency"] = {"single": lat_record(l_single), "burst64": lat_record(l_burst)}
+    log(f"[{tag}] {len(singles)} singles p50 {rec['latency']['single']['p50_ms']:.2f} "
+        f"p99 {rec['latency']['single']['p99_ms']:.2f} ms; burst of {len(burst)} p50 "
+        f"{rec['latency']['burst64']['p50_ms']:.2f} p99 "
+        f"{rec['latency']['burst64']['p99_ms']:.2f} ms; {rec['cpu_same_ids']}/"
+        f"{len(payloads)} answers equal to the CPU path (the rest up to near-ties); "
+        f"burst equal to serial {same}/{len(burst)}; stacked vs serial products "
+        f"{rec['stacked_vs_serial']}")
+    return rec
+
+
+def cooccur_oracle(pos_u, pos_i, n_users, n_items) -> np.ndarray:
+    """scipy's int64 ``Uᵀ U`` over the de-duplicated views, rounded to bf16
+    (nearest even), as a dense fp32 [n_items, n_items]."""
+    import scipy.sparse as sparse
+
+    keys = np.unique(pos_u.astype(np.int64) * n_items + pos_i)
+    u = sparse.csr_matrix((np.ones(len(keys), np.int64),
+                           (keys // n_items, keys % n_items)),
+                          shape=(n_users, n_items))
+    exact = (u.T @ u).toarray()
+    rounded = torch.from_numpy(exact.astype(np.float32)).bfloat16().float().numpy()
+    del exact
+    return rounded
+
+
+def sim_train_phase(ctx, tmp):
+    """bench_similarproduct's configuration, not cut, through
+    ``TwoTowerMF.fit`` on the card (a warm-up fit, the timed fit, one step
+    by op), a cut fit against the CPU, the similarity model deployed
+    through the QueryServer (singles and a burst of 64 held against the
+    CPU path and against serial serving), and ``CooccurrenceAlgorithm`` on
+    the positives as views, its top lists held exactly against an int64
+    ``Uᵀ U`` rounded to bf16."""
+    from incubator_predictionio_tpu_torch.data.bimap import BiMap
+    from incubator_predictionio_tpu_torch.models.two_tower import (
+        TwoTowerConfig,
+        TwoTowerMF,
+    )
+    from incubator_predictionio_tpu_torch.templates import similarproduct as sp
+    from incubator_predictionio_tpu_torch.templates._similarity import l2_normalize
+
+    dev = ctx.device
+    t0 = time.perf_counter()
+    pos_u, pos_i, data = sim_data()
+    data_s = time.perf_counter() - t0
+
+    def fit(seed, **kw):
+        cfg = dict(rank=SIM_RANK, batch_size=SIM_BATCH, epochs=SIM_EPOCHS, seed=seed)
+        cfg.update(kw)
+        return TwoTowerMF(TwoTowerConfig(**cfg)).fit(ctx, *data, SIM_USERS, SIM_ITEMS)
+
+    t0 = time.perf_counter()
+    fit(0)
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = fit(1)
+    fit_s = time.perf_counter() - t0
+    n = len(data[0])
+    steps, flops, nbytes = two_tower_flops_bytes(
+        n, SIM_RANK, SIM_BATCH, SIM_EPOCHS, SIM_USERS, SIM_ITEMS, moment_bytes=4)
+    t_train = model.timings["train_sec"]
+    rec = {"users": SIM_USERS, "items": SIM_ITEMS, "positives": SIM_POS,
+           "events": n, "rank": SIM_RANK, "batch": SIM_BATCH, "epochs": SIM_EPOCHS,
+           "steps": steps, "data_s": data_s, "warmup_fit_s": warm_s, "fit_s": fit_s,
+           "timings": model.timings, "events_per_sec": SIM_EPOCHS * n / fit_s,
+           "train_events_per_sec": SIM_EPOCHS * n / t_train,
+           "step_ms": t_train / steps * 1e3,
+           "bound_step_ms": nbytes / steps / HBM_BYTES_PER_S * 1e3,
+           "hbm_util": nbytes / t_train / HBM_BYTES_PER_S,
+           "mfu": flops / t_train / BF16_OPS_PER_S, "final_loss": model.final_loss}
+    check(np.isfinite(model.final_loss), f"[sim-train] loss {model.final_loss}")
+    k = SIM_RANK
+    tables = [torch.from_numpy(np.concatenate(
+        [e, b[:, None]], axis=1).astype(np.float32)).to(dev)
+        for e, b in ((model.user_emb, model.user_bias),
+                     (model.item_emb, model.item_bias))]
+    rec["step_by_op"] = rec_step_by_op(model, data, dev, tables)
+    del tables
+    w = rec["step_by_op"]
+    log(f"[sim-train] fit {SIM_USERS}x{SIM_ITEMS} rank {k}, {n} events x "
+        f"{SIM_EPOCHS} epochs = {steps} steps of {SIM_BATCH}: fit {fit_s:.3f} s "
+        f"(warm-up {warm_s:.3f} s; data {data_s:.2f} s), timings {model.timings}; "
+        f"{rec['events_per_sec']:.1f} events/s, {rec['train_events_per_sec']:.1f} "
+        f"train events/s, {rec['step_ms']:.3f} ms a step (bound "
+        f"{rec['bound_step_ms']:.4f} ms), hbm_util {rec['hbm_util']:.4f}, mfu "
+        f"{rec['mfu']:.6f}; loss {model.final_loss:.6f}; one step's device ms: "
+        + ", ".join(f"{a}={b:.4f}" for a, b in w["device_ms_by_op"].items())
+        + f"; busy share {w['profiled_step']['device_busy_share']:.4f}")
+    cu, ci, cdata = sim_data(seed=8, n_users=SIM_FIT_USERS, n_items=SIM_FIT_ITEMS,
+                             n_pos=SIM_FIT_POS)
+    rec["fit_parity"] = fit_parity(dev, "sim-train", cdata, SIM_FIT_USERS,
+                                   SIM_FIT_ITEMS, TwoTowerConfig(
+                                       rank=SIM_RANK, batch_size=SIM_BATCH,
+                                       epochs=3, seed=4))
+    # the similarity model, deployed through the QueryServer
+    item_ids = [f"i{j}" for j in range(SIM_ITEMS)]
+    cats = {iid: (f"c{j % SIM_CATS}",) for j, iid in enumerate(item_ids)}
+    ism = sp.ItemSimModel(l2_normalize(model.item_emb), BiMap.string_int(item_ids),
+                          cats)
+    storage, variant_path = deploy_storage(SIM_FACTORY, {"rank": SIM_RANK}, "als",
+                                           ism, tmp)
+    payloads = sim_queries(np.random.default_rng(71), SIM_SINGLES + SIM_BURST,
+                           item_ids)
+    rec["serve"] = asyncio.run(serve_phase(
+        "sim-train", variant_path, storage, ctx,
+        lambda session, url, server: sim_serve_body(
+            "sim-train", payloads, session, url, server)))
+    del model, ism, storage
+    # co-occurrence on the positives as views (a dense 10,000 x 10,000 U)
+    users = BiMap.string_int(f"u{j}" for j in range(SIM_USERS))
+    empty_i, empty_f = np.zeros(0, np.int32), np.zeros(0, np.float32)
+    td = sp.TrainingData(users, BiMap.string_int(item_ids), cats, pos_u, pos_i,
+                         empty_i, empty_i, empty_f)
+    algo = sp.CooccurrenceAlgorithm(sp.CooccurrenceAlgorithmParams(n=20))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cm = algo.train(ctx, td)
+    cooc_train_s = time.perf_counter() - t0
+    cooc_ms, cooc_by = device_busy(lambda: sp._cooccur(
+        pos_u, pos_i, SIM_USERS, SIM_ITEMS, dev), calls=1)
+    got = sp._cooccur(pos_u, pos_i, SIM_USERS, SIM_ITEMS, dev)
+    want = cooccur_oracle(pos_u, pos_i, SIM_USERS, SIM_ITEMS)
+    check(got.tobytes() == want.tobytes(),
+          "[sim-train] Uᵀ U on the card differs from int64 counts rounded to bf16")
+    np.fill_diagonal(want, 0)
+    top = {}
+    for i in range(SIM_ITEMS):
+        row = want[i]
+        nz = np.nonzero(row)[0]
+        if len(nz):
+            order = nz[np.argsort(-row[nz])][:20]
+            top[i] = [(int(j), int(row[j])) for j in order]
+    check(cm.top_cooccurrences == top,
+          "[sim-train] co-occurrence top lists differ from the int64 oracle's")
+    cq = [{"items": [item_ids[int(i)] for i in pos_i[j:j + 2]], "num": 10}
+          for j in range(0, 64, 2)]
+    answered = sum(bool(algo.predict(cm, sp.Query(items=tuple(q["items"]))).item_scores)
+                   for q in cq)
+    rec["cooccurrence"] = {"train_s": cooc_train_s, "product_device_ms": cooc_ms,
+                           "top_device_ms": dict(sorted(cooc_by.items(),
+                                                        key=lambda kv: -kv[1])[:4]),
+                           "items_with_lists": len(top),
+                           "max_count": int(want.max()),
+                           "top_lists_equal": True, "queries_answered": answered}
+    log(f"[sim-train] co-occurrence: train {cooc_train_s:.2f} s (Uᵀ U device "
+        f"{cooc_ms:.3f} ms); Uᵀ U bitwise the int64 counts rounded to bf16; top "
+        f"lists of {len(top)} items equal; max co-count {int(want.max())}")
+    del want, got, cm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sim_numpy_scores(model, p) -> dict:
+    """numpy scoring of the model's own tables: bf16-rounded rows and
+    catalog, fp32 products rounded to bf16, summed over the query's rows,
+    plus the template's filter mask."""
+    from incubator_predictionio_tpu_torch.templates import similarproduct as sp
+
+    def bf(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).bfloat16().float().numpy()
+
+    q = query_of(sp.Query, p)
+    known = [model.item_map[i] for i in q.items if i in model.item_map]
+    rows = bf(bf(model.item_vecs[known]) @ bf(model.item_vecs).T)
+    s = rows.sum(axis=0) + sp._category_mask(model, q)
+    inv = model.item_map.inverse()
+    return {inv[j]: float(v) for j, v in enumerate(s) if np.isfinite(v)}
+
+
+async def simwf_body(tag, payloads, session, url, server):
+    model = server.deployed.models[0]
+    check(model.serving_info()["device"].startswith("cuda"),
+          f"[{tag}] not on the card: {model.serving_info()}")
+    bodies, lat = await post_all(session, url, payloads, False)
+    sim_filters_hold(tag, model, payloads, bodies)
+    same = 0
+    for p, body in zip(payloads, bodies):
+        full = sim_numpy_scores(model, p)
+        want = sorted(full.items(), key=lambda kv: -kv[1])[:p["num"]]
+        same += near_tie_check(tag, body["itemScores"],
+                               [{"item": a, "score": b} for a, b in want],
+                               full, SIM_SCORE_TOL)
+    return {"numpy_same_ids": same, "queries": len(payloads), "bodies": bodies,
+            "latency": lat_record(lat)}
+
+
+#: a fresh interpreter loads the latest instance of a variant from the
+#: storage its environment names, serves the payloads on the card and
+#: prints the answers as one JSON line
+FRESH_PROCESS = """
+import json, sys
+from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext
+from incubator_predictionio_tpu_torch.server.query_server import (
+    ServerConfig, load_deployed_engine)
+from incubator_predictionio_tpu_torch.utils.json_util import to_jsonable
+variant, device, payloads = sys.argv[1], sys.argv[2], json.loads(sys.stdin.read())
+deployed = load_deployed_engine(ServerConfig(engine_variant=variant),
+                                ctx=DeviceContext.create(device))
+print(json.dumps([to_jsonable(deployed.predict(p), camelize_fields=True)
+                  for p in payloads]))
+"""
+
+
+def fresh_process_answers(tag, variant, payloads, bodies, ctx) -> dict:
+    """The trained model loaded and served by a fresh process on the same
+    device (the phase's storage from the environment): its answers must
+    equal the served ones."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", FRESH_PROCESS, variant, str(ctx.device)],
+        input=json.dumps(payloads), capture_output=True, text=True,
+        timeout=300, env=dict(os.environ,
+                              PYTHONPATH=str(Path(__file__).resolve().parent)))
+    check(out.returncode == 0, f"[{tag}] the fresh process failed: {out.stderr[-2000:]}")
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    check(got == bodies, f"[{tag}] a fresh process serves other answers")
+    return {"equal": True, "wall_s": time.perf_counter() - t0}
+
+
+def sim_workflow_phase(ctx, tmp):
+    """The similarproduct template through the CLI on sqlite: ``app new``,
+    ``import`` of 10,000 items' ``$set`` categories and 100,000 ``view``
+    events (``default_rng(13)``), ``train`` (als) on the card, deploy,
+    queries over a socket held against numpy scoring of the trained tables,
+    a fresh ``load_deployed_engine`` (and, for ``als``, a fresh process on
+    the card) serving the same answers; then 20,000
+    like/dislike events into the same app and the ``likealgo`` variant."""
+    import datetime as dt
+
+    from incubator_predictionio_tpu_torch.server.query_server import (
+        ServerConfig,
+        load_deployed_engine,
+    )
+    from incubator_predictionio_tpu_torch.utils.json_util import to_jsonable
+
+    root = os.path.join(tmp, "sim-workflow")
+    rng = np.random.default_rng(13)
+    t0 = dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc)
+    item_ids = [f"i{j}" for j in range(SIM_ITEMS)]
+    items = [{"event": "$set", "entityType": "item", "entityId": iid,
+              "properties": {"categories": [f"c{j % SIM_CATS}"]},
+              "eventTime": t0.isoformat()} for j, iid in enumerate(item_ids)]
+    vu = rng.integers(0, SIM_USERS, SIMWF_VIEWS)
+    vi = rng.integers(0, SIM_ITEMS, SIMWF_VIEWS)
+    views = [{"event": "view", "entityType": "user", "entityId": f"u{u}",
+              "targetEntityType": "item", "targetEntityId": f"i{i}",
+              "eventTime": (t0 + dt.timedelta(seconds=j + 1)).isoformat()}
+             for j, (u, i) in enumerate(zip(vu, vi))]
+    lu = rng.integers(0, SIM_USERS, SIMWF_LIKES)
+    li = rng.integers(0, SIM_ITEMS, SIMWF_LIKES)
+    like = rng.random(SIMWF_LIKES) < 0.7
+    likes = [{"event": "like" if k else "dislike", "entityType": "user",
+              "entityId": f"u{u}", "targetEntityType": "item",
+              "targetEntityId": f"i{i}",
+              "eventTime": (t0 + dt.timedelta(seconds=SIMWF_VIEWS + j + 1)).isoformat()}
+             for j, (u, i, k) in enumerate(zip(lu, li, like))]
+    payloads = sim_queries(np.random.default_rng(14), 16, item_ids)
+    rec = {}
+    with cli_storage(root) as registry:
+        app_id, rec["import"] = cli_app_import("sim-workflow", root, "simwf",
+                                               items + views)
+        for name, extra in (("als", None), ("likealgo", likes)):
+            tag = f"sim-workflow-{name}"
+            if extra:
+                path = os.path.join(root, "likes.json")
+                n = write_events(path, extra)
+                s0 = time.perf_counter()
+                out = cli_run(tag, ["import", "--appid", str(app_id), "--input", path])
+                check(f"Imported {n} events." in out, f"[{tag}] import: {out}")
+                rec["import_likes_s"] = time.perf_counter() - s0
+            variant = write_variant(
+                os.path.join(root, f"sim-{name}.json"), SIM_FACTORY, "simwf",
+                [{"name": name, "params": {"rank": SIM_RANK, "numIterations": 10,
+                                           "seed": 1}}])
+            iid, train_s = cli_train(tag, registry, variant, ctx)
+            storage = registry.get_storage()
+            res = asyncio.run(serve_phase(
+                tag, variant, storage, ctx,
+                lambda session, url, server: simwf_body(tag, payloads, session,
+                                                        url, server)))
+            bodies = res.pop("bodies")
+            fresh = load_deployed_engine(ServerConfig(engine_variant=variant),
+                                         storage, ctx, warmup=False)
+            again = [to_jsonable(fresh.predict(p), camelize_fields=True)
+                     for p in payloads]
+            check(again == bodies, f"[{tag}] a fresh load serves other answers")
+            res.update({"train_s": train_s, "instance": iid, "fresh_load_equal": True})
+            if name == "als":
+                res["fresh_process"] = fresh_process_answers(tag, variant, payloads,
+                                                             bodies, ctx)
+            rec[name] = res
+            log(f"[{tag}] train on the card {train_s:.2f} s; {res['numpy_same_ids']}/"
+                f"{len(payloads)} answers equal to numpy scoring of the trained "
+                f"tables (the rest up to near-ties); a fresh load "
+                + ("and a fresh process serve" if "fresh_process" in res else "serves")
+                + f" the same answers; singles p50 {res['latency']['p50_ms']:.2f} ms")
+            del fresh
+    log(f"[sim-workflow] import {rec['import']['events']} events in "
+        f"{rec['import']['import_s']:.2f} s ({rec['import']['import_us_per_event']:.1f} "
+        f"µs an event), {SIMWF_LIKES} like/dislike in {rec['import_likes_s']:.2f} s")
+    return rec
+
+
+async def recuser_body(payloads, session, url, server):
+    from incubator_predictionio_tpu_torch.templates import _similarity as sim
+    from incubator_predictionio_tpu_torch.templates import recommended_user as ru
+
+    tag = "recuser-workflow"
+    model = server.deployed.models[0]
+    check(model.serving_info()["device"].startswith("cuda"),
+          f"[{tag}] not on the card: {model.serving_info()}")
+    singles, burst = payloads[:16], payloads[16:]
+    b_single, l_single = await post_all(session, url, singles, False)
+    b_burst, l_burst = await post_all(session, url, burst, True)
+    cpu = cpu_copy(model)
+    algo = ru.ALSAlgorithm(ru.ALSAlgorithmParams())
+    same = 0
+    for p, body in zip(payloads, b_single + b_burst):
+        got = [s["user"] for s in body["similarUserScores"]]
+        check(all(s["score"] > 0 for s in body["similarUserScores"]),
+              f"[{tag}] a score ≤ 0 served: {body}")
+        check(not set(got) & set(p["users"]), f"[{tag}] a query user served")
+        check(not set(got) & set(p.get("blackList") or ()),
+              f"[{tag}] a blackListed user served")
+        q = query_of(ru.Query, p)
+        want = algo.predict(cpu, q)
+        known = [cpu.user_map[u] for u in q.users if u in cpu.user_map]
+        s = sim.sim_scores(cpu.user_vecs[known], cpu._device_vt,
+                           algo._filter_mask(cpu, q))
+        inv = cpu.user_map.inverse()
+        full = {inv[j]: float(v) for j, v in enumerate(s) if np.isfinite(v)}
+        same += near_tie_check(tag, body["similarUserScores"],
+                               as_dicts(want, "similar_user_scores", "user"),
+                               full, SIM_SCORE_TOL, key="user")
+    return {"cpu_same_ids": same, "queries": len(payloads),
+            "latency": {"single": lat_record(l_single), "burst64": lat_record(l_burst)}}
+
+
+def recuser_workflow_phase(ctx, tmp):
+    """The recommended-user template through the CLI on sqlite: 10,000
+    users' 100,000 ``follow`` events (``default_rng(17)``), ``train`` on the
+    card, deploy, 16 singles and a burst of 64 held against the plain CPU
+    path of the same model; the ``score > 0`` cut, no query user and no
+    blackListed user served."""
+    import datetime as dt
+
+    root = os.path.join(tmp, "recuser-workflow")
+    rng = np.random.default_rng(17)
+    t0 = dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc)
+    fu = rng.integers(0, RU_USERS, RU_FOLLOWS)
+    ft = (fu + rng.integers(1, RU_USERS, RU_FOLLOWS)) % RU_USERS  # never oneself
+    follows = [{"event": "follow", "entityType": "user", "entityId": f"u{u}",
+                "targetEntityType": "user", "targetEntityId": f"u{t}",
+                "eventTime": (t0 + dt.timedelta(seconds=j)).isoformat()}
+               for j, (u, t) in enumerate(zip(fu, ft))]
+    qrng = np.random.default_rng(18)
+    payloads = []
+    for j in range(16 + 64):
+        p = {"users": [f"u{int(u)}" for u in qrng.choice(RU_USERS, 1 + j % 3,
+                                                         replace=False)],
+             "num": 10}
+        if j % 3 == 1:
+            p["blackList"] = [f"u{int(u)}" for u in qrng.integers(0, RU_USERS, 5)]
+        elif j % 3 == 2:
+            p["whiteList"] = [f"u{int(u)}" for u in qrng.integers(0, RU_USERS, 800)]
+        payloads.append(p)
+    with cli_storage(root) as registry:
+        _, rec = cli_app_import("recuser-workflow", root, "recuser", follows)
+        variant = write_variant(os.path.join(root, "recuser.json"), RU_FACTORY,
+                                "recuser", [{"name": "als", "params": {
+                                    "rank": 32, "numIterations": 10, "seed": 1}}])
+        rec["instance"], rec["train_s"] = cli_train("recuser-workflow", registry,
+                                                    variant, ctx)
+        rec.update(asyncio.run(serve_phase(
+            "recuser-workflow", variant, registry.get_storage(), ctx,
+            lambda session, url, server: recuser_body(payloads, session, url, server))))
+    log(f"[recuser-workflow] import {rec['events']} follows in {rec['import_s']:.2f} s; "
+        f"train on the card {rec['train_s']:.2f} s; {rec['cpu_same_ids']}/"
+        f"{rec['queries']} answers equal to the CPU path (the rest up to near-ties); "
+        f"singles p50 {rec['latency']['single']['p50_ms']:.2f} ms, burst of 64 p50 "
+        f"{rec['latency']['burst64']['p50_ms']:.2f} p99 "
+        f"{rec['latency']['burst64']['p99_ms']:.2f} ms")
+    return rec
+
+
+class CountingReads:
+    """An event store that counts the reads serving makes through it."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self.reads = 0
+
+    def find(self, *args, **kwargs):
+        self.reads += 1
+        return self._inner.find(*args, **kwargs)
+
+    def find_by_entities(self, *args, **kwargs):
+        self.reads += 1
+        return self._inner.find_by_entities(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+def ecomm_events(rng):
+    """bench_ecommerce_retrieval's events: 4,000 items' categories (c0..c7,
+    g0..g2), 40 views a user for 500 users, 40 unavailable items."""
+    import datetime as dt
+
+    t0 = dt.datetime(2020, 1, 1, tzinfo=dt.timezone.utc).isoformat()
+    cats = {f"i{i}": (f"c{i % 8}", f"g{i % 3}") for i in range(EC_ITEMS)}
+    out = [{"event": "$set", "entityType": "item", "entityId": iid,
+            "properties": {"categories": list(c)}, "eventTime": t0}
+           for iid, c in cats.items()]
+    for u in range(EC_USERS):
+        for i in map(int, rng.integers(0, EC_ITEMS, EC_VIEWS)):
+            out.append({"event": "view", "entityType": "user", "entityId": f"u{u}",
+                        "targetEntityType": "item", "targetEntityId": f"i{i}",
+                        "eventTime": t0})
+    out.append({"event": "$set", "entityType": "constraint",
+                "entityId": "unavailableItems",
+                "properties": {"items": [f"i{i}" for i in range(EC_UNAVAILABLE)]},
+                "eventTime": t0})
+    return cats, out
+
+
+def ecomm_query(rng, j):
+    u = f"u{int(rng.integers(0, EC_USERS))}" if j % 16 else "coldstart"
+    kind = j % 4
+    p = {"user": u, "num": 10}
+    if kind == 1:
+        p["categories"] = [f"c{j % 8}"]
+    elif kind == 2:
+        p["blackList"] = [f"i{i}" for i in range(j % 7)]
+    elif kind == 3:
+        p["categories"] = [f"g{j % 3}"]
+        p["whiteList"] = [f"i{i}" for i in range(100, 1100)]
+    return p
+
+
+def ecomm_phase(ctx, tmp):
+    """bench_ecommerce_retrieval's configuration (500 users, 4,000 items,
+    rank 32, 40 views a user, 40 unavailable items, ``default_rng(3)``) on
+    memory events: the serial ``predict`` (TTL 0, a read per query) against
+    the vectorized ``batch_predict`` (the default TTL), query for query
+    (equal ids, bitwise scores), their store reads and times; the same
+    model over a socket; then the same events through the CLI on sqlite
+    (the ALS fit on the card) and a deploy whose answers — a known user,
+    unknown users with views (predictSimilar) and without (popularity) —
+    are held against the CPU path of the same model."""
+    import dataclasses
+
+    from incubator_predictionio_tpu_torch.data.bimap import BiMap
+    from incubator_predictionio_tpu_torch.data.event import Event
+    from incubator_predictionio_tpu_torch.data.storage import App, Storage
+    from incubator_predictionio_tpu_torch.data.storage import registry as reg
+    from incubator_predictionio_tpu_torch.models.two_tower import (
+        TwoTowerConfig,
+        TwoTowerModel,
+    )
+    from incubator_predictionio_tpu_torch.serving import TTLCache
+    from incubator_predictionio_tpu_torch.templates import ecommerce as ec
+    from incubator_predictionio_tpu_torch.utils.json_util import to_jsonable
+
+    rng = np.random.default_rng(3)
+    cats, dicts = ecomm_events(rng)
+    root = os.path.join(tmp, "ecomm")
+    os.makedirs(root, exist_ok=True)
+    storage = Storage({
+        "PIO_STORAGE_SOURCES_META_TYPE": "sqlite",
+        "PIO_STORAGE_SOURCES_META_PATH": os.path.join(root, "meta.db"),
+        "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "META",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "MEM"})
+    app_id = storage.get_meta_data_apps().insert(App(0, "bench-ecomm"))
+    events = storage.get_events()
+    events.init(app_id)
+    events.insert_batch([Event.from_json_dict(d) for d in dicts], app_id)
+    norm = rng.standard_normal((EC_ITEMS, EC_RANK)).astype(np.float32)
+    norm /= np.linalg.norm(norm, axis=1, keepdims=True) + 1e-9
+    model = ec.ECommModel(
+        mf=TwoTowerModel(
+            user_emb=rng.standard_normal((EC_USERS, EC_RANK)).astype(np.float32),
+            item_emb=rng.standard_normal((EC_ITEMS, EC_RANK)).astype(np.float32),
+            user_bias=np.zeros(EC_USERS, np.float32),
+            item_bias=np.zeros(EC_ITEMS, np.float32),
+            mean=3.0, config=TwoTowerConfig(rank=EC_RANK)),
+        user_map=BiMap.string_int(f"u{u}" for u in range(EC_USERS)),
+        item_map=BiMap.string_int(f"i{i}" for i in range(EC_ITEMS)),
+        categories=cats,
+        popularity=rng.integers(0, 100, EC_ITEMS).astype(np.float32),
+        item_vecs_norm=norm).prepare_for_serving(ctx)
+    payloads = [ecomm_query(rng, j) for j in range(max(EC_SERIAL, EC_BATCHED))]
+    queries = [query_of(ec.Query, p) for p in payloads]
+    counting = CountingReads(events)
+    storage.get_events = lambda: counting
+    prev = reg.use_storage(storage)
+    rec = {"users": EC_USERS, "items": EC_ITEMS, "rank": EC_RANK,
+           "views_per_user": EC_VIEWS, "unavailable": EC_UNAVAILABLE}
+    try:
+        serial = ec.ECommAlgorithm(ec.ECommAlgorithmParams(app_name="bench-ecomm"))
+        serial._constraint_cache = TTLCache(0)  # the reference's semantics
+        batched = ec.ECommAlgorithm(ec.ECommAlgorithmParams(app_name="bench-ecomm"))
+        want = [serial.predict(model, q) for q in queries[:EC_BATCH]]
+        got = dict(batched.batch_predict(model, list(enumerate(queries[:EC_BATCH]))))
+        for i in range(EC_BATCH):
+            check([(s.item, s.score) for s in want[i].item_scores]
+                  == [(s.item, s.score) for s in got[i].item_scores],
+                  f"[ecomm] batch answer {i} differs from the serial one")
+            check(not {f"i{j}" for j in range(EC_UNAVAILABLE)}
+                  & {s.item for s in got[i].item_scores},
+                  f"[ecomm] an unavailable item served: {got[i]}")
+        r0 = counting.reads
+        t0 = time.perf_counter()
+        for q in queries[:EC_SERIAL]:
+            serial.predict(model, q)
+        serial_s = time.perf_counter() - t0
+        rec["serial"] = {"queries": EC_SERIAL, "qps": EC_SERIAL / serial_s,
+                         "store_reads_per_query": (counting.reads - r0) / EC_SERIAL}
+        sizes: dict = {}
+        r0 = counting.reads
+        t0 = time.perf_counter()
+        for off in range(0, EC_BATCHED, EC_BATCH):
+            chunk = queries[off:off + EC_BATCH]
+            batched.batch_predict(model, list(enumerate(chunk)))
+            sizes[str(len(chunk))] = sizes.get(str(len(chunk)), 0) + 1
+        batched_s = time.perf_counter() - t0
+        rec["batched"] = {"queries": EC_BATCHED, "qps": EC_BATCHED / batched_s,
+                          "batch_sizes": sizes,
+                          "store_reads_per_batch": (counting.reads - r0)
+                          / sum(sizes.values())}
+        rec["speedup"] = rec["batched"]["qps"] / rec["serial"]["qps"]
+        rec["serial_equals_batch"] = EC_BATCH
+        # the same model over a socket: singles, then a burst of 64
+        dstore, variant = deploy_storage(EC_FACTORY, {"appName": "bench-ecomm"},
+                                         "ecomm", dataclasses.replace(model), tmp)
+
+        async def body(session, url, server):
+            b1, l1 = await post_all(session, url, payloads[:32], False)
+            b2, l2 = await post_all(session, url, payloads[32:96], True)
+            for p, b in zip(payloads[:96], b1 + b2):
+                q = query_of(ec.Query, p)
+                check(b == to_jsonable(serial.predict(model, q), camelize_fields=True),
+                      f"[ecomm] served answer for {p} differs from predict")
+            return {"latency": {"single": lat_record(l1), "burst64": lat_record(l2)}}
+
+        rec["socket"] = asyncio.run(serve_phase("ecomm", variant, dstore, ctx, body))
+    finally:
+        reg.use_storage(prev)
+        storage.close()
+    log(f"[ecomm] serial predict {rec['serial']['qps']:.1f} q/s "
+        f"({rec['serial']['store_reads_per_query']:.2f} store reads a query) vs "
+        f"batch_predict {rec['batched']['qps']:.1f} q/s "
+        f"({rec['batched']['store_reads_per_batch']:.2f} reads a batch, sizes "
+        f"{sizes}): {rec['speedup']:.1f}x; {EC_BATCH} batch answers bitwise the "
+        f"serial ones; socket singles p50 "
+        f"{rec['socket']['latency']['single']['p50_ms']:.2f} ms, burst p50 "
+        f"{rec['socket']['latency']['burst64']['p50_ms']:.2f} p99 "
+        f"{rec['socket']['latency']['burst64']['p99_ms']:.2f} ms")
+    rec["training"] = ecomm_training(ctx, os.path.join(tmp, "ecomm-train"), dicts)
+    return rec
+
+
+def ecomm_training(ctx, root, dicts):
+    """The e-commerce events through the CLI on sqlite, the ALS fit on the
+    card, a deploy; answers against the CPU path of the same model."""
+    import datetime as dt
+
+    from incubator_predictionio_tpu_torch.data.event import Event
+    from incubator_predictionio_tpu_torch.serving import TTLCache
+    from incubator_predictionio_tpu_torch.templates import ecommerce as ec
+
+    tag = "ecomm-train"
+    with cli_storage(root) as registry:
+        app_id, rec = cli_app_import(tag, root, "ecomm", dicts)
+        variant = write_variant(os.path.join(root, "ecomm.json"), EC_FACTORY, "ecomm",
+                                [{"name": "ecomm", "params": {
+                                    "appName": "ecomm", "rank": EC_RANK,
+                                    "numIterations": 10, "seed": 1}}])
+        rec["instance"], rec["train_s"] = cli_train(tag, registry, variant, ctx)
+        storage = registry.get_storage()
+        # a user the model has not seen, with views after the train
+        t_new = dt.datetime(2021, 1, 1, tzinfo=dt.timezone.utc)
+        storage.get_events().insert_batch([Event.from_json_dict({
+            "event": "view", "entityType": "user", "entityId": "newcomer",
+            "targetEntityType": "item", "targetEntityId": f"i{i}",
+            "eventTime": (t_new + dt.timedelta(seconds=i)).isoformat()})
+            for i in (101, 202, 303)], app_id)
+        payloads = [{"user": "u1", "num": 10}, {"user": "u2", "num": 5,
+                                                 "categories": ["c3"]},
+                    {"user": "newcomer", "num": 10},
+                    {"user": "newcomer", "num": 6, "blackList": ["i7"]},
+                    {"user": "stranger", "num": 10}]
+
+        async def body(session, url, server):
+            algo = server.deployed.algorithms[0]
+            model = server.deployed.models[0]
+            check(np.isfinite(model.mf.final_loss), f"[{tag}] loss {model.mf.final_loss}")
+            algo._constraint_cache = TTLCache(0)
+            bodies, lat = await post_all(session, url, payloads, False)
+            cpu = cpu_copy(model)
+            ref = ec.ECommAlgorithm(ec.ECommAlgorithmParams(app_name="ecomm"))
+            ref._constraint_cache = TTLCache(0)
+            paths = []
+            for p, b in zip(payloads, bodies):
+                q = query_of(ec.Query, p)
+                want = as_dicts(ref.predict(cpu, q))
+                check(b["itemScores"] == want,
+                      f"[{tag}] {p}: served {b} vs the CPU path {want}")
+                check(len(want) == p["num"], f"[{tag}] short answer {want}")
+                paths.append("known" if p["user"] in model.user_map
+                             else "similar" if p["user"] == "newcomer" else "popularity")
+            return {"final_loss": model.mf.final_loss, "paths": paths,
+                    "latency": lat_record(lat)}
+
+        rec.update(asyncio.run(serve_phase(tag, variant, storage, ctx, body)))
+    log(f"[{tag}] import {rec['events']} events in {rec['import_s']:.2f} s, train on "
+        f"the card {rec['train_s']:.2f} s (loss {rec['final_loss']:.6f}); answers "
+        f"({rec['paths']}) equal to the CPU path's")
+    return rec
+
+
+def cls_step_parity(dev, x, y, cfg) -> dict:
+    """One MLP step's loss and gradients on the card against the CPU from
+    the same parameters and batch."""
+    from incubator_predictionio_tpu_torch.models import mlp
+
+    classes, y_idx = np.unique(y, return_inverse=True)
+    xn = ((x - x.mean(0)) / (x.std(0) + 1e-8)).astype(np.float32)[:cfg.batch_size]
+    yb = y_idx[:cfg.batch_size].astype(np.int64)
+    init = mlp.init_params(torch.Generator().manual_seed(5),
+                           [x.shape[1], *cfg.hidden_dims, len(classes)], "cpu")
+    out = {}
+    for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        net = mlp.MLPNet([{k: v.to(d) for k, v in layer.items()} for layer in init])
+        loss = mlp.weighted_xent(net(torch.from_numpy(xn).to(d)),
+                                 torch.from_numpy(yb).to(d),
+                                 torch.ones(len(yb), device=d))
+        grads = torch.autograd.grad(loss, list(net.parameters()))
+        out[name] = (float(loss.detach()), [g.cpu() for g in grads])
+    (lc, gc_), (lg, gg) = out["cpu"], out["card"]
+    rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(gg, gc_)]
+    res = {"loss_card": lg, "loss_cpu": lc, "loss_rel_diff": abs(lg - lc) / abs(lc),
+           "grad_rel_err": rel, "grad_tol": CLS_GRAD_TOL}
+    check(res["loss_rel_diff"] <= CLS_LOSS_RTOL,
+          f"[cls-train] step loss on the card {lg} vs the CPU {lc}")
+    for e in rel:
+        check(e <= CLS_GRAD_TOL, f"[cls-train] a gradient on the card differs from "
+              f"the CPU's by {e} of its max abs (> {CLS_GRAD_TOL})")
+    return res
+
+
+def cls_train_phase(ctx):
+    """bench_classification's configuration, not cut (100,000 x 3 from
+    ``default_rng(0)``, hidden (128, 128), 40 epochs, batch 4,096), through
+    ``MLPClassifier.fit`` on the card: a warm-up fit, the timed fit, the
+    device busy share of one step, one step against the CPU."""
+    from incubator_predictionio_tpu_torch.models import mlp
+
+    dev = ctx.device
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(CLS_ROWS, 3)).astype(np.float32)
+    y = (x[:, 0] + 0.5 * x[:, 1] > 0).astype(np.int32)
+    cfg = mlp.MLPConfig(hidden_dims=CLS_HIDDEN, epochs=CLS_EPOCHS,
+                        batch_size=CLS_BATCH)
+    t0 = time.perf_counter()
+    mlp.MLPClassifier(cfg).fit(ctx, x, y)
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = mlp.MLPClassifier(cfg).fit(ctx, x, y)
+    fit_s = time.perf_counter() - t0
+    dims = [3, *CLS_HIDDEN, 2]
+    flops = CLS_EPOCHS * CLS_ROWS * 6 * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    acc = float(np.mean(mlp.MLPClassifier.predict(model, x[:20_000]) == y[:20_000]))
+    # one step's device time and busy share
+    net = mlp.MLPNet([{k: torch.from_numpy(v).to(dev) for k, v in layer.items()}
+                      for layer in model.params])
+    from incubator_predictionio_tpu_torch.utils.optim import adam_init
+
+    state = adam_init([p.data for p in net.parameters()])
+    xn = ((x - model.mean) / model.std).astype(np.float32)
+    xb, yb, wb = mlp.stage_batches(xn, y.astype(np.int64), CLS_BATCH, ctx, dev)
+
+    def step():
+        mlp.train_step(net, state, xb[0], yb[0], wb[0], cfg.learning_rate)
+
+    step_ms, step_by = device_busy(step, calls=5)
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        step()
+    torch.cuda.synchronize()
+    step_wall_ms = (time.perf_counter() - t0) / 20 * 1e3
+    steps = CLS_EPOCHS * xb.shape[0]
+    rec = {"rows": CLS_ROWS, "hidden": CLS_HIDDEN, "epochs": CLS_EPOCHS,
+           "batch": CLS_BATCH, "steps": steps, "warmup_fit_s": warm_s, "fit_s": fit_s,
+           "events_per_sec": CLS_EPOCHS * CLS_ROWS / fit_s,
+           "mfu": flops / fit_s / BF16_OPS_PER_S, "final_loss": model.final_loss,
+           "train_accuracy_20k": acc, "step_wall_ms": step_wall_ms,
+           "step_device_ms": step_ms, "step_busy_share": step_ms / step_wall_ms,
+           "step_top_device_ms": dict(sorted(step_by.items(), key=lambda kv: -kv[1])[:6])}
+    check(np.isfinite(model.final_loss) and acc > 0.95,
+          f"[cls-train] loss {model.final_loss}, accuracy {acc}")
+    rec["step_parity"] = cls_step_parity(dev, x, y, cfg)
+    p = rec["step_parity"]
+    log(f"[cls-train] fit {CLS_ROWS} rows x {CLS_EPOCHS} epochs = {steps} steps of "
+        f"{CLS_BATCH}: {fit_s:.3f} s (warm-up {warm_s:.3f} s), "
+        f"{rec['events_per_sec']:.1f} events/s, mfu {rec['mfu']:.6f}; loss "
+        f"{model.final_loss:.6f}, accuracy {acc:.4f}; a step {step_wall_ms:.3f} ms "
+        f"wall, {step_ms:.4f} ms device (busy share {rec['step_busy_share']:.4f}); "
+        f"card vs CPU step: loss rel {p['loss_rel_diff']:.2e}, gradients "
+        + ", ".join(f"{e:.2e}" for e in p["grad_rel_err"]) + f" (tol {CLS_GRAD_TOL})")
+    return rec
+
+
+async def cls_body(tag, payloads, labels, session, url, server):
+    from incubator_predictionio_tpu_torch.templates import classification as cl
+
+    for m in server.deployed.models:
+        check(m.serving_info()["device"].startswith("cuda"),
+              f"[{tag}] not on the card: {m.serving_info()}")
+    singles, burst = payloads[:16], payloads[16:80]
+    b1, l1 = await post_all(session, url, singles, False)
+    b2, l2 = await post_all(session, url, burst, True)
+    served = [b["label"] for b in b1 + b2]
+    cpu = [cpu_copy(m) for m in server.deployed.models]
+    want = []
+    for p in payloads[:80]:
+        q = cl.Query(tuple(p["features"]))
+        preds = [a.predict(m, q) for a, m in zip(server.deployed.algorithms, cpu)]
+        want.append(server.deployed.serving.serve(q, preds).label)
+    agree = float(np.mean([a == b for a, b in zip(served, want)]))
+    acc = float(np.mean([a == b for a, b in zip(served, labels[:80])]))
+    check(agree >= CLS_LABEL_AGREE,
+          f"[{tag}] labels on the card agree with the CPU path on {agree}")
+    return {"cpu_label_agreement": agree, "accuracy_80": acc,
+            "latency": {"single": lat_record(l1), "burst64": lat_record(l2)}}
+
+
+def cls_workflow_phase(ctx, tmp):
+    """The classification template through the CLI on sqlite: 10,000 users'
+    ``$set`` events with attr0..2 and a plan that is a linear rule of them
+    (``default_rng(19)``); the ``mlp`` variant, then ``nb`` + ``mlp`` under
+    ``vote``; each deployed, 16 singles and a burst of 64 held against the
+    same models' CPU path."""
+    import datetime as dt
+
+    root = os.path.join(tmp, "cls-workflow")
+    rng = np.random.default_rng(19)
+    t0 = dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc)
+    x = rng.normal(size=(CLSWF_USERS, 3)) * [1.0, 2.0, 0.5] + [0.0, 3.0, -1.0]
+    s = x @ np.array([1.0, -0.5, 2.0])
+    plan = np.digitize(s, np.quantile(s, [1 / 3, 2 / 3])).astype(float)
+    dicts = [{"event": "$set", "entityType": "user", "entityId": f"u{j}",
+              "properties": {"attr0": float(r[0]), "attr1": float(r[1]),
+                             "attr2": float(r[2]), "plan": float(p)},
+              "eventTime": (t0 + dt.timedelta(seconds=j)).isoformat()}
+             for j, (r, p) in enumerate(zip(x, plan))]
+    payloads = [{"features": [float(v) for v in r]} for r in x[:80]]
+    rec = {}
+    with cli_storage(root) as registry:
+        _, rec["import"] = cli_app_import("cls-workflow", root, "cls", dicts)
+        for name, algos, serving in (
+                ("mlp", [{"name": "mlp", "params": {"hiddenDims": [64, 64],
+                                                    "epochs": 20}}], None),
+                ("nb-vote", [{"name": "nb", "params": {}},
+                             {"name": "mlp", "params": {"hiddenDims": [64, 64],
+                                                        "epochs": 20}}], "vote")):
+            tag = f"cls-workflow-{name}"
+            variant = write_variant(os.path.join(root, f"cls-{name}.json"),
+                                    CLS_FACTORY, "cls", algos, serving)
+            iid, train_s = cli_train(tag, registry, variant, ctx)
+            res = asyncio.run(serve_phase(
+                tag, variant, registry.get_storage(), ctx,
+                lambda session, url, server: cls_body(tag, payloads, plan,
+                                                      session, url, server)))
+            res["train_s"] = train_s
+            rec[name] = res
+            log(f"[{tag}] train on the card {train_s:.2f} s; labels equal to the "
+                f"CPU path on {res['cpu_label_agreement']:.4f}, accuracy "
+                f"{res['accuracy_80']:.4f}; singles p50 "
+                f"{res['latency']['single']['p50_ms']:.2f} ms, burst of 64 p50 "
+                f"{res['latency']['burst64']['p50_ms']:.2f} ms")
+    return rec
+
+
+def template_phases(ctx, tmp) -> dict:
+    """The six phases of the other templates, in turn."""
+    out = {}
+    for name, phase in (("sim_train", lambda: sim_train_phase(ctx, tmp)),
+                        ("sim_workflow", lambda: sim_workflow_phase(ctx, tmp)),
+                        ("recuser_workflow", lambda: recuser_workflow_phase(ctx, tmp)),
+                        ("ecomm", lambda: ecomm_phase(ctx, tmp)),
+                        ("cls_train", lambda: cls_train_phase(ctx)),
+                        ("cls_workflow", lambda: cls_workflow_phase(ctx, tmp))):
+        t0 = time.perf_counter()
+        out[name] = phase()
+        out[name]["phase_s"] = time.perf_counter() - t0
+        log(f"[{name}] phase {out[name]['phase_s']:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3323,6 +4499,10 @@ def main() -> int:
     launches.update(att_launches)
     for name, count in launches.items():
         check(count > 0, f"{name} never launched on the main path")
+    # the similar-product, recommended-user, e-commerce and classification
+    # templates: no kernel of the repo lies on their paths
+    with tempfile.TemporaryDirectory() as tmp:
+        main["templates"] = template_phases(ctx, tmp)
 
     def entry(name, source, replaces, cases, main_case):
         return {"name": name, "route": "cuda",

@@ -15,7 +15,13 @@ numpy, with the id lists of the model's BiMaps in index order:
 - :func:`two_tower_tables_from_jax`: the two-tower trainer's fused
   ``{"ue", "ie"}`` ``[N, rank+1]`` tables → the port's table tensors;
 - :func:`adam_state_from_jax`: its adam state ``(count, m, v)`` → the
-  port's ``utils/optim.py:AdamTreeState``.
+  port's ``utils/optim.py:AdamTreeState``;
+- :func:`mlp_params_from_jax`: the reference ``MLPModel.params`` (a list
+  of ``{"w", "b"}``) → the port's parameter list, which ``MLPModel`` and
+  ``MLPNet`` take;
+- :func:`item_sim_model_from_arrays`, :func:`similar_user_model_from_arrays`
+  and :func:`ecomm_model_from_arrays`: the similarproduct,
+  recommended-user and e-commerce models over numpy tables.
 
 Both packages then serve (and stream into, and train on from) the same
 model.
@@ -36,7 +42,12 @@ from incubator_predictionio_tpu_torch.models.two_tower import (
     TwoTowerConfig,
     TwoTowerModel,
 )
+from incubator_predictionio_tpu_torch.templates.ecommerce import ECommModel
 from incubator_predictionio_tpu_torch.templates.recommendation import RecModel
+from incubator_predictionio_tpu_torch.templates.recommended_user import (
+    SimilarUserModel,
+)
+from incubator_predictionio_tpu_torch.templates.similarproduct import ItemSimModel
 
 
 def rec_model_from_arrays(
@@ -198,3 +209,64 @@ def trainer_state_from_reference(state: dict) -> dict:
         "n_folded": int(state["n_folded"]),
         "coldstart": cs,
     }
+
+
+def _id_map(ids: Sequence[str]) -> BiMap:
+    return BiMap({k: i for i, k in enumerate(ids)})
+
+
+def mlp_params_from_jax(params) -> list[dict[str, np.ndarray]]:
+    """The reference ``MLPModel.params`` (``[{"w": [d_in, d_out], "b":
+    [d_out]}, …]`` as numpy) → the port's parameter list (fp32 copies),
+    checked layer to layer."""
+    out = []
+    for i, layer in enumerate(params):
+        w = np.array(layer["w"], np.float32, copy=True)
+        b = np.array(layer["b"], np.float32, copy=True)
+        if w.ndim != 2 or b.shape != (w.shape[1],):
+            raise ValueError(f"layer {i}: w {w.shape} and b {b.shape} do not "
+                             "make a dense layer")
+        if out and out[-1]["w"].shape[1] != w.shape[0]:
+            raise ValueError(f"layer {i} takes {w.shape[0]} inputs; layer "
+                             f"{i - 1} gives {out[-1]['w'].shape[1]}")
+        out.append({"w": w, "b": b})
+    return out
+
+
+def item_sim_model_from_arrays(item_vecs: np.ndarray, item_ids: Sequence[str],
+                               categories: dict) -> ItemSimModel:
+    """The similarproduct model over L2-normalized item rows
+    (``item_ids[i]`` names row ``i``) and the item → categories map."""
+    vecs = np.ascontiguousarray(item_vecs, np.float32)
+    if vecs.shape[0] != len(item_ids):
+        raise ValueError(f"{vecs.shape[0]} rows for {len(item_ids)} item ids")
+    return ItemSimModel(vecs, _id_map(item_ids),
+                        {k: tuple(v) for k, v in categories.items()})
+
+
+def similar_user_model_from_arrays(user_vecs: np.ndarray,
+                                   user_ids: Sequence[str]) -> SimilarUserModel:
+    """The recommended-user model over L2-normalized followed-user rows."""
+    vecs = np.ascontiguousarray(user_vecs, np.float32)
+    if vecs.shape[0] != len(user_ids):
+        raise ValueError(f"{vecs.shape[0]} rows for {len(user_ids)} user ids")
+    return SimilarUserModel(vecs, _id_map(user_ids))
+
+
+def ecomm_model_from_arrays(
+    user_emb, item_emb, user_bias, item_bias, mean: float, rank: int,
+    user_ids: Sequence[str], item_ids: Sequence[str], categories: dict,
+    popularity: np.ndarray, item_vecs_norm: np.ndarray,
+) -> ECommModel:
+    """The e-commerce model: the towers as :func:`rec_model_from_arrays`
+    takes them, the catalog's categories, the popularity counts and the
+    L2-normalized item rows of predictSimilar."""
+    rec = rec_model_from_arrays(user_emb, item_emb, user_bias, item_bias,
+                                mean, rank, user_ids, item_ids)
+    pop = np.array(popularity, np.float32, copy=True)
+    norm = np.array(item_vecs_norm, np.float32, copy=True)
+    if pop.shape != (len(item_ids),) or norm.shape != (len(item_ids), rank):
+        raise ValueError("popularity / item_vecs_norm do not match the catalog")
+    return ECommModel(mf=rec.mf, user_map=rec.user_map, item_map=rec.item_map,
+                      categories={k: tuple(v) for k, v in categories.items()},
+                      popularity=pop, item_vecs_norm=norm)

@@ -9,16 +9,22 @@ from incubator_predictionio_tpu_torch.core.base import (
     SanityCheck,
 )
 from incubator_predictionio_tpu_torch.core.controller import (
+    AverageServing,
     Engine,
     EngineFactory,
     EngineParams,
     FirstServing,
     IdentityPreparator,
+    LAlgorithm,
+    LDataSource,
+    LPreparator,
     LServing,
+    P2LAlgorithm,
     PAlgorithm,
     PDataSource,
     PersistentModel,
     PersistentModelManifest,
+    PPreparator,
     WorkflowParams,
     resolve_engine_factory,
     variant_from_file,
@@ -26,9 +32,11 @@ from incubator_predictionio_tpu_torch.core.controller import (
 from incubator_predictionio_tpu_torch.utils.params import EmptyParams, Params
 
 __all__ = [
-    "BaseAlgorithm", "BaseDataSource", "BasePreparator", "BaseServing",
-    "EmptyParams", "Engine", "EngineFactory", "EngineParams", "FirstServing",
-    "IdentityPreparator", "LServing", "PAlgorithm", "PDataSource", "Params",
-    "PersistentModel", "PersistentModelManifest", "SanityCheck",
-    "WorkflowParams", "resolve_engine_factory", "variant_from_file",
+    "AverageServing", "BaseAlgorithm", "BaseDataSource", "BasePreparator",
+    "BaseServing", "EmptyParams", "Engine", "EngineFactory", "EngineParams",
+    "FirstServing", "IdentityPreparator", "LAlgorithm", "LDataSource",
+    "LPreparator", "LServing", "P2LAlgorithm", "PAlgorithm", "PDataSource",
+    "PPreparator", "Params", "PersistentModel", "PersistentModelManifest",
+    "SanityCheck", "WorkflowParams", "resolve_engine_factory",
+    "variant_from_file",
 ]

@@ -3,7 +3,7 @@
 Counterpart of ``incubator_predictionio_tpu/core/base.py``. The execution
 context is a :class:`~incubator_predictionio_tpu_torch.parallel.mesh.DeviceContext`
 (``ctx``) where the reference passes a ``MeshContext``. The evaluator SPI
-comes with the evaluation slice (ROADMAP.md Queue 1, item 5).
+comes with the evaluation slice (ROADMAP.md Queue 1, item 5 part 4).
 """
 
 from __future__ import annotations

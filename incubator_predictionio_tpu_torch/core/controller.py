@@ -5,7 +5,13 @@ flavors, the PersistentModel SPI, :class:`EngineParams`, :class:`Engine`
 (``train`` with the sanity checks and :class:`WorkflowParams`,
 ``models_for_persistence``, ``prepare_deploy``, ``serving_and_algorithms``,
 ``engine_params_from_variant``), :class:`EngineFactory` and the import-path
-resolution of factories. Evaluation comes with ROADMAP.md Queue 1, item 5.
+resolution of factories. Evaluation comes with ROADMAP.md Queue 1, item 5
+part 4.
+
+Flavors (the reference's P / L / P2L stages, controller.py:88-147): a P
+stage's data and model may live on the card; an L stage works on host
+objects; a P2L algorithm trains on the card and keeps a host model (the
+classification MLP).
 """
 
 from __future__ import annotations
@@ -79,6 +85,18 @@ class PDataSource(BaseDataSource[TD, EI, Q, A]):
     """Parallel data source (controller/PDataSource.scala:37)."""
 
 
+class LDataSource(BaseDataSource[TD, EI, Q, A]):
+    """Local data source (controller/LDataSource.scala:38)."""
+
+
+class PPreparator(BasePreparator[TD, PD]):
+    """(controller/PPreparator.scala:33)"""
+
+
+class LPreparator(BasePreparator[TD, PD]):
+    """(controller/LPreparator.scala:36)"""
+
+
 class IdentityPreparator(BasePreparator[TD, TD]):
     """Pass-through preparator (controller/IdentityPreparator.scala:32)."""
 
@@ -96,6 +114,15 @@ class PAlgorithm(BaseAlgorithm[PD, M, Q, P]):
         )
 
 
+class LAlgorithm(BaseAlgorithm[PD, M, Q, P]):
+    """Local algorithm (controller/LAlgorithm.scala:45)."""
+
+
+class P2LAlgorithm(BaseAlgorithm[PD, M, Q, P]):
+    """Train on the card, keep a local (host) model
+    (controller/P2LAlgorithm.scala:46)."""
+
+
 class LServing(BaseServing[Q, P]):
     """(controller/LServing.scala:30)"""
 
@@ -105,6 +132,13 @@ class FirstServing(LServing[Q, P]):
 
     def serve(self, query: Q, predictions: Sequence[P]) -> P:
         return predictions[0]
+
+
+class AverageServing(LServing[Q, float]):
+    """Average numeric predictions (controller/LAverageServing.scala:28)."""
+
+    def serve(self, query: Q, predictions: Sequence[float]) -> float:
+        return sum(predictions) / len(predictions)
 
 
 # ---------------------------------------------------------------------------

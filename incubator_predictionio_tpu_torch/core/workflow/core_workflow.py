@@ -5,7 +5,7 @@ Counterpart of ``incubator_predictionio_tpu/core/workflow/core_workflow.py``
 cut to training: :class:`CleanupFunctions` and :func:`run_train`. The run
 happens in-process on a :class:`DeviceContext` (the card unless the caller
 passes another); failed runs are marked FAILED, as in the JAX package.
-Evaluation comes with ROADMAP.md Queue 1, item 5.
+Evaluation comes with ROADMAP.md Queue 1, item 5 part 4.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ Counterpart of ``incubator_predictionio_tpu/core/workflow/create_workflow.py``
 :class:`WorkflowConfig` and :func:`create_workflow` read the variant, build
 the engine and its :class:`EngineInstance`, and run :func:`run_train` on a
 :class:`DeviceContext` (the card unless ``WorkflowConfig.device`` names
-another). Evaluation raises until ROADMAP.md Queue 1, item 5.
+another). Evaluation raises until ROADMAP.md Queue 1, item 5 part 4.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ class WorkflowConfig:
     engine_variant: str = "engine.json"  # path to variant JSON
     engine_id: Optional[str] = None
     engine_version: Optional[str] = None
-    evaluation_class: Optional[str] = None  # evaluation raises until item 5
+    evaluation_class: Optional[str] = None  # raises until item 5 part 4
     batch: str = ""
     verbose: bool = False
     skip_sanity_check: bool = False
@@ -67,8 +67,8 @@ def create_workflow(config: WorkflowConfig, storage: Optional[Storage] = None,
     """Run a train; returns the engine instance id."""
     if config.evaluation_class:
         raise NotImplementedError(
-            "evaluation is not ported yet; it comes with the other templates "
-            "(ROADMAP.md Queue 1, item 5)")
+            "evaluation is not ported yet; it comes with the evaluation "
+            "slice (ROADMAP.md Queue 1, item 5 part 4)")
     return _run_train(config, storage, ctx)
 
 

@@ -13,12 +13,16 @@ from __future__ import annotations
 import datetime as _dt
 from typing import Any, Iterator, Optional, Sequence
 
-from incubator_predictionio_tpu_torch.data.event import Event
+from incubator_predictionio_tpu_torch.data.event import Event, PropertyMap
 from incubator_predictionio_tpu_torch.data.storage.base import UNSET
 from incubator_predictionio_tpu_torch.data.storage.registry import (
     Storage,
     get_storage,
 )
+
+
+_SHARDING_SLICE = ("the sharding slice of the PyTorch port (ROADMAP.md "
+                   "Queue 1, item 4)")
 
 
 class _BaseStore:
@@ -135,6 +139,34 @@ class PEventStore(_BaseStore):
             app_id, channel_id, start_time, until_time, entity_type, entity_id,
             event_names, target_entity_type, target_entity_id,
         )
+
+    def find_sharded(self, app_name: str, n_shards: int, *args, **kwargs):
+        """Entity-disjoint shard iterators (reference store.py:146-160)."""
+        raise NotImplementedError(
+            f"PEventStore.find_sharded comes with {_SHARDING_SLICE}")
+
+    def aggregate_properties(
+        self,
+        app_name: str,
+        entity_type: str,
+        channel_name: Optional[str] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        required: Optional[Sequence[str]] = None,
+        n_shards: Optional[int] = None,
+        shard_index: int = 0,
+    ) -> dict[str, PropertyMap]:
+        """(PEventStore.scala:78-121) Per-entity property snapshots folded
+        from ``$set`` / ``$unset`` / ``$delete``; with ``required``, only
+        the entities whose snapshot holds every required key. The
+        per-process shard (``n_shards``) raises until the sharding slice."""
+        if n_shards is not None:
+            raise NotImplementedError(
+                "PEventStore.aggregate_properties over an entity shard "
+                f"(n_shards={n_shards}) comes with {_SHARDING_SLICE}")
+        app_id, channel_id = self._resolve(app_name, channel_name)
+        return self.storage.get_events().aggregate_properties(
+            app_id, entity_type, channel_id, start_time, until_time, required)
 
     def assemble_triples(
         self,
