@@ -106,6 +106,18 @@ the same events through the CLI with the ALS fit on the card),
 classification template through the CLI (``mlp``; ``nb`` + ``mlp`` under
 ``vote``).
 
+``pio eval`` runs through the CLI's ``eval`` verb on three of those
+phases' stored events, each in its phase's directory: ``rec-eval`` after
+``rec-workflow`` (RecommendationEvaluation over the reference grid, rank
+16/32 × 10/20 iterations, 3 folds: 12 fits on the card, FastEvalEngine's
+one read and one prepare, Precision@10 beside chance, variant 0 again on
+the CPU), ``seq-eval`` after ``seq-workflow`` (SequentialEvaluation at the
+sequential training width, epochs 1/2 × learning rate 1e-3/5e-3: K4
+forward and backward in every fold's fit, the held-out queries checked
+against the sessions, 16 queries with the kernels against the plain
+attention) and ``cls-eval`` after ``cls-workflow`` (CompleteEvaluation:
+accuracy and each label's precision, ``best.json``, variant 0 on the CPU).
+
 Every check failure raises: the script catches nothing, and a non-zero exit
 is the verdict. Its last line is one JSON object, ``{"ok": true, "device":
 {...}}``; the line before it names the card and its power limit; a
@@ -1078,13 +1090,22 @@ def check_answers(payloads, bodies):
               f"a history item was served: {set(got) & set(p['recentItems'])}")
 
 
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at ``|x|`` (8 significant bits against
+    fp32's 24)."""
+    return float(np.spacing(np.float32(abs(x)))) * 2.0 ** 16
+
+
 def check_against_plain(model, payloads, bodies):
     """The served answers (kernel attention) against the same model's
     forward with the plain attention version, on the card: every served
     score within :data:`SEQ_SCORE_TOL` of the plain score of that item, and
     the ids equal up to near-ties at the last place (the scores are bf16
-    values, so ties are common). Returns the largest score difference and
-    the counts of equal id sets and orders."""
+    values, so ties are common). Where one bf16 step at the score's
+    magnitude is larger than :data:`SEQ_SCORE_TOL` (scores of 4 and more,
+    0.03125), one step is the band: the two fp32 sums then round to
+    neighbouring bf16 values. Returns the largest score difference and the
+    counts of equal id sets and orders."""
     from incubator_predictionio_tpu_torch.models.transformer import (
         TransformerRecommender,
     )
@@ -1105,21 +1126,25 @@ def check_against_plain(model, payloads, bodies):
         s = s.copy()
         s[0] = -np.inf
         for iid in p["recentItems"]:
-            s[model.item_map[iid]] = -np.inf
+            tok = model.item_map.get(iid)
+            if tok is not None:
+                s[tok] = -np.inf
         num = p["num"]
         top = np.argsort(-s, kind="stable")[:num]
         want = [inv[int(t)] for t in top]
         got = ids_of(body)
+        last = float(s[top[-1]])
         for iid in set(got) ^ set(want):
-            check(abs(float(s[model.item_map[iid]]) - float(s[top[-1]]))
-                  <= SEQ_SCORE_TOL,
+            check(abs(float(s[model.item_map[iid]]) - last)
+                  <= max(SEQ_SCORE_TOL, bf16_ulp(last)),
                   f"top-{num} differs from the plain path beyond a near-tie: "
                   f"{got} vs {want}")
         for x in body["itemScores"]:
-            diff = abs(x["score"] - float(s[model.item_map[x["item"]]]))
+            plain = float(s[model.item_map[x["item"]]])
+            diff = abs(x["score"] - plain)
             worst = max(worst, diff)
-            check(diff <= SEQ_SCORE_TOL,
-                  f"score {x} vs plain {float(s[model.item_map[x['item']]])}")
+            check(diff <= max(SEQ_SCORE_TOL, bf16_ulp(plain)),
+                  f"score {x} vs plain {plain}")
         same_set += set(got) == set(want)
         same_order += got == want
     return worst, same_set, same_order
@@ -1627,6 +1652,13 @@ def k3b_check(S, dev) -> dict:
     def call():
         return S.fused_gather_adam_scatter(*T, lr=STREAM_LR)
 
+    def plain():
+        # the same function through K3's plain indexed version, on the card
+        out = tuple(t.clone() for t in T[:3])
+        S.adam_rows_indexed_reference(tuple(T[:3]), T[3], T[4], T[5], T[6],
+                                      out, STREAM_LR)
+        return out
+
     busy, by_name = device_busy(call, calls=10)
     # bytes: the three tables read and three new ones written (the function
     # is functional), idx, g and the two corrections read
@@ -1639,12 +1671,15 @@ def k3b_check(S, dev) -> dict:
            "device_ms": busy, "device_ms_by_name": by_name,
            "kernel_device_ms": sum(t for nm, t in by_name.items()
                                    if SPARSE_SYMBOLS["adam_rows_indexed"] in nm),
-           "ms": time_ms(call)}
+           "ms": time_ms(call), "plain_ms": time_ms(plain),
+           # no single PyTorch call computes gather → adam → scatter
+           "library_ms": None}
     log(f"K3b fused_gather_adam_scatter N={n} D={d} R={r}: touched rows bitwise "
         f"K3's, untouched rows and inputs unchanged, one K3 launch a call; "
         f"device ms a call {busy:.4f} (K3 {out['kernel_device_ms']:.4f}; "
         f"bound {out['bound_ms']:.4f}, {out['bound_by']}; "
-        f"{sorted(n_[:40] for n_ in by_name)}), ms {out['ms']:.4f}")
+        f"{sorted(n_[:40] for n_ in by_name)}), ms {out['ms']:.4f}, plain "
+        f"{out['plain_ms']:.4f}")
     return out
 
 
@@ -4353,15 +4388,381 @@ def cls_workflow_phase(ctx, tmp):
     return rec
 
 
+# -- the evaluation phases: `pio eval` on the card ----------------------------
+
+#: the reference Evaluations' folds (templates' eval_k)
+EVAL_K = 3
+#: card against CPU, per fold, variant 0: Precision@10 (rec-eval) and
+#: accuracy (cls-eval) within this absolute band — rec-train's fit bands
+#: carried to a top-10 metric
+EVAL_CPU_BAND = 0.02
+#: seq-eval's kernels-vs-plain serving check: eval queries of the best
+#: variant's first fold
+SEQ_EVAL_PLAIN_QUERIES = 16
+REC_EVALUATION = ("incubator_predictionio_tpu_torch.templates.recommendation."
+                  "RecommendationEvaluation")
+SEQ_EVALUATION = ("incubator_predictionio_tpu_torch.templates.sequential."
+                  "SequentialEvaluation")
+CLS_EVALUATION = ("incubator_predictionio_tpu_torch.templates.classification."
+                  "CompleteEvaluation")
+
+
+class RecEvalGrid:
+    """rec-eval's EngineParamsGenerator (the CLI loads it by class path):
+    the reference RecommendationEvaluation's grid, rank 16 / 32 ×
+    ``num_iterations`` 10 / 20, on rec-workflow's app ``ml1m``."""
+
+    def __init__(self):
+        from incubator_predictionio_tpu_torch.core import EngineParams
+        from incubator_predictionio_tpu_torch.templates import recommendation as trec
+
+        self.engine_params_list = [
+            EngineParams.create(
+                data_source=trec.DataSourceParams(app_name="ml1m", eval_k=EVAL_K),
+                algorithms=[("als", trec.ALSAlgorithmParams(
+                    rank=rank, num_iterations=it))])
+            for rank in (16, 32) for it in (10, 20)]
+
+
+class SeqEvalGrid:
+    """seq-eval's generator at seq-workflow's full width (d_model 512, 6
+    layers, 8 heads of 64, ``max_len`` 512, batch 64): epochs 1 / 2 ×
+    learning rate 1e-3 / 5e-3. The reference SequentialEvaluation's own
+    grid (d_model 32, heads of 16, ``max_len`` 32) reaches no kernel."""
+
+    def __init__(self):
+        from incubator_predictionio_tpu_torch.core import EngineParams
+        from incubator_predictionio_tpu_torch.templates import sequential as tseq
+
+        self.engine_params_list = [
+            EngineParams.create(
+                data_source=tseq.DataSourceParams(
+                    app_name="seq", max_len=SEQ_WF_MAX_LEN, eval_k=EVAL_K),
+                algorithms=[("transformer", tseq.TransformerAlgorithmParams(
+                    app_name="seq", max_len=SEQ_WF_MAX_LEN, d_model=SEQ_D,
+                    n_heads=SEQ_HEADS, n_layers=SEQ_LAYERS, learning_rate=lr,
+                    batch_size=TRAIN_BATCH, epochs=epochs))])
+            for epochs in (1, 2) for lr in (1e-3, 5e-3)]
+
+
+class ClsEvalGrid:
+    """cls-eval's generator: the reference ``_classification_grid`` (hidden
+    (16,) / (32, 32) × learning rate 1e-2 / 3e-2, 60 epochs) on
+    cls-workflow's app ``cls``."""
+
+    def __init__(self):
+        from incubator_predictionio_tpu_torch.templates import classification as tcl
+
+        self.engine_params_list = tcl._classification_grid("cls", EVAL_K)
+
+
+@contextlib.contextmanager
+def eval_spy(data_source_cls, algorithm_cls, keep_models=False):
+    """Times ``read_eval``, each ``train`` (synchronized on the card) and
+    ``batch_predict`` over one evaluation, and keeps what
+    ``FastEvalEngine.batch_eval`` returned with its cache stats (and, with
+    ``keep_models``, the (params, model) of each train)."""
+    from incubator_predictionio_tpu_torch.core.fast_eval import FastEvalEngine
+
+    rec = {"read_eval_s": 0.0, "train_s": [], "predict_s": 0.0, "queries": 0,
+           "models": [], "results": None, "cache_stats": None}
+
+    def read_eval(orig):
+        def f(self, ctx):
+            t0 = time.perf_counter()
+            out = orig(self, ctx)
+            rec["read_eval_s"] += time.perf_counter() - t0
+            return out
+        return f
+
+    def train(orig):
+        def f(self, ctx, pd):
+            t0 = time.perf_counter()
+            model = orig(self, ctx, pd)
+            if ctx.device.type == "cuda":
+                torch.cuda.synchronize()
+            rec["train_s"].append(time.perf_counter() - t0)
+            if keep_models:
+                rec["models"].append((self.params, model))
+            return model
+        return f
+
+    def batch_predict(orig):
+        def f(self, model, queries):
+            t0 = time.perf_counter()
+            out = orig(self, model, queries)
+            rec["predict_s"] += time.perf_counter() - t0
+            rec["queries"] += len(queries)
+            return out
+        return f
+
+    def batch_eval(orig):
+        def f(self, *args, **kw):
+            out = orig(self, *args, **kw)
+            rec["results"], rec["cache_stats"] = out, dict(self.last_cache_stats)
+            return out
+        return f
+
+    patched = [(data_source_cls, "read_eval", read_eval),
+               (algorithm_cls, "train", train),
+               (algorithm_cls, "batch_predict", batch_predict),
+               (FastEvalEngine, "batch_eval", batch_eval)]
+    saved = []
+    for cls, name, wrap in patched:
+        saved.append((cls, name, cls.__dict__.get(name)))
+        setattr(cls, name, wrap(getattr(cls, name)))
+    try:
+        yield rec
+    finally:
+        for cls, name, orig in saved:
+            if orig is None:
+                delattr(cls, name)
+            else:
+                setattr(cls, name, orig)
+
+
+def cli_eval(tag, registry, evaluation, generator, ctx, spy):
+    """CLI ``eval`` on ``ctx``'s device; checks the instance row
+    (EVALCOMPLETED, its JSON parses, every score finite, ``bestIdx`` the
+    first arg-max) and FastEvalEngine's one read and one prepare. Returns
+    (instance, parsed results, wall s)."""
+    t0 = time.perf_counter()
+    out = cli_run(tag, ["eval", evaluation, f"{__name__}:{generator}",
+                        "--device", str(ctx.device)])
+    wall = time.perf_counter() - t0
+    iid = out.split("Instance ID: ")[-1].split()[0]
+    inst = registry.get_storage().get_meta_data_evaluation_instances().get(iid)
+    check(inst is not None and inst.status == "EVALCOMPLETED",
+          f"[{tag}] instance {iid}: {inst}")
+    check(inst.evaluator_results in out, f"[{tag}] the one-liner was not printed: {out}")
+    res = json.loads(inst.evaluator_results_json)
+    scores = [r["score"] for r in res["results"]]
+    check(len(scores) > 0 and all(np.isfinite(scores)), f"[{tag}] scores {scores}")
+    check(res["bestIdx"] == int(np.argmax(scores)),
+          f"[{tag}] bestIdx {res['bestIdx']} of scores {scores}")
+    n = len(scores)
+    check(spy["cache_stats"] == {"ds": 1, "prep": 1, "algo": n},
+          f"[{tag}] FastEvalEngine cache stats {spy['cache_stats']}")
+    check(len(spy["train_s"]) == n * EVAL_K,
+          f"[{tag}] {len(spy['train_s'])} fits for {n} variants × {EVAL_K} folds")
+    return inst, res, wall
+
+
+def eval_timings(spy, wall) -> dict:
+    return {"wall_s": wall, "read_eval_s": spy["read_eval_s"],
+            "fits": len(spy["train_s"]), "train_s": sum(spy["train_s"]),
+            "train_s_each": spy["train_s"], "batch_predict_s": spy["predict_s"],
+            "queries": spy["queries"],
+            "queries_per_s": spy["queries"] / max(spy["predict_s"], 1e-9),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "cache_stats": spy["cache_stats"]}
+
+
+def eval_line(tag, t) -> str:
+    return (f"[{tag}] eval wall {t['wall_s']:.2f} s: read_eval "
+            f"{t['read_eval_s']:.2f} s, {t['fits']} fits on the card "
+            f"{t['train_s']:.2f} s, batch_predict {t['batch_predict_s']:.2f} s "
+            f"for {t['queries']} queries ({t['queries_per_s']:.1f}/s); peak "
+            f"device memory {t['max_memory_allocated_bytes'] / 2**30:.3f} GiB; "
+            f"cache {t['cache_stats']}")
+
+
+def fold_scores_vs_cpu(tag, engine, ep, metric, ctx, card_folds, key):
+    """Variant ``ep`` again through ``Engine.eval`` on the CPU from the same
+    store: each fold's queries equal the card's, ``metric`` within
+    :data:`EVAL_CPU_BAND` per fold."""
+    from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext
+
+    cpu = DeviceContext.create("cpu")
+    t0 = time.perf_counter()
+    cpu_folds = engine.eval(cpu, ep)
+    cpu_s = time.perf_counter() - t0
+    out = []
+    for (ei, card), (ei_c, host) in zip(card_folds, cpu_folds, strict=True):
+        check(ei == ei_c and [key(q, a) for q, _, a in card]
+              == [key(q, a) for q, _, a in host],
+              f"[{tag}] fold {ei}: the CPU's queries differ from the card's")
+        a, b = metric.calculate(ctx, [(ei, card)]), metric.calculate(cpu, [(ei, host)])
+        check(abs(a - b) <= EVAL_CPU_BAND,
+              f"[{tag}] fold {ei}: {metric.header} {a} on the card, {b} on the CPU")
+        out.append({"fold": ei["fold"], "card": a, "cpu": b})
+    return {"folds": out, "cpu_eval_s": cpu_s}
+
+
+def rec_eval_phase(ctx, tmp):
+    """``pio eval`` of the recommendation template on rec-workflow's sqlite
+    app (100,050 events at MovieLens-1M's shape): RecommendationEvaluation
+    with :class:`RecEvalGrid` (4 variants × 3 folds = 12 fits on the card;
+    scoring is host numpy at this catalog, as in the reference), then
+    variant 0 again on the CPU, Precision@10 per fold within
+    :data:`EVAL_CPU_BAND`. Returns the record."""
+    from incubator_predictionio_tpu_torch.templates import recommendation as trec
+
+    root = os.path.join(tmp, "rec-workflow")
+    torch.cuda.reset_peak_memory_stats()
+    with cli_storage(root) as registry:
+        with eval_spy(trec.DataSource, trec.ALSAlgorithm) as spy:
+            inst, res, wall = cli_eval("rec-eval", registry, REC_EVALUATION,
+                                       "RecEvalGrid", ctx, spy)
+        rec = eval_timings(spy, wall)
+        n_q, chance = 0, []
+        for _, folds in spy["results"]:
+            for _, qpa in folds:
+                for q, p, a in qpa:
+                    ids = [x.item for x in p.item_scores]
+                    check(len(ids) <= q.num and len(set(ids)) == len(ids),
+                          f"[rec-eval] {q.user}: {len(ids)} items for num "
+                          f"{q.num}, {len(ids) - len(set(ids))} repeated")
+                    n_q += 1
+                    pos = sum(r.rating >= 2.0 for r in a.ratings)
+                    if pos:
+                        # a random top-10's expected Precision@10
+                        chance.append(10 * pos / WF_ITEMS / min(10, pos))
+        ep0, card_folds = spy["results"][0]
+        rec["cpu"] = fold_scores_vs_cpu(
+            "rec-eval", trec.RecommendationEngine().apply(), ep0,
+            trec.PrecisionAtK(k=10, rating_threshold=2.0), ctx, card_folds,
+            lambda q, a: (q.user, q.num, a))
+    rec.update({"scores": [r["score"] for r in res["results"]],
+                "positive_count": [r["otherScores"][0] for r in res["results"]],
+                "best_idx": res["bestIdx"], "chance": float(np.mean(chance)),
+                "answers": n_q, "one_liner": inst.evaluator_results})
+    log(eval_line("rec-eval", rec))
+    log(f"[rec-eval] Precision@10 of rank 16/32 × 10/20 iterations "
+        f"{[round(x, 4) for x in rec['scores']]} (best {rec['best_idx']}) against "
+        f"chance {rec['chance']:.4f}; positives a query "
+        f"{rec['positive_count'][0]:.2f}; {n_q} answers, none over num, none "
+        f"repeated; variant 0 on the CPU per fold "
+        f"{[(round(f['card'], 4), round(f['cpu'], 4)) for f in rec['cpu']['folds']]}")
+    return rec
+
+
+def seq_eval_phase(ctx, tmp):
+    """``pio eval`` of the sequential template on seq-workflow's stored
+    sessions: SequentialEvaluation with :class:`SeqEvalGrid` at full width
+    (4 variants × 3 folds = 12 fits, K4 forward and backward in each,
+    ``batch_predict``'s forward through K4); each fold's queries are its
+    held-out sessions of at least 3 items; 16 of the best variant's first
+    fold's queries served with the kernels and with the plain attention
+    versions on the card. Returns (launches, record)."""
+    import zlib
+
+    from incubator_predictionio_tpu_torch.ops import attention as A
+    from incubator_predictionio_tpu_torch.templates import sequential as tseq
+
+    root = os.path.join(tmp, "seq-workflow")
+    sessions_ = cycle_sessions(np.random.default_rng(31), SEQ_WF_USERS,
+                               SEQ_WF_MAX_LEN, SEQ_WF_LENGTHS)
+    torch.cuda.reset_peak_memory_stats()
+    with cli_storage(root) as registry:
+        A.reset_launches()
+        with eval_spy(tseq.DataSource, tseq.TransformerAlgorithm,
+                      keep_models=True) as spy:
+            inst, res, wall = cli_eval("seq-eval", registry, SEQ_EVALUATION,
+                                       "SeqEvalGrid", ctx, spy)
+        launches = {w.__name__: w.launches for w in A.KERNEL_WRAPPERS}
+    for w in ("causal_mha_small_head", "causal_mha_small_head_bwd"):
+        check(launches[w] > 0, f"[seq-eval] {w} never launched: {launches}")
+    rec = eval_timings(spy, wall)
+    fold_of = [zlib.crc32(f"seq|u{k}".encode()) % EVAL_K
+               for k in range(len(sessions_))]
+    for _, folds in spy["results"]:
+        for ei, qpa in folds:
+            want = [(tuple(x[:-1]), x[-1]) for k, x in enumerate(sessions_)
+                    if fold_of[k] == ei["fold"] and len(x) >= 3]
+            check([(q.recent_items, a.next_item) for q, _, a in qpa] == want,
+                  f"[seq-eval] fold {ei}: the queries are not its held-out "
+                  "sessions")
+    best_ep = spy["results"][res["bestIdx"]][0]
+    model = next(m for p, m in spy["models"]
+                 if p == best_ep.algorithm_params_list[0][1])
+    spy["models"].clear()
+    qpa = spy["results"][res["bestIdx"]][1][0][1]  # its first fold's
+    # (a session none of whose items the fold's vocabulary knows answers
+    # empty, as the reference's: not one to compare)
+    queries = [(j, q) for j, (q, _, _) in enumerate(qpa)
+               if any(i in model.item_map for i in q.recent_items)
+               ][:SEQ_EVAL_PLAIN_QUERIES]
+    algo = tseq.TransformerAlgorithm(best_ep.algorithm_params_list[0][1])
+    served = dict(algo.batch_predict(model, queries))
+    payloads = [{"recentItems": list(q.recent_items), "num": q.num}
+                for _, q in queries]
+    bodies = [{"itemScores": as_dicts(served[j])} for j, _ in queries]
+    check_answers(payloads, bodies)
+    worst, same_set, same_order = check_against_plain(model, payloads, bodies)
+    del model, algo
+    rec.update({"hit_rate_at_10": [r["score"] for r in res["results"]],
+                "best_idx": res["bestIdx"], "launches": launches,
+                "kernels_vs_plain": {"queries": len(queries),
+                                     "max_score_diff": worst,
+                                     "same_set": same_set,
+                                     "same_order": same_order}})
+    log(eval_line("seq-eval", rec))
+    log(f"[seq-eval] HitRate@10 of epochs 1/2 × lr 1e-3/5e-3 "
+        f"{[round(x, 4) for x in rec['hit_rate_at_10']]} (best "
+        f"{rec['best_idx']}); every fold's queries its held-out sessions of ≥ 3 "
+        f"items; {len(queries)} of the best variant's first fold served with "
+        f"the kernels against the plain attention: max score diff {worst:.2e}, "
+        f"sets equal {same_set}, orders equal {same_order}; launches {launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def cls_eval_phase(ctx, tmp):
+    """``pio eval`` of the classification template on cls-workflow's 10,000
+    stored users: CompleteEvaluation (accuracy, and each label's precision)
+    with :class:`ClsEvalGrid`, run with the phase's directory as the working
+    directory so that its ``best.json`` lands there; then variant 0 again on
+    the CPU, accuracy per fold within :data:`EVAL_CPU_BAND`."""
+    from incubator_predictionio_tpu_torch.templates import classification as tcl
+
+    root = os.path.join(tmp, "cls-workflow")
+    torch.cuda.reset_peak_memory_stats()
+    with cli_storage(root) as registry, contextlib.chdir(root):
+        with eval_spy(tcl.DataSource, tcl.MLPAlgorithm) as spy:
+            inst, res, wall = cli_eval("cls-eval", registry, CLS_EVALUATION,
+                                       "ClsEvalGrid", ctx, spy)
+        with open(os.path.join(root, "best.json")) as f:
+            best = json.load(f)
+        rec = eval_timings(spy, wall)
+        ep0, card_folds = spy["results"][0]
+        rec["cpu"] = fold_scores_vs_cpu(
+            "cls-eval", tcl.ClassificationEngine().apply(), ep0, tcl.Accuracy(),
+            ctx, card_folds, lambda q, a: (q.features, a))
+    headers = ["Precision(label = 0.0)", "Precision(label = 1.0)",
+               "Precision(label = 2.0)"]
+    check(res["metricHeader"] == "Accuracy" and res["otherMetricHeaders"] == headers
+          and all(len(r["otherScores"]) == 3 and all(np.isfinite(r["otherScores"]))
+                  for r in res["results"]),
+          f"[cls-eval] metrics recorded: {res['metricHeader']}, "
+          f"{res['otherMetricHeaders']}")
+    check(best == {"bestEngineParams": res["bestEngineParams"],
+                   "score": res["bestScore"]},
+          f"[cls-eval] best.json {best} differs from the instance row's best")
+    rec.update({"accuracy": [r["score"] for r in res["results"]],
+                "precisions": [r["otherScores"] for r in res["results"]],
+                "best_idx": res["bestIdx"], "best_json": best})
+    log(eval_line("cls-eval", rec))
+    log(f"[cls-eval] accuracy of hidden (16,)/(32, 32) × lr 1e-2/3e-2 "
+        f"{[round(x, 4) for x in rec['accuracy']]} (best {rec['best_idx']}), "
+        f"per-label precision of the best "
+        f"{[round(x, 4) for x in rec['precisions'][rec['best_idx']]]}; best.json "
+        f"equal to the row's best; variant 0 on the CPU per fold "
+        f"{[(round(f['card'], 4), round(f['cpu'], 4)) for f in rec['cpu']['folds']]}")
+    return rec
+
+
 def template_phases(ctx, tmp) -> dict:
-    """The six phases of the other templates, in turn."""
+    """The six phases of the other templates, then cls-eval, in turn."""
     out = {}
     for name, phase in (("sim_train", lambda: sim_train_phase(ctx, tmp)),
                         ("sim_workflow", lambda: sim_workflow_phase(ctx, tmp)),
                         ("recuser_workflow", lambda: recuser_workflow_phase(ctx, tmp)),
                         ("ecomm", lambda: ecomm_phase(ctx, tmp)),
                         ("cls_train", lambda: cls_train_phase(ctx)),
-                        ("cls_workflow", lambda: cls_workflow_phase(ctx, tmp))):
+                        ("cls_workflow", lambda: cls_workflow_phase(ctx, tmp)),
+                        ("cls_eval", lambda: cls_eval_phase(ctx, tmp))):
         t0 = time.perf_counter()
         out[name] = phase()
         out[name]["phase_s"] = time.perf_counter() - t0
@@ -4466,6 +4867,11 @@ def main() -> int:
         counts, main["rec_workflow"] = rec_workflow_phase(R, ctx, tmp)
         for k, c in counts.items():
             launches[k] = launches.get(k, 0) + c
+        # pio eval on rec-workflow's stored events (no kernel: host scoring)
+        t0 = time.perf_counter()
+        main["rec_eval"] = rec_eval_phase(ctx, tmp)
+        main["rec_eval"]["phase_s"] = time.perf_counter() - t0
+        log(f"[rec-eval] phase {main['rec_eval']['phase_s']:.1f} s")
     k1 = k1 + main["rec_train"].pop("k1_cases")
     k2 = k2 + main["rec_train"].pop("k2_cases")
     # each sequential phase runs with the counts at 0 and reads them after;
@@ -4493,8 +4899,12 @@ def main() -> int:
     # resumed from their checkpoints
     with tempfile.TemporaryDirectory() as tmp:
         for name, phase in (("seq_workflow", seq_workflow_phase),
+                            ("seq_eval", seq_eval_phase),
                             ("ckpt_resume", ckpt_resume_phase)):
+            t0 = time.perf_counter()
             counts, main[name] = phase(ctx, tmp)
+            main[name]["phase_s"] = time.perf_counter() - t0
+            log(f"[{name}] phase {main[name]['phase_s']:.1f} s")
             add(counts)
     launches.update(att_launches)
     for name, count in launches.items():
@@ -4541,7 +4951,7 @@ def main() -> int:
                  next(c for c in k3 if (c["R"], c["D"]) == K3_MAIN)),
          "host_fused_ms": next(c for c in k3 if "ms" in c)["host_fused_ms"],
          "device_engine_ms": next(c for c in k3 if "ms" in c)["device_engine_ms"],
-         "k3b_device_ms": k3b["device_ms"],
+         "k3b_device_ms": k3b["device_ms"], "k3b_plain_ms": k3b["plain_ms"],
          "d129": {k: v for k, v in next(
              c for c in k3 if (c["R"], c["D"]) == K3_REC).items()
              if k in ("max_abs_err", "max_ulps", "bitwise_plain", "ms",

@@ -1,15 +1,16 @@
-"""Base DASE SPI — the stage types the deploy path instantiates.
+"""Base DASE SPI — the six stage types plus instantiation.
 
 Counterpart of ``incubator_predictionio_tpu/core/base.py``. The execution
 context is a :class:`~incubator_predictionio_tpu_torch.parallel.mesh.DeviceContext`
-(``ctx``) where the reference passes a ``MeshContext``. The evaluator SPI
-comes with the evaluation slice (ROADMAP.md Queue 1, item 5 part 4).
+(``ctx``) where the reference passes a ``MeshContext``. Type parameters
+follow the reference's naming: TD training data, EI evaluation info, PD
+prepared data, Q query, P prediction, A actual.
 """
 
 from __future__ import annotations
 
 import abc
-from typing import Generic, Optional, Sequence, Type, TypeVar
+from typing import Any, Generic, Optional, Sequence, Type, TypeVar
 
 from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext
 from incubator_predictionio_tpu_torch.utils.params import EmptyParams, Params
@@ -52,6 +53,10 @@ class BaseDataSource(AbstractDoer, Generic[TD, EI, Q, A]):
 
     @abc.abstractmethod
     def read_training(self, ctx: DeviceContext) -> TD: ...
+
+    def read_eval(self, ctx: DeviceContext) -> list[tuple[TD, EI, list[tuple[Q, A]]]]:
+        """Eval folds: (training data, eval info, labeled (query, actual) set)."""
+        return []
 
 
 class BasePreparator(AbstractDoer, Generic[TD, PD]):
@@ -99,3 +104,54 @@ class BaseServing(AbstractDoer, Generic[Q, P]):
 
     @abc.abstractmethod
     def serve(self, query: Q, predictions: Sequence[P]) -> P: ...
+
+
+class BaseEngine(abc.ABC, Generic[TD, EI, Q, P, A]):
+    """(core/BaseEngine.scala:49-95)"""
+
+    @abc.abstractmethod
+    def train(self, ctx: DeviceContext, engine_params, params) -> list[Any]: ...
+
+    @abc.abstractmethod
+    def eval(
+        self, ctx: DeviceContext, engine_params, params
+    ) -> list[tuple[EI, list[tuple[Q, P, A]]]]: ...
+
+    def batch_eval(
+        self, ctx: DeviceContext, engine_params_list, params
+    ) -> list[tuple[Any, list[tuple[EI, list[tuple[Q, P, A]]]]]]:
+        """Evaluate a list of EngineParams variants (BaseEngine.batchEval :82)."""
+        return [(ep, self.eval(ctx, ep, params)) for ep in engine_params_list]
+
+
+class BaseEvaluatorResult:
+    """(core/BaseEvaluator.scala:60-73)"""
+
+    def to_one_liner(self) -> str:
+        return ""
+
+    def to_html(self) -> str:
+        return ""
+
+    def to_json(self) -> str:
+        return ""
+
+    #: When True, the workflow does not write an EvaluationInstance row
+    #: (BaseEvaluator.scala noSave flag).
+    no_save: bool = False
+
+
+R = TypeVar("R", bound=BaseEvaluatorResult)
+
+
+class BaseEvaluator(AbstractDoer, Generic[EI, Q, P, A, R]):
+    """(core/BaseEvaluator.scala:52-58)"""
+
+    @abc.abstractmethod
+    def evaluate(
+        self,
+        ctx: DeviceContext,
+        evaluation,
+        engine_eval_data_set: list[tuple[Any, list[tuple[EI, list[tuple[Q, P, A]]]]]],
+        params,
+    ) -> R: ...

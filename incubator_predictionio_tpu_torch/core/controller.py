@@ -2,11 +2,11 @@
 
 Counterpart of ``incubator_predictionio_tpu/core/controller.py``: the stage
 flavors, the PersistentModel SPI, :class:`EngineParams`, :class:`Engine`
-(``train`` with the sanity checks and :class:`WorkflowParams`,
-``models_for_persistence``, ``prepare_deploy``, ``serving_and_algorithms``,
+(``train`` with the sanity checks and :class:`WorkflowParams`, ``eval``
+over the data source's folds, ``models_for_persistence``,
+``prepare_deploy``, ``serving_and_algorithms``,
 ``engine_params_from_variant``), :class:`EngineFactory` and the import-path
-resolution of factories. Evaluation comes with ROADMAP.md Queue 1, item 5
-part 4.
+resolution of factories.
 
 Flavors (the reference's P / L / P2L stages, controller.py:88-147): a P
 stage's data and model may live on the card; an L stage works on host
@@ -19,12 +19,13 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
-from typing import Any, Callable, Generic, Sequence, Union
+from typing import Any, Callable, Sequence, Union
 
 from incubator_predictionio_tpu_torch.core.base import (
     A,
     BaseAlgorithm,
     BaseDataSource,
+    BaseEngine,
     BasePreparator,
     BaseServing,
     EI,
@@ -236,7 +237,7 @@ def _class_map(spec: Union[type, dict[str, type]]) -> ClassMap:
 # Engine
 # ---------------------------------------------------------------------------
 
-class Engine(Generic[TD, EI, Q, P, A]):
+class Engine(BaseEngine[TD, EI, Q, P, A]):
     """Four class-maps chained into train/deploy flows
     (controller/Engine.scala:82-88)."""
 
@@ -298,6 +299,35 @@ class Engine(Generic[TD, EI, Q, P, A]):
             _sanity_check(model, f"model[{i}]", params)
             models.append(model)
         return models
+
+    def eval(
+        self,
+        ctx: DeviceContext,
+        engine_params: EngineParams,
+        params: WorkflowParams = WorkflowParams(),
+    ) -> list[tuple[EI, list[tuple[Q, P, A]]]]:
+        """Per fold of ``read_eval``: prepare → train each algorithm →
+        ``supplement`` → ``batch_predict`` grouped back by query index →
+        ``serve`` (object Engine.eval, Engine.scala:728-816)."""
+        data_source, preparator, algorithms, serving = self._instantiate(engine_params)
+        eval_sets = data_source.read_eval(ctx)
+        results = []
+        for fold, (td, ei, qa) in enumerate(eval_sets):
+            pd = preparator.prepare(ctx, td)
+            models = [algo.train(ctx, pd) for algo in algorithms]
+            queries = [(i, serving.supplement(q)) for i, (q, _) in enumerate(qa)]
+            # per-algo vectorized predictions, grouped back per query index
+            per_query: list[list[Any]] = [[] for _ in queries]
+            for algo, model in zip(algorithms, models):
+                for i, p in algo.batch_predict(model, queries):
+                    per_query[i].append(p)
+            fold_out = [
+                (sq, serving.serve(sq, preds), a)
+                for ((_, sq), (_, a), preds) in zip(queries, qa, per_query)
+            ]
+            logger.info("eval fold %d: %d labeled queries", fold, len(fold_out))
+            results.append((ei, fold_out))
+        return results
 
     def models_for_persistence(
         self,

@@ -1,3 +1,3 @@
-"""Train workflow of the port (counterpart of
-``incubator_predictionio_tpu/core/workflow``): ``run_train`` and
-``create_workflow``."""
+"""Train and evaluation workflow of the port (counterpart of
+``incubator_predictionio_tpu/core/workflow``): ``run_train``,
+``run_evaluation`` and ``create_workflow``."""

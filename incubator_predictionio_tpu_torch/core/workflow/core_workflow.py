@@ -1,11 +1,11 @@
-"""Core workflow — drives one train run.
+"""Core workflow — drives one train or evaluation run.
 
 Counterpart of ``incubator_predictionio_tpu/core/workflow/core_workflow.py``
-(reference workflow/CoreWorkflow.scala:45-102, CleanupFunctions.scala:42-65)
-cut to training: :class:`CleanupFunctions` and :func:`run_train`. The run
-happens in-process on a :class:`DeviceContext` (the card unless the caller
-passes another); failed runs are marked FAILED, as in the JAX package.
-Evaluation comes with ROADMAP.md Queue 1, item 5 part 4.
+(reference workflow/CoreWorkflow.scala:45-165, CleanupFunctions.scala:42-65):
+:class:`CleanupFunctions`, :func:`run_train` and :func:`run_evaluation`.
+The run happens in-process on a :class:`DeviceContext` (the card unless the
+caller passes another); failed runs are marked FAILED (EVALFAILED), as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -14,15 +14,17 @@ import datetime as _dt
 import logging
 import traceback
 from dataclasses import replace
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 from incubator_predictionio_tpu_torch.core.controller import (
     Engine,
     EngineParams,
     WorkflowParams,
 )
+from incubator_predictionio_tpu_torch.core.evaluator import Evaluation
 from incubator_predictionio_tpu_torch.data.storage.base import (
     EngineInstance,
+    EvaluationInstance,
     Model,
 )
 from incubator_predictionio_tpu_torch.data.storage.registry import (
@@ -94,6 +96,59 @@ def run_train(
         if inst is not None:
             instances.update(replace(inst, status="FAILED", end_time=_now()))
         logger.error("training failed:\n%s", traceback.format_exc())
+        raise
+    finally:
+        CleanupFunctions.run()
+
+
+def run_evaluation(
+    evaluation: Evaluation,
+    engine_params_list: Sequence[EngineParams],
+    evaluation_instance: EvaluationInstance,
+    params: WorkflowParams = WorkflowParams(),
+    storage: Optional[Storage] = None,
+    ctx: Optional[DeviceContext] = None,
+):
+    """Evaluate all variants, store results on the instance
+    (CoreWorkflow.runEvaluation :104-165 + EvaluationWorkflow.scala:34).
+    Returns (instance_id, evaluator result)."""
+    if evaluation.engine is None or evaluation.evaluator is None:
+        raise ValueError("Evaluation must define engine and evaluator (engine_metric=…)")
+    storage = storage or get_storage()
+    ctx = ctx or DeviceContext.create()
+    # only the primary writes metadata rows (multi-process runs come with
+    # the sharding slice; every process would evaluate the same query set)
+    primary = ctx.is_primary
+    instances = storage.get_meta_data_evaluation_instances()
+    if primary:
+        instance_id = evaluation_instance.id or instances.insert(evaluation_instance)
+        if evaluation_instance.id:
+            instances.update(evaluation_instance)
+    else:
+        instance_id = "<secondary>"
+    try:
+        eval_data_set = evaluation.engine.batch_eval(ctx, list(engine_params_list), params)
+        result = evaluation.evaluator.evaluate(ctx, evaluation, eval_data_set, params)
+        if primary:
+            inst = instances.get(instance_id)
+            if not result.no_save:
+                instances.update(
+                    replace(
+                        inst,
+                        status="EVALCOMPLETED",
+                        end_time=_now(),
+                        evaluator_results=result.to_one_liner(),
+                        evaluator_results_html=result.to_html(),
+                        evaluator_results_json=result.to_json(),
+                    )
+                )
+        logger.info("evaluation finished: %s", result.to_one_liner())
+        return instance_id, result
+    except Exception:
+        if primary:
+            inst = instances.get(instance_id)
+            if inst is not None:
+                instances.update(replace(inst, status="EVALFAILED", end_time=_now()))
         raise
     finally:
         CleanupFunctions.run()

@@ -1,11 +1,13 @@
-"""CreateWorkflow — the entry point behind ``pio train``.
+"""CreateWorkflow — the entry point behind ``pio train`` / ``pio eval``.
 
 Counterpart of ``incubator_predictionio_tpu/core/workflow/create_workflow.py``
-(reference workflow/CreateWorkflow.scala:136-281), for training:
-:class:`WorkflowConfig` and :func:`create_workflow` read the variant, build
-the engine and its :class:`EngineInstance`, and run :func:`run_train` on a
-:class:`DeviceContext` (the card unless ``WorkflowConfig.device`` names
-another). Evaluation raises until ROADMAP.md Queue 1, item 5 part 4.
+(reference workflow/CreateWorkflow.scala:136-281): :class:`WorkflowConfig`
+and :func:`create_workflow`. A train reads the variant, builds the engine
+and its :class:`EngineInstance` and runs :func:`run_train`; an evaluation
+loads the Evaluation and its EngineParamsGenerator by class path, wraps a
+plain :class:`Engine` in :class:`FastEvalEngine` (the reference's default)
+and runs :func:`run_evaluation`. Both run on a :class:`DeviceContext`: the
+card unless ``WorkflowConfig.device`` names another.
 """
 
 from __future__ import annotations
@@ -20,11 +22,22 @@ from typing import Optional
 from incubator_predictionio_tpu_torch.core.controller import (
     Engine,
     WorkflowParams,
+    load_class,
     resolve_engine_factory,
     variant_from_file,
 )
-from incubator_predictionio_tpu_torch.core.workflow.core_workflow import run_train
-from incubator_predictionio_tpu_torch.data.storage.base import EngineInstance
+from incubator_predictionio_tpu_torch.core.evaluator import (
+    EngineParamsGenerator,
+    Evaluation,
+)
+from incubator_predictionio_tpu_torch.core.workflow.core_workflow import (
+    run_evaluation,
+    run_train,
+)
+from incubator_predictionio_tpu_torch.data.storage.base import (
+    EngineInstance,
+    EvaluationInstance,
+)
 from incubator_predictionio_tpu_torch.data.storage.registry import (
     Storage,
     storage_env_vars,
@@ -43,13 +56,17 @@ class WorkflowConfig:
     engine_variant: str = "engine.json"  # path to variant JSON
     engine_id: Optional[str] = None
     engine_version: Optional[str] = None
-    evaluation_class: Optional[str] = None  # raises until item 5 part 4
+    evaluation_class: Optional[str] = None
+    engine_params_generator_class: Optional[str] = None
     batch: str = ""
     verbose: bool = False
     skip_sanity_check: bool = False
     stop_after_read: bool = False
     stop_after_prepare: bool = False
     device: Optional[str] = None
+    # prefix-memoized tuning evals (FastEvalEngine.scala is the default
+    # machinery behind `pio eval`; --no-fast-eval opts out)
+    fast_eval: bool = True
 
 
 def _workflow_params(config: WorkflowConfig) -> WorkflowParams:
@@ -64,11 +81,9 @@ def _workflow_params(config: WorkflowConfig) -> WorkflowParams:
 
 def create_workflow(config: WorkflowConfig, storage: Optional[Storage] = None,
                     ctx: Optional[DeviceContext] = None) -> str:
-    """Run a train; returns the engine instance id."""
+    """Dispatch a train or evaluation run; returns the instance id."""
     if config.evaluation_class:
-        raise NotImplementedError(
-            "evaluation is not ported yet; it comes with the evaluation "
-            "slice (ROADMAP.md Queue 1, item 5 part 4)")
+        return _run_eval(config, storage, ctx)
     return _run_train(config, storage, ctx)
 
 
@@ -102,6 +117,49 @@ def _run_train(config: WorkflowConfig, storage: Optional[Storage],
     ctx = ctx or DeviceContext.create(config.device)
     return run_train(engine, engine_params, instance, _workflow_params(config),
                      storage=storage, ctx=ctx)
+
+
+def _run_eval(config: WorkflowConfig, storage: Optional[Storage],
+              ctx: Optional[DeviceContext]) -> str:
+    evaluation_obj = load_class(config.evaluation_class)
+    evaluation = evaluation_obj() if isinstance(evaluation_obj, type) else evaluation_obj
+    if not isinstance(evaluation, Evaluation):
+        raise TypeError(f"{config.evaluation_class} is not an Evaluation")
+    if config.engine_params_generator_class:
+        gen_obj = load_class(config.engine_params_generator_class)
+        generator = gen_obj() if isinstance(gen_obj, type) else gen_obj
+    elif isinstance(evaluation, EngineParamsGenerator):
+        generator = evaluation  # an Evaluation with EngineParamsGenerator mixed in
+    else:
+        raise ValueError("evaluation requires an EngineParamsGenerator")
+    if (config.fast_eval and evaluation.engine is not None
+            and type(evaluation.engine) is Engine):
+        # tuning evals share pipeline prefixes across variants: memoize
+        # datasource/prepare/train per distinct params prefix
+        # (FastEvalEngine.scala:46-313 is the reference's default machinery);
+        # imported here so that importing the CLI imports no training stack
+        from incubator_predictionio_tpu_torch.core.fast_eval import FastEvalEngine
+
+        evaluation.engine = FastEvalEngine.from_engine(evaluation.engine)
+    instance = EvaluationInstance(
+        id="",
+        status="INIT",
+        start_time=_dt.datetime.now(_dt.timezone.utc),
+        end_time=None,
+        evaluation_class=config.evaluation_class,
+        engine_params_generator_class=config.engine_params_generator_class or "",
+        batch=config.batch,
+        env=storage_env_vars(),
+    )
+    instance_id, _ = run_evaluation(
+        evaluation,
+        list(generator.engine_params_list),
+        instance,
+        _workflow_params(config),
+        storage=storage,
+        ctx=ctx or DeviceContext.create(config.device),
+    )
+    return instance_id
 
 
 def _stage_json(variant: dict, key: str) -> str:

@@ -7,13 +7,13 @@ shared grouping loop :meth:`~EventStore.group_events_by_entity` (:156),
 :meth:`~EventStore.aggregate_properties` (:201) and
 :meth:`~EventStore.assemble_triples` (:241-368), ``_coerce_value`` and
 :func:`filter_events` (:879); the records :class:`App`, :class:`AccessKey`,
-:class:`Channel`, :class:`EngineInstance`, :class:`Model`; the stores'
-contracts (:class:`AppsStore`, :class:`AccessKeysStore`,
-:class:`ChannelsStore`, :class:`EngineInstancesStore`,
+:class:`Channel`, :class:`EngineInstance`, :class:`EvaluationInstance`,
+:class:`Model`; the stores' contracts (:class:`AppsStore`,
+:class:`AccessKeysStore`, :class:`ChannelsStore`,
+:class:`EngineInstancesStore`, :class:`EvaluationInstancesStore`,
 :class:`ModelsStore`) and :class:`StorageClient`. Sharded reads
 (``find_sharded``, the ``n_shards`` options) come with the sharding slice
-(ROADMAP.md Queue 1, item 4); jobs, evaluation instances and the dump/load
-contract with item 7.
+(ROADMAP.md Queue 1, item 4); jobs and the dump/load contract with item 7.
 """
 
 from __future__ import annotations
@@ -391,6 +391,22 @@ class EngineInstance:
 
 
 @dataclass(frozen=True)
+class EvaluationInstance:
+    """One evaluation run's metadata (EvaluationInstances.scala:35-60)."""
+    id: str
+    status: str  # INIT | EVALCOMPLETED | EVALFAILED
+    start_time: _dt.datetime
+    end_time: Optional[_dt.datetime]
+    evaluation_class: str = ""
+    engine_params_generator_class: str = ""
+    batch: str = ""
+    env: dict[str, str] = field(default_factory=dict)
+    evaluator_results: str = ""
+    evaluator_results_html: str = ""
+    evaluator_results_json: str = ""
+
+
+@dataclass(frozen=True)
 class Model:
     """Opaque serialized model blob (Models.scala:33)."""
     id: str
@@ -503,6 +519,32 @@ class EngineInstancesStore(abc.ABC):
         return max(cands, key=lambda i: i.start_time, default=None)
 
 
+class EvaluationInstancesStore(abc.ABC):
+    """(EvaluationInstances.scala:65-100)"""
+
+    @abc.abstractmethod
+    def insert(self, instance: EvaluationInstance) -> str:
+        """Insert; empty id → auto-generate. Returns the id."""
+
+    @abc.abstractmethod
+    def get(self, instance_id: str) -> Optional[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> list[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def update(self, instance: EvaluationInstance) -> bool: ...
+
+    @abc.abstractmethod
+    def delete(self, instance_id: str) -> bool: ...
+
+    def get_completed(self) -> list[EvaluationInstance]:
+        """EVALCOMPLETED instances, newest first."""
+        out = [i for i in self.get_all() if i.status == "EVALCOMPLETED"]
+        out.sort(key=lambda i: i.start_time, reverse=True)
+        return out
+
+
 class ModelsStore(abc.ABC):
     """(Models.scala:43-60)"""
 
@@ -537,6 +579,9 @@ class StorageClient(abc.ABC):
         raise NotImplementedError(f"{type(self).__name__} does not serve METADATA")
 
     def engine_instances(self) -> EngineInstancesStore:
+        raise NotImplementedError(f"{type(self).__name__} does not serve METADATA")
+
+    def evaluation_instances(self) -> EvaluationInstancesStore:
         raise NotImplementedError(f"{type(self).__name__} does not serve METADATA")
 
     def events(self) -> EventStore:

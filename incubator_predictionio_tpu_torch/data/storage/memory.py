@@ -1,8 +1,10 @@
 """In-memory storage backend.
 
 Counterpart of ``incubator_predictionio_tpu/data/storage/memory.py``, cut to
-the event store (``MemEvents``, :40-139) and the engine-instance and model
-repositories (``MemEngineInstances``, ``MemModels``) that deploy reads.
+the event store (``MemEvents``, :40-139), the engine-instance and model
+repositories (``MemEngineInstances``, ``MemModels``) that deploy reads, and
+the evaluation instances (``MemEvaluationInstances``, :270-299) that
+``pio eval`` writes.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from incubator_predictionio_tpu_torch.data.storage.base import (
     UNSET,
     EngineInstance,
     EngineInstancesStore,
+    EvaluationInstance,
+    EvaluationInstancesStore,
     EventStore,
     Model,
     ModelsStore,
@@ -152,6 +156,36 @@ class MemEngineInstances(EngineInstancesStore):
             return self._instances.pop(instance_id, None) is not None
 
 
+class MemEvaluationInstances(EvaluationInstancesStore):
+    def __init__(self) -> None:
+        self._lock = threading.RLock()
+        self._instances: dict[str, EvaluationInstance] = {}
+
+    def insert(self, instance: EvaluationInstance) -> str:
+        instance_id = instance.id or uuid.uuid4().hex
+        with self._lock:
+            self._instances[instance_id] = dataclasses.replace(
+                instance, id=instance_id)
+        return instance_id
+
+    def get(self, instance_id: str) -> Optional[EvaluationInstance]:
+        return self._instances.get(instance_id)
+
+    def get_all(self) -> list[EvaluationInstance]:
+        return list(self._instances.values())
+
+    def update(self, instance: EvaluationInstance) -> bool:
+        with self._lock:
+            if instance.id not in self._instances:
+                return False
+            self._instances[instance.id] = instance
+            return True
+
+    def delete(self, instance_id: str) -> bool:
+        with self._lock:
+            return self._instances.pop(instance_id, None) is not None
+
+
 class MemModels(ModelsStore):
     def __init__(self) -> None:
         self._models: dict[str, Model] = {}
@@ -167,12 +201,13 @@ class MemModels(ModelsStore):
 
 
 class MemoryStorageClient(StorageClient):
-    """Serves the engine instances, the events and the models from
-    process memory."""
+    """Serves the engine and evaluation instances, the events and the
+    models from process memory."""
 
     def __init__(self, config: dict[str, str]):
         super().__init__(config)
         self._engine_instances = MemEngineInstances()
+        self._evaluation_instances = MemEvaluationInstances()
         self._events = MemEvents()
         self._models = MemModels()
 
@@ -181,6 +216,9 @@ class MemoryStorageClient(StorageClient):
 
     def engine_instances(self) -> EngineInstancesStore:
         return self._engine_instances
+
+    def evaluation_instances(self) -> EvaluationInstancesStore:
+        return self._evaluation_instances
 
     def models(self) -> ModelsStore:
         return self._models

@@ -24,6 +24,7 @@ from incubator_predictionio_tpu_torch.data.storage.base import (
     AppsStore,
     ChannelsStore,
     EngineInstancesStore,
+    EvaluationInstancesStore,
     EventStore,
     ModelsStore,
     StorageClient,
@@ -122,6 +123,9 @@ class Storage:
 
     def get_meta_data_engine_instances(self) -> EngineInstancesStore:
         return self._client_for("METADATA").engine_instances()
+
+    def get_meta_data_evaluation_instances(self) -> EvaluationInstancesStore:
+        return self._client_for("METADATA").evaluation_instances()
 
     def get_events(self) -> EventStore:
         """The EVENTDATA store (both the L and P read paths of the reference)."""

@@ -4,8 +4,8 @@ Counterpart of ``incubator_predictionio_tpu/data/storage/sqlite_backend.py``
 (itself the counterpart of the reference's JDBC backend, storage/jdbc/),
 with the same tables and columns, so a database written by either package
 reads in the other. Serves events, apps, access keys, channels, engine
-instances and models; the native ingest fast path, jobs and evaluation
-instances come in later slices (ROADMAP.md). The layout decisions:
+instances, evaluation instances and models; the native ingest fast path
+and jobs come in later slices (ROADMAP.md). The layout decisions:
 
 - one event table per app/channel, named ``pio_event_<appid>[_<channelid>]``
   (JDBCLEvents.scala:109-150);
@@ -44,6 +44,8 @@ from incubator_predictionio_tpu_torch.data.storage.base import (
     ChannelsStore,
     EngineInstance,
     EngineInstancesStore,
+    EvaluationInstance,
+    EvaluationInstancesStore,
     EventStore,
     Model,
     ModelsStore,
@@ -582,6 +584,77 @@ class SqliteEngineInstances(EngineInstancesStore):
         return cur.rowcount > 0
 
 
+_EVI_COLS = (
+    "id, status, start_time, end_time, evaluation_class, "
+    "engine_params_generator_class, batch, env, evaluator_results, "
+    "evaluator_results_html, evaluator_results_json"
+)
+
+
+class SqliteEvaluationInstances(EvaluationInstancesStore):
+    def __init__(self, db: _Db):
+        self._db = db
+        db.execute(
+            """CREATE TABLE IF NOT EXISTS pio_evaluation_instances (
+                id TEXT PRIMARY KEY, status TEXT, start_time INTEGER, end_time INTEGER,
+                evaluation_class TEXT, engine_params_generator_class TEXT,
+                batch TEXT, env TEXT, evaluator_results TEXT,
+                evaluator_results_html TEXT, evaluator_results_json TEXT
+            )"""
+        )
+
+    def _to_row(self, i: EvaluationInstance) -> tuple:
+        return (
+            i.id, i.status, _us(i.start_time),
+            _us(i.end_time) if i.end_time else None,
+            i.evaluation_class, i.engine_params_generator_class, i.batch,
+            json.dumps(i.env), i.evaluator_results, i.evaluator_results_html,
+            i.evaluator_results_json,
+        )
+
+    def _from_row(self, r: tuple) -> EvaluationInstance:
+        return EvaluationInstance(
+            id=r[0], status=r[1], start_time=_from_us(r[2]),
+            end_time=_from_us(r[3]) if r[3] is not None else None,
+            evaluation_class=r[4], engine_params_generator_class=r[5], batch=r[6],
+            env=json.loads(r[7]), evaluator_results=r[8],
+            evaluator_results_html=r[9], evaluator_results_json=r[10],
+        )
+
+    def insert(self, instance: EvaluationInstance) -> str:
+        from dataclasses import replace
+
+        instance_id = instance.id or uuid.uuid4().hex
+        self._db.execute(
+            f"INSERT OR REPLACE INTO pio_evaluation_instances ({_EVI_COLS}) "
+            f"VALUES ({','.join('?' * 11)})",
+            self._to_row(replace(instance, id=instance_id)),
+        )
+        return instance_id
+
+    def get(self, instance_id: str) -> Optional[EvaluationInstance]:
+        rows = self._db.query(
+            f"SELECT {_EVI_COLS} FROM pio_evaluation_instances WHERE id=?", (instance_id,)
+        )
+        return self._from_row(rows[0]) if rows else None
+
+    def get_all(self) -> list[EvaluationInstance]:
+        return [
+            self._from_row(r)
+            for r in self._db.query(f"SELECT {_EVI_COLS} FROM pio_evaluation_instances")
+        ]
+
+    def update(self, instance: EvaluationInstance) -> bool:
+        if self.get(instance.id) is None:
+            return False
+        self.insert(instance)
+        return True
+
+    def delete(self, instance_id: str) -> bool:
+        cur = self._db.execute("DELETE FROM pio_evaluation_instances WHERE id=?", (instance_id,))
+        return cur.rowcount > 0
+
+
 class SqliteModels(ModelsStore):
     def __init__(self, db: _Db):
         self._db = db
@@ -622,6 +695,7 @@ class SqliteStorageClient(StorageClient):
         self._access_keys = SqliteAccessKeys(self._db)
         self._channels = SqliteChannels(self._db)
         self._engine_instances = SqliteEngineInstances(self._db)
+        self._evaluation_instances = SqliteEvaluationInstances(self._db)
         self._events = SqliteEvents(self._db)
         self._models = SqliteModels(self._db)
 
@@ -636,6 +710,9 @@ class SqliteStorageClient(StorageClient):
 
     def engine_instances(self) -> EngineInstancesStore:
         return self._engine_instances
+
+    def evaluation_instances(self) -> EvaluationInstancesStore:
+        return self._evaluation_instances
 
     def events(self) -> EventStore:
         return self._events

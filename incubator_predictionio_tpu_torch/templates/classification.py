@@ -1,7 +1,7 @@
 """Classification template — training and serving.
 
 Counterpart of ``incubator_predictionio_tpu/templates/classification.py``
-(:56-355, :384-395; the scala-parallel-classification counterpart): the
+(the scala-parallel-classification counterpart): the
 DataSource reads ``$set`` events on "user" entities carrying numeric
 feature properties plus a label property (DataSource.scala reads attr0-2 +
 "plan"), queries carry a feature vector and get a predicted label back.
@@ -10,10 +10,13 @@ The flagship algorithm is the MLP (``models/mlp.py``) trained on the card;
 the "add-algorithm" variant of the reference example is mirrored by
 :class:`NaiveBayesAlgorithm` (Gaussian NB over the numeric features: the
 fit's segment sums and the scoring pass run as torch ops on the card) plus
-:class:`VoteServing` (majority vote across algorithms). ``read_eval``, the
-metrics and the Evaluations come with the evaluation slice (ROADMAP.md
-Queue 1, item 5 part 4); sharded reads and fits with the sharding slice
-(item 4).
+:class:`VoteServing` (majority vote across algorithms). ``read_eval``
+makes k folds by row position, :class:`Accuracy` and :class:`Precision`
+score them, and :class:`AccuracyEvaluation`, :class:`PrecisionEvaluation`
+and :class:`CompleteEvaluation` wire them up (the add-algorithm example's
+Evaluation.scala, PrecisionEvaluation.scala, CompleteEvaluation.scala).
+Sharded reads and fits come with the sharding slice (ROADMAP.md Queue 1,
+item 4).
 """
 
 from __future__ import annotations
@@ -27,11 +30,17 @@ import numpy as np
 import torch
 
 from incubator_predictionio_tpu_torch.core import (
+    AverageMetric,
     Engine,
     EngineFactory,
+    EngineParams,
+    EngineParamsGenerator,
+    Evaluation,
     FirstServing,
     IdentityPreparator,
     LServing,
+    MetricEvaluator,
+    OptionAverageMetric,
     P2LAlgorithm,
     Params,
     PDataSource,
@@ -46,11 +55,6 @@ from incubator_predictionio_tpu_torch.models.mlp import (
 from incubator_predictionio_tpu_torch.models.two_tower import SHARDING_SLICE
 from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext
 
-#: what raises in the evaluation paths this slice does not port
-EVALUATION_SLICE = ("the evaluation slice of the PyTorch port (ROADMAP.md "
-                    "Queue 1, item 5 part 4)")
-
-
 # -- data source ------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -58,7 +62,7 @@ class DataSourceParams(Params):
     app_name: str = "classification"
     attrs: tuple[str, ...] = ("attr0", "attr1", "attr2")
     label: str = "plan"
-    eval_k: Optional[int] = None  # k-fold eval (read_eval) comes with item 5 part 4
+    eval_k: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -127,8 +131,24 @@ class DataSource(PDataSource):
             f"come with {SHARDING_SLICE}")
 
     def read_eval(self, ctx: DeviceContext):
-        raise NotImplementedError(
-            f"classification DataSource.read_eval comes with {EVALUATION_SLICE}")
+        """k-fold split by row position (reference readEval pattern,
+        classification.py:142-159)."""
+        k = self.params.eval_k
+        if not k:
+            return []
+        td = self._read()
+        fold_of = np.arange(len(td.y)) % k
+        folds = []
+        for fold in range(k):
+            train_mask = fold_of != fold
+            test_mask = ~train_mask
+            train = TrainingData(td.x[train_mask], td.y[train_mask])
+            qa = [
+                (Query(tuple(map(float, row))), label)
+                for row, label in zip(td.x[test_mask], td.y[test_mask])
+            ]
+            folds.append((train, {"fold": fold}, qa))
+        return folds
 
 
 # -- algorithm --------------------------------------------------------------
@@ -332,6 +352,33 @@ class VoteServing(LServing):
         raise AssertionError("unreachable")
 
 
+# -- metric -----------------------------------------------------------------
+
+class Accuracy(AverageMetric):
+    """(reference AccuracyMetric in the classification template's Evaluation)"""
+
+    def calculate_qpa(self, q, p: PredictedResult, a) -> float:
+        return 1.0 if p.label == a else 0.0
+
+
+class Precision(OptionAverageMetric):
+    """Per-label precision (PrecisionEvaluation.scala:25-45): scored only
+    where the PREDICTED label is the target — true positive 1.0, false
+    positive 0.0, everything else skipped (None)."""
+
+    def __init__(self, label):
+        self.label = label
+
+    @property
+    def header(self) -> str:
+        return f"Precision(label = {self.label})"
+
+    def calculate_qpa(self, q, p: PredictedResult, a):
+        if p.label != self.label:
+            return None  # unrelated to this label's precision
+        return 1.0 if p.label == a else 0.0
+
+
 # -- engine factory ---------------------------------------------------------
 
 class ClassificationEngine(EngineFactory):
@@ -342,3 +389,55 @@ class ClassificationEngine(EngineFactory):
             {"mlp": MLPAlgorithm, "nb": NaiveBayesAlgorithm, "": MLPAlgorithm},
             {"first": FirstServing, "vote": VoteServing, "": FirstServing},
         )
+
+
+# -- evaluations (Evaluation.scala / PrecisionEvaluation.scala /
+#    CompleteEvaluation.scala in the add-algorithm example) -----------------
+
+def _classification_grid(app_name: str, eval_k: int):
+    return [
+        EngineParams.create(
+            data_source=DataSourceParams(app_name=app_name, eval_k=eval_k),
+            algorithms=[("mlp", MLPAlgorithmParams(
+                hidden_dims=dims, learning_rate=lr, epochs=60))],
+        )
+        for dims in ((16,), (32, 32))
+        for lr in (1e-2, 3e-2)
+    ]
+
+
+class AccuracyEvaluation(Evaluation, EngineParamsGenerator):
+    """engineMetric = (ClassificationEngine(), Accuracy()) over a small
+    MLP grid (Evaluation.scala:36-41 + EngineParamsList)."""
+
+    def __init__(self, app_name: str = "classification", eval_k: int = 3):
+        self.engine = ClassificationEngine().apply()
+        self.evaluator = MetricEvaluator(metric=Accuracy())
+        self.engine_params_list = _classification_grid(app_name, eval_k)
+
+
+class PrecisionEvaluation(Evaluation, EngineParamsGenerator):
+    """engineMetric = (ClassificationEngine(), Precision(label=1.0))
+    (PrecisionEvaluation.scala:42-44)."""
+
+    def __init__(self, app_name: str = "classification", eval_k: int = 3,
+                 label=1.0):
+        self.engine = ClassificationEngine().apply()
+        self.evaluator = MetricEvaluator(metric=Precision(label=label))
+        self.engine_params_list = _classification_grid(app_name, eval_k)
+
+
+class CompleteEvaluation(Evaluation, EngineParamsGenerator):
+    """Accuracy + per-label precisions, winner recorded to best.json
+    (CompleteEvaluation.scala:24-30: otherMetrics = Precision(0/1/2),
+    outputPath = "best.json")."""
+
+    def __init__(self, app_name: str = "classification", eval_k: int = 3,
+                 labels=(0.0, 1.0, 2.0), output_path: str = "best.json"):
+        self.engine = ClassificationEngine().apply()
+        self.evaluator = MetricEvaluator(
+            metric=Accuracy(),
+            other_metrics=[Precision(label=lb) for lb in labels],
+            output_path=output_path,
+        )
+        self.engine_params_list = _classification_grid(app_name, eval_k)

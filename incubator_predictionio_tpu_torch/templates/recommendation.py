@@ -4,11 +4,14 @@ Counterpart of ``incubator_predictionio_tpu/templates/recommendation.py``
 (the scala-parallel-recommendation template): the query and result types,
 :class:`TrainingData`, ``DataSource.read_training`` (rate and buy events
 from the event store, the latest event of a pair wins, a buy without a
-rating counts ``buy_rating``), ``ALSAlgorithm.train`` (two-tower MF on the
-card, ``models/two_tower.py``), :class:`RecModel` with its persistence and
-serving preparation, ``ALSAlgorithm.predict`` / ``batch_predict`` and
-:class:`RecommendationEngine`. Sharded reads and evaluation folds come in
-later slices (ROADMAP.md Queue 1, items 4 and 5).
+rating counts ``buy_rating``), ``DataSource.read_eval`` (k folds over the
+rating triples, each fold's train set re-indexed to its own vocabularies),
+``ALSAlgorithm.train`` (two-tower MF on the card, ``models/two_tower.py``),
+:class:`RecModel` with its persistence and serving preparation,
+``ALSAlgorithm.predict`` / ``batch_predict``, :class:`RecommendationEngine`
+and the evaluation: :class:`PrecisionAtK`, :class:`PositiveCount`,
+:class:`RecommendationEvaluation` (reference Evaluation.scala:62-106).
+Sharded reads come with the sharding slice (ROADMAP.md Queue 1, item 4).
 
 Query ``{"user": U, "num": N, "blackList": [...]}`` → PredictedResult
 ``{"itemScores": [{"item": I, "score": S}, …]}``; an unknown user gets the
@@ -28,8 +31,13 @@ import numpy as np
 from incubator_predictionio_tpu_torch.core import (
     Engine,
     EngineFactory,
+    EngineParams,
+    EngineParamsGenerator,
+    Evaluation,
     FirstServing,
     IdentityPreparator,
+    MetricEvaluator,
+    OptionAverageMetric,
     PAlgorithm,
     Params,
     PDataSource,
@@ -147,6 +155,77 @@ class DataSource(PDataSource):
         raise NotImplementedError(
             "DataSource: per-process entity-sharded reads come with "
             f"{SHARDING_SLICE}")
+
+    def read_eval(self, ctx: DeviceContext):
+        """k-fold split over rating triples (reference DataSource.scala:83-…,
+        recommendation.py:197-237): a held-out fold becomes (Query(user),
+        ActualResult(ratings)) per user. Each fold's TrainingData is
+        re-indexed against the fold's own vocab, so held-out-only users stay
+        unknown at predict time (the reference builds its BiMaps per fold
+        from train data only)."""
+        k = self.params.eval_k
+        if not k:
+            return []
+        if ctx.process_count > 1:
+            return self._read_eval_sharded(ctx, k)
+        td = self._read()
+        n = len(td.ratings)
+        rng = np.random.default_rng(self.params.seed)
+        fold_of = rng.integers(0, k, n)
+        folds = []
+        for fold in range(k):
+            train_mask = fold_of != fold
+            test_mask = ~train_mask
+            train = _subset(td, train_mask)
+            qa = self._fold_qa(td, test_mask)
+            folds.append((train, {"fold": fold}, qa))
+        return folds
+
+    def _fold_qa(self, td: TrainingData, test_mask: np.ndarray):
+        """Held-out positives grouped per user → (Query, ActualResult) pairs."""
+        per_user: dict[str, list[tuple[str, float]]] = {}
+        for u, i, r in zip(td.user_vocab[td.user_idx[test_mask]],
+                           td.item_vocab[td.item_idx[test_mask]],
+                           td.ratings[test_mask]):
+            per_user.setdefault(u, []).append((i, float(r)))
+        return [
+            (Query(user=u, num=self.params.eval_queries_per_fold),
+             ActualResult(tuple(ItemRating(i, r) for i, r in pairs)))
+            for u, pairs in per_user.items()
+        ]
+
+    def _read_eval_sharded(self, ctx: DeviceContext, k: int):
+        raise NotImplementedError(
+            "DataSource: per-process sharded evaluation folds come with "
+            f"{SHARDING_SLICE}")
+
+
+def _subset(td: TrainingData, mask: np.ndarray) -> TrainingData:
+    """Rows where ``mask`` — re-indexed against a vocab of only the ids that
+    survive, so absent ids are genuinely unknown to the trained model."""
+    u, i, r = td.user_idx[mask], td.item_idx[mask], td.ratings[mask]
+    keep_u = np.unique(u)
+    keep_i = np.unique(i)
+    remap_u = np.full(len(td.user_vocab), -1, np.int32)
+    remap_u[keep_u] = np.arange(len(keep_u), dtype=np.int32)
+    remap_i = np.full(len(td.item_vocab), -1, np.int32)
+    remap_i[keep_i] = np.arange(len(keep_i), dtype=np.int32)
+    return TrainingData(
+        remap_u[u], remap_i[i], r, td.user_vocab[keep_u], td.item_vocab[keep_i]
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class ItemRating:
+    item: str
+    rating: float
+
+
+@dataclasses.dataclass(frozen=True)
+class ActualResult:
+    """Held-out positives for one user (reference ActualResult)."""
+
+    ratings: tuple[ItemRating, ...]
 
 
 # -- algorithm --------------------------------------------------------------
@@ -470,7 +549,45 @@ class ALSAlgorithm(PAlgorithm):
         return out
 
 
-# -- engine -----------------------------------------------------------------
+# -- metrics (reference Evaluation.scala:62-106) ----------------------------
+
+class PrecisionAtK(OptionAverageMetric):
+    """Fraction of top-k recommendations that are relevant (rating ≥ threshold).
+    None (skipped) when the user has no relevant held-out items."""
+
+    def __init__(self, k: int = 10, rating_threshold: float = 2.0):
+        self.k = k
+        self.rating_threshold = rating_threshold
+
+    @property
+    def header(self) -> str:
+        return f"Precision@K (k={self.k}, threshold={self.rating_threshold})"
+
+    def calculate_qpa(self, q: Query, p: PredictedResult, a: ActualResult):
+        positives = {r.item for r in a.ratings if r.rating >= self.rating_threshold}
+        if not positives:
+            # precision undefined without positives (Evaluation.scala:43-46)
+            return None
+        tp = sum(1 for s in p.item_scores[: self.k] if s.item in positives)
+        return tp / min(self.k, len(positives))  # Evaluation.scala:49
+
+
+class PositiveCount(OptionAverageMetric):
+    """Average number of relevant held-out items per query (diagnostic,
+    reference Evaluation.scala:53-60)."""
+
+    def __init__(self, rating_threshold: float = 2.0):
+        self.rating_threshold = rating_threshold
+
+    @property
+    def header(self) -> str:
+        return f"PositiveCount (threshold={self.rating_threshold})"
+
+    def calculate_qpa(self, q, p, a: ActualResult):
+        return float(sum(1 for r in a.ratings if r.rating >= self.rating_threshold))
+
+
+# -- engine / evaluation ----------------------------------------------------
 
 class RecommendationEngine(EngineFactory):
     def apply(self) -> Engine:
@@ -480,3 +597,23 @@ class RecommendationEngine(EngineFactory):
             {"als": ALSAlgorithm, "": ALSAlgorithm},
             FirstServing,
         )
+
+
+class RecommendationEvaluation(Evaluation, EngineParamsGenerator):
+    """Precision@K evaluation with a small rank/iterations grid
+    (reference Evaluation.scala + EngineParamsList)."""
+
+    def __init__(self, app_name: str = "recommendation", eval_k: int = 3):
+        self.engine = RecommendationEngine().apply()
+        self.evaluator = MetricEvaluator(
+            metric=PrecisionAtK(k=10, rating_threshold=2.0),
+            other_metrics=[PositiveCount(rating_threshold=2.0)],
+        )
+        self.engine_params_list = [
+            EngineParams.create(
+                data_source=DataSourceParams(app_name=app_name, eval_k=eval_k),
+                algorithms=[("als", ALSAlgorithmParams(rank=rank, num_iterations=it))],
+            )
+            for rank in (16, 32)
+            for it in (10, 20)
+        ]

@@ -5,9 +5,10 @@ Counterpart of ``incubator_predictionio_tpu/templates/sequential.py``
 query and result types, :func:`encode_session`, :class:`TrainingData`,
 ``DataSource._collect_sessions`` (each user's ``view``/``buy`` items in
 event-time order, from the event store), ``_build_fold`` (sessions → token
-space and left-padded rows), ``read_training``,
-``TransformerAlgorithm.train`` / ``predict`` / ``batch_predict`` and
-:class:`SequentialEngine`.
+space and left-padded rows), ``read_training``, ``read_eval`` (k folds by a
+stable user hash), ``TransformerAlgorithm.train`` / ``predict`` /
+``batch_predict``, :class:`SequentialEngine` and the evaluation:
+:class:`HitRateAtK`, :class:`SequentialEvaluation`.
 
 Query ``{"recentItems": [...], "num": N}`` scores the next item after an
 explicit session; ``{"user": U, "num": N}`` reads the user's latest
@@ -22,6 +23,7 @@ Queue 1, item 4) and raise until then.
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from typing import Optional, Sequence
 
 import numpy as np
@@ -29,8 +31,13 @@ import numpy as np
 from incubator_predictionio_tpu_torch.core import (
     Engine,
     EngineFactory,
+    EngineParams,
+    EngineParamsGenerator,
+    Evaluation,
     FirstServing,
     IdentityPreparator,
+    MetricEvaluator,
+    OptionAverageMetric,
     PAlgorithm,
     Params,
     PDataSource,
@@ -166,6 +173,40 @@ class DataSource(PDataSource):
         sessions, sharded = self._collect_sessions(ctx)
         return self._build_fold(ctx, list(sessions.values()), sharded)
 
+    def read_eval(self, ctx: DeviceContext):
+        """sequential.py:178-224: k-fold next-item evaluation. Sessions split
+        by a stable user hash; a held-out session of at least 3 items becomes
+        (Query(recentItems=prefix), ActualResult(last item)). Fold
+        vocabularies come from the fold's TRAIN sessions only, so unseen
+        items stay genuinely unknown. A sharded read raises in
+        ``_collect_sessions`` (the sharding slice)."""
+        k = self.params.eval_k
+        if not k:
+            return []
+        p = self.params
+        sessions, sharded = self._collect_sessions(ctx)
+        # fold assignment computed ONCE per user, not re-hashed per fold
+        fold_of = {
+            user: zlib.crc32(f"{p.app_name}|{user}".encode()) % k
+            for user in sessions
+        }
+        folds = []
+        for fold in range(k):
+            train_sessions, held = [], []
+            for user, items in sessions.items():
+                if fold_of[user] == fold:
+                    held.append(items)
+                else:
+                    train_sessions.append(items)
+            td = self._build_fold(ctx, train_sessions, sharded)
+            qa = [
+                (Query(recent_items=tuple(items[:-1]), num=p.eval_num),
+                 ActualResult(items[-1]))
+                for items in held if len(items) >= 3
+            ]
+            folds.append((td, {"fold": fold}, qa))
+        return folds
+
 
 # -- algorithm --------------------------------------------------------------
 
@@ -205,7 +246,11 @@ class TransformerAlgorithm(PAlgorithm):
 
     def train(self, ctx: DeviceContext, pd: TrainingData) -> TransformerModel:
         """sequential.py:264: the config from the params and the token
-        space, then ``TransformerRecommender.fit`` on ``ctx.device``."""
+        space, then ``TransformerRecommender.fit`` on ``ctx.device``. The
+        model comes back ready to score there (its serving net built, as
+        the MLP and naive Bayes fits leave theirs), so that evaluation's
+        ``batch_predict`` can score a fold's model as the reference's can;
+        the persisted form drops the net."""
         p = self.params
         cfg = TransformerConfig(
             vocab_size=len(pd.item_map) + 1,
@@ -226,8 +271,9 @@ class TransformerAlgorithm(PAlgorithm):
             checkpoint_dir=p.checkpoint_dir,
             checkpoint_every=p.checkpoint_every,
         )
-        return TransformerRecommender(cfg).fit(
+        model = TransformerRecommender(cfg).fit(
             ctx, pd.sequences, pd.item_map, rows_are_local=pd.rows_are_local)
+        return model.prepare_for_serving(ctx)
 
     def _history(self, query: Query, model: TransformerModel) -> list[str]:
         if query.recent_items is not None:
@@ -293,3 +339,42 @@ class SequentialEngine(EngineFactory):
             {"transformer": TransformerAlgorithm, "": TransformerAlgorithm},
             FirstServing,
         )
+
+
+# -- evaluation -------------------------------------------------------------
+
+class HitRateAtK(OptionAverageMetric):
+    """Fraction of held-out sessions whose true next item appears in the
+    top-k (sequential.py:353-369; the serving path's unseen-only policy
+    applies, so repeat-item sessions count as misses)."""
+
+    def __init__(self, k: int = 10):
+        self.k = k
+
+    @property
+    def header(self) -> str:
+        return f"HitRate@K (k={self.k})"
+
+    def calculate_qpa(self, q: Query, p: PredictedResult, a: ActualResult):
+        if not p.item_scores:
+            return 0.0  # cold/unknown-vocab session: a miss, not a skip
+        return 1.0 if a.next_item in {
+            s.item for s in p.item_scores[: self.k]} else 0.0
+
+
+class SequentialEvaluation(Evaluation, EngineParamsGenerator):
+    """HitRate@10 over a small schedule grid (sequential.py:372-391)."""
+
+    def __init__(self, app_name: str = "sequential", eval_k: int = 3):
+        self.engine = SequentialEngine().apply()
+        self.evaluator = MetricEvaluator(metric=HitRateAtK(k=10))
+        self.engine_params_list = [
+            EngineParams.create(
+                data_source=DataSourceParams(app_name=app_name, eval_k=eval_k),
+                algorithms=[("transformer", TransformerAlgorithmParams(
+                    app_name=app_name, d_model=32, n_layers=1,
+                    epochs=epochs, learning_rate=lr, batch_size=64))],
+            )
+            for epochs in (10, 30)
+            for lr in (1e-3, 5e-3)
+        ]

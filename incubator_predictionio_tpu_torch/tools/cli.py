@@ -1,13 +1,13 @@
-"""``pio-tpu`` console of the port, cut to the train → deploy path.
+"""``pio-tpu`` console of the port, cut to the train → eval → deploy path.
 
 Counterpart of ``incubator_predictionio_tpu/tools/cli.py`` (reference
-tools/console/Console.scala): the verbs ``app new``, ``import``, ``train``
-and ``deploy``, with the reference's argument names (its cli.py:58, :231,
-:295, :631). ``train`` and ``deploy`` run on the card unless ``--device
-cpu`` asks for the CPU. The other verbs come with ROADMAP.md Queue 1,
-items 6 and 7. Run it as ``python -m incubator_predictionio_tpu_torch.tools.cli
-<verb>``; :func:`main` takes the arguments, so a caller can run a verb
-in-process.
+tools/console/Console.scala): the verbs ``app new``, ``import``, ``train``,
+``eval`` and ``deploy``, with the reference's argument names (its cli.py:58,
+:231, :267, :295, :631). ``train``, ``eval`` and ``deploy`` run on the card
+unless ``--device cpu`` asks for the CPU. The other verbs come with
+ROADMAP.md Queue 1, items 6 and 7. Run it as ``python -m
+incubator_predictionio_tpu_torch.tools.cli <verb>``; :func:`main` takes the
+arguments, so a caller can run a verb in-process.
 """
 
 from __future__ import annotations
@@ -93,6 +93,29 @@ def cmd_train(args, storage: Storage) -> int:
     return 0
 
 
+def cmd_eval(args, storage: Storage) -> int:
+    """(commands/Engine.scala eval; reference cli.py:267-293)"""
+    from incubator_predictionio_tpu_torch.core.workflow.create_workflow import (
+        WorkflowConfig,
+        create_workflow,
+    )
+
+    config = WorkflowConfig(
+        engine_variant=args.engine_variant,
+        evaluation_class=args.evaluation_class,
+        engine_params_generator_class=args.engine_params_generator_class,
+        batch=args.batch,
+        device=args.device,
+        fast_eval=not args.no_fast_eval,
+    )
+    instance_id = create_workflow(config, storage)
+    inst = storage.get_meta_data_evaluation_instances().get(instance_id)
+    _out(f"Evaluation completed. Instance ID: {instance_id}")
+    if inst is not None and inst.evaluator_results:
+        _out(inst.evaluator_results)
+    return 0
+
+
 def cmd_deploy(args, storage: Storage) -> int:
     from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext
     from incubator_predictionio_tpu_torch.server.query_server import (
@@ -114,7 +137,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="pio-tpu",
         description="PredictionIO-capability ML server framework "
-                    "(PyTorch/CUDA port: app new, import, train, deploy)",
+                    "(PyTorch/CUDA port: app new, import, train, eval, deploy)",
     )
     sub = parser.add_subparsers(dest="command")
 
@@ -135,6 +158,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", help="torch device to train on (default: "
                                     "the card, cuda:0; 'cpu' for the CPU)")
 
+    p = sub.add_parser("eval")
+    p.add_argument("evaluation_class")
+    p.add_argument("engine_params_generator_class", nargs="?")
+    p.add_argument("-v", "--engine-variant", default="engine.json")
+    p.add_argument("--batch", default="")
+    p.add_argument("--device", help="torch device to evaluate on (default: "
+                                    "the card, cuda:0; 'cpu' for the CPU)")
+    p.add_argument("--no-fast-eval", action="store_true",
+                   help="disable prefix memoization across variants "
+                        "(FastEvalEngine is the default)")
+
     p = sub.add_parser("deploy")
     p.add_argument("-v", "--engine-variant", default="engine.json")
     p.add_argument("--ip", default="0.0.0.0")
@@ -150,7 +184,8 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-_COMMANDS = {"train": cmd_train, "deploy": cmd_deploy, "import": cmd_import}
+_COMMANDS = {"train": cmd_train, "eval": cmd_eval, "deploy": cmd_deploy,
+             "import": cmd_import}
 _APP_COMMANDS = {"new": cmd_app_new}
 
 

@@ -68,3 +68,11 @@ def params_from_json(cls: Optional[Type[Params]], obj: Any) -> Params:
             raise TypeError(f"duplicate parameter {k!r} for {cls.__name__}")
         kwargs[name] = v
     return cls(**kwargs)
+
+
+def params_to_json_dict(params: Params) -> dict[str, Any]:
+    """Dataclass → JSON dict (snake_case keys; used for meta rows and the
+    evaluator's results, reference utils/params.py:70)."""
+    if params is None or isinstance(params, EmptyParams):
+        return {}
+    return dataclasses.asdict(params)

@@ -139,8 +139,19 @@ def test_read_training_is_the_references(stores):
     with pytest.raises(NotImplementedError, match="item 4"):
         tcl.DataSource(tcl.DataSourceParams(app_name="cls")).read_training(
             DeviceContext(torch.device("cpu"), process_index=0, process_count=2))
-    with pytest.raises(NotImplementedError, match="item 5 part 4"):
-        tcl.DataSource(tcl.DataSourceParams(app_name="cls")).read_eval(CPU)
+    # read_eval: k folds by row position, bitwise the reference's
+    want_folds = jcl.DataSource(jcl.DataSourceParams(
+        app_name="cls", eval_k=3)).read_eval(MeshContext.create())
+    got_folds = tcl.DataSource(tcl.DataSourceParams(
+        app_name="cls", eval_k=3)).read_eval(CPU)
+    assert len(got_folds) == len(want_folds) == 3
+    for (gtd, gei, gqa), (wtd, wei, wqa) in zip(got_folds, want_folds):
+        assert gei == wei
+        for name in ("x", "y"):
+            a, b = getattr(gtd, name), getattr(wtd, name)
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), name
+        assert [(q.features, a) for q, a in gqa] == [(q.features, a) for q, a in wqa]
+        assert len(gtd.x) + len(gqa) == len(got.x)
 
 
 def _jax_params(dims, seed=0):

@@ -222,8 +222,25 @@ def test_train_refuses_what_is_not_ported(stores):
     with pytest.raises(NotImplementedError, match="item 4"):
         trec.DataSource(trec.DataSourceParams(app_name="rec")).read_training(
             DeviceContext(torch.device("cpu"), process_index=0, process_count=2))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        create_workflow(WorkflowConfig(evaluation_class="x:Y"))
+    with pytest.raises(NotImplementedError, match="item 4"):
+        trec.DataSource(trec.DataSourceParams(app_name="rec", eval_k=2)).read_eval(
+            DeviceContext(torch.device("cpu"), process_index=0, process_count=2))
+    # evaluation is ported: create_workflow runs it on the CPU through
+    # FastEvalEngine and writes an EVALCOMPLETED row
+    _, ts = stores
+    iid = create_workflow(WorkflowConfig(
+        evaluation_class=f"{__name__}:RecEvaluation", device="cpu"), ts)
+    inst = ts.get_meta_data_evaluation_instances().get(iid)
+    assert inst.status == "EVALCOMPLETED" and inst.end_time is not None
+    assert inst.evaluator_results.startswith("[") and "Precision@K" in inst.evaluator_results
+    assert len(json.loads(inst.evaluator_results_json)["results"]) == 4
+
+
+class RecEvaluation(trec.RecommendationEvaluation):
+    """The reference grid on this file's ``rec`` app, 2 folds."""
+
+    def __init__(self):
+        super().__init__(app_name="rec", eval_k=2)
 
 
 def test_cli_app_new_import_train(tmp_pio_home, tmp_path, capsys):
