@@ -118,6 +118,19 @@ against the sessions, 16 queries with the kernels against the plain
 attention) and ``cls-eval`` after ``cls-workflow`` (CompleteEvaluation:
 accuracy and each label's precision, ``best.json``, variant 0 on the CPU).
 
+``rec-launch`` trains the recommendation template in two processes through
+the CLI's ``launch -n 2 train``: 400,000 rate events (rec-train's widths,
+rank 128 and 100,000 items, with users and events cut 10x) imported into
+one sqlite file, each process reading its entity shard, staging its
+batches and running the data-parallel fit over a ``torch.distributed``
+group (gloo through the host when the processes share the card, NCCL with
+a card each), process 0 alone writing the instance and the model. It holds
+the shard reads, the one instance and blob, the replicas' equal digests
+and a replay of both shards' global batches through the single-process
+loop on the card, checks the fit's collectives on a one-process NCCL
+group, then deploys the model through K1 (exact) and K2 (two-stage),
+each path's answers held against its plain CPU path on the same model.
+
 Every check failure raises: the script catches nothing, and a non-zero exit
 is the verdict. Its last line is one JSON object, ``{"ok": true, "device":
 {...}}``; the line before it names the card and its power limit; a
@@ -134,6 +147,7 @@ import gc
 import json
 import logging
 import os
+import re
 import socket
 import statistics
 import subprocess
@@ -4637,6 +4651,521 @@ def rec_eval_phase(ctx, tmp):
     return rec
 
 
+# -- phase: multi-process training of the recommendation template -----------
+
+#: rec-launch: bench_recommendation_scaled's widths (:196-207; rank 128,
+#: 100,000 items) with users and events cut 10x for the sqlite import's
+#: time (1,000,000 -> 100,000 users, 4,000,000 -> 400,000 rate events, drawn
+#: from default_rng(23); the first 100,000 events name every item once, so
+#: the catalog keeps its full width and passes PIO_RETRIEVAL_MIN_ITEMS's
+#: default); rec-train's batch (65,536) and epochs (4); fp32 adam moments
+#: (the template's default)
+LAUNCH_USERS, LAUNCH_ITEMS, LAUNCH_RANK = 100_000, 100_000, 128
+LAUNCH_EVENTS, LAUNCH_BATCH, LAUNCH_EPOCHS = 400_000, 65_536, 4
+LAUNCH_PROCS = 2
+#: the launch's own deadline (a wedged peer fails the phase, not the call)
+LAUNCH_TIMEOUT_S = 600
+#: the replay (both shards' batches through the single-process loop on the
+#: card, from the same initial tables; both take the sorted scatter)
+#: against the launched model's tables, max abs difference: 0. The
+#: two run the same kernels on the same rows in the same order, the
+#: launched fit on half the rows a launch; adam turns any rounding
+#: difference of a near-zero gradient into a step of about ±lr, so a band
+#: between 0 and lr would hide nothing and admit a real fault
+LAUNCH_REPLAY_TOL = 0.0
+
+LAUNCH_LINE = {
+    "dist": re.compile(r"distributed: process (\d+) of (\d+), backend (\w+), "
+                       r"device (\S+)"),
+    "read": re.compile(r"sharded read: (\d+) of (\d+) rows \(shard (\d+)/(\d+)\), "
+                       r"(\d+) local users, (\d+) global users, (\d+) global "
+                       r"items in ([\d.]+) s"),
+    "fit": re.compile(r"data-parallel fit: process (\d+) of (\d+) \(backend "
+                      r"(\w+), (\S+)\): (\d+) steps of (\d+) local rows; stage "
+                      r"([\d.]+) s, train ([\d.]+) s, exchange ([\d.]+) ms a "
+                      r"step; loss (\S+); replica digest (\w+), equal"),
+}
+
+
+def launch_sections(out: str) -> list[dict]:
+    """Each launched process's lines parsed: its exit code, its
+    ``distributed``, ``sharded read`` and ``data-parallel fit`` lines."""
+    parts = re.split(r"^--- process (\d+) \(exit (-?\d+)\) ---$", out,
+                     flags=re.M)
+    procs = []
+    for i in range(1, len(parts), 3):
+        body = parts[i + 2]
+        rec = {"process": int(parts[i]), "rc": int(parts[i + 1])}
+        for key, rx in LAUNCH_LINE.items():
+            m = rx.findall(body)
+            check(len(m) == 1, f"[rec-launch] process {parts[i]}: {len(m)} "
+                  f"'{key}' lines in its log:\n{body[-4000:]}")
+            rec[key] = m[0]
+        procs.append(rec)
+    return procs
+
+
+class ShardScript:
+    """One process's view of a job for the replay: each ``allgather_obj``
+    returns every shard's part of that call (scripted in advance, in
+    process order) after checking this process's own."""
+
+    def __init__(self, index, script):
+        self.process_index = index
+        self.process_count = len(script[0])
+        self._script = list(script)
+
+    def allgather_obj(self, obj):
+        parts = self._script.pop(0)
+        check(repr(parts[self.process_index]) == repr(obj),
+              "[rec-launch] the replay's shard diverged from its script")
+        return list(parts)
+
+    def pad_to_batch_multiple(self, n):
+        k = self.process_count
+        return ((n + k - 1) // k) * k
+
+
+def shard_triples(users, items, ratings, n_shards):
+    """Each entity shard's ``assemble_triples`` result computed from the
+    generated arrays (events in time order, ``u<i>`` / ``i<j>`` ids), not
+    from the store: the users whose id's crc32 falls in the shard, the
+    latest rating of a pair winning, rows in pair-first-seen order and both
+    vocabularies in first-emitted order."""
+    import zlib
+
+    shard_of = {}
+    out = []
+    for s in range(n_shards):
+        uv: dict = {}
+        iv: dict = {}
+        row: dict = {}
+        ui, ii, vals = [], [], []
+        for u, i, r in zip(users, items, ratings):
+            su = shard_of.get(u)
+            if su is None:
+                su = shard_of[u] = zlib.crc32(f"u{u}".encode()) % n_shards
+            if su != s:
+                continue
+            a = uv.setdefault(f"u{u}", len(uv))
+            b = iv.setdefault(f"i{i}", len(iv))
+            j = row.get((a, b))
+            if j is not None:
+                vals[j] = r
+                continue
+            row[(a, b)] = len(vals)
+            ui.append(a)
+            ii.append(b)
+            vals.append(r)
+        out.append((np.asarray(list(uv), object), np.asarray(list(iv), object),
+                    np.asarray(ui, np.int32), np.asarray(ii, np.int32),
+                    np.asarray(vals, np.float32)))
+    return out
+
+
+def launch_replay(arrays, variant_path, ctx):
+    """Both shards read and staged in this process (``_read_sharded`` and
+    ``_stage_local`` under :class:`ShardScript`, the shards' triples from
+    :func:`shard_triples`), their local batches concatenated into the
+    global ones, and the single-process loop run on the card from the
+    launched fit's initial tables. Returns its tables, loss and train
+    seconds, and the vocabularies, the mean and the read's seconds."""
+    from incubator_predictionio_tpu_torch.core.controller import (
+        resolve_engine_factory,
+        variant_from_file,
+    )
+    from incubator_predictionio_tpu_torch.models import two_tower as tt
+    from incubator_predictionio_tpu_torch.utils.optim import adam_tree_init
+
+    variant = variant_from_file(variant_path)
+    engine = resolve_engine_factory(variant["engineFactory"])()
+    ds, _, (algo,), _ = engine._instantiate(engine.engine_params_from_variant(variant))
+    t0 = time.perf_counter()
+    reads = shard_triples(*(a.tolist() for a in arrays), LAUNCH_PROCS)
+    read_s = time.perf_counter() - t0
+    script = [[list(r[0]) for r in reads], [list(r[1]) for r in reads],
+              [len(r[4]) for r in reads]]
+    ds._store = type("Shards", (), {"assemble_triples": lambda self, *a, **k:
+                                    reads[k["shard_index"]]})()
+    shards = [ds.read_training(ShardScript(s, script)) for s in range(LAUNCH_PROCS)]
+    a = algo.params
+    cfg = tt.TwoTowerConfig(rank=a.rank, learning_rate=a.learning_rate,
+                            reg=a.lambda_, epochs=a.num_iterations,
+                            batch_size=a.batch_size, seed=a.seed or 0)
+    stats = [[(len(sh.ratings), float(np.asarray(sh.ratings, np.float64).sum()))
+              for sh in shards]]
+    staged = [tt.TwoTowerMF(cfg)._stage_local(
+        ShardScript(s, stats), sh.user_idx, sh.item_idx, sh.ratings)
+        for s, sh in enumerate(shards)]
+    dev = ctx.device
+    glob = [torch.from_numpy(np.concatenate([st[j] for st in staged], axis=1)).to(dev)
+            for j in range(4)]
+    n_users, n_items = len(shards[0].user_vocab), len(shards[0].item_vocab)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    tables = list(tt._init_tables(cfg, n_users, n_items, dev, gen))
+    state = adam_tree_init(tables, cfg.adam_moments_dtype)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(tt._train_epochs(tables, [torch.empty_like(t) for t in tables],
+                                  state, *glob, cfg.learning_rate, cfg.reg,
+                                  cfg.epochs))
+    out = {"tables": [t.cpu().numpy() for t in tables], "loss": loss,
+           "train_s": time.perf_counter() - t0}
+    del tables, state
+    return out, {"mean": staged[0][4], "read_s": read_s,
+                 "user_vocab": shards[0].user_vocab,
+                 "item_vocab": shards[0].item_vocab,
+                 "steps": cfg.epochs * int(glob[0].shape[0])}
+
+
+def nccl_collectives_check(ctx) -> dict:
+    """A world-size-1 NCCL group on this card: the collectives the fit
+    makes (the row all-gather, the loss all-reduce, ``allgather_obj``) on
+    CUDA tensors of the fit's shapes, against their plain results."""
+    from incubator_predictionio_tpu_torch.parallel.launcher import free_port
+    from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext
+
+    with env_vars(PIO_DIST_COORDINATOR=f"127.0.0.1:{free_port()}",
+                  PIO_DIST_NUM_PROCESSES="1", PIO_DIST_PROCESS_ID="0"):
+        one = DeviceContext.create(distributed=True)
+    try:
+        check(one.backend == "nccl" and one.device.type == "cuda",
+              f"[rec-launch] a 1-process group on the card is {one}")
+        rows = torch.randn(LAUNCH_BATCH // LAUNCH_PROCS, 2 * (LAUNCH_RANK + 1),
+                           device=one.device)
+        losses = torch.rand(8, device=one.device)
+        got = one.all_gather(rows)
+        check(got.shape == (1, *rows.shape) and torch.equal(got[0], rows),
+              "[rec-launch] NCCL all_gather differs from its input")
+        check(torch.equal(one.all_reduce_sum(losses), losses),
+              "[rec-launch] NCCL all_reduce differs from its input")
+        check(one.allgather_obj(("n", 3)) == [("n", 3)],
+              "[rec-launch] allgather_obj over NCCL")
+        ms = time_ms(lambda: one.all_gather(rows), reps=10, inner=5)
+    finally:
+        one.stop()
+    return {"backend": one.backend, "all_gather_ms": ms,
+            "all_gather_bytes": rows.numel() * 4}
+
+
+def two_stage_vs_cpu(name, model, served_mf, user_ids, bodies) -> dict:
+    """The served two-stage answers of ``user_ids`` against the plain CPU
+    two-stage path on the same model and the same IVF index (its coarse
+    probe the exact host twin of K2, which K2 equals bitwise; the same host
+    rerank): top-10 ids equal up to near-ties at the 10th place, scores
+    within 1e-4. Also the share of the catalog that the probed partitions
+    hold for these users, the recall@10 a probe blind to the exact answer
+    would reach."""
+    import dataclasses
+
+    from incubator_predictionio_tpu_torch.models.two_tower import (
+        TwoTowerMF,
+        TwoTowerModel,
+    )
+    from incubator_predictionio_tpu_torch.ops.retrieval import quantize_rows
+    from incubator_predictionio_tpu_torch.serving import ann
+
+    mf = model.mf
+    cpu = TwoTowerModel(user_emb=mf.user_emb, item_emb=mf.item_emb,
+                        user_bias=mf.user_bias, item_bias=mf.item_bias,
+                        mean=mf.mean, config=mf.config)
+    cpu.prepare_for_serving(quantize=True, host_max_elements=0, device="cpu",
+                            build_index=False)
+    ivf = dataclasses.replace(served_mf._ivf, device=None)
+    cpu._ivf = ivf
+    rows = np.asarray([model.user_map[u] for u in user_ids], np.int32)
+    ci, cs = TwoTowerMF.recommend_batch(cpu, rows, 12)
+    inv = model.item_map.inverse()
+    same = 0
+    for r, body in enumerate(bodies):
+        got = ids_of(body)
+        want = [inv[int(i)] for i in ci[r][:10]]
+        cpu_score = dict(zip([inv[int(i)] for i in ci[r]], cs[r].tolist()))
+        for iid in set(got) ^ set(want):
+            check(iid in cpu_score and abs(cpu_score[iid] - float(cs[r][9])) <= 1e-4,
+                  f"[{name}] two-stage top-10 differs from the CPU two-stage "
+                  f"path beyond a near-tie: {got} vs {want}")
+        for s in body["itemScores"]:
+            check(s["item"] in cpu_score
+                  and abs(s["score"] - cpu_score[s["item"]]) <= 1e-4,
+                  f"[{name}] two-stage score {s} vs the CPU two-stage path")
+        same += got == want
+    q = np.asarray(mf.user_emb, np.float32)[rows]
+    probe = ivf.probe(q, ann.resolved_nprobe(ivf.n_partitions),
+                      q_quant=quantize_rows(q))
+    probed = float((np.diff(ivf.offsets)[probe].sum(1) / ivf.n_items).mean())
+    return {"cpu_two_stage_same_order": same, "probed_catalog_share": probed,
+            "nprobe": int(probe.shape[1]), "partitions": ivf.n_partitions}
+
+
+async def rec_launch_body(model, user_ids, session, url, server, lat, answers,
+                          name):
+    """A burst of 64 users; on the exact path 16 of them also against the
+    plain CPU int8 path on the same model (top-10 up to near-ties at the
+    10th place, scores within 1e-4)."""
+    from incubator_predictionio_tpu_torch.models.two_tower import (
+        TwoTowerMF,
+        TwoTowerModel,
+    )
+
+    served = server.deployed.models[0]
+    info = served.serving_info()
+    payload = [{"user": u, "num": 10} for u in user_ids]
+    bodies, lat[name] = await post_all(session, url, payload, True)
+    for body in bodies:
+        check(len(body["itemScores"]) == 10
+              and all(np.isfinite(s["score"]) for s in body["itemScores"]),
+              f"[{name}] answer {body}")
+    answers[name] = [ids_of(b) for b in bodies]
+    if name != "rec-launch-exact":
+        check(info["retrieval_mode"] == "two_stage"
+              and (info["index"] or {}).get("coarse_device", "").startswith("cuda"),
+              f"[{name}] not two-stage on the card: {info}")
+        return {"serving_info": info,
+                **two_stage_vs_cpu(name, model, served.mf, user_ids[:16],
+                                   bodies[:16])}
+    check(info["path"] == "device-int8" and info["device"].startswith("cuda")
+          and info["retrieval_mode"] == "exact",
+          f"[{name}] not the exact int8 path on the card: {info}")
+    mf = model.mf
+    cpu = TwoTowerModel(user_emb=mf.user_emb, item_emb=mf.item_emb,
+                        user_bias=mf.user_bias, item_bias=mf.item_bias,
+                        mean=mf.mean, config=mf.config)
+    cpu.prepare_for_serving(quantize=True, host_max_elements=0, device="cpu",
+                            build_index=False)
+    rows = np.asarray([model.user_map[u] for u in user_ids[:16]], np.int32)
+    ci, cs = TwoTowerMF.recommend_batch(cpu, rows, 12)
+    inv = model.item_map.inverse()
+    same = 0
+    for r, body in enumerate(bodies[:16]):
+        got = ids_of(body)
+        want = [inv[int(i)] for i in ci[r][:10]]
+        cpu_score = dict(zip([inv[int(i)] for i in ci[r]], cs[r].tolist()))
+        for iid in set(got) ^ set(want):
+            check(iid in cpu_score and abs(cpu_score[iid] - float(cs[r][9])) <= 1e-4,
+                  f"[{name}] top-10 differs from the CPU path beyond a "
+                  f"near-tie: {got} vs {want}")
+        for s in body["itemScores"]:
+            check(abs(s["score"] - cpu_score[s["item"]]) <= 1e-4,
+                  f"[{name}] score {s} vs CPU {cpu_score[s['item']]}")
+        same += got == want
+    return {"serving_info": info, "cpu_same_order": same}
+
+
+def launch_train(registry, variant_path, backend, n_instances, **env):
+    """``launch -n 2 train -v <variant>`` through the CLI, in-process, its
+    children under ``env``; every process's lines held (exit 0, the
+    backend, on the card, shard reads that partition the rows, equal
+    losses and replica digests), then the ``n_instances``-th COMPLETED
+    instance and its model blob. Returns the processes' records, the
+    launch wall and the persisted model."""
+    from incubator_predictionio_tpu_torch.utils.serialization import (
+        deserialize_model,
+    )
+
+    tag = f"rec-launch {backend}"
+    s0 = time.perf_counter()
+    with env_vars(PYTHONPATH=str(Path(__file__).resolve().parent), **env):
+        out = cli_run(tag, [
+            "launch", "-n", str(LAUNCH_PROCS), "--timeout",
+            str(LAUNCH_TIMEOUT_S), "train", "-v", variant_path])
+    wall = time.perf_counter() - s0
+    OUT.parent.mkdir(parents=True, exist_ok=True)
+    (OUT.parent / f"rec_launch_{backend}.log").write_text(out)
+    procs = launch_sections(out)
+    check([p["process"] for p in procs] == list(range(LAUNCH_PROCS))
+          and all(p["rc"] == 0 for p in procs),
+          f"[{tag}] processes {[(p['process'], p['rc']) for p in procs]}")
+    per = []
+    for p in procs:
+        d, r, f = p["dist"], p["read"], p["fit"]
+        check(d[2] == backend == f[2],
+              f"[{tag}] process {p['process']} runs backend {d[2]}")
+        check(d[3].startswith("cuda") and f[3].startswith("cuda"),
+              f"[{tag}] process {p['process']} ran on {d[3]}")
+        per.append({"process": p["process"], "device": d[3],
+                    "local_rows": int(r[0]), "global_rows": int(r[1]),
+                    "local_users": int(r[4]), "read_s": float(r[7]),
+                    "steps": int(f[4]), "local_batch": int(f[5]),
+                    "stage_s": float(f[6]), "train_s": float(f[7]),
+                    "exchange_ms_per_step": float(f[8]),
+                    "loss": float(f[9]), "digest": f[10]})
+    total = per[0]["global_rows"]
+    check(all(q["global_rows"] == total for q in per)
+          and sum(q["local_rows"] for q in per) == total
+          and all(0 < q["local_rows"] < total for q in per),
+          f"[{tag}] shard reads {per}")
+    check(len({q["digest"] for q in per}) == 1,
+          f"[{tag}] replica digests differ: {per}")
+    check(len({q["loss"] for q in per}) == 1, f"[{tag}] losses {per}")
+    storage = registry.get_storage()
+    insts = sorted(storage.get_meta_data_engine_instances().get_all(),
+                   key=lambda i: i.start_time)
+    check([i.status for i in insts] == ["COMPLETED"] * n_instances,
+          f"[{tag}] instances {[(i.id, i.status) for i in insts]}")
+    blob = storage.get_model_data_models().get(insts[-1].id)
+    check(blob is not None, f"[{tag}] no model blob")
+    model = deserialize_model(blob.models)[0]
+    check(not model.mf.device_resident and model.mf.user_emb.shape ==
+          (len(model.user_map), LAUNCH_RANK),
+          f"[{tag}] the persisted model: {model.mf.user_emb.shape}")
+    return {"processes": per, "wall_s": wall, "model": model}
+
+
+def rec_launch_phase(R, ctx, tmp):
+    """``launch -n 2 train -v engine.json`` on the card through the CLI:
+    ``app new`` and ``import`` of 400,000 rate events into one sqlite file,
+    two processes sharing one card (gloo by the backend rule) that each
+    read their entity shard, stage their batches and run the data-parallel
+    fit; process 0 alone writes the instance and the model. Where the
+    machine has two cards, a second launch with a card each (NCCL), whose
+    tables must equal the first's bitwise. Held: the shard reads, one
+    COMPLETED instance and one blob, equal replica digests, the replay;
+    then the model deployed through K1 (exact) and K2 (two-stage).
+    Returns (launches, record)."""
+    import datetime as dt
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "rec-launch")
+    rng = np.random.default_rng(23)
+    users = rng.integers(0, LAUNCH_USERS, LAUNCH_EVENTS)
+    items = np.concatenate([rng.permutation(LAUNCH_ITEMS), rng.integers(
+        0, LAUNCH_ITEMS, LAUNCH_EVENTS - LAUNCH_ITEMS)])
+    ratings = (1.0 + 4.0 * rng.random(LAUNCH_EVENTS)).astype(np.float32)
+    t0 = dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc)
+    dicts = ({"event": "rate", "entityType": "user", "entityId": f"u{u}",
+              "targetEntityType": "item", "targetEntityId": f"i{i}",
+              "properties": {"rating": float(r)},
+              "eventTime": (t0 + dt.timedelta(seconds=j)).isoformat()}
+             for j, (u, i, r) in enumerate(zip(users.tolist(), items.tolist(),
+                                               ratings.tolist())))
+    rec = {"users": LAUNCH_USERS, "items": LAUNCH_ITEMS, "rank": LAUNCH_RANK,
+           "events": LAUNCH_EVENTS, "batch": LAUNCH_BATCH,
+           "epochs": LAUNCH_EPOCHS, "processes": LAUNCH_PROCS,
+           "card_count": torch.cuda.device_count()}
+    with cli_storage(root) as registry:
+        _, rec["import"] = cli_app_import("rec-launch", root, "launch", dicts)
+        variant_path = write_variant(
+            os.path.join(root, "engine.json"), FACTORY, "launch",
+            [{"name": "als", "params": {
+                "rank": LAUNCH_RANK, "numIterations": LAUNCH_EPOCHS,
+                "batchSize": LAUNCH_BATCH}}])
+        # one card: the processes share it (gloo through the host), also
+        # where the machine has more
+        first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+        launched = launch_train(registry, variant_path, "gloo", 1,
+                                CUDA_VISIBLE_DEVICES=first)
+        per, model = launched["processes"], launched["model"]
+        mf = model.mf
+        total = per[0]["global_rows"]
+        train_wall = max(q["train_s"] for q in per)
+        rec.update({
+            "launch_wall_s": launched["wall_s"], "backend": "gloo",
+            "processes_record": per,
+            "train_events_per_sec": total * LAUNCH_EPOCHS / train_wall,
+            "final_loss": mf.final_loss, "timings": mf.timings})
+        if torch.cuda.device_count() >= LAUNCH_PROCS:
+            # a card each: NCCL, the same fit over another transport
+            nccl = launch_train(registry, variant_path, "nccl", 2)
+            diff = max(float(np.abs(getattr(nccl["model"].mf, n)
+                                    - getattr(mf, n)).max())
+                       for n in ("user_emb", "item_emb", "user_bias", "item_bias"))
+            check(diff == 0.0, f"[rec-launch] the NCCL launch's tables differ "
+                  f"from the gloo launch's by {diff}")
+            rec["nccl_launch"] = {k: v for k, v in nccl.items() if k != "model"}
+            rec["nccl_launch"]["max_abs_diff_vs_gloo"] = diff
+            model, mf = nccl["model"], nccl["model"].mf
+
+        # the replay: both shards in this process, the single-process loop
+        replay, meta = launch_replay((users, items, ratings), variant_path, ctx)
+        check(list(meta["user_vocab"]) == list(model.user_map.keys())
+              and list(meta["item_vocab"]) == list(model.item_map.keys())
+              and meta["mean"] == mf.mean,
+              "[rec-launch] the replay's vocabularies or mean differ")
+        got = {"ue": (mf.user_emb, mf.user_bias), "ie": (mf.item_emb, mf.item_bias)}
+        diffs = []
+        for t, key in zip(replay["tables"], ("ue", "ie")):
+            emb, bias = got[key]
+            want = np.concatenate([emb, bias[:, None]], 1)
+            diffs.append(float(np.abs(t[:len(emb)] - want).max()))
+        rep = {"max_abs_diff": max(diffs), "loss": replay["loss"],
+               "train_s": replay["train_s"]}
+        rec["replay"] = {**rep, "read_s": meta["read_s"], "steps": meta["steps"]}
+        check(rep["max_abs_diff"] <= LAUNCH_REPLAY_TOL,
+              f"[rec-launch] the replay differs from the launched model by "
+              f"{rep['max_abs_diff']} > {LAUNCH_REPLAY_TOL}")
+        del replay
+        rec["nccl_1"] = nccl_collectives_check(ctx)
+
+        # deploy the primary's model: exact (K1) and two-stage (K2)
+        storage = registry.get_storage()
+        pick = np.random.default_rng(21).choice(len(model.user_map), 64,
+                                                replace=False)
+        vocab = list(model.user_map.keys())
+        user_ids = [vocab[int(i)] for i in pick]
+        lat, answers = {}, {}
+        R.reset_launches()
+        with retrieval_mode("exact"):
+            rec["exact"] = asyncio.run(serve_phase(
+                "rec-launch-exact", variant_path, storage, ctx,
+                lambda s, u, srv: rec_launch_body(model, user_ids, s, u, srv,
+                                                  lat, answers,
+                                                  "rec-launch-exact")))
+        gc.collect()
+        torch.cuda.empty_cache()
+        with retrieval_mode("auto"):
+            rec["two_stage"] = asyncio.run(serve_phase(
+                "rec-launch-two-stage", variant_path, storage, ctx,
+                lambda s, u, srv: rec_launch_body(model, user_ids, s, u, srv,
+                                                  lat, answers,
+                                                  "rec-launch-two-stage")))
+        launches = {"score_catalog_quantized": R.score_catalog_quantized.launches,
+                    "score_centroids_quantized": R.score_centroids_quantized.launches}
+    for name, count in launches.items():
+        check(count > 0, f"[rec-launch] {name} never launched serving the "
+              "launched model")
+    hits = sum(len(set(a) & set(b)) for a, b in zip(
+        answers["rec-launch-exact"], answers["rec-launch-two-stage"]))
+    rec["two_stage"]["recall_at_10"] = hits / (10 * len(user_ids))
+    rec["latency"] = {k: {"n": len(v), "p50_ms": pct(v, 50), "p99_ms": pct(v, 99)}
+                      for k, v in lat.items()}
+    rec["launches"] = launches
+    rec["phase_s"] = time.perf_counter() - t_phase
+    smi = smi_name_power()
+    log(f"[rec-launch] ({smi}) import {LAUNCH_EVENTS} events "
+        f"{rec['import']['import_s']:.2f} s; launch -n {LAUNCH_PROCS} train: "
+        f"wall {rec['launch_wall_s']:.2f} s, backend gloo, the processes "
+        f"sharing one card ({rec['card_count']} card(s) visible; NCCL with "
+        f"a card each: "
+        + (f"wall {rec['nccl_launch']['wall_s']:.2f} s, tables bitwise the "
+           "gloo launch's" if "nccl_launch" in rec else "not measured")
+        + ")")
+    for q in per:
+        log(f"[rec-launch] ({smi}) process {q['process']} on {q['device']}: read "
+            f"{q['local_rows']} of {q['global_rows']} rows in {q['read_s']:.3f} s, "
+            f"stage {q['stage_s']:.3f} s, train {q['train_s']:.3f} s "
+            f"({q['steps']} steps of {q['local_batch']} local rows), exchange "
+            f"{q['exchange_ms_per_step']:.3f} ms a step; digest {q['digest']}")
+    log(f"[rec-launch] ({smi}) train events/s {rec['train_events_per_sec']:.1f} "
+        f"({total} global rows x {LAUNCH_EPOCHS} epochs / {train_wall:.3f} s); "
+        f"loss {mf.final_loss:.6f}; replica digests equal")
+    log(f"[rec-launch] ({smi}) replay of both shards' global batches on the "
+        f"card: max abs diff {rep['max_abs_diff']:.3e} (band "
+        f"{LAUNCH_REPLAY_TOL}), loss {rep['loss']:.6f}, train "
+        f"{rep['train_s']:.3f} s; NCCL 1-process all_gather of "
+        f"{rec['nccl_1']['all_gather_bytes']} bytes {rec['nccl_1']['all_gather_ms']:.4f} ms")
+    log(f"[rec-launch] ({smi}) burst of 64: exact p50 "
+        f"{rec['latency']['rec-launch-exact']['p50_ms']:.2f} ms, two-stage p50 "
+        f"{rec['latency']['rec-launch-two-stage']['p50_ms']:.2f} ms (recall@10 "
+        f"vs exact {rec['two_stage']['recall_at_10']:.4f}, no floor: tables "
+        f"trained on uniform random events; the probed partitions hold "
+        f"{rec['two_stage']['probed_catalog_share']:.4f} of the catalog; "
+        f"{rec['two_stage']['cpu_two_stage_same_order']} of 16 two-stage "
+        f"answers in the CPU two-stage path's order); launches {launches}; phase "
+        f"{rec['phase_s']:.1f} s")
+    return launches, rec
+
+
 def seq_eval_phase(ctx, tmp):
     """``pio eval`` of the sequential template on seq-workflow's stored
     sessions: SequentialEvaluation with :class:`SeqEvalGrid` at full width
@@ -4872,6 +5401,12 @@ def main() -> int:
         main["rec_eval"] = rec_eval_phase(ctx, tmp)
         main["rec_eval"]["phase_s"] = time.perf_counter() - t0
         log(f"[rec-eval] phase {main['rec_eval']['phase_s']:.1f} s")
+    # multi-process training: launch -n 2 train, the primary's model
+    # deployed through K1 and K2
+    with tempfile.TemporaryDirectory() as tmp:
+        counts, main["rec_launch"] = rec_launch_phase(R, ctx, tmp)
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
     k1 = k1 + main["rec_train"].pop("k1_cases")
     k2 = k2 + main["rec_train"].pop("k2_cases")
     # each sequential phase runs with the counts at 0 and reads them after;

@@ -73,32 +73,45 @@ def run_train(
 ) -> str:
     """Train, persist the models into MODELDATA, mark the instance
     COMPLETED (CoreWorkflow.runTrain, CoreWorkflow.scala:45-102). Returns
-    the instance id."""
+    the instance id.
+
+    In a multi-process job every process trains (the collectives need all
+    of them), but only process 0 touches storage — the single-Spark-driver
+    role (``DeviceContext.is_primary``); secondaries return
+    ``"<secondary>"``. The context is stopped at the end (a multi-process
+    context leaves its process group)."""
     storage = storage or get_storage()
     instances = storage.get_meta_data_engine_instances()
     ctx = ctx or DeviceContext.create()
-    instance_id = engine_instance.id or instances.insert(engine_instance)
-    if engine_instance.id:
-        instances.update(engine_instance)
+    primary = ctx.is_primary
+    if primary:
+        instance_id = engine_instance.id or instances.insert(engine_instance)
+        if engine_instance.id:
+            instances.update(engine_instance)
+    else:
+        instance_id = engine_instance.id or "<secondary>"
     try:
         models = engine.train(ctx, engine_params, params)
-        persisted = engine.models_for_persistence(
-            ctx, models, instance_id, engine_params)
-        blob = serialize_model(persisted)
-        storage.get_model_data_models().insert(Model(instance_id, blob))
-        inst = instances.get(instance_id)
-        instances.update(replace(inst, status="COMPLETED", end_time=_now()))
-        logger.info("training finished: instance %s (%d bytes of models)",
-                    instance_id, len(blob))
+        if primary:
+            persisted = engine.models_for_persistence(
+                ctx, models, instance_id, engine_params)
+            blob = serialize_model(persisted)
+            storage.get_model_data_models().insert(Model(instance_id, blob))
+            inst = instances.get(instance_id)
+            instances.update(replace(inst, status="COMPLETED", end_time=_now()))
+            logger.info("training finished: instance %s (%d bytes of models)",
+                        instance_id, len(blob))
         return instance_id
     except Exception:
-        inst = instances.get(instance_id)
-        if inst is not None:
-            instances.update(replace(inst, status="FAILED", end_time=_now()))
+        if primary:
+            inst = instances.get(instance_id)
+            if inst is not None:
+                instances.update(replace(inst, status="FAILED", end_time=_now()))
         logger.error("training failed:\n%s", traceback.format_exc())
         raise
     finally:
         CleanupFunctions.run()
+        ctx.stop()
 
 
 def run_evaluation(
@@ -116,8 +129,9 @@ def run_evaluation(
         raise ValueError("Evaluation must define engine and evaluator (engine_metric=…)")
     storage = storage or get_storage()
     ctx = ctx or DeviceContext.create()
-    # only the primary writes metadata rows (multi-process runs come with
-    # the sharding slice; every process would evaluate the same query set)
+    # only the primary writes metadata rows (multi-process evaluation comes
+    # with the sharding slice; every process would evaluate the same
+    # query set)
     primary = ctx.is_primary
     instances = storage.get_meta_data_evaluation_instances()
     if primary:

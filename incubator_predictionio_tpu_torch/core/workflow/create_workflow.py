@@ -7,7 +7,10 @@ and its :class:`EngineInstance` and runs :func:`run_train`; an evaluation
 loads the Evaluation and its EngineParamsGenerator by class path, wraps a
 plain :class:`Engine` in :class:`FastEvalEngine` (the reference's default)
 and runs :func:`run_evaluation`. Both run on a :class:`DeviceContext`: the
-card unless ``WorkflowConfig.device`` names another.
+card unless ``WorkflowConfig.device`` names another. ``distributed=True``
+joins the multi-process job the ``PIO_DIST_*`` variables describe (the
+``launch`` verb sets them); a train then runs on every process and only
+process 0 writes storage.
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ class WorkflowConfig:
     # prefix-memoized tuning evals (FastEvalEngine.scala is the default
     # machinery behind `pio eval`; --no-fast-eval opts out)
     fast_eval: bool = True
+    distributed: bool = False  # join a torch.distributed job (launch verb)
 
 
 def _workflow_params(config: WorkflowConfig) -> WorkflowParams:
@@ -114,7 +118,14 @@ def _run_train(config: WorkflowConfig, storage: Optional[Storage],
         serving_params=_stage_json(variant, "serving"),
     )
     logger.info("training %s (factory %s)", instance.engine_id, factory_path)
-    ctx = ctx or DeviceContext.create(config.device)
+    ctx = ctx or DeviceContext.create(config.device,
+                                      distributed=config.distributed)
+    # the fault-tolerant mesh's seam (reference create_workflow.py:119-121)
+    from incubator_predictionio_tpu_torch.distributed.context import (
+        maybe_wrap_distributed,
+    )
+
+    ctx = maybe_wrap_distributed(ctx)
     return run_train(engine, engine_params, instance, _workflow_params(config),
                      storage=storage, ctx=ctx)
 
@@ -151,6 +162,11 @@ def _run_eval(config: WorkflowConfig, storage: Optional[Storage],
         batch=config.batch,
         env=storage_env_vars(),
     )
+    if config.distributed:
+        raise NotImplementedError(
+            "eval across processes (sharded read_eval, the held-out queries "
+            "allgathered) comes with the sharding slice of the PyTorch port "
+            "(ROADMAP.md Queue 1, item 4)")
     instance_id, _ = run_evaluation(
         evaluation,
         list(generator.engine_params_list),

@@ -4,16 +4,17 @@ Counterpart of ``incubator_predictionio_tpu/data/storage/base.py``, cut to
 what training, deploy and serving read: :class:`EventStore` with the
 reference's defaults of :meth:`~EventStore.find_by_entities` (:113) and its
 shared grouping loop :meth:`~EventStore.group_events_by_entity` (:156),
-:meth:`~EventStore.aggregate_properties` (:201) and
-:meth:`~EventStore.assemble_triples` (:241-368), ``_coerce_value`` and
+the entity-disjoint shard iterators :meth:`~EventStore.find_sharded`
+(:172-201), :meth:`~EventStore.aggregate_properties` (:201-234) and
+:meth:`~EventStore.assemble_triples` (:241-368), both with the
+``n_shards`` / ``shard_index`` options of a process's shard, ``_coerce_value`` and
 :func:`filter_events` (:879); the records :class:`App`, :class:`AccessKey`,
 :class:`Channel`, :class:`EngineInstance`, :class:`EvaluationInstance`,
 :class:`Model`; the stores' contracts (:class:`AppsStore`,
 :class:`AccessKeysStore`, :class:`ChannelsStore`,
 :class:`EngineInstancesStore`, :class:`EvaluationInstancesStore`,
-:class:`ModelsStore`) and :class:`StorageClient`. Sharded reads
-(``find_sharded``, the ``n_shards`` options) come with the sharding slice
-(ROADMAP.md Queue 1, item 4); jobs and the dump/load contract with item 7.
+:class:`ModelsStore`) and :class:`StorageClient`. Jobs and the dump/load
+contract come with ROADMAP.md Queue 1, item 7.
 """
 
 from __future__ import annotations
@@ -157,6 +158,57 @@ class EventStore(abc.ABC):
                 bucket.append(e)
         return out
 
+    def find_sharded(
+        self,
+        app_id: int,
+        n_shards: int,
+        channel_id: Optional[int] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        entity_type: Optional[str] = None,
+        event_names: Optional[Sequence[str]] = None,
+    ) -> list[Iterator[Event]]:
+        """Entity-disjoint shard iterators — the parallel read path
+        (replaces ``PEvents.find → RDD[Event]`` partitioning). Events of one
+        entity always land in the same shard (:func:`entity_shard`), so
+        per-shard property aggregation needs no cross-shard merge. The
+        default filters a scan per shard lazily: a process consuming only
+        its own shard holds O(1) events, never the full store."""
+
+        def shard_iter(shard: int) -> Iterator[Event]:
+            for e in self.find(
+                app_id, channel_id, start_time, until_time, entity_type,
+                None, event_names,
+            ):
+                if entity_shard(e.entity_id, n_shards) == shard:
+                    yield e
+
+        return [shard_iter(i) for i in range(n_shards)]
+
+    def _find_shard(
+        self,
+        app_id: int,
+        channel_id: Optional[int],
+        start_time: Optional[_dt.datetime],
+        until_time: Optional[_dt.datetime],
+        entity_type: Optional[str],
+        event_names: Optional[Sequence[str]],
+        target_entity_type: Any,
+        n_shards: int,
+        shard_index: int,
+    ) -> Iterator[Event]:
+        """The events of one entity shard (``entity_shard(entity_id,
+        n_shards) == shard_index``) in :meth:`find`'s order — what
+        :meth:`assemble_triples` reads for a process's shard. Backends that
+        store the shard of each row override it to skip the other shards'
+        rows before decoding them."""
+        for e in self.find(
+            app_id, channel_id, start_time, until_time, entity_type, None,
+            event_names, target_entity_type,
+        ):
+            if entity_shard(e.entity_id, n_shards) == shard_index:
+                yield e
+
     def aggregate_properties(
         self,
         app_id: int,
@@ -165,14 +217,26 @@ class EventStore(abc.ABC):
         start_time: Optional[_dt.datetime] = None,
         until_time: Optional[_dt.datetime] = None,
         required: Optional[Sequence[str]] = None,
+        n_shards: Optional[int] = None,
+        shard_index: int = 0,
     ) -> dict[str, PropertyMap]:
         """Fold ``$set/$unset/$delete`` into per-entity snapshots
         (LEvents.scala:264-296); with ``required``, only entities whose
-        snapshot holds every required key."""
-        agg = _aggregate(self.find(
-            app_id, channel_id, start_time, until_time, entity_type, None,
-            AGGREGATOR_EVENT_NAMES,
-        ))
+        snapshot holds every required key. ``n_shards``/``shard_index``
+        restrict to one entity-disjoint shard (the partition of
+        :meth:`find_sharded`): aggregation is per entity, so a shard's
+        snapshots are exact without a merge."""
+        if n_shards is not None:
+            events_iter = self.find_sharded(
+                app_id, n_shards, channel_id, start_time, until_time,
+                entity_type, AGGREGATOR_EVENT_NAMES,
+            )[shard_index]
+        else:
+            events_iter = self.find(
+                app_id, channel_id, start_time, until_time, entity_type, None,
+                AGGREGATOR_EVENT_NAMES,
+            )
+        agg = _aggregate(events_iter)
         if required:
             req = set(required)
             agg = {k: v for k, v in agg.items() if req <= set(v.keys())}
@@ -191,6 +255,8 @@ class EventStore(abc.ABC):
         default_values: Optional[dict] = None,
         missing_value: float = 0.0,
         dedup: bool = False,
+        n_shards: Optional[int] = None,
+        shard_index: int = 0,
         chunk_rows: int = 262_144,
     ):
         """Matching events → columnar (entity, target, value) training triples.
@@ -204,8 +270,11 @@ class EventStore(abc.ABC):
         fully-numeric strings), else ``missing_value``. Events without a
         target entity are skipped. ``dedup=True`` keeps one row per
         (entity, target) pair — the latest event wins, rows in pair-first-seen
-        order; ``dedup=False`` emits one row per event in time order. Rows
-        accumulate into fixed-size numpy chunks (``chunk_rows``).
+        order; ``dedup=False`` emits one row per event in time order.
+        ``n_shards``/``shard_index`` select an entity-disjoint slice (the
+        entities with ``entity_shard(id, n_shards) == shard_index``): the
+        per-process read path of a multi-process job. Rows accumulate into
+        fixed-size numpy chunks (``chunk_rows``).
         """
         defaults = dict(default_values or {})
         evocab: dict[str, int] = {}
@@ -232,10 +301,16 @@ class EventStore(abc.ABC):
             else:
                 cv[off] = v
 
-        events = self.find(
-            app_id, channel_id, start_time, until_time, entity_type, None,
-            event_names, target_entity_type,
-        )
+        if n_shards is None:
+            events = self.find(
+                app_id, channel_id, start_time, until_time, entity_type, None,
+                event_names, target_entity_type,
+            )
+        else:
+            events = self._find_shard(
+                app_id, channel_id, start_time, until_time, entity_type,
+                event_names, target_entity_type, n_shards, shard_index,
+            )
         for e in events:
             if e.target_entity_id is None:
                 continue

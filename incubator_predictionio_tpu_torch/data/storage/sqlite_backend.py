@@ -10,9 +10,11 @@ and jobs come in later slices (ROADMAP.md). The layout decisions:
 - one event table per app/channel, named ``pio_event_<appid>[_<channelid>]``
   (JDBCLEvents.scala:109-150);
 - models as a blob column (JDBCModels.scala:55);
-- event rows carry a precomputed ``entity_shard`` column (the reference
-  package's parallel read path scans it; the port's sharded reads come with
-  the sharding slice).
+- event rows carry a precomputed ``entity_shard`` column (crc32 mod
+  :data:`N_SHARD_BUCKETS`), so :meth:`SqliteEvents.find_sharded` is an
+  indexed range scan a shard instead of a filtered full scan, and a
+  process's ``assemble_triples`` shard is selected in SQL
+  (:meth:`SqliteEvents._find_shard`) instead of after decoding every row.
 
 Event times are stored as integer UTC microseconds for correct ordering.
 """
@@ -369,6 +371,62 @@ class SqliteEvents(EventStore):
             ) from e
         return self.group_events_by_entity(
             (_row_to_event(r) for r in rows), ids, limit_per_entity)
+
+    def _find_shard(self, app_id, channel_id, start_time, until_time,
+                    entity_type, event_names, target_entity_type, n_shards,
+                    shard_index) -> Iterator[Event]:
+        """The rows of one ``entity_shard(id, n_shards)`` shard, selected in
+        SQL: the column holds crc32 mod :data:`N_SHARD_BUCKETS`, and for an
+        ``n_shards`` that divides it, crc32 mod ``n_shards`` is that column
+        mod ``n_shards`` — the same rows, in :meth:`find`'s order. Other
+        counts take the base class's filtered scan."""
+        if N_SHARD_BUCKETS % n_shards:
+            yield from super()._find_shard(
+                app_id, channel_id, start_time, until_time, entity_type,
+                event_names, target_entity_type, n_shards, shard_index)
+            return
+        sql, params = self._find_sql(
+            app_id, channel_id, start_time, until_time, entity_type, None,
+            event_names, target_entity_type, UNSET,
+        )
+        sql += (" AND " if " WHERE " in sql else " WHERE ") + "entity_shard % ? = ?"
+        params.extend((n_shards, shard_index))
+        sql += " ORDER BY event_time ASC, id ASC"
+        try:
+            rows = self._db.query(sql, params)
+        except sqlite3.OperationalError as e:
+            raise StorageError(
+                f"event table for app {app_id} channel {channel_id} not initialized"
+            ) from e
+        for r in rows:
+            yield _row_to_event(r)
+
+    def find_sharded(
+        self,
+        app_id: int,
+        n_shards: int,
+        channel_id: Optional[int] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        entity_type: Optional[str] = None,
+        event_names: Optional[Sequence[str]] = None,
+    ) -> list[Iterator[Event]]:
+        """Indexed per-shard scans over contiguous ``entity_shard`` bucket
+        ranges (reference sqlite_backend.py:413-437)."""
+        if n_shards <= 0:
+            raise ValueError("n_shards must be positive")
+        bounds = [round(i * N_SHARD_BUCKETS / n_shards) for i in range(n_shards + 1)]
+
+        def shard_iter(lo: int, hi: int) -> Iterator[Event]:
+            sql, params = self._find_sql(
+                app_id, channel_id, start_time, until_time, entity_type, None,
+                event_names, UNSET, UNSET, shard_range=(lo, hi),
+            )
+            sql += " ORDER BY event_time ASC"
+            for r in self._db.query(sql, params):
+                yield _row_to_event(r)
+
+        return [shard_iter(bounds[i], bounds[i + 1]) for i in range(n_shards)]
 
 
 class SqliteApps(AppsStore):

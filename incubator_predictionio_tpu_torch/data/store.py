@@ -4,8 +4,9 @@ Counterpart of ``incubator_predictionio_tpu/data/store.py``:
 :class:`LEventStore`, the serving-time reads (:44-122: ``find_by_entity``,
 ``find_by_entities``, ``find``), and :class:`PEventStore`'s bulk reads for
 training (``find``, ``assemble_triples``; reference
-PEventStore.scala:35-121). Sharded reads and property snapshots of
-``PEventStore`` come with the sharding slice (ROADMAP.md Queue 1, item 4).
+PEventStore.scala:35-121), its entity-disjoint shard iterators
+(``find_sharded``) and the ``n_shards`` / ``shard_index`` slice of
+``aggregate_properties`` and ``assemble_triples`` (reference store.py:146-210).
 """
 
 from __future__ import annotations
@@ -19,10 +20,6 @@ from incubator_predictionio_tpu_torch.data.storage.registry import (
     Storage,
     get_storage,
 )
-
-
-_SHARDING_SLICE = ("the sharding slice of the PyTorch port (ROADMAP.md "
-                   "Queue 1, item 4)")
 
 
 class _BaseStore:
@@ -140,10 +137,22 @@ class PEventStore(_BaseStore):
             event_names, target_entity_type, target_entity_id,
         )
 
-    def find_sharded(self, app_name: str, n_shards: int, *args, **kwargs):
-        """Entity-disjoint shard iterators (reference store.py:146-160)."""
-        raise NotImplementedError(
-            f"PEventStore.find_sharded comes with {_SHARDING_SLICE}")
+    def find_sharded(
+        self,
+        app_name: str,
+        n_shards: int,
+        channel_name: Optional[str] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        entity_type: Optional[str] = None,
+        event_names: Optional[Sequence[str]] = None,
+    ) -> list[Iterator[Event]]:
+        """Entity-disjoint shard iterators (replaces PEvents RDD partitions)."""
+        app_id, channel_id = self._resolve(app_name, channel_name)
+        return self.storage.get_events().find_sharded(
+            app_id, n_shards, channel_id, start_time, until_time, entity_type,
+            event_names,
+        )
 
     def aggregate_properties(
         self,
@@ -158,15 +167,13 @@ class PEventStore(_BaseStore):
     ) -> dict[str, PropertyMap]:
         """(PEventStore.scala:78-121) Per-entity property snapshots folded
         from ``$set`` / ``$unset`` / ``$delete``; with ``required``, only
-        the entities whose snapshot holds every required key. The
-        per-process shard (``n_shards``) raises until the sharding slice."""
-        if n_shards is not None:
-            raise NotImplementedError(
-                "PEventStore.aggregate_properties over an entity shard "
-                f"(n_shards={n_shards}) comes with {_SHARDING_SLICE}")
+        the entities whose snapshot holds every required key;
+        ``n_shards``/``shard_index`` select one entity-disjoint shard — the
+        per-process slice of a multi-process job."""
         app_id, channel_id = self._resolve(app_name, channel_name)
         return self.storage.get_events().aggregate_properties(
-            app_id, entity_type, channel_id, start_time, until_time, required)
+            app_id, entity_type, channel_id, start_time, until_time, required,
+            n_shards, shard_index)
 
     def assemble_triples(
         self,
@@ -181,13 +188,17 @@ class PEventStore(_BaseStore):
         default_values: Optional[dict] = None,
         missing_value: float = 0.0,
         dedup: bool = False,
+        n_shards: Optional[int] = None,
+        shard_index: int = 0,
     ):
         """Columnar (entity, target, value) triples — the bulk training read;
         see :meth:`EventStore.assemble_triples
-        <incubator_predictionio_tpu_torch.data.storage.base.EventStore.assemble_triples>`."""
+        <incubator_predictionio_tpu_torch.data.storage.base.EventStore.assemble_triples>`.
+        Pass ``n_shards``/``shard_index`` for the per-process slice of a
+        multi-process job (entity-disjoint)."""
         app_id, channel_id = self._resolve(app_name, channel_name)
         return self.storage.get_events().assemble_triples(
             app_id, channel_id, start_time, until_time, entity_type,
             event_names, target_entity_type, value_property, default_values,
-            missing_value, dedup,
+            missing_value, dedup, n_shards=n_shards, shard_index=shard_index,
         )

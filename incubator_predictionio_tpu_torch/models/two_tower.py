@@ -34,8 +34,23 @@ Streaming deltas land through :meth:`TwoTowerModel.with_row_updates`
 overlaid with the moved rows; a device-resident model pulls its tables to
 the host once first, as the reference does). Mid-training checkpoints run
 through ``utils/checkpoint.py:checkpointed_epochs`` in chunks of
-``checkpoint_every`` epochs. Sharded training and serving come with the
-sharding slice (ROADMAP.md Queue 1, item 4).
+``checkpoint_every`` epochs. Sharded serving comes with the sharding slice
+(ROADMAP.md Queue 1, item 4).
+
+Multi-process training is the reference's data-parallel fit over one
+``torch.distributed`` group, every process holding a replica of the
+tables. Each process stages its own rows (:meth:`TwoTowerMF._stage_local`
+for an entity-sharded read); global batch b is the concatenation, in
+process order, of every process's local batch b. The global row indices
+and each batch's weight sum (the denominator) are gathered once at
+staging (:func:`_gather_batches`); a step computes the loss terms and row
+gradients of the process's own rows (:func:`_row_grads`), all-gathers the
+rows (``DeviceContext.all_gather``), scatters every process's rows into
+the dense table gradients in a fixed order (:func:`_scatter_rows`: a
+sorted scatter on the card) and runs the dense adam on its replica
+(:func:`_train_epochs_dp`). The stacked per-step losses are summed across
+processes once an epoch. The fit ends by comparing a digest of every
+replica's tables, and raises if any differs.
 
 Tie order: the device paths answer what ``lax.top_k`` answers — among
 equal scores the lowest indices are taken and come first, -inf entries
@@ -49,6 +64,8 @@ The host path keeps the reference's numpy code and its order.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import logging
 import threading
 import time
 from typing import Optional, Union
@@ -57,6 +74,8 @@ import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
+
+logger = logging.getLogger(__name__)
 
 
 #: what raises in the training options this slice does not port
@@ -482,22 +501,43 @@ class TwoTowerMF:
         ``final_loss`` is the last epoch's mean loss: the one host sync of
         the fit without checkpoints. ``timings`` has the
         reference's four phases (``stage_sec``, ``init_sec``, ``train_sec``,
-        ``gather_sec``)."""
+        ``gather_sec``), and ``exchange_sec`` in a multi-process fit.
+
+        ``ctx.process_count > 1``: the data-parallel fit over the context's
+        process group (module docstring). ``rows_are_local=True``: the
+        triples are only THIS process's entity-disjoint shard (indices
+        already global), staged by :meth:`_stage_local` (reference
+        :685-703); otherwise every process holds every triple, stages the
+        global batches and takes its slice of each. The tables come back to
+        the host (the primary persists them)."""
         cfg = self.config
-        if rows_are_local and ctx.process_count > 1:
-            raise NotImplementedError(
-                "TwoTowerMF.fit: per-process staging of entity-sharded rows "
-                f"(_stage_local) comes with {SHARDING_SLICE}")
         n = len(users)
         if not (len(items) == len(ratings) == n):
             raise ValueError("users/items/ratings must be equal length")
         dev = ctx.device
+        multi = ctx.process_count > 1
+        if multi and cfg.checkpoint_dir:
+            raise NotImplementedError(
+                "TwoTowerMF.fit: mid-training checkpoints of a multi-process "
+                f"fit (member-slice checkpoints) come with {SHARDING_SLICE}")
 
         t_stage = time.perf_counter()
-        ub, ib, rb, wb, mean = _stage_batches(
-            cfg, np.asarray(users), np.asarray(items), np.asarray(ratings),
-            ctx.pad_to_batch_multiple)
+        if multi and rows_are_local:
+            ub, ib, rb, wb, mean = self._stage_local(
+                ctx, np.asarray(users), np.asarray(items), np.asarray(ratings))
+        else:
+            ub, ib, rb, wb, mean = _stage_batches(
+                cfg, np.asarray(users), np.asarray(items), np.asarray(ratings),
+                ctx.pad_to_batch_multiple)
+            if multi:  # the global arrays' slice on the data axis
+                b_local = ub.shape[1] // ctx.process_count
+                cols = slice(ctx.process_index * b_local,
+                             (ctx.process_index + 1) * b_local)
+                ub, ib, rb, wb = (np.ascontiguousarray(a[:, cols])
+                                  for a in (ub, ib, rb, wb))
         ub, ib, rb, wb = (torch.from_numpy(a).to(dev) for a in (ub, ib, rb, wb))
+        if multi:
+            gub, gib, denoms = _gather_batches(ctx, ub, ib, wb)
         _sync(dev)
         t_stage = time.perf_counter() - t_stage
 
@@ -515,7 +555,13 @@ class TwoTowerMF:
             checkpointed_epochs,
         )
 
+        clock = _CollectiveClock(dev)
+
         def train(p, o, n):
+            if multi:
+                return p, o, _train_epochs_dp(
+                    ctx, p, grads, o, ub, ib, rb, wb, gub, gib, denoms,
+                    cfg.learning_rate, cfg.reg, n, clock)
             return p, o, _train_epochs(p, grads, o, ub, ib, rb, wb,
                                        cfg.learning_rate, cfg.reg, n)
 
@@ -527,15 +573,18 @@ class TwoTowerMF:
             cfg.epochs, tables, state, train)
         loss = np.inf if loss is None else float(loss)  # the one sync
         t_train = time.perf_counter() - t_train
+        n_steps = cfg.epochs * int(ub.shape[0])
         del grads, state, ub, ib, rb, wb
 
         t_gather = time.perf_counter()
         # auto keys on the unpadded CATALOG size, the criterion
-        # prepare_for_serving uses to pick host or device serving
+        # prepare_for_serving uses to pick host or device serving;
+        # multi-process runs keep the host gather (reference :799-803): the
+        # primary alone persists
         keep_device = cfg.gather == "device" or (
             cfg.gather == "auto"
             and n_items * (cfg.rank + 1) > HOST_SERVE_MAX_ELEMENTS)
-        if keep_device and ctx.process_count > 1:
+        if keep_device and multi:
             keep_device = False
         k = cfg.rank
         if keep_device:
@@ -546,6 +595,7 @@ class TwoTowerMF:
             model._device = dev
         else:
             ue, ie = (t.cpu().numpy() for t in tables)
+            digest = _check_replicas(ctx, (ue, ie)) if multi else None
             model = TwoTowerModel(
                 user_emb=ue[:n_users, :k], item_emb=ie[:n_items, :k],
                 user_bias=ue[:n_users, k], item_bias=ie[:n_items, k],
@@ -558,7 +608,74 @@ class TwoTowerMF:
             "train_sec": round(t_train, 4),
             "gather_sec": round(t_gather, 4),
         }
+        if multi:
+            exchange = clock.seconds()
+            model.timings["exchange_sec"] = round(exchange, 4)
+            logger.info(
+                "data-parallel fit: process %d of %d (backend %s, %s): %d "
+                "steps of %d local rows; stage %.3f s, train %.3f s, "
+                "exchange %.3f ms a step; loss %.6f; replica digest %s, equal "
+                "on every process", ctx.process_index, ctx.process_count,
+                ctx.backend, dev, n_steps, int(gub.shape[1]) // ctx.process_count,
+                t_stage, t_train, exchange / max(n_steps, 1) * 1e3, loss,
+                digest)
         return model
+
+    def _stage_local(self, ctx, users, items, ratings):
+        """Per-process batch staging for entity-sharded input rows
+        (reference :855-905), in numpy: one metadata exchange of (row
+        count, rating sum), the global mean in float64 Python, the global
+        batch a multiple of the process count, the permutation and padding
+        from ``default_rng(seed + process_index)``, an all-padding shard
+        when this process has no rows, and each local batch user-sorted.
+        Returns ``(ub, ib, rb, wb, mean)``: ``[n_batches, b_local]`` arrays,
+        ``b_local = global batch / process_count``."""
+        cfg = self.config
+        n_local = len(users)
+        procs = ctx.process_count
+        stats = ctx.allgather_obj(
+            (n_local, float(np.asarray(ratings, np.float64).sum())))
+        n_global = sum(s[0] for s in stats)
+        mean = (sum(s[1] for s in stats) / n_global) if n_global else 0.0
+        global_batch = ctx.pad_to_batch_multiple(
+            min(cfg.batch_size, max(n_global, 1)))
+        if global_batch % procs:
+            raise ValueError(
+                f"global batch {global_batch} not divisible by "
+                f"{procs} processes")
+        b_local = global_batch // procs
+        n_batches = max(
+            1, max((s[0] + b_local - 1) // b_local for s in stats))
+        n_pad = n_batches * b_local
+        rng = np.random.default_rng(cfg.seed + ctx.process_index)
+        if n_local:
+            order = np.concatenate([
+                rng.permutation(n_local),
+                rng.integers(0, n_local, n_pad - n_local),
+            ])
+        else:
+            order = np.zeros(n_pad, np.int64)  # all-padding shard
+            users = np.zeros(1, np.int32)
+            items = np.zeros(1, np.int32)
+            ratings = np.zeros(1, np.float32)
+        w = np.concatenate([
+            np.ones(n_local, np.float32),
+            np.zeros(n_pad - n_local, np.float32),
+        ])
+        order, w = _sort_batches_by_entity(
+            order, w, np.asarray(users, np.int32), n_batches, b_local)
+
+        def stage(a, dtype):
+            return np.ascontiguousarray(
+                np.asarray(a, dtype)[order].reshape(n_batches, b_local))
+
+        return (
+            stage(users, np.int32),
+            stage(items, np.int32),
+            stage(np.asarray(ratings, np.float32) - mean, np.float32),
+            np.ascontiguousarray(w.reshape(n_batches, b_local)),
+            mean,
+        )
 
     # -- scoring ----------------------------------------------------------
     @staticmethod
@@ -808,27 +925,26 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _loss_and_grads(tables, grads, bu, bi, br, bw, reg: float) -> torch.Tensor:
-    """The loss of one batch (two_tower.py:1159-1178) and its gradient,
-    written into ``grads`` (dense, table-shaped; overwritten). Returns the
-    loss as a 0-d device tensor.
+def _row_grads(tables, bu, bi, br, bw, reg: float, denom: torch.Tensor):
+    """The loss of one batch's rows (two_tower.py:1159-1178) over the
+    denominator ``denom`` (``max(Σ w, 1)`` of the whole batch) and their
+    row gradients: ``(rows_u, rows_i, loss)``, ``[B, rank+1]`` each (the
+    embedding part's gradient, then the bias's) and a 0-d tensor.
 
     Forward, as the reference: rows gathered with the bias in the last
     column; the embedding parts rounded to bf16; their products (exact in
     fp32) summed in fp32 and the sum rounded to bf16 — what XLA computes
     for ``jnp.sum(ue * ie)`` of bf16 arrays, which keeps the product's
     precision inside the fusion and rounds the sum's bf16 result; ``pred =
-    dot + user bias + item bias``; ``loss = Σ w·(pred − r)² / max(Σ w, 1)
-    + reg·(Σ ue² + Σ ie²) / max(Σ w, 1)`` over the bf16-rounded rows, the
+    dot + user bias + item bias``; ``loss = Σ w·(pred − r)² / denom +
+    reg·(Σ ue² + Σ ie²) / denom`` over the bf16-rounded rows, the
     weight-0 padding rows included in the L2 sum.
 
     Backward, as JAX's autodiff of it: ``dpred = (w / denom)·(2·diff)``
     in fp32; the product's cotangent ``bf16(dpred)``; each embedding's
     cotangent ``dprod·other`` (bf16) plus the L2 term's ``bf16((reg /
-    denom)·(2·row))``, added in bf16; then widened to fp32, the bias column
-    ``dpred``, and scatter-added into the zeroed table gradients
-    (``index_add_``: atomics on the card, so its sums of duplicate rows are
-    not deterministic there)."""
+    denom)·(2·row))``, added in bf16; then widened to fp32, and the bias
+    column ``dpred``."""
     ue_t, ie_t = tables
     k = ue_t.shape[1] - 1
     gu = ue_t.index_select(0, bu)
@@ -838,7 +954,6 @@ def _loss_and_grads(tables, grads, bu, bi, br, bw, reg: float) -> torch.Tensor:
     ubf, ibf = ub.float(), ib.float()
     dot = (ubf * ibf).sum(-1).to(torch.bfloat16).float()
     diff = dot + gu[:, k] + gi[:, k] - br
-    denom = bw.sum().clamp(min=1.0)
     mse = (diff * diff * bw).sum() / denom
     l2 = reg * ((ubf * ubf).sum() + (ibf * ibf).sum()) / denom
     loss = mse + l2
@@ -848,11 +963,40 @@ def _loss_and_grads(tables, grads, bu, bi, br, bw, reg: float) -> torch.Tensor:
     c = reg * inv
     dub = (((2.0 * ubf) * c).to(torch.bfloat16) + dprod * ib).float()
     dib = (((2.0 * ibf) * c).to(torch.bfloat16) + dprod * ub).float()
-    for g, rows, d_emb, idx in ((grads[0], gu, dub, bu), (grads[1], gi, dib, bi)):
+    for rows, d_emb in ((gu, dub), (gi, dib)):
         rows[:, :k] = d_emb  # the gathered rows are scratch now
         rows[:, k] = dpred
-        g.zero_()
-        g.index_add_(0, idx, rows)
+    return gu, gi, loss
+
+
+def _scatter_rows(grad: torch.Tensor, idx: torch.Tensor,
+                  rows: torch.Tensor) -> None:
+    """Zero ``grad`` and sum ``rows`` into it at ``idx``, each row's
+    duplicates in one fixed order, so that every run, and every replica of
+    a data-parallel fit, sums alike. On the card that is
+    ``index_put_(accumulate=True)``: it sorts the indices (stably) and sums
+    each row's duplicates in that order. (``index_add_`` adds with atomics
+    there, in an order that varies from run to run; it makes a step at
+    rec-train's shape 1.9% faster, ``launch_ab.py``.) On the CPU it is
+    ``index_add_``, which adds the rows one after another in index order,
+    while ``index_put_``'s accumulation is parallel there (atomic adds
+    across threads)."""
+    grad.zero_()
+    if grad.device.type == "cuda":
+        grad.index_put_((idx.long(),), rows, accumulate=True)
+    else:
+        grad.index_add_(0, idx, rows)
+
+
+def _loss_and_grads(tables, grads, bu, bi, br, bw, reg: float) -> torch.Tensor:
+    """The loss of one batch and its gradient, written into ``grads``
+    (dense, table-shaped; overwritten): :func:`_row_grads` over the batch's
+    own ``max(Σ w, 1)``, scattered by :func:`_scatter_rows`. Returns the
+    loss as a 0-d device tensor."""
+    gu, gi, loss = _row_grads(tables, bu, bi, br, bw, reg,
+                              bw.sum().clamp(min=1.0))
+    _scatter_rows(grads[0], bu, gu)
+    _scatter_rows(grads[1], bi, gi)
     return loss
 
 
@@ -875,6 +1019,92 @@ def _train_epochs(tables, grads, state, ub, ib, rb, wb, lr: float,
         if epoch == n_epochs - 1:
             last = torch.stack(losses).mean()
     return last
+
+
+def _gather_batches(ctx, ub, ib, wb):
+    """The global batches' row indices ``[n_batches, P·b_local]`` (int64)
+    and denominators ``max(Σ w, 1)`` (``[n_batches]`` fp32), gathered once
+    at staging: global batch b is every process's local batch b in process
+    order (``make_array_from_process_local_data``'s layout)."""
+    nb = ub.shape[0]
+    gub, gib, gwb = (ctx.all_gather(a).transpose(0, 1).reshape(nb, -1)
+                     for a in (ub, ib, wb))
+    return gub.long(), gib.long(), gwb.sum(1).clamp(min=1.0)
+
+
+def _train_epochs_dp(ctx, tables, grads, state, ub, ib, rb, wb, gub, gib,
+                     denoms, lr: float, reg: float, n_epochs: int,
+                     clock: "_CollectiveClock") -> Optional[torch.Tensor]:
+    """The data-parallel ``_train_epochs`` of one process: each step the row
+    gradients of its own rows over the global denominator, one all-gather
+    of them (``[P, b_local, 2·(rank+1)]``), every process's rows scattered
+    in process order by the fixed-order scatter, the dense adam on
+    this replica. The losses of an epoch are summed across processes once,
+    at its end; the last epoch's mean is returned as a 0-d tensor."""
+    from incubator_predictionio_tpu_torch.utils.optim import adam_apply
+
+    k1 = tables[0].shape[1]
+    last = None
+    for epoch in range(n_epochs):
+        losses = []
+        for b in range(ub.shape[0]):
+            gu, gi, loss = _row_grads(tables, ub[b], ib[b], rb[b], wb[b],
+                                      reg, denoms[b])
+            rows = clock.time(lambda: ctx.all_gather(torch.cat((gu, gi), 1)))
+            rows = rows.reshape(-1, 2 * k1)
+            _scatter_rows(grads[0], gub[b], rows[:, :k1])
+            _scatter_rows(grads[1], gib[b], rows[:, k1:])
+            adam_apply(tables, grads, state, lr)
+            losses.append(loss)
+        if epoch == n_epochs - 1:
+            last = clock.time(
+                lambda: ctx.all_reduce_sum(torch.stack(losses))).mean()
+    return last
+
+
+class _CollectiveClock:
+    """The time a fit spends in its collectives: CUDA events around each
+    call on the card (the device timeline from the call's start to its
+    result, host copies and waits for peers included), the host clock on
+    the CPU. Read once, after the fit's last sync."""
+
+    def __init__(self, device: torch.device):
+        self._cuda = torch.device(device).type == "cuda"
+        self._events: list = []
+        self._host = 0.0
+
+    def time(self, fn):
+        if self._cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            self._events.append((start, end))
+            return out
+        t = time.perf_counter()
+        out = fn()
+        self._host += time.perf_counter() - t
+        return out
+
+    def seconds(self) -> float:
+        return self._host + sum(a.elapsed_time(b) for a, b in self._events) / 1e3
+
+
+def _check_replicas(ctx, arrays) -> str:
+    """A digest of this replica's host tables, compared with every other
+    process's; raises if any differs (the primary persists its replica as
+    the job's model)."""
+    h = hashlib.blake2b(digest_size=16)
+    for a in arrays:
+        h.update(memoryview(np.ascontiguousarray(a)).cast("B"))
+    mine = h.hexdigest()
+    digests = ctx.allgather_obj(mine)
+    if len(set(digests)) != 1:
+        raise RuntimeError(
+            f"data-parallel fit: the replicas' tables differ across processes "
+            f"(digests {digests}); the primary's model would not be the job's")
+    return mine
 
 
 def _topk_quantized(uidx, ue_tab, ub_tab, items_q, scales, bias, mask,

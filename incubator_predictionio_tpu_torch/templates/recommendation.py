@@ -11,7 +11,9 @@ rating triples, each fold's train set re-indexed to its own vocabularies),
 ``ALSAlgorithm.predict`` / ``batch_predict``, :class:`RecommendationEngine`
 and the evaluation: :class:`PrecisionAtK`, :class:`PositiveCount`,
 :class:`RecommendationEvaluation` (reference Evaluation.scala:62-106).
-Sharded reads come with the sharding slice (ROADMAP.md Queue 1, item 4).
+Under several processes ``read_training`` reads this process's entity
+shard (``_read_sharded``) and the fit is data-parallel; sharded evaluation
+folds come with the sharding slice (ROADMAP.md Queue 1, item 4).
 
 Query ``{"user": U, "num": N, "blackList": [...]}`` → PredictedResult
 ``{"itemScores": [{"item": I, "score": S}, …]}``; an unknown user gets the
@@ -110,7 +112,8 @@ class TrainingData(SanityCheck):
     ratings: np.ndarray     # [n] float32
     user_vocab: np.ndarray  # [U] str
     item_vocab: np.ndarray  # [I] str
-    # multi-process sharded reads come with the sharding slice
+    # multi-process sharded read: rows are THIS process's entity shard only
+    # (vocabularies and indices are global); n_rows_global is the job total
     rows_are_local: bool = False
     n_rows_global: Optional[int] = None
 
@@ -152,9 +155,51 @@ class DataSource(PDataSource):
         return self._read()
 
     def _read_sharded(self, ctx: DeviceContext) -> TrainingData:
-        raise NotImplementedError(
-            "DataSource: per-process entity-sharded reads come with "
-            f"{SHARDING_SLICE}")
+        """Per-process entity-disjoint read (reference recommendation.py:
+        153-196; its counterpart: RDD partition reads, JDBCPEvents.scala:91):
+        each process reads ~1/P of the store instead of replicating it.
+
+        Users are entity-sharded, so the global user vocabulary is the
+        concatenation of the per-shard vocabularies (one offset exchange).
+        Item ids cross shards, so the global item vocabulary is the
+        first-seen union over shards in process order (one vocabulary-sized
+        allgather, never event-sized)."""
+        import time
+
+        from incubator_predictionio_tpu_torch.data.sharded import (
+            concat_vocab,
+            global_row_count,
+            union_vocab,
+        )
+
+        t0 = time.perf_counter()
+        procs, pid = ctx.process_count, ctx.process_index
+        uv, iv, ui, ii, vals = self._store.assemble_triples(
+            self.params.app_name,
+            entity_type="user",
+            event_names=tuple(self.params.event_names),
+            target_entity_type="item",
+            value_property="rating",
+            default_values=self.params.rating_defaults(),
+            dedup=True,
+            n_shards=procs,
+            shard_index=pid,
+        )
+        user_vocab, user_offset = concat_vocab(ctx, uv)
+        item_vocab, item_remap = union_vocab(ctx, iv)
+        n_rows_global = global_row_count(ctx, len(vals))
+        logger.info(
+            "sharded read: %d of %d rows (shard %d/%d), %d local users, "
+            "%d global users, %d global items in %.3f s",
+            len(vals), n_rows_global, pid, procs, len(uv),
+            len(user_vocab), len(item_vocab), time.perf_counter() - t0,
+        )
+        return TrainingData(
+            ui + np.int32(user_offset),
+            item_remap[ii] if len(ii) else ii,
+            vals, user_vocab, item_vocab,
+            rows_are_local=True, n_rows_global=n_rows_global,
+        )
 
     def read_eval(self, ctx: DeviceContext):
         """k-fold split over rating triples (reference DataSource.scala:83-…,

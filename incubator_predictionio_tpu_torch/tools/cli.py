@@ -2,10 +2,12 @@
 
 Counterpart of ``incubator_predictionio_tpu/tools/cli.py`` (reference
 tools/console/Console.scala): the verbs ``app new``, ``import``, ``train``,
-``eval`` and ``deploy``, with the reference's argument names (its cli.py:58,
-:231, :267, :295, :631). ``train``, ``eval`` and ``deploy`` run on the card
-unless ``--device cpu`` asks for the CPU. The other verbs come with
-ROADMAP.md Queue 1, items 6 and 7. Run it as ``python -m
+``eval``, ``deploy`` and ``launch``, with the reference's argument names (its
+cli.py:58, :231, :267, :295, :631, :3786). ``train``, ``eval`` and
+``deploy`` run on the card unless ``--device cpu`` asks for the CPU.
+``launch -n N train …`` runs N coordinated ``train --distributed``
+processes (``parallel/launcher.py``). The other verbs come with ROADMAP.md
+Queue 1, items 6 and 7. Run it as ``python -m
 incubator_predictionio_tpu_torch.tools.cli <verb>``; :func:`main` takes the
 arguments, so a caller can run a verb in-process.
 """
@@ -87,9 +89,14 @@ def cmd_train(args, storage: Storage) -> int:
         stop_after_read=args.stop_after_read,
         stop_after_prepare=args.stop_after_prepare,
         device=args.device,
+        distributed=args.distributed,
     )
     instance_id = create_workflow(config, storage)
-    _out(f"Training completed. Engine instance ID: {instance_id}")
+    if instance_id == "<secondary>":
+        _out("Training completed (secondary process; the primary wrote the "
+             "engine instance).")
+    else:
+        _out(f"Training completed. Engine instance ID: {instance_id}")
     return 0
 
 
@@ -107,6 +114,7 @@ def cmd_eval(args, storage: Storage) -> int:
         batch=args.batch,
         device=args.device,
         fast_eval=not args.no_fast_eval,
+        distributed=args.distributed,
     )
     instance_id = create_workflow(config, storage)
     inst = storage.get_meta_data_evaluation_instances().get(instance_id)
@@ -133,11 +141,54 @@ def cmd_deploy(args, storage: Storage) -> int:
     return 0
 
 
+def cmd_launch(args, storage: Storage) -> int:
+    """Spawn N coordinated processes of another verb (Runner.scala:185's
+    spark-submit construction, minus the JVM; reference cli.py:3786-3819)
+    and print each one's output."""
+    from incubator_predictionio_tpu_torch.parallel.launcher import launch_local
+
+    verb_args = list(args.verb_args)
+    if verb_args and verb_args[0] == "--":
+        verb_args = verb_args[1:]
+    if not verb_args:
+        _out("launch: no verb given (e.g. launch -n 2 train -v engine.json)")
+        return 2
+    if verb_args[0] not in ("train", "eval", "batchpredict"):
+        # without --distributed gating, N processes of any other verb would
+        # just run N independent copies against shared storage
+        _out(f"launch: only the train/eval/batchpredict verbs join a "
+             f"distributed job (got {verb_args[0]!r})")
+        return 2
+    if verb_args[0] != "train":
+        raise NotImplementedError(
+            f"launch {verb_args[0]}: sharded evaluation and batch prediction "
+            "come with the sharding slice of the PyTorch port (ROADMAP.md "
+            "Queue 1, item 4)")
+    if "--distributed" not in verb_args:
+        verb_args.append("--distributed")
+    result = launch_local(
+        verb_args,
+        num_processes=args.num_processes,
+        coordinator_port=args.coordinator_port,
+        cpu_devices_per_process=args.cpu_devices_per_process,
+        timeout=args.timeout,
+    )
+    if result.timed_out:
+        _out(f"launch: timed out after {args.timeout}s; job killed "
+             "(per-process logs below show which peer wedged)")
+    for pid, (rc, out) in enumerate(zip(result.returncodes, result.outputs)):
+        _out(f"--- process {pid} (exit {rc}) ---")
+        if out:
+            _out(out.rstrip())
+    return 0 if result.ok else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="pio-tpu",
         description="PredictionIO-capability ML server framework "
-                    "(PyTorch/CUDA port: app new, import, train, eval, deploy)",
+                    "(PyTorch/CUDA port: app new, import, train, eval, "
+                    "deploy, launch)",
     )
     sub = parser.add_subparsers(dest="command")
 
@@ -157,6 +208,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stop-after-prepare", action="store_true")
     p.add_argument("--device", help="torch device to train on (default: "
                                     "the card, cuda:0; 'cpu' for the CPU)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join a torch.distributed job (see the launch verb / "
+                        "PIO_DIST_* env)")
+
+    # launch (Runner.runOnSpark counterpart: N coordinated local processes)
+    p = sub.add_parser("launch")
+    p.add_argument("-n", "--num-processes", type=int, required=True)
+    p.add_argument("--coordinator-port", type=int)
+    p.add_argument("--cpu-devices-per-process", type=int,
+                   help="1 runs the processes on the CPU (one device a "
+                        "process; other values raise)")
+    p.add_argument("--timeout", type=float, default=None,
+                   help="kill the whole job after this many seconds (a wedged "
+                        "peer otherwise hangs the launcher indefinitely)")
+    p.add_argument("verb_args", nargs=argparse.REMAINDER,
+                   help="the verb (and flags) each process runs")
 
     p = sub.add_parser("eval")
     p.add_argument("evaluation_class")
@@ -168,6 +235,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-fast-eval", action="store_true",
                    help="disable prefix memoization across variants "
                         "(FastEvalEngine is the default)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join a torch.distributed job (comes with the "
+                        "sharding slice: raises)")
 
     p = sub.add_parser("deploy")
     p.add_argument("-v", "--engine-variant", default="engine.json")
@@ -185,7 +255,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 _COMMANDS = {"train": cmd_train, "eval": cmd_eval, "deploy": cmd_deploy,
-             "import": cmd_import}
+             "import": cmd_import, "launch": cmd_launch}
 _APP_COMMANDS = {"new": cmd_app_new}
 
 

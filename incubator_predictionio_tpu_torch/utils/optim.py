@@ -56,6 +56,23 @@ def _mu_dtype(moments_dtype: str) -> torch.dtype:
                      f"got {moments_dtype!r}")
 
 
+def _sqrt_(tensors: list) -> None:
+    """In place, the square root of each tensor, correctly rounded and the
+    same every run: ``torch._foreach_sqrt_`` on the card, numpy's on the
+    CPU. PyTorch's float32 ``sqrt`` on the CPU is not correctly rounded,
+    and under load a worker thread's first call in a process can return a
+    ~12-bit approximation for its chunk of the tensor (thousands of ulps
+    off; ``launch_ab.py --cpu-repeats``), so two fits from the same inputs
+    could differ."""
+    on_card = [t for t in tensors if t.device.type != "cpu"]
+    if on_card:
+        torch._foreach_sqrt_(on_card)
+    for t in tensors:
+        if t.device.type == "cpu":
+            a = t.numpy()
+            np.sqrt(a, out=a)
+
+
 @dataclasses.dataclass
 class AdamState:
     """optax's ``ScaleByAdamState``: the step count (kept on the host, so
@@ -96,7 +113,7 @@ def adam_update(params, grads, state: AdamState, lr: float) -> None:
     torch._foreach_mul_(nu, 1 - B2)
     torch._foreach_add_(nu, torch._foreach_mul(state.nu, B2))
     den = torch._foreach_div(nu, bc2)
-    torch._foreach_sqrt_(den)
+    _sqrt_(den)
     torch._foreach_add_(den, EPS)
     upd = torch._foreach_div(mu, bc1)
     torch._foreach_div_(upd, den)
@@ -175,7 +192,7 @@ def adam_apply(params, grads, state: AdamTreeState, lr: float,
     torch._foreach_mul_(step, lr)
     torch._foreach_copy_(grads, v32)
     torch._foreach_div_(grads, bc2)
-    torch._foreach_sqrt_(grads)
+    _sqrt_(grads)
     torch._foreach_add_(grads, eps)
     torch._foreach_div_(step, grads)
     torch._foreach_sub_(params, step)

@@ -718,9 +718,17 @@ def test_read_eval_folds_are_bitwise_the_references(stores, template, k):
     ("rec", "read_training"), ("rec", "read_eval"),
     ("seq", "read_training"), ("seq", "read_eval")])
 def test_sharded_reads_refuse_naming_item_4(template, read):
+    """Sharded evaluation folds (and the sequential template's sharded
+    sessions) name item 4; the recommendation template's sharded training
+    read is ported (tests/test_torch_distributed_train.py): a context that
+    claims two processes without a group refuses at its first collective."""
     tpkg = TEMPLATES[template][1]
     two = DeviceContext(torch.device("cpu"), process_index=0, process_count=2)
     ds = tpkg.DataSource(tpkg.DataSourceParams(app_name=template, eval_k=3))
+    if (template, read) == ("rec", "read_training"):
+        with pytest.raises(RuntimeError, match="no process group was joined"):
+            getattr(ds, read)(two)
+        return
     with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
         getattr(ds, read)(two)
 

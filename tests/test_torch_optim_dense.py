@@ -98,3 +98,19 @@ def test_adam_apply_updates_in_place_and_keeps_its_scratch():
 def test_adam_tree_init_refuses_an_unknown_dtype():
     with pytest.raises(ValueError, match="adam_moments_dtype"):
         toptim.adam_tree_init([torch.zeros(2)], "float16")
+
+
+@pytest.mark.parametrize("shape", [(51_000,), (300, 17)])
+def test_adam_square_root_is_correctly_rounded_on_the_cpu(shape):
+    """``_sqrt_`` on the CPU is numpy's float32 root, the correctly rounded
+    one (a float64 root rounded once), on contiguous and strided tensors;
+    a second call on the same values gives the same bits."""
+    x = np.random.default_rng(11).random(shape).astype(np.float32) * 3e-6
+    want = np.sqrt(x.astype(np.float64)).astype(np.float32)
+    full = torch.from_numpy(x.copy())
+    strided = torch.from_numpy(np.stack([x, x], -1).copy())[..., 0]
+    again = torch.from_numpy(x.copy())
+    toptim._sqrt_([full, strided])
+    toptim._sqrt_([again])
+    for t in (full, strided, again):
+        np.testing.assert_array_equal(t.numpy(), want)

@@ -38,6 +38,8 @@ from incubator_predictionio_tpu_torch.utils.serialization import (  # noqa: E402
     serialize_model,
 )
 
+from tests.test_torch_distributed_train import ShardStub, mirror  # noqa: E402
+
 UTC = dt.timezone.utc
 N_USERS, N_ITEMS, RANK = 30, 400, 16
 FACTORY = "incubator_predictionio_tpu_torch.templates.recommendation.RecommendationEngine"
@@ -192,19 +194,36 @@ def test_deploy_without_completed_instance_raises(tmp_path):
                     ctx=DeviceContext.create(device="cpu"))
 
 
-def test_training_stages_name_the_slice_that_ports_them():
-    """Training is ported, mid-training checkpoints too; what it leaves
-    (per-process staging and the per-process sharded read) names the
-    sharding slice."""
+def test_training_stages_name_the_slice_that_ports_them(tmp_path):
+    """Training is ported, mid-training checkpoints, per-process staging
+    and the per-process sharded read too; what a multi-process fit leaves
+    (its member-slice checkpoints) names the sharding slice, and a context
+    that claims two processes without a group refuses."""
     cpu = DeviceContext.create(device="cpu")
     td = trec.TrainingData(np.zeros(4, np.int32), np.arange(4, dtype=np.int32),
                            np.ones(4, np.float32), np.array(["u0"], object),
                            np.array([f"i{j}" for j in range(4)], object),
                            rows_are_local=True)
-    algo = trec.ALSAlgorithm(trec.ALSAlgorithmParams(checkpoint_every=1))
+    model = trec.ALSAlgorithm(trec.ALSAlgorithmParams(
+        rank=4, num_iterations=2, checkpoint_every=1)).train(mirror(), td)
+    assert model.mf.user_emb.shape == (1, 4) and np.isfinite(model.mf.final_loss)
     with pytest.raises(NotImplementedError, match="sharding slice"):
-        algo.train(DeviceContext(cpu.device, process_index=0,
-                                 process_count=2), td)
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        trec.DataSource(trec.DataSourceParams()).read_training(
-            DeviceContext(cpu.device, process_index=1, process_count=2))
+        trec.ALSAlgorithm(trec.ALSAlgorithmParams(
+            checkpoint_every=1, checkpoint_dir=str(tmp_path))).train(mirror(), td)
+    with pytest.raises(RuntimeError, match="no process group was joined"):
+        trec.ALSAlgorithm(trec.ALSAlgorithmParams(rank=4)).train(
+            DeviceContext(cpu.device, process_index=0, process_count=2), td)
+    # process 1 of 2 reads its shard: users offset past shard 0's, items
+    # remapped into the first-seen union
+    shard0 = (np.array(["a", "b"], object), np.array(["x", "y"], object))
+    shard1 = (np.array(["c"], object), np.array(["y", "z"], object),
+              np.array([0, 0], np.int32), np.array([0, 1], np.int32),
+              np.array([2.0, 3.0], np.float32))
+    ds = trec.DataSource(trec.DataSourceParams())
+    ds._store = type("Shard1", (), {"assemble_triples": lambda self, *a, **k: (
+        shard1 if k["n_shards"] == 2 and k["shard_index"] == 1 else None)})()
+    script = [[list(shard0[0]), ["c"]], [list(shard0[1]), ["y", "z"]], [3, 2]]
+    got = ds.read_training(ShardStub(1, script))
+    assert list(got.user_vocab) == ["a", "b", "c"] and list(got.item_vocab) == ["x", "y", "z"]
+    assert got.user_idx.tolist() == [2, 2] and got.item_idx.tolist() == [1, 2]
+    assert got.rows_are_local and got.n_rows_global == 5

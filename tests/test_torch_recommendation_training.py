@@ -40,6 +40,8 @@ from incubator_predictionio_tpu_torch.server.query_server import (  # noqa: E402
 from incubator_predictionio_tpu_torch.templates import recommendation as trec  # noqa: E402
 from incubator_predictionio_tpu_torch.tools import cli  # noqa: E402
 
+from tests.test_torch_distributed_train import ShardStub, mirror  # noqa: E402
+
 CPU = DeviceContext.create(device="cpu")
 FACTORY = ("incubator_predictionio_tpu_torch.templates.recommendation."
            "RecommendationEngine")
@@ -211,17 +213,36 @@ def test_resident_model_round_trips_bitwise(stores, tmp_path, monkeypatch):
 
 def test_train_refuses_what_is_not_ported(stores):
     td = trec.DataSource(trec.DataSourceParams(app_name="rec")).read_training(CPU)
-    # mid-training checkpoints are ported (tests/test_torch_checkpoint.py);
-    # per-process staging of a sharded read is not
+    # per-process staging of a sharded read trains (over a gloo group:
+    # tests/test_torch_distributed_train.py); with mirrored peers it is the
+    # single-process fit's data twice over, and a context that claims two
+    # processes without a group refuses at its first collective
     td.rows_are_local = True
-    with pytest.raises(NotImplementedError, match="item 4"):
-        trec.ALSAlgorithm(trec.ALSAlgorithmParams(
-            rank=4, num_iterations=2, checkpoint_every=1)).train(
-                DeviceContext(torch.device("cpu"), process_index=0,
-                              process_count=2), td)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        trec.DataSource(trec.DataSourceParams(app_name="rec")).read_training(
-            DeviceContext(torch.device("cpu"), process_index=0, process_count=2))
+    algo = trec.ALSAlgorithm(trec.ALSAlgorithmParams(
+        rank=4, num_iterations=2, checkpoint_every=1))
+    two = mirror()
+    model = algo.train(two, td)
+    assert model.mf.user_emb.shape == (len(td.user_vocab), 4)
+    assert np.isfinite(model.mf.final_loss) and "exchange_sec" in model.mf.timings
+    with pytest.raises(RuntimeError, match="no process group was joined"):
+        algo.train(DeviceContext(torch.device("cpu"), process_index=0,
+                                 process_count=2), td)
+    # the sharded read of each process, from a stub that gives each
+    # allgather every shard's part: disjoint users, the global row count
+    _, ts = stores
+    reads = [ts.get_events().assemble_triples(
+        1, entity_type="user", event_names=("rate", "buy"),
+        target_entity_type="item", value_property="rating",
+        default_values={"buy": 4.0}, dedup=True, n_shards=2, shard_index=s)
+        for s in range(2)]
+    script = [[list(r[0]) for r in reads], [list(r[1]) for r in reads],
+              [len(r[4]) for r in reads]]
+    shards = [trec.DataSource(trec.DataSourceParams(app_name="rec")).read_training(
+        ShardStub(s, script)) for s in range(2)]
+    assert all(sh.rows_are_local and sh.n_rows_global == len(td.ratings)
+               for sh in shards)
+    assert sum(len(sh.ratings) for sh in shards) == len(td.ratings)
+    assert set(shards[1].user_idx) >= {len(reads[0][0])}  # the offset
     with pytest.raises(NotImplementedError, match="item 4"):
         trec.DataSource(trec.DataSourceParams(app_name="rec", eval_k=2)).read_eval(
             DeviceContext(torch.device("cpu"), process_index=0, process_count=2))

@@ -261,7 +261,8 @@ def test_fit_refuses_what_is_not_ported(field, value, match):
 
 def test_fit_refuses_rows_of_several_processes():
     ctx = DeviceContext(torch.device("cpu"), process_index=0, process_count=2)
-    assert ctx.pad_to_batch_multiple(13) == 13
+    # the data axis is the process count (one device a process)
+    assert ctx.pad_to_batch_multiple(13) == 14
     with pytest.raises(NotImplementedError, match="rows_are_local.*ROADMAP"):
         ttr.TransformerRecommender(ttr.TransformerConfig(**FIT)).fit(
             ctx, _rows(), None, rows_are_local=True)

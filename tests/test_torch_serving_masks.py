@@ -232,10 +232,18 @@ def test_aggregate_properties_required_matches_reference(tmp_path, required):
         assert list(got) == list(want)
         for k in want:
             assert dict(got[k]) == dict(want[k]), k
-        with pytest.raises(NotImplementedError, match="item 4"):
-            TPEventStore(ts).aggregate_properties("props", "user", n_shards=2)
-        with pytest.raises(NotImplementedError, match="item 4"):
-            TPEventStore(ts).find_sharded("props", 2)
+        # one entity shard's snapshots, and the shard iterators
+        # (tests/test_torch_distributed_train.py holds them on both backends)
+        for s in range(2):
+            want = JPEventStore(js).aggregate_properties(
+                "props", "user", required=required, n_shards=2, shard_index=s)
+            got = TPEventStore(ts).aggregate_properties(
+                "props", "user", required=required, n_shards=2, shard_index=s)
+            assert list(got) == list(want)
+            assert all(dict(got[k]) == dict(want[k]) for k in want)
+        shards = TPEventStore(ts).find_sharded("props", 2)
+        assert sum(len(list(it)) for it in shards) == len(list(
+            TPEventStore(ts).find("props")))
     finally:
         js.close()
         ts.close()

@@ -278,13 +278,20 @@ def test_fit_keeps_large_catalogs_on_the_device(monkeypatch):
         host.user_emb, model._tables["ue"][:N_USERS, :RANK].numpy())
 
 
-def test_fit_refuses_what_is_not_ported():
-    """Per-process staging of entity-sharded rows waits for the sharding
-    slice (mid-training checkpoints are ported:
-    tests/test_torch_checkpoint.py)."""
+def test_fit_refuses_what_is_not_ported(tmp_path):
+    """Per-process staging of entity-sharded rows is ported
+    (tests/test_torch_distributed_train.py) and so are mid-training
+    checkpoints of one process (tests/test_torch_checkpoint.py); the
+    checkpoints of a multi-process fit wait for the sharding slice, and a
+    context that claims two processes without a group refuses at its first
+    collective."""
     users, items, ratings = _triples(n=100)
     two = DeviceContext(torch.device("cpu"), process_index=0, process_count=2)
     with pytest.raises(NotImplementedError, match="item 4"):
+        ttt.TwoTowerMF(ttt.TwoTowerConfig(
+            checkpoint_every=1, checkpoint_dir=str(tmp_path))).fit(
+            two, users, items, ratings, N_USERS, N_ITEMS, rows_are_local=True)
+    with pytest.raises(RuntimeError, match="no process group was joined"):
         ttt.TwoTowerMF(ttt.TwoTowerConfig(checkpoint_every=1)).fit(
             two, users, items, ratings, N_USERS, N_ITEMS, rows_are_local=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
