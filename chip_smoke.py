@@ -130,6 +130,19 @@ and a replay of both shards' global batches through the single-process
 loop on the card, checks the fit's collectives on a one-process NCCL
 group, then deploys the model through K1 (exact) and K2 (two-stage),
 each path's answers held against its plain CPU path on the same model.
+``rec-batchpredict`` scores 4,416 queries (known, black-listed and unknown
+users) with that stored model through the CLI's ``batchpredict``, in one
+process and under ``launch -n 2 batchpredict`` (part files), K1 at B 1024
+held against its plain version first; the parts concatenated must equal
+the one-process output. ``rec-launch-eval`` runs ``launch -n 2 eval`` on
+rec-workflow's stored events (sharded folds, data-parallel fits, one
+EVALCOMPLETED row by process 0, each fold's query set against the one
+computed from the events); ``seq-launch``, after ``seq-eval``, runs
+``launch -n 2 train`` of the sequential template on seq-workflow's stored
+sessions at its full width (K4 forward and backward in both processes,
+one all-reduce of the gradients a step), replays both shards' batches in
+one process (split into the processes' local batches, and whole) against
+the launched model, and serves it through K4 against the plain attention.
 
 Every check failure raises: the script catches nothing, and a non-zero exit
 is the verdict. Its last line is one JSON object, ``{"ok": true, "device":
@@ -4687,38 +4700,49 @@ LAUNCH_LINE = {
 }
 
 
-def launch_sections(out: str) -> list[dict]:
-    """Each launched process's lines parsed: its exit code, its
-    ``distributed``, ``sharded read`` and ``data-parallel fit`` lines."""
+def launch_sections(out: str, lines=LAUNCH_LINE, tag="rec-launch",
+                    many=()) -> list[dict]:
+    """Each launched process's lines parsed: its exit code and, for each
+    pattern of ``lines``, its one matching line (every matching line for
+    the keys in ``many``)."""
     parts = re.split(r"^--- process (\d+) \(exit (-?\d+)\) ---$", out,
                      flags=re.M)
     procs = []
     for i in range(1, len(parts), 3):
         body = parts[i + 2]
-        rec = {"process": int(parts[i]), "rc": int(parts[i + 1])}
-        for key, rx in LAUNCH_LINE.items():
+        rec = {"process": int(parts[i]), "rc": int(parts[i + 1]), "log": body}
+        check(rec["rc"] == 0, f"[{tag}] process {parts[i]} exited "
+              f"{rec['rc']}:\n{body[-4000:]}")
+        for key, rx in lines.items():
             m = rx.findall(body)
-            check(len(m) == 1, f"[rec-launch] process {parts[i]}: {len(m)} "
+            if key in many:
+                rec[key] = m
+                continue
+            check(len(m) == 1, f"[{tag}] process {parts[i]}: {len(m)} "
                   f"'{key}' lines in its log:\n{body[-4000:]}")
             rec[key] = m[0]
         procs.append(rec)
+    check([p["process"] for p in procs] == list(range(LAUNCH_PROCS)),
+          f"[{tag}] processes {[p['process'] for p in procs]}:\n{out[-4000:]}")
     return procs
 
 
 class ShardScript:
     """One process's view of a job for the replay: each ``allgather_obj``
     returns every shard's part of that call (scripted in advance, in
-    process order) after checking this process's own."""
+    process order) after checking this process's own; ``device`` is where
+    the staging puts its batches."""
 
-    def __init__(self, index, script):
+    def __init__(self, index, script, device=None):
         self.process_index = index
         self.process_count = len(script[0])
+        self.device = device
         self._script = list(script)
 
     def allgather_obj(self, obj):
         parts = self._script.pop(0)
         check(repr(parts[self.process_index]) == repr(obj),
-              "[rec-launch] the replay's shard diverged from its script")
+              "[replay] a shard diverged from its script")
         return list(parts)
 
     def pad_to_batch_multiple(self, n):
@@ -4848,6 +4872,19 @@ def nccl_collectives_check(ctx) -> dict:
             "all_gather_bytes": rows.numel() * 4}
 
 
+def cpu_int8(mf):
+    """The plain CPU int8 serving path of a host two-tower model: the same
+    arrays, quantized on the host, no index."""
+    from incubator_predictionio_tpu_torch.models.two_tower import TwoTowerModel
+
+    cpu = TwoTowerModel(user_emb=mf.user_emb, item_emb=mf.item_emb,
+                        user_bias=mf.user_bias, item_bias=mf.item_bias,
+                        mean=mf.mean, config=mf.config)
+    cpu.prepare_for_serving(quantize=True, host_max_elements=0, device="cpu",
+                            build_index=False)
+    return cpu
+
+
 def two_stage_vs_cpu(name, model, served_mf, user_ids, bodies) -> dict:
     """The served two-stage answers of ``user_ids`` against the plain CPU
     two-stage path on the same model and the same IVF index (its coarse
@@ -4858,19 +4895,12 @@ def two_stage_vs_cpu(name, model, served_mf, user_ids, bodies) -> dict:
     would reach."""
     import dataclasses
 
-    from incubator_predictionio_tpu_torch.models.two_tower import (
-        TwoTowerMF,
-        TwoTowerModel,
-    )
+    from incubator_predictionio_tpu_torch.models.two_tower import TwoTowerMF
     from incubator_predictionio_tpu_torch.ops.retrieval import quantize_rows
     from incubator_predictionio_tpu_torch.serving import ann
 
     mf = model.mf
-    cpu = TwoTowerModel(user_emb=mf.user_emb, item_emb=mf.item_emb,
-                        user_bias=mf.user_bias, item_bias=mf.item_bias,
-                        mean=mf.mean, config=mf.config)
-    cpu.prepare_for_serving(quantize=True, host_max_elements=0, device="cpu",
-                            build_index=False)
+    cpu = cpu_int8(mf)
     ivf = dataclasses.replace(served_mf._ivf, device=None)
     cpu._ivf = ivf
     rows = np.asarray([model.user_map[u] for u in user_ids], np.int32)
@@ -4903,10 +4933,7 @@ async def rec_launch_body(model, user_ids, session, url, server, lat, answers,
     """A burst of 64 users; on the exact path 16 of them also against the
     plain CPU int8 path on the same model (top-10 up to near-ties at the
     10th place, scores within 1e-4)."""
-    from incubator_predictionio_tpu_torch.models.two_tower import (
-        TwoTowerMF,
-        TwoTowerModel,
-    )
+    from incubator_predictionio_tpu_torch.models.two_tower import TwoTowerMF
 
     served = server.deployed.models[0]
     info = served.serving_info()
@@ -4927,12 +4954,7 @@ async def rec_launch_body(model, user_ids, session, url, server, lat, answers,
     check(info["path"] == "device-int8" and info["device"].startswith("cuda")
           and info["retrieval_mode"] == "exact",
           f"[{name}] not the exact int8 path on the card: {info}")
-    mf = model.mf
-    cpu = TwoTowerModel(user_emb=mf.user_emb, item_emb=mf.item_emb,
-                        user_bias=mf.user_bias, item_bias=mf.item_bias,
-                        mean=mf.mean, config=mf.config)
-    cpu.prepare_for_serving(quantize=True, host_max_elements=0, device="cpu",
-                            build_index=False)
+    cpu = cpu_int8(model.mf)
     rows = np.asarray([model.user_map[u] for u in user_ids[:16]], np.int32)
     ci, cs = TwoTowerMF.recommend_batch(cpu, rows, 12)
     inv = model.item_map.inverse()
@@ -4972,10 +4994,7 @@ def launch_train(registry, variant_path, backend, n_instances, **env):
     wall = time.perf_counter() - s0
     OUT.parent.mkdir(parents=True, exist_ok=True)
     (OUT.parent / f"rec_launch_{backend}.log").write_text(out)
-    procs = launch_sections(out)
-    check([p["process"] for p in procs] == list(range(LAUNCH_PROCS))
-          and all(p["rc"] == 0 for p in procs),
-          f"[{tag}] processes {[(p['process'], p['rc']) for p in procs]}")
+    procs = launch_sections(out, tag=tag)
     per = []
     for p in procs:
         d, r, f = p["dist"], p["read"], p["fit"]
@@ -5131,6 +5150,9 @@ def rec_launch_phase(R, ctx, tmp):
                       for k, v in lat.items()}
     rec["launches"] = launches
     rec["phase_s"] = time.perf_counter() - t_phase
+    # rec-batchpredict scores this model from the same store
+    rec["persisted"] = {"root": root, "variant_path": variant_path,
+                        "model": model}
     smi = smi_name_power()
     log(f"[rec-launch] ({smi}) import {LAUNCH_EVENTS} events "
         f"{rec['import']['import_s']:.2f} s; launch -n {LAUNCH_PROCS} train: "
@@ -5164,6 +5186,698 @@ def rec_launch_phase(R, ctx, tmp):
         f"answers in the CPU two-stage path's order); launches {launches}; phase "
         f"{rec['phase_s']:.1f} s")
     return launches, rec
+
+
+# -- phase: batch prediction on rec-launch's stored model --------------------
+
+#: rec-batchpredict's input: known users (num 10), unknown users (the cold
+#: path: the reference's empty answer), known users with a blackList of
+#: BP_BANNED ids (3 of them from the user's CPU top-10), in one file drawn
+#: from default_rng(37); batchpredict's default chunk of 1024 pads to the
+#: serving bucket 1024 (K1 at B 1024 over the 100,352-row padded catalog)
+BP_KNOWN, BP_UNKNOWN, BP_BLACK, BP_BANNED = 4096, 64, 256, 5
+#: answers of the one-process run held against the plain CPU int8 path
+BP_CPU_USERS = 16
+
+
+def near_tie_same(tag, got, want, scores, tenth, tol=1e-4):
+    """``got`` and ``want`` (item scores of one answer) hold the same ids up
+    to near-ties at the last place (an id in one only scores within ``tol``
+    of ``want``'s last score, by ``scores``) and the same scores within
+    ``tol``; returns whether they are equal as they stand."""
+    gi, wi = [x["item"] for x in got], [x["item"] for x in want]
+    for iid in set(gi) ^ set(wi):
+        check(iid in scores and abs(scores[iid] - tenth) <= tol,
+              f"[{tag}] ids differ beyond a near-tie: {gi} vs {wi}")
+    for x in got:
+        check(x["item"] in scores and abs(x["score"] - scores[x["item"]]) <= tol,
+              f"[{tag}] score {x} vs {scores.get(x['item'])}")
+    return got == want
+
+
+@contextlib.contextmanager
+def algorithm_clock(algorithm_cls):
+    """Host time inside ``algorithm_cls.batch_predict`` (its answers are
+    host objects, so the card's work is done when it returns)."""
+    rec = {"s": 0.0, "calls": 0, "queries": 0}
+    orig = algorithm_cls.__dict__["batch_predict"]
+
+    def timed(self, model, queries):
+        t0 = time.perf_counter()
+        out = orig(self, model, queries)
+        rec["s"] += time.perf_counter() - t0
+        rec["calls"] += 1
+        rec["queries"] += len(queries)
+        return out
+
+    algorithm_cls.batch_predict = timed
+    try:
+        yield rec
+    finally:
+        algorithm_cls.batch_predict = orig
+
+
+BP_LINE = {
+    "dist": LAUNCH_LINE["dist"],
+    "done": re.compile(r"Batch predict completed: (\d+) predictions written to "
+                       r"(\S+) \(slice (\d+)/(\d+)\)"),
+}
+
+
+def rec_batchpredict_phase(R, ctx, persisted):
+    """``batchpredict`` on rec-launch's stored model (100,000 × 100,000,
+    rank 128, deployed int8 on the card): 4,416 queries, one process
+    through the CLI in-process, then ``launch -n 2 batchpredict`` (gloo,
+    both processes on the card). K1 is first held against its plain
+    version at the new shape, B 1024. Held: the parts concatenated equal
+    the one-process output (ids up to near-ties at the 10th place, scores
+    within 1e-4; the bitwise lines counted), 16 users' answers equal the
+    plain CPU int8 path's, no black-listed id served, unknown users
+    answered empty. Returns (launches, record)."""
+    from incubator_predictionio_tpu_torch.models.two_tower import TwoTowerMF
+    from incubator_predictionio_tpu_torch.templates import recommendation as trec
+
+    t_phase = time.perf_counter()
+    root, variant_path, model = (persisted[k] for k in ("root", "variant_path",
+                                                        "model"))
+    mf, dev = model.mf, ctx.device
+    rng = np.random.default_rng(37)
+    vocab = list(model.user_map.keys())
+    pick = rng.choice(len(vocab), BP_KNOWN + BP_BLACK, replace=False)
+    # K1 at B 1024 against its plain version, before the phase relies on it
+    k = mf.config.rank
+    items_q, scales, bias, mask = R.quantize_catalog_device(
+        torch.from_numpy(mf.item_emb).to(dev),
+        torch.from_numpy(mf.item_bias).to(dev))
+    q = torch.from_numpy(np.ascontiguousarray(mf.user_emb[pick[:1024]])).to(dev)
+    k1 = k1_case(R, q, items_q, scales, bias, mask)
+    del items_q, scales, bias, mask, q
+    # the queries: the black-listed users' bans from their CPU top-10
+    cpu = cpu_int8(mf)
+    inv = model.item_map.inverse()
+    check_rows = pick[:BP_CPU_USERS]
+    black_rows = pick[BP_KNOWN:]
+    ci, cs = TwoTowerMF.recommend_batch(
+        cpu, np.concatenate([check_rows, black_rows]).astype(np.int32), 12)
+    cpu_answers = {vocab[int(u)]: (ci[r], cs[r]) for r, u in enumerate(check_rows)}
+    queries = [{"user": vocab[int(u)], "num": 10} for u in pick[:BP_KNOWN]]
+    for r, u in enumerate(black_rows):
+        top = [inv[int(i)] for i in ci[BP_CPU_USERS + r][:10]]
+        extra = rng.choice(len(inv), BP_BANNED - 3, replace=False)
+        queries.append({"user": vocab[int(u)], "num": 10,
+                        "blackList": top[:3] + [inv[int(i)] for i in extra]})
+    queries += [{"user": f"cold{j}", "num": 10} for j in range(BP_UNKNOWN)]
+    queries = [queries[int(j)] for j in rng.permutation(len(queries))]
+    inp = os.path.join(root, "bp-input.json")
+    write_events(inp, queries)
+    one_out = os.path.join(root, "bp-one.json")
+    many_out = os.path.join(root, "bp-launched.json")
+    rec = {"queries": len(queries), "known": BP_KNOWN, "unknown": BP_UNKNOWN,
+           "black_listed": BP_BLACK, "chunk": 1024, "k1_b1024": k1}
+    with cli_storage(root) as registry, retrieval_mode("exact"):
+        del registry
+        torch.cuda.reset_peak_memory_stats()
+        R.reset_launches()
+        with algorithm_clock(trec.ALSAlgorithm) as clock:
+            t0 = time.perf_counter()
+            out = cli_run("rec-batchpredict", [
+                "batchpredict", "--input", inp, "--output", one_out,
+                "-v", variant_path])
+            one_wall = time.perf_counter() - t0
+        launches = {"score_catalog_quantized": R.score_catalog_quantized.launches}
+        check(f"Batch predict completed: {len(queries)} predictions written "
+              f"to {one_out}" in out, f"[rec-batchpredict] {out}")
+        rec["one_process"] = {
+            "wall_s": one_wall, "queries_per_s": len(queries) / one_wall,
+            "batch_predict_s": clock["s"], "batch_predict_calls": clock["calls"],
+            "scoring_queries_per_s": len(queries) / clock["s"],
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+        with env_vars(PYTHONPATH=str(Path(__file__).resolve().parent),
+                      CUDA_VISIBLE_DEVICES=first):
+            t0 = time.perf_counter()
+            out = cli_run("rec-batchpredict launch", [
+                "launch", "-n", str(LAUNCH_PROCS), "--timeout",
+                str(LAUNCH_TIMEOUT_S), "batchpredict", "--input", inp,
+                "--output", many_out, "-v", variant_path])
+            many_wall = time.perf_counter() - t0
+    OUT.parent.mkdir(parents=True, exist_ok=True)
+    (OUT.parent / "rec_batchpredict_launch.log").write_text(out)
+    procs = launch_sections(out, BP_LINE, "rec-batchpredict launch")
+    parts = []
+    for p in procs:
+        d, done = p["dist"], p["done"]
+        check(d[2] == "gloo" and d[3].startswith("cuda")
+              and int(done[2]) == p["process"] + 1,
+              f"[rec-batchpredict launch] process {p['process']}: {d} {done}")
+        with open(done[1]) as f:
+            part = f.read().splitlines()
+        check(len(part) == int(done[0]), f"[rec-batchpredict launch] part "
+              f"{done[1]}: {len(part)} lines, {done[0]} written")
+        parts += part
+    rec["launched"] = {"wall_s": many_wall,
+                       "queries_per_s": len(queries) / many_wall,
+                       "slices": [int(p["done"][0]) for p in procs]}
+    with open(one_out) as f:
+        one = f.read().splitlines()
+    check(len(one) == len(parts) == len(queries),
+          f"[rec-batchpredict] {len(one)} lines, {len(parts)} in the parts, "
+          f"{len(queries)} queries")
+    bitwise, cpu_same = 0, 0
+    for q, a, b in zip(queries, one, parts):
+        got, want = json.loads(b)["itemScores"], json.loads(a)["itemScores"]
+        if q["user"].startswith("cold"):
+            check(got == want == [], f"[rec-batchpredict] cold user {q}: {a}")
+            bitwise += a == b
+            continue
+        check(len(want) == 10 and all(np.isfinite(x["score"]) for x in want),
+              f"[rec-batchpredict] answer {a} to {q}")
+        banned = set(q.get("blackList", ()))
+        check(not banned & ({x["item"] for x in want} | {x["item"] for x in got}),
+              f"[rec-batchpredict] a black-listed id served to {q}")
+        scores = {x["item"]: x["score"] for x in want + got}
+        near_tie_same("rec-batchpredict parts", got, want, scores,
+                      want[-1]["score"])
+        bitwise += a == b
+        if q["user"] in cpu_answers:
+            idx, sc = cpu_answers[q["user"]]
+            ref = [{"item": inv[int(i)], "score": float(v)} for i, v in zip(idx, sc)]
+            cpu_same += near_tie_same(
+                "rec-batchpredict vs CPU", want, ref[:10],
+                {x["item"]: x["score"] for x in ref}, ref[9]["score"])
+    check(launches["score_catalog_quantized"] > 0,
+          "[rec-batchpredict] K1 never launched in the one-process run")
+    rec.update({"lines_bitwise": bitwise, "cpu_checked": len(cpu_answers),
+                "cpu_same_order": cpu_same, "launches": launches,
+                "phase_s": time.perf_counter() - t_phase})
+    smi = smi_name_power()
+    o, m = rec["one_process"], rec["launched"]
+    log(f"[rec-batchpredict] ({smi}) {len(queries)} queries ({BP_KNOWN} known, "
+        f"{BP_BLACK} black-listed, {BP_UNKNOWN} unknown), chunks of 1024: one "
+        f"process {o['wall_s']:.2f} s wall, {o['queries_per_s']:.1f} queries/s "
+        f"(batch_predict {o['batch_predict_s']:.3f} s in {o['batch_predict_calls']} "
+        f"calls, {o['scoring_queries_per_s']:.1f} queries/s; peak device memory "
+        f"{o['max_memory_allocated_bytes'] / 2**30:.3f} GiB); launch -n 2 "
+        f"{m['wall_s']:.2f} s wall, {m['queries_per_s']:.1f} queries/s, slices "
+        f"{m['slices']}")
+    log(f"[rec-batchpredict] ({smi}) the parts concatenated equal the "
+        f"one-process output, {bitwise} of {len(queries)} lines bitwise; "
+        f"{cpu_same} of {len(cpu_answers)} checked answers in the CPU int8 "
+        f"path's order; no black-listed id served; K1 at B 1024 N {k1['N']} "
+        f"D {k1['D']}: device {fmt(k1['device_ms'])} ms, bound "
+        f"{k1['bound_ms']:.4f} ms ({k1['bound_by']}), torch.matmul "
+        f"{k1['library_ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms; launches "
+        f"{launches}; phase {rec['phase_s']:.1f} s")
+    return launches, rec
+
+
+# -- phase: launch -n 2 eval of the recommendation template ------------------
+
+class RecLaunchEvalGrid:
+    """rec-launch-eval's EngineParamsGenerator (each launched process loads
+    it as ``chip_smoke:RecLaunchEvalGrid``): rank 16 / 32, 10 iterations,
+    on rec-workflow's app ``ml1m``, 3 folds."""
+
+    def __init__(self):
+        from incubator_predictionio_tpu_torch.core import EngineParams
+        from incubator_predictionio_tpu_torch.templates import recommendation as trec
+
+        self.engine_params_list = [
+            EngineParams.create(
+                data_source=trec.DataSourceParams(app_name="ml1m", eval_k=EVAL_K),
+                algorithms=[("als", trec.ALSAlgorithmParams(
+                    rank=rank, num_iterations=10))])
+            for rank in (16, 32)]
+
+
+LAUNCH_EVAL_LINE = {
+    "dist": LAUNCH_LINE["dist"],
+    "fold": re.compile(r"sharded eval fold (\d+) of (\d+): (\d+) of (\d+) train "
+                       r"rows \(shard (\d+)/(\d+)\), (\d+) held-out queries, "
+                       r"query digest (\w+)"),
+    "fit": re.compile(r"data-parallel fit: process \d+ of \d+ .*?train ([\d.]+) "
+                      r"s, exchange ([\d.]+) ms a step; loss (\S+); replica "
+                      r"digest (\w+), equal"),
+    "finished": re.compile(r"evaluation finished: (.*)$", re.M),
+}
+
+
+def expected_fold_digests(ds, k):
+    """Each fold's gathered query set as the sharded read must build it,
+    computed in this process from the whole store: each process's rows are
+    the whole read's rows of its users (crc32 entity shards), in the same
+    order; fold membership is crc32(f"{seed}|{user}|{item}") % k."""
+    import zlib
+
+    from incubator_predictionio_tpu_torch.data.storage.base import entity_shard
+    from incubator_predictionio_tpu_torch.templates import recommendation as trec
+
+    td = ds._read()
+    u_str = td.user_vocab[td.user_idx]
+    i_str = td.item_vocab[td.item_idx]
+    shard = np.asarray([entity_shard(u, LAUNCH_PROCS) for u in u_str])
+    fold_of = np.asarray([zlib.crc32(f"{ds.params.seed}|{u}|{i}".encode()) % k
+                          for u, i in zip(u_str, i_str)])
+    out = []
+    for fold in range(k):
+        parts = []
+        for s in range(LAUNCH_PROCS):
+            rows = shard == s
+            sub = trec.TrainingData(td.user_idx[rows], td.item_idx[rows],
+                                    td.ratings[rows], td.user_vocab, td.item_vocab)
+            qa = ds._fold_qa(sub, fold_of[rows] == fold)
+            parts.append([(q.user, q.num, [(r.item, r.rating) for r in a.ratings])
+                          for q, a in qa])
+        out.append((sum(len(p) for p in parts), trec.query_digest(parts)))
+    return out
+
+
+def rec_launch_eval_phase(ctx, tmp):
+    """``launch -n 2 eval`` of the recommendation template on rec-workflow's
+    stored 100,050 events: RecommendationEvaluation with
+    :class:`RecLaunchEvalGrid` (2 variants × 3 folds: 6 data-parallel fits
+    in each process, both on the card over gloo). Held: one new
+    EVALCOMPLETED row, written by process 0 alone; both processes' result
+    lines equal; each fold's gathered query set (its count and digest, as
+    each process logs it) the one computed here from the events with the
+    crc32 rule; every fit's replica digest equal across the processes;
+    scores finite, ``bestIdx`` the first arg-max. Returns the record."""
+    from incubator_predictionio_tpu_torch.templates import recommendation as trec
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "rec-workflow")
+    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    with cli_storage(root) as registry:
+        rows = registry.get_storage().get_meta_data_evaluation_instances()
+        before = {i.id for i in rows.get_all()}
+        ds = trec.DataSource(trec.DataSourceParams(app_name="ml1m", eval_k=EVAL_K))
+        t0 = time.perf_counter()
+        want = expected_fold_digests(ds, EVAL_K)
+        expect_s = time.perf_counter() - t0
+        with env_vars(PYTHONPATH=str(Path(__file__).resolve().parent),
+                      CUDA_VISIBLE_DEVICES=first):
+            t0 = time.perf_counter()
+            out = cli_run("rec-launch-eval", [
+                "launch", "-n", str(LAUNCH_PROCS), "--timeout",
+                str(LAUNCH_TIMEOUT_S), "eval", REC_EVALUATION,
+                f"{Path(__file__).stem}:RecLaunchEvalGrid"])
+            wall = time.perf_counter() - t0
+        new = [i for i in rows.get_all() if i.id not in before]
+    OUT.parent.mkdir(parents=True, exist_ok=True)
+    (OUT.parent / "rec_launch_eval.log").write_text(out)
+    procs = launch_sections(out, LAUNCH_EVAL_LINE, "rec-launch-eval",
+                            many=("fold", "fit"))
+    check(len(new) == 1 and new[0].status == "EVALCOMPLETED",
+          f"[rec-launch-eval] new evaluation rows {[(i.id, i.status) for i in new]}")
+    inst = new[0]
+    check(f"Evaluation completed. Instance ID: {inst.id}" in procs[0]["log"]
+          and "Evaluation completed (secondary process" in procs[1]["log"],
+          "[rec-launch-eval] the primary did not write the row, or a "
+          "secondary claimed it")
+    check(procs[0]["finished"] == procs[1]["finished"],
+          f"[rec-launch-eval] the processes' results differ: "
+          f"{[p['finished'] for p in procs]}")
+    for p in procs:
+        check(p["dist"][2] == "gloo" and p["dist"][3].startswith("cuda"),
+              f"[rec-launch-eval] process {p['process']}: {p['dist']}")
+        got = [(int(f[6]), f[7]) for f in sorted(p["fold"], key=lambda f: int(f[0]))]
+        check(got == want, f"[rec-launch-eval] process {p['process']}: the folds' "
+              f"query sets {got} differ from the events' {want}")
+    fits = [p["fit"] for p in procs]
+    check(len(fits[0]) == len(fits[1]) == 2 * EVAL_K,
+          f"[rec-launch-eval] {[len(f) for f in fits]} fits, want {2 * EVAL_K}")
+    check(all(a[3] == b[3] for a, b in zip(*fits)),
+          "[rec-launch-eval] a fit's replica digests differ across processes")
+    res = json.loads(inst.evaluator_results_json)
+    scores = [r["score"] for r in res["results"]]
+    check(len(scores) == 2 and all(np.isfinite(scores))
+          and res["bestIdx"] == int(np.argmax(scores)),
+          f"[rec-launch-eval] scores {scores}, bestIdx {res['bestIdx']}")
+    rec = {"wall_s": wall, "fits": len(fits[0]),
+           "fit_train_s": [[float(f[0]) for f in fp] for fp in fits],
+           "exchange_ms_per_step": [[float(f[1]) for f in fp] for fp in fits],
+           "folds": [{"queries": n, "digest": d} for n, d in want],
+           "expected_read_s": expect_s, "scores": scores,
+           "best_idx": res["bestIdx"], "one_liner": inst.evaluator_results,
+           "phase_s": time.perf_counter() - t_phase}
+    smi = smi_name_power()
+    log(f"[rec-launch-eval] ({smi}) launch -n 2 eval: wall {wall:.2f} s, "
+        f"{rec['fits']} data-parallel fits a process (train "
+        f"{sum(rec['fit_train_s'][0]):.2f} s on process 0, exchange "
+        f"{np.mean(rec['exchange_ms_per_step'][0]):.3f} ms a step); folds' "
+        f"queries {[n for n, _ in want]} equal to the events' on both "
+        f"processes; Precision@10 {[round(x, 4) for x in scores]} (best "
+        f"{res['bestIdx']}); one EVALCOMPLETED row, by process 0; phase "
+        f"{rec['phase_s']:.1f} s")
+    return rec
+
+
+# -- phase: launch -n 2 train of the sequential template ----------------------
+
+SEQ_LAUNCH_LINE = {
+    "dist": LAUNCH_LINE["dist"],
+    "read": re.compile(r"sharded read: (\d+) of (\d+) rows \(shard (\d+)/(\d+)\)\s*$",
+                       re.M),
+    "fit": re.compile(
+        r"data-parallel fit: process (\d+) of (\d+) \(backend (\w+), (\S+)\): "
+        r"(\d+) steps of (\d+) local rows; stage ([\d.]+) s, train ([\d.]+) s, "
+        r"exchange ([\d.]+) ms a step; loss (\S+); replica digest (\w+), equal "
+        r"on every process; staged (\d+) rows \((\w+) real\); peak device "
+        r"memory (\d+) bytes; attention launches (\{.*\})"),
+}
+#: the replays against the launched model: the loss within seq-train's
+#: 1e-2 relative (each replay); the parameters no farther from the split
+#: replay (what the launched processes compute, without the transport)
+#: than SEQ_LAUNCH_SPREAD times the card's own spread — the same
+#: single-process loop run twice in this process — and never held tighter
+#: than 2e-2 of a tensor's max abs. Sequential training on the card is
+#: not deterministic (the embeddings' backward sums a repeated index in
+#: parallel segments), and adam, which moves every element by about ±lr
+#: a step whatever its gradient's size, carries the differences through
+#: 66 steps: two identical fits in one process ended 0.717 of a tensor's
+#: max abs apart (the layer norms' biases, which start at 0; my chip call
+#: 3, PR 15), so a fixed elementwise band would hold nothing.
+SEQ_LAUNCH_LOSS_RTOL, SEQ_LAUNCH_PARAM_TOL, SEQ_LAUNCH_SPREAD = 1e-2, 2e-2, 2.0
+
+
+def seq_launch_replay(ds, model, dev):
+    """Both shards read in this process (``_collect_sessions`` of each
+    shard, ``_build_fold`` and the staging under :class:`ShardScript`),
+    then loops on the card from the launched fit's initial parameters:
+    ``split`` — each step a backward over each process's local batch (the
+    global batch's weight sum the denominator), the gradients summed in
+    process order, then adam, what the launched processes compute without
+    the transport — run twice (``split_again``: the card's own spread);
+    ``global`` — the single-process step on the global batches (the
+    processes' local batches concatenated). Returns (item map, {loop:
+    (final loss, parameters, train s)})."""
+    from incubator_predictionio_tpu_torch.data.bimap import BiMap
+    from incubator_predictionio_tpu_torch.models import transformer as ttr
+    from incubator_predictionio_tpu_torch.parallel.staging import (
+        stage_sharded_batches,
+    )
+    from incubator_predictionio_tpu_torch.utils.optim import adam_init, adam_update
+
+    n = LAUNCH_PROCS
+    sessions = [list(ds._collect_sessions(ShardScript(s, [[0] * n]))[0].values())
+                for s in range(n)]
+    bases = [list(BiMap.string_int([i for x in ss for i in x])) for ss in sessions]
+    counts = [sum(len(x) >= 2 for x in ss) for ss in sessions]
+    folds = [ds._build_fold(ShardScript(s, [bases, counts]), sessions[s], True)
+             for s in range(n)]
+    cfg = model.config
+    staged = []
+    for s, td in enumerate(folds):
+        seqs = td.sequences
+        tokens, targets = seqs[:, :-1], seqs[:, 1:]
+        weights = (targets != 0).astype(np.float32) * (tokens != 0).astype(np.float32)
+        (tb, yb, wb), w_pad, _ = stage_sharded_batches(
+            ShardScript(s, [counts, counts], dev),
+            (tokens.astype(np.int32), targets.astype(np.int32), weights),
+            cfg.batch_size, cfg.seed)
+        staged.append((tb.long(), yb.long(), wb * w_pad[..., None]))
+    denoms = sum(st[2].sum((1, 2)) for st in staged).clamp(min=1.0)
+    glob = [torch.cat([st[j] for st in staged], 1) for j in range(3)]
+    n_batches = glob[0].shape[0]
+
+    def run(split):
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        net = ttr.TransformerNet(ttr._init_params(cfg, gen, dev), cfg, dev,
+                                 trainable=True)
+        params = list(net.parameters())
+        opt = adam_init(params, cfg.adam_moments_dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(cfg.epochs):
+            losses = []
+            for i in range(n_batches):
+                if not split:
+                    b = glob[0].shape[1]
+                    pos = torch.arange(cfg.max_len, device=dev).expand(b, cfg.max_len)
+                    losses.append(ttr.train_step(
+                        net, opt, (glob[0][i], pos, glob[1][i], glob[2][i]),
+                        cfg.learning_rate))
+                    continue
+                acc = loss = None
+                for tb, yb, wb in staged:
+                    pos = torch.arange(cfg.max_len, device=dev).expand(
+                        tb.shape[1], cfg.max_len)
+                    part = ttr.train_loss(net, tb[i], pos, yb[i], wb[i],
+                                          denom=denoms[i])
+                    flat = torch.cat([g.reshape(-1) for g in
+                                      torch.autograd.grad(part, params)])
+                    acc = flat if acc is None else acc + flat
+                    loss = part.detach() if loss is None else loss + part.detach()
+                adam_update(params, [g.view_as(p) for g, p in zip(
+                    acc.split([p.numel() for p in params]), params)],
+                    opt, cfg.learning_rate)
+                losses.append(loss)
+        loss = float(torch.stack(losses).mean())
+        out = (loss, net.params_numpy(), time.perf_counter() - t0)
+        del net, opt, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    return folds[0].item_map, {"split": run(True), "split_again": run(True),
+                               "global": run(False)}
+
+
+def param_distance(a, b) -> dict:
+    """Two parameter trees apart: bitwise, and the worst tensor by the
+    largest element difference over its max abs and by relative
+    Frobenius (each with its name)."""
+    out = {"bitwise": True, "max_abs_ratio": 0.0, "max_abs_ratio_at": None,
+           "rel_frobenius": 0.0, "rel_frobenius_at": None}
+    for name, x, y in _tree_pairs(a, b):
+        out["bitwise"] &= bool(np.array_equal(x, y))
+        ratio = float(np.abs(x - y).max()) / max(float(np.abs(x).max()), 1e-30)
+        rel = float(np.linalg.norm(y - x)) / max(float(np.linalg.norm(x)), 1e-30)
+        if ratio > out["max_abs_ratio"]:
+            out["max_abs_ratio"], out["max_abs_ratio_at"] = ratio, name
+        if rel > out["rel_frobenius"]:
+            out["rel_frobenius"], out["rel_frobenius_at"] = rel, name
+    return out
+
+
+async def seq_launch_body(sessions_, session, url, server, lat):
+    """Bursts of 64 ``recentItems`` queries (prefixes of the stored
+    sessions) through the launched model's K4 forward; the last burst held
+    against the plain attention forward on the card."""
+    rng = np.random.default_rng(41)
+    bodies = payloads = None
+    lat["burst64"] = []
+    for _ in range(3):
+        pick = rng.choice(len(sessions_), 64, replace=False)
+        payloads = [{"recentItems": list(sessions_[int(j)][:-1]), "num": 10}
+                    for j in pick]
+        t0 = time.perf_counter()
+        bodies, _ = await post_all(session, url, payloads, True)
+        lat["burst64"].append(time.perf_counter() - t0)
+    check_answers(payloads, bodies)
+    worst, same_set, same_order = check_against_plain(
+        server.deployed.models[0], payloads, bodies)
+    return {"max_score_diff": worst, "same_set": same_set,
+            "same_order": same_order}
+
+
+def seq_launch_train(registry, variant_path, backend, **env):
+    """``launch -n 2 train -v <variant>`` of the sequential template through
+    the CLI, in-process, its children under ``env``; every process's lines
+    held (exit 0, the backend, on the card, shard reads that partition the
+    rows, K4 forward and backward launched, equal losses and replica
+    digests), then the one new COMPLETED instance and its model. Returns
+    the processes' records, the launch wall and the persisted model."""
+    from incubator_predictionio_tpu_torch.utils.serialization import (
+        deserialize_model,
+    )
+
+    tag = f"seq-launch {backend}"
+    insts = registry.get_storage().get_meta_data_engine_instances()
+    before = {i.id for i in insts.get_all()}
+    with env_vars(PYTHONPATH=str(Path(__file__).resolve().parent), **env):
+        t0 = time.perf_counter()
+        out = cli_run(tag, ["launch", "-n", str(LAUNCH_PROCS), "--timeout",
+                            str(LAUNCH_TIMEOUT_S), "train", "-v", variant_path])
+        wall = time.perf_counter() - t0
+    OUT.parent.mkdir(parents=True, exist_ok=True)
+    (OUT.parent / f"seq_launch_{backend}.log").write_text(out)
+    per = []
+    for p in launch_sections(out, SEQ_LAUNCH_LINE, tag):
+        d, r, f = p["dist"], p["read"], p["fit"]
+        att = json.loads(f[14])
+        check(d[2] == backend == f[2] and d[3].startswith("cuda"),
+              f"[{tag}] process {p['process']}: {d}")
+        for w in ("causal_mha_small_head", "causal_mha_small_head_bwd"):
+            check(att.get(w, 0) > 0, f"[{tag}] process {p['process']}: "
+                  f"{w} never launched: {att}")
+        per.append({"process": p["process"], "device": d[3],
+                    "local_rows": int(r[0]), "global_rows": int(r[1]),
+                    "steps": int(f[4]), "local_batch": int(f[5]),
+                    "stage_s": float(f[6]), "train_s": float(f[7]),
+                    "exchange_ms_per_step": float(f[8]), "loss": float(f[9]),
+                    "digest": f[10], "staged_rows": int(f[11]),
+                    "peak_bytes": int(f[13]), "attention_launches": att})
+    total = per[0]["global_rows"]
+    check(all(q["global_rows"] == total for q in per)
+          and sum(q["local_rows"] for q in per) == total
+          and all(0 < q["local_rows"] < total for q in per),
+          f"[{tag}] shard reads {per}")
+    check(len({q["digest"] for q in per}) == 1 and len({q["loss"] for q in per}) == 1,
+          f"[{tag}] replica digests or losses differ: {per}")
+    new = [i for i in insts.get_all() if i.id not in before]
+    check([i.status for i in new] == ["COMPLETED"],
+          f"[{tag}] new instances {[(i.id, i.status) for i in new]}")
+    blob = registry.get_storage().get_model_data_models().get(new[0].id)
+    check(blob is not None, f"[{tag}] no model blob")
+    return {"processes": per, "wall_s": wall,
+            "model": deserialize_model(blob.models)[0]}
+
+
+def seq_launch_phase(ctx, tmp):
+    """``launch -n 2 train`` of the sequential template on seq-workflow's
+    stored sessions at its full width (``max_len`` 512, d_model 512, 6
+    layers of 8 heads of 64, batch 64: 32 a process, 2 epochs), both
+    processes on the card over gloo, each reading its user shard and
+    running the data-parallel fit (K4 forward and backward, one
+    all-reduce of the gradients a step). Held: proper shard reads whose
+    rows sum to the global count, K4 forward and backward launched in both
+    processes, equal replica digests, one new COMPLETED instance and blob
+    (where the machine has two cards, a second launch with a card each,
+    over NCCL, held against the first as the replay is),
+    the replays of :func:`seq_launch_replay` in the bands of
+    :data:`SEQ_LAUNCH_LOSS_RTOL` (the loss) and :data:`SEQ_LAUNCH_SPREAD`
+    (the parameters, against the card's own spread); then a
+    deploy of the launched model and bursts through K4 held against the
+    plain attention. Returns (launches of the attention kernels in this
+    process, record)."""
+    from incubator_predictionio_tpu_torch.ops import attention as A
+    from incubator_predictionio_tpu_torch.templates import sequential as tseq
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "seq-workflow")
+    variant_path = os.path.join(root, "engine.json")
+    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    sessions_ = cycle_sessions(np.random.default_rng(31), SEQ_WF_USERS,
+                               SEQ_WF_MAX_LEN, SEQ_WF_LENGTHS)
+    with cli_storage(root) as registry:
+        storage = registry.get_storage()
+        # one card: the processes share it (gloo through the host), also
+        # where the machine has more
+        gloo = seq_launch_train(registry, variant_path, "gloo",
+                                CUDA_VISIBLE_DEVICES=first)
+        per, model, wall = gloo["processes"], gloo["model"], gloo["wall_s"]
+        total = per[0]["global_rows"]
+        # a card each: NCCL, the same fit over another transport
+        nccl = (seq_launch_train(registry, variant_path, "nccl")
+                if torch.cuda.device_count() >= LAUNCH_PROCS else None)
+        # the replays: both shards' batches, one process, on the card
+        ds = tseq.DataSource(tseq.DataSourceParams(app_name="seq",
+                                                   max_len=SEQ_WF_MAX_LEN))
+        item_map, replays = seq_launch_replay(ds, model, ctx.device)
+        replay = {loop: {"loss": loss, "train_s": replay_s,
+                         "loss_rel": abs(loss - per[0]["loss"]) / abs(loss)}
+                  for loop, (loss, _, replay_s) in replays.items()}
+        for loop in ("split", "global"):
+            replay[loop].update(param_distance(replays[loop][1], model.params))
+        # the card's own spread: the same single-process loop run twice
+        replay["split_again"].update(param_distance(
+            replays["split"][1], replays["split_again"][1]))
+        del replays
+        gc.collect()
+        torch.cuda.empty_cache()
+        smi = smi_name_power()
+        for loop, r in replay.items():
+            log(f"[seq-launch] ({smi}) replay ({loop}{' vs split' if loop == 'split_again' else ''}) "
+                f"on the card: loss {r['loss']:.6f} against the launch's "
+                f"{per[0]['loss']:.6f} (rel {r['loss_rel']:.3e}), parameters "
+                f"bitwise {r['bitwise']}, the largest difference "
+                f"{r['max_abs_ratio']:.3e} of its tensor's max abs "
+                f"({r['max_abs_ratio_at']}), relative Frobenius "
+                f"{r['rel_frobenius']:.3e} ({r['rel_frobenius_at']}), train "
+                f"{r['train_s']:.3f} s")
+        check(dict(item_map.items()) == dict(model.item_map.items()),
+              "[seq-launch] the replay's item map differs from the launched model's")
+        for loop, r in replay.items():
+            check(r["loss_rel"] <= SEQ_LAUNCH_LOSS_RTOL,
+                  f"[seq-launch] loss {per[0]['loss']} against the {loop} "
+                  f"replay's {r['loss']} (band {SEQ_LAUNCH_LOSS_RTOL})")
+        spread = replay["split_again"]
+        if nccl is not None:
+            replay["nccl"] = {"loss": nccl["processes"][0]["loss"],
+                              **param_distance(nccl["model"].params, model.params)}
+            replay["nccl"]["loss_rel"] = abs(
+                replay["nccl"]["loss"] - per[0]["loss"]) / abs(per[0]["loss"])
+            log(f"[seq-launch] ({smi}) the NCCL launch (a card each) against the "
+                f"gloo launch: loss rel {replay['nccl']['loss_rel']:.3e}, "
+                f"parameters bitwise {replay['nccl']['bitwise']}, "
+                f"{replay['nccl']['max_abs_ratio']:.3e} of a tensor's max abs, "
+                f"relative Frobenius {replay['nccl']['rel_frobenius']:.3e}")
+            check(replay["nccl"]["loss_rel"] <= SEQ_LAUNCH_LOSS_RTOL,
+                  f"[seq-launch] the NCCL launch's loss {replay['nccl']['loss']}")
+        for loop in ("split", "nccl"):
+            for key in ("max_abs_ratio", "rel_frobenius"):
+                if loop not in replay:
+                    continue
+                band = max(SEQ_LAUNCH_PARAM_TOL, SEQ_LAUNCH_SPREAD * spread[key])
+                check(replay[loop][key] <= band,
+                      f"[seq-launch] the launched model is {replay[loop][key]:.3e} "
+                      f"({key}) from the {loop} fit, past {band:.3e} "
+                      f"({SEQ_LAUNCH_SPREAD}× the card's own spread, "
+                      f"{spread[key]:.3e})")
+        lat = {}
+        A.reset_launches()
+        served = asyncio.run(serve_phase(
+            "seq-launch", variant_path, storage, ctx,
+            lambda s, u, srv: seq_launch_body(sessions_, s, u, srv, lat)))
+        launches = {w.__name__: w.launches for w in A.KERNEL_WRAPPERS}
+    check(launches["causal_mha_small_head"] > 0,
+          f"[seq-launch] K4 never launched serving the launched model: {launches}")
+    train_wall = max(q["train_s"] for q in per)
+    cfg = model.config
+    rec = {"launch_wall_s": wall, "processes": per, "global_rows": total,
+           "card_count": torch.cuda.device_count(),
+           "nccl_launch": None if nccl is None else {
+               k: v for k, v in nccl.items() if k != "model"},
+           "train_tokens_per_s": cfg.epochs * total * cfg.max_len / train_wall,
+           "replay": replay,
+           "burst64_ms": [x * 1e3 for x in lat["burst64"]],
+           "burst64_p50_ms": pct(lat["burst64"], 50),
+           "kernels_vs_plain": served,
+           "serve_launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    smi = smi_name_power()
+    log(f"[seq-launch] ({smi}) launch -n 2 train at max_len {cfg.max_len}, "
+        f"d_model {cfg.d_model}, {cfg.n_layers} layers of {cfg.n_heads} heads, "
+        f"batch {cfg.batch_size}, {cfg.epochs} epochs: wall {wall:.2f} s, "
+        f"{rec['train_tokens_per_s']:.1f} train tokens/s")
+    for q in per:
+        log(f"[seq-launch] ({smi}) process {q['process']} on {q['device']}: read "
+            f"{q['local_rows']} of {q['global_rows']} rows, staged "
+            f"{q['staged_rows']}, train {q['train_s']:.3f} s ({q['steps']} steps "
+            f"of {q['local_batch']} rows), exchange {q['exchange_ms_per_step']:.3f} "
+            f"ms a step, peak device memory {q['peak_bytes'] / 2**30:.3f} GiB, "
+            f"K4 launches {q['attention_launches']}; digest {q['digest']}")
+    log(f"[seq-launch] ({smi}) burst of 64 p50 {rec['burst64_p50_ms']:.2f} ms "
+        f"(deploy {served['deploy_s']:.2f} s), against the plain attention "
+        f"max score diff {served['max_score_diff']:.2e} (sets equal "
+        f"{served['same_set']}/64, orders {served['same_order']}/64); serve launches "
+        f"{launches}; phase {rec['phase_s']:.1f} s")
+    return launches, rec
+
+
+def _tree_pairs(a, b, name="params"):
+    """(path, a leaf, b leaf) over two parameter trees of one shape."""
+    if isinstance(a, dict):
+        check(list(a) == list(b) or set(a) == set(b), f"{name}: keys differ")
+        for k in a:
+            yield from _tree_pairs(a[k], b[k], f"{name}.{k}")
+    elif isinstance(a, list):
+        check(len(a) == len(b), f"{name}: lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            yield from _tree_pairs(x, y, f"{name}.{i}")
+    else:
+        yield name, np.asarray(a), np.asarray(b)
 
 
 def seq_eval_phase(ctx, tmp):
@@ -5401,13 +6115,25 @@ def main() -> int:
         main["rec_eval"] = rec_eval_phase(ctx, tmp)
         main["rec_eval"]["phase_s"] = time.perf_counter() - t0
         log(f"[rec-eval] phase {main['rec_eval']['phase_s']:.1f} s")
-    # multi-process training: launch -n 2 train, the primary's model
-    # deployed through K1 and K2
-    with tempfile.TemporaryDirectory() as tmp:
-        counts, main["rec_launch"] = rec_launch_phase(R, ctx, tmp)
-        for k, c in counts.items():
-            launches[k] = launches.get(k, 0) + c
-    k1 = k1 + main["rec_train"].pop("k1_cases")
+        # multi-process training: launch -n 2 train, the primary's model
+        # deployed through K1 and K2; then batchpredict on that model, in
+        # one process and under launch -n 2 (K1 at B 1024)
+        with tempfile.TemporaryDirectory() as tmp2:
+            counts, main["rec_launch"] = rec_launch_phase(R, ctx, tmp2)
+            for k, c in counts.items():
+                launches[k] = launches.get(k, 0) + c
+            gc.collect()
+            torch.cuda.empty_cache()
+            counts, main["rec_batchpredict"] = rec_batchpredict_phase(
+                R, ctx, main["rec_launch"].pop("persisted"))
+            for k, c in counts.items():
+                launches[k] = launches.get(k, 0) + c
+        gc.collect()
+        torch.cuda.empty_cache()
+        # launch -n 2 eval on rec-workflow's stored events
+        main["rec_launch_eval"] = rec_launch_eval_phase(ctx, tmp)
+    k1 = k1 + main["rec_train"].pop("k1_cases") + [
+        main["rec_batchpredict"]["k1_b1024"]]
     k2 = k2 + main["rec_train"].pop("k2_cases")
     # each sequential phase runs with the counts at 0 and reads them after;
     # a kernel's launches on the main path are the sum over the phases
@@ -5435,6 +6161,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         for name, phase in (("seq_workflow", seq_workflow_phase),
                             ("seq_eval", seq_eval_phase),
+                            ("seq_launch", seq_launch_phase),
                             ("ckpt_resume", ckpt_resume_phase)):
             t0 = time.perf_counter()
             counts, main[name] = phase(ctx, tmp)
@@ -5473,11 +6200,20 @@ def main() -> int:
             e["parts"] = main_case["kernels"][name]["parts"]
         return e
 
+    b1024 = main["rec_batchpredict"]["k1_b1024"]
+    seq_children = [q["attention_launches"]
+                    for q in main["seq_launch"]["processes"]]
     kernels = [
-        entry("score_catalog_quantized", "retrieval.cu",
-              "incubator_predictionio_tpu/ops/retrieval.py:97", k1,
-              next(c for c in k1 if c["B"] == 64 and c["D"] == RANK
-                   and not c["row_mask"])),
+        {**entry("score_catalog_quantized", "retrieval.cu",
+                 "incubator_predictionio_tpu/ops/retrieval.py:97", k1,
+                 next(c for c in k1 if c["B"] == 64 and c["D"] == RANK
+                      and not c["row_mask"])),
+         "rec_batchpredict": {
+             **{k: b1024[k] for k in ("B", "N", "D", "max_abs_err", "ms",
+                                      "device_ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+             "launches": main["rec_batchpredict"]["launches"][
+                 "score_catalog_quantized"]}},
         entry("score_centroids_quantized", "retrieval.cu",
               "incubator_predictionio_tpu/ops/retrieval.py:188", k2,
               next(c for c in k2 if c["B"] == 64)),
@@ -5492,11 +6228,15 @@ def main() -> int:
              if k in ("max_abs_err", "max_ulps", "bitwise_plain", "ms",
                       "device_ms", "plain_ms", "library_ms", "bound_ms",
                       "bound_by", "host_fused_ms", "device_engine_ms")}},
-        entry("causal_mha_small_head", "attention.cu",
-              "incubator_predictionio_tpu/ops/attention.py:122", k4,
-              next(c for c in k4 if c["B"] == 64)),
-        bwd_entry("causal_mha_small_head_bwd", "attention.cu",
-                  "incubator_predictionio_tpu/ops/attention.py:136", k4b),
+        {**entry("causal_mha_small_head", "attention.cu",
+                 "incubator_predictionio_tpu/ops/attention.py:122", k4,
+                 next(c for c in k4 if c["B"] == 64)),
+         "seq_launch_process_launches": [
+             c["causal_mha_small_head"] for c in seq_children]},
+        {**bwd_entry("causal_mha_small_head_bwd", "attention.cu",
+                     "incubator_predictionio_tpu/ops/attention.py:136", k4b),
+         "seq_launch_process_launches": [
+             c["causal_mha_small_head_bwd"] for c in seq_children]},
         entry("flash_causal_attention", "flash_attention.cu",
               "incubator_predictionio_tpu/parallel/ring.py:201", k5,
               next(c for c in k5 if c["B"] == 64)),

@@ -129,9 +129,8 @@ def run_evaluation(
         raise ValueError("Evaluation must define engine and evaluator (engine_metric=…)")
     storage = storage or get_storage()
     ctx = ctx or DeviceContext.create()
-    # only the primary writes metadata rows (multi-process evaluation comes
-    # with the sharding slice; every process would evaluate the same
-    # query set)
+    # multi-process eval: every process computes (identical query set,
+    # replicated models → identical metrics); only the primary writes rows
     primary = ctx.is_primary
     instances = storage.get_meta_data_evaluation_instances()
     if primary:
@@ -166,3 +165,4 @@ def run_evaluation(
         raise
     finally:
         CleanupFunctions.run()
+        ctx.stop()

@@ -9,8 +9,9 @@ plain :class:`Engine` in :class:`FastEvalEngine` (the reference's default)
 and runs :func:`run_evaluation`. Both run on a :class:`DeviceContext`: the
 card unless ``WorkflowConfig.device`` names another. ``distributed=True``
 joins the multi-process job the ``PIO_DIST_*`` variables describe (the
-``launch`` verb sets them); a train then runs on every process and only
-process 0 writes storage.
+``launch`` verb sets them); a train or an evaluation then runs on every
+process and only process 0 writes storage (secondaries return
+``"<secondary>"``).
 """
 
 from __future__ import annotations
@@ -162,18 +163,17 @@ def _run_eval(config: WorkflowConfig, storage: Optional[Storage],
         batch=config.batch,
         env=storage_env_vars(),
     )
-    if config.distributed:
-        raise NotImplementedError(
-            "eval across processes (sharded read_eval, the held-out queries "
-            "allgathered) comes with the sharding slice of the PyTorch port "
-            "(ROADMAP.md Queue 1, item 4)")
+    # under launch every process evaluates (sharded read_eval, the held-out
+    # queries allgathered, data-parallel fits); only process 0 writes
+    ctx = ctx or DeviceContext.create(config.device,
+                                      distributed=config.distributed)
     instance_id, _ = run_evaluation(
         evaluation,
         list(generator.engine_params_list),
         instance,
         _workflow_params(config),
         storage=storage,
-        ctx=ctx or DeviceContext.create(config.device),
+        ctx=ctx,
     )
     return instance_id
 

@@ -7,13 +7,16 @@ session item sequences, next-item logits tied to the item embedding):
 ``_apply_layer``, ``_forward``, ``_serve_scores``) as one
 :class:`TransformerNet` that serves (bf16 buffers) and trains (fp32
 parameters), :class:`TransformerModel` and :class:`TransformerRecommender`
-(``fit`` on one device, ``next_item_scores``). A training step is forward →
+(``fit``, ``next_item_scores``). A training step is forward →
 ``ops/xent.py:weighted_xent_sum`` → backward through the attention
 kernels' backwards → ``utils/optim.py`` adam (optax's); with
 ``checkpoint_dir`` the epochs run in chunks through
-``utils/checkpoint.py:checkpointed_epochs``. MoE, ring attention, pipeline
-and tensor parallelism come with the sharding slice (ROADMAP.md Queue 1,
-item 4) and raise until then.
+``utils/checkpoint.py:checkpointed_epochs``. Under several processes the
+fit is data-parallel (:func:`train_step` over the global batch's
+denominator, one all-reduce of the gradients a step). MoE, ring
+attention, pipeline and tensor parallelism, and checkpoints of a
+multi-process fit, come with the sharding slice (ROADMAP.md Queue 1, item
+4) and raise until then.
 
 Numerics follow the reference: every matmul rounds both operands and the
 product to bf16 (``_bf16_matmul``), so served scores are bf16 values and
@@ -26,6 +29,8 @@ positions), exactly as in the reference.
 from __future__ import annotations
 
 import dataclasses
+import json
+import logging
 import math
 import time
 from typing import Callable, Optional
@@ -37,9 +42,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from incubator_predictionio_tpu_torch.ops.xent import weighted_xent_sum
-from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext
+from incubator_predictionio_tpu_torch.parallel.mesh import (
+    CollectiveClock,
+    DeviceContext,
+    check_replicas,
+)
 from incubator_predictionio_tpu_torch.parallel.ring import causal_attention
 from incubator_predictionio_tpu_torch.utils.optim import adam_init, adam_update
+
+logger = logging.getLogger(__name__)
 
 #: what raises in the training options this slice does not port
 SHARDING_SLICE = "the sharding slice of the PyTorch port (ROADMAP.md Queue 1, item 4)"
@@ -279,26 +290,49 @@ class TransformerNet(nn.Module):
 
 
 def train_loss(net: TransformerNet, tokens, positions, targets, weights,
-               attention: Callable = causal_attention):
+               attention: Callable = causal_attention, denom=None):
     """transformer.py:285 ``loss_fn``, dense: ``Σ w·xent / max(Σw, 1)``
     over the tied item embedding (the router's auxiliary loss is 0 without
-    experts)."""
+    experts). ``denom`` replaces ``max(Σw, 1)``: a data-parallel step
+    divides its local sum by the global batch's."""
     h = net(tokens, positions, attention)
     loss_sum = weighted_xent_sum(h.reshape(-1, h.shape[-1]), net.item_emb,
                                  targets.reshape(-1), weights.reshape(-1))
-    return loss_sum / torch.clamp(weights.sum(), min=1.0)
+    if denom is None:
+        denom = torch.clamp(weights.sum(), min=1.0)
+    return loss_sum / denom
 
 
 def train_step(net: TransformerNet, opt_state, batch, lr: float,
-               attention: Callable = causal_attention):
+               attention: Callable = causal_attention, denom=None,
+               all_reduce: Optional[Callable] = None):
     """One step (transformer.py:306 ``step``): loss, gradients, adam in
     place. ``batch`` is (tokens, positions, targets, weights) on the net's
-    device. Returns the loss as a device scalar — no host sync."""
+    device. Returns the loss as a device scalar — no host sync. A
+    data-parallel step passes the global batch's ``denom`` and
+    ``all_reduce``, which sums the flattened gradients over the processes
+    (the gradient of the global batch, the same bytes on every replica)."""
     params = list(net.parameters())
-    loss = train_loss(net, *batch, attention=attention)
+    loss = train_loss(net, *batch, attention=attention, denom=denom)
     grads = torch.autograd.grad(loss, params)
+    if all_reduce is not None:
+        flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+        grads = [g.view_as(p) for g, p in
+                 zip(flat.split([p.numel() for p in params]), params)]
     adam_update(params, grads, opt_state, lr)
     return loss.detach()
+
+
+def _leaves(tree):
+    """The arrays of a parameter tree (dicts and lists) in its order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 @dataclasses.dataclass
@@ -357,7 +391,7 @@ class TransformerRecommender:
     def __init__(self, config: TransformerConfig):
         self.config = config
 
-    def _refuse_unported(self, ctx: DeviceContext, rows_are_local: bool):
+    def _refuse_unported(self, ctx: DeviceContext):
         cfg = self.config
         unported = [
             (cfg.attention == "ring", "ring attention (attention='ring')"),
@@ -365,46 +399,89 @@ class TransformerRecommender:
             (cfg.pipeline_stages > 0,
              f"pipeline parallelism (pipeline_stages={cfg.pipeline_stages})"),
             (cfg.tensor_parallel, "tensor parallelism"),
-            (rows_are_local and ctx.process_count > 1,
-             f"per-process rows (rows_are_local over {ctx.process_count} "
-             "processes)"),
         ]
         for hit, what in unported:
             if hit:
                 raise NotImplementedError(
                     f"TransformerRecommender.fit: {what} is not ported yet; "
                     f"it comes with {SHARDING_SLICE}")
+        if ctx.process_count > 1 and cfg.checkpoint_dir:
+            raise NotImplementedError(
+                "TransformerRecommender.fit: mid-training checkpoints of a "
+                "multi-process fit (member-slice checkpoints, item 4.3) come "
+                f"with {SHARDING_SLICE}")
 
     def fit(self, ctx: DeviceContext, sequences: np.ndarray, item_map,
             rows_are_local: bool = False) -> TransformerModel:
-        """transformer.py:423 ``fit`` on one device. sequences: ``[N,
+        """transformer.py:423 ``fit`` on ``ctx.device``. sequences: ``[N,
         max_len+1]`` int token rows (0-padded on the left), each row a
         session; position t predicts position t+1. Batches are the rows in
         order (zero-weight zero rows pad the last), staged on the device
         once; one host sync for the whole fit (the final loss) without
         checkpoints, a save after every ``checkpoint_every`` epochs with
-        them."""
+        them.
+
+        ``ctx.process_count > 1``: data-parallel over the context's process
+        group. ``rows_are_local=True``: the rows are only THIS process's
+        session shard (tokens already global), staged by
+        ``parallel/staging.py`` (reference :470-493; the resampled padding
+        rows' weights zeroed); otherwise every process holds every row,
+        stages the global batches and takes its slice of each. Each step
+        runs forward and backward on the local batch over the GLOBAL
+        batch's weight sum (gathered once at staging), so the processes'
+        gradients sum to the single-process gradient of the global batch;
+        one all-reduce of the flattened gradients, then the same adam on
+        every replica. The replicas are proven equal at the end
+        (:func:`~incubator_predictionio_tpu_torch.parallel.mesh.check_replicas`)."""
         cfg = self.config
-        self._refuse_unported(ctx, rows_are_local)
+        self._refuse_unported(ctx)
+        multi = ctx.process_count > 1
         sequences = np.asarray(sequences)
         tokens, targets = sequences[:, :-1], sequences[:, 1:]
         weights = (targets != 0).astype(np.float32) * (tokens != 0).astype(np.float32)
         n, l = tokens.shape
         if l != cfg.max_len:
             raise ValueError(f"sequences must be max_len+1 = {cfg.max_len + 1} wide")
-        global_batch = ctx.pad_to_batch_multiple(min(cfg.batch_size, max(n, 1)))
-        n_batches = max(1, -(-n // global_batch))
-        pad = n_batches * global_batch - n
         dev = ctx.device
+        t_stage = time.perf_counter()
+        if multi and rows_are_local:
+            from incubator_predictionio_tpu_torch.parallel.staging import (
+                stage_sharded_batches,
+            )
 
-        def stage(a, dtype):
-            a = np.concatenate([a, np.zeros((pad, l), a.dtype)])
-            return torch.from_numpy(np.ascontiguousarray(
-                a.reshape(n_batches, global_batch, l))).to(dev, dtype)
+            (tb, yb, wb), w_pad, _ = stage_sharded_batches(
+                ctx, (tokens.astype(np.int32), targets.astype(np.int32),
+                      weights), cfg.batch_size, cfg.seed)
+            tb, yb = tb.long(), yb.long()
+            # padding rows were resampled from real rows: zero their loss
+            # weight through the staging weight column (:493)
+            wb = wb * w_pad[..., None]
+            staged_real = int(w_pad.sum())
+        else:
+            global_batch = ctx.pad_to_batch_multiple(min(cfg.batch_size, max(n, 1)))
+            n_batches = max(1, -(-n // global_batch))
+            pad = n_batches * global_batch - n
+            cols = slice(None)
+            if multi:  # the global batches' slice on the data axis
+                b_local = global_batch // ctx.process_count
+                cols = slice(ctx.process_index * b_local,
+                             (ctx.process_index + 1) * b_local)
 
-        tb, yb = stage(tokens, torch.int64), stage(targets, torch.int64)
-        wb = stage(weights, torch.float32)
-        positions = torch.arange(l, device=dev).expand(global_batch, l)
+            def stage(a, dtype):
+                a = np.concatenate([a, np.zeros((pad, l), a.dtype)])
+                a = a.reshape(n_batches, global_batch, l)[:, cols]
+                return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+            tb, yb = stage(tokens, torch.int64), stage(targets, torch.int64)
+            wb = stage(weights, torch.float32)
+            staged_real = None
+        n_batches, b_rows = tb.shape[0], tb.shape[1]
+        positions = torch.arange(l, device=dev).expand(b_rows, l)
+        # each global batch's loss denominator, max(Σ w, 1), once: a sum of
+        # 0/1 weights, exact in fp32 in any order
+        denoms = (ctx.all_reduce_sum(wb.sum((1, 2))).clamp(min=1.0)
+                  if multi else None)
+        t_stage = time.perf_counter() - t_stage
 
         generator = torch.Generator(device=dev).manual_seed(cfg.seed)
         net = TransformerNet(_init_params(cfg, generator, dev), cfg, dev,
@@ -412,6 +489,10 @@ class TransformerRecommender:
         params = list(net.parameters())
         opt_state = adam_init(params, cfg.adam_moments_dtype)
         chunks = []  # [epochs, n_batches] step losses of each chunk run
+        clock = CollectiveClock(dev)
+
+        def all_reduce(t):
+            return clock.time(lambda: ctx.all_reduce_sum(t))
 
         def train_epochs(p, o, n_epochs):
             # p is `params`: a restore copies into the net's own tensors
@@ -420,7 +501,11 @@ class TransformerRecommender:
                 for i in range(n_batches):
                     losses[epoch, i] = train_step(
                         net, o, (tb[i], positions, yb[i], wb[i]),
-                        cfg.learning_rate)
+                        cfg.learning_rate,
+                        denom=denoms[i] if multi else None,
+                        all_reduce=all_reduce if multi else None)
+            if multi:  # the global step losses: the local ones summed once
+                losses = clock.time(lambda: ctx.all_reduce_sum(losses))
             chunks.append(losses)
             # the mean of the last epoch's step losses (transformer.py:314)
             return p, o, losses[-1].mean()
@@ -439,6 +524,7 @@ class TransformerRecommender:
         t_train = time.perf_counter() - t_train
         t_gather = time.perf_counter()
         params = net.params_numpy()
+        digest = check_replicas(ctx, list(_leaves(params))) if multi else None
         model = TransformerModel(params, item_map, cfg)
         model.final_loss = final_loss
         # the epochs this call ran (a resumed fit skips the restored ones)
@@ -446,6 +532,29 @@ class TransformerRecommender:
                              else np.zeros((0, n_batches), np.float32))
         model.timings = {"train_sec": round(t_train, 4),
                          "gather_sec": round(time.perf_counter() - t_gather, 4)}
+        if multi:
+            exchange = clock.seconds()
+            n_steps = cfg.epochs * n_batches
+            model.timings.update(stage_sec=round(t_stage, 4),
+                                 exchange_sec=round(exchange, 4))
+            from incubator_predictionio_tpu_torch.ops.attention import (
+                KERNEL_WRAPPERS,
+            )
+
+            peak = (torch.cuda.max_memory_allocated(dev)
+                    if dev.type == "cuda" else 0)
+            logger.info(
+                "data-parallel fit: process %d of %d (backend %s, %s): %d "
+                "steps of %d local rows; stage %.3f s, train %.3f s, "
+                "exchange %.3f ms a step; loss %.6f; replica digest %s, equal "
+                "on every process; staged %d rows (%s real); peak device "
+                "memory %d bytes; attention launches %s",
+                ctx.process_index, ctx.process_count, ctx.backend, dev,
+                n_steps, b_rows, t_stage, t_train,
+                exchange / max(n_steps, 1) * 1e3, final_loss, digest,
+                n_batches * b_rows,
+                staged_real if staged_real is not None else "all", peak,
+                json.dumps({w.__name__: w.launches for w in KERNEL_WRAPPERS}))
         return model
 
     @staticmethod

@@ -64,7 +64,6 @@ The host path keeps the reference's numpy code and its order.
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 import logging
 import threading
 import time
@@ -72,6 +71,11 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+
+from incubator_predictionio_tpu_torch.parallel.mesh import (
+    CollectiveClock,
+    check_replicas,
+)
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -555,7 +559,7 @@ class TwoTowerMF:
             checkpointed_epochs,
         )
 
-        clock = _CollectiveClock(dev)
+        clock = CollectiveClock(dev)
 
         def train(p, o, n):
             if multi:
@@ -595,7 +599,7 @@ class TwoTowerMF:
             model._device = dev
         else:
             ue, ie = (t.cpu().numpy() for t in tables)
-            digest = _check_replicas(ctx, (ue, ie)) if multi else None
+            digest = check_replicas(ctx, (ue, ie)) if multi else None
             model = TwoTowerModel(
                 user_emb=ue[:n_users, :k], item_emb=ie[:n_items, :k],
                 user_bias=ue[:n_users, k], item_bias=ie[:n_items, k],
@@ -1034,7 +1038,7 @@ def _gather_batches(ctx, ub, ib, wb):
 
 def _train_epochs_dp(ctx, tables, grads, state, ub, ib, rb, wb, gub, gib,
                      denoms, lr: float, reg: float, n_epochs: int,
-                     clock: "_CollectiveClock") -> Optional[torch.Tensor]:
+                     clock: CollectiveClock) -> Optional[torch.Tensor]:
     """The data-parallel ``_train_epochs`` of one process: each step the row
     gradients of its own rows over the global denominator, one all-gather
     of them (``[P, b_local, 2·(rank+1)]``), every process's rows scattered
@@ -1060,51 +1064,6 @@ def _train_epochs_dp(ctx, tables, grads, state, ub, ib, rb, wb, gub, gib,
             last = clock.time(
                 lambda: ctx.all_reduce_sum(torch.stack(losses))).mean()
     return last
-
-
-class _CollectiveClock:
-    """The time a fit spends in its collectives: CUDA events around each
-    call on the card (the device timeline from the call's start to its
-    result, host copies and waits for peers included), the host clock on
-    the CPU. Read once, after the fit's last sync."""
-
-    def __init__(self, device: torch.device):
-        self._cuda = torch.device(device).type == "cuda"
-        self._events: list = []
-        self._host = 0.0
-
-    def time(self, fn):
-        if self._cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn()
-            end.record()
-            self._events.append((start, end))
-            return out
-        t = time.perf_counter()
-        out = fn()
-        self._host += time.perf_counter() - t
-        return out
-
-    def seconds(self) -> float:
-        return self._host + sum(a.elapsed_time(b) for a, b in self._events) / 1e3
-
-
-def _check_replicas(ctx, arrays) -> str:
-    """A digest of this replica's host tables, compared with every other
-    process's; raises if any differs (the primary persists its replica as
-    the job's model)."""
-    h = hashlib.blake2b(digest_size=16)
-    for a in arrays:
-        h.update(memoryview(np.ascontiguousarray(a)).cast("B"))
-    mine = h.hexdigest()
-    digests = ctx.allgather_obj(mine)
-    if len(set(digests)) != 1:
-        raise RuntimeError(
-            f"data-parallel fit: the replicas' tables differ across processes "
-            f"(digests {digests}); the primary's model would not be the job's")
-    return mine
 
 
 def _topk_quantized(uidx, ue_tab, ub_tab, items_q, scales, bias, mask,

@@ -17,17 +17,23 @@ every process owns a card of its own (process i takes ``cuda:i``), else
 ``gloo`` — for CPU processes, and for processes that share one card, which
 NCCL refuses. Under gloo the collectives on CUDA tensors go through
 explicit host copies (:meth:`DeviceContext._through_host`), never through
-gloo's partial CUDA support.
+gloo's partial CUDA support. :class:`CollectiveClock` times a
+data-parallel fit's collectives and :func:`check_replicas` proves its
+replicas equal at the end (both fits, ``models/two_tower.py`` and
+``models/transformer.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime as _dt
+import hashlib
 import logging
 import os
+import time
 from typing import Any, Optional, Union
 
+import numpy as np
 import torch
 
 logger = logging.getLogger(__name__)
@@ -192,3 +198,48 @@ class DeviceContext:
                 f"DeviceContext: {dev} requested but CUDA is not available "
                 "(pass device='cpu' to run on the CPU)")
         return DeviceContext(dev)
+
+
+class CollectiveClock:
+    """The time a fit spends in its collectives: CUDA events around each
+    call on the card (the device timeline from the call's start to its
+    result, host copies and waits for peers included), the host clock on
+    the CPU. Read once, after the fit's last sync."""
+
+    def __init__(self, device: torch.device):
+        self._cuda = torch.device(device).type == "cuda"
+        self._events: list = []
+        self._host = 0.0
+
+    def time(self, fn):
+        if self._cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            self._events.append((start, end))
+            return out
+        t = time.perf_counter()
+        out = fn()
+        self._host += time.perf_counter() - t
+        return out
+
+    def seconds(self) -> float:
+        return self._host + sum(a.elapsed_time(b) for a, b in self._events) / 1e3
+
+
+def check_replicas(ctx, arrays) -> str:
+    """A digest of this replica's host arrays (a data-parallel fit's
+    tables or parameters), compared with every other process's; raises if
+    any differs (the primary persists its replica as the job's model)."""
+    h = hashlib.blake2b(digest_size=16)
+    for a in arrays:
+        h.update(memoryview(np.ascontiguousarray(a)).cast("B"))
+    mine = h.hexdigest()
+    digests = ctx.allgather_obj(mine)
+    if len(set(digests)) != 1:
+        raise RuntimeError(
+            f"data-parallel fit: the replicas differ across processes "
+            f"(digests {digests}); the primary's model would not be the job's")
+    return mine

@@ -12,8 +12,8 @@ rating triples, each fold's train set re-indexed to its own vocabularies),
 and the evaluation: :class:`PrecisionAtK`, :class:`PositiveCount`,
 :class:`RecommendationEvaluation` (reference Evaluation.scala:62-106).
 Under several processes ``read_training`` reads this process's entity
-shard (``_read_sharded``) and the fit is data-parallel; sharded evaluation
-folds come with the sharding slice (ROADMAP.md Queue 1, item 4).
+shard (``_read_sharded``), ``read_eval`` folds it
+(``_read_eval_sharded``), and the fit is data-parallel.
 
 Query ``{"user": U, "num": N, "blackList": [...]}`` → PredictedResult
 ``{"itemScores": [{"item": I, "score": S}, …]}``; an unknown user gets the
@@ -50,7 +50,6 @@ from incubator_predictionio_tpu_torch.data.bimap import BiMap
 from incubator_predictionio_tpu_torch.data.store import PEventStore
 from incubator_predictionio_tpu_torch.models.two_tower import (
     ROW_MASK_MAX_ELEMENTS,
-    SHARDING_SLICE,
     TwoTowerConfig,
     TwoTowerMF,
     TwoTowerModel,
@@ -240,9 +239,75 @@ class DataSource(PDataSource):
         ]
 
     def _read_eval_sharded(self, ctx: DeviceContext, k: int):
-        raise NotImplementedError(
-            "DataSource: per-process sharded evaluation folds come with "
-            f"{SHARDING_SLICE}")
+        """recommendation.py:239-290: each process reads its entity shard
+        (``_read_sharded``), fold membership is a stable hash of the (user,
+        item) pair (no coordination), each fold's vocabularies are
+        fold-local (users entity-disjoint: ``concat_vocab``; items cross
+        shards: ``union_vocab``), the fold's train rows stay local
+        (``rows_are_local``), and the (small) held-out pairs are
+        allgathered in process order, so that every process evaluates the
+        same query set with the same (replicated) model."""
+        import zlib
+
+        from incubator_predictionio_tpu_torch.data.sharded import (
+            concat_vocab,
+            global_row_count,
+            union_vocab,
+        )
+
+        td = self._read_sharded(ctx)  # local rows, global vocabularies
+        u_str = td.user_vocab[td.user_idx]
+        i_str = td.item_vocab[td.item_idx]
+        fold_of = np.asarray([
+            zlib.crc32(f"{self.params.seed}|{u}|{i}".encode()) % k
+            for u, i in zip(u_str, i_str)
+        ], np.int64) if len(u_str) else np.zeros(0, np.int64)
+        folds = []
+        for fold in range(k):
+            train_mask = fold_of != fold
+            test_mask = ~train_mask
+            # fold-local vocabularies (collective, vocabulary-sized)
+            keep_u = np.unique(td.user_idx[train_mask])
+            keep_i = np.unique(td.item_idx[train_mask])
+            user_vocab, user_offset = concat_vocab(ctx, td.user_vocab[keep_u])
+            item_vocab, item_remap = union_vocab(ctx, td.item_vocab[keep_i])
+            remap_u = np.full(len(td.user_vocab), -1, np.int32)
+            remap_u[keep_u] = user_offset + np.arange(len(keep_u), dtype=np.int32)
+            remap_i = np.full(len(td.item_vocab), -1, np.int32)
+            remap_i[keep_i] = item_remap
+            n_global = global_row_count(ctx, int(train_mask.sum()))
+            train = TrainingData(
+                remap_u[td.user_idx[train_mask]],
+                remap_i[td.item_idx[train_mask]],
+                td.ratings[train_mask],
+                user_vocab, item_vocab,
+                rows_are_local=True, n_rows_global=n_global,
+            )
+            local_qa = self._fold_qa(td, test_mask)
+            parts = ctx.allgather_obj(
+                [(q.user, q.num, [(ir.item, ir.rating) for ir in a.ratings])
+                 for q, a in local_qa])
+            qa = [
+                (Query(user=u, num=num),
+                 ActualResult(tuple(ItemRating(i, r) for i, r in pairs)))
+                for part in parts for u, num, pairs in part
+            ]
+            logger.info(
+                "sharded eval fold %d of %d: %d of %d train rows (shard "
+                "%d/%d), %d held-out queries, query digest %s", fold, k,
+                int(train_mask.sum()), n_global, ctx.process_index,
+                ctx.process_count, len(qa), query_digest(parts))
+            folds.append((train, {"fold": fold}, qa))
+        return folds
+
+
+def query_digest(parts) -> str:
+    """A digest of a sharded fold's gathered held-out queries (every
+    process's ``(user, num, [(item, rating), …])`` list, in process order):
+    the processes of one evaluation log the same one."""
+    import hashlib
+
+    return hashlib.blake2b(repr(parts).encode(), digest_size=8).hexdigest()
 
 
 def _subset(td: TrainingData, mask: np.ndarray) -> TrainingData:

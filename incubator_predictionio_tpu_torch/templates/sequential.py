@@ -16,13 +16,15 @@ explicit session; ``{"user": U, "num": N}`` reads the user's latest
 scores the next item after them. Either answers ``{"itemScores": [{"item":
 I, "score": S}, …]}``, never a history item; a session with no known item
 (a user the store does not know) gets the reference's empty answer.
-Multi-process sharded reads come with the sharding slice (ROADMAP.md
-Queue 1, item 4) and raise until then.
+Under several processes each process reads its user shard, the token space
+is the union over the processes, and the fit is data-parallel
+(``models/transformer.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import zlib
 from typing import Optional, Sequence
 
@@ -43,14 +45,19 @@ from incubator_predictionio_tpu_torch.core import (
     PDataSource,
 )
 from incubator_predictionio_tpu_torch.data.bimap import BiMap
+from incubator_predictionio_tpu_torch.data.sharded import (
+    global_row_count,
+    union_vocab,
+)
 from incubator_predictionio_tpu_torch.data.store import LEventStore, PEventStore
 from incubator_predictionio_tpu_torch.models.transformer import (
-    SHARDING_SLICE,
     TransformerConfig,
     TransformerModel,
     TransformerRecommender,
 )
 from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext
+
+logger = logging.getLogger(__name__)
 
 # -- queries / results ------------------------------------------------------
 
@@ -106,7 +113,8 @@ class TrainingData:
     """sequential.py:85: ``sequences`` ``[n, max_len+1]`` int32 tokens,
     0-padded on the left; ``item_map`` item id → token (1-based, 0 is
     padding); ``rows_are_local`` / ``n_rows_global`` describe a
-    multi-process sharded read (the sharding slice)."""
+    multi-process sharded read (this process's user shard; the item map
+    and tokens are global)."""
 
     sequences: np.ndarray
     item_map: BiMap
@@ -128,44 +136,56 @@ class DataSource(PDataSource):
         self._store = PEventStore()
 
     def _collect_sessions(self, ctx: DeviceContext) -> tuple[dict[str, list[str]], bool]:
-        """sequential.py:116: user → ordered item list, from every
-        ``events`` event of a user on an item (``find`` is event-time
-        ordered). One process reads the whole store; the sharded read of
-        one process's users comes with the sharding slice."""
+        """sequential.py:116-137: user → ordered item list, from every
+        ``events`` event of a user on an item (event-time ordered), for
+        this process's user shard (``find_sharded``; sessions are per-user
+        and users are entity-sharded, so a session never splits across
+        processes). Returns (sessions, sharded)."""
         p = self.params
-        if ctx.process_count > 1:
-            raise NotImplementedError(
-                f"a sharded read of the sessions ({ctx.process_count} "
-                f"processes) comes with {SHARDING_SLICE}")
+        procs, pid = ctx.process_count, ctx.process_index
+        sharded = procs > 1
         sessions: dict[str, list[str]] = {}
-        events = self._store.find(
-            p.app_name, entity_type="user", event_names=tuple(p.events),
-            target_entity_type="item",
-        )
+        if sharded:
+            events = self._store.find_sharded(
+                p.app_name, procs, entity_type="user",
+                event_names=tuple(p.events))[pid]
+        else:
+            events = self._store.find(
+                p.app_name, entity_type="user", event_names=tuple(p.events),
+                target_entity_type="item",
+            )
         for e in events:
             if e.target_entity_type != "item":
                 continue
             sessions.setdefault(e.entity_id, []).append(e.target_entity_id)
-        return sessions, False
+        return sessions, sharded
 
     def _build_fold(self, ctx: DeviceContext, sessions_list: list[list[str]],
                     sharded: bool) -> TrainingData:
-        """sequential.py:139, the single-process branch: the token space
-        from the sessions in first-seen order (token 0 reserved for
-        padding), and one row per session of at least 2 items, left-padded
-        to ``max_len + 1``."""
-        if sharded:
-            raise NotImplementedError(
-                f"a sharded read (a global vocabulary over processes) comes "
-                f"with {SHARDING_SLICE}")
+        """sequential.py:139-171: the token space from the sessions in
+        first-seen order (token 0 reserved for padding; ``sharded``: the
+        first-seen union over the processes' vocabularies in process order,
+        one vocabulary-sized allgather), and one row per session of at
+        least 2 items, left-padded to ``max_len + 1``."""
         base = BiMap.string_int([i for items in sessions_list for i in items])
+        n_rows_global = None
+        if sharded:
+            vocab, _ = union_vocab(ctx, list(base))
+            base = BiMap({v: i for i, v in enumerate(vocab.tolist())})
         item_map = BiMap({k: v + 1 for k, v in base.items()})
         width = self.params.max_len + 1
         rows = [encode_session(items, item_map, width)
                 for items in sessions_list if len(items) >= 2]
+        if sharded:
+            n_rows_global = global_row_count(ctx, len(rows))
+            logger.info("sharded read: %d of %d rows (shard %d/%d)",
+                        len(rows), n_rows_global, ctx.process_index,
+                        ctx.process_count)
         return TrainingData(
             sequences=np.stack(rows) if rows else np.zeros((0, width), np.int32),
-            item_map=item_map)
+            item_map=item_map,
+            rows_are_local=sharded,
+            n_rows_global=n_rows_global)
 
     def read_training(self, ctx: DeviceContext) -> TrainingData:
         """sequential.py:174: the sessions from the event store, folded
@@ -178,8 +198,9 @@ class DataSource(PDataSource):
         by a stable user hash; a held-out session of at least 3 items becomes
         (Query(recentItems=prefix), ActualResult(last item)). Fold
         vocabularies come from the fold's TRAIN sessions only, so unseen
-        items stay genuinely unknown. A sharded read raises in
-        ``_collect_sessions`` (the sharding slice)."""
+        items stay genuinely unknown. Sharded: each process folds its own
+        users, and the held-out queries are allgathered in process order,
+        so that every process evaluates the same global query set."""
         k = self.params.eval_k
         if not k:
             return []
@@ -199,11 +220,22 @@ class DataSource(PDataSource):
                 else:
                     train_sessions.append(items)
             td = self._build_fold(ctx, train_sessions, sharded)
-            qa = [
+            local_qa = [
                 (Query(recent_items=tuple(items[:-1]), num=p.eval_num),
                  ActualResult(items[-1]))
                 for items in held if len(items) >= 3
             ]
+            if sharded:
+                parts = ctx.allgather_obj([
+                    (list(q.recent_items), q.num, a.next_item)
+                    for q, a in local_qa
+                ])
+                qa = [
+                    (Query(recent_items=tuple(r), num=num), ActualResult(nx))
+                    for part in parts for r, num, nx in part
+                ]
+            else:
+                qa = local_qa
             folds.append((td, {"fold": fold}, qa))
         return folds
 

@@ -2,12 +2,12 @@
 
 Counterpart of ``incubator_predictionio_tpu/tools/cli.py`` (reference
 tools/console/Console.scala): the verbs ``app new``, ``import``, ``train``,
-``eval``, ``deploy`` and ``launch``, with the reference's argument names (its
-cli.py:58, :231, :267, :295, :631, :3786). ``train``, ``eval`` and
-``deploy`` run on the card unless ``--device cpu`` asks for the CPU.
-``launch -n N train …`` runs N coordinated ``train --distributed``
-processes (``parallel/launcher.py``). The other verbs come with ROADMAP.md
-Queue 1, items 6 and 7. Run it as ``python -m
+``eval``, ``deploy``, ``batchpredict`` and ``launch``, with the reference's
+argument names (its cli.py:58, :231, :267, :295, :366, :631, :3786).
+``train``, ``eval``, ``deploy`` and ``batchpredict`` run on the card unless
+``--device cpu`` asks for the CPU. ``launch -n N <verb> …`` runs N
+coordinated ``<verb> --distributed`` processes of ``train``, ``eval`` or
+``batchpredict`` (``parallel/launcher.py``). Run it as ``python -m
 incubator_predictionio_tpu_torch.tools.cli <verb>``; :func:`main` takes the
 arguments, so a caller can run a verb in-process.
 """
@@ -117,6 +117,10 @@ def cmd_eval(args, storage: Storage) -> int:
         distributed=args.distributed,
     )
     instance_id = create_workflow(config, storage)
+    if instance_id == "<secondary>":
+        _out("Evaluation completed (secondary process; the primary wrote "
+             "the evaluation instance).")
+        return 0
     inst = storage.get_meta_data_evaluation_instances().get(instance_id)
     _out(f"Evaluation completed. Instance ID: {instance_id}")
     if inst is not None and inst.evaluator_results:
@@ -141,6 +145,40 @@ def cmd_deploy(args, storage: Storage) -> int:
     return 0
 
 
+def cmd_batchpredict(args, storage: Storage) -> int:
+    """(BatchPredict.scala; reference cli.py:366-396)"""
+    from incubator_predictionio_tpu_torch.core.workflow.batch_predict import (
+        BatchPredictConfig,
+        part_path,
+        run_batch_predict,
+    )
+    from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext
+
+    # under `launch -n N batchpredict` each process scores a slice and
+    # writes <output>.part-<pid>
+    ctx = DeviceContext.create(args.device, distributed=args.distributed)
+    try:
+        n = run_batch_predict(
+            BatchPredictConfig(
+                engine_variant=args.engine_variant,
+                input_path=args.input,
+                output_path=args.output,
+                query_chunk=args.query_partitions or 1024,
+            ),
+            storage,
+            ctx,
+        )
+    finally:
+        ctx.stop()
+    if ctx.process_count > 1:
+        _out(f"Batch predict completed: {n} predictions written to "
+             f"{part_path(args.output, ctx.process_index)} "
+             f"(slice {ctx.process_index + 1}/{ctx.process_count})")
+    else:
+        _out(f"Batch predict completed: {n} predictions written to {args.output}")
+    return 0
+
+
 def cmd_launch(args, storage: Storage) -> int:
     """Spawn N coordinated processes of another verb (Runner.scala:185's
     spark-submit construction, minus the JVM; reference cli.py:3786-3819)
@@ -159,11 +197,6 @@ def cmd_launch(args, storage: Storage) -> int:
         _out(f"launch: only the train/eval/batchpredict verbs join a "
              f"distributed job (got {verb_args[0]!r})")
         return 2
-    if verb_args[0] != "train":
-        raise NotImplementedError(
-            f"launch {verb_args[0]}: sharded evaluation and batch prediction "
-            "come with the sharding slice of the PyTorch port (ROADMAP.md "
-            "Queue 1, item 4)")
     if "--distributed" not in verb_args:
         verb_args.append("--distributed")
     result = launch_local(
@@ -188,7 +221,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="pio-tpu",
         description="PredictionIO-capability ML server framework "
                     "(PyTorch/CUDA port: app new, import, train, eval, "
-                    "deploy, launch)",
+                    "deploy, batchpredict, launch)",
     )
     sub = parser.add_subparsers(dest="command")
 
@@ -236,8 +269,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="disable prefix memoization across variants "
                         "(FastEvalEngine is the default)")
     p.add_argument("--distributed", action="store_true",
-                   help="join a torch.distributed job (comes with the "
-                        "sharding slice: raises)")
+                   help="join a torch.distributed job (see the launch verb / "
+                        "PIO_DIST_* env); process 0 writes the instance")
 
     p = sub.add_parser("deploy")
     p.add_argument("-v", "--engine-variant", default="engine.json")
@@ -247,6 +280,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", help="torch device to serve on (default: "
                                     "the card, cuda:0; 'cpu' for the CPU)")
 
+    p = sub.add_parser("batchpredict")
+    p.add_argument("--input", default="batchpredict-input.json")
+    p.add_argument("--output", default="batchpredict-output.json")
+    p.add_argument("-v", "--engine-variant", default="engine.json")
+    p.add_argument("--query-partitions", type=int)
+    p.add_argument("--device", help="torch device to score on (default: "
+                                    "the card, cuda:0; 'cpu' for the CPU)")
+    p.add_argument("--distributed", action="store_true",
+                   help="score a per-process slice under `launch -n N`; "
+                        "writes <output>.part-<pid> files (the reference's "
+                        "saveAsTextFile layout)")
+
     p = sub.add_parser("import")
     p.add_argument("--appid", type=int, required=True)
     p.add_argument("--input", required=True)
@@ -255,7 +300,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 _COMMANDS = {"train": cmd_train, "eval": cmd_eval, "deploy": cmd_deploy,
-             "import": cmd_import, "launch": cmd_launch}
+             "batchpredict": cmd_batchpredict, "import": cmd_import,
+             "launch": cmd_launch}
 _APP_COMMANDS = {"new": cmd_app_new}
 
 

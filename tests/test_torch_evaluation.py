@@ -716,19 +716,26 @@ def test_read_eval_folds_are_bitwise_the_references(stores, template, k):
 
 @pytest.mark.parametrize("template,read", [
     ("rec", "read_training"), ("rec", "read_eval"),
-    ("seq", "read_training"), ("seq", "read_eval")])
-def test_sharded_reads_refuse_naming_item_4(template, read):
-    """Sharded evaluation folds (and the sequential template's sharded
-    sessions) name item 4; the recommendation template's sharded training
-    read is ported (tests/test_torch_distributed_train.py): a context that
-    claims two processes without a group refuses at its first collective."""
-    tpkg = TEMPLATES[template][1]
+    ("seq", "read_training"), ("seq", "read_eval"),
+    ("similarproduct", "read_training"), ("recommended_user", "read_training"),
+    ("ecommerce", "read_training"), ("classification", "read_training")])
+def test_sharded_reads_refuse_naming_item_4(stores, template, read):
+    """The recommendation and sequential templates' sharded reads are
+    ported (tests/test_torch_distributed_eval.py): a context that claims
+    two processes without a group refuses at its first collective. The
+    four other templates' sharded reads still name item 4."""
     two = DeviceContext(torch.device("cpu"), process_index=0, process_count=2)
-    ds = tpkg.DataSource(tpkg.DataSourceParams(app_name=template, eval_k=3))
-    if (template, read) == ("rec", "read_training"):
+    if template in ("rec", "seq"):
+        tpkg = TEMPLATES[template][1]
+        ds = tpkg.DataSource(tpkg.DataSourceParams(app_name=template, eval_k=3))
         with pytest.raises(RuntimeError, match="no process group was joined"):
             getattr(ds, read)(two)
         return
+    import importlib
+
+    tpkg = importlib.import_module(
+        f"incubator_predictionio_tpu_torch.templates.{template}")
+    ds = tpkg.DataSource(tpkg.DataSourceParams())
     with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
         getattr(ds, read)(two)
 

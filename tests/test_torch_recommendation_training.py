@@ -243,7 +243,19 @@ def test_train_refuses_what_is_not_ported(stores):
                for sh in shards)
     assert sum(len(sh.ratings) for sh in shards) == len(td.ratings)
     assert set(shards[1].user_idx) >= {len(reads[0][0])}  # the offset
-    with pytest.raises(NotImplementedError, match="item 4"):
+    # sharded evaluation folds (held bitwise against the reference's in
+    # tests/test_torch_distributed_eval.py): two processes in lockstep
+    # each train on their shard of a fold and evaluate the same queries
+    from tests.test_torch_distributed_eval import Lockstep
+
+    folds = Lockstep(2).run(lambda ctx: trec.DataSource(trec.DataSourceParams(
+        app_name="rec", eval_k=2)).read_eval(ctx))
+    for (a, ei_a, qa_a), (b, ei_b, qa_b) in zip(*folds):
+        assert ei_a == ei_b and qa_a == qa_b and qa_a
+        assert a.rows_are_local and a.n_rows_global == len(a.ratings) + len(b.ratings)
+        held = sum(len(act.ratings) for _, act in qa_a)
+        assert a.n_rows_global + held == len(td.ratings)
+    with pytest.raises(RuntimeError, match="no process group was joined"):
         trec.DataSource(trec.DataSourceParams(app_name="rec", eval_k=2)).read_eval(
             DeviceContext(torch.device("cpu"), process_index=0, process_count=2))
     # evaluation is ported: create_workflow runs it on the CPU through

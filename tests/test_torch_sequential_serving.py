@@ -327,12 +327,14 @@ def test_unported_stages_raise_and_name_the_roadmap(tmp_path):
         max_len=32, num_experts=2))
     with pytest.raises(NotImplementedError, match="mixture-of-experts.*ROADMAP"):
         algo.train(CPU, tseq.TrainingData(rows, tseq.BiMap({"i0": 1})))
-    # the event-store reads are ported (tests/test_torch_event_store_reads.py):
-    # a sharded read of the sessions waits for the sharding slice, and a
-    # user of an app the store does not know answers empty
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        tseq.DataSource(tseq.DataSourceParams()).read_training(
-            DeviceContext(torch.device("cpu"), process_index=0, process_count=2))
+    # the event-store reads are ported (tests/test_torch_event_store_reads.py),
+    # the sharded read of the sessions too (tests/test_torch_distributed_eval.py):
+    # two processes read the store as one does, and an app the store does
+    # not know fails alike; a user of such an app answers empty
+    for ctx in (CPU, DeviceContext(torch.device("cpu"), process_index=0,
+                                   process_count=2)):
+        with pytest.raises(ValueError, match="Invalid app name sequential"):
+            tseq.DataSource(tseq.DataSourceParams()).read_training(ctx)
     _, tm = _pair(32)
     tm.prepare_for_serving(CPU)
     algo._levents = LEventStore(Storage({

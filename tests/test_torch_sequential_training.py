@@ -260,11 +260,20 @@ def test_fit_refuses_what_is_not_ported(field, value, match):
 
 
 def test_fit_refuses_rows_of_several_processes():
+    """Rows of several processes are ported (the data-parallel fit,
+    tests/test_torch_distributed_eval.py): a context that claims two
+    processes without a group refuses at its first collective, the
+    staging's; checkpoints of a multi-process fit name item 4.3."""
     ctx = DeviceContext(torch.device("cpu"), process_index=0, process_count=2)
     # the data axis is the process count (one device a process)
     assert ctx.pad_to_batch_multiple(13) == 14
-    with pytest.raises(NotImplementedError, match="rows_are_local.*ROADMAP"):
-        ttr.TransformerRecommender(ttr.TransformerConfig(**FIT)).fit(
+    for local in (True, False):
+        with pytest.raises(RuntimeError, match="no process group was joined"):
+            ttr.TransformerRecommender(ttr.TransformerConfig(**FIT)).fit(
+                ctx, _rows(), None, rows_are_local=local)
+    with pytest.raises(NotImplementedError, match="item 4.3.*ROADMAP.md Queue 1"):
+        ttr.TransformerRecommender(ttr.TransformerConfig(
+            **FIT, checkpoint_dir="/nonexistent", checkpoint_every=1)).fit(
             ctx, _rows(), None, rows_are_local=True)
     with pytest.raises(ValueError, match="max_len"):
         ttr.TransformerRecommender(ttr.TransformerConfig(**FIT)).fit(
@@ -301,9 +310,16 @@ def test_build_fold_matches_jax():
     with pytest.raises(ValueError, match="no sessions"):
         tseq.DataSource(tseq.DataSourceParams(**params))._build_fold(
             CPU, [["i1"]], False).sanity_check()
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        tseq.DataSource(tseq.DataSourceParams(**params))._build_fold(
-            CPU, sessions, True)
+    # the sharded branch on one process: the union over one shard is the
+    # shard's own vocabulary, the rows local and counted
+    want = jseq.DataSource(jseq.DataSourceParams(**params))._build_fold(
+        MeshContext.create(), sessions, True)
+    got = tseq.DataSource(tseq.DataSourceParams(**params))._build_fold(
+        CPU, sessions, True)
+    assert dict(got.item_map.items()) == dict(want.item_map.items())
+    np.testing.assert_array_equal(got.sequences, want.sequences)
+    assert got.rows_are_local and want.rows_are_local
+    assert got.n_rows_global == want.n_rows_global == 11
 
 
 @pytest.fixture(scope="module")
