@@ -214,6 +214,77 @@ class _Layer(nn.Module):
         return h + _bf16_matmul(x, self.w2) + self.b2
 
 
+#: rows a block of :func:`_scan_rows`: one product with a ``[64, 64]``
+#: lower-triangular matrix of ones sums each block's prefixes
+SCAN_BLOCK = 64
+
+
+def _scan_rows(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums down the rows of ``x`` ``[n, d]``, in one
+    fixed order on every device and every run: within blocks of
+    :data:`SCAN_BLOCK` rows, one batched product with the lower-triangular
+    matrix of ones; the blocks' totals scanned the same way and added to
+    the following blocks. (``torch.cumsum`` on the card sums in an order
+    that varies from run to run.)"""
+    n, d = x.shape
+    c = SCAN_BLOCK
+    nb = -(-n // c)
+    if nb * c != n:
+        x = torch.cat([x, x.new_zeros(nb * c - n, d)])
+    tri = torch.ones(c, c, dtype=x.dtype, device=x.device).tril_()
+    q = torch.matmul(tri, x.reshape(nb, c, d))
+    if nb > 1:
+        q[1:] += _scan_rows(q[:, -1])[:-1, None]
+    return q.reshape(nb * c, d)[:n]
+
+
+def _segment_sum_sorted(idx: torch.Tensor, rows: torch.Tensor, n: int
+                       ) -> torch.Tensor:
+    """``[n, d]``: the sum of ``rows`` ``[S, d]`` at each of ``idx`` ``[S]``,
+    the same bytes every run. The indices are sorted stably, the rows
+    summed down that order in float64 (:func:`_scan_rows`), and each
+    index's sum taken as the difference of two prefixes (float64 leaves
+    that difference well inside float32's rounding) and rounded to the
+    rows' dtype; every row of an index writes that index's one sum, so
+    which duplicate lands last does not matter. No host sync, no atomics."""
+    keys, order = torch.sort(idx, stable=True)
+    prefix = _scan_rows(rows.index_select(0, order).double())
+    end = torch.searchsorted(keys, keys, right=True) - 1
+    start = torch.searchsorted(keys, keys)
+    before = torch.where((start > 0)[:, None],
+                         prefix[(start - 1).clamp(min=0)], 0.0)
+    out = rows.new_zeros((n, rows.shape[1]))
+    out[keys] = (prefix[end] - before).to(rows.dtype)
+    return out
+
+
+class _Lookup(torch.autograd.Function):
+    """``F.embedding`` whose backward is :func:`_segment_sum_sorted`.
+    ``F.embedding``'s own backward on the card gave two runs of one
+    training step different position-embedding gradients (each position
+    repeats once a row); this one sums alike every run."""
+
+    @staticmethod
+    def forward(ctx, idx, table):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return F.embedding(idx, table)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return None, _segment_sum_sorted(idx.reshape(-1),
+                                        g.reshape(-1, g.shape[-1]), ctx.rows)
+
+
+def _lookup(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The rows of ``table`` at ``idx``: :class:`_Lookup` when a gradient
+    is wanted, else ``F.embedding``."""
+    if table.requires_grad and torch.is_grad_enabled():
+        return _Lookup.apply(idx, table)
+    return F.embedding(idx, table)
+
+
 class TransformerNet(nn.Module):
     """The dense layer stack on one explicit device: buffers to serve, or
     (``trainable=True``) fp32 parameters to train. ``params`` is the
@@ -236,10 +307,11 @@ class TransformerNet(nn.Module):
         int → hidden ``[B, L, D]`` fp32 after the final norm. With
         ``cfg.remat`` and a gradient wanted, each block recomputes its
         activations in the backward (``jax.checkpoint``, :225-229). The
-        lookups are ``F.embedding``: its backward sums the rows of a
-        repeated index (the padding token, every position) in parallel
-        segments, where indexing's backward walks them one by one."""
-        h = F.embedding(tokens, self.item_emb) + F.embedding(positions, self.pos_emb)
+        lookups are :func:`_lookup`: its backward sums the rows of a
+        repeated index (the padding token, every position) as one sorted
+        float64 scan, the same bytes every run, where indexing's backward
+        walks a repeated index's rows one by one."""
+        h = _lookup(tokens, self.item_emb) + _lookup(positions, self.pos_emb)
         remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
             if remat:

@@ -615,14 +615,17 @@ class TwoTowerMF:
         if multi:
             exchange = clock.seconds()
             model.timings["exchange_sec"] = round(exchange, 4)
+            peak = (torch.cuda.max_memory_allocated(dev)
+                    if dev.type == "cuda" else 0)
             logger.info(
                 "data-parallel fit: process %d of %d (backend %s, %s): %d "
                 "steps of %d local rows; stage %.3f s, train %.3f s, "
                 "exchange %.3f ms a step; loss %.6f; replica digest %s, equal "
-                "on every process", ctx.process_index, ctx.process_count,
+                "on every process; peak device memory %d bytes",
+                ctx.process_index, ctx.process_count,
                 ctx.backend, dev, n_steps, int(gub.shape[1]) // ctx.process_count,
                 t_stage, t_train, exchange / max(n_steps, 1) * 1e3, loss,
-                digest)
+                digest, peak)
         return model
 
     def _stage_local(self, ctx, users, items, ratings):

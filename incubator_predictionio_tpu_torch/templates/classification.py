@@ -15,14 +15,17 @@ makes k folds by row position, :class:`Accuracy` and :class:`Precision`
 score them, and :class:`AccuracyEvaluation`, :class:`PrecisionEvaluation`
 and :class:`CompleteEvaluation` wire them up (the add-algorithm example's
 Evaluation.scala, PrecisionEvaluation.scala, CompleteEvaluation.scala).
-Sharded reads and fits come with the sharding slice (ROADMAP.md Queue 1,
-item 4).
+Under several processes each process reads its user shard
+(``_read_sharded``), the MLP fit is data-parallel and the naive Bayes fit
+sums the shards' class moments on the host (``_train_sharded``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
+import time
 from collections import Counter
 from typing import Optional, Sequence
 
@@ -46,14 +49,21 @@ from incubator_predictionio_tpu_torch.core import (
     PDataSource,
     SanityCheck,
 )
+from incubator_predictionio_tpu_torch.data.sharded import (
+    global_row_count,
+    global_sum,
+    union_label_set,
+)
 from incubator_predictionio_tpu_torch.data.store import PEventStore
 from incubator_predictionio_tpu_torch.models.mlp import (
     MLPClassifier,
     MLPConfig,
     MLPModel,
 )
-from incubator_predictionio_tpu_torch.models.two_tower import SHARDING_SLICE
+from incubator_predictionio_tpu_torch.models.two_tower import _scatter_rows
 from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext
+
+logger = logging.getLogger(__name__)
 
 # -- data source ------------------------------------------------------------
 
@@ -71,7 +81,8 @@ class TrainingData(SanityCheck):
 
     x: np.ndarray  # [n, d] float32
     y: np.ndarray  # [n] labels (original values)
-    # multi-process sharded reads come with the sharding slice
+    # multi-process sharded read: rows are THIS process's entity shard only;
+    # n_rows_global is the job-wide count
     rows_are_local: bool = False
     n_rows_global: Optional[int] = None
 
@@ -126,9 +137,19 @@ class DataSource(PDataSource):
         return self._read()
 
     def _read_sharded(self, ctx: DeviceContext) -> TrainingData:
-        raise NotImplementedError(
-            "classification DataSource: per-process entity-sharded reads "
-            f"come with {SHARDING_SLICE}")
+        """classification.py:127-139: each process folds the ``$set``
+        events of 1/P of the users (property snapshots are per-entity, so a
+        shard's fold is exact; reference counterpart: RDD partition reads)."""
+        t0 = time.perf_counter()
+        td = self._read(n_shards=ctx.process_count,
+                        shard_index=ctx.process_index)
+        n_global = global_row_count(ctx, len(td.x))
+        logger.info(
+            "sharded read: %d of %d rows (shard %d/%d) in %.3f s",
+            len(td.x), n_global, ctx.process_index, ctx.process_count,
+            time.perf_counter() - t0)
+        return TrainingData(td.x, td.y, rows_are_local=True,
+                            n_rows_global=n_global)
 
     def read_eval(self, ctx: DeviceContext):
         """k-fold split by row position (reference readEval pattern,
@@ -250,19 +271,22 @@ class NaiveBayesModel:
 
 def _nb_fit(x: torch.Tensor, y_idx: torch.Tensor, n_classes: int,
             smoothing: float):
-    """Per-class counts, means and variances as segment sums
-    (``index_add_``; on the card its atomics sum in no fixed order)."""
+    """classification.py:231 ``_nb_fit``: per-class counts, means and
+    variances as segment sums, each segment's rows in one fixed order
+    (``models/two_tower.py:_scatter_rows``: a sorted ``index_put_`` on the
+    card, so that every fit there sums alike; ``index_add_`` on the CPU)."""
     ones = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
-    counts = torch.zeros(n_classes, dtype=torch.float32, device=x.device)
-    counts.index_add_(0, y_idx, ones)
-    sums = torch.zeros((n_classes, x.shape[1]), dtype=torch.float32,
-                       device=x.device)
-    means = sums.index_add_(0, y_idx, x) / counts[:, None]
+    counts = ones.new_empty(n_classes)
+    _scatter_rows(counts, y_idx, ones)
+    sums = x.new_empty((n_classes, x.shape[1]))
+    _scatter_rows(sums, y_idx, x)
+    means = sums / counts[:, None]
     # variance as mean squared deviation (E[x²]−E[x]² cancels catastrophically
     # in float32 for large-magnitude/small-spread features), floored at the
     # smoothing so constant columns stay positive
     dev = x - means[y_idx]
-    ssd = torch.zeros_like(sums).index_add_(0, y_idx, dev * dev)
+    ssd = torch.empty_like(sums)
+    _scatter_rows(ssd, y_idx, dev * dev)
     variances = torch.clamp(ssd / counts[:, None], min=smoothing)
     log_priors = torch.log(counts / counts.sum())
     return means, variances, log_priors
@@ -304,8 +328,35 @@ class NaiveBayesAlgorithm(P2LAlgorithm):
         return model
 
     def _train_sharded(self, ctx: DeviceContext, pd: TrainingData) -> NaiveBayesModel:
-        raise NotImplementedError(
-            f"NaiveBayesAlgorithm over per-process rows comes with {SHARDING_SLICE}")
+        """classification.py:279-310: the closed-form fit from the
+        processes' summed per-class moments, in float64 on the host, in two
+        passes (the means first, then the squared deviations against the
+        global means), so the E[x²]−E[x]² cancellation the one-process fit
+        avoids stays avoided; the classes are the sorted union of the
+        shards' labels, the priors from the global counts."""
+        classes = np.asarray(union_label_set(ctx, pd.y.tolist()))
+        cls_index = {c: i for i, c in enumerate(classes.tolist())}
+        y_idx = np.asarray([cls_index[v] for v in pd.y.tolist()], np.int64)
+        c, d = len(classes), pd.x.shape[1] if pd.x.ndim == 2 else 0
+        counts = np.zeros(c, np.float64)
+        np.add.at(counts, y_idx, 1.0)
+        sx = np.zeros((c, d), np.float64)
+        np.add.at(sx, y_idx, pd.x.astype(np.float64))
+        counts, sx = global_sum(ctx, (counts, sx))
+        means = sx / np.maximum(counts[:, None], 1.0)
+        dev = pd.x.astype(np.float64) - means[y_idx]
+        ssd = np.zeros((c, d), np.float64)
+        np.add.at(ssd, y_idx, dev * dev)
+        ssd = global_sum(ctx, ssd)
+        variances = np.maximum(
+            ssd / np.maximum(counts[:, None], 1.0), self.params.var_smoothing)
+        log_priors = np.log(counts / counts.sum())
+        return NaiveBayesModel(
+            classes=classes,
+            means=means.astype(np.float32),
+            variances=variances.astype(np.float32),
+            log_priors=log_priors.astype(np.float32),
+        )
 
     def _scores(self, model: NaiveBayesModel, x: np.ndarray) -> np.ndarray:
         if model._device is None:

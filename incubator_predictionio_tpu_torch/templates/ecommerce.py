@@ -16,14 +16,17 @@ Counterpart of ``incubator_predictionio_tpu/templates/ecommerce.py``
 
 The live reads ride the port's :class:`LEventStore`. Scoring is host
 numpy, as in the reference: the serial and the batched paths run the same
-BLAS call chain per query, so their scores are bitwise equal. Sharded
-reads raise until ROADMAP.md Queue 1, item 4.
+BLAS call chain per query, so their scores are bitwise equal. Under
+several processes each reads its user shard of the events, the buy counts
+are summed over the processes (popularity is global) and the fit is
+data-parallel (``data/sharded.py``, ``models/two_tower.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -39,13 +42,17 @@ from incubator_predictionio_tpu_torch.core import (
     SanityCheck,
 )
 from incubator_predictionio_tpu_torch.data.bimap import BiMap
+from incubator_predictionio_tpu_torch.data.sharded import (
+    global_row_count,
+    global_sum,
+    union_label_set,
+)
 from incubator_predictionio_tpu_torch.data.store import LEventStore, PEventStore
 from incubator_predictionio_tpu_torch.models.negative_sampling import (
     sample_negatives,
 )
 from incubator_predictionio_tpu_torch.models.two_tower import (
     ROW_MASK_MAX_ELEMENTS,
-    SHARDING_SLICE,
     TwoTowerConfig,
     TwoTowerMF,
     TwoTowerModel,
@@ -103,7 +110,8 @@ class TrainingData(SanityCheck):
     i_idx: np.ndarray       # [n] interaction item idx
     weight: np.ndarray      # [n] 1.0 view / buy_weight buy
     buy_counts: np.ndarray  # [n_items] popularity (always global)
-    # multi-process sharded reads come with the sharding slice
+    # multi-process sharded read: interaction rows are THIS process's user
+    # shard only (BiMaps/indices/buy_counts are global)
     rows_are_local: bool = False
     n_rows_global: Optional[int] = None
 
@@ -124,11 +132,14 @@ class DataSource(PDataSource):
         self._store = PEventStore()
 
     def read_training(self, ctx: DeviceContext) -> TrainingData:
-        if ctx.process_count > 1:
-            raise NotImplementedError(
-                "e-commerce DataSource: per-process entity-sharded reads "
-                f"come with {SHARDING_SLICE}")
+        """ecommerce.py:118-175. Under several processes each reads its user
+        shard of the events (``find_sharded``); the user vocabulary is the
+        sorted union of the shards' users, and the buy counts are summed
+        over the processes in process order (popularity is global)."""
+        t0 = time.perf_counter()
         app = self.params.app_name
+        procs, pid = ctx.process_count, ctx.process_index
+        sharded = procs > 1
         item_props = self._store.aggregate_properties(app, "item")
         items = BiMap.string_int(item_props.keys())
         categories = {
@@ -140,10 +151,14 @@ class DataSource(PDataSource):
         view_names = tuple(self.params.view_event_names)
         buy_names = tuple(self.params.buy_event_names)
         wanted = (*view_names, *buy_names)
-        events = self._store.find(
-            app, entity_type="user", event_names=wanted,
-            target_entity_type="item",
-        )
+        if sharded:
+            events = self._store.find_sharded(
+                app, procs, entity_type="user", event_names=wanted)[pid]
+        else:
+            events = self._store.find(
+                app, entity_type="user", event_names=wanted,
+                target_entity_type="item",
+            )
         for e in events:
             if e.target_entity_type != "item" or e.target_entity_id not in items:
                 continue
@@ -154,6 +169,15 @@ class DataSource(PDataSource):
             weight.append(1.0 if is_view else self.params.buy_weight)
             if not is_view:
                 buy_counts[items[e.target_entity_id]] += 1
+        n_rows_global = None
+        if sharded:
+            user_ids = set(union_label_set(ctx, user_ids))
+            buy_counts = global_sum(ctx, buy_counts)  # popularity is global
+            n_rows_global = global_row_count(ctx, len(inter_u))
+            logger.info(
+                "sharded read: %d of %d rows (shard %d/%d) in %.3f s",
+                len(inter_u), n_rows_global, pid, procs,
+                time.perf_counter() - t0)
         users = BiMap.string_int(sorted(user_ids))  # sorted: set order is hash-seed dependent
         return TrainingData(
             users=users,
@@ -163,6 +187,8 @@ class DataSource(PDataSource):
             i_idx=items.lookup_array(inter_i),
             weight=np.asarray(weight, np.float32),
             buy_counts=buy_counts,
+            rows_are_local=sharded,
+            n_rows_global=n_rows_global,
         )
 
 

@@ -16,14 +16,16 @@ to follow, from user→user "follow" events.
 
 Scoring is the item-similarity path (``templates/_similarity.py``): one
 bf16 ``[q, k] × [k, n]`` product over the L2-normalized followed-user
-table on the serving device, plus an additive -inf filter mask. Sharded
-reads raise until ROADMAP.md Queue 1, item 4.
+table on the serving device, plus an additive -inf filter mask. Under
+several processes each reads its follower shard of the follow events and
+the fit is data-parallel (``data/sharded.py``, ``models/two_tower.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -39,12 +41,15 @@ from incubator_predictionio_tpu_torch.core import (
     SanityCheck,
 )
 from incubator_predictionio_tpu_torch.data.bimap import BiMap
+from incubator_predictionio_tpu_torch.data.sharded import (
+    global_row_count,
+    union_label_set,
+)
 from incubator_predictionio_tpu_torch.data.store import PEventStore
 from incubator_predictionio_tpu_torch.models.negative_sampling import (
     sample_negatives,
 )
 from incubator_predictionio_tpu_torch.models.two_tower import (
-    SHARDING_SLICE,
     TwoTowerConfig,
     TwoTowerMF,
 )
@@ -98,7 +103,8 @@ class TrainingData(SanityCheck):
     users: BiMap                 # user id ↔ index (followers and followed share it)
     follow_u: np.ndarray         # [n_follows] follower idx
     follow_t: np.ndarray         # [n_follows] followed idx
-    # multi-process sharded reads come with the sharding slice
+    # multi-process sharded read: follow rows are THIS process's follower
+    # shard only (the BiMap is global); n_follows_global is the job-wide count
     rows_are_local: bool = False
     n_follows_global: Optional[int] = None
 
@@ -121,15 +127,22 @@ class DataSource(PDataSource):
         self._store = PEventStore()
 
     def read_training(self, ctx: DeviceContext) -> TrainingData:
-        if ctx.process_count > 1:
-            raise NotImplementedError(
-                "recommended-user DataSource: per-process entity-sharded "
-                f"reads come with {SHARDING_SLICE}")
+        """recommended_user.py:109-150. Under several processes each reads
+        its follower shard of the follow events (``find_sharded``); the
+        vocabulary is the ``$set`` users ∪ the union of the shards' event
+        users (followed ids can live outside this follower shard)."""
+        t0 = time.perf_counter()
         app = self.params.app_name
+        procs, pid = ctx.process_count, ctx.process_index
+        sharded = procs > 1
         user_props = self._store.aggregate_properties(app, "user")
-        events = self._store.find(
-            app, entity_type="user", event_names=("follow",),
-            target_entity_type="user")
+        if sharded:
+            events = self._store.find_sharded(
+                app, procs, entity_type="user", event_names=("follow",))[pid]
+        else:
+            events = self._store.find(
+                app, entity_type="user", event_names=("follow",),
+                target_entity_type="user")
         follows: list[tuple[str, str]] = []
         local_users: set[str] = set()
         for e in events:
@@ -138,11 +151,23 @@ class DataSource(PDataSource):
             local_users.add(e.entity_id)
             local_users.add(e.target_entity_id)
             follows.append((e.entity_id, e.target_entity_id))
-        users = BiMap.string_int(sorted(set(user_props.keys()) | local_users))
+        user_ids = set(user_props.keys())
+        n_follows_global = None
+        if sharded:
+            user_ids |= set(union_label_set(ctx, local_users))
+            n_follows_global = global_row_count(ctx, len(follows))
+            logger.info("sharded read: %d of %d rows (shard %d/%d) in %.3f s",
+                        len(follows), n_follows_global, pid, procs,
+                        time.perf_counter() - t0)
+        else:
+            user_ids |= local_users
+        users = BiMap.string_int(sorted(user_ids))
         return TrainingData(
             users=users,
             follow_u=users.lookup_array([u for u, _ in follows]),
             follow_t=users.lookup_array([t for _, t in follows]),
+            rows_are_local=sharded,
+            n_follows_global=n_follows_global,
         )
 
 

@@ -20,13 +20,16 @@ the serving device by ``ItemSimModel.prepare_for_serving`` and never
 pickled) and the co-occurrence count ``Uᵀ U`` (:func:`_cooccur`: the
 reference's RDD self-join, CooccurrenceAlgorithm.scala:87, as one product).
 Masks, top-k and the co-occurrence lists are host numpy, as in the
-reference. Sharded reads raise until ROADMAP.md Queue 1, item 4.
+reference. Under several processes each reads its user shard of the
+events (the catalog replicated), the fits are data-parallel, and the
+co-occurrence counts are summed over the processes (``data/sharded.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -43,12 +46,16 @@ from incubator_predictionio_tpu_torch.core import (
     SanityCheck,
 )
 from incubator_predictionio_tpu_torch.data.bimap import BiMap
+from incubator_predictionio_tpu_torch.data.sharded import (
+    global_row_count,
+    global_sum,
+    union_label_set,
+)
 from incubator_predictionio_tpu_torch.data.store import PEventStore
 from incubator_predictionio_tpu_torch.models.negative_sampling import (
     sample_negatives,
 )
 from incubator_predictionio_tpu_torch.models.two_tower import (
-    SHARDING_SLICE,
     TwoTowerConfig,
     TwoTowerMF,
 )
@@ -113,7 +120,8 @@ class TrainingData(SanityCheck):
     like_u: np.ndarray                 # [n_likes] user idx
     like_i: np.ndarray                 # [n_likes] item idx
     like_sign: np.ndarray              # [n_likes] +1 like / -1 dislike
-    # multi-process sharded reads come with the sharding slice
+    # multi-process sharded read: event rows are THIS process's user shard
+    # only (BiMaps and indices are global); *_global are job-wide counts
     rows_are_local: bool = False
     n_views_global: Optional[int] = None
     n_likes_global: Optional[int] = None
@@ -137,11 +145,15 @@ class DataSource(PDataSource):
         self._store = PEventStore()
 
     def read_training(self, ctx: DeviceContext) -> TrainingData:
-        if ctx.process_count > 1:
-            raise NotImplementedError(
-                "similarproduct DataSource: per-process entity-sharded reads "
-                f"come with {SHARDING_SLICE}")
+        """similarproduct.py:126-195. Under several processes each reads
+        its user shard of the events (``find_sharded``); the catalog and
+        the ``$set`` users stay replicated reads, and the user vocabulary
+        is the ``$set`` users ∪ the union of the shards' event users (one
+        vocabulary-sized allgather)."""
+        t0 = time.perf_counter()
         app = self.params.app_name
+        procs, pid = ctx.process_count, ctx.process_index
+        sharded = procs > 1
         # item properties → catalog + categories (DataSource.scala itemsRDD)
         item_props = self._store.aggregate_properties(app, "item")
         items = BiMap.string_int(item_props.keys())
@@ -153,10 +165,14 @@ class DataSource(PDataSource):
         local_users: set[str] = set()
         view_names = tuple(self.params.view_event_names)
         wanted = (*view_names, "like", "dislike")
-        events = self._store.find(
-            app, entity_type="user", event_names=wanted,
-            target_entity_type="item",
-        )
+        if sharded:
+            events = self._store.find_sharded(
+                app, procs, entity_type="user", event_names=wanted)[pid]
+        else:
+            events = self._store.find(
+                app, entity_type="user", event_names=wanted,
+                target_entity_type="item",
+            )
         for e in events:
             if e.target_entity_type != "item":
                 continue
@@ -169,7 +185,19 @@ class DataSource(PDataSource):
                 like_u.append(e.entity_id)
                 like_i.append(e.target_entity_id)
                 like_sign.append(1.0 if e.event == "like" else -1.0)
-        user_ids = set(user_props.keys()) | local_users
+        user_ids = set(user_props.keys())
+        n_views_global = n_likes_global = None
+        if sharded:
+            user_ids |= set(union_label_set(ctx, local_users))
+            n_views_global = global_row_count(ctx, len(view_events))
+            n_likes_global = global_row_count(ctx, len(like_u))
+            logger.info(
+                "sharded read: %d of %d rows (shard %d/%d) in %.3f s",
+                len(view_events) + len(like_u),
+                n_views_global + n_likes_global, pid, procs,
+                time.perf_counter() - t0)
+        else:
+            user_ids |= local_users
         users = BiMap.string_int(sorted(user_ids))  # sorted: set order is hash-seed dependent
         view_u = users.lookup_array([u for u, _ in view_events])
         view_i = items.lookup_array([i for _, i in view_events])
@@ -182,6 +210,9 @@ class DataSource(PDataSource):
             like_u=users.lookup_array(like_u),
             like_i=items.lookup_array(like_i),
             like_sign=np.asarray(like_sign, np.float32),
+            rows_are_local=sharded,
+            n_views_global=n_views_global,
+            n_likes_global=n_likes_global,
         )
 
 
@@ -403,18 +434,26 @@ class CooccurrenceModel(HasCategoryIndex):
 class CooccurrenceAlgorithm(PAlgorithm):
     """Item co-view counts (CooccurrenceAlgorithm.scala:51-133). The RDD
     self-join becomes Uᵀ U on the card: U is the binary user×item view
-    matrix, so one product yields every pairwise co-count."""
+    matrix, so one product yields every pairwise co-count. Over sharded
+    rows (similarproduct.py:407-417) each process counts its user shard's
+    co-views, rounded to bf16 as one process's counts are, and the
+    processes' matrices are summed in process order: users are
+    entity-disjoint, so the global counts are the plain sum."""
 
     params_class = CooccurrenceAlgorithmParams
     serving_thread_safe = True  # read-only served arrays
     query_cls = Query
 
     def train(self, ctx: DeviceContext, pd: TrainingData) -> CooccurrenceModel:
-        if pd.rows_are_local:
-            raise NotImplementedError(
-                f"CooccurrenceAlgorithm over sharded rows comes with {SHARDING_SLICE}")
         n_users, n_items = len(pd.users), len(pd.items)
         cooc = _cooccur(pd.view_u, pd.view_i, n_users, n_items, ctx.device)
+        if pd.rows_are_local:
+            t0 = time.perf_counter()
+            cooc = global_sum(ctx, cooc)
+            logger.info(
+                "co-occurrence: the processes' [%d, %d] count matrices "
+                "summed (%d bytes a process) in %.3f s", n_items, n_items,
+                cooc.nbytes, time.perf_counter() - t0)
         np.fill_diagonal(cooc, 0)
         top_n = self.params.n
         top: dict[int, list[tuple[int, int]]] = {}

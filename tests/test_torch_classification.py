@@ -136,7 +136,7 @@ def test_read_training_is_the_references(stores):
         assert a.dtype == b.dtype and a.shape == b.shape, name
         np.testing.assert_array_equal(a, b, err_msg=name)
     assert len(got.x) == 200 - len(range(0, 200, 17)) - 1  # incomplete, unset
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(RuntimeError, match="no process group was joined"):
         tcl.DataSource(tcl.DataSourceParams(app_name="cls")).read_training(
             DeviceContext(torch.device("cpu"), process_index=0, process_count=2))
     # read_eval: k folds by row position, bitwise the reference's
@@ -269,6 +269,25 @@ def test_naive_bayes_matches_jax(stores):
             assert abs(got.scores[k] - want.scores[k]) <= 1e-4
 
 
+def test_nb_fit_is_unchanged_on_the_cpu():
+    """``_nb_fit`` sums its segments through ``_scatter_rows`` (a sorted
+    ``index_put_`` on the card, so that every run sums alike there); on the
+    CPU it is the ``index_add_`` fit it was, bitwise."""
+    x, y = _data(500, seed=5)
+    classes, y_idx = np.unique(y, return_inverse=True)
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y_idx.astype(np.int64))
+    c = len(classes)
+    counts = torch.zeros(c).index_add_(0, yt, torch.ones(len(x)))
+    means = torch.zeros((c, 3)).index_add_(0, yt, xt) / counts[:, None]
+    dev = xt - means[yt]
+    ssd = torch.zeros((c, 3)).index_add_(0, yt, dev * dev)
+    want = (means, torch.clamp(ssd / counts[:, None], min=1e-6),
+            torch.log(counts / counts.sum()))
+    got = tcl._nb_fit(xt, yt, c, 1e-6)
+    for name, a, b in zip(("means", "variances", "log_priors"), got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
+
+
 def test_vote_serving():
     p = [tcl.PredictedResult(label=1.0), tcl.PredictedResult(label=2.0),
          tcl.PredictedResult(label=2.0)]
@@ -312,11 +331,16 @@ def test_convert_round_trips():
 
 
 def test_fit_refuses_sharded_rows():
+    """The fit over per-process rows is ported
+    (tests/test_torch_distributed_templates.py): a context that claims two
+    processes without a group refuses at its first collective, on both
+    of its paths."""
     x, y = _data(50)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tmlp.MLPClassifier(tmlp.MLPConfig(epochs=1)).fit(
-            DeviceContext(torch.device("cpu"), process_index=0, process_count=2),
-            x, y, rows_are_local=True)
+    two = DeviceContext(torch.device("cpu"), process_index=0, process_count=2)
+    for local in (True, False):
+        with pytest.raises(RuntimeError, match="no process group was joined"):
+            tmlp.MLPClassifier(tmlp.MLPConfig(epochs=1)).fit(
+                two, x, y, rows_are_local=local)
 
 
 def test_train_persist_deploy_query(stores, tmp_path):

@@ -720,23 +720,24 @@ def test_read_eval_folds_are_bitwise_the_references(stores, template, k):
     ("similarproduct", "read_training"), ("recommended_user", "read_training"),
     ("ecommerce", "read_training"), ("classification", "read_training")])
 def test_sharded_reads_refuse_naming_item_4(stores, template, read):
-    """The recommendation and sequential templates' sharded reads are
-    ported (tests/test_torch_distributed_eval.py): a context that claims
-    two processes without a group refuses at its first collective. The
-    four other templates' sharded reads still name item 4."""
+    """Every template's sharded reads are ported
+    (tests/test_torch_distributed_eval.py,
+    tests/test_torch_distributed_templates.py): a context that claims two
+    processes without a group refuses at its first collective."""
     two = DeviceContext(torch.device("cpu"), process_index=0, process_count=2)
     if template in ("rec", "seq"):
         tpkg = TEMPLATES[template][1]
         ds = tpkg.DataSource(tpkg.DataSourceParams(app_name=template, eval_k=3))
-        with pytest.raises(RuntimeError, match="no process group was joined"):
-            getattr(ds, read)(two)
-        return
-    import importlib
+    else:
+        import importlib
 
-    tpkg = importlib.import_module(
-        f"incubator_predictionio_tpu_torch.templates.{template}")
-    ds = tpkg.DataSource(tpkg.DataSourceParams())
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
+        tpkg = importlib.import_module(
+            f"incubator_predictionio_tpu_torch.templates.{template}")
+        # an app of the store: the reads resolve it before their first
+        # collective
+        ds = tpkg.DataSource(tpkg.DataSourceParams(
+            app_name="cls" if template == "classification" else "rec"))
+    with pytest.raises(RuntimeError, match="no process group was joined"):
         getattr(ds, read)(two)
 
 

@@ -124,7 +124,7 @@ def test_read_training_is_the_references(training):
         assert a.dtype == b.dtype and a.shape == b.shape, name
         np.testing.assert_array_equal(a, b, err_msg=name)
     assert "solo" in got.users and len(got.follow_u) == N_USERS * PER_USER
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(RuntimeError, match="no process group was joined"):
         tru.DataSource(tru.DataSourceParams(app_name="ru")).read_training(
             DeviceContext(torch.device("cpu"), process_index=0, process_count=2))
 

@@ -223,6 +223,40 @@ def test_remat_gives_the_same_params(same_init):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("rows,vocab,pad", [(1000, 50, 300), (4096, 300, 3000),
+                                             (70, 7, 0)])
+def test_lookup_backward_is_the_exact_segment_sum(rows, vocab, pad):
+    """The lookups' backward (``_Lookup``, which replaced ``F.embedding``'s
+    backward: on the card that one summed a repeated index's rows in an
+    order that varied from run to run) is the float64 segment sum rounded
+    once to float32, bitwise, across the scan's block boundaries and a
+    long padding segment. The replaced backward's sequential float32 sums
+    lie within their error bound of it: (count − 1)·2⁻²⁴·Σ|g| a table
+    element."""
+    rng = np.random.default_rng(rows)
+    idx = rng.integers(0, vocab, rows)
+    idx[:pad] = 0  # the padding token's long segment
+    g = rng.standard_normal((rows, 5)).astype(np.float32)
+    exact = np.zeros((vocab, 5))
+    np.add.at(exact, idx, g.astype(np.float64))
+    table = torch.zeros((vocab, 5), requires_grad=True)
+    ttr._lookup(torch.from_numpy(idx), table).backward(torch.from_numpy(g))
+    np.testing.assert_array_equal(table.grad.numpy(), exact.astype(np.float32))
+    old = torch.zeros((vocab, 5), requires_grad=True)
+    torch.nn.functional.embedding(torch.from_numpy(idx), old).backward(
+        torch.from_numpy(g))
+    count = np.bincount(idx, minlength=vocab)[:, None]
+    mass = np.zeros((vocab, 5))
+    np.add.at(mass, idx, np.abs(g.astype(np.float64)))
+    bound = np.maximum(count - 1, 0) * 2.0 ** -24 * mass
+    assert (np.abs(old.grad.numpy() - exact) <= bound + 1e-30).all()
+    # a scan down more rows than one block's square, in one fixed order
+    x = torch.from_numpy(rng.standard_normal((ttr.SCAN_BLOCK ** 2 + 3, 2)))
+    np.testing.assert_allclose(ttr._scan_rows(x).numpy(),
+                               np.cumsum(x.numpy(), 0), rtol=1e-12, atol=1e-12)
+    assert torch.equal(ttr._scan_rows(x), ttr._scan_rows(x))
+
+
 def test_init_params_draws_the_reference_tree_from_the_seed():
     cfg = ttr.TransformerConfig(**FIT)
     a = ttr._init_params(cfg, torch.Generator().manual_seed(0), "cpu")

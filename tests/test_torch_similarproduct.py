@@ -166,7 +166,7 @@ def test_read_training_is_the_references(training):
         assert a.dtype == b.dtype and a.shape == b.shape, name
         np.testing.assert_array_equal(a, b, err_msg=name)
     assert len(got.view_u) == N_USERS * PER_USER  # the ghost item is dropped
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(RuntimeError, match="no process group was joined"):
         tsp.DataSource(tsp.DataSourceParams(app_name="sp")).read_training(
             DeviceContext(torch.device("cpu"), process_index=0, process_count=2))
 
