@@ -134,7 +134,16 @@ each path's answers held against its plain CPU path on the same model.
 users) with that stored model through the CLI's ``batchpredict``, in one
 process and under ``launch -n 2 batchpredict`` (part files), K1 at B 1024
 held against its plain version first; the parts concatenated must equal
-the one-process output. ``rec-launch-eval`` runs ``launch -n 2 eval`` on
+the one-process output. ``rec-supervised`` trains on rec-launch's store
+under the fault-tolerant tier: a ``Supervisor`` runs ``train
+--distributed`` as 2 members (gloo on one card; 10 epochs, a member-slice
+checkpoint after each) as a control, then again with a new checkpoint
+directory, SIGKILLing the highest rank once 2 epochs are committed: one
+recovery, generation 2, the resumed fit's step-10 leaves bitwise the
+control's, one COMPLETED instance, a generation-1 zombie fenced, ``dist
+status`` on the mesh, and the recovered model's K1 answers equal the
+control's (with two cards, one more chaos run on NCCL, bitwise the gloo
+control). ``rec-launch-eval`` runs ``launch -n 2 eval`` on
 rec-workflow's stored events (sharded folds, data-parallel fits, one
 EVALCOMPLETED row by process 0, each fold's query set against the one
 computed from the events); ``seq-launch``, after ``seq-eval``, runs
@@ -5442,6 +5451,306 @@ def rec_batchpredict_phase(R, ctx, persisted):
     return launches, rec
 
 
+# -- phase: fault-tolerant multi-process training (rec-supervised) -----------
+
+#: rec-supervised: rec-launch's store and widths (100,000 x 100,000, rank
+#: 128, 400,000 events, batch 65,536), 10 epochs, a slice checkpoint after
+#: each (the reference's chaos test's variant, tests/test_chaos_procs.py:
+#: 2191-2201, and bench.py:3532 bench_distributed_training)
+SUP_EPOCHS = 10
+SUP_KILL_AFTER = 2   # SIGKILL the highest live rank once this step commits
+SUP_HEARTBEAT_MS = 2000
+SUP_TIMEOUT_S = 600
+SUP_MTTR_LIMIT_S = 60.0
+SUP_SERVE_USERS = 16
+SUP_LINE = {
+    "resume": re.compile(r"resuming from epoch (\d+) \(of (\d+)\)"),
+    "slice": re.compile(r"dist checkpoint: member (\d+) step (\d+): slice of "
+                        r"(\d+) bytes written in ([\d.]+) ms, commit ([\d.]+) ms"),
+    "read": LAUNCH_LINE["read"],
+    "fit": LAUNCH_LINE["fit"],
+    "dist": LAUNCH_LINE["dist"],
+}
+
+
+def supervised_run(tag, variant_path, state_dir, ckpt_dir, env, kill,
+                   cpu_devices_per_process=None) -> dict:
+    """``train -v <variant> --distributed`` as 2 members under a
+    ``Supervisor``; with ``kill``, the highest live rank is SIGKILLed from
+    this process once ``SUP_KILL_AFTER`` epochs are committed. Returns the
+    result and the members' parsed log lines, held: the run ok, its
+    recoveries, every member's backend, its slices' steps."""
+    import signal
+    import threading
+
+    from incubator_predictionio_tpu_torch.distributed.supervisor import Supervisor
+    from incubator_predictionio_tpu_torch.utils import checkpoint as ckpt_fs
+
+    sup = Supervisor(["train", "-v", variant_path, "--distributed"],
+                     LAUNCH_PROCS, state_dir, heartbeat_ms=SUP_HEARTBEAT_MS,
+                     max_recoveries=2, env=env, timeout=SUP_TIMEOUT_S,
+                     cpu_devices_per_process=cpu_devices_per_process)
+    box, killed = {}, None
+    t0 = time.perf_counter()
+    runner = threading.Thread(target=lambda: box.update(res=sup.run()))
+    runner.start()
+    while kill and runner.is_alive():
+        steps = ckpt_fs.committed_steps(ckpt_dir)
+        alive = sup.alive_pids()
+        if steps and steps[-1] >= SUP_KILL_AFTER and len(alive) == LAUNCH_PROCS:
+            rank, pid = sorted(alive.items())[-1]
+            os.kill(pid, signal.SIGKILL)
+            killed = {"rank": rank, "pid": pid, "committed": steps[-1],
+                      "at_s": time.perf_counter() - t0}
+            break
+        time.sleep(0.02)
+    runner.join(SUP_TIMEOUT_S + 60)
+    wall = time.perf_counter() - t0
+    check(not runner.is_alive(), f"[{tag}] the supervised run wedged")
+    res = box["res"]
+    OUT.parent.mkdir(parents=True, exist_ok=True)
+    (OUT.parent / f"rec_supervised_{tag}.log").write_text(res.logs_text())
+    check(res.ok, f"[{tag}] not ok ({res.detail}, rcs {res.returncodes}):\n"
+          f"{res.logs_text()[-4000:]}")
+    check(not kill or killed is not None,
+          f"[{tag}] the run ended before {SUP_KILL_AFTER} epochs committed")
+    check(res.recoveries == (1 if kill else 0) and
+          res.generation == (2 if kill else 1),
+          f"[{tag}] recoveries {res.recoveries}, generation {res.generation}")
+    gen = res.generation
+    members = {}
+    for rank in range(LAUNCH_PROCS):
+        path = os.path.join(state_dir, "logs", f"member-{rank}.gen-{gen}.log")
+        text = Path(path).read_text(errors="replace")
+        rec = {k: rx.findall(text) for k, rx in SUP_LINE.items()}
+        check(len(rec["fit"]) == 1 and len(rec["read"]) == 1,
+              f"[{tag}] member {rank} of generation {gen}: {len(rec['fit'])} "
+              f"fit lines:\n{text[-4000:]}")
+        check(("Training completed. Engine instance ID" in text) == (rank == 0)
+              and ("secondary process" in text) == (rank != 0),
+              f"[{tag}] member {rank}'s role:\n{text[-2000:]}")
+        rec["iid"] = (text.split("Engine instance ID: ")[-1].split()[0]
+                      if rank == 0 else None)
+        members[rank] = rec
+    return {"res": res, "wall_s": wall, "killed": killed, "members": members}
+
+
+def supervised_record(tag, run, resumed) -> dict:
+    """The numbers a supervised run prints: wall, MTTR, the resume epoch,
+    member 0's slice write and commit ms a step, the bytes a step writes,
+    train events/s of the last generation."""
+    m0 = run["members"][0]
+    slices = [(int(s), int(b), float(w), float(c))
+              for m, s, b, w, c in m0["slice"] if m == "0"]
+    read, fit = m0["read"][0], m0["fit"][0]
+    epochs_run = SUP_EPOCHS - resumed
+    train_s = float(fit[7])
+    return {"wall_s": run["wall_s"], "mttr_s": run["res"].mttr_s,
+            "recoveries": run["res"].recoveries,
+            "generation": run["res"].generation, "killed": run["killed"],
+            "resumed_epoch": resumed, "backend": fit[2],
+            "slice_write_ms": [w for _, _, w, _ in slices],
+            "commit_ms": [c for _, _, _, c in slices],
+            "step_bytes": sorted({b for _, b, _, _ in slices}),
+            "global_rows": int(read[1]), "train_s": train_s,
+            "steps": int(fit[4]), "exchange_ms_per_step": float(fit[8]),
+            "train_events_per_sec": int(read[1]) * epochs_run / train_s,
+            "iid": m0["iid"]}
+
+
+def rec_supervised_phase(R, ctx, tmp, cpu_devices_per_process=None):
+    """Fault-tolerant training on rec-launch's store: a control run of 2
+    supervised members over gloo on one card, then a chaos run with a new
+    checkpoint directory whose highest rank is SIGKILLed once 2 epochs are
+    committed: one recovery, generation 2, an MTTR under a minute, a
+    resume from a committed epoch ≥ 2, the step-10 leaves bitwise the
+    control's, one COMPLETED instance and one blob by the primary, a
+    zombie of generation 1 fenced; ``dist status`` on its mesh; both
+    models deployed through K1, the answers of 16 users equal. With two
+    cards, a chaos run on NCCL (a card each), its leaves bitwise the gloo
+    control's. Returns (launches, record)."""
+    from incubator_predictionio_tpu_torch.distributed.checkpoint import (
+        DistSliceCheckpointer,
+    )
+    from incubator_predictionio_tpu_torch.distributed.errors import (
+        FencedGenerationError,
+    )
+    from incubator_predictionio_tpu_torch.distributed.meshdir import MeshDirectory
+    from incubator_predictionio_tpu_torch.models.two_tower import TwoTowerMF
+    from incubator_predictionio_tpu_torch.tools import cli
+    from incubator_predictionio_tpu_torch.utils import checkpoint as ckpt_fs
+    from incubator_predictionio_tpu_torch.utils.serialization import (
+        deserialize_model,
+    )
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "rec-launch")  # rec-launch's store
+    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    gloo_env = {"PYTHONPATH": str(Path(__file__).resolve().parent),
+                "CUDA_VISIBLE_DEVICES": first}
+    rec = {"epochs": SUP_EPOCHS, "heartbeat_ms": SUP_HEARTBEAT_MS,
+           "processes": LAUNCH_PROCS, "card_count": torch.cuda.device_count()}
+    runs, leaves, models = {}, {}, {}
+    with cli_storage(root) as registry:
+        storage = registry.get_storage()
+        instances = storage.get_meta_data_engine_instances()
+
+        def one(tag, kill, env):
+            ck_dir = os.path.join(root, f"ck-{tag}")
+            state_dir = os.path.join(root, f"mesh-{tag}")
+            variant = write_variant(
+                os.path.join(root, f"sup-{tag}.json"), FACTORY, "launch",
+                [{"name": "als", "params": {
+                    "rank": LAUNCH_RANK, "numIterations": SUP_EPOCHS,
+                    "batchSize": LAUNCH_BATCH, "checkpointDir": ck_dir,
+                    "checkpointEvery": 1}}])
+            before = {i.id for i in instances.get_all()}
+            run = supervised_run(tag, variant, state_dir, ck_dir, env, kill,
+                                 cpu_devices_per_process)
+            new = [i for i in instances.get_all() if i.id not in before]
+            done = [i for i in new if i.status == "COMPLETED"]
+            blobs = [i.id for i in new
+                     if storage.get_model_data_models().get(i.id) is not None]
+            check(len(done) == 1 and done[0].id == run["members"][0]["iid"]
+                  and blobs == [done[0].id],
+                  f"[rec-supervised {tag}] new instances "
+                  f"{[(i.id, i.status) for i in new]}, blobs {blobs}")
+            blob = storage.get_model_data_models().get(done[0].id)
+            resumed = [int(e) for m in run["members"].values()
+                       for e, _ in m["resume"]]
+            if kill:
+                check(len(resumed) == LAUNCH_PROCS and len(set(resumed)) == 1
+                      and resumed[0] >= SUP_KILL_AFTER,
+                      f"[rec-supervised {tag}] resume epochs {resumed}")
+                check(len(run["res"].mttr_s) == 1
+                      and 0.0 <= run["res"].mttr_s[0] < SUP_MTTR_LIMIT_S,
+                      f"[rec-supervised {tag}] MTTR {run['res'].mttr_s}")
+            else:
+                check(resumed == [], f"[rec-supervised {tag}] resumed {resumed}")
+            steps = ckpt_fs.committed_steps(ck_dir)
+            check(steps and steps[-1] == SUP_EPOCHS,
+                  f"[rec-supervised {tag}] committed steps {steps}")
+            manifests = [ckpt_fs.read_member_slice(ck_dir, SUP_EPOCHS, m)
+                         for m in range(LAUNCH_PROCS)]
+            check(all(m is not None for m in manifests)
+                  and len(manifests[0][0]["entries"]) == 8
+                  and all(m[0]["entries"] == [] for m in manifests[1:]),
+                  f"[rec-supervised {tag}] step {SUP_EPOCHS}'s manifests")
+            leaves[tag] = ckpt_fs.assemble_committed_step(ck_dir, SUP_EPOCHS)
+            models[tag] = deserialize_model(blob.models)[0]
+            runs[tag] = {"run": run, "state_dir": state_dir, "ck_dir": ck_dir,
+                         "resumed": resumed[0] if resumed else 0}
+            rec[tag] = supervised_record(tag, run, runs[tag]["resumed"])
+            rec[tag]["instances"] = [(i.id, i.status) for i in new]
+
+        one("control", False, gloo_env)
+        one("chaos", True, gloo_env)
+        if torch.cuda.device_count() >= LAUNCH_PROCS \
+                and cpu_devices_per_process is None:
+            one("chaos_nccl", True, {"PYTHONPATH": gloo_env["PYTHONPATH"]})
+            check(rec["chaos_nccl"]["backend"] == "nccl",
+                  f"[rec-supervised] the NCCL run's backend "
+                  f"{rec['chaos_nccl']['backend']}")
+        check(rec["control"]["backend"] == rec["chaos"]["backend"] == "gloo",
+              f"[rec-supervised] backends {rec['control']['backend']}, "
+              f"{rec['chaos']['backend']}")
+        for tag in [t for t in leaves if t != "control"]:
+            same = len(leaves[tag]) == len(leaves["control"]) == 8 and all(
+                a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes()
+                for a, b in zip(leaves[tag], leaves["control"]))
+            rec[tag]["bitwise_control"] = same
+            check(same, f"[rec-supervised] {tag}'s step-{SUP_EPOCHS} leaves "
+                  "differ from the control's")
+        rec["step_leaves"] = [[list(a.shape), a.dtype.str]
+                              for a in leaves["control"]]
+        del leaves
+
+        # a zombie of generation 1 cannot touch the chaos run's checkpoints
+        md = MeshDirectory(runs["chaos"]["state_dir"])
+        zombie = DistSliceCheckpointer(
+            runs["chaos"]["ck_dir"], members=LAUNCH_PROCS, member=0,
+            generation=1, meshdir=md, slice_fn=lambda i, leaf, m, n: [(leaf, None)])
+        try:
+            zombie.save(SUP_EPOCHS + 1, {"w": torch.zeros(2)})
+            fenced = False
+        except FencedGenerationError:
+            fenced = True
+        check(fenced, "[rec-supervised] a generation-1 zombie saved a slice")
+        check(ckpt_fs.committed_steps(runs["chaos"]["ck_dir"])[-1] == SUP_EPOCHS,
+              "[rec-supervised] the zombie moved the commits")
+        rec["zombie_fenced"] = fenced
+
+        # dist status on the chaos mesh (degraded once the run has ended:
+        # every member dropped its lease)
+        import io
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["dist", "status", "--state-dir",
+                           runs["chaos"]["state_dir"], "--json"])
+        snap = json.loads(buf.getvalue())
+        check(snap["generation"] == 2 and snap["lastCommit"]["step"] == SUP_EPOCHS
+              and snap["lastCommit"]["generation"] == 2,
+              f"[rec-supervised] dist status {snap}")
+        rec["dist_status"] = {"rc": rc, **{k: snap[k] for k in (
+            "generation", "expectedMembers", "aliveMembers", "degraded",
+            "lastCommit")}}
+
+        # the recovered model and the control's through K1 (int8, D 128)
+        R.reset_launches()
+        answers = {}
+        with retrieval_mode("exact"):
+            for tag in ("control", "chaos"):
+                model = models[tag].prepare_for_serving(ctx)
+                info = model.mf.serving_info()
+                check(info["path"] == "device-int8"
+                      and info["device"].startswith(ctx.device.type),
+                      f"[rec-supervised] {tag} serves {info}")
+                vocab = list(model.user_map.keys())
+                pick = np.random.default_rng(41).choice(
+                    len(vocab), SUP_SERVE_USERS, replace=False)
+                idx, scores = TwoTowerMF.recommend_batch(
+                    model.mf, np.asarray(pick, np.int32), 10)
+                check(bool(np.isfinite(scores).all()),
+                      f"[rec-supervised] {tag}: non-finite scores")
+                answers[tag] = (idx.tolist(), scores.tolist())
+        launches = {"score_catalog_quantized": R.score_catalog_quantized.launches}
+        check(launches["score_catalog_quantized"] > 0,
+              "[rec-supervised] K1 never launched serving the recovered model")
+        check(answers["chaos"] == answers["control"],
+              "[rec-supervised] the recovered model's K1 answers differ from "
+              "the control's")
+        del models
+    rec["launches"] = launches
+    rec["phase_s"] = time.perf_counter() - t_phase
+    smi = smi_name_power()
+    for tag in [t for t in ("control", "chaos", "chaos_nccl") if t in rec]:
+        r = rec[tag]
+        w, c = r["slice_write_ms"], r["commit_ms"]
+        log(f"[rec-supervised] ({smi}) {tag}: wall {r['wall_s']:.2f} s, "
+            f"backend {r['backend']}, generation {r['generation']}, "
+            f"recoveries {r['recoveries']}, MTTR "
+            f"{[round(x, 3) for x in r['mttr_s']]} s, killed {r['killed']}, "
+            f"resumed from epoch {r['resumed_epoch']}; member 0's slice of "
+            f"{r['step_bytes']} bytes a step: write median "
+            f"{statistics.median(w):.1f} ms (max {max(w):.1f}), commit median "
+            f"{statistics.median(c):.1f} ms (max {max(c):.1f}) over {len(w)} "
+            f"steps of the last generation; train {r['train_s']:.3f} s for "
+            f"{SUP_EPOCHS - r['resumed_epoch']} epochs ({r['steps']} steps, "
+            f"exchange {r['exchange_ms_per_step']:.3f} ms a step): "
+            f"{r['train_events_per_sec']:.1f} train events/s"
+            + (f"; step-{SUP_EPOCHS} leaves bitwise the control's"
+               if r.get("bitwise_control") else ""))
+    log(f"[rec-supervised] ({smi}) zombie of generation 1 fenced; dist status: "
+        f"generation {rec['dist_status']['generation']}, last commit "
+        f"{rec['dist_status']['lastCommit']['step']}, rc "
+        f"{rec['dist_status']['rc']}; {SUP_SERVE_USERS} users' K1 answers of "
+        f"the recovered model equal the control's; launches {launches}; "
+        f"phase {rec['phase_s']:.1f} s")
+    return launches, rec
+
+
 # -- phase: launch -n 2 eval of the recommendation template ------------------
 
 class RecLaunchEvalGrid:
@@ -6715,6 +7024,13 @@ def main() -> int:
             torch.cuda.empty_cache()
             counts, main["rec_batchpredict"] = rec_batchpredict_phase(
                 R, ctx, main["rec_launch"].pop("persisted"))
+            for k, c in counts.items():
+                launches[k] = launches.get(k, 0) + c
+            gc.collect()
+            torch.cuda.empty_cache()
+            # fault-tolerant training on rec-launch's store: supervised
+            # members, a member killed, the resumed fit bitwise the control
+            counts, main["rec_supervised"] = rec_supervised_phase(R, ctx, tmp2)
             for k, c in counts.items():
                 launches[k] = launches.get(k, 0) + c
         gc.collect()

@@ -13,10 +13,10 @@ kernels' backwards → ``utils/optim.py`` adam (optax's); with
 ``checkpoint_dir`` the epochs run in chunks through
 ``utils/checkpoint.py:checkpointed_epochs``. Under several processes the
 fit is data-parallel (:func:`train_step` over the global batch's
-denominator, one all-reduce of the gradients a step). MoE, ring
-attention, pipeline and tensor parallelism, and checkpoints of a
-multi-process fit, come with the sharding slice (ROADMAP.md Queue 1, item
-4) and raise until then.
+denominator, one all-reduce of the gradients a step), and its checkpoints
+take the plain multi-process path (the primary writes, every process
+waits). MoE, ring attention, pipeline and tensor parallelism come with
+the sharding slice (ROADMAP.md Queue 1, item 4) and raise until then.
 
 Numerics follow the reference: every matmul rounds both operands and the
 product to bf16 (``_bf16_matmul``), so served scores are bf16 values and
@@ -477,11 +477,6 @@ class TransformerRecommender:
                 raise NotImplementedError(
                     f"TransformerRecommender.fit: {what} is not ported yet; "
                     f"it comes with {SHARDING_SLICE}")
-        if ctx.process_count > 1 and cfg.checkpoint_dir:
-            raise NotImplementedError(
-                "TransformerRecommender.fit: mid-training checkpoints of a "
-                "multi-process fit (member-slice checkpoints, item 4.3) come "
-                f"with {SHARDING_SLICE}")
 
     def fit(self, ctx: DeviceContext, sequences: np.ndarray, item_map,
             rows_are_local: bool = False) -> TransformerModel:
@@ -588,10 +583,11 @@ class TransformerRecommender:
 
         t_train = time.perf_counter()
         # chunks of checkpoint_every epochs, resumed from checkpoint_dir's
-        # latest step (transformer.py:587-596)
+        # latest step (transformer.py:587-596, which passes no dist hooks:
+        # a multi-process fit, supervised or not, takes the plain path)
         _, _, loss = checkpointed_epochs(
             cfg.checkpoint_dir, cfg.checkpoint_every, cfg.checkpoint_keep,
-            cfg.epochs, params, opt_state, train_epochs)
+            cfg.epochs, params, opt_state, train_epochs, ctx=ctx)
         final_loss = float(loss) if loss is not None else math.nan  # a sync
         t_train = time.perf_counter() - t_train
         t_gather = time.perf_counter()
@@ -606,7 +602,7 @@ class TransformerRecommender:
                          "gather_sec": round(time.perf_counter() - t_gather, 4)}
         if multi:
             exchange = clock.seconds()
-            n_steps = cfg.epochs * n_batches
+            n_steps = sum(len(c) for c in chunks) * n_batches  # epochs run
             model.timings.update(stage_sec=round(t_stage, 4),
                                  exchange_sec=round(exchange, 4))
             from incubator_predictionio_tpu_torch.ops.attention import (

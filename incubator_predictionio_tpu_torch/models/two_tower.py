@@ -34,8 +34,11 @@ Streaming deltas land through :meth:`TwoTowerModel.with_row_updates`
 overlaid with the moved rows; a device-resident model pulls its tables to
 the host once first, as the reference does). Mid-training checkpoints run
 through ``utils/checkpoint.py:checkpointed_epochs`` in chunks of
-``checkpoint_every`` epochs. Sharded serving comes with the sharding slice
-(ROADMAP.md Queue 1, item 4).
+``checkpoint_every`` epochs, in a multi-process fit too: a supervised
+member (``distributed/context.py``) through member-slice checkpoints and
+its chunk-boundary peer check, any other multi-process fit through the
+plain path (the primary writes, every process waits). Sharded serving
+comes with the sharding slice (ROADMAP.md Queue 1, item 4).
 
 Multi-process training is the reference's data-parallel fit over one
 ``torch.distributed`` group, every process holding a replica of the
@@ -520,10 +523,6 @@ class TwoTowerMF:
             raise ValueError("users/items/ratings must be equal length")
         dev = ctx.device
         multi = ctx.process_count > 1
-        if multi and cfg.checkpoint_dir:
-            raise NotImplementedError(
-                "TwoTowerMF.fit: mid-training checkpoints of a multi-process "
-                f"fit (member-slice checkpoints) come with {SHARDING_SLICE}")
 
         t_stage = time.perf_counter()
         if multi and rows_are_local:
@@ -560,8 +559,10 @@ class TwoTowerMF:
         )
 
         clock = CollectiveClock(dev)
+        epochs_run = []  # a resumed fit runs only the epochs after its step
 
         def train(p, o, n):
+            epochs_run.append(n)
             if multi:
                 return p, o, _train_epochs_dp(
                     ctx, p, grads, o, ub, ib, rb, wb, gub, gib, denoms,
@@ -571,13 +572,19 @@ class TwoTowerMF:
 
         t_train = time.perf_counter()
         # chunks of checkpoint_every epochs with a save after each, resumed
-        # from checkpoint_dir's latest step (two_tower.py:772-780)
+        # from checkpoint_dir's latest step (two_tower.py:769-780): a
+        # supervised member checkpoints by slice and checks its peers at
+        # each chunk boundary (DistContext.dist_hooks); any other
+        # multi-process fit takes the plain path over ctx
+        dist = getattr(ctx, "dist_hooks", None)
         tables, state, loss = checkpointed_epochs(
             cfg.checkpoint_dir, cfg.checkpoint_every, cfg.checkpoint_keep,
-            cfg.epochs, tables, state, train)
+            cfg.epochs, tables, state, train,
+            factory=None if dist is None else dist.checkpointer_factory,
+            on_chunk=None if dist is None else dist.on_chunk, ctx=ctx)
         loss = np.inf if loss is None else float(loss)  # the one sync
         t_train = time.perf_counter() - t_train
-        n_steps = cfg.epochs * int(ub.shape[0])
+        n_steps = sum(epochs_run) * int(ub.shape[0])
         del grads, state, ub, ib, rb, wb
 
         t_gather = time.perf_counter()

@@ -132,7 +132,14 @@ class DeviceContext:
         import torch.distributed as dist
 
         out: list[Any] = [None] * self.process_count
-        dist.all_gather_object(out, obj)
+        if self.backend == "nccl":
+            # NCCL stages the pickles on the thread's current card: name
+            # this process's, whichever thread calls (the distributed
+            # tier's guard runs the collective in a side thread)
+            with torch.cuda.device(self.device):
+                dist.all_gather_object(out, obj)
+        else:
+            dist.all_gather_object(out, obj)
         return out
 
     def _through_host(self, t: torch.Tensor) -> bool:

@@ -2,8 +2,9 @@
 
 Counterpart of ``incubator_predictionio_tpu/tools/cli.py`` (reference
 tools/console/Console.scala): the verbs ``app new``, ``import``, ``train``,
-``eval``, ``deploy``, ``batchpredict`` and ``launch``, with the reference's
-argument names (its cli.py:58, :231, :267, :295, :366, :631, :3786).
+``eval``, ``deploy``, ``batchpredict``, ``launch`` and ``dist status``,
+with the reference's argument names (its cli.py:58, :231, :267, :295,
+:366, :631, :3786, :3604).
 ``train``, ``eval``, ``deploy`` and ``batchpredict`` run on the card unless
 ``--device cpu`` asks for the CPU. ``launch -n N <verb> …`` runs N
 coordinated ``<verb> --distributed`` processes of ``train``, ``eval`` or
@@ -216,12 +217,53 @@ def cmd_launch(args, storage: Storage) -> int:
     return 0 if result.ok else 1
 
 
+def cmd_dist_status(args, storage: Storage) -> int:
+    """``dist status`` (reference cli.py:1145): the operator view of a
+    training mesh: generation, the members' heartbeat ages, the last
+    coordinated commit and the quorum verdict. Exits 1 when the mesh is
+    degraded, 2 when no coordination directory is given."""
+    import json
+
+    from incubator_predictionio_tpu_torch.distributed.context import DistConfig
+    from incubator_predictionio_tpu_torch.distributed.meshdir import MeshDirectory
+
+    conf = DistConfig.from_env()
+    state_dir = getattr(args, "state_dir", None) or conf.state_dir
+    if not state_dir:
+        _err("dist status: no coordination dir (--state-dir or "
+             "PIO_DIST_STATE_DIR)")
+        return 2
+    snap = MeshDirectory(state_dir).health_snapshot(
+        conf.heartbeat_ms, quorum=conf.quorum or None)
+    if getattr(args, "json", False):
+        _out(json.dumps(snap, indent=2))
+        return 1 if snap["degraded"] else 0
+    _out(f"Mesh {state_dir}")
+    _out(f"  generation: {snap['generation']}   members: "
+         f"{snap['aliveMembers']}/{snap['expectedMembers']} alive   "
+         f"quorum: {snap['quorum']}   "
+         f"{'DEGRADED' if snap['degraded'] else 'ok'}")
+    commit = snap.get("lastCommit")
+    if commit:
+        _out(f"  last commit: step {commit['step']} "
+             f"(generation {commit['generation']})")
+    else:
+        _out("  last commit: none")
+    for mrec in snap["members"]:
+        state = "alive" if mrec["alive"] else (
+            "fenced" if mrec["generation"] != snap["generation"] else "STALE")
+        _out(f"  member {mrec['rank']}: pid {mrec['pid']} gen "
+             f"{mrec['generation']} step {mrec['step']} "
+             f"beat {mrec['ageMs']:.0f}ms ago [{state}]")
+    return 1 if snap["degraded"] else 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="pio-tpu",
         description="PredictionIO-capability ML server framework "
                     "(PyTorch/CUDA port: app new, import, train, eval, "
-                    "deploy, batchpredict, launch)",
+                    "deploy, batchpredict, launch, dist status)",
     )
     sub = parser.add_subparsers(dest="command")
 
@@ -296,6 +338,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--appid", type=int, required=True)
     p.add_argument("--input", required=True)
     p.add_argument("--channel")
+
+    # dist: the training mesh's coordination directory (reference :3604)
+    dist = sub.add_parser(
+        "dist",
+        help="distributed training tier: status (mesh generation, member "
+             "heartbeats, last coordinated checkpoint commit, quorum "
+             "verdict)")
+    ds = dist.add_subparsers(dest="dist_command")
+    p = ds.add_parser("status")
+    p.add_argument("--state-dir",
+                   help="coordination directory (default: "
+                        "PIO_DIST_STATE_DIR)")
+    p.add_argument("--json", action="store_true")
     return parser
 
 
@@ -303,6 +358,7 @@ _COMMANDS = {"train": cmd_train, "eval": cmd_eval, "deploy": cmd_deploy,
              "batchpredict": cmd_batchpredict, "import": cmd_import,
              "launch": cmd_launch}
 _APP_COMMANDS = {"new": cmd_app_new}
+_DIST_COMMANDS = {"status": cmd_dist_status}
 
 
 def main(argv: Optional[list[str]] = None) -> int:
@@ -325,6 +381,11 @@ def main(argv: Optional[list[str]] = None) -> int:
             _err("app: missing subcommand (new)")
             return 1
         return _APP_COMMANDS[args.app_command](args, storage)
+    if args.command == "dist":
+        if not args.dist_command:
+            _err("dist: missing subcommand (status)")
+            return 1
+        return _DIST_COMMANDS[args.dist_command](args, storage)
     return _COMMANDS[args.command](args, storage)
 
 

@@ -20,22 +20,68 @@ template's device and in its dtype: a trainer that updates its parameters
 in place keeps training the same tensors, and a failed restore leaves the
 template untouched. Ints (adam's step count) come back exact.
 
-The multi-process member-slice protocol (reference :245 on) comes with
-the sharding slice (ROADMAP.md Queue 1, item 4); ``factory`` and
-``on_chunk`` are its seams, as in the reference.
+**A multi-process fit** (``ctx.process_count > 1``) checkpoints one of
+two ways. Its members under a supervisor (``distributed/context.py``)
+pass ``factory`` (member-slice checkpoints, below) and ``on_chunk``, as
+in the reference. Any other multi-process fit takes the plain path: the
+reference's orbax manager coordinates a multi-host save (every process
+takes part, replicated data written once), and the port's counterpart is
+:class:`TrainCheckpointer` with the fit's ``ctx``. The primary alone
+writes ``step-<n>.pt`` and every process waits at a barrier (an
+``allgather_obj``) after each save; :meth:`TrainCheckpointer.latest_step`
+is the primary's answer, ``delete_all`` runs on the primary alone
+between two barriers, and a restore is used only when it loaded and
+checked on every process. So every process resumes from the same step,
+and none can read a step the primary has not finished writing.
+
+**Member-slice checkpoints** (reference :245-453): the filesystem
+protocol of ``distributed/checkpoint.py:DistSliceCheckpointer``, byte for
+byte the reference's layout, so a directory written by either package
+reads the same in the other::
+
+    <dir>/slices/step-<s>/member-<m>.npz    one member's owned blocks
+    <dir>/slices/step-<s>/member-<m>.json   manifest, written last
+    <dir>/slices/commit-<s>.json            commit marker
+
+Every write is atomic (``utils/fs``: a temporary file, fsync, rename);
+numpy writes the npz (streamed into the file) and json the manifests
+(sorted keys). A state is cut into a flat list
+of leaves by :func:`state_leaves`, in the order ``jax.tree_util`` gives a
+tree of dicts: dict keys sorted, then list and tuple entries in order; a
+dataclass contributes its checkpointed fields in declaration order. Save
+and restore both use that order, so a two-tower state
+``{"params": [ue, ie], "opt": AdamTreeState, "epoch": e}`` is the leaves
+``epoch, opt.count, opt.m[0], opt.m[1], opt.v[0], opt.v[1], params[0],
+params[1]``. A Python int (adam's count) is an int64 0-d array. A bf16
+tensor is written as numpy writes JAX's bfloat16 arrays, two-byte void
+(``|V2``), bit for bit; :func:`place_leaves` reads such a leaf back into
+a bf16 template bitwise (the reference cannot: ROADMAP.md Queue 3).
+``row_sharding_for`` and ``restore_placed`` are the reference's JAX
+placement helpers: the port restores onto the template's device
+(:func:`place_leaves`), and row placement comes with sharded serving
+(ROADMAP.md Queue 1, item 4.4).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import json
 import logging
 import os
 import re
+import shutil
+import time
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
-from incubator_predictionio_tpu_torch.utils.fs import atomic_write_with, fsync_dir
+from incubator_predictionio_tpu_torch.utils.fs import (
+    atomic_write_bytes,
+    atomic_write_with,
+    fsync_dir,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -127,31 +173,51 @@ def _first_device(tree: Any) -> Optional[torch.device]:
 
 
 class TrainCheckpointer:
-    """Step-indexed state checkpoints in ``directory`` (created on demand)."""
+    """Step-indexed state checkpoints in ``directory`` (created on demand).
+    With a multi-process ``ctx``, the plain path of a multi-process fit
+    (module docstring): the primary writes, the others wait."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, ctx=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self._ctx = ctx if ctx is not None and ctx.process_count > 1 else None
         os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"step-{int(step)}.pt")
 
+    @property
+    def _writes(self) -> bool:
+        return self._ctx is None or self._ctx.is_primary
+
+    def _barrier(self, what) -> list:
+        return [] if self._ctx is None else self._ctx.allgather_obj(what)
+
     def save(self, step: int, state: Any) -> None:
         """Durable by the time it returns: the step's file is written to a
         temporary name, fsynced and renamed into place, and the directory
-        fsynced. Then the oldest steps past ``max_to_keep`` are dropped."""
-        plain = _to_plain(state)
-        atomic_write_with(self._path(step), lambda f: torch.save(plain, f))
-        steps = self.all_steps()
-        if self.max_to_keep and len(steps) > self.max_to_keep:
-            for old in steps[: len(steps) - self.max_to_keep]:
-                os.remove(self._path(old))
-            fsync_dir(self.directory)
+        fsynced. Then the oldest steps past ``max_to_keep`` are dropped.
+        With a multi-process ``ctx`` the primary writes and every process
+        returns only once it has."""
+        if self._writes:
+            plain = _to_plain(state)
+            atomic_write_with(self._path(step), lambda f: torch.save(plain, f))
+            steps = self.all_steps()
+            if self.max_to_keep and len(steps) > self.max_to_keep:
+                for old in steps[: len(steps) - self.max_to_keep]:
+                    os.remove(self._path(old))
+                fsync_dir(self.directory)
+        seen = self._barrier(("save", int(step)))
+        if seen and len(set(seen)) != 1:
+            raise RuntimeError(f"checkpoint save: the processes saved "
+                               f"different steps {seen}")
 
     def latest_step(self) -> Optional[int]:
-        steps = self.all_steps()
-        return steps[-1] if steps else None
+        """The newest step (the primary's answer under a multi-process
+        ``ctx``)."""
+        steps = self.all_steps() if self._writes else []
+        latest = steps[-1] if steps else None
+        return latest if self._ctx is None else self._ctx.allgather_obj(latest)[0]
 
     def all_steps(self) -> list[int]:
         return sorted(int(m.group(1)) for m in map(_STEP_RE.match,
@@ -159,26 +225,45 @@ class TrainCheckpointer:
                       if m)
 
     def delete_all(self) -> None:
-        """Drop every saved step (stale state from a prior completed run)."""
-        for step in self.all_steps():
-            os.remove(self._path(step))
-        fsync_dir(self.directory)
+        """Drop every saved step (stale state from a prior completed run);
+        on the primary alone under a multi-process ``ctx``, between two
+        barriers."""
+        self._barrier("delete")
+        if self._writes:
+            for step in self.all_steps():
+                os.remove(self._path(step))
+            fsync_dir(self.directory)
+        self._barrier("deleted")
 
     def restore(self, step: Optional[int] = None, like: Any = None) -> Any:
         """Restore ``step`` (default: latest). With ``like``, the state
         comes back in the template's structure, its tensors copied into the
         template's (see the module docstring); without it, as plain
-        containers of CPU tensors."""
+        containers of CPU tensors. Under a multi-process ``ctx`` every
+        process loads and checks the step, and the template is written only
+        when all of them succeeded; else every process raises."""
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
         device = _first_device(like) if like is not None else None
-        value = torch.load(self._path(step), weights_only=True,
-                           map_location=device or "cpu")
+        error = None
+        try:
+            value = torch.load(self._path(step), weights_only=True,
+                               map_location=device or "cpu")
+            if like is not None:
+                _check(like, value)
+        except Exception as e:  # noqa: BLE001 — relayed to every process
+            error = e
+        failed = [i for i, err in enumerate(self._barrier(
+            None if error is None else repr(error))) if err is not None]
+        if error is not None:
+            raise error
+        if failed:
+            raise RuntimeError(f"checkpoint step {step} failed to restore on "
+                               f"process(es) {failed}")
         if like is None:
             return value
-        _check(like, value)
         return _place(like, value)
 
     def close(self) -> None:
@@ -204,6 +289,7 @@ def maybe_resume(
     opt_state: Any,
     epochs: int,
     factory=None,
+    ctx=None,
 ) -> tuple[Optional[TrainCheckpointer], Any, Any, int]:
     """Open a checkpointer and resume an interrupted run if one is
     recoverable: ``(ckpt, params, opt_state, start_epoch)``. Three outcomes
@@ -216,10 +302,12 @@ def maybe_resume(
       deleted too (before any of it is read).
 
     The caller owns ``ckpt.close()``. ``factory`` (default
-    :class:`TrainCheckpointer`) swaps the checkpointer implementation."""
+    :class:`TrainCheckpointer`, given ``ctx``) swaps the checkpointer
+    implementation."""
     if not directory or every <= 0:
         return None, params, opt_state, 0
-    ck = (factory or TrainCheckpointer)(directory, max_to_keep=keep)
+    ck = (factory(directory, max_to_keep=keep) if factory is not None
+          else TrainCheckpointer(directory, max_to_keep=keep, ctx=ctx))
     latest = ck.latest_step()
     if latest is None:
         return ck, params, opt_state, 0
@@ -258,15 +346,19 @@ def checkpointed_epochs(
     train_epochs,
     factory=None,
     on_chunk=None,
+    ctx=None,
 ) -> tuple[Any, Any, Any]:
     """The shared epoch driver both trainers run: resume through
     :func:`maybe_resume`, then ``train_epochs(params, opt_state, n) ->
     (params, opt_state, loss)`` over all remaining epochs in one call when
     checkpointing is off, else ``every`` epochs a call with a save after
-    each. ``on_chunk(epoch)`` runs at each chunk boundary. Returns
-    ``(params, opt_state, loss)``; ``loss`` is None when no epoch ran."""
+    each. ``on_chunk(epoch)`` runs at each chunk boundary; ``ctx`` is the
+    fit's context (a multi-process fit without ``factory`` takes the plain
+    path, module docstring). Returns ``(params, opt_state, loss)``;
+    ``loss`` is None when no epoch ran."""
     ckpt, params, opt_state, start_epoch = maybe_resume(
-        directory, every, keep, params, opt_state, epochs, factory=factory)
+        directory, every, keep, params, opt_state, epochs, factory=factory,
+        ctx=ctx)
     loss = None
     try:
         e = start_epoch
@@ -283,3 +375,300 @@ def checkpointed_epochs(
         if ckpt is not None:
             ckpt.close()
     return params, opt_state, loss
+
+
+# -- a state as a flat list of numpy leaves ---------------------------------
+
+def _walk(tree: Any):
+    """The leaves of ``tree`` in the module docstring's order: tensors and
+    Python ints (anything else that is not a container is a leaf too)."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in _fields(tree):
+            yield from _walk(getattr(tree, f))
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _walk(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _walk(v)
+    else:
+        yield tree
+
+
+def leaf_to_numpy(leaf: Any) -> np.ndarray:
+    """One leaf as the host array a member slice stores: a tensor's bytes
+    (bf16 as two-byte void, numpy's layout of JAX's bfloat16), an int as
+    an int64 0-d array."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("V2")
+        return t.numpy()
+    if isinstance(leaf, bool) or not isinstance(leaf, (int, np.integer)):
+        return np.asarray(leaf)
+    return np.asarray(leaf, np.int64)
+
+
+def state_leaves(tree: Any) -> list:
+    """The leaves of a checkpointed state, in save order (module
+    docstring), as they are: tensors stay on their device."""
+    return list(_walk(tree))
+
+
+def _fits(like: Any, leaf: np.ndarray, i: int) -> None:
+    if isinstance(like, torch.Tensor):
+        want = (np.dtype("V2") if like.dtype == torch.bfloat16
+                else torch.empty((), dtype=like.dtype).numpy().dtype)
+        ok = tuple(leaf.shape) == tuple(like.shape) and (
+            leaf.dtype == want or (like.dtype == torch.bfloat16
+                                   and leaf.dtype in (np.int16, np.uint16)))
+        if not ok:
+            raise ValueError(f"leaf {i}: template {tuple(like.shape)} "
+                             f"{like.dtype}, checkpoint has {leaf.shape} "
+                             f"{leaf.dtype}")
+    elif isinstance(like, (int, np.integer)) and not isinstance(like, bool):
+        if leaf.shape != () or leaf.dtype.kind not in "iu":
+            raise ValueError(f"leaf {i}: template is an int, checkpoint has "
+                             f"{leaf.shape} {leaf.dtype}")
+    elif leaf.shape != np.shape(like):
+        raise ValueError(f"leaf {i}: template {np.shape(like)}, checkpoint "
+                         f"has {leaf.shape}")
+
+
+@torch.no_grad()
+def place_leaves(like: Any, leaves: list) -> Any:
+    """``leaves`` (numpy, in :func:`state_leaves` order) in ``like``'s
+    structure: every leaf is checked against the template first (count,
+    shapes, dtypes), then each tensor is copied into the template's own
+    tensor on its device (a bf16 leaf bit for bit), each int comes back
+    exact. A failed check leaves the template untouched."""
+    slots = state_leaves(like)
+    if len(slots) != len(leaves):
+        raise ValueError(f"the checkpoint has {len(leaves)} leaves, the "
+                         f"template {len(slots)}")
+    for i, (a, b) in enumerate(zip(slots, leaves)):
+        _fits(a, np.asarray(b), i)
+    it = iter(leaves)
+
+    def build(tree):
+        if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+            return dataclasses.replace(
+                tree, **{f: build(getattr(tree, f)) for f in _fields(tree)})
+        if isinstance(tree, dict):  # filled in sorted order, kept in its own
+            vals = {k: build(tree[k]) for k in sorted(tree)}
+            return {k: vals[k] for k in tree}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(build(v) for v in tree)
+        leaf = np.asarray(next(it))
+        if isinstance(tree, torch.Tensor):
+            if tree.dtype == torch.bfloat16:
+                src = torch.from_numpy(np.ascontiguousarray(leaf).view(
+                    np.int16).copy()).view(torch.bfloat16)
+            else:
+                src = torch.from_numpy(np.array(leaf, copy=True))
+            return tree.copy_(src)
+        if isinstance(tree, (int, np.integer)) and not isinstance(tree, bool):
+            return int(leaf)
+        return leaf
+
+    return build(like)
+
+
+# -- member-slice checkpoints: the filesystem protocol (reference :245-453) --
+#
+# The distributed training tier checkpoints by SLICE: each mesh member
+# writes only the blocks it owns, and a step becomes restorable only once a
+# commit marker exists, written after every member's slice is durable. A
+# kill between two members' slice writes leaves step-<s> without a commit
+# marker; restore then uses the previous committed step, so two histories
+# can never compose.
+
+SLICES_DIR = "slices"
+
+
+def slice_step_dir(directory: str, step: int) -> str:
+    return os.path.join(os.path.abspath(directory), SLICES_DIR, f"step-{int(step)}")
+
+
+def _commit_path(directory: str, step: int) -> str:
+    return os.path.join(os.path.abspath(directory), SLICES_DIR,
+                        f"commit-{int(step)}.json")
+
+
+def save_member_slice(
+    directory: str,
+    step: int,
+    member: int,
+    generation: int,
+    entries: list[dict],
+    arrays: dict[str, np.ndarray],
+) -> None:
+    """Durably write one member's slice for ``step``.
+
+    ``entries`` describe the payload (one per saved block):
+    ``{"key": <npz key>, "leaf": <flat leaf index>, "globalShape": [...],
+    "index": [[lo, hi] | None per dim]}``; ``index`` row-bounds the block
+    inside the full leaf, and ``None`` (or all-``None``) means the member
+    holds the whole leaf. Data lands first (atomic npz), the manifest last:
+    manifest presence is the per-member durability marker the committer
+    polls for.
+    """
+    d = slice_step_dir(directory, step)
+    os.makedirs(d, exist_ok=True)
+    # streamed into the temporary file: the reference's bytes, without a
+    # second copy of the slice in memory
+    atomic_write_with(os.path.join(d, f"member-{int(member)}.npz"),
+                      lambda f: np.savez(f, **{k: np.asarray(v)
+                                               for k, v in arrays.items()}))
+    manifest = {"step": int(step), "member": int(member),
+                "generation": int(generation), "entries": entries}
+    atomic_write_bytes(os.path.join(d, f"member-{int(member)}.json"),
+                       json.dumps(manifest, sort_keys=True).encode("utf-8"))
+
+
+def read_member_slice(directory: str, step: int, member: int):
+    """``(manifest, arrays)`` for one member's durable slice, or ``None``
+    when the manifest is absent (slice not finished)."""
+    d = slice_step_dir(directory, step)
+    manifest = _read_json(os.path.join(d, f"member-{int(member)}.json"))
+    if manifest is None:
+        return None
+    with np.load(os.path.join(d, f"member-{int(member)}.npz")) as z:
+        arrays = {k: z[k] for k in z.files}
+    return manifest, arrays
+
+
+def _read_json(path: str) -> Optional[dict]:
+    try:
+        with open(path, "rb") as f:
+            return json.loads(f.read().decode("utf-8"))
+    except (OSError, ValueError):
+        return None
+
+
+def members_done(directory: str, step: int, members: int, generation: int) -> list[int]:
+    """Ranks whose slice for ``(step, generation)`` is durable: the
+    committer's poll predicate. A manifest from another generation does NOT
+    count: mixing a dead mesh's slice into a new commit is exactly the
+    composed-history corruption the marker exists to prevent."""
+    d = slice_step_dir(directory, step)
+    done = []
+    for m in range(members):
+        manifest = _read_json(os.path.join(d, f"member-{m}.json"))
+        if manifest is not None and int(manifest.get("generation", -1)) == int(generation):
+            done.append(m)
+    return done
+
+
+def write_commit_marker(directory: str, step: int, generation: int,
+                        members: int) -> None:
+    """The coordinated-commit point: atomic and durable, so a visible
+    marker implies every slice it covers is on disk."""
+    os.makedirs(os.path.join(os.path.abspath(directory), SLICES_DIR),
+                exist_ok=True)
+    atomic_write_bytes(_commit_path(directory, step), json.dumps({
+        "step": int(step), "generation": int(generation),
+        "members": int(members), "committedAt": time.time(),
+    }, sort_keys=True).encode("utf-8"))
+
+
+def read_commit_marker(directory: str, step: int) -> Optional[dict]:
+    return _read_json(_commit_path(directory, step))
+
+
+def committed_steps(directory: str) -> list[int]:
+    """Steps with a commit marker, ascending: the only restorable steps."""
+    d = os.path.join(os.path.abspath(directory), SLICES_DIR)
+    try:
+        names = os.listdir(d)
+    except OSError:
+        return []
+    out = []
+    for name in names:
+        if name.startswith("commit-") and name.endswith(".json"):
+            try:
+                out.append(int(name[len("commit-"):-len(".json")]))
+            except ValueError:
+                continue
+    return sorted(out)
+
+
+def gc_slice_steps(directory: str, keep: int) -> None:
+    """Retention: drop all but the newest ``keep`` committed steps (marker
+    first, then the slice dir: a crash between the two leaves an orphan
+    dir, which is garbage but never restorable). Uncommitted step dirs
+    older than the newest commit (leftovers of a dead generation) go too."""
+    steps = committed_steps(directory)
+    if not steps:
+        return
+    latest = steps[-1]
+    for s in steps[:-max(1, keep)] if keep > 0 else []:
+        with contextlib.suppress(OSError):
+            os.unlink(_commit_path(directory, s))
+        shutil.rmtree(slice_step_dir(directory, s), ignore_errors=True)
+    base = os.path.join(os.path.abspath(directory), SLICES_DIR)
+    kept = set(committed_steps(directory))
+    for name in os.listdir(base):
+        if not name.startswith("step-"):
+            continue
+        try:
+            s = int(name[len("step-"):])
+        except ValueError:
+            continue
+        if s < latest and s not in kept:
+            shutil.rmtree(os.path.join(base, name), ignore_errors=True)
+
+
+def assemble_committed_step(directory: str, step: int) -> list[np.ndarray]:
+    """Reassemble the full flat leaf list of a COMMITTED step from its
+    member slices. Every leaf must be fully covered by exactly the slices
+    of the commit's generation: partial coverage (a history torn across
+    generations could produce it) raises instead of returning a mix.
+    """
+    commit = read_commit_marker(directory, step)
+    if commit is None:
+        raise FileNotFoundError(
+            f"step {step} has no commit marker under {directory}")
+    generation, members = int(commit["generation"]), int(commit["members"])
+    leaves: dict[int, np.ndarray] = {}
+    covered: dict[int, list[tuple[int, int]]] = {}
+    for m in range(members):
+        got = read_member_slice(directory, step, m)
+        if got is None:
+            raise FileNotFoundError(
+                f"committed step {step} is missing member {m}'s slice")
+        manifest, arrays = got
+        if int(manifest.get("generation", -1)) != generation:
+            raise ValueError(
+                f"member {m} slice at step {step} is generation "
+                f"{manifest.get('generation')} but the commit is {generation}")
+        for e in manifest["entries"]:
+            leaf = int(e["leaf"])
+            block = arrays[e["key"]]
+            shape = tuple(e["globalShape"])
+            if leaf not in leaves:
+                leaves[leaf] = np.zeros(shape, dtype=block.dtype)
+                covered[leaf] = []
+            index = e.get("index")
+            if not index or all(i is None for i in index):
+                leaves[leaf][...] = block
+                covered[leaf].append((0, shape[0] if shape else 1))
+            else:
+                lo, hi = int(index[0][0]), int(index[0][1])
+                leaves[leaf][lo:hi, ...] = block
+                covered[leaf].append((lo, hi))
+    out = []
+    for leaf in sorted(leaves):
+        shape = leaves[leaf].shape
+        rows = shape[0] if shape else 1
+        pos = 0
+        for lo, hi in sorted(covered[leaf]):
+            if lo > pos:
+                break
+            pos = max(pos, hi)
+        if pos < rows:
+            raise ValueError(
+                f"leaf {leaf} of step {step} only covered to row {pos} of "
+                f"{rows}: refusing a partially-assembled restore")
+        out.append(leaves[leaf])
+    return out

@@ -649,8 +649,21 @@ def test_backend_rule(monkeypatch):
 
 
 def test_maybe_wrap_distributed(monkeypatch, tmp_path):
+    """Identity without ``PIO_DIST_STATE_DIR``; with it, a supervised
+    member's ``DistContext`` that delegates to the context it wraps and
+    announces its generation in the coordination directory."""
+    from incubator_predictionio_tpu_torch.distributed.context import DistContext
+    from incubator_predictionio_tpu_torch.distributed.meshdir import MeshDirectory
+
     monkeypatch.delenv("PIO_DIST_STATE_DIR", raising=False)
     assert maybe_wrap_distributed(CPU) is CPU
     monkeypatch.setenv("PIO_DIST_STATE_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        maybe_wrap_distributed(CPU)
+    monkeypatch.setenv("PIO_DIST_GENERATION", "3")
+    ctx = maybe_wrap_distributed(CPU)
+    assert isinstance(ctx, DistContext) and ctx.dist_hooks is ctx
+    assert ctx.device == CPU.device and ctx.process_count == 1 and ctx.is_primary
+    assert ctx.generation == 3 and ctx.allgather_obj("x") == ["x"]
+    md = MeshDirectory(str(tmp_path))
+    assert md.read_generation() == (3, 1)
+    assert [(m.rank, m.generation) for m in md.members()] == [(0, 3)]
+    ctx.stop()

@@ -195,10 +195,9 @@ def test_deploy_without_completed_instance_raises(tmp_path):
 
 
 def test_training_stages_name_the_slice_that_ports_them(tmp_path):
-    """Training is ported, mid-training checkpoints, per-process staging
-    and the per-process sharded read too; what a multi-process fit leaves
-    (its member-slice checkpoints) names the sharding slice, and a context
-    that claims two processes without a group refuses."""
+    """Training is ported, mid-training checkpoints (of one process and of
+    several), per-process staging and the per-process sharded read too; a
+    context that claims two processes without a group refuses."""
     cpu = DeviceContext.create(device="cpu")
     td = trec.TrainingData(np.zeros(4, np.int32), np.arange(4, dtype=np.int32),
                            np.ones(4, np.float32), np.array(["u0"], object),
@@ -207,9 +206,11 @@ def test_training_stages_name_the_slice_that_ports_them(tmp_path):
     model = trec.ALSAlgorithm(trec.ALSAlgorithmParams(
         rank=4, num_iterations=2, checkpoint_every=1)).train(mirror(), td)
     assert model.mf.user_emb.shape == (1, 4) and np.isfinite(model.mf.final_loss)
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        trec.ALSAlgorithm(trec.ALSAlgorithmParams(
-            checkpoint_every=1, checkpoint_dir=str(tmp_path))).train(mirror(), td)
+    model = trec.ALSAlgorithm(trec.ALSAlgorithmParams(
+        rank=4, num_iterations=2, checkpoint_every=1,
+        checkpoint_dir=str(tmp_path))).train(mirror(), td)
+    assert np.isfinite(model.mf.final_loss)
+    assert sorted(os.listdir(tmp_path)) == ["step-1.pt", "step-2.pt"]
     with pytest.raises(RuntimeError, match="no process group was joined"):
         trec.ALSAlgorithm(trec.ALSAlgorithmParams(rank=4)).train(
             DeviceContext(cpu.device, process_index=0, process_count=2), td)

@@ -297,7 +297,8 @@ def test_fit_refuses_rows_of_several_processes():
     """Rows of several processes are ported (the data-parallel fit,
     tests/test_torch_distributed_eval.py): a context that claims two
     processes without a group refuses at its first collective, the
-    staging's; checkpoints of a multi-process fit name item 4.3."""
+    staging's, checkpoints of a multi-process fit included (the plain
+    multi-process path, tests/test_torch_dist_procs.py)."""
     ctx = DeviceContext(torch.device("cpu"), process_index=0, process_count=2)
     # the data axis is the process count (one device a process)
     assert ctx.pad_to_batch_multiple(13) == 14
@@ -305,7 +306,7 @@ def test_fit_refuses_rows_of_several_processes():
         with pytest.raises(RuntimeError, match="no process group was joined"):
             ttr.TransformerRecommender(ttr.TransformerConfig(**FIT)).fit(
                 ctx, _rows(), None, rows_are_local=local)
-    with pytest.raises(NotImplementedError, match="item 4.3.*ROADMAP.md Queue 1"):
+    with pytest.raises(RuntimeError, match="no process group was joined"):
         ttr.TransformerRecommender(ttr.TransformerConfig(
             **FIT, checkpoint_dir="/nonexistent", checkpoint_every=1)).fit(
             ctx, _rows(), None, rows_are_local=True)

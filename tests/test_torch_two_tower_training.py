@@ -26,6 +26,8 @@ Tolerances, with their reasons:
   against bf16 moments (tests/test_optim_parity.py:95-105).
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -280,16 +282,24 @@ def test_fit_keeps_large_catalogs_on_the_device(monkeypatch):
 
 def test_fit_refuses_what_is_not_ported(tmp_path):
     """Per-process staging of entity-sharded rows is ported
-    (tests/test_torch_distributed_train.py) and so are mid-training
-    checkpoints of one process (tests/test_torch_checkpoint.py); the
-    checkpoints of a multi-process fit wait for the sharding slice, and a
-    context that claims two processes without a group refuses at its first
-    collective."""
+    (tests/test_torch_distributed_train.py), and so are mid-training
+    checkpoints of one process (tests/test_torch_checkpoint.py) and of a
+    multi-process fit (tests/test_torch_dist_checkpoint.py): under peers
+    that hold the same rows the primary writes the plain path's step
+    files. A context that claims two processes without a group refuses at
+    its first collective."""
+    from tests.test_torch_distributed_train import mirror
+
     users, items, ratings = _triples(n=100)
     two = DeviceContext(torch.device("cpu"), process_index=0, process_count=2)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    model = ttt.TwoTowerMF(ttt.TwoTowerConfig(
+        epochs=2, checkpoint_every=1, checkpoint_dir=str(tmp_path))).fit(
+        mirror(), users, items, ratings, N_USERS, N_ITEMS, rows_are_local=True)
+    assert np.isfinite(model.final_loss)
+    assert sorted(os.listdir(tmp_path)) == ["step-1.pt", "step-2.pt"]
+    with pytest.raises(RuntimeError, match="no process group was joined"):
         ttt.TwoTowerMF(ttt.TwoTowerConfig(
-            checkpoint_every=1, checkpoint_dir=str(tmp_path))).fit(
+            checkpoint_every=1, checkpoint_dir=str(tmp_path / "two"))).fit(
             two, users, items, ratings, N_USERS, N_ITEMS, rows_are_local=True)
     with pytest.raises(RuntimeError, match="no process group was joined"):
         ttt.TwoTowerMF(ttt.TwoTowerConfig(checkpoint_every=1)).fit(
