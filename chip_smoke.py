@@ -66,7 +66,26 @@ shape, ``train`` on the card (its loss below a 1-iteration fit's),
 deploy, queries over a socket held against numpy scoring of the trained
 tables.
 
-Between those two, ``rec-stream`` streams into rec-train's persisted
+After ``rec-train``, ``rec-shard`` serves sharded (``PIO_SHARD_SERVE=1``,
+``sharding/serve.py``): bench.py's ``sharded_serving`` lane at its own
+widths (rank 32, 10,000 users, 150,000 clustered items from
+``default_rng(13)``, batches of 16, nprobe 16) in four lanes — exact and
+two-stage on one card, sharded exact and sharded two-stage from tables
+resident on the card with ``min(8, cards)`` shards — the sharded exact
+answers held bitwise against the single-card bf16 path for 256 queries,
+the sharded two-stage recall@10 ≥ 0.95 with K2 launched once a shard a
+batch, and a host model in four host blocks (four K2 probes on the card a
+batch) held to the same floor; then rec-train's persisted model deployed
+through ``RecModel.load`` and the QueryServer: its answers to 64 users
+under each rule-mask kind bitwise the single-card bf16 path's, two-stage
+with int8 per-shard IVF (recall@10 ≥ 0.95 probing every partition, K2 on
+each shard's card), a ``POST /delta`` of 512 item and 512 user rows
+rebuilding only the owning shards' blocks, its answers bitwise a fresh
+sharded prepare's, no full-table gather, and socket bursts of 64 beside
+the single-card int8 path. With ≥ 2 cards both run again over ``min(4,
+cards)`` cards, with each card's scoring time and the merge's.
+
+Between ``rec-train`` and ``rec-workflow``, ``rec-stream`` streams into rec-train's persisted
 model, deployed resident on the card, through a storage whose EVENTDATA
 is the ``eventlog`` backend: ``bench_streaming_freshness``'s traffic goes
 in through ``EventLogEvents.insert_batch``, the updater's feed is
@@ -108,15 +127,16 @@ classification template through the CLI (``mlp``; ``nb`` + ``mlp`` under
 
 ``pio eval`` runs through the CLI's ``eval`` verb on three of those
 phases' stored events, each in its phase's directory: ``rec-eval`` after
-``rec-workflow`` (RecommendationEvaluation over the reference grid, rank
-16/32 × 10/20 iterations, 3 folds: 12 fits on the card, FastEvalEngine's
+``rec-workflow`` (RecommendationEvaluation over half the reference grid,
+rank 16/32 × 10 iterations, 3 folds: 6 fits on the card, FastEvalEngine's
 one read and one prepare, Precision@10 beside chance, variant 0 again on
 the CPU), ``seq-eval`` after ``seq-workflow`` (SequentialEvaluation at the
 sequential training width, epochs 1/2 × learning rate 1e-3/5e-3: K4
 forward and backward in every fold's fit, the held-out queries checked
 against the sessions, 16 queries with the kernels against the plain
-attention) and ``cls-eval`` after ``cls-workflow`` (CompleteEvaluation:
-accuracy and each label's precision, ``best.json``, variant 0 on the CPU).
+attention) and ``cls-eval`` after ``cls-workflow`` (CompleteEvaluation
+over the reference grid at 20 of its 60 epochs: accuracy and each label's
+precision, ``best.json``, variant 0 on the CPU).
 
 ``rec-launch`` trains the recommendation template in two processes through
 the CLI's ``launch -n 2 train``: 400,000 rate events (rec-train's widths,
@@ -136,10 +156,10 @@ process and under ``launch -n 2 batchpredict`` (part files), K1 at B 1024
 held against its plain version first; the parts concatenated must equal
 the one-process output. ``rec-supervised`` trains on rec-launch's store
 under the fault-tolerant tier: a ``Supervisor`` runs ``train
---distributed`` as 2 members (gloo on one card; 10 epochs, a member-slice
+--distributed`` as 2 members (gloo on one card; 6 epochs, a member-slice
 checkpoint after each) as a control, then again with a new checkpoint
 directory, SIGKILLing the highest rank once 2 epochs are committed: one
-recovery, generation 2, the resumed fit's step-10 leaves bitwise the
+recovery, generation 2, the resumed fit's last leaves bitwise the
 control's, one COMPLETED instance, a generation-1 zombie fenced, ``dist
 status`` on the mesh, and the recovered model's K1 answers equal the
 control's (with two cards, one more chaos run on NCCL, bitwise the gloo
@@ -588,8 +608,8 @@ def topk_tie_check(dev) -> dict:
             else:
                 idx, vals = T._topk_scores(uidx, ue, ub, item_t, item_b, model.mean,
                                            mask, None, num)
-                scores = (ue[uidx].float() @ item_t + item_b[None, :]
-                          + ub[uidx][:, None] + model.mean + mask[None, :])
+                scores = T._exact_scores(ue[uidx], ub[uidx], item_t, item_b,
+                                         model.mean, mask, None)
             s = scores.cpu().numpy()
             idx, vals = idx.cpu().numpy(), vals.cpu().numpy()
             bad = 0
@@ -2957,6 +2977,617 @@ def rec_stream_phase(R, S, ctx, tmp, persisted):
     return launches, rec
 
 
+#: rec-shard (a): bench.py's sharded_serving lane at its own widths
+#: (bench_sharded_serving, bench.py:727-879): rank 32, 10,000 users, a
+#: 150,000-item mixture-of-concepts catalog from default_rng(13), batches
+#: of 16, num 10, PIO_RETRIEVAL_NPROBE 16
+SHARD_RANK, SHARD_USERS, SHARD_ITEMS = 32, 10_000, 150_000
+SHARD_BATCH, SHARD_NUM, SHARD_NPROBE = 16, 10, "16"
+SHARD_LANE_S = 1.0       # each lane's q/s window (the bench's is 2 s)
+#: rec-shard (b): users held bitwise under each mask kind, single queries,
+#: two-stage recall queries, delta rows (default_rng(41)), socket bursts
+SHARD_B_USERS, SHARD_B_SINGLES, SHARD_B_RECALL = 64, 8, 256
+SHARD_DELTA_ROWS, SHARD_BURSTS = 512, 4
+SHARD_MASK_KINDS = ("none", "exclude", "row_mask", "both")
+
+
+def shard_series() -> dict:
+    """The pio_shard_* series now: counters' values, histograms' counts and
+    sums."""
+    from incubator_predictionio_tpu_torch.sharding import shard_metrics as M
+
+    out = {}
+    for s in M.ALL:
+        if hasattr(s, "observe"):
+            out[f"{s.name}_count"] = s.count
+            out[f"{s.name}_sum"] = s.sum
+        else:
+            out[s.name] = s.value
+    return out
+
+
+def series_delta(before: dict) -> dict:
+    after = shard_series()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def same_answer(a, b) -> bool:
+    """Ids equal and scores bitwise."""
+    return (np.array_equal(a[0], b[0]) and a[1].dtype == b[1].dtype
+            and np.array_equal(np.asarray(a[1]).view(np.int32),
+                               np.asarray(b[1]).view(np.int32)))
+
+
+def shard_masks(rng, b, n_items, kind):
+    """One of recommend_batch's rule-mask kinds (tests/test_sharding.py:68)."""
+    exclude = row_mask = None
+    if kind in ("exclude", "both"):
+        exclude = rng.choice(n_items, max(20, n_items // 50),
+                             replace=False).astype(np.int64)
+    if kind in ("row_mask", "both"):
+        row_mask = np.zeros((b, n_items), np.float32)
+        hits = max(50, b * n_items // 400)
+        row_mask[rng.integers(0, b, hits), rng.integers(0, n_items, hits)] = -np.inf
+    return exclude, row_mask
+
+
+def lane_qps(model, qusers, num) -> float:
+    """Batches of ``qusers`` rows through recommend_batch for at least
+    SHARD_LANE_S: queries a second."""
+    from incubator_predictionio_tpu_torch.models.two_tower import TwoTowerMF
+
+    TwoTowerMF.recommend_batch(model, qusers[0], num)
+    done, t0 = 0, time.perf_counter()
+    while True:
+        TwoTowerMF.recommend_batch(model, qusers[done % len(qusers)], num)
+        done += 1
+        dt = time.perf_counter() - t0
+        if dt >= SHARD_LANE_S and done >= 8:
+            return done * qusers.shape[1] / dt
+
+
+def card_times(model, rows, num) -> dict:
+    """Per-card scoring ms and the merge ms (CUDA events on each card's
+    stream) and the batch's wall ms, means over ``rows``' batches, through
+    the device-sharded exact search."""
+    sh = model._sharded
+    per, merge, wall = [], [], []
+    for row in rows:
+        ev = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sh.search_exact(model, row, num, events=ev)
+        wall.append((time.perf_counter() - t0) * 1e3)
+        for d in sh.device.devices:
+            torch.cuda.synchronize(d)
+        per.append([ev[s][0].elapsed_time(ev[s][1])
+                    for s in range(sh.n_shards)])
+        merge.append(ev["merge"][0].elapsed_time(ev["merge"][1]))
+    per = np.asarray(per)
+    return {"card_scoring_ms": per.mean(axis=0).tolist(),
+            "merge_ms": float(np.mean(merge)), "wall_ms": float(np.mean(wall)),
+            "sum_of_cards_ms": float(per.sum(axis=1).mean())}
+
+
+def shard_lane_data():
+    rng = np.random.default_rng(13)
+    n_concepts = max(64, int(round(np.sqrt(SHARD_ITEMS))))
+    concepts = rng.standard_normal((n_concepts, SHARD_RANK)).astype(np.float32)
+    item = concepts[rng.integers(0, n_concepts, SHARD_ITEMS)] \
+        + 0.5 * rng.standard_normal((SHARD_ITEMS, SHARD_RANK)).astype(np.float32)
+    user = concepts[rng.integers(0, n_concepts, SHARD_USERS)] \
+        + 0.5 * rng.standard_normal((SHARD_USERS, SHARD_RANK)).astype(np.float32)
+    user_bias = (rng.standard_normal(SHARD_USERS) * 0.1).astype(np.float32)
+    item_bias = (rng.standard_normal(SHARD_ITEMS) * 0.1).astype(np.float32)
+    qusers = rng.integers(0, SHARD_USERS, (64, SHARD_BATCH)).astype(np.int32)
+    eusers = rng.integers(0, SHARD_USERS, (256 // SHARD_BATCH, SHARD_BATCH)
+                          ).astype(np.int32)
+    return user, item, user_bias, item_bias, qusers, eusers
+
+
+def shard_lanes(R, ctx, n_req: int, tag: str, full: bool) -> dict:
+    """bench_sharded_serving's four lanes on the card: exact and two-stage
+    single-card, then sharded exact and sharded two-stage from fused tables
+    resident on the card under PIO_SHARD_SERVE=1 with ``n_req`` shards
+    requested (clamped to the cards); then a host model under
+    PIO_SHARD_SERVE_SHARDS=4 (host blocks, four per-shard IVF probes through
+    K2 on the card). Without ``full``, only the exact single-card lane (the
+    oracle) and the two sharded lanes."""
+    from incubator_predictionio_tpu_torch.models.two_tower import (
+        TwoTowerConfig,
+        TwoTowerMF,
+        TwoTowerModel,
+    )
+
+    dev = ctx.device
+    cards = torch.cuda.device_count()
+    user, item, user_bias, item_bias, qusers, eusers = shard_lane_data()
+    num = SHARD_NUM
+
+    def host_model():
+        return TwoTowerModel(user_emb=user, item_emb=item, user_bias=user_bias,
+                             item_bias=item_bias, mean=3.0,
+                             config=TwoTowerConfig(rank=SHARD_RANK))
+
+    def resident_model():
+        """The same towers as fused tables resident on the card, what a
+        device-resident fit or restore holds."""
+        m = TwoTowerModel(mean=3.0, config=TwoTowerConfig(rank=SHARD_RANK))
+        m._tables = {
+            "ue": torch.from_numpy(np.concatenate(
+                [user, user_bias[:, None]], 1)).to(dev),
+            "ie": torch.from_numpy(np.concatenate(
+                [item, item_bias[:, None]], 1)).to(dev)}
+        m._n_users, m._n_items = SHARD_USERS, SHARD_ITEMS
+        m._device = dev
+        return m
+
+    def answers(model):
+        return [TwoTowerMF.recommend_batch(model, row, num) for row in eusers]
+
+    def recall(got, want):
+        return float(np.mean([len(set(g[r]) & set(w[r])) / num
+                              for (g, _), (w, _) in zip(got, want)
+                              for r in range(SHARD_BATCH)]))
+
+    forced = str(n_req) if n_req > 1 else ""
+    n_expect = min(n_req if n_req > 1 else max(cards, 2), cards)
+    lanes = {}
+    with env_vars(PIO_RETRIEVAL_NPROBE=SHARD_NPROBE):
+        with env_vars(PIO_SHARD_SERVE="0"), retrieval_mode("exact"):
+            m = host_model()
+            m.prepare_for_serving(serve_k=num, host_max_elements=0, device=dev)
+            check(m.serving_info()["path"] == "device-bf16",
+                  f"[{tag}] exact lane {m.serving_info()}")
+            m.warmup(max_batch=SHARD_BATCH)
+            lanes["exact"] = {"qps": lane_qps(m, qusers, num)}
+            oracle = answers(m)
+            del m
+        if full:
+            with env_vars(PIO_SHARD_SERVE="0"), retrieval_mode("two_stage"):
+                m = host_model()
+                m.prepare_for_serving(serve_k=num, device=dev)
+                m.warmup(max_batch=SHARD_BATCH)
+                lanes["two_stage"] = {"qps": lane_qps(m, qusers, num),
+                                      "recall_at_10": recall(answers(m), oracle)}
+                del m
+        with env_vars(PIO_SHARD_SERVE="1", PIO_SHARD_SERVE_SHARDS=forced):
+            with retrieval_mode("exact"):
+                md = resident_model()
+                md.prepare_for_serving(serve_k=num, device=dev)
+                info = md.serving_info()
+                check(info["path"] == "sharded-device-bf16"
+                      and info["sharding"]["n_shards"] == n_expect,
+                      f"[{tag}] sharded exact lane {info}")
+                md.warmup(max_batch=SHARD_BATCH)
+                before = shard_series()
+                got = answers(md)
+                bitwise = all(same_answer(g, w) for g, w in zip(got, oracle))
+                check(bitwise, f"[{tag}] sharded exact answers are not bitwise "
+                      "the single-card bf16 path's")
+                lanes["sharded_exact"] = {
+                    "qps": lane_qps(md, qusers, num),
+                    "n_shards": info["sharding"]["n_shards"],
+                    "devices": info["sharding"]["devices"],
+                    "bitwise_single_card_256": bitwise,
+                    "recall_at_10": recall(got, oracle)}
+                if n_expect > 1:
+                    lanes["sharded_exact"]["per_card"] = card_times(
+                        md, qusers[:16], num)
+                lanes["sharded_exact"]["pio_shard"] = series_delta(before)
+                del md
+            with retrieval_mode("two_stage"):
+                md = resident_model()
+                md.prepare_for_serving(serve_k=num, device=dev)
+                sh = md._sharded
+                check([str(i.device) for i in sh.ivf]
+                      == [str(d) for d in sh.device.devices],
+                      f"[{tag}] per-shard IVF devices {[i.device for i in sh.ivf]}")
+                md.warmup(max_batch=SHARD_BATCH)
+                before = shard_series()
+                k2 = R.score_centroids_quantized.launches
+                got = answers(md)
+                k2_per_batch = (R.score_centroids_quantized.launches - k2) / len(eusers)
+                r = recall(got, oracle)
+                check(r >= RECALL_FLOOR, f"[{tag}] sharded two-stage recall@10 "
+                      f"{r:.4f} < {RECALL_FLOOR}")
+                check(k2_per_batch == sh.n_shards,
+                      f"[{tag}] K2 launched {k2_per_batch} times a batch over "
+                      f"{sh.n_shards} shards")
+                lanes["sharded_two_stage"] = {
+                    "qps": lane_qps(md, qusers, num), "n_shards": sh.n_shards,
+                    "recall_at_10": r, "k2_launches_a_batch": k2_per_batch,
+                    "ivf_devices": [str(i.device) for i in sh.ivf],
+                    "pio_shard": series_delta(before)}
+                del md, sh
+        if full:
+            with env_vars(PIO_SHARD_SERVE="1", PIO_SHARD_SERVE_SHARDS="4"), \
+                    retrieval_mode("two_stage"):
+                m = host_model()
+                m.prepare_for_serving(serve_k=num, device=dev)
+                info = m.serving_info()
+                sh = m._sharded
+                check(info["path"] == "sharded-host-numpy" and sh.n_shards == 4
+                      and all(str(i.device) == str(dev) for i in sh.ivf),
+                      f"[{tag}] host-sharded lane {info}")
+                before = shard_series()
+                k2 = R.score_centroids_quantized.launches
+                got = answers(m)
+                k2_per_batch = (R.score_centroids_quantized.launches - k2) / len(eusers)
+                r = recall(got, oracle)
+                check(r >= RECALL_FLOOR, f"[{tag}] host-sharded two-stage "
+                      f"recall@10 {r:.4f} < {RECALL_FLOOR}")
+                check(k2_per_batch == 4, f"[{tag}] K2 launched {k2_per_batch} "
+                      "times a batch over 4 host shards")
+                lanes["host_sharded_two_stage"] = {
+                    "qps": lane_qps(m, qusers, num), "n_shards": 4,
+                    "recall_at_10": r, "k2_launches_a_batch": k2_per_batch,
+                    "pio_shard": series_delta(before)}
+                del m, sh
+    for name, lane in lanes.items():
+        log(f"[{tag}] {name}: {lane['qps']:.1f} q/s"
+            + (f", recall@10 {lane['recall_at_10']:.4f}"
+               if "recall_at_10" in lane else "")
+            + (f", {lane['n_shards']} shard(s)" if "n_shards" in lane else "")
+            + (f", per card {lane['per_card']}" if "per_card" in lane else "")
+            + (f"; pio_shard {lane['pio_shard']}" if "pio_shard" in lane else ""))
+    return {"n_items": SHARD_ITEMS, "rank": SHARD_RANK, "batch": SHARD_BATCH,
+            "num": num, "nprobe": int(SHARD_NPROBE), "n_requested": n_req,
+            "lanes": lanes}
+
+
+async def shard_trained(R, ctx, persisted, tag="rec-shard") -> dict:
+    """rec-train's persisted model (1,000,000 users × 100,000 items, rank
+    128) deployed under PIO_SHARD_SERVE=1 through RecModel.load and the
+    QueryServer: its answers bitwise the single-card bf16 path's under every
+    mask kind, two-stage recall with int8 per-shard IVF, a POST /delta of
+    item and user rows routed to the owning shards, no full-table gather,
+    and socket bursts beside the single-card int8 path."""
+    import datetime as dt
+
+    import aiohttp
+
+    from incubator_predictionio_tpu_torch.core import PersistentModelManifest
+    from incubator_predictionio_tpu_torch.core.controller import class_path
+    from incubator_predictionio_tpu_torch.data.storage import (
+        EngineInstance,
+        Model,
+        Storage,
+    )
+    from incubator_predictionio_tpu_torch.models.two_tower import (
+        TwoTowerMF,
+        TwoTowerModel,
+    )
+    from incubator_predictionio_tpu_torch.server.query_server import (
+        QueryServer,
+        ServerConfig,
+    )
+    from incubator_predictionio_tpu_torch.sharding import shard_metrics as M
+    from incubator_predictionio_tpu_torch.sharding.serve import restore_shards
+    from incubator_predictionio_tpu_torch.streaming import delta as deltas
+    from incubator_predictionio_tpu_torch.templates.recommendation import (
+        ALSAlgorithmParams,
+        RecModel,
+    )
+    from incubator_predictionio_tpu_torch.utils.serialization import (
+        serialize_model,
+    )
+
+    dev = ctx.device
+    cards = torch.cuda.device_count()
+    iid, variant_path = persisted["iid"], persisted["variant_path"]
+    storage = Storage({"PIO_STORAGE_SOURCES_MEM_TYPE": "memory"})
+    now = dt.datetime.now(dt.timezone.utc)
+    storage.get_meta_data_engine_instances().insert(EngineInstance(
+        id=iid, status="COMPLETED", start_time=now, end_time=now,
+        engine_id="rec-train", engine_version="1",
+        engine_variant=os.path.abspath(variant_path), engine_factory=FACTORY))
+    storage.get_model_data_models().insert(Model(iid, serialize_model(
+        [PersistentModelManifest(class_path(RecModel))])))
+    params = ALSAlgorithmParams(rank=REC_RANK)
+    rec = {}
+    rng = np.random.default_rng(31)
+
+    def single_card():
+        """The single-card bf16 exact path on the same persisted tables."""
+        with env_vars(PIO_SHARD_SERVE="0"):
+            m = RecModel.load(f"{iid}_0", params, ctx)
+            m.mf.prepare_for_serving(host_max_elements=0, device=dev)
+        check(m.mf.serving_info()["path"] == "device-bf16",
+              f"[{tag}] single-card oracle {m.mf.serving_info()}")
+        return m.mf
+
+    async def bursts(session, url, users):
+        lat = []
+        for i in range(SHARD_BURSTS):
+            payload = [{"user": f"u{u}", "num": 10}
+                       for u in users[i * 64:(i + 1) * 64]]
+            bodies, ls = await post_all(session, url, payload, True)
+            for body in bodies:
+                check(len(body["itemScores"]) == 10, f"[{tag}] short answer {body}")
+            lat += ls
+        return lat, bodies
+
+    gathers0 = M.FULL_GATHERS.value
+    with env_vars(PIO_FS_BASEDIR=persisted["fs"], PIO_SHARD_SERVE="1",
+                  PIO_SHARD_SERVE_SHARDS=""), retrieval_mode("exact"):
+        loaded = RecModel.load(f"{iid}_0", params, ctx)
+        n_items, n_users = loaded.mf.n_items, loaded.mf.n_users
+        rs = restore_shards(n_items, REC_RANK, 1, device_type=dev.type)
+        check(loaded.restore_shards == rs, f"[{tag}] load chose "
+              f"{loaded.restore_shards} shards, restore_shards {rs}")
+        del loaded
+        n_expect = min(max(cards, 2), cards)
+        t0 = time.perf_counter()
+        server = QueryServer(
+            ServerConfig(engine_variant=variant_path, ip="127.0.0.1",
+                         port=free_port()), storage=storage, ctx=ctx)
+        torch.cuda.synchronize()
+        rec["deploy_s"] = time.perf_counter() - t0
+        served = server.deployed.models[0]
+        info = served.serving_info()
+        check(info["path"] == "sharded-device-bf16"
+              and info["sharding"]["n_shards"] == n_expect,
+              f"[{tag}] served {info}")
+        rec["restore_shards"] = rs
+        rec["n_shards"] = info["sharding"]["n_shards"]
+        rec["devices"] = info["sharding"]["devices"]
+        log(f"[{tag}] deployed {n_users}x{n_items} rank {REC_RANK} in "
+            f"{rec['deploy_s']:.2f} s: restore_shards {rs}, serving "
+            f"{rec['n_shards']} shard(s) on {rec['devices']}"
+            + (" (one card: PIO_SHARD_SERVE=1 asks for 2 shards and the "
+               "device layout clamps to the 1 card, as the reference clamps "
+               "to its devices, two_tower.py:366)" if cards == 1 else ""))
+        single = single_card()
+        users = rng.integers(0, n_users, SHARD_B_USERS).astype(np.int32)
+        before_delta = {}
+        bitwise = {}
+        for kind in SHARD_MASK_KINDS:
+            exclude, row_mask = shard_masks(rng, SHARD_B_USERS, n_items, kind)
+            got = TwoTowerMF.recommend_batch(served.mf, users, 10, exclude, row_mask)
+            want = TwoTowerMF.recommend_batch(single, users, 10, exclude, row_mask)
+            bitwise[kind] = same_answer(got, want)
+            check(bitwise[kind], f"[{tag}] sharded answers ({kind}) are not "
+                  "bitwise the single-card bf16 path's")
+            if kind == "none":
+                before_delta["batch"] = got
+        for u in users[:SHARD_B_SINGLES]:
+            one = np.asarray([u], np.int32)
+            check(same_answer(TwoTowerMF.recommend_batch(served.mf, one, 10),
+                              TwoTowerMF.recommend_batch(single, one, 10)),
+                  f"[{tag}] single query for user {u} not bitwise")
+        rec["bitwise_single_card"] = {**bitwise, "singles": SHARD_B_SINGLES}
+        # two-stage with int8 per-shard IVF on a fresh sharded prepare
+        with retrieval_mode("two_stage"):
+            ts = RecModel.load(f"{iid}_0", params, ctx)
+            t0 = time.perf_counter()
+            ts.prepare_for_serving(ctx)
+            rec["two_stage_prepare_s"] = time.perf_counter() - t0
+            sh = ts.mf._sharded
+            check(sh is not None and sh.ivf and all(i.quantized for i in sh.ivf)
+                  and [str(i.device) for i in sh.ivf]
+                  == [str(d) for d in sh.device.devices],
+                  f"[{tag}] two-stage {ts.mf.serving_info()}")
+            ts.warmup(64)
+            rusers = rng.integers(0, n_users, SHARD_B_RECALL).astype(np.int32)
+            # the oracle holds rec-train's whole-catalog IVF: force exact
+            exact_ans = [TwoTowerMF.recommend_batch(
+                single, rusers[i:i + 64], 10, _force_exact=True)[0]
+                for i in range(0, SHARD_B_RECALL, 64)]
+
+            def recall_at(nprobe):
+                with env_vars(PIO_RETRIEVAL_NPROBE=nprobe):
+                    k2 = R.score_centroids_quantized.launches
+                    got = [TwoTowerMF.recommend_batch(ts.mf, rusers[i:i + 64], 10)[0]
+                           for i in range(0, SHARD_B_RECALL, 64)]
+                    k2 = R.score_centroids_quantized.launches - k2
+                hits = sum(len(set(g[r]) & set(w[r])) for g, w in zip(got, exact_ans)
+                           for r in range(len(g)))
+                return hits / (10 * SHARD_B_RECALL), k2
+
+            parts = sh.ivf[0].n_partitions
+            r_default, _ = recall_at("0")
+            r_all, k2_all = recall_at(str(max(i.n_partitions for i in sh.ivf)))
+            check(r_all >= RECALL_FLOOR, f"[{tag}] two-stage recall@10 "
+                  f"{r_all:.4f} < {RECALL_FLOOR} probing every partition")
+            check(k2_all == sh.n_shards * (SHARD_B_RECALL // 64),
+                  f"[{tag}] K2 launched {k2_all} times for "
+                  f"{SHARD_B_RECALL // 64} batches over {sh.n_shards} shards")
+            rec["two_stage"] = {
+                "partitions_per_shard": [i.n_partitions for i in sh.ivf],
+                "quantized": True, "recall_at_10_default_nprobe": r_default,
+                "recall_at_10_all_partitions": r_all,
+                "k2_launches": k2_all, "ivf_devices": [str(i.device) for i in sh.ivf]}
+            log(f"[{tag}] two-stage int8 per-shard IVF ({parts} partitions a "
+                f"shard; prepare {rec['two_stage_prepare_s']:.2f} s): recall@10 "
+                f"{r_default:.4f} at the default nprobe (no floor: rec-train's "
+                f"tables hold no cluster structure), {r_all:.4f} probing every "
+                f"partition; K2 {k2_all} launches on {rec['two_stage']['ivf_devices']}")
+            del ts, sh
+        gc.collect()
+        torch.cuda.empty_cache()
+        await server.start()
+        try:
+            async with aiohttp.ClientSession() as session:
+                base = f"http://127.0.0.1:{server.config.port}"
+                url = f"{base}/queries.json"
+                lat_users = rng.integers(0, n_users, 64 * SHARD_BURSTS)
+                lat_sharded, _ = await bursts(session, url, lat_users)
+                async with session.get(f"{base}/health") as resp:
+                    health = await resp.json()
+                summary = health["deployment"]["sharding"][0]
+                check(summary["nShards"] == rec["n_shards"]
+                      and summary["rows"][-1][1] == n_items,
+                      f"[{tag}] /health sharding {summary}")
+                rec["health_sharding"] = summary
+                # POST /delta: 512 item rows and 512 user rows
+                drng = np.random.default_rng(41)
+                item_ids = drng.choice(n_items, SHARD_DELTA_ROWS, replace=False)
+                user_ids = drng.choice(n_users, SHARD_DELTA_ROWS, replace=False)
+                width = REC_RANK + 1
+                d = deltas.ModelDelta(
+                    base_instance=iid, chain_base=0, from_seq=0, to_seq=1,
+                    user_rows={int(u): (drng.standard_normal(width) * 0.1
+                                        ).astype(np.float32) for u in user_ids},
+                    item_rows={int(i): (drng.standard_normal(width) * 0.1
+                                        ).astype(np.float32) for i in item_ids})
+                old_sh = served.mf._sharded
+                t0 = time.perf_counter()
+                async with session.post(f"{base}/delta",
+                                        data=deltas.encode_delta(d)) as resp:
+                    ans = await resp.json()
+                rec["delta_s"] = time.perf_counter() - t0
+                check(resp.status == 200 and ans.get("status") == "applied",
+                      f"[{tag}] POST /delta answered {resp.status} {ans}")
+                new_mf = server.deployed.models[0].mf
+                new_sh = new_mf._sharded
+                rps = old_sh.spec.rows_per_shard
+                owners = sorted(set((item_ids // rps).tolist()))
+                u_owners = sorted(set(
+                    (user_ids // old_sh.spec_users.rows_per_shard).tolist()))
+                for s in range(old_sh.n_shards):
+                    check((new_sh.device.item_t[s] is old_sh.device.item_t[s])
+                          == (s not in owners)
+                          and (new_sh.device.users[s] is old_sh.device.users[s])
+                          == (s not in u_owners),
+                          f"[{tag}] shard {s}'s blocks: rebuilt only on the owners")
+                # the receiver still answers as before; the new model
+                # answers as a fresh sharded prepare of the updated tables
+                check(same_answer(TwoTowerMF.recommend_batch(served.mf, users, 10),
+                                  before_delta["batch"]),
+                      f"[{tag}] the delta moved the live model's answers")
+                fresh = TwoTowerModel(mean=new_mf.mean, config=new_mf.config)
+                fresh._tables = dict(new_mf._tables)
+                fresh._n_users, fresh._n_items = n_users, n_items
+                fresh.prepare_for_serving(device=dev)
+                check(fresh._sharded is not None, f"[{tag}] fresh prepare "
+                      f"{fresh.serving_info()}")
+                dusers = np.concatenate([users, user_ids[:64].astype(np.int32)])
+                check(same_answer(TwoTowerMF.recommend_batch(new_mf, dusers, 10),
+                                  TwoTowerMF.recommend_batch(fresh, dusers, 10)),
+                      f"[{tag}] post-delta answers are not bitwise a fresh "
+                      "sharded prepare's")
+                rec["delta"] = {"item_rows": SHARD_DELTA_ROWS,
+                                "user_rows": SHARD_DELTA_ROWS,
+                                "item_owner_shards": owners,
+                                "user_owner_shards": u_owners, "apply_s": rec["delta_s"],
+                                "bitwise_fresh_prepare": True}
+                del fresh, old_sh, new_sh, new_mf
+                lat_after, _ = await bursts(session, url, lat_users)
+        finally:
+            await server.shutdown()
+        rec["full_gathers"] = M.FULL_GATHERS.value - gathers0
+        check(rec["full_gathers"] == 0, f"[{tag}] {rec['full_gathers']} "
+              "full-table gathers across load, prepare, warmup, queries and "
+              "the delta")
+        del server, served, single
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the same bursts on the single-card int8 path (K1)
+    with env_vars(PIO_FS_BASEDIR=persisted["fs"], PIO_SHARD_SERVE="0"), \
+            retrieval_mode("exact"):
+        server = QueryServer(
+            ServerConfig(engine_variant=variant_path, ip="127.0.0.1",
+                         port=free_port()), storage=storage, ctx=ctx)
+        check(server.deployed.models[0].serving_info()["path"] == "device-int8",
+              f"[{tag}] int8 {server.deployed.models[0].serving_info()}")
+        await server.start()
+        try:
+            async with aiohttp.ClientSession() as session:
+                lat_int8, _ = await bursts(
+                    session, f"http://127.0.0.1:{server.config.port}/queries.json",
+                    lat_users)
+        finally:
+            await server.shutdown()
+        del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["latency"] = {
+        name: {"n": len(v), "p50_ms": pct(v, 50), "p99_ms": pct(v, 99)}
+        for name, v in (("sharded_exact_burst64", lat_sharded),
+                        ("sharded_exact_burst64_after_delta", lat_after),
+                        ("single_card_int8_burst64", lat_int8))}
+    for k, v in rec["latency"].items():
+        log(f"[{tag}] latency {k:<36s} n={v['n']:<4d} p50={v['p50_ms']:.2f} ms "
+            f"p99={v['p99_ms']:.2f} ms")
+    log(f"[{tag}] bitwise vs single-card bf16 {rec['bitwise_single_card']}; "
+        f"delta {rec['delta']}; full gathers {rec['full_gathers']}")
+    return rec
+
+
+def shard_trained_multi(ctx, persisted, n_shards, tag="rec-shard-multi") -> dict:
+    """With ≥ 2 cards: rec-train's tables served over ``n_shards`` cards,
+    bitwise the single-card bf16 path's, with each card's scoring ms and
+    the merge ms."""
+    from incubator_predictionio_tpu_torch.models.two_tower import TwoTowerMF
+    from incubator_predictionio_tpu_torch.templates.recommendation import (
+        ALSAlgorithmParams,
+        RecModel,
+    )
+
+    dev = ctx.device
+    params = ALSAlgorithmParams(rank=REC_RANK)
+    name = f"{persisted['iid']}_0"
+    rng = np.random.default_rng(33)
+    with env_vars(PIO_FS_BASEDIR=persisted["fs"], PIO_SHARD_SERVE="0"), \
+            retrieval_mode("exact"):
+        single = RecModel.load(name, params, ctx).mf
+        single.prepare_for_serving(host_max_elements=0, device=dev)
+    with env_vars(PIO_FS_BASEDIR=persisted["fs"], PIO_SHARD_SERVE="1",
+                  PIO_SHARD_SERVE_SHARDS=str(n_shards)), retrieval_mode("exact"):
+        m = RecModel.load(name, params, ctx).mf
+        m.prepare_for_serving(device=dev)
+        check(m._sharded is not None and m._sharded.n_shards == n_shards,
+              f"[{tag}] {m.serving_info()}")
+        users = rng.integers(0, m.n_users, (8, 64)).astype(np.int32)
+        for kind in SHARD_MASK_KINDS:
+            exclude, row_mask = shard_masks(rng, 64, m.n_items, kind)
+            check(same_answer(
+                TwoTowerMF.recommend_batch(m, users[0], 10, exclude, row_mask),
+                TwoTowerMF.recommend_batch(single, users[0], 10, exclude, row_mask)),
+                f"[{tag}] {n_shards}-card answers ({kind}) not bitwise single-card")
+        times = card_times(m, users, 10)
+    log(f"[{tag}] rec-train's model over {n_shards} cards: bitwise the "
+        f"single-card bf16 path under every mask kind; {times}")
+    return {"n_shards": n_shards, "devices": [str(d) for d in m._sharded.device.devices],
+            "bitwise_single_card": True, **times}
+
+
+def rec_shard_phase(R, ctx, tmp, persisted):
+    """Sharded serving on the card(s): bench_sharded_serving's lanes
+    (:func:`shard_lanes`) and rec-train's persisted model under
+    PIO_SHARD_SERVE=1 (:func:`shard_trained`); with ≥ 2 cards both again
+    over ``min(4, cards)`` cards with each card's scoring time. Returns
+    (launches, record)."""
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    R.reset_launches()
+    rec = {"cards": cards}
+    rec["lanes"] = shard_lanes(R, ctx, min(8, cards), "rec-shard", full=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["trained"] = asyncio.run(shard_trained(R, ctx, persisted))
+    if cards >= 2:
+        n = min(4, cards)
+        rec["multi_card"] = {
+            "lanes": shard_lanes(R, ctx, n, "rec-shard-multi", full=False),
+            "trained": shard_trained_multi(ctx, persisted, n)}
+    else:
+        log("[rec-shard] one card visible: every device-sharded lane ran "
+            "with one shard (the clamp to the local cards); the multi-card "
+            "pass needs ≥ 2 cards")
+    launches = {"score_catalog_quantized": R.score_catalog_quantized.launches,
+                "score_centroids_quantized": R.score_centroids_quantized.launches}
+    for name, count in launches.items():
+        check(count > 0, f"[rec-shard] {name} never launched")
+    rec["launches"] = launches
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"[rec-shard] phase {rec['phase_s']:.1f} s; launches {launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
 #: seq-workflow: bench_sequential's widths (bench.py:897-899) trained from
 #: events in the store; 2,048 users' cycle sessions of 16-128 items (~150k
 #: view events: the session count is the cut, for the import's time at
@@ -4496,8 +5127,9 @@ CLS_EVALUATION = ("incubator_predictionio_tpu_torch.templates.classification."
 
 class RecEvalGrid:
     """rec-eval's EngineParamsGenerator (the CLI loads it by class path):
-    the reference RecommendationEvaluation's grid, rank 16 / 32 ×
-    ``num_iterations`` 10 / 20, on rec-workflow's app ``ml1m``."""
+    the reference RecommendationEvaluation's grid cut to its 10-iteration
+    half, rank 16 / 32, on rec-workflow's app ``ml1m`` (the 20-iteration
+    half runs the same path; cut for the script's time)."""
 
     def __init__(self):
         from incubator_predictionio_tpu_torch.core import EngineParams
@@ -4507,8 +5139,8 @@ class RecEvalGrid:
             EngineParams.create(
                 data_source=trec.DataSourceParams(app_name="ml1m", eval_k=EVAL_K),
                 algorithms=[("als", trec.ALSAlgorithmParams(
-                    rank=rank, num_iterations=it))])
-            for rank in (16, 32) for it in (10, 20)]
+                    rank=rank, num_iterations=10))])
+            for rank in (16, 32)]
 
 
 class SeqEvalGrid:
@@ -4532,15 +5164,28 @@ class SeqEvalGrid:
             for epochs in (1, 2) for lr in (1e-3, 5e-3)]
 
 
+#: cls-eval's MLP epochs: the reference grid trains 60; 20 run the same
+#: path at a third of the fits' time (cut for the script's time)
+CLS_EVAL_EPOCHS = 20
+
+
+def cls_eval_grid() -> list:
+    """The reference ``_classification_grid`` (hidden (16,) / (32, 32) ×
+    learning rate 1e-2 / 3e-2) on cls-workflow's app ``cls``, at
+    :data:`CLS_EVAL_EPOCHS`."""
+    from incubator_predictionio_tpu_torch.templates import classification as tcl
+
+    return [dataclasses.replace(ep, algorithm_params_list=tuple(
+        (name, dataclasses.replace(p, epochs=CLS_EVAL_EPOCHS))
+        for name, p in ep.algorithm_params_list))
+        for ep in tcl._classification_grid("cls", EVAL_K)]
+
+
 class ClsEvalGrid:
-    """cls-eval's generator: the reference ``_classification_grid`` (hidden
-    (16,) / (32, 32) × learning rate 1e-2 / 3e-2, 60 epochs) on
-    cls-workflow's app ``cls``."""
+    """cls-eval's generator: :func:`cls_eval_grid`."""
 
     def __init__(self):
-        from incubator_predictionio_tpu_torch.templates import classification as tcl
-
-        self.engine_params_list = tcl._classification_grid("cls", EVAL_K)
+        self.engine_params_list = cls_eval_grid()
 
 
 @contextlib.contextmanager
@@ -4679,7 +5324,7 @@ def fold_scores_vs_cpu(tag, engine, ep, metric, ctx, card_folds, key):
 def rec_eval_phase(ctx, tmp):
     """``pio eval`` of the recommendation template on rec-workflow's sqlite
     app (100,050 events at MovieLens-1M's shape): RecommendationEvaluation
-    with :class:`RecEvalGrid` (4 variants × 3 folds = 12 fits on the card;
+    with :class:`RecEvalGrid` (2 variants × 3 folds = 6 fits on the card;
     scoring is host numpy at this catalog, as in the reference), then
     variant 0 again on the CPU, Precision@10 per fold within
     :data:`EVAL_CPU_BAND`. Returns the record."""
@@ -4715,7 +5360,7 @@ def rec_eval_phase(ctx, tmp):
                 "best_idx": res["bestIdx"], "chance": float(np.mean(chance)),
                 "answers": n_q, "one_liner": inst.evaluator_results})
     log(eval_line("rec-eval", rec))
-    log(f"[rec-eval] Precision@10 of rank 16/32 × 10/20 iterations "
+    log(f"[rec-eval] Precision@10 of rank 16/32 × 10 iterations "
         f"{[round(x, 4) for x in rec['scores']]} (best {rec['best_idx']}) against "
         f"chance {rec['chance']:.4f}; positives a query "
         f"{rec['positive_count'][0]:.2f}; {n_q} answers, none over num, none "
@@ -5457,7 +6102,7 @@ def rec_batchpredict_phase(R, ctx, persisted):
 #: 128, 400,000 events, batch 65,536), 10 epochs, a slice checkpoint after
 #: each (the reference's chaos test's variant, tests/test_chaos_procs.py:
 #: 2191-2201, and bench.py:3532 bench_distributed_training)
-SUP_EPOCHS = 10
+SUP_EPOCHS = 6  # 10 until PR 18; cut for the script's time
 SUP_KILL_AFTER = 2   # SIGKILL the highest live rank once this step commits
 SUP_HEARTBEAT_MS = 2000
 SUP_TIMEOUT_S = 600
@@ -5563,7 +6208,7 @@ def rec_supervised_phase(R, ctx, tmp, cpu_devices_per_process=None):
     supervised members over gloo on one card, then a chaos run with a new
     checkpoint directory whose highest rank is SIGKILLed once 2 epochs are
     committed: one recovery, generation 2, an MTTR under a minute, a
-    resume from a committed epoch ≥ 2, the step-10 leaves bitwise the
+    resume from a committed epoch ≥ 2, the last step's leaves bitwise the
     control's, one COMPLETED instance and one blob by the primary, a
     zombie of generation 1 fenced; ``dist status`` on its mesh; both
     models deployed through K1, the answers of 16 users equal. With two
@@ -6515,13 +7160,12 @@ def bitwise_arrays(a: dict, b: dict) -> bool:
 class ClsLaunchEvalGrid:
     """tpl-launch's eval generator (each launched process loads it as
     ``chip_smoke:ClsLaunchEvalGrid``): cls-eval's first variant (hidden
-    (16,), learning rate 1e-2, 60 epochs), 3 folds, on cls-workflow's app
-    ``cls``; one variant keeps the phase inside its time."""
+    (16,), learning rate 1e-2, :data:`CLS_EVAL_EPOCHS` epochs), 3 folds, on
+    cls-workflow's app ``cls``; one variant keeps the phase inside its
+    time."""
 
     def __init__(self):
-        from incubator_predictionio_tpu_torch.templates import classification as tcl
-
-        self.engine_params_list = tcl._classification_grid("cls", EVAL_K)[:1]
+        self.engine_params_list = cls_eval_grid()[:1]
 
 
 def tpl_launch_specs():
@@ -6998,6 +7642,14 @@ def main() -> int:
         counts, main["rec_train"] = rec_train_phase(R, ctx, tmp)
         for k, c in counts.items():
             launches[k] = launches.get(k, 0) + c
+        gc.collect()
+        torch.cuda.empty_cache()
+        # sharded serving: the sharded_serving lanes, then rec-train's
+        # persisted model under PIO_SHARD_SERVE=1 (K2 a shard)
+        counts, main["rec_shard"] = rec_shard_phase(
+            R, ctx, tmp, main["rec_train"]["persisted"])
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
         # streaming into the card-trained model, through the eventlog backend
         counts, main["rec_stream"] = rec_stream_phase(
             R, S, ctx, tmp, main["rec_train"].pop("persisted"))
@@ -7119,9 +7771,11 @@ def main() -> int:
                                       "bound_by", "library_ms")},
              "launches": main["rec_batchpredict"]["launches"][
                  "score_catalog_quantized"]}},
-        entry("score_centroids_quantized", "retrieval.cu",
-              "incubator_predictionio_tpu/ops/retrieval.py:188", k2,
-              next(c for c in k2 if c["B"] == 64)),
+        {**entry("score_centroids_quantized", "retrieval.cu",
+                 "incubator_predictionio_tpu/ops/retrieval.py:188", k2,
+                 next(c for c in k2 if c["B"] == 64)),
+         "rec_shard_launches": main["rec_shard"]["launches"][
+             "score_centroids_quantized"]},
         {**entry("adam_rows", "sparse_update.cu",
                  "incubator_predictionio_tpu/ops/sparse_update.py:93", k3,
                  next(c for c in k3 if (c["R"], c["D"]) == K3_MAIN)),

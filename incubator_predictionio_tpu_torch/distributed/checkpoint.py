@@ -25,7 +25,7 @@ slice written by an older generation never satisfies the phase-2 poll.
 
 Ownership follows the reference's rule for the port's layout. The port's
 multi-process tables are replicated, one card a process (no ``model``
-axis until sharded serving, ROADMAP.md Queue 1, item 4.4), and the
+axis until model-axis training, ROADMAP.md Queue 1, item 4.5), and the
 reference gives a replicated leaf to its ``replica_id == 0`` shard, which
 lives on process 0: member 0 writes every leaf whole and the other
 members write manifests with no entries. ``slice_fn`` overrides that

@@ -16,7 +16,8 @@ fit is data-parallel (:func:`train_step` over the global batch's
 denominator, one all-reduce of the gradients a step), and its checkpoints
 take the plain multi-process path (the primary writes, every process
 waits). MoE, ring attention, pipeline and tensor parallelism come with
-the sharding slice (ROADMAP.md Queue 1, item 4) and raise until then.
+the parallel-axes slice (ROADMAP.md Queue 1, item 4.5) and raise until
+then.
 
 Numerics follow the reference: every matmul rounds both operands and the
 product to bf16 (``_bf16_matmul``), so served scores are bf16 values and
@@ -53,14 +54,15 @@ from incubator_predictionio_tpu_torch.utils.optim import adam_init, adam_update
 logger = logging.getLogger(__name__)
 
 #: what raises in the training options this slice does not port
-SHARDING_SLICE = "the sharding slice of the PyTorch port (ROADMAP.md Queue 1, item 4)"
+SHARDING_SLICE = ("the parallel-axes slice of the PyTorch port (ROADMAP.md "
+                  "Queue 1, item 4.5)")
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Copy of the reference's config (transformer.py:44), every field, so a
     variant or a persisted config binds unchanged. The parallelism fields
-    wait for the sharding slice."""
+    wait for the parallel-axes slice (ROADMAP.md Queue 1, item 4.5)."""
 
     vocab_size: int = 1024        # items + 1 (0 is padding)
     max_len: int = 64
@@ -437,7 +439,7 @@ class TransformerModel:
             raise NotImplementedError(
                 f"serving a mixture-of-experts transformer (n_experts="
                 f"{self.config.n_experts}) is not ported yet (ROADMAP.md "
-                "Queue 1, item 4: expert parallelism and MoE serving)")
+                "Queue 1, item 4.5: expert parallelism and MoE serving)")
         if ctx.device.type == "cuda":
             from incubator_predictionio_tpu_torch.ops import _build
 

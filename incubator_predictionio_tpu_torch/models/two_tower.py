@@ -27,18 +27,32 @@ Three serving paths, chosen as in the reference:
   ``quantize=True``, the int8 catalog scored by kernel K1 of
   ``ops/retrieval.py`` (:func:`_topk_quantized`);
 - with two-stage retrieval enabled (``serving/ann.py``) the IVF index
-  prunes first, and its coarse stage runs kernel K2 on a CUDA device.
+  prunes first, and its coarse stage runs kernel K2 on a CUDA device;
+- sharded serving (``sharding/serve.py``, ``PIO_SHARD_SERVE``) replaces
+  them when it engages: per-shard exact top-k over the local cards (the
+  bf16 exact expression on each shard's columns) and a merge on the first
+  card, or per-shard host blocks, with per-shard IVF (K2 on each shard's
+  card).
+
+The bf16 exact product (:func:`_catalog_product`) runs in float64 over the
+bf16-rounded values: every product is exact and, for rank ≤ 128, so is
+every partial sum unless the products' magnitudes span more than ~2^30, so
+the one rounding to fp32 gives the same score whatever order cuBLAS sums
+in. An fp32 product's sums follow the kernel cuBLAS picks, and that pick
+depends on the catalog width (a ``[b, rank] @ [rank, N/S]`` product summed
+differently from ``[b, rank] @ [rank, N]`` for batches ≤ 8 on the H100),
+so a shard's scores would not be bitwise the whole catalog's.
 
 Streaming deltas land through :meth:`TwoTowerModel.with_row_updates`
 (build-beside: a NEW model over copied host tables, the IVF index
 overlaid with the moved rows; a device-resident model pulls its tables to
-the host once first, as the reference does). Mid-training checkpoints run
-through ``utils/checkpoint.py:checkpointed_epochs`` in chunks of
-``checkpoint_every`` epochs, in a multi-process fit too: a supervised
+the host once first, as the reference does; a device-sharded model routes
+the rows to their owning shards on the cards instead). Mid-training
+checkpoints run through ``utils/checkpoint.py:checkpointed_epochs`` in
+chunks of ``checkpoint_every`` epochs, in a multi-process fit too: a supervised
 member (``distributed/context.py``) through member-slice checkpoints and
 its chunk-boundary peer check, any other multi-process fit through the
-plain path (the primary writes, every process waits). Sharded serving
-comes with the sharding slice (ROADMAP.md Queue 1, item 4).
+plain path (the primary writes, every process waits).
 
 Multi-process training is the reference's data-parallel fit over one
 ``torch.distributed`` group, every process holding a replica of the
@@ -83,11 +97,6 @@ from incubator_predictionio_tpu_torch.parallel.mesh import (
 DeviceLike = Union[str, torch.device, None]
 
 logger = logging.getLogger(__name__)
-
-
-#: what raises in the training options this slice does not port
-SHARDING_SLICE = ("the sharding slice of the PyTorch port (ROADMAP.md "
-                  "Queue 1, item 4)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,6 +190,15 @@ class TwoTowerModel:
     _host_items = None  # small-catalog host fast path (item_embᵀ, item_bias)
     _serve_k = 0  # top-k the device path computes when num fits under it
     _ivf = None  # two-stage retrieval index (serving/ann.py), host numpy
+    # sharded serving state (sharding/serve.py): per-shard top-k + merge
+    # replaces the single-device scorers when it engages. Derived at
+    # prepare time, never serialized (deploy rebuilds it)
+    _sharded = None
+    # per-shard IVF partitions (one slim-pickling IVFIndex per shard) and
+    # the training shard layout — both host-picklable, both persisted so a
+    # sharded redeploy skips the per-shard re-cluster
+    _shard_ivf = None
+    _shard_spec = None
 
     @property
     def device_resident(self) -> bool:
@@ -192,6 +210,9 @@ class TwoTowerModel:
         such as default pickling, land here)."""
         if self.user_emb is not None or self._tables is None:
             return self
+        from incubator_predictionio_tpu_torch.sharding import shard_metrics
+
+        shard_metrics.FULL_GATHERS.inc()
         k = self.config.rank
         ue = self._tables["ue"][: self._n_users].cpu().numpy()
         ie = self._tables["ie"][: self._n_items].cpu().numpy()
@@ -203,12 +224,14 @@ class TwoTowerModel:
 
     def __getstate__(self):
         # default pickling always ships host arrays; device handles and
-        # serving buffers never serialize — deploy rebuilds them
+        # serving buffers never serialize — deploy rebuilds them (the
+        # sharded serving state holds device tensors; its host-only inputs,
+        # _shard_ivf and _shard_spec, do persist)
         self.ensure_host()
         return {k: v for k, v in self.__dict__.items()
                 if k not in ("_tables", "_device", "_device_items",
                              "_device_items_q", "_device_users",
-                             "_host_items")}
+                             "_host_items", "_sharded")}
 
     def prepare_for_serving(
         self, quantize: bool = False, serve_k: int = 128,
@@ -237,6 +260,24 @@ class TwoTowerModel:
 
         if not ann.two_stage_enabled(self.n_items):
             return
+        if self._sharded is not None:
+            # composed sharded two-stage: each shard clusters its LOCAL
+            # rows (shard-at-a-time pulls, never the full item table);
+            # persisted per-shard indexes are reused when their keys match
+            self._shard_ivf = self._sharded.ensure_ivf(
+                self, persisted=self._shard_ivf)
+            return
+        from incubator_predictionio_tpu_torch.sharding import (
+            serve as shard_serve,
+        )
+
+        shard_ivf = shard_serve.train_time_shard_ivf(
+            self, persisted=self._shard_ivf)
+        if shard_ivf is not None:
+            # train-time build for a model that will SERVE sharded: the
+            # per-shard clustering persists with the model
+            self._shard_ivf = shard_ivf
+            return
         key = ann.build_key(self.n_items)
         if self._ivf is None or not self._ivf.matches(key):
             self._ivf = ann.build_ivf(*self._host_item_table(), key=key)
@@ -252,6 +293,9 @@ class TwoTowerModel:
         if self.item_emb is not None:
             return (np.asarray(self.item_emb, np.float32),
                     np.asarray(self.item_bias, np.float32))
+        from incubator_predictionio_tpu_torch.sharding import shard_metrics
+
+        shard_metrics.FULL_GATHERS.inc()
         k = self.config.rank
         ie = self._tables["ie"][: self._n_items].cpu().numpy()
         return (np.ascontiguousarray(ie[:, :k]),
@@ -267,8 +311,21 @@ class TwoTowerModel:
         self._device_items = None
         self._device_items_q = None
         self._device_users = None
+        self._sharded = None
         host_max = (HOST_SERVE_MAX_ELEMENTS if host_max_elements is None
                     else host_max_elements)
+        # sharded serving (sharding/serve.py) engages first, through the
+        # ONE engage decision the train-time IVF build and the restore use
+        # too; ``quantize`` does not apply to it, as in the reference
+        from incubator_predictionio_tpu_torch.sharding import (
+            serve as shard_serve,
+        )
+
+        n_shards = shard_serve.serving_shards_for(
+            self, host_max_elements=host_max)
+        if n_shards > 1:
+            self._build_sharded(n_shards)
+            return self
         # host check first: ``quantize`` applies to device-resident catalogs
         if self.n_items * (self.config.rank + 1) <= host_max:
             self.ensure_host()  # no-op unless device mode on a small catalog
@@ -307,15 +364,39 @@ class TwoTowerModel:
             # quantized on the serving device (bitwise quantize_rows)
             self._device_items_q = quantize_catalog_device(item_emb, item_bias)
         else:
-            # bf16 rounding kept in fp32 storage: the product then runs as
-            # one fp32 matmul whose products are exact, like the
-            # reference's bf16 dot with fp32 accumulation
+            # bf16 rounding kept in float64 storage (_catalog_product)
             self._device_items = (
-                item_emb.T.contiguous().to(torch.bfloat16).float(),
+                _catalog_t(item_emb),
                 item_bias,
                 torch.zeros(self.n_items, dtype=torch.float32, device=dev),
             )
         return self
+
+    def _build_sharded(self, n_shards: int) -> None:
+        """The per-shard serving state (sharding/serve.py): a
+        device-resident model derives it device to device from its tables
+        (one shard a local card, the count clamped to the cards, as the
+        reference clamps to its devices); a host model splits into virtual
+        host blocks. A device-sharded model whose cards are missing
+        raises."""
+        from incubator_predictionio_tpu_torch.sharding.serve import (
+            ShardedServing,
+            local_device_count,
+        )
+
+        serve_k = self._serve_k or min(128, self.n_items)
+        if self.device_resident and self.user_emb is None:
+            dev = self._device if self._device is not None \
+                else self._tables["ie"].device
+            n_shards = min(n_shards, local_device_count(dev.type))
+            self._sharded = ShardedServing.build_device(
+                self._tables, self._n_users, self._n_items,
+                self.config.rank, self.mean, serve_k, n_shards, device=dev)
+        else:
+            self._sharded = ShardedServing.build_host(
+                np.asarray(self.item_emb, np.float32),
+                np.asarray(self.item_bias, np.float32),
+                self.n_users, self.mean, serve_k, n_shards)
 
     def warmup(self, max_batch: int = 64) -> int:
         """Dispatch every serving batch bucket up to ``max_batch`` once at
@@ -323,17 +404,22 @@ class TwoTowerModel:
         it loads the CUDA kernels, initializes the card's libraries and
         faults the buffers in, so no live query pays for it. Returns the
         number of buckets warmed (0 on the host fast path)."""
-        if self._device_users is None and self._host_items is None:
+        if not self.prepared:
             self.prepare_for_serving()
         from incubator_predictionio_tpu_torch.serving import ann
 
         n = 0
-        if self._ivf is not None and ann.two_stage_enabled(self.n_items):
+        sharded_ivf = [i for i in (self._sharded.ivf or ())
+                       if i is not None] if self._sharded is not None else []
+        if ((self._ivf is not None or sharded_ivf)
+                and ann.two_stage_enabled(self.n_items)):
             # prime the two-stage path too
             k = min(max(self._serve_k, 1), self.n_items)
             TwoTowerMF.recommend_batch(self, np.zeros(1, np.int32), k)
-            if (self._ivf.quantized and self._ivf.device is not None
-                    and self._ivf.device.type == "cuda"):
+            if any(i.quantized and i.device is not None
+                   and i.device.type == "cuda"
+                   for i in ([self._ivf] if self._ivf is not None
+                             else sharded_ivf)):
                 # the int8 coarse kernel pads queries to power-of-two
                 # buckets (serving/ann._probe_cuda): run each bucket once
                 seen = {8}
@@ -347,8 +433,9 @@ class TwoTowerModel:
                     TwoTowerMF.recommend_batch(
                         self, np.zeros(b, np.int32), k)
                     n += 1
-        if self._host_items is not None:
-            return 0  # pure-numpy serving path
+        if self._host_items is not None or (
+                self._sharded is not None and self._sharded.device is None):
+            return 0  # pure-numpy serving paths
         for b in SERVE_BUCKETS:
             if b > max(1, max_batch):
                 break
@@ -381,7 +468,8 @@ class TwoTowerModel:
         """Whether :meth:`prepare_for_serving` has built the scoring state."""
         return (self._device_items is not None
                 or self._device_items_q is not None
-                or self._host_items is not None)
+                or self._host_items is not None
+                or self._sharded is not None)
 
     def with_row_updates(
         self,
@@ -403,13 +491,16 @@ class TwoTowerModel:
         Item rows that moved are overlaid on the IVF index
         (:meth:`serving.ann.IVFIndex.with_updated_rows`); past
         ``PIO_STREAM_STALE_REBUILD_FRAC`` of the catalog stale, the index is
-        re-clustered from the updated table instead."""
+        re-clustered from the updated table instead.
+
+        Sharded models route each row to its OWNING shard
+        (sharding/serve.py): only that shard's blocks (and its IVF overlay)
+        rebuild. A device-sharded model never pulls its tables to the host
+        for a delta (:meth:`_with_row_updates_sharded`); it comes back
+        prepared, serving the updated shards."""
+        if self._sharded is not None and self.user_emb is None:
+            return self._with_row_updates_sharded(user_rows, item_rows)
         self.ensure_host()
-        if self.user_emb is None:
-            # neither host nor resident tables: the reference's sharded
-            # layout (its _with_row_updates_sharded, :529)
-            raise NotImplementedError(
-                f"delta apply on a sharded model comes with {SHARDING_SLICE}")
         k = self.config.rank
         new = TwoTowerModel(
             user_emb=np.array(self.user_emb, np.float32, copy=True),
@@ -442,6 +533,74 @@ class TwoTowerModel:
                 new._ivf = self._updated_index(new, item_rows)
             else:
                 new._ivf = self._ivf  # shared read-only: nothing moved
+        if self._sharded is not None:
+            # host-block sharded serving: route the rows to their owning
+            # shard's blocks/IVF overlay; untouched shards stay shared.
+            # _shard_ivf only follows when serving carries per-shard
+            # indexes — with two-stage off the persisted clustering must
+            # survive for a later mode flip
+            new._sharded = self._sharded.with_row_updates(
+                user_rows or {}, item_rows or {})
+            new._shard_ivf = (new._sharded.ivf
+                              if new._sharded.ivf is not None
+                              else self._shard_ivf)
+            new._shard_spec = self._shard_spec
+            new._serve_k = self._serve_k
+            new._device = self._device
+        return new
+
+    def _with_row_updates_sharded(
+        self,
+        user_rows: Optional[dict] = None,
+        item_rows: Optional[dict] = None,
+    ) -> "TwoTowerModel":
+        """Build-beside delta apply for a device-resident sharded model:
+        the serving state updates through the owning shards
+        (:meth:`ShardedServing.with_row_updates`), and the rows scatter into
+        copies of the resident tables on the device, so a later save cannot
+        bring old rows back; the receiver keeps serving its own tensors
+        untouched."""
+        new = TwoTowerModel(mean=self.mean, config=self.config)
+        new._n_users, new._n_items = self._n_users, self._n_items
+        new._serve_k = self._serve_k
+        new._device = self._device
+        new._shard_spec = self._shard_spec
+        new._sharded = self._sharded.with_row_updates(
+            user_rows or {}, item_rows or {})
+        if self._tables is not None:
+            # no re-validation: ShardedServing.with_row_updates above
+            # already range- and width-checked every row
+            tables = dict(self._tables)
+            for name, rows_dict in (("ue", user_rows), ("ie", item_rows)):
+                if not rows_dict:
+                    continue
+                ids = np.asarray(sorted(int(i) for i in rows_dict), np.int64)
+                rows = np.stack([np.asarray(rows_dict[int(i)], np.float32)
+                                 for i in ids])
+                t = tables[name]
+                tables[name] = t.clone()
+                tables[name][torch.from_numpy(ids).to(t.device)] = \
+                    torch.from_numpy(rows).to(t.device)
+            new._tables = tables
+        if item_rows and new._tables is not None:
+            # past the staleness threshold a shard re-clusters from the
+            # UPDATED tables (the overlay must not grow without bound)
+            new._sharded.rebuild_stale_ivf(new)
+        new._shard_ivf = (new._sharded.ivf if new._sharded.ivf is not None
+                          else self._shard_ivf)
+        if self._ivf is not None:
+            # a persisted whole-catalog index survives for a later
+            # retrieval/sharding mode flip — with the moved rows overlaid
+            # so an in-process flip never serves pre-delta embeddings
+            if item_rows:
+                ids = np.asarray(sorted(int(i) for i in item_rows), np.int64)
+                rows = np.stack([np.asarray(item_rows[int(i)], np.float32)
+                                 for i in ids])
+                k = self.config.rank
+                new._ivf = self._ivf.with_updated_rows(
+                    ids, rows[:, :k], rows[:, k])
+            else:
+                new._ivf = self._ivf
         return new
 
     def _updated_index(self, new: "TwoTowerModel", item_rows: dict):
@@ -467,7 +626,10 @@ class TwoTowerModel:
 
     def serving_info(self) -> dict:
         """Which serving path this model runs (status-page observability)."""
-        if self._device_items_q is not None:
+        if self._sharded is not None:
+            path = ("sharded-device-bf16" if self._sharded.device is not None
+                    else "sharded-host-numpy")
+        elif self._device_items_q is not None:
             path = "device-int8"  # kernel K1 when "device" is CUDA
         elif self._device_items is not None:
             path = "device-bf16"
@@ -477,13 +639,54 @@ class TwoTowerModel:
             path = "unprepared"
         from incubator_predictionio_tpu_torch.serving import ann
 
-        two_stage = self._ivf is not None and ann.two_stage_enabled(self.n_items)
+        has_index = self._ivf is not None or (
+            self._sharded is not None and any(self._sharded.ivf or ()))
+        two_stage = has_index and ann.two_stage_enabled(self.n_items)
+        if self._ivf is not None:
+            index = self._ivf.stats()
+        elif self._sharded is not None and self._sharded.ivf:
+            index = [i.stats() if i is not None else None
+                     for i in self._sharded.ivf]
+        else:
+            index = None
         return {"path": path, "serve_k": self._serve_k,
                 "catalog_rows": self.n_items,
                 "device": None if self._device is None else str(self._device),
                 "device_resident": self.device_resident,
                 "retrieval_mode": "two_stage" if two_stage else "exact",
-                "index": self._ivf.stats() if self._ivf is not None else None}
+                "sharding": (self._sharded.info()
+                             if self._sharded is not None else None),
+                "index": index}
+
+    def shard_info(self) -> dict:
+        """Shard layout for the ``shards`` verb: the live serving layout
+        when sharded serving is active, else the training-layout record
+        (or the single-card plan) plus what the current simulated HBM
+        budget implies."""
+        from incubator_predictionio_tpu_torch.sharding.table import (
+            ShardSpec,
+            hbm_budget,
+            requires_sharding,
+        )
+
+        k = self.config.rank
+        if self._sharded is not None:
+            info = self._sharded.info()
+            info["sharded"] = True
+            return info
+        spec = self._shard_spec or {
+            "ue": ShardSpec("ue", self.n_users, k + 1, 1),
+            "ie": ShardSpec("ie", self.n_items, k + 1, 1),
+        }
+        return {
+            "sharded": False,
+            "n_shards": spec["ie"].n_shards,
+            "items": spec["ie"].to_dict(),
+            "users": spec["ue"].to_dict(),
+            "hbm_budget": hbm_budget(),
+            "requires_sharding": requires_sharding(
+                self.n_items, k + 1, self.config.adam_moments_dtype),
+        }
 
 
 class TwoTowerMF:
@@ -544,9 +747,20 @@ class TwoTowerMF:
         _sync(dev)
         t_stage = time.perf_counter() - t_stage
 
+        from incubator_predictionio_tpu_torch.sharding.table import (
+            ShardSpec,
+            check_budget,
+        )
         from incubator_predictionio_tpu_torch.utils.optim import adam_tree_init
 
         t_init = time.perf_counter()
+        # the layout record of one card a process (the reference's
+        # ShardedTable.init_train over a mesh with no ``model`` axis), and
+        # PIO_SHARD_HBM_BUDGET enforced on it before the tables are made
+        specs = {name: ShardSpec(name, n, cfg.rank + 1, 1)
+                 for name, n in (("ue", n_users), ("ie", n_items))}
+        for spec in specs.values():
+            check_budget(spec, cfg.adam_moments_dtype)
         gen = torch.Generator(device=dev).manual_seed(cfg.seed)
         tables = list(_init_tables(cfg, n_users, n_items, dev, gen))
         state = adam_tree_init(tables, cfg.adam_moments_dtype)
@@ -604,6 +818,8 @@ class TwoTowerMF:
             model._n_users = n_users
             model._n_items = n_items
             model._device = dev
+            # layout record: what the shards verb and sharded serving read
+            model._shard_spec = specs
         else:
             ue, ie = (t.cpu().numpy() for t in tables)
             digest = check_replicas(ctx, (ue, ie)) if multi else None
@@ -734,6 +950,12 @@ class TwoTowerMF:
             raise ValueError(
                 f"row_mask shape {row_mask.shape} != "
                 f"(batch, n_items) {(len(user_idx), model.n_items)}")
+        if model._sharded is not None:
+            # sharded layout: per-shard top-k + cross-shard merge
+            # (sharding/serve.py); _force_exact skips only the pruned
+            # (per-shard IVF) stage — exact answers stay sharded
+            return _recommend_batch_sharded(
+                model, user_idx, num, exclude, row_mask, _force_exact)
         if model._ivf is not None and not _force_exact:
             from incubator_predictionio_tpu_torch.serving import ann
 
@@ -809,6 +1031,31 @@ def _row_mask_pad_buffer(bucket: int, n_cols: int) -> np.ndarray:
     else:
         buf.fill(0.0)
     return buf
+
+
+def _recommend_batch_sharded(
+    model: TwoTowerModel,
+    user_idx: np.ndarray,
+    num: int,
+    exclude: Optional[np.ndarray] = None,
+    row_mask: Optional[np.ndarray] = None,
+    force_exact: bool = False,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Sharded retrieval (sharding/serve.py): the per-shard IVF prune +
+    merge-rerank when two-stage is enabled (falling back to sharded-exact
+    when any shard under-covers), else per-shard exact top-k + merge."""
+    sh = model._sharded
+    if sh.ivf is not None and any(sh.ivf) and not force_exact:
+        from incubator_predictionio_tpu_torch.serving import ann
+
+        if ann.two_stage_enabled(model.n_items):
+            q, ub = sh.user_rows(model, user_idx)
+            res = sh.search_ivf(q, ub, num, exclude=exclude,
+                                row_mask=row_mask)
+            if res is not None:
+                return res
+    return sh.search_exact(model, user_idx, num, exclude=exclude,
+                           row_mask=row_mask)
 
 
 def _recommend_batch_two_stage(
@@ -1094,20 +1341,50 @@ def _topk_quantized(uidx, ue_tab, ub_tab, items_q, scales, bias, mask,
     return indices, values
 
 
-def _topk_scores(uidx, ue_tab, ub_tab, item_t, item_b, mean, mask, row_mask,
-                 num):
-    """bf16 exact scoring: the gathered bf16 user rows times the bf16-rounded
-    catalog in one fp32 matmul (exact products, fp32 sums), then the
-    reference's epilogue order: + item bias + user bias + mean + mask."""
+def _catalog_t(item_emb: torch.Tensor) -> torch.Tensor:
+    """The exact path's catalog block: ``item_emb`` ``[n, rank]`` transposed
+    to ``[rank, n]``, rounded to bf16 and held in float64 for
+    :func:`_catalog_product`. The single-device path and every shard of the
+    sharded path store their columns through this one function."""
+    return item_emb.T.contiguous().to(torch.bfloat16).to(torch.float64)
+
+
+def _catalog_product(q_bf: torch.Tensor, item_t: torch.Tensor) -> torch.Tensor:
+    """``q_bf [b, rank] (bf16) @ item_t [rank, n]`` as fp32 scores: the
+    reference's bf16 dot with an fp32 result. The bf16 values are widened
+    exactly to ``item_t``'s dtype; in float64 the products and their sums
+    are exact (module docstring), so the fp32 rounding of each score does
+    not depend on the kernel cuBLAS picks for this width. TF32 does not
+    apply to float64; an fp32 ``item_t`` (callers that pass their own) is
+    summed in fp32, where TF32 must stay off
+    (``torch.backends.cuda.matmul.allow_tf32``'s default)."""
+    return (q_bf.to(item_t.dtype) @ item_t).float()
+
+
+def _exact_scores(q_bf, ub_q, item_t, item_b, mean, mask, row_mask):
+    """bf16 exact scoring of ``[b, n]`` scores, the reference's expression
+    and epilogue order: the product + item bias + user bias + mean + mask
+    (+ the per-query row mask). The single-device path and each shard of
+    the sharded path (on its own columns) run this one expression, so the
+    sharded scores are bitwise the single-device ones."""
     scores = (
-        ue_tab[uidx].float() @ item_t
+        _catalog_product(q_bf, item_t)
         + item_b[None, :]
-        + ub_tab[uidx][:, None]
+        + ub_q[:, None]
         + mean
         + mask[None, :]
     )
     if row_mask is not None:
         scores = scores + row_mask
+    return scores
+
+
+def _topk_scores(uidx, ue_tab, ub_tab, item_t, item_b, mean, mask, row_mask,
+                 num):
+    """bf16 exact scoring (:func:`_exact_scores` of the gathered bf16 user
+    rows) and top-k."""
+    scores = _exact_scores(ue_tab[uidx], ub_tab[uidx], item_t, item_b, mean,
+                           mask, row_mask)
     values, indices = _top_k(scores, num)
     return indices, values
 

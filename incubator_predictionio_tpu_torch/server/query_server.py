@@ -354,8 +354,35 @@ class QueryServer:
                 "engineVersion": inst.engine_version,
                 # the delta-chain position the updater's ship-resync keys on
                 "streaming": self._streaming_health(),
+                # per-model shard state with each shard's [lo, hi) rows
+                "sharding": self._sharding_summary(),
             },
         })
+
+    def _sharding_summary(self) -> list:
+        """One entry per deployed model (reference query_server.py:1013):
+        None when it serves unsharded, else its shard count, mode, merge
+        fan-in and each shard's ``[lo, hi)`` item rows."""
+        from incubator_predictionio_tpu_torch.sharding.table import ShardSpec
+
+        out = []
+        for m in self.deployed.models:
+            info = m.serving_info() if hasattr(m, "serving_info") else None
+            sh = (info or {}).get("sharding")
+            if not sh:
+                out.append(None)
+                continue
+            entry = {"nShards": sh["n_shards"], "mode": sh["mode"],
+                     "mergeFanin": sh["merge_fanin"]}
+            items = sh.get("items") or None
+            if items:
+                spec = ShardSpec(items["name"], items["n_rows"],
+                                 items["width"], items["n_shards"])
+                entry["shardIds"] = list(range(spec.n_shards))
+                entry["rows"] = [list(spec.shard_bounds(s))
+                                 for s in range(spec.n_shards)]
+            out.append(entry)
+        return out
 
     async def handle_status(self, request: web.Request) -> web.Response:
         inst = self.deployed.instance

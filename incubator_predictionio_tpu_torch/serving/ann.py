@@ -333,6 +333,7 @@ class IVFIndex:
             "quant_coarse": quant_coarse_enabled(self.quantized),
             "coarse_device": None if self.device is None else str(self.device),
             "rerank_bytes": int(rerank_bytes),
+            "bytes_saved": int(fp32_bytes - rerank_bytes),
             "default_nprobe": resolved_nprobe(self.n_partitions),
             "build_seconds": round(self.build_seconds, 2),
             "stale_rows": self.stale_count,

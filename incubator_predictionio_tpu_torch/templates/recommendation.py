@@ -362,11 +362,13 @@ class RecModel(PersistentModel):
     Persistence (PersistentModel SPI): host models fall back to default
     MODELDATA pickling (``save`` returns False). Device-resident models
     write their fused tables with ``torch.save`` from the card, plus a
-    pickled sidecar (config, mean, row counts, BiMaps, IVF index,
-    cold-start rows: the reference's ``sidecar.pkl`` keys without its shard
-    fields) under ``utils/fs.subdir("device_models")/<model_id>``; ``load``
-    restores the tables straight onto ``ctx.device``. The reference writes
-    an orbax checkpoint there instead."""
+    pickled sidecar (config, mean, row counts, BiMaps, IVF index, the shard
+    layout record and per-shard IVF partitions, cold-start rows: the
+    reference's ``sidecar.pkl`` keys) under
+    ``utils/fs.subdir("device_models")/<model_id>``; ``load`` restores the
+    tables straight onto ``ctx.device``, and sharded serving places its
+    shards from there device to device. The reference writes an orbax
+    checkpoint there instead."""
 
     mf: TwoTowerModel
     user_map: BiMap
@@ -407,6 +409,10 @@ class RecModel(PersistentModel):
             # two-stage retrieval index (host numpy; built at train end when
             # the catalog qualifies, else None)
             "ivf": self.mf._ivf,
+            # sharded layout record + per-shard IVF partitions: a sharded
+            # redeploy skips the per-shard re-cluster
+            "shard_spec": self.mf._shard_spec,
+            "shard_ivf": self.mf._shard_ivf,
             "coldstart": getattr(self, "coldstart", None),
         }
         atomic_write_bytes(os.path.join(d, "sidecar.pkl"), pickle.dumps(meta))
@@ -419,9 +425,22 @@ class RecModel(PersistentModel):
 
         import torch
 
+        from incubator_predictionio_tpu_torch.sharding import (
+            serve as shard_serve,
+        )
+
         d = cls._device_dir(model_id)
         with open(os.path.join(d, "sidecar.pkl"), "rb") as f:
             meta = pickle.load(f)
+        # the restore layout (reference :430-438): with more than one
+        # serving shard the tables still land on ctx.device, and the
+        # deploy's prepare places each shard on its card device to device —
+        # never through a full-table host copy
+        trained = (meta.get("shard_spec") or {}).get("ie")
+        serve_shards = shard_serve.restore_shards(
+            meta["n_items"], meta["config"].rank,
+            trained.n_shards if trained is not None else 1,
+            device_type=ctx.device.type)
         tables = torch.load(os.path.join(d, "tables.pt"),
                             map_location=ctx.device, weights_only=True)
         for k, rows in meta["table_rows"].items():
@@ -435,14 +454,24 @@ class RecModel(PersistentModel):
         mf._n_items = meta["n_items"]
         mf._device = ctx.device
         mf._ivf = meta.get("ivf")
+        mf._shard_spec = meta.get("shard_spec")
+        mf._shard_ivf = meta.get("shard_ivf")
         model = cls(mf, meta["user_map"], meta["item_map"])
         model.coldstart = meta.get("coldstart")
+        model.restore_shards = serve_shards
+        if serve_shards > 1:
+            logger.info("restore %s: %d serving shards over %s", model_id,
+                        serve_shards, ctx.device.type)
         return model
 
     def prepare_for_serving(self, ctx: DeviceContext) -> "RecModel":
         # on a CUDA device the catalog is int8-quantized on the card and
         # scored by kernel K1 (the reference quantizes when its platform is
-        # "tpu")
+        # "tpu"); a sharded layout ignores ``quantize``, as the reference's.
+        # A delta-applied sharded model arrives prepared: its shards were
+        # rebuilt beside the live ones by with_row_updates
+        if self.mf._sharded is not None:
+            return self
         self.mf.prepare_for_serving(quantize=ctx.device.type == "cuda",
                                     device=ctx.device)
         return self
@@ -453,6 +482,10 @@ class RecModel(PersistentModel):
 
     def serving_info(self) -> dict:
         return self.mf.serving_info()
+
+    def shard_info(self) -> dict:
+        """Shard layout + HBM estimates (the ``shards`` verb)."""
+        return self.mf.shard_info()
 
     # -- streaming deltas -------------------------------------------------
     def apply_delta(self, delta) -> "RecModel":

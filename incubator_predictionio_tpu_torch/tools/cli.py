@@ -2,11 +2,11 @@
 
 Counterpart of ``incubator_predictionio_tpu/tools/cli.py`` (reference
 tools/console/Console.scala): the verbs ``app new``, ``import``, ``train``,
-``eval``, ``deploy``, ``batchpredict``, ``launch`` and ``dist status``,
-with the reference's argument names (its cli.py:58, :231, :267, :295,
-:366, :631, :3786, :3604).
-``train``, ``eval``, ``deploy`` and ``batchpredict`` run on the card unless
-``--device cpu`` asks for the CPU. ``launch -n N <verb> …`` runs N
+``eval``, ``deploy``, ``batchpredict``, ``launch``, ``dist status`` and
+``shards``, with the reference's argument names (its cli.py:58, :231,
+:267, :295, :366, :631, :3786, :3604, :3533).
+``train``, ``eval``, ``deploy``, ``batchpredict`` and ``shards`` run on
+the card unless ``--device cpu`` asks for the CPU. ``launch -n N <verb> …`` runs N
 coordinated ``<verb> --distributed`` processes of ``train``, ``eval`` or
 ``batchpredict`` (``parallel/launcher.py``). Run it as ``python -m
 incubator_predictionio_tpu_torch.tools.cli <verb>``; :func:`main` takes the
@@ -258,12 +258,114 @@ def cmd_dist_status(args, storage: Storage) -> int:
     return 1 if snap["degraded"] else 0
 
 
+def _fmt_bytes(n) -> str:
+    if n is None:
+        return "unbounded"
+    n = float(n)
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if n < 1024 or unit == "GiB":
+            return f"{n:.1f}{unit}" if unit != "B" else f"{int(n)}B"
+        n /= 1024
+    return f"{n:.1f}GiB"  # pragma: no cover - loop always returns
+
+
+def format_shard_stats(models) -> list[str]:
+    """Human-readable shard layout for a deployed engine's models
+    (reference cli.py:1257), separate from :func:`cmd_shards` so tests
+    drive it with hand-built models."""
+    from incubator_predictionio_tpu_torch.sharding.table import ShardSpec
+
+    lines: list[str] = []
+    for i, m in enumerate(models):
+        name = type(m).__name__
+        if not hasattr(m, "shard_info"):
+            lines.append(f"model {i} ({name}): no shard layout "
+                         "(not an embedding-table model)")
+            continue
+        info = m.shard_info()
+        if not info.get("sharded"):
+            lines.append(f"model {i} ({name}): UNSHARDED single-host layout")
+            items = info.get("items") or {}
+            lines.append(
+                f"  items: {items.get('n_rows', '?')} rows × "
+                f"{items.get('width', '?')} "
+                f"({_fmt_bytes(items.get('table_bytes'))} f32; "
+                f"train+adam {_fmt_bytes(items.get('train_bytes_per_shard'))}"
+                "/chip)")
+            budget = info.get("hbm_budget")
+            lines.append(
+                f"  hbm budget: {_fmt_bytes(budget)}"
+                + ("  — EXCEEDS one chip: train/serve sharded "
+                   "(PIO_SHARD_SERVE, docs/sharding.md)"
+                   if info.get("requires_sharding") else ""))
+            continue
+        items, users = info["items"], info["users"]
+        lines.append(
+            f"model {i} ({name}): SHARDED ×{info['n_shards']} "
+            f"({info['mode']} shards)")
+        for label, t in (("items", items), ("users", users)):
+            rows = t["shard_rows"]
+            lines.append(
+                f"  {label}: {t['n_rows']} rows → {t['rows_per_shard']}"
+                f"/shard (real min/max {min(rows)}/{max(rows)}), "
+                f"{_fmt_bytes(t['table_bytes'] // t['n_shards'])} f32/shard, "
+                f"train+adam {_fmt_bytes(t['train_bytes_per_shard'])}/shard")
+        spec = ShardSpec(items["name"], items["n_rows"], items["width"],
+                         items["n_shards"])
+        lines.append("  item row ranges: " + "  ".join(
+            f"{s}:[{lo},{hi})" for s, (lo, hi) in
+            ((s, spec.shard_bounds(s)) for s in range(spec.n_shards))))
+        lines.append(
+            f"  merge fan-in: {info['merge_fanin']} candidates/query "
+            f"({info['n_shards']} shards × per-shard top-k, "
+            f"serve_k {info['serve_k']})")
+        budget = info.get("hbm_budget")
+        if budget is not None:
+            lines.append(f"  hbm budget: {_fmt_bytes(budget)}")
+        ivf = info.get("ivf")
+        if ivf and any(ivf):
+            parts = [s["n_partitions"] for s in ivf if s]
+            lines.append(
+                f"  per-shard IVF: {sum(parts)} partitions total "
+                f"({min(parts)}–{max(parts)}/shard) — each shard prunes "
+                "locally, the merge reranks")
+            if info.get("quantized"):
+                lines.append(
+                    f"  quantization: int8 rerank/shard "
+                    f"({_fmt_bytes(items.get('shard_serve_bytes_int8'))} "
+                    f"int8 vs "
+                    f"{_fmt_bytes(items.get('table_bytes', 0) // max(info.get('n_shards', 1), 1))}"
+                    f" f32 HBM/shard; saves "
+                    f"{_fmt_bytes(info.get('rerank_bytes_saved', 0))} total)")
+    return lines
+
+
+def cmd_shards(args, storage: Storage) -> int:
+    """Inspect the shard layout of the latest COMPLETED instance's models:
+    per-shard row counts, HBM-bytes estimates, merge fan-in (reference
+    cli.py:1331)."""
+    from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext
+    from incubator_predictionio_tpu_torch.server.query_server import (
+        ServerConfig,
+        load_deployed_engine,
+    )
+
+    # warmup=False: inspection only reads shard_info()
+    deployed = load_deployed_engine(
+        ServerConfig(engine_variant=args.engine_variant, max_batch=1),
+        storage, DeviceContext.create(args.device), warmup=False)
+    _out(f"engine instance {deployed.instance.id}")
+    for line in format_shard_stats(deployed.models):
+        _out(line)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="pio-tpu",
         description="PredictionIO-capability ML server framework "
                     "(PyTorch/CUDA port: app new, import, train, eval, "
-                    "deploy, batchpredict, launch, dist status)",
+                    "deploy, batchpredict, launch, dist status, shards)",
     )
     sub = parser.add_subparsers(dest="command")
 
@@ -339,6 +441,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--input", required=True)
     p.add_argument("--channel")
 
+    # shards: the sharded embedding layout (reference :3533-3539)
+    p = sub.add_parser(
+        "shards",
+        help="inspect the sharded embedding layout of the latest trained "
+             "model: per-shard row counts, HBM-bytes estimates, merge "
+             "fan-in")
+    p.add_argument("-v", "--engine-variant", default="engine.json")
+    p.add_argument("--device", help="torch device to load the model on "
+                                    "(default: the card, cuda:0; 'cpu' for "
+                                    "the CPU)")
+
     # dist: the training mesh's coordination directory (reference :3604)
     dist = sub.add_parser(
         "dist",
@@ -356,7 +469,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 _COMMANDS = {"train": cmd_train, "eval": cmd_eval, "deploy": cmd_deploy,
              "batchpredict": cmd_batchpredict, "import": cmd_import,
-             "launch": cmd_launch}
+             "launch": cmd_launch, "shards": cmd_shards}
 _APP_COMMANDS = {"new": cmd_app_new}
 _DIST_COMMANDS = {"status": cmd_dist_status}
 

@@ -58,8 +58,10 @@ tensor is written as numpy writes JAX's bfloat16 arrays, two-byte void
 a bf16 template bitwise (the reference cannot: ROADMAP.md Queue 3).
 ``row_sharding_for`` and ``restore_placed`` are the reference's JAX
 placement helpers: the port restores onto the template's device
-(:func:`place_leaves`), and row placement comes with sharded serving
-(ROADMAP.md Queue 1, item 4.4).
+(:func:`place_leaves`), and the counterpart of ``row_sharding_for`` is
+the serving placement after ``RecModel.load``: the tables land on the
+context's device and sharded serving copies each shard's rows to its card
+(``sharding/serve.py``).
 """
 
 from __future__ import annotations

@@ -331,10 +331,30 @@ def test_apply_delta_exact_vs_jax():
         tm.apply_delta(_delta(tdeltas.ModelDelta, user_rows={99: row}))
     with pytest.raises(ValueError, match="shape"):
         tm.apply_delta(_delta(tdeltas.ModelDelta, user_rows={1: row[:4]}))
-    # a model without host tables (the reference's sharded layout) waits
-    # for the sharding slice
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        ttt.TwoTowerModel(config=tm.mf.config).with_row_updates({}, {})
+    # a model without host tables: with sharded serving state the delta
+    # routes to the owning shards (sharding/serve.py); a bare model does
+    # what the reference's does — no refusal, empty 0-d tables back
+    bare = ttt.TwoTowerModel(config=tm.mf.config).with_row_updates({}, {})
+    jbare = jtt.TwoTowerModel(config=jm.mf.config).with_row_updates({}, {})
+    for name in ("user_emb", "item_emb", "user_bias", "item_bias"):
+        got, want = getattr(bare, name), getattr(jbare, name)
+        assert got.shape == want.shape == () and got.dtype == want.dtype
+        assert np.isnan(got) and np.isnan(want)
+    sharded = ttt.TwoTowerModel(mean=tm.mf.mean, config=tm.mf.config)
+    sharded._tables = {
+        "ue": torch.from_numpy(np.concatenate(
+            [tm.mf.user_emb, tm.mf.user_bias[:, None]], 1)),
+        "ie": torch.from_numpy(np.concatenate(
+            [tm.mf.item_emb, tm.mf.item_bias[:, None]], 1))}
+    sharded._n_users, sharded._n_items = tm.mf.n_users, tm.mf.n_items
+    sharded._build_sharded(2)
+    routed = sharded.with_row_updates(**rows)
+    assert routed._sharded is not sharded._sharded
+    assert routed.user_emb is None and sharded.user_emb is None
+    for table, name, idx in (("ie", "item_emb", 29), ("ue", "user_emb", 3)):
+        np.testing.assert_array_equal(
+            routed._tables[table][idx].numpy()[:8],
+            getattr(jn.mf, name)[idx])
 
 
 def test_two_stage_overlay_serves_current_rows_like_jax(monkeypatch):
