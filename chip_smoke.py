@@ -131,7 +131,7 @@ phases' stored events, each in its phase's directory: ``rec-eval`` after
 rank 16/32 × 10 iterations, 3 folds: 6 fits on the card, FastEvalEngine's
 one read and one prepare, Precision@10 beside chance, variant 0 again on
 the CPU), ``seq-eval`` after ``seq-workflow`` (SequentialEvaluation at the
-sequential training width, epochs 1/2 × learning rate 1e-3/5e-3: K4
+sequential training width, 1 epoch × learning rate 1e-3/5e-3: K4
 forward and backward in every fold's fit, the held-out queries checked
 against the sessions, 16 queries with the kernels against the plain
 attention) and ``cls-eval`` after ``cls-workflow`` (CompleteEvaluation
@@ -156,14 +156,21 @@ process and under ``launch -n 2 batchpredict`` (part files), K1 at B 1024
 held against its plain version first; the parts concatenated must equal
 the one-process output. ``rec-supervised`` trains on rec-launch's store
 under the fault-tolerant tier: a ``Supervisor`` runs ``train
---distributed`` as 2 members (gloo on one card; 6 epochs, a member-slice
+--distributed`` as 2 members (gloo on one card; 4 epochs, a member-slice
 checkpoint after each) as a control, then again with a new checkpoint
 directory, SIGKILLing the highest rank once 2 epochs are committed: one
 recovery, generation 2, the resumed fit's last leaves bitwise the
 control's, one COMPLETED instance, a generation-1 zombie fenced, ``dist
 status`` on the mesh, and the recovered model's K1 answers equal the
 control's (with two cards, one more chaos run on NCCL, bitwise the gloo
-control). ``rec-launch-eval`` runs ``launch -n 2 eval`` on
+control). ``rec-model``, after it, trains rec-launch's store over a
+``model`` mesh axis: ``launch -n 2 train --mesh-axes '{"model": 2}'``,
+two processes on one card (gloo), each holding half of each table and of
+both adam moments; the persisted tables must be bitwise a one-process
+replay of the same global batches from the two blocks concatenated, and
+16 users' K1 answers through the QueryServer equal to the replay model's
+(with two cards, the same launch over NCCL, bitwise the gloo run).
+``rec-launch-eval`` runs ``launch -n 2 eval`` on
 rec-workflow's stored events (sharded folds, data-parallel fits, one
 EVALCOMPLETED row by process 0, each fold's query set against the one
 computed from the events); ``seq-launch``, after ``seq-eval``, runs
@@ -173,6 +180,13 @@ one all-reduce of the gradients a step), replays both shards' batches in
 one process (split into the processes' local batches, twice: two
 identical fits on the card must end bitwise; and whole) against the
 launched model, and serves it through K4 against the plain attention.
+``seq-tp``, after it, imports the first 256 of seq-workflow's users'
+sessions as app ``seqtp`` and trains them tensor-parallel at the full
+width: ``launch -n 2 train --mesh-axes '{"model": 2}'`` with
+``tensorParallel``, each process half of the attention and FFN
+projections and 4 of the 8 heads through K4 forward and backward, 4
+steps; its step losses held to a replicated fit in this process from the
+same initial parameters, then a deploy and bursts through K4.
 
 ``tpl-launch``, after ``cls-eval``, runs ``launch -n 2 train`` of the
 similar-product (``als``, ``likealgo``, ``cooccurrence``),
@@ -641,9 +655,10 @@ def topk_tie_check(dev) -> dict:
 
 
 #: (B, H, L, D) of each attention case: the serving batches (1, 8, 64) at
-#: the sequential phases' lengths, and the reference's other shapes
+#: the sequential phases' lengths, the reference's other shapes, and
+#: seq-tp's training shape (a process's 4 of the 8 heads)
 K4_SHAPES = ((1, 8, 512, 64), (8, 8, 512, 64), (64, 8, 512, 64),
-             (3, 8, 128, 128), (8, 8, 192, 64))
+             (3, 8, 128, 128), (8, 8, 192, 64), (64, 4, 512, 64))
 #: K5's also (B, H, L, D, block) where the block is not the reference's
 #: flash block: L 576 gives the kernel a ragged last 128-row query tile
 K5_SHAPES = ((64, 8, 1024, 64), (8, 8, 768, 64), (8, 8, 640, 32),
@@ -733,8 +748,10 @@ def attention_checks(A):
 #: (B, H, L, D) of each K4 backward case and (B, H, L, D, block) of each
 #: K5 one: the training shapes at max_len 512 and 1024, and the
 #: reference's other head width; L 192 (K4) and 576 (K5) give the kernels
-#: a ragged last 128-row query tile
-K4_BWD_SHAPES = ((64, 8, 512, 64), (3, 8, 128, 128), (8, 8, 192, 64))
+#: a ragged last 128-row query tile; H 4 is seq-tp's, a process's half of
+#: the heads
+K4_BWD_SHAPES = ((64, 8, 512, 64), (3, 8, 128, 128), (8, 8, 192, 64),
+                 (64, 4, 512, 64))
 K5_BWD_SHAPES = ((64, 8, 1024, 64, 512), (2, 8, 256, 128, 256),
                  (8, 8, 576, 64, 64))
 
@@ -5145,8 +5162,9 @@ class RecEvalGrid:
 
 class SeqEvalGrid:
     """seq-eval's generator at seq-workflow's full width (d_model 512, 6
-    layers, 8 heads of 64, ``max_len`` 512, batch 64): epochs 1 / 2 ×
-    learning rate 1e-3 / 5e-3. The reference SequentialEvaluation's own
+    layers, 8 heads of 64, ``max_len`` 512, batch 64): 1 epoch × learning
+    rate 1e-3 / 5e-3 (its 2-epoch half cut for the script's time;
+    PERF.md §4). The reference SequentialEvaluation's own
     grid (d_model 32, heads of 16, ``max_len`` 32) reaches no kernel."""
 
     def __init__(self):
@@ -5161,7 +5179,7 @@ class SeqEvalGrid:
                     app_name="seq", max_len=SEQ_WF_MAX_LEN, d_model=SEQ_D,
                     n_heads=SEQ_HEADS, n_layers=SEQ_LAYERS, learning_rate=lr,
                     batch_size=TRAIN_BATCH, epochs=epochs))])
-            for epochs in (1, 2) for lr in (1e-3, 5e-3)]
+            for epochs in (1,) for lr in (1e-3, 5e-3)]
 
 
 #: cls-eval's MLP epochs: the reference grid trains 60; 20 run the same
@@ -5439,12 +5457,12 @@ class ShardScript:
     the staging puts its batches."""
 
     def __init__(self, index, script, device=None):
-        self.process_index = index
-        self.process_count = len(script[0])
+        self.process_index = self.data_index = index
+        self.process_count = self.data_size = len(script[0])
         self.device = device
         self._script = list(script)
 
-    def allgather_obj(self, obj):
+    def allgather_obj(self, obj, axis=None):
         parts = self._script.pop(0)
         check(repr(parts[self.process_index]) == repr(obj),
               "[replay] a shard diverged from its script")
@@ -5736,6 +5754,18 @@ def launch_train(registry, variant_path, backend, n_instances, **env):
     return {"processes": per, "wall_s": wall, "model": model}
 
 
+def launch_arrays():
+    """rec-launch's rate events as arrays: users, items (the first
+    ``LAUNCH_ITEMS`` naming every item once), ratings, from
+    ``default_rng(23)``."""
+    rng = np.random.default_rng(23)
+    users = rng.integers(0, LAUNCH_USERS, LAUNCH_EVENTS)
+    items = np.concatenate([rng.permutation(LAUNCH_ITEMS), rng.integers(
+        0, LAUNCH_ITEMS, LAUNCH_EVENTS - LAUNCH_ITEMS)])
+    ratings = (1.0 + 4.0 * rng.random(LAUNCH_EVENTS)).astype(np.float32)
+    return users, items, ratings
+
+
 def rec_launch_phase(R, ctx, tmp):
     """``launch -n 2 train -v engine.json`` on the card through the CLI:
     ``app new`` and ``import`` of 400,000 rate events into one sqlite file,
@@ -5751,11 +5781,7 @@ def rec_launch_phase(R, ctx, tmp):
 
     t_phase = time.perf_counter()
     root = os.path.join(tmp, "rec-launch")
-    rng = np.random.default_rng(23)
-    users = rng.integers(0, LAUNCH_USERS, LAUNCH_EVENTS)
-    items = np.concatenate([rng.permutation(LAUNCH_ITEMS), rng.integers(
-        0, LAUNCH_ITEMS, LAUNCH_EVENTS - LAUNCH_ITEMS)])
-    ratings = (1.0 + 4.0 * rng.random(LAUNCH_EVENTS)).astype(np.float32)
+    users, items, ratings = launch_arrays()
     t0 = dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc)
     dicts = ({"event": "rate", "entityType": "user", "entityId": f"u{u}",
               "targetEntityType": "item", "targetEntityId": f"i{i}",
@@ -6099,15 +6125,18 @@ def rec_batchpredict_phase(R, ctx, persisted):
 # -- phase: fault-tolerant multi-process training (rec-supervised) -----------
 
 #: rec-supervised: rec-launch's store and widths (100,000 x 100,000, rank
-#: 128, 400,000 events, batch 65,536), 10 epochs, a slice checkpoint after
+#: 128, 400,000 events, batch 65,536), 4 epochs, a slice checkpoint after
 #: each (the reference's chaos test's variant, tests/test_chaos_procs.py:
 #: 2191-2201, and bench.py:3532 bench_distributed_training)
-SUP_EPOCHS = 6  # 10 until PR 18; cut for the script's time
+SUP_EPOCHS = 4  # cut from 10 for the script's time (PERF.md §4)
 SUP_KILL_AFTER = 2   # SIGKILL the highest live rank once this step commits
 SUP_HEARTBEAT_MS = 2000
 SUP_TIMEOUT_S = 600
 SUP_MTTR_LIMIT_S = 60.0
 SUP_SERVE_USERS = 16
+#: a member whose lease renewal is this late dumps its threads' stacks into
+#: its log (PIO_DIST_STALL_DUMP_MS; the lease expires at SUP_HEARTBEAT_MS)
+SUP_STALL_DUMP_MS = 1000
 SUP_LINE = {
     "resume": re.compile(r"resuming from epoch (\d+) \(of (\d+)\)"),
     "slice": re.compile(r"dist checkpoint: member (\d+) step (\d+): slice of "
@@ -6115,6 +6144,7 @@ SUP_LINE = {
     "read": LAUNCH_LINE["read"],
     "fit": LAUNCH_LINE["fit"],
     "dist": LAUNCH_LINE["dist"],
+    "gap": re.compile(r"dist member \d+: lease renewed at most ([\d.]+) ms"),
 }
 
 
@@ -6176,6 +6206,7 @@ def supervised_run(tag, variant_path, state_dir, ckpt_dir, env, kill,
               f"[{tag}] member {rank}'s role:\n{text[-2000:]}")
         rec["iid"] = (text.split("Engine instance ID: ")[-1].split()[0]
                       if rank == 0 else None)
+        rec["stall_dumps"] = text.count("Timeout (")
         members[rank] = rec
     return {"res": res, "wall_s": wall, "killed": killed, "members": members}
 
@@ -6200,7 +6231,11 @@ def supervised_record(tag, run, resumed) -> dict:
             "global_rows": int(read[1]), "train_s": train_s,
             "steps": int(fit[4]), "exchange_ms_per_step": float(fit[8]),
             "train_events_per_sec": int(read[1]) * epochs_run / train_s,
-            "iid": m0["iid"]}
+            "iid": m0["iid"],
+            "lease_gap_ms": [float(m["gap"][0]) if m["gap"] else None
+                             for _, m in sorted(run["members"].items())],
+            "stall_dumps": sum(m["stall_dumps"]
+                               for m in run["members"].values())}
 
 
 def rec_supervised_phase(R, ctx, tmp, cpu_devices_per_process=None):
@@ -6232,7 +6267,8 @@ def rec_supervised_phase(R, ctx, tmp, cpu_devices_per_process=None):
     root = os.path.join(tmp, "rec-launch")  # rec-launch's store
     first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
     gloo_env = {"PYTHONPATH": str(Path(__file__).resolve().parent),
-                "CUDA_VISIBLE_DEVICES": first}
+                "CUDA_VISIBLE_DEVICES": first,
+                "PIO_DIST_STALL_DUMP_MS": str(SUP_STALL_DUMP_MS)}
     rec = {"epochs": SUP_EPOCHS, "heartbeat_ms": SUP_HEARTBEAT_MS,
            "processes": LAUNCH_PROCS, "card_count": torch.cuda.device_count()}
     runs, leaves, models = {}, {}, {}
@@ -6292,7 +6328,8 @@ def rec_supervised_phase(R, ctx, tmp, cpu_devices_per_process=None):
         one("chaos", True, gloo_env)
         if torch.cuda.device_count() >= LAUNCH_PROCS \
                 and cpu_devices_per_process is None:
-            one("chaos_nccl", True, {"PYTHONPATH": gloo_env["PYTHONPATH"]})
+            one("chaos_nccl", True, {
+                k: v for k, v in gloo_env.items() if k != "CUDA_VISIBLE_DEVICES"})
             check(rec["chaos_nccl"]["backend"] == "nccl",
                   f"[rec-supervised] the NCCL run's backend "
                   f"{rec['chaos_nccl']['backend']}")
@@ -6384,7 +6421,10 @@ def rec_supervised_phase(R, ctx, tmp, cpu_devices_per_process=None):
             f"steps of the last generation; train {r['train_s']:.3f} s for "
             f"{SUP_EPOCHS - r['resumed_epoch']} epochs ({r['steps']} steps, "
             f"exchange {r['exchange_ms_per_step']:.3f} ms a step): "
-            f"{r['train_events_per_sec']:.1f} train events/s"
+            f"{r['train_events_per_sec']:.1f} train events/s; the members' "
+            f"leases renewed at most {r['lease_gap_ms']} ms apart (expiry "
+            f"{SUP_HEARTBEAT_MS} ms; {r['stall_dumps']} stack dumps past "
+            f"{SUP_STALL_DUMP_MS} ms)"
             + (f"; step-{SUP_EPOCHS} leaves bitwise the control's"
                if r.get("bitwise_control") else ""))
     log(f"[rec-supervised] ({smi}) zombie of generation 1 fenced; dist status: "
@@ -6397,6 +6437,280 @@ def rec_supervised_phase(R, ctx, tmp, cpu_devices_per_process=None):
 
 
 # -- phase: launch -n 2 eval of the recommendation template ------------------
+
+# -- phase: the model mesh axis, on rec-launch's store -----------------------
+
+#: rec-model's mesh: two processes on one model line, each holding half of
+#: each table and of both adam moments
+MODEL_AXES = '{"model": 2}'
+REC_MODEL_USERS = 16  # the deployed model's answers held against the replay's
+REC_MODEL_LINE = {
+    "dist": LAUNCH_LINE["dist"],
+    "fit": re.compile(
+        r"model-axis fit: process (\d+) of (\d+) at (\{.*?\}) \(backend "
+        r"(\w+), (\S+)\): blocks ue rows \[(\d+), (\d+)\) of (\d+), ie rows "
+        r"\[(\d+), (\d+)\) of (\d+); (\d+) steps of (\d+) local rows; stage "
+        r"([\d.]+) s, train ([\d.]+) s, exchange rows ([\d.]+) ms a step "
+        r"\((\d+) bytes\), gradients ([\d.]+) ms a step \((\d+) bytes\); loss "
+        r"(\S+); block digest (\w+), equal on its data line; table digest "
+        r"(\w+); peak device memory (\d+) bytes"),
+}
+
+
+def rec_model_train(registry, variant_path, backend, **env):
+    """``launch -n 2 train -v <variant> --mesh-axes '{"model": 2}'``
+    through the CLI, in-process, its children under ``env``; every
+    process's lines held (exit 0, the backend, on the card, its block the
+    half of each padded table its model coordinate owns, equal losses and
+    table digests), then the one new COMPLETED instance and its model.
+    Returns the processes' records, the launch wall and the model."""
+    from incubator_predictionio_tpu_torch.utils.serialization import (
+        deserialize_model,
+    )
+
+    tag = f"rec-model {backend}"
+    insts = registry.get_storage().get_meta_data_engine_instances()
+    before = {i.id for i in insts.get_all()}
+    with env_vars(PYTHONPATH=str(Path(__file__).resolve().parent), **env):
+        t0 = time.perf_counter()
+        out = cli_run(tag, ["launch", "-n", str(LAUNCH_PROCS), "--timeout",
+                            str(LAUNCH_TIMEOUT_S), "train", "-v", variant_path,
+                            "--mesh-axes", MODEL_AXES])
+        wall = time.perf_counter() - t0
+    OUT.parent.mkdir(parents=True, exist_ok=True)
+    (OUT.parent / f"rec_model_{backend}.log").write_text(out)
+    per = []
+    for p in launch_sections(out, REC_MODEL_LINE, tag):
+        d, f = p["dist"], p["fit"]
+        s = p["process"]
+        check(d[2] == backend == f[3] and d[3].startswith("cuda")
+              and f[4].startswith("cuda"), f"[{tag}] process {s}: {d} {f[:5]}")
+        bounds = [(int(f[5]), int(f[6]), int(f[7])), (int(f[8]), int(f[9]), int(f[10]))]
+        for lo, hi, rows in bounds:
+            check(rows % LAUNCH_PROCS == 0 and (lo, hi) == (
+                s * rows // LAUNCH_PROCS, (s + 1) * rows // LAUNCH_PROCS),
+                f"[{tag}] process {s} holds rows [{lo}, {hi}) of {rows}")
+        per.append({"process": s, "device": d[3], "coords": json.loads(f[2]),
+                    "ue_rows": bounds[0], "ie_rows": bounds[1],
+                    "steps": int(f[11]), "local_batch": int(f[12]),
+                    "stage_s": float(f[13]), "train_s": float(f[14]),
+                    "exchange_rows_ms_per_step": float(f[15]),
+                    "exchange_rows_bytes": int(f[16]),
+                    "exchange_grads_ms_per_step": float(f[17]),
+                    "exchange_grads_bytes": int(f[18]), "loss": float(f[19]),
+                    "block_digest": f[20], "table_digest": f[21],
+                    "peak_bytes": int(f[22])})
+    check(len({q["table_digest"] for q in per}) == 1
+          and len({q["loss"] for q in per}) == 1
+          and len({q["block_digest"] for q in per}) == LAUNCH_PROCS,
+          f"[{tag}] digests or losses: {per}")
+    new = [i for i in insts.get_all() if i.id not in before]
+    check([i.status for i in new] == ["COMPLETED"]
+          and new[0].mesh_conf == {"axes": json.loads(MODEL_AXES),
+                                   "distributed": True},
+          f"[{tag}] new instances {[(i.id, i.status, i.mesh_conf) for i in new]}")
+    blob = registry.get_storage().get_model_data_models().get(new[0].id)
+    check(blob is not None, f"[{tag}] no model blob")
+    return {"processes": per, "wall_s": wall,
+            "model": deserialize_model(blob.models)[0]}
+
+
+def rec_model_replay(arrays, variant_path, ctx):
+    """The one-process replay: the store's triples (from the generated
+    arrays, :func:`shard_triples` with one shard), the one-process staging
+    (what the launched processes stage: the mesh has no data shards), the
+    initial tables the two blocks concatenated
+    (``sharding/table.py:init_block`` of each shard), and the
+    single-process loop on the card. Returns its tables, loss, train
+    seconds, vocabularies and mean."""
+    from incubator_predictionio_tpu_torch.core.controller import (
+        resolve_engine_factory,
+        variant_from_file,
+    )
+    from incubator_predictionio_tpu_torch.models import two_tower as tt
+    from incubator_predictionio_tpu_torch.sharding.table import (
+        ShardSpec,
+        init_block,
+    )
+    from incubator_predictionio_tpu_torch.utils.optim import adam_tree_init
+
+    variant = variant_from_file(variant_path)
+    engine = resolve_engine_factory(variant["engineFactory"])()
+    ds, _, (algo,), _ = engine._instantiate(engine.engine_params_from_variant(variant))
+    (reads,) = shard_triples(*(a.tolist() for a in arrays), 1)
+    ds._store = type("Store", (), {"assemble_triples": lambda self, *a, **k: reads})()
+    td = ds.read_training(ctx)
+    a = algo.params
+    cfg = tt.TwoTowerConfig(rank=a.rank, learning_rate=a.learning_rate,
+                            reg=a.lambda_, epochs=a.num_iterations,
+                            batch_size=a.batch_size, seed=a.seed or 0)
+    *batches, mean = tt._stage_batches(cfg, td.user_idx, td.item_idx, td.ratings)
+    dev = ctx.device
+    batches = [torch.from_numpy(b).to(dev) for b in batches]
+    n_shards = json.loads(MODEL_AXES)["model"]
+    scale = float(1.0 / np.sqrt(cfg.rank))
+    tables = [torch.cat([init_block(ShardSpec(name, n, cfg.rank + 1, n_shards),
+                                    s, cfg.rank, cfg.seed, scale, dev)
+                         for s in range(n_shards)])
+              for name, n in (("ue", len(td.user_vocab)),
+                              ("ie", len(td.item_vocab)))]
+    state = adam_tree_init(tables, cfg.adam_moments_dtype)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(tt._train_epochs(tables, [torch.empty_like(t) for t in tables],
+                                  state, *batches, cfg.learning_rate, cfg.reg,
+                                  cfg.epochs))
+    out = {"tables": [t.cpu().numpy() for t in tables], "loss": loss,
+           "train_s": time.perf_counter() - t0, "mean": mean,
+           "user_vocab": td.user_vocab, "item_vocab": td.item_vocab,
+           "config": cfg, "steps": cfg.epochs * int(batches[0].shape[0])}
+    del tables, state, batches
+    return out
+
+
+async def rec_model_body(R, model, replay_mf, user_ids, session, url, server):
+    """``REC_MODEL_USERS`` users, one request at a time, through the
+    QueryServer's exact int8 path (K1 on the card), K1's count read as
+    soon as the last answer is in (the deployed model's launches alone);
+    then each answer, ids and scores, held equal to the replay model's
+    through the same path in this process, one user a call (the same
+    serving bucket, so the same K1 kernel)."""
+    from incubator_predictionio_tpu_torch.models.two_tower import TwoTowerMF
+
+    info = server.deployed.models[0].serving_info()
+    check(info["path"] == "device-int8" and info["device"].startswith("cuda"),
+          f"[rec-model] not the int8 path on the card: {info}")
+    bodies, lat = await post_all(session, url,
+                                 [{"user": u, "num": 10} for u in user_ids], False)
+    served = R.score_catalog_quantized.launches
+    inv = model.item_map.inverse()
+    same = 0
+    for u, body in zip(user_ids, bodies):
+        ids, scores = TwoTowerMF.recommend_batch(
+            replay_mf, np.asarray([model.user_map[u]], np.int32), 10)
+        got = [(x["item"], x["score"]) for x in body["itemScores"]]
+        want = [(inv[int(i)], float(v)) for i, v in zip(ids[0], scores[0])]
+        same += got == want
+    check(same == len(user_ids), f"[rec-model] {same} of {len(user_ids)} "
+          "answers equal to the replay model's")
+    return {"serving_info": info, "same_answers": same,
+            "p50_ms": pct(lat, 50), "served_launches": served,
+            "replay_launches": R.score_catalog_quantized.launches - served}
+
+
+def rec_model_phase(R, ctx, tmp):
+    """``launch -n 2 train --mesh-axes '{"model": 2}'`` on rec-launch's
+    stored events (400,000 rate events, 100,000 × 100,000, rank 128, batch
+    65,536, 4 epochs, fp32 moments): two processes on ``cuda:0`` over
+    gloo, each holding half of each table and of both moments. Held: each
+    process's block, equal losses and table digests, one COMPLETED
+    instance whose ``mesh_conf`` is the request, the persisted tables
+    bitwise a one-process replay from the two blocks concatenated on the
+    same global batches (:func:`rec_model_replay`); with two or more cards
+    the same launch over NCCL, bitwise the gloo run's; then a deploy
+    through the QueryServer, ``REC_MODEL_USERS`` users' K1 answers equal to
+    the replay model's. Returns (launches, record)."""
+    from incubator_predictionio_tpu_torch.models.two_tower import TwoTowerModel
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "rec-launch")
+    arrays = launch_arrays()
+    rec = {"axes": json.loads(MODEL_AXES), "users": LAUNCH_USERS,
+           "items": LAUNCH_ITEMS, "rank": LAUNCH_RANK, "events": LAUNCH_EVENTS,
+           "batch": LAUNCH_BATCH, "epochs": LAUNCH_EPOCHS,
+           "card_count": torch.cuda.device_count()}
+    with cli_storage(root) as registry:
+        variant_path = write_variant(
+            os.path.join(root, "engine-model.json"), FACTORY, "launch",
+            [{"name": "als", "params": {
+                "rank": LAUNCH_RANK, "numIterations": LAUNCH_EPOCHS,
+                "batchSize": LAUNCH_BATCH}}])
+        first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+        launched = rec_model_train(registry, variant_path, "gloo",
+                                   CUDA_VISIBLE_DEVICES=first)
+        per, model = launched["processes"], launched["model"]
+        mf = model.mf
+        names = ("user_emb", "item_emb", "user_bias", "item_bias")
+        rec.update({"launch_wall_s": launched["wall_s"], "backend": "gloo",
+                    "processes_record": per, "final_loss": mf.final_loss,
+                    "timings": mf.timings})
+        if torch.cuda.device_count() >= LAUNCH_PROCS:
+            nccl = rec_model_train(registry, variant_path, "nccl")
+            diff = max(float(np.abs(getattr(nccl["model"].mf, n)
+                                    - getattr(mf, n)).max()) for n in names)
+            check(diff == 0.0, f"[rec-model] the NCCL launch's tables differ "
+                  f"from the gloo launch's by {diff}")
+            rec["nccl_launch"] = {k: v for k, v in nccl.items() if k != "model"}
+            rec["nccl_launch"]["max_abs_diff_vs_gloo"] = diff
+        replay = rec_model_replay(arrays, variant_path, ctx)
+        check(list(replay["user_vocab"]) == list(model.user_map.keys())
+              and list(replay["item_vocab"]) == list(model.item_map.keys())
+              and replay["mean"] == mf.mean,
+              "[rec-model] the replay's vocabularies or mean differ")
+        k = LAUNCH_RANK
+        ue, ie = replay["tables"]
+        nu, ni = len(model.user_map), len(model.item_map)
+        want = {"user_emb": ue[:nu, :k], "item_emb": ie[:ni, :k],
+                "user_bias": ue[:nu, k], "item_bias": ie[:ni, k]}
+        bitwise = all(np.array_equal(getattr(mf, n), want[n]) for n in names)
+        diff = max(float(np.abs(getattr(mf, n) - want[n]).max()) for n in names)
+        rec["replay"] = {"bitwise": bitwise, "max_abs_diff": diff,
+                         "loss": replay["loss"], "train_s": replay["train_s"],
+                         "steps": replay["steps"]}
+        check(bitwise, f"[rec-model] the persisted tables are not the "
+              f"one-process replay's: max abs diff {diff}")
+        replay_mf = TwoTowerModel(mean=replay["mean"], config=replay["config"],
+                                  **want)
+        del replay
+        gc.collect()
+        torch.cuda.empty_cache()
+        pick = np.random.default_rng(29).choice(nu, REC_MODEL_USERS, replace=False)
+        vocab = list(model.user_map.keys())
+        user_ids = [vocab[int(i)] for i in pick]
+        with retrieval_mode("exact"):
+            # prepared as the server prepares the launched model
+            # (RecModel.prepare_for_serving): int8 on the card
+            replay_mf.prepare_for_serving(quantize=ctx.device.type == "cuda",
+                                          device=ctx.device, build_index=False)
+            # the count from 0 over the deploy and the served queries only
+            R.reset_launches()
+            rec["serve"] = asyncio.run(serve_phase(
+                "rec-model", variant_path, registry.get_storage(), ctx,
+                lambda s, u, srv: rec_model_body(R, model, replay_mf, user_ids,
+                                                 s, u, srv)))
+        launches = {"score_catalog_quantized": rec["serve"]["served_launches"]}
+        del replay_mf
+    check(launches["score_catalog_quantized"] > 0,
+          f"[rec-model] K1 never launched serving the launched model: {launches}")
+    rec["launches"] = launches
+    rec["phase_s"] = time.perf_counter() - t_phase
+    smi = smi_name_power()
+    log(f"[rec-model] ({smi}) launch -n {LAUNCH_PROCS} train --mesh-axes "
+        f"{MODEL_AXES}: wall {rec['launch_wall_s']:.2f} s, backend gloo, the "
+        f"processes sharing one card ({rec['card_count']} card(s) visible; "
+        "NCCL with a card each: "
+        + (f"wall {rec['nccl_launch']['wall_s']:.2f} s, tables bitwise the "
+           "gloo launch's" if "nccl_launch" in rec else "not measured") + ")")
+    for q in per:
+        log(f"[rec-model] ({smi}) process {q['process']} at {q['coords']} on "
+            f"{q['device']}: ue rows {q['ue_rows']}, ie rows {q['ie_rows']}; "
+            f"stage {q['stage_s']:.3f} s, train {q['train_s']:.3f} s "
+            f"({q['steps']} steps of {q['local_batch']} rows); exchange rows "
+            f"{q['exchange_rows_ms_per_step']:.3f} ms a step "
+            f"({q['exchange_rows_bytes']} bytes), gradients "
+            f"{q['exchange_grads_ms_per_step']:.3f} ms a step "
+            f"({q['exchange_grads_bytes']} bytes); peak device memory "
+            f"{q['peak_bytes'] / 2**30:.3f} GiB")
+    log(f"[rec-model] ({smi}) persisted tables bitwise the one-process replay "
+        f"({rec['replay']['steps']} steps, train {rec['replay']['train_s']:.3f} "
+        f"s, loss {rec['replay']['loss']:.6f} against the launch's "
+        f"{mf.final_loss:.6f}); {rec['serve']['same_answers']}/"
+        f"{REC_MODEL_USERS} K1 answers equal the replay model's (deploy "
+        f"{rec['serve']['deploy_s']:.2f} s); the server's launches {launches} "
+        f"(the replay's {rec['serve']['replay_launches']} apart); phase "
+        f"{rec['phase_s']:.1f} s")
+    return launches, rec
+
 
 class RecLaunchEvalGrid:
     """rec-launch-eval's EngineParamsGenerator (each launched process loads
@@ -6866,6 +7180,290 @@ def seq_launch_phase(ctx, tmp):
     return launches, rec
 
 
+# -- phase: tensor parallelism of the sequential transformer ----------------
+
+#: seq-tp's fit: the first SEQ_TP_USERS of seq-workflow's users' sessions,
+#: stored as app "seqtp" in its store, one epoch at batch 64: 4 steps (cut
+#: for the script's time limit: a step is mostly gloo's all-reduces)
+SEQ_TP_USERS, SEQ_TP_EPOCHS = 256, 1
+#: the launched tensor-parallel fit's step losses against the one-process
+#: replicated fit from the same initial parameters, relative: each
+#: row-parallel partial product rounds to bf16 before the sum over
+#: ``model`` where the replicated product rounds once. Set from readings
+#: on the H100: 4.672e-6 and 5.442e-6 (PERF.md §6)
+SEQ_TP_LOSS_RTOL = 1e-4
+#: the persisted (gathered) parameters against the replicated fit's, per
+#: leaf: ``‖p_tp − p_rep‖ / ‖p_rep − p_0‖``, the two fits apart over the
+#: update the replicated fit made from the shared init ``p_0``; the
+#: largest leaf's. Set from readings on the H100 between the
+#: tensor-parallel fit's, 0.0732 (a layer norm's gain: adam's first steps
+#: move an element by about lr·sign(g), so a gradient near 0 may step
+#: either way), and the planted fault's, 1.132 (a replicated fit with head
+#: 0's attention output zeroed), which must lie above it (PERF.md §6)
+SEQ_TP_PARAM_RTOL = 0.3
+SEQ_TP_LINE = {
+    "dist": LAUNCH_LINE["dist"],
+    "fit": re.compile(
+        r"tensor-parallel fit: process (\d+) of (\d+) at (\{.*?\}) \(backend "
+        r"(\w+), (\S+)\): (\d+) of (\d+) heads; wq (\[.*?\]), w1 (\[.*?\]), "
+        r"wo (\[.*?\]), w2 (\[.*?\]); (\d+) steps of (\d+) local rows; stage "
+        r"([\d.]+) s, train ([\d.]+) s, exchange model ([\d.]+) ms a step, "
+        r"data ([\d.]+) ms a step; loss (\S+); model digest (\w+), equal on "
+        r"every process; peak device memory (\d+) bytes; attention launches "
+        r"(\{.*\})"),
+}
+
+
+def seq_tp_train(registry, variant_path, backend, **env):
+    """``launch -n 2 train -v <variant> --mesh-axes '{"model": 2}'`` of the
+    sequential template with ``tensorParallel`` through the CLI,
+    in-process; every process's lines held (exit 0, the backend, on the
+    card, half the heads, the slices' shapes, K4 forward and backward
+    launched, equal losses and model digests), then the new COMPLETED
+    instance and its model."""
+    from incubator_predictionio_tpu_torch.utils.serialization import (
+        deserialize_model,
+    )
+
+    tag = f"seq-tp {backend}"
+    insts = registry.get_storage().get_meta_data_engine_instances()
+    before = {i.id for i in insts.get_all()}
+    with env_vars(PYTHONPATH=str(Path(__file__).resolve().parent), **env):
+        t0 = time.perf_counter()
+        out = cli_run(tag, ["launch", "-n", str(LAUNCH_PROCS), "--timeout",
+                            str(LAUNCH_TIMEOUT_S), "train", "-v", variant_path,
+                            "--mesh-axes", MODEL_AXES])
+        wall = time.perf_counter() - t0
+    OUT.parent.mkdir(parents=True, exist_ok=True)
+    (OUT.parent / f"seq_tp_{backend}.log").write_text(out)
+    d, dh, tp = SEQ_D, 4 * SEQ_D, LAUNCH_PROCS
+    shapes = [[d, d // tp], [d, dh // tp], [d // tp, d], [dh // tp, d]]
+    per = []
+    for p in launch_sections(out, SEQ_TP_LINE, tag):
+        dist, f = p["dist"], p["fit"]
+        got = [json.loads(x) for x in f[7:11]]
+        att = json.loads(f[20])
+        check(dist[2] == backend == f[3] and dist[3].startswith("cuda")
+              and (int(f[5]), int(f[6])) == (SEQ_HEADS // tp, SEQ_HEADS)
+              and got == shapes,
+              f"[{tag}] process {p['process']}: {dist} {f[:11]}")
+        for w in ("causal_mha_small_head", "causal_mha_small_head_bwd"):
+            check(att.get(w, 0) > 0, f"[{tag}] process {p['process']}: "
+                  f"{w} never launched: {att}")
+        per.append({"process": p["process"], "device": dist[3],
+                    "coords": json.loads(f[2]), "heads": int(f[5]),
+                    "wq": got[0], "w1": got[1], "wo": got[2], "w2": got[3],
+                    "steps": int(f[11]), "local_batch": int(f[12]),
+                    "stage_s": float(f[13]), "train_s": float(f[14]),
+                    "exchange_model_ms_per_step": float(f[15]),
+                    "exchange_data_ms_per_step": float(f[16]),
+                    "loss": float(f[17]), "digest": f[18],
+                    "peak_bytes": int(f[19]), "attention_launches": att})
+    check(len({q["digest"] for q in per}) == 1 and len({q["loss"] for q in per}) == 1,
+          f"[{tag}] model digests or losses differ: {per}")
+    new = [i for i in insts.get_all() if i.id not in before]
+    check([i.status for i in new] == ["COMPLETED"],
+          f"[{tag}] new instances {[(i.id, i.status) for i in new]}")
+    blob = registry.get_storage().get_model_data_models().get(new[0].id)
+    check(blob is not None, f"[{tag}] no model blob")
+    return {"processes": per, "wall_s": wall,
+            "model": deserialize_model(blob.models)[0]}
+
+
+def seq_tp_phase(ctx, tmp):
+    """Tensor parallelism over a ``model`` axis of two processes on
+    ``cuda:0`` (gloo): the first :data:`SEQ_TP_USERS` of seq-workflow's
+    users' sessions imported as app ``seqtp`` into its store, ``launch -n
+    2 train --mesh-axes '{"model": 2}'`` at seq-workflow's full width
+    (``max_len`` 512, d_model 512, 6 × 8 heads of 64, batch 64,
+    ``tensorParallel``) for :data:`SEQ_TP_EPOCHS` epoch: each process holds
+    half of ``wq``, ``wk``, ``wv``, ``w1``, ``b1``, ``wo``, ``w2`` and runs K4
+    forward and backward on its 4 heads. Held: the slices' shapes, K4
+    launched in both processes, equal digests, the canonical layout
+    persisted, the step losses within :data:`SEQ_TP_LOSS_RTOL` of a
+    one-process replicated fit from the same initial parameters; then a
+    deploy and bursts through K4 held against the plain attention.
+    Returns (launches of the attention kernels in this process, record)."""
+    from incubator_predictionio_tpu_torch.models import transformer as ttr
+    from incubator_predictionio_tpu_torch.ops import attention as A
+    from incubator_predictionio_tpu_torch.templates import sequential as tseq
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "seq-workflow")
+    sessions_ = cycle_sessions(np.random.default_rng(31), SEQ_WF_USERS,
+                               SEQ_WF_MAX_LEN, SEQ_WF_LENGTHS)[:SEQ_TP_USERS]
+    import datetime as dt
+
+    t0 = dt.datetime(2026, 3, 1, tzinfo=dt.timezone.utc)
+    dicts, j = [], 0
+    for k, items in enumerate(sessions_):
+        for item in items:
+            dicts.append({"event": "view", "entityType": "user",
+                          "entityId": f"u{k}", "targetEntityType": "item",
+                          "targetEntityId": item,
+                          "eventTime": (t0 + dt.timedelta(seconds=j)).isoformat()})
+            j += 1
+    params = {"maxLen": SEQ_WF_MAX_LEN, "dModel": SEQ_D, "nHeads": SEQ_HEADS,
+              "nLayers": SEQ_LAYERS, "learningRate": TRAIN_LR,
+              "batchSize": TRAIN_BATCH, "epochs": SEQ_TP_EPOCHS}
+    with cli_storage(root) as registry:
+        _, imported = cli_app_import("seq-tp", root, "seqtp", dicts)
+        variant_path = os.path.join(root, "engine-tp.json")
+        with open(variant_path, "w") as f:
+            json.dump({"id": "seq-tp", "version": "1",
+                       "engineFactory": SEQ_FACTORY,
+                       "datasource": {"params": {"appName": "seqtp",
+                                                 "maxLen": SEQ_WF_MAX_LEN}},
+                       "algorithms": [{"name": "transformer", "params": {
+                           **params, "tensorParallel": True}}]}, f)
+        first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+        launched = seq_tp_train(registry, variant_path, "gloo",
+                                CUDA_VISIBLE_DEVICES=first)
+        per, model, wall = (launched["processes"], launched["model"],
+                            launched["wall_s"])
+        cfg = model.config
+        check(all(np.shape(model.params["layers"][i][n]) == shape
+                  for i in range(SEQ_LAYERS)
+                  for n, shape in (("wq", (SEQ_D, SEQ_D)),
+                                   ("w1", (SEQ_D, 4 * SEQ_D)),
+                                   ("wo", (SEQ_D, SEQ_D)),
+                                   ("w2", (4 * SEQ_D, SEQ_D)))),
+              "[seq-tp] the persisted model is not in the canonical layout")
+        # the replicated fit in this process from the same initial
+        # parameters (the same seed on the same card) on the same rows
+        ds = tseq.DataSource(tseq.DataSourceParams(app_name="seqtp",
+                                                   max_len=SEQ_WF_MAX_LEN))
+        td = ds.read_training(ctx)
+        check(dict(td.item_map.items()) == dict(model.item_map.items()),
+              "[seq-tp] the replicated fit's item map differs")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = ttr.TransformerRecommender(dataclasses.replace(
+            cfg, tensor_parallel=False)).fit(ctx, td.sequences, td.item_map)
+        rep_s = time.perf_counter() - t0
+        got, want = np.asarray(model.step_losses), np.asarray(rep.step_losses)
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        check(got.shape == want.shape and rel <= SEQ_TP_LOSS_RTOL,
+              f"[seq-tp] step losses {got.tolist()} against the replicated "
+              f"fit's {want.tolist()}: {rel:.3e} relative (band "
+              f"{SEQ_TP_LOSS_RTOL})")
+        # the shared init, drawn as both fits draw it (the seed on the card)
+        p0 = _tree_numpy(ttr._init_params(
+            cfg, torch.Generator(device=ctx.device).manual_seed(cfg.seed),
+            ctx.device))
+        param_rel, param_leaf = update_rel(model.params, rep.params, p0)
+        # the planted fault: the replicated fit with head 0's attention
+        # output zeroed in every layer; the bands must see it
+        fault, fault_losses = planted_head_fault(
+            ttr, dataclasses.replace(cfg, tensor_parallel=False), ctx, td)
+        fault_loss_rel = float(np.max(np.abs(fault_losses - want)
+                                      / np.abs(want)))
+        fault_rel, fault_leaf = update_rel(fault, rep.params, p0)
+        del rep, fault, p0
+        check(param_rel <= SEQ_TP_PARAM_RTOL,
+              f"[seq-tp] the persisted parameters are {param_rel:.3e} of the "
+              f"replicated fit's update apart at {param_leaf} (band "
+              f"{SEQ_TP_PARAM_RTOL})")
+        check(fault_rel > SEQ_TP_PARAM_RTOL,
+              f"[seq-tp] the band {SEQ_TP_PARAM_RTOL} does not see a zeroed "
+              f"head: the planted fault's parameters {fault_rel:.3e} apart at "
+              f"{fault_leaf}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        lat = {}
+        A.reset_launches()
+        served = asyncio.run(serve_phase(
+            "seq-tp", variant_path, registry.get_storage(), ctx,
+            lambda s, u, srv: seq_launch_body(sessions_, s, u, srv, lat)))
+        launches = {w.__name__: w.launches for w in A.KERNEL_WRAPPERS}
+    check(launches["causal_mha_small_head"] > 0,
+          f"[seq-tp] K4 never launched serving the model: {launches}")
+    train_wall = max(q["train_s"] for q in per)
+    rec = {"launch_wall_s": wall, "processes": per, "import": imported,
+           "card_count": torch.cuda.device_count(),
+           "steps": per[0]["steps"], "step_losses": got.tolist(),
+           "replicated_step_losses": want.tolist(),
+           "step_loss_max_rel": rel, "replicated_train_s": rep_s,
+           "param_update_rel": param_rel, "param_update_rel_leaf": param_leaf,
+           "param_update_rel_band": SEQ_TP_PARAM_RTOL,
+           "planted_fault": {"param_update_rel": fault_rel,
+                             "param_update_rel_leaf": fault_leaf,
+                             "step_loss_max_rel": fault_loss_rel},
+           "train_tokens_per_s": per[0]["steps"] * TRAIN_BATCH
+           * SEQ_WF_MAX_LEN / train_wall,
+           "burst64_ms": [x * 1e3 for x in lat["burst64"]],
+           "burst64_p50_ms": pct(lat["burst64"], 50),
+           "kernels_vs_plain": served, "serve_launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    smi = smi_name_power()
+    log(f"[seq-tp] ({smi}) launch -n 2 train --mesh-axes {MODEL_AXES} at "
+        f"max_len {cfg.max_len}, d_model {cfg.d_model}, {cfg.n_layers} layers "
+        f"of {cfg.n_heads} heads, batch {cfg.batch_size}: {rec['steps']} "
+        f"steps, wall {wall:.2f} s, {rec['train_tokens_per_s']:.1f} train "
+        f"tokens/s; the replicated fit in this process {rep_s:.2f} s")
+    for q in per:
+        log(f"[seq-tp] ({smi}) process {q['process']} at {q['coords']} on "
+            f"{q['device']}: {q['heads']} of {SEQ_HEADS} heads, wq {q['wq']}, "
+            f"w1 {q['w1']}, wo {q['wo']}, w2 {q['w2']}; train {q['train_s']:.3f} "
+            f"s; exchange model {q['exchange_model_ms_per_step']:.3f} ms a step; "
+            f"peak device memory {q['peak_bytes'] / 2**30:.3f} GiB; attention "
+            f"launches {q['attention_launches']}")
+    log(f"[seq-tp] ({smi}) against the replicated fit: step losses max "
+        f"relative {rel:.3e} (band {SEQ_TP_LOSS_RTOL}), parameters "
+        f"{param_rel:.3e} of its update at {param_leaf} (band "
+        f"{SEQ_TP_PARAM_RTOL}); the planted zeroed head: parameters "
+        f"{fault_rel:.3e} at {fault_leaf}, step losses {fault_loss_rel:.3e}")
+    log(f"[seq-tp] ({smi}) burst of 64 p50 "
+        f"{rec['burst64_p50_ms']:.2f} ms, against the plain attention max "
+        f"score diff {served['max_score_diff']:.2e}; serve launches "
+        f"{launches}; phase {rec['phase_s']:.1f} s")
+    return launches, rec
+
+
+def _tree_numpy(tree):
+    """A parameter tree of tensors as numpy arrays on the host."""
+    if isinstance(tree, dict):
+        return {k: _tree_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_numpy(v) for v in tree]
+    return tree.detach().float().cpu().numpy()
+
+
+def update_rel(params, ref, init):
+    """The largest over the leaves of ``‖params − ref‖ / ‖ref − init‖``
+    (float64 norms): two fits from ``init`` apart, against the update the
+    ``ref`` fit made. Returns (value, leaf)."""
+    worst = (0.0, "")
+    for (name, a, b), (_, _, c) in zip(_tree_pairs(params, ref),
+                                       _tree_pairs(params, init)):
+        apart = float(np.linalg.norm((a - b).astype(np.float64)))
+        moved = float(np.linalg.norm((b - c).astype(np.float64)))
+        r = apart / moved if moved else (0.0 if apart == 0.0 else float("inf"))
+        worst = max(worst, (r, name))
+    return worst
+
+
+def planted_head_fault(ttr, cfg, ctx, td):
+    """The replicated fit of ``cfg`` on ``td`` with head 0's attention
+    output zeroed in every layer (a control the parameter band must
+    catch): returns its parameters and step losses."""
+    real = ttr.train_step
+
+    def zero_head(q, k, v):
+        out = ttr.causal_attention(q, k, v)  # [B, L, H, D]
+        keep = torch.ones(out.shape[-2], 1, device=out.device, dtype=out.dtype)
+        keep[0] = 0
+        return out * keep
+
+    ttr.train_step = lambda *a, **kw: real(*a, attention=zero_head, **kw)
+    try:
+        bad = ttr.TransformerRecommender(cfg).fit(ctx, td.sequences,
+                                                  td.item_map)
+    finally:
+        ttr.train_step = real
+    return bad.params, np.asarray(bad.step_losses)
+
+
 def _tree_pairs(a, b, name="params"):
     """(path, a leaf, b leaf) over two parameter trees of one shape."""
     if isinstance(a, dict):
@@ -6883,7 +7481,7 @@ def _tree_pairs(a, b, name="params"):
 def seq_eval_phase(ctx, tmp):
     """``pio eval`` of the sequential template on seq-workflow's stored
     sessions: SequentialEvaluation with :class:`SeqEvalGrid` at full width
-    (4 variants × 3 folds = 12 fits, K4 forward and backward in each,
+    (2 variants × 3 folds = 6 fits, K4 forward and backward in each,
     ``batch_predict``'s forward through K4); each fold's queries are its
     held-out sessions of at least 3 items; 16 of the best variant's first
     fold's queries served with the kernels and with the plain attention
@@ -6941,7 +7539,7 @@ def seq_eval_phase(ctx, tmp):
                                      "same_set": same_set,
                                      "same_order": same_order}})
     log(eval_line("seq-eval", rec))
-    log(f"[seq-eval] HitRate@10 of epochs 1/2 × lr 1e-3/5e-3 "
+    log(f"[seq-eval] HitRate@10 of 1 epoch × lr 1e-3/5e-3 "
         f"{[round(x, 4) for x in rec['hit_rate_at_10']]} (best "
         f"{rec['best_idx']}); every fold's queries its held-out sessions of ≥ 3 "
         f"items; {len(queries)} of the best variant's first fold served with "
@@ -7061,13 +7659,21 @@ class ThreadGroup:
         group = self
 
         class Member(DeviceContext):
-            def allgather_obj(self, obj):
+            # the data axis is every thread; any other axis is one
+            def allgather_obj(self, obj, axis=None):
+                if self._line(axis)[1] == 1:
+                    return [obj]
                 return group._meet(index, obj, lambda parts: parts)
 
-            def all_gather(self, t):
+            def all_gather(self, t, axis=None):
+                if self._line(axis)[1] == 1:
+                    return t.unsqueeze(0)
                 return group._meet(index, t.contiguous(), torch.stack)
 
-            def all_reduce_sum(self, t):
+            def all_reduce_sum(self, t, axis=None):
+                if self._line(axis)[1] == 1:
+                    return t.clone()
+
                 def total(parts):
                     out = parts[0].clone()
                     for q in parts[1:]:
@@ -7685,6 +8291,14 @@ def main() -> int:
             counts, main["rec_supervised"] = rec_supervised_phase(R, ctx, tmp2)
             for k, c in counts.items():
                 launches[k] = launches.get(k, 0) + c
+            gc.collect()
+            torch.cuda.empty_cache()
+            # the model mesh axis on rec-launch's store: two processes
+            # each holding half of every table, bitwise a one-process
+            # replay, deployed through K1
+            counts, main["rec_model"] = rec_model_phase(R, ctx, tmp2)
+            for k, c in counts.items():
+                launches[k] = launches.get(k, 0) + c
         gc.collect()
         torch.cuda.empty_cache()
         # launch -n 2 eval on rec-workflow's stored events
@@ -7719,6 +8333,7 @@ def main() -> int:
         for name, phase in (("seq_workflow", seq_workflow_phase),
                             ("seq_eval", seq_eval_phase),
                             ("seq_launch", seq_launch_phase),
+                            ("seq_tp", seq_tp_phase),
                             ("ckpt_resume", ckpt_resume_phase)):
             t0 = time.perf_counter()
             counts, main[name] = phase(ctx, tmp)
@@ -7760,6 +8375,7 @@ def main() -> int:
     b1024 = main["rec_batchpredict"]["k1_b1024"]
     seq_children = [q["attention_launches"]
                     for q in main["seq_launch"]["processes"]]
+    tp_children = [q["attention_launches"] for q in main["seq_tp"]["processes"]]
     kernels = [
         {**entry("score_catalog_quantized", "retrieval.cu",
                  "incubator_predictionio_tpu/ops/retrieval.py:97", k1,
@@ -7770,7 +8386,9 @@ def main() -> int:
                                       "device_ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")},
              "launches": main["rec_batchpredict"]["launches"][
-                 "score_catalog_quantized"]}},
+                 "score_catalog_quantized"]},
+         "rec_model_launches": main["rec_model"]["launches"][
+             "score_catalog_quantized"]},
         {**entry("score_centroids_quantized", "retrieval.cu",
                  "incubator_predictionio_tpu/ops/retrieval.py:188", k2,
                  next(c for c in k2 if c["B"] == 64)),
@@ -7791,11 +8409,15 @@ def main() -> int:
                  "incubator_predictionio_tpu/ops/attention.py:122", k4,
                  next(c for c in k4 if c["B"] == 64)),
          "seq_launch_process_launches": [
-             c["causal_mha_small_head"] for c in seq_children]},
+             c["causal_mha_small_head"] for c in seq_children],
+         "seq_tp_process_launches": [
+             c["causal_mha_small_head"] for c in tp_children]},
         {**bwd_entry("causal_mha_small_head_bwd", "attention.cu",
                      "incubator_predictionio_tpu/ops/attention.py:136", k4b),
          "seq_launch_process_launches": [
-             c["causal_mha_small_head_bwd"] for c in seq_children]},
+             c["causal_mha_small_head_bwd"] for c in seq_children],
+         "seq_tp_process_launches": [
+             c["causal_mha_small_head_bwd"] for c in tp_children]},
         entry("flash_causal_attention", "flash_attention.cu",
               "incubator_predictionio_tpu/parallel/ring.py:201", k5,
               next(c for c in k5 if c["B"] == 64)),

@@ -92,6 +92,9 @@ def run_train(
         instance_id = engine_instance.id or "<secondary>"
     try:
         models = engine.train(ctx, engine_params, params)
+        hooks = getattr(ctx, "dist_hooks", None)
+        if hooks is not None:  # a supervised member: no collective follows
+            hooks.collectives_done()
         if primary:
             persisted = engine.models_for_persistence(
                 ctx, models, instance_id, engine_params)

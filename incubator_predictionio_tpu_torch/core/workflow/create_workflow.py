@@ -11,7 +11,10 @@ card unless ``WorkflowConfig.device`` names another. ``distributed=True``
 joins the multi-process job the ``PIO_DIST_*`` variables describe (the
 ``launch`` verb sets them); a train or an evaluation then runs on every
 process and only process 0 writes storage (secondaries return
-``"<secondary>"``).
+``"<secondary>"``). ``mesh_axes`` names the mesh axes over those
+processes (``{"data": 2, "model": 2}``); a train stores the request on
+its engine instance's ``mesh_conf``, as the reference does
+(:func:`_mesh_conf`, reference create_workflow.py:53-67).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import datetime as _dt
 import json
 import logging
 import os
-from typing import Optional
+from typing import Any, Optional
 
 from incubator_predictionio_tpu_torch.core.controller import (
     Engine,
@@ -72,6 +75,23 @@ class WorkflowConfig:
     # machinery behind `pio eval`; --no-fast-eval opts out)
     fast_eval: bool = True
     distributed: bool = False  # join a torch.distributed job (launch verb)
+    mesh_axes: Optional[dict[str, int]] = None  # replaces --master/spark conf
+
+
+def _mesh_conf(config: WorkflowConfig) -> dict[str, Any]:
+    """WorkflowConfig mesh flags → the mesh_conf dict train and eval share."""
+    mesh_conf: dict[str, Any] = {}
+    if config.mesh_axes:
+        mesh_conf["axes"] = config.mesh_axes
+    if config.distributed:
+        mesh_conf["distributed"] = True
+    return mesh_conf
+
+
+def _context(config: WorkflowConfig) -> DeviceContext:
+    """The run's context: ``config.device``, joined to the launched job
+    when ``distributed``, over the requested axes."""
+    return DeviceContext.from_conf(_mesh_conf(config) or None, config.device)
 
 
 def _workflow_params(config: WorkflowConfig) -> WorkflowParams:
@@ -113,14 +133,14 @@ def _run_train(config: WorkflowConfig, storage: Optional[Storage],
         engine_factory=factory_path,
         batch=config.batch,
         env=storage_env_vars(),
+        mesh_conf=_mesh_conf(config),
         data_source_params=_stage_json(variant, "datasource"),
         preparator_params=_stage_json(variant, "preparator"),
         algorithms_params=json.dumps(variant.get("algorithms", [])),
         serving_params=_stage_json(variant, "serving"),
     )
     logger.info("training %s (factory %s)", instance.engine_id, factory_path)
-    ctx = ctx or DeviceContext.create(config.device,
-                                      distributed=config.distributed)
+    ctx = ctx or _context(config)
     # the fault-tolerant mesh's seam (reference create_workflow.py:119-121)
     from incubator_predictionio_tpu_torch.distributed.context import (
         maybe_wrap_distributed,
@@ -165,8 +185,7 @@ def _run_eval(config: WorkflowConfig, storage: Optional[Storage],
     )
     # under launch every process evaluates (sharded read_eval, the held-out
     # queries allgathered, data-parallel fits); only process 0 writes
-    ctx = ctx or DeviceContext.create(config.device,
-                                      distributed=config.distributed)
+    ctx = ctx or _context(config)
     instance_id, _ = run_evaluation(
         evaluation,
         list(generator.engine_params_list),

@@ -19,8 +19,14 @@ spaces:
 
 Every function is also correct single-process (it degenerates to identity).
 All calls are collective: every process must make the same sequence.
-``ctx`` is anything with ``allgather_obj`` and ``process_index``
-(``parallel/mesh.py:DeviceContext``).
+``ctx`` is anything with ``data_index``, ``data_size`` and
+``allgather_obj(obj, axis=)`` (``parallel/mesh.py:DeviceContext``).
+
+A shard is a **data** coordinate (:func:`data_shard`): under a ``model``
+axis the processes of one model line read the same shard and exchange
+along the ``data`` axis only (:func:`gather_data`), so the vocabularies
+and counts are those of the data shards, each counted once. Without a
+``model`` axis the data axis is every process, and so is the exchange.
 """
 
 from __future__ import annotations
@@ -30,13 +36,26 @@ from typing import Sequence
 import numpy as np
 
 
+def data_shard(ctx) -> tuple[int, int]:
+    """``(index, count)`` of this process's shard: its ``data`` coordinate
+    and the data axis's size."""
+    return ctx.data_index, ctx.data_size
+
+
+def gather_data(ctx, obj) -> list:
+    """``allgather_obj`` along the data axis: every data shard's ``obj``
+    in shard order (the whole job's, in process order, when the data axis
+    is every process)."""
+    return ctx.allgather_obj(obj, axis="data")
+
+
 def concat_vocab(ctx, local_vocab: Sequence[str]) -> tuple[np.ndarray, int]:
     """Entity-disjoint vocabularies → (global vocab, this process's offset).
 
     Local index ``i`` globalizes as ``i + offset``. No id may appear in two
     processes' vocabularies (true when the store was read entity-sharded):
     a violation raises instead of minting two global rows for one entity."""
-    parts = ctx.allgather_obj(list(local_vocab))
+    parts = gather_data(ctx, list(local_vocab))
     vocab = np.asarray([v for p in parts for v in p], object)
     if len(np.unique(vocab)) != len(vocab):
         seen: dict = {}
@@ -49,7 +68,7 @@ def concat_vocab(ctx, local_vocab: Sequence[str]) -> tuple[np.ndarray, int]:
                         "shard reads (use union_vocab for cross-shard id "
                         "spaces)")
                 seen[v] = pi
-    offset = sum(len(p) for p in parts[: ctx.process_index])
+    offset = sum(len(p) for p in parts[: data_shard(ctx)[0]])
     return vocab, offset
 
 
@@ -59,7 +78,7 @@ def union_vocab(ctx, local_vocab: Sequence[str]) -> tuple[np.ndarray, np.ndarray
     Global order is first-seen over shards in process order (what a
     single-process first-seen read gives); ``remap[local_idx] ==
     global_idx`` (int32)."""
-    parts = ctx.allgather_obj(list(local_vocab))
+    parts = gather_data(ctx, list(local_vocab))
     glob: dict[str, int] = {}
     for p in parts:
         for v in p:
@@ -93,7 +112,7 @@ def global_sum(ctx, value):
     """Sum small numeric host values over processes, leaf-wise: ``value``
     may be a scalar, a numpy array, or a tuple / list / dict of them
     (moment accumulators sum element-wise, they do not concatenate)."""
-    return _add_leaves(ctx.allgather_obj(value))
+    return _add_leaves(gather_data(ctx, value))
 
 
 def global_row_count(ctx, n_local: int) -> int:
@@ -103,5 +122,5 @@ def global_row_count(ctx, n_local: int) -> int:
 def union_label_set(ctx, local_labels) -> list:
     """Sorted union of label values across processes (classification's
     global class vocabulary)."""
-    parts = ctx.allgather_obj(sorted(set(local_labels)))
+    parts = gather_data(ctx, sorted(set(local_labels)))
     return sorted({v for p in parts for v in p})

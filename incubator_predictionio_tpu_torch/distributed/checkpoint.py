@@ -23,12 +23,15 @@ uses the previous commit; a zombie from an older generation fails the
 fence check (before it touches disk, and again before it commits); a
 slice written by an older generation never satisfies the phase-2 poll.
 
-Ownership follows the reference's rule for the port's layout. The port's
-multi-process tables are replicated, one card a process (no ``model``
-axis until model-axis training, ROADMAP.md Queue 1, item 4.5), and the
-reference gives a replicated leaf to its ``replica_id == 0`` shard, which
-lives on process 0: member 0 writes every leaf whole and the other
-members write manifests with no entries. ``slice_fn`` overrides that
+Ownership follows the reference's rule for the port's layout: a block's
+``replica_id == 0`` holder writes it. A data-parallel fit's tables are
+replicated, and the reference gives a replicated leaf to its shard on
+process 0: member 0 writes every leaf whole and the other members write
+manifests with no entries. A model-axis fit passes its
+``utils/checkpoint.py:RowBlocks`` layout: the process at data coordinate
+0 of each model line writes its block's rows of every table and moment,
+member 0 the whole leaves (the epoch, adam's count), and a restore
+places each block back on its owner. ``slice_fn`` overrides both
 (tests, row blocks): ``slice_fn(leaf_idx, leaf, member, members)`` gets
 the leaf as a host array and returns ``[(block, index_or_None), ...]``,
 ``index`` being ``[[lo, hi], None, ...]`` for a row block. The leaves and
@@ -75,6 +78,7 @@ class DistSliceCheckpointer:
         slice_fn: Optional[Callable] = None,
         clock: Clock = SYSTEM_CLOCK,
         commit_timeout_ms: int = 60_000,
+        layout: Optional["ckpt_fs.RowBlocks"] = None,
     ):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
@@ -86,6 +90,7 @@ class DistSliceCheckpointer:
         self._slice_fn = slice_fn
         self._clock = clock
         self.commit_timeout_ms = commit_timeout_ms
+        self._layout = layout
 
     # -- TrainCheckpointer surface ----------------------------------------
     def save(self, step: int, state: Any) -> None:
@@ -99,9 +104,11 @@ class DistSliceCheckpointer:
         for i, leaf in enumerate(ckpt_fs.state_leaves(state)):
             for j, (block, index) in enumerate(self._local_blocks(i, leaf)):
                 key = f"l{i}b{j}"
+                shape = (_shape(leaf) if self._layout is None
+                         else self._layout.global_shape(leaf))
                 entries.append({
                     "key": key, "leaf": i,
-                    "globalShape": [int(s) for s in _shape(leaf)],
+                    "globalShape": [int(s) for s in shape],
                     "index": index,
                 })
                 arrays[key] = block
@@ -137,6 +144,8 @@ class DistSliceCheckpointer:
         leaves = ckpt_fs.assemble_committed_step(self.directory, step)
         if like is None:
             return leaves
+        if self._layout is not None:
+            return self._layout.cut(leaves, like)
         return ckpt_fs.place_leaves(like, leaves)
 
     def close(self) -> None:
@@ -151,12 +160,15 @@ class DistSliceCheckpointer:
     # -- slicing -----------------------------------------------------------
     def _local_blocks(self, leaf_idx: int, leaf: Any) -> list:
         """Blocks of ``leaf`` this member owns: ``[(host_array, index),
-        ...]``. Without ``slice_fn``: every leaf whole on member 0 (the
-        replicated layout), nothing elsewhere; only the owner copies the
-        leaf to the host."""
+        ...]``. Without ``slice_fn``: the layout's blocks (module
+        docstring), or every leaf whole on member 0 (the replicated
+        layout) and nothing elsewhere; only the owner copies the leaf to
+        the host."""
         if self._slice_fn is not None:
             return list(self._slice_fn(leaf_idx, ckpt_fs.leaf_to_numpy(leaf),
                                        self.member, self.members))
+        if self._layout is not None:
+            return self._layout.member_blocks(leaf, self.member)
         return [(ckpt_fs.leaf_to_numpy(leaf), None)] if self.member == 0 else []
 
     # -- commit ------------------------------------------------------------

@@ -26,11 +26,14 @@ and adds the member side of the fault-tolerant tier:
   (member-slice checkpoints) and :meth:`DistContext.on_chunk` (a beat
   with progress and a peer check at each chunk boundary).
 
-:meth:`DistContext.stop` ends the watchdog first, leaves the process
-group while the lease is still renewed, then drops the member's lease: a
-member that finished its last collective and exits is not a lost peer
-while another member still persists the model (the reference's
-watchdog would read that lease as expired). The single-process mesh gets
+:meth:`DistContext.collectives_done` (called by ``run_train`` once
+``engine.train`` returns) ends the member-lost verdict of the watchdog:
+past its last collective a member has nothing a lost peer could block,
+so a peer that finished too and whose lease ages while it leaves does not
+abort the primary's persistence; the fence check stays until
+:meth:`DistContext.stop`. ``stop`` ends the watchdog, leaves the process
+group while the lease is still renewed, then drops the member's lease (the
+reference's watchdog would read a finished member's lease as expired). The single-process mesh gets
 the same wrapper minus the threads, so every fencing and checkpoint
 contract runs in tier-1 tests on a FakeClock with no wall sleeps.
 """
@@ -39,6 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import faulthandler
 import logging
 import os
 import threading
@@ -116,8 +120,12 @@ class DistContext:
         self.meshdir = meshdir or (
             MeshDirectory(conf.state_dir) if conf.state_dir else None)
         self._step = 0
+        #: the longest wait between two of this member's lease renewals
+        #: (real multi-process mode; logged at :meth:`stop`)
+        self.beat_gap_max_s = 0.0
         self._stop = threading.Event()
         self._stop_watch = threading.Event()
+        self._collectives_done = threading.Event()
         self._threads: list[threading.Thread] = []
         if self.meshdir is not None:
             self.meshdir.announce_generation(self.generation,
@@ -140,10 +148,11 @@ class DistContext:
         None)``."""
         return self
 
-    def checkpointer_factory(self, directory: str,
-                             max_to_keep: int = 3) -> DistSliceCheckpointer:
+    def checkpointer_factory(self, directory: str, max_to_keep: int = 3,
+                             layout=None) -> DistSliceCheckpointer:
         """``maybe_resume(factory=...)``: slice checkpoints instead of the
-        whole-state file."""
+        whole-state file (of a model-axis fit's row blocks with its
+        ``utils/checkpoint.py:RowBlocks`` ``layout``)."""
         return DistSliceCheckpointer(
             directory,
             max_to_keep=max_to_keep,
@@ -153,6 +162,7 @@ class DistContext:
             meshdir=self.meshdir,
             clock=self._clock,
             commit_timeout_ms=self.conf.commit_timeout_ms,
+            layout=layout,
         )
 
     def on_chunk(self, epoch: int) -> None:
@@ -165,6 +175,11 @@ class DistContext:
             self.meshdir.heartbeat(self._inner.process_index, self.generation,
                                    step=self._step)
         self.check_peers()
+
+    def collectives_done(self) -> None:
+        """This member has run its last collective (module docstring):
+        from now on the watchdog exits for a fence only."""
+        self._collectives_done.set()
 
     # -- fault detection ---------------------------------------------------
     def check_peers(self) -> None:
@@ -183,20 +198,24 @@ class DistContext:
                                            self.generation)
         if stale:
             dist_metrics.DIST_STEP_ABORTS.inc()
+            now = self.meshdir.now()
             raise MemberLostError(
                 "peer heartbeat expired: "
-                + ", ".join(f"rank {m.rank} (pid {m.pid})" for m in stale))
+                + ", ".join(f"rank {m.rank} (pid {m.pid}, last beat "
+                            f"{m.age_s(now):.2f} s ago)" for m in stale))
         dist_metrics.DIST_MEMBERS.set(
             len(self.meshdir.alive_members(self.conf.heartbeat_ms,
                                            self.generation)))
 
-    def allgather_obj(self, obj: Any) -> list[Any]:
-        """The guarded host-object collective. Without a coordination
-        directory, a straight delegate."""
+    def allgather_obj(self, obj: Any, axis: Optional[str] = None) -> list[Any]:
+        """The guarded host-object collective (along ``axis`` when one is
+        named). Without a coordination directory, a straight delegate."""
+        def call():
+            return self._inner.allgather_obj(obj, axis=axis)
+
         if self.meshdir is None:
-            return self._inner.allgather_obj(obj)
-        return self._guarded("allgather_obj",
-                             lambda: self._inner.allgather_obj(obj))
+            return call()
+        return self._guarded("allgather_obj", call)
 
     def _guarded(self, what: str, fn):
         """Run a blocking collective in a side thread and poll for loss:
@@ -247,12 +266,27 @@ class DistContext:
         wd.start()
 
     def _heartbeat_loop(self) -> None:
+        """Renew the lease every third of the heartbeat and keep the
+        longest gap between two renewals. With ``PIO_DIST_STALL_DUMP_MS``
+        set, a renewal later than that dumps every thread's stack into the
+        member's log (``faulthandler``, from a C thread: it shows what held
+        the interpreter while the lease aged)."""
         period = self.conf.heartbeat_ms / 3000.0
+        dump_s = float(os.environ.get("PIO_DIST_STALL_DUMP_MS", "0")) / 1000.0
+        last = None
         while not self._stop.is_set():
             with contextlib.suppress(OSError):  # transient fs trouble
                 self.meshdir.heartbeat(self._inner.process_index,
                                        self.generation, step=self._step)
+            now = self._clock.monotonic()
+            if last is not None:
+                self.beat_gap_max_s = max(self.beat_gap_max_s, now - last)
+            last = now
+            if dump_s > 0:
+                faulthandler.dump_traceback_later(dump_s)
             self._clock.sleep(period)
+        if dump_s > 0:
+            faulthandler.cancel_dump_traceback_later()
 
     def _watchdog_loop(self) -> None:
         period = self.conf.heartbeat_ms / 3000.0
@@ -268,6 +302,9 @@ class DistContext:
             except MemberLostError as e:
                 if self._stop_watch.is_set():
                     return
+                if self._collectives_done.is_set():
+                    self._clock.sleep(period)
+                    continue
                 # an in-step collective cannot be cancelled: exiting is the
                 # only way to unstick this member so the supervisor can
                 # re-form the mesh
@@ -290,6 +327,11 @@ class DistContext:
             self._stop.set()
             for t in self._threads:
                 t.join(timeout=self.conf.heartbeat_ms / 1000.0)
+            if self._threads:
+                logger.info("dist member %d: lease renewed at most %.1f ms "
+                            "apart (expiry %d ms)", self._inner.process_index,
+                            self.beat_gap_max_s * 1000.0,
+                            self.conf.heartbeat_ms)
             if self.meshdir is not None:
                 with contextlib.suppress(OSError):
                     os.unlink(os.path.join(

@@ -25,9 +25,10 @@ atomic_write_bytes``), so every decision survives a kill and reads with
 The files are the reference's, key for key (JSON with sorted keys), so
 either package's :class:`MeshDirectory` reads the other's directory. The
 time source is injectable (``now_fn``), so staleness decisions are
-testable on a virtual clock. Writes from one instance are serialised (a
-member's heartbeat thread and its chunk-boundary beat share the record's
-temporary file).
+testable on a virtual clock. Writes of one record from one instance are
+serialised (a member's heartbeat thread and its chunk-boundary beat share
+the record's temporary file); writes of different records are not, so a
+lease renewal never waits behind the commit record's fsync.
 """
 
 from __future__ import annotations
@@ -73,7 +74,14 @@ class MeshDirectory:
         self.state_dir = os.path.abspath(state_dir)
         os.makedirs(self.state_dir, exist_ok=True)
         self._now = now_fn
-        self._write_lock = threading.Lock()
+        # one lock a file: a lease renewal never waits behind another
+        # record's fsync
+        self._write_locks: dict[str, threading.Lock] = {}
+        self._locks_guard = threading.Lock()
+
+    def now(self) -> float:
+        """The clock the leases are written and aged on."""
+        return self._now()
 
     # -- generation (the fencing token) -----------------------------------
     def read_generation(self) -> tuple[int, int]:
@@ -216,7 +224,9 @@ class MeshDirectory:
             return {}
 
     def _write_json(self, name: str, payload: dict, durable: bool = True) -> None:
-        with self._write_lock:
+        with self._locks_guard:
+            lock = self._write_locks.setdefault(name, threading.Lock())
+        with lock:
             atomic_write_bytes(self._path(name),
                                json.dumps(payload, sort_keys=True).encode("utf-8"),
                                durable=durable)

@@ -225,7 +225,7 @@ class MLPClassifier:
             xb, yb, wb = stage_batches(xn, y_idx, cfg.batch_size, ctx, dev)
         # each global batch's loss denominator, max(Σ w, 1), once: a sum of
         # 0/1 weights, exact in fp32 in any order
-        denoms = (ctx.all_reduce_sum(wb.sum(1)).clamp(min=1.0)
+        denoms = (ctx.all_reduce_sum(wb.sum(1), axis="data").clamp(min=1.0)
                   if multi else None)
         t_stage = time.perf_counter() - t_stage
         dims = [d, *cfg.hidden_dims, len(classes)]
@@ -235,10 +235,10 @@ class MLPClassifier:
         t_train = time.perf_counter()
         loss = train_epochs(
             net, xb, yb, wb, cfg.learning_rate, cfg.epochs, denoms=denoms,
-            all_reduce=(lambda t: clock.time(lambda: ctx.all_reduce_sum(t)))
+            all_reduce=(lambda t: clock.time(lambda: ctx.all_reduce_sum(t, axis="data")))
             if multi else None)
         if multi:  # the local shares of the step losses summed once
-            loss = clock.time(lambda: ctx.all_reduce_sum(loss))
+            loss = clock.time(lambda: ctx.all_reduce_sum(loss, axis="data"))
         final_loss = float(loss)  # the one sync
         t_train = time.perf_counter() - t_train
         params = net.host_params()
@@ -294,8 +294,11 @@ def stage_batches(xn: np.ndarray, y_idx: np.ndarray, batch_size: int,
     xp = np.concatenate([xn, np.zeros((pad, d), np.float32)])
     yp = np.concatenate([y_idx.astype(np.int64), np.zeros(pad, np.int64)])
     wp = np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)])
-    b_local = batch // ctx.process_count
-    cols = slice(ctx.process_index * b_local, (ctx.process_index + 1) * b_local)
+    from incubator_predictionio_tpu_torch.data.sharded import data_shard
+
+    shard, shards = data_shard(ctx)
+    b_local = batch // shards
+    cols = slice(shard * b_local, (shard + 1) * b_local)
 
     def stage(a):
         a = a.reshape(n_batches, batch, *a.shape[1:])[:, cols]

@@ -15,9 +15,20 @@ kernels' backwards → ``utils/optim.py`` adam (optax's); with
 fit is data-parallel (:func:`train_step` over the global batch's
 denominator, one all-reduce of the gradients a step), and its checkpoints
 take the plain multi-process path (the primary writes, every process
-waits). MoE, ring attention, pipeline and tensor parallelism come with
-the parallel-axes slice (ROADMAP.md Queue 1, item 4.5) and raise until
-then.
+waits). With ``tensor_parallel`` on a ``model`` mesh axis the fit is
+Megatron's (reference :347-372, :542-581): each process holds its slice
+of the column-parallel projections (``wq``, ``wk``, ``wv``, ``w1``, ``b1``,
+split on the output dim, so its ``n_heads / tp`` heads and its share of
+the FFN features) and of the row-parallel ones (``wo``, ``w2``, split on
+the input dim), everything else replicated (:func:`shard_params`);
+:class:`TensorParallel`'s pair of autograd functions puts one all-reduce
+over ``model`` after each row-parallel projection in the forward and one
+before each column-parallel input in the backward; the gradients are
+all-reduced over ``data`` only; at the end the slices are gathered back
+to the canonical per-layer layout (:func:`gather_params`), so persistence,
+deploy and serving are unchanged. MoE, ring attention, pipeline
+parallelism and tensor parallelism with checkpoints are the rest of the
+parallel-axes slice (ROADMAP.md Queue 1, item 4.5) and raise until then.
 
 Numerics follow the reference: every matmul rounds both operands and the
 product to bf16 (``_bf16_matmul``), so served scores are bf16 values and
@@ -55,14 +66,16 @@ logger = logging.getLogger(__name__)
 
 #: what raises in the training options this slice does not port
 SHARDING_SLICE = ("the parallel-axes slice of the PyTorch port (ROADMAP.md "
-                  "Queue 1, item 4.5)")
+                  "Queue 1, item 4.5: the expert axis with MoE, the seq "
+                  "axis, the pipe axis, tensor parallelism with checkpoints)")
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Copy of the reference's config (transformer.py:44), every field, so a
-    variant or a persisted config binds unchanged. The parallelism fields
-    wait for the parallel-axes slice (ROADMAP.md Queue 1, item 4.5)."""
+    variant or a persisted config binds unchanged. Of the parallelism
+    fields, ``tensor_parallel`` is ported; the others wait for the rest
+    of the parallel-axes slice (ROADMAP.md Queue 1, item 4.5)."""
 
     vocab_size: int = 1024        # items + 1 (0 is padding)
     max_len: int = 64
@@ -201,19 +214,128 @@ class _Layer(nn.Module):
         _put(self, "b1", layer["b1"], device, trainable)
         _put(self, "b2", layer["b2"], device, trainable)
 
-    def forward(self, h, n_heads: int, attention: Callable):
-        """transformer.py:196 ``_apply_layer``, the dense branch."""
+    def forward(self, h, n_heads: int, attention: Callable,
+                tp: Optional["TensorParallel"] = None):
+        """transformer.py:196 ``_apply_layer``, the dense branch. With
+        ``tp`` the block holds its slices (:func:`shard_params`): its
+        ``n_heads / tp`` heads attend, the row-parallel products are
+        summed over the ``model`` axis, and ``b2`` is added once, after
+        that sum."""
         b, l, d = h.shape
         dh = d // n_heads
         x = _ln(h, self.ln1.g, self.ln1.b)
+        if tp is not None:
+            x = tp.copy(x)
+            n_heads //= tp.size
         q = _bf16_matmul(x, self.wq).reshape(b, l, n_heads, dh)
         k = _bf16_matmul(x, self.wk).reshape(b, l, n_heads, dh)
         v = _bf16_matmul(x, self.wv).reshape(b, l, n_heads, dh)
         att = attention(q, k, v)
-        h = h + _bf16_matmul(att.reshape(b, l, d), self.wo)
+        o = _bf16_matmul(att.reshape(b, l, n_heads * dh), self.wo)
+        h = h + (o if tp is None else tp.reduce(o))
         x = _ln(h, self.ln2.g, self.ln2.b)
+        if tp is not None:
+            x = tp.copy(x)
         x = F.gelu(_bf16_matmul(x, self.w1) + self.b1, approximate="tanh")
-        return h + _bf16_matmul(x, self.w2) + self.b2
+        y = _bf16_matmul(x, self.w2)
+        return h + (y if tp is None else tp.reduce(y)) + self.b2
+
+
+#: Megatron's placement (reference transformer.py:347-372): split on the
+#: output dim (column parallel) and on the input dim (row parallel)
+COLUMN_PARALLEL = ("wq", "wk", "wv", "w1", "b1")
+ROW_PARALLEL = ("wo", "w2")
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's ``f``: identity forward, the gradient all-reduced over
+    ``model`` backward (before a column-parallel projection, whose input
+    every process of the model line holds)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_reduce(g), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's ``g``: the partial products all-reduced over ``model``
+    forward, identity backward (after a row-parallel projection)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class TensorParallel:
+    """The ``model`` line of a tensor-parallel fit: its size, this
+    process's coordinate on it, and Megatron's pair of autograd functions
+    over it (:meth:`copy`, :meth:`reduce`), their all-reduces timed by
+    ``clock``."""
+
+    def __init__(self, ctx, clock: Optional[CollectiveClock] = None):
+        self.ctx = ctx
+        self.size = ctx.axis_size("model")
+        self.rank = ctx.axis_index("model")
+        self.clock = clock
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        def run():
+            return self.ctx.all_reduce_sum(t.contiguous(), axis="model")
+
+        return run() if self.clock is None else self.clock.time(run)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        return _CopyToModel.apply(x, self)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return _ReduceFromModel.apply(x, self)
+
+
+def shard_params(params: dict, shard: int, tp: int) -> dict:
+    """Process ``shard``'s slice of a parameter tree under ``tp``-way
+    tensor parallelism (the reference's
+    ``_place_params_tensor_sharded``): the column-parallel leaves cut on
+    their last dim, the row-parallel ones on their first, the rest whole."""
+    def cut(name, a):
+        if name in COLUMN_PARALLEL:
+            n = a.shape[-1] // tp
+            return a[..., shard * n:(shard + 1) * n]
+        if name in ROW_PARALLEL:
+            n = a.shape[0] // tp
+            return a[shard * n:(shard + 1) * n]
+        return a
+
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: cut(k, v) for k, v in layer.items()}
+                     for layer in params["layers"]]
+    return out
+
+
+def gather_params(ctx, params: dict) -> dict:
+    """The canonical tree from every process's slices
+    (:func:`shard_params`): each split leaf all-gathered over ``model``
+    and joined in axis order (a collective), the rest as they are."""
+    def join(name, a):
+        if name not in COLUMN_PARALLEL + ROW_PARALLEL:
+            return a
+        parts = ctx.all_gather(torch.from_numpy(np.ascontiguousarray(a)),
+                               axis="model").numpy()
+        return np.concatenate(list(parts),
+                              axis=-1 if name in COLUMN_PARALLEL else 0)
+
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: join(k, v) for k, v in layer.items()}
+                     for layer in params["layers"]]
+    return out
 
 
 #: rows a block of :func:`_scan_rows`: one product with a ``[64, 64]``
@@ -293,9 +415,11 @@ class TransformerNet(nn.Module):
     reference's tree, of numpy arrays or tensors."""
 
     def __init__(self, params: dict, cfg: TransformerConfig, device,
-                 trainable: bool = False):
+                 trainable: bool = False,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp  # set: ``params`` are this process's slices
         _put(self, "item_emb", params["item_emb"], device, trainable)
         _put(self, "pos_emb", params["pos_emb"], device, trainable)
         self.ln_f = _Norm(params["ln_f"], device, trainable)
@@ -318,9 +442,9 @@ class TransformerNet(nn.Module):
         for layer in self.layers:
             if remat:
                 h = checkpoint(layer, h, self.cfg.n_heads, attention,
-                               use_reentrant=False)
+                               self.tp, use_reentrant=False)
             else:
-                h = layer(h, self.cfg.n_heads, attention)
+                h = layer(h, self.cfg.n_heads, attention, self.tp)
         return _ln(h, self.ln_f.g, self.ln_f.b)
 
     def serve_scores(self, tokens, attention: Callable = causal_attention):
@@ -465,14 +589,46 @@ class TransformerRecommender:
     def __init__(self, config: TransformerConfig):
         self.config = config
 
-    def _refuse_unported(self, ctx: DeviceContext):
+    def _tensor_parallel(self, ctx: DeviceContext) -> bool:
+        """Whether the fit is tensor-parallel, with the reference's checks
+        and texts (transformer.py:542-565): ``tensor_parallel`` on a mesh
+        without a ``model`` axis records a degradation (once a key) and
+        trains replicated; on one, the heads and the FFN hidden dim must
+        split evenly over it, and neither the pipeline nor MoE may be
+        asked for."""
+        cfg = self.config
+        engaged = cfg.tensor_parallel and ctx.axis_size_or("model") > 1
+        if cfg.tensor_parallel and not engaged:
+            from incubator_predictionio_tpu_torch.sharding.degrade import (
+                record_axis_degradation,
+            )
+
+            record_axis_degradation(
+                "transformer.tp", "model", "tensor_parallel",
+                ctx.axis_names, "weights stay replicated")
+        if engaged:
+            tp = ctx.axis_size("model")
+            if cfg.n_heads % tp or (4 * cfg.d_model) % tp:
+                raise ValueError(
+                    f"tensor parallelism needs n_heads ({cfg.n_heads}) and "
+                    f"the FFN hidden dim ({4 * cfg.d_model}) divisible by "
+                    f"the model axis ({tp})")
+            if cfg.pipeline_stages or cfg.n_experts:
+                raise ValueError(
+                    "tensor parallelism composes with dp/sp, not with the "
+                    "pipeline or MoE placements")
+        return engaged
+
+    def _refuse_unported(self, tensor_parallel: bool):
         cfg = self.config
         unported = [
             (cfg.attention == "ring", "ring attention (attention='ring')"),
             (cfg.n_experts > 0, f"mixture-of-experts (n_experts={cfg.n_experts})"),
             (cfg.pipeline_stages > 0,
              f"pipeline parallelism (pipeline_stages={cfg.pipeline_stages})"),
-            (cfg.tensor_parallel, "tensor parallelism"),
+            (tensor_parallel and bool(cfg.checkpoint_dir)
+             and cfg.checkpoint_every > 0,
+             "tensor parallelism with checkpoints (checkpoint_dir)"),
         ]
         for hit, what in unported:
             if hit:
@@ -501,10 +657,16 @@ class TransformerRecommender:
         gradients sum to the single-process gradient of the global batch;
         one all-reduce of the flattened gradients, then the same adam on
         every replica. The replicas are proven equal at the end
-        (:func:`~incubator_predictionio_tpu_torch.parallel.mesh.check_replicas`)."""
+        (:func:`~incubator_predictionio_tpu_torch.parallel.mesh.check_replicas`).
+        The data-parallel axis is the mesh's ``data`` axis: the processes
+        of a ``model`` line hold the same batches. With
+        ``tensor_parallel`` on a ``model`` axis they split the weights
+        (module docstring; :meth:`_tensor_parallel`)."""
         cfg = self.config
-        self._refuse_unported(ctx)
+        tensor_parallel = self._tensor_parallel(ctx)
+        self._refuse_unported(tensor_parallel)
         multi = ctx.process_count > 1
+        dp = ctx.data_size > 1  # gradients all-reduced over the data axis
         sequences = np.asarray(sequences)
         tokens, targets = sequences[:, :-1], sequences[:, 1:]
         weights = (targets != 0).astype(np.float32) * (tokens != 0).astype(np.float32)
@@ -531,10 +693,10 @@ class TransformerRecommender:
             n_batches = max(1, -(-n // global_batch))
             pad = n_batches * global_batch - n
             cols = slice(None)
-            if multi:  # the global batches' slice on the data axis
-                b_local = global_batch // ctx.process_count
-                cols = slice(ctx.process_index * b_local,
-                             (ctx.process_index + 1) * b_local)
+            if dp:  # the global batches' slice on the data axis
+                b_local = global_batch // ctx.data_size
+                cols = slice(ctx.data_index * b_local,
+                             (ctx.data_index + 1) * b_local)
 
             def stage(a, dtype):
                 a = np.concatenate([a, np.zeros((pad, l), a.dtype)])
@@ -548,20 +710,26 @@ class TransformerRecommender:
         positions = torch.arange(l, device=dev).expand(b_rows, l)
         # each global batch's loss denominator, max(Σ w, 1), once: a sum of
         # 0/1 weights, exact in fp32 in any order
-        denoms = (ctx.all_reduce_sum(wb.sum((1, 2))).clamp(min=1.0)
-                  if multi else None)
+        denoms = (ctx.all_reduce_sum(wb.sum((1, 2)), axis="data")
+                  .clamp(min=1.0) if dp else None)
         t_stage = time.perf_counter() - t_stage
 
         generator = torch.Generator(device=dev).manual_seed(cfg.seed)
-        net = TransformerNet(_init_params(cfg, generator, dev), cfg, dev,
-                             trainable=True)
+        init = _init_params(cfg, generator, dev)
+        clock = CollectiveClock(dev)
+        tp_clock = CollectiveClock(dev)
+        tp = None
+        if tensor_parallel:  # every process draws the whole init, keeps its slice
+            tp = TensorParallel(ctx, tp_clock)
+            init = shard_params(init, tp.rank, tp.size)
+        net = TransformerNet(init, cfg, dev, trainable=True, tp=tp)
+        del init
         params = list(net.parameters())
         opt_state = adam_init(params, cfg.adam_moments_dtype)
         chunks = []  # [epochs, n_batches] step losses of each chunk run
-        clock = CollectiveClock(dev)
 
         def all_reduce(t):
-            return clock.time(lambda: ctx.all_reduce_sum(t))
+            return clock.time(lambda: ctx.all_reduce_sum(t, axis="data"))
 
         def train_epochs(p, o, n_epochs):
             # p is `params`: a restore copies into the net's own tensors
@@ -571,10 +739,11 @@ class TransformerRecommender:
                     losses[epoch, i] = train_step(
                         net, o, (tb[i], positions, yb[i], wb[i]),
                         cfg.learning_rate,
-                        denom=denoms[i] if multi else None,
-                        all_reduce=all_reduce if multi else None)
-            if multi:  # the global step losses: the local ones summed once
-                losses = clock.time(lambda: ctx.all_reduce_sum(losses))
+                        denom=denoms[i] if dp else None,
+                        all_reduce=all_reduce if dp else None)
+            if dp:  # the global step losses: the local ones summed once
+                losses = clock.time(
+                    lambda: ctx.all_reduce_sum(losses, axis="data"))
             chunks.append(losses)
             # the mean of the last epoch's step losses (transformer.py:314)
             return p, o, losses[-1].mean()
@@ -594,7 +763,20 @@ class TransformerRecommender:
         t_train = time.perf_counter() - t_train
         t_gather = time.perf_counter()
         params = net.params_numpy()
-        digest = check_replicas(ctx, list(_leaves(params))) if multi else None
+        digest = None
+        if tensor_parallel:
+            # the replicated leaves equal on every process, each slice on
+            # its data line; then the canonical layout from the slices
+            split = [layer[k] for layer in params["layers"]
+                     for k in COLUMN_PARALLEL + ROW_PARALLEL]
+            whole = [a for a in _leaves(params)
+                     if not any(a is b for b in split)]
+            check_replicas(ctx, split, axis="data")
+            check_replicas(ctx, whole)
+            params = gather_params(ctx, params)
+            digest = check_replicas(ctx, list(_leaves(params)))
+        elif multi:
+            digest = check_replicas(ctx, list(_leaves(params)))
         model = TransformerModel(params, item_map, cfg)
         model.final_loss = final_loss
         # the epochs this call ran (a resumed fit skips the restored ones)
@@ -603,7 +785,7 @@ class TransformerRecommender:
         model.timings = {"train_sec": round(t_train, 4),
                          "gather_sec": round(time.perf_counter() - t_gather, 4)}
         if multi:
-            exchange = clock.seconds()
+            exchange = clock.seconds() + tp_clock.seconds()
             n_steps = sum(len(c) for c in chunks) * n_batches  # epochs run
             model.timings.update(stage_sec=round(t_stage, 4),
                                  exchange_sec=round(exchange, 4))
@@ -613,18 +795,41 @@ class TransformerRecommender:
 
             peak = (torch.cuda.max_memory_allocated(dev)
                     if dev.type == "cuda" else 0)
-            logger.info(
-                "data-parallel fit: process %d of %d (backend %s, %s): %d "
-                "steps of %d local rows; stage %.3f s, train %.3f s, "
-                "exchange %.3f ms a step; loss %.6f; replica digest %s, equal "
-                "on every process; staged %d rows (%s real); peak device "
-                "memory %d bytes; attention launches %s",
-                ctx.process_index, ctx.process_count, ctx.backend, dev,
-                n_steps, b_rows, t_stage, t_train,
-                exchange / max(n_steps, 1) * 1e3, final_loss, digest,
-                n_batches * b_rows,
-                staged_real if staged_real is not None else "all", peak,
-                json.dumps({w.__name__: w.launches for w in KERNEL_WRAPPERS}))
+            launches = json.dumps({w.__name__: w.launches
+                                   for w in KERNEL_WRAPPERS})
+            if tensor_parallel:
+                layer = net.layers[0]
+                model.timings["exchange_model_sec"] = round(
+                    tp_clock.seconds(), 4)
+                logger.info(
+                    "tensor-parallel fit: process %d of %d at %s (backend "
+                    "%s, %s): %d of %d heads; wq %s, w1 %s, wo %s, w2 %s; %d "
+                    "steps of %d local rows; stage %.3f s, train %.3f s, "
+                    "exchange model %.3f ms a step, data %.3f ms a step; "
+                    "loss %.6f; model digest %s, equal on every process; "
+                    "peak device memory %d bytes; attention launches %s",
+                    ctx.process_index, ctx.process_count,
+                    json.dumps({n: ctx.axis_index(n) for n in ctx.axis_names}),
+                    ctx.backend, dev, cfg.n_heads // tp.size, cfg.n_heads,
+                    list(layer.wq.shape), list(layer.w1.shape),
+                    list(layer.wo.shape), list(layer.w2.shape), n_steps,
+                    b_rows, t_stage, t_train,
+                    tp_clock.seconds() / max(n_steps, 1) * 1e3,
+                    clock.seconds() / max(n_steps, 1) * 1e3, final_loss,
+                    digest, peak, launches)
+            else:
+                logger.info(
+                    "data-parallel fit: process %d of %d (backend %s, %s): "
+                    "%d steps of %d local rows; stage %.3f s, train %.3f s, "
+                    "exchange %.3f ms a step; loss %.6f; replica digest %s, "
+                    "equal on every process; staged %d rows (%s real); peak "
+                    "device memory %d bytes; attention launches %s",
+                    ctx.process_index, ctx.process_count, ctx.backend, dev,
+                    n_steps, b_rows, t_stage, t_train,
+                    exchange / max(n_steps, 1) * 1e3, final_loss, digest,
+                    n_batches * b_rows,
+                    staged_real if staged_real is not None else "all", peak,
+                    launches)
         return model
 
     @staticmethod

@@ -54,20 +54,31 @@ member (``distributed/context.py``) through member-slice checkpoints and
 its chunk-boundary peer check, any other multi-process fit through the
 plain path (the primary writes, every process waits).
 
-Multi-process training is the reference's data-parallel fit over one
-``torch.distributed`` group, every process holding a replica of the
-tables. Each process stages its own rows (:meth:`TwoTowerMF._stage_local`
-for an entity-sharded read); global batch b is the concatenation, in
-process order, of every process's local batch b. The global row indices
-and each batch's weight sum (the denominator) are gathered once at
-staging (:func:`_gather_batches`); a step computes the loss terms and row
-gradients of the process's own rows (:func:`_row_grads`), all-gathers the
-rows (``DeviceContext.all_gather``), scatters every process's rows into
-the dense table gradients in a fixed order (:func:`_scatter_rows`: a
-sorted scatter on the card) and runs the dense adam on its replica
-(:func:`_train_epochs_dp`). The stacked per-step losses are summed across
-processes once an epoch. The fit ends by comparing a digest of every
-replica's tables, and raises if any differs.
+Multi-process training is the reference's fit over the processes'
+mesh: process ``(d, s)`` (its ``data`` and ``model`` coordinates) holds
+block ``s`` of both tables and of both adam moments and nothing else
+(``sharding/table.py:ShardedTable.init_train``); without a ``model`` axis
+(the data-parallel fit) there is one block, the whole table, and every
+process holds a replica of it. Each process stages the batches of its data
+shard ``d`` (:meth:`TwoTowerMF._stage_local` for an entity-sharded read),
+the same on every process of its model line; global batch b is the
+concatenation, in data-shard order, of every shard's local batch b. The
+global row indices and each batch's weight sum (the denominator) are
+gathered once at staging (:func:`_gather_batches`). A step
+(:func:`_train_epochs_model`) gathers the batch's rows that block ``s``
+owns, -0.0 elsewhere, and completes them with one all-reduce over
+``model`` (exact: one owner contributes each row, and ``x + -0.0`` is
+``x``; a copy when the axis is one process); computes the row gradients
+(:func:`_grads_of_rows`, over the global batch's denominator);
+all-gathers them over ``data``; and each owner scatters the rows it owns
+into its block's gradient in global batch order (:func:`_scatter_rows`:
+a sorted scatter on the card; the rows of other blocks go to a spare row
+past the block) and runs the dense adam on its block alone. So the tables
+are bitwise those of the one-process fit on the same global batches from
+the same initial tables. The stacked per-step losses are summed over
+``data`` once an epoch. At the end each block is held equal on its data
+line (a digest of every replica; a difference raises) and the blocks are
+gathered over ``model`` to the host; the primary persists whole tables.
 
 Tie order: the device paths answer what ``lax.top_k`` answers — among
 equal scores the lowest indices are taken and come first, -inf entries
@@ -81,6 +92,7 @@ The host path keeps the reference's numpy code and its order.
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import threading
 import time
@@ -713,8 +725,9 @@ class TwoTowerMF:
         reference's four phases (``stage_sec``, ``init_sec``, ``train_sec``,
         ``gather_sec``), and ``exchange_sec`` in a multi-process fit.
 
-        ``ctx.process_count > 1``: the data-parallel fit over the context's
-        process group (module docstring). ``rows_are_local=True``: the
+        ``ctx.process_count > 1``: the fit over the context's mesh, each
+        process training its row blocks (module docstring): the whole
+        tables, replicated, without a ``model`` axis. ``rows_are_local=True``: the
         triples are only THIS process's entity-disjoint shard (indices
         already global), staged by :meth:`_stage_local` (reference
         :685-703); otherwise every process holds every triple, stages the
@@ -726,6 +739,8 @@ class TwoTowerMF:
             raise ValueError("users/items/ratings must be equal length")
         dev = ctx.device
         multi = ctx.process_count > 1
+        # a model axis: this process trains block ``shard`` of each table
+        sharded = ctx.axis_size_or("model") > 1
 
         t_stage = time.perf_counter()
         if multi and rows_are_local:
@@ -735,10 +750,10 @@ class TwoTowerMF:
             ub, ib, rb, wb, mean = _stage_batches(
                 cfg, np.asarray(users), np.asarray(items), np.asarray(ratings),
                 ctx.pad_to_batch_multiple)
-            if multi:  # the global arrays' slice on the data axis
-                b_local = ub.shape[1] // ctx.process_count
-                cols = slice(ctx.process_index * b_local,
-                             (ctx.process_index + 1) * b_local)
+            if ctx.data_size > 1:  # the global arrays' slice on the data axis
+                b_local = ub.shape[1] // ctx.data_size
+                cols = slice(ctx.data_index * b_local,
+                             (ctx.data_index + 1) * b_local)
                 ub, ib, rb, wb = (np.ascontiguousarray(a[:, cols])
                                   for a in (ub, ib, rb, wb))
         ub, ib, rb, wb = (torch.from_numpy(a).to(dev) for a in (ub, ib, rb, wb))
@@ -747,40 +762,47 @@ class TwoTowerMF:
         _sync(dev)
         t_stage = time.perf_counter() - t_stage
 
-        from incubator_predictionio_tpu_torch.sharding.table import (
-            ShardSpec,
-            check_budget,
-        )
         from incubator_predictionio_tpu_torch.utils.optim import adam_tree_init
 
         t_init = time.perf_counter()
-        # the layout record of one card a process (the reference's
-        # ShardedTable.init_train over a mesh with no ``model`` axis), and
-        # PIO_SHARD_HBM_BUDGET enforced on it before the tables are made
-        specs = {name: ShardSpec(name, n, cfg.rank + 1, 1)
-                 for name, n in (("ue", n_users), ("ie", n_items))}
-        for spec in specs.values():
-            check_budget(spec, cfg.adam_moments_dtype)
         gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-        tables = list(_init_tables(cfg, n_users, n_items, dev, gen))
+        # this process's blocks (PIO_SHARD_HBM_BUDGET enforced on the
+        # per-shard spec first; one block, the whole table, without a
+        # ``model`` axis)
+        placed = _init_blocks(cfg, ctx, n_users, n_items, gen)
+        specs = {t.spec.name: t.spec for t in placed}
+        tables = [t.array for t in placed]
+        if multi:
+            # per table, the owner index of every global batch row: its
+            # row in the block, or the spare row past the block for a row
+            # another block owns
+            lows = [t.shard * t.spec.rows_per_shard for t in placed]
+            owners = [_owner_index(g, lo, t.spec.rows_per_shard)
+                      for g, lo, t in zip((gub, gib), lows, placed)]
+            grads = [torch.empty((t.shape[0] + 1, t.shape[1]),
+                                 dtype=t.dtype, device=dev) for t in tables]
+        else:
+            grads = [torch.empty_like(t) for t in tables]
+        del placed
         state = adam_tree_init(tables, cfg.adam_moments_dtype)
-        grads = [torch.empty_like(t) for t in tables]
         _sync(dev)
         t_init = time.perf_counter() - t_init
 
         from incubator_predictionio_tpu_torch.utils.checkpoint import (
+            RowBlocks,
             checkpointed_epochs,
         )
 
-        clock = CollectiveClock(dev)
+        clock = CollectiveClock(dev)  # the rows' exchange over ``model``
+        grad_clock = CollectiveClock(dev)  # the gradients' over ``data``
         epochs_run = []  # a resumed fit runs only the epochs after its step
 
         def train(p, o, n):
             epochs_run.append(n)
             if multi:
-                return p, o, _train_epochs_dp(
-                    ctx, p, grads, o, ub, ib, rb, wb, gub, gib, denoms,
-                    cfg.learning_rate, cfg.reg, n, clock)
+                return p, o, _train_epochs_model(
+                    ctx, p, grads, o, ub, ib, rb, wb, owners, lows, denoms,
+                    cfg.learning_rate, cfg.reg, n, (clock, grad_clock))
             return p, o, _train_epochs(p, grads, o, ub, ib, rb, wb,
                                        cfg.learning_rate, cfg.reg, n)
 
@@ -795,10 +817,12 @@ class TwoTowerMF:
             cfg.checkpoint_dir, cfg.checkpoint_every, cfg.checkpoint_keep,
             cfg.epochs, tables, state, train,
             factory=None if dist is None else dist.checkpointer_factory,
-            on_chunk=None if dist is None else dist.on_chunk, ctx=ctx)
+            on_chunk=None if dist is None else dist.on_chunk, ctx=ctx,
+            layout=RowBlocks(ctx) if sharded else None)
         loss = np.inf if loss is None else float(loss)  # the one sync
         t_train = time.perf_counter() - t_train
         n_steps = sum(epochs_run) * int(ub.shape[0])
+        b_local = int(ub.shape[1])
         del grads, state, ub, ib, rb, wb
 
         t_gather = time.perf_counter()
@@ -821,8 +845,16 @@ class TwoTowerMF:
             # layout record: what the shards verb and sharded serving read
             model._shard_spec = specs
         else:
-            ue, ie = (t.cpu().numpy() for t in tables)
-            digest = check_replicas(ctx, (ue, ie)) if multi else None
+            if multi:
+                # each block equal on its data line, then the blocks of a
+                # model line gathered to the host (reference :799-803)
+                digest = check_replicas(ctx, [t.cpu().numpy() for t in tables],
+                                        axis="data")
+                ue, ie = (ctx.all_gather(t, axis="model").reshape(
+                    -1, t.shape[1]).cpu().numpy() for t in tables)
+                whole = check_replicas(ctx, (ue, ie)) if sharded else digest
+            else:
+                ue, ie = (t.cpu().numpy() for t in tables)
             model = TwoTowerModel(
                 user_emb=ue[:n_users, :k], item_emb=ie[:n_items, :k],
                 user_bias=ue[:n_users, k], item_bias=ie[:n_items, k],
@@ -836,19 +868,45 @@ class TwoTowerMF:
             "gather_sec": round(t_gather, 4),
         }
         if multi:
-            exchange = clock.seconds()
-            model.timings["exchange_sec"] = round(exchange, 4)
+            rows_s, grads_s = clock.seconds(), grad_clock.seconds()
+            model.timings.update(
+                exchange_sec=round(rows_s + grads_s, 4),
+                exchange_rows_sec=round(rows_s, 4),
+                exchange_grads_sec=round(grads_s, 4))
             peak = (torch.cuda.max_memory_allocated(dev)
                     if dev.type == "cuda" else 0)
+        if sharded:
+            # payloads a step: the all-reduce of [b_local, 2(rank+1)] fp32
+            # over model (an all-to-all by owner would move about half),
+            # then the all-gather of the same over data
+            row_bytes = b_local * 2 * (cfg.rank + 1) * 4
+            logger.info(
+                "model-axis fit: process %d of %d at %s (backend %s, %s): "
+                "blocks ue rows [%d, %d) of %d, ie rows [%d, %d) of %d; %d "
+                "steps of %d local rows; stage %.3f s, train %.3f s, "
+                "exchange rows %.3f ms a step (%d bytes), gradients %.3f ms "
+                "a step (%d bytes); loss %.6f; block digest %s, equal on its "
+                "data line; table digest %s; peak device memory %d bytes",
+                ctx.process_index, ctx.process_count,
+                json.dumps({n: ctx.axis_index(n) for n in ctx.axis_names}),
+                ctx.backend, dev,
+                lows[0], lows[0] + specs["ue"].rows_per_shard,
+                specs["ue"].padded_rows,
+                lows[1], lows[1] + specs["ie"].rows_per_shard,
+                specs["ie"].padded_rows, n_steps, b_local, t_stage, t_train,
+                rows_s / max(n_steps, 1) * 1e3, row_bytes,
+                grads_s / max(n_steps, 1) * 1e3, row_bytes * ctx.data_size,
+                loss, digest, whole, peak)
+        elif multi:
             logger.info(
                 "data-parallel fit: process %d of %d (backend %s, %s): %d "
                 "steps of %d local rows; stage %.3f s, train %.3f s, "
                 "exchange %.3f ms a step; loss %.6f; replica digest %s, equal "
                 "on every process; peak device memory %d bytes",
                 ctx.process_index, ctx.process_count,
-                ctx.backend, dev, n_steps, int(gub.shape[1]) // ctx.process_count,
-                t_stage, t_train, exchange / max(n_steps, 1) * 1e3, loss,
-                digest, peak)
+                ctx.backend, dev, n_steps, b_local,
+                t_stage, t_train, (rows_s + grads_s) / max(n_steps, 1) * 1e3,
+                loss, digest, peak)
         return model
 
     def _stage_local(self, ctx, users, items, ratings):
@@ -859,12 +917,19 @@ class TwoTowerMF:
         from ``default_rng(seed + process_index)``, an all-padding shard
         when this process has no rows, and each local batch user-sorted.
         Returns ``(ub, ib, rb, wb, mean)``: ``[n_batches, b_local]`` arrays,
-        ``b_local = global batch / process_count``."""
+        ``b_local = global batch / data shards``. A shard is a data
+        coordinate (``data/sharded.py:data_shard``): the processes of one
+        ``model`` line stage the same batches."""
+        from incubator_predictionio_tpu_torch.data.sharded import (
+            data_shard,
+            gather_data,
+        )
+
         cfg = self.config
         n_local = len(users)
-        procs = ctx.process_count
-        stats = ctx.allgather_obj(
-            (n_local, float(np.asarray(ratings, np.float64).sum())))
+        shard, procs = data_shard(ctx)
+        stats = gather_data(
+            ctx, (n_local, float(np.asarray(ratings, np.float64).sum())))
         n_global = sum(s[0] for s in stats)
         mean = (sum(s[1] for s in stats) / n_global) if n_global else 0.0
         global_batch = ctx.pad_to_batch_multiple(
@@ -872,12 +937,12 @@ class TwoTowerMF:
         if global_batch % procs:
             raise ValueError(
                 f"global batch {global_batch} not divisible by "
-                f"{procs} processes")
+                f"{procs} data shards")
         b_local = global_batch // procs
         n_batches = max(
             1, max((s[0] + b_local - 1) // b_local for s in stats))
         n_pad = n_batches * b_local
-        rng = np.random.default_rng(cfg.seed + ctx.process_index)
+        rng = np.random.default_rng(cfg.seed + shard)
         if n_local:
             order = np.concatenate([
                 rng.permutation(n_local),
@@ -1162,21 +1227,33 @@ def _stage_batches(cfg: TwoTowerConfig, users, items, ratings,
 def _init_tables(cfg: TwoTowerConfig, n_users: int, n_items: int,
                  device, generator: torch.Generator):
     """The initial fused tables ``(ue, ie)``, ``[max(n, 1), rank+1]`` fp32
-    on ``device`` — the one-device counterpart of the reference's
-    ``sharding/table.py:ShardedTable.init_train`` (:247-270): columns
+    on ``device``, of a fit without a ``model`` axis — what its one block
+    of each holds (:func:`_init_blocks`), rebuilt here by replays: columns
     ``:rank`` normal × ``1/sqrt(rank)`` from ``generator`` (users first,
-    then items), the bias column zero. The draws are torch's, not
-    ``jax.random``'s: tests inject the reference's tables here."""
+    then items), the bias column zero (``sharding/table.py:draw_block``).
+    The draws are torch's, not ``jax.random``'s."""
+    from incubator_predictionio_tpu_torch.sharding.table import draw_block
+
     scale = float(1.0 / np.sqrt(cfg.rank))
-    out = []
-    for n in (n_users, n_items):
-        t = torch.zeros(max(n, 1), cfg.rank + 1, dtype=torch.float32,
-                        device=device)
-        t[:, : cfg.rank] = torch.randn(
-            max(n, 1), cfg.rank, generator=generator, device=device,
-            dtype=torch.float32) * scale
-        out.append(t)
-    return tuple(out)
+    return tuple(draw_block(max(n, 1), cfg.rank, generator, scale, device)
+                 for n in (n_users, n_items))
+
+
+def _init_blocks(cfg: TwoTowerConfig, ctx, n_users: int, n_items: int,
+                 generator: torch.Generator) -> list:
+    """This process's blocks of the fused tables:
+    ``[ShardedTable("ue"), ShardedTable("ie")]``
+    (``sharding/table.py:ShardedTable.init_train``). Without a ``model``
+    axis each is the whole table, drawn from ``generator`` (bitwise
+    :func:`_init_tables`); under one, each is drawn from its own generator
+    seeded from ``generator``'s seed, the table's name and the shard.
+    Tests replace it to inject other tables."""
+    from incubator_predictionio_tpu_torch.sharding.table import ShardedTable
+
+    scale = float(1.0 / np.sqrt(cfg.rank))
+    return [ShardedTable.init_train(ctx, name, n, cfg.rank, generator, scale,
+                                    cfg.adam_moments_dtype)
+            for name, n in (("ue", n_users), ("ie", n_items))]
 
 
 def _sync(device) -> None:
@@ -1187,6 +1264,13 @@ def _sync(device) -> None:
 
 
 def _row_grads(tables, bu, bi, br, bw, reg: float, denom: torch.Tensor):
+    """The loss and row gradients of one batch's rows, gathered from
+    ``tables`` (:func:`_grads_of_rows`)."""
+    return _grads_of_rows(tables[0].index_select(0, bu),
+                          tables[1].index_select(0, bi), br, bw, reg, denom)
+
+
+def _grads_of_rows(gu, gi, br, bw, reg: float, denom: torch.Tensor):
     """The loss of one batch's rows (two_tower.py:1159-1178) over the
     denominator ``denom`` (``max(Σ w, 1)`` of the whole batch) and their
     row gradients: ``(rows_u, rows_i, loss)``, ``[B, rank+1]`` each (the
@@ -1205,11 +1289,9 @@ def _row_grads(tables, bu, bi, br, bw, reg: float, denom: torch.Tensor):
     in fp32; the product's cotangent ``bf16(dpred)``; each embedding's
     cotangent ``dprod·other`` (bf16) plus the L2 term's ``bf16((reg /
     denom)·(2·row))``, added in bf16; then widened to fp32, and the bias
-    column ``dpred``."""
-    ue_t, ie_t = tables
-    k = ue_t.shape[1] - 1
-    gu = ue_t.index_select(0, bu)
-    gi = ie_t.index_select(0, bi)
+    column ``dpred``. ``gu``, ``gi`` are the batch's user and item rows
+    ``[B, rank+1]``; the gradients are written over them."""
+    k = gu.shape[1] - 1
     ub = gu[:, :k].to(torch.bfloat16)
     ib = gi[:, :k].to(torch.bfloat16)
     ubf, ibf = ub.float(), ib.float()
@@ -1283,43 +1365,76 @@ def _train_epochs(tables, grads, state, ub, ib, rb, wb, lr: float,
 
 
 def _gather_batches(ctx, ub, ib, wb):
-    """The global batches' row indices ``[n_batches, P·b_local]`` (int64)
+    """The global batches' row indices ``[n_batches, D·b_local]`` (int64)
     and denominators ``max(Σ w, 1)`` (``[n_batches]`` fp32), gathered once
-    at staging: global batch b is every process's local batch b in process
-    order (``make_array_from_process_local_data``'s layout)."""
+    at staging over the ``D`` data shards: global batch b is every data
+    shard's local batch b in shard order
+    (``make_array_from_process_local_data``'s layout)."""
     nb = ub.shape[0]
-    gub, gib, gwb = (ctx.all_gather(a).transpose(0, 1).reshape(nb, -1)
-                     for a in (ub, ib, wb))
+    gub, gib, gwb = (ctx.all_gather(a, axis="data").transpose(0, 1)
+                     .reshape(nb, -1) for a in (ub, ib, wb))
     return gub.long(), gib.long(), gwb.sum(1).clamp(min=1.0)
 
 
-def _train_epochs_dp(ctx, tables, grads, state, ub, ib, rb, wb, gub, gib,
-                     denoms, lr: float, reg: float, n_epochs: int,
-                     clock: CollectiveClock) -> Optional[torch.Tensor]:
-    """The data-parallel ``_train_epochs`` of one process: each step the row
-    gradients of its own rows over the global denominator, one all-gather
-    of them (``[P, b_local, 2·(rank+1)]``), every process's rows scattered
-    in process order by the fixed-order scatter, the dense adam on
-    this replica. The losses of an epoch are summed across processes once,
-    at its end; the last epoch's mean is returned as a 0-d tensor."""
+def _owner_index(gidx: torch.Tensor, lo: int, rows: int) -> torch.Tensor:
+    """Where each of the global row indices ``gidx`` lands in the
+    gradient of the block of global rows ``[lo, lo + rows)``: its row in
+    the block, or ``rows`` (the spare row past the block) for a row
+    another block owns."""
+    local = gidx - lo
+    return torch.where((local >= 0) & (local < rows), local,
+                       torch.full_like(local, rows))
+
+
+def _owned_rows(block: torch.Tensor, idx: torch.Tensor, lo: int) -> torch.Tensor:
+    """The rows of the global indices ``idx`` that ``block`` (global rows
+    ``[lo, lo + len(block))``) holds, and -0.0 in the rows it does not:
+    summed over the model axis, every row is its owner's, bitwise
+    (``x + -0.0 == x`` for every x, signed zeros included)."""
+    rows = block.shape[0]
+    local = idx - lo
+    own = (local >= 0) & (local < rows)
+    got = block.index_select(0, local.clamp(0, rows - 1))
+    return torch.where(own[:, None], got, got.new_full((), -0.0))
+
+
+def _train_epochs_model(ctx, blocks, grads, state, ub, ib, rb, wb, owners,
+                        lows, denoms, lr: float, reg: float, n_epochs: int,
+                        clocks) -> Optional[torch.Tensor]:
+    """The model-axis ``_train_epochs`` of one process (module docstring):
+    ``blocks`` are its blocks of the fused tables (global rows
+    ``lows[t]`` on), ``grads`` their gradients with one spare row each,
+    ``owners`` the owner indices of every global batch
+    (:func:`_owner_index`). Each step: the local batch's rows, one
+    all-reduce over ``model`` (``clocks[0]``); their gradients over the
+    global denominator; one all-gather over ``data`` (``clocks[1]``); the
+    owned rows scattered in global batch order; the dense adam on the
+    blocks. The losses of an epoch are summed over ``data`` once, at its
+    end; the last epoch's mean is returned as a 0-d tensor."""
     from incubator_predictionio_tpu_torch.utils.optim import adam_apply
 
-    k1 = tables[0].shape[1]
+    k1 = blocks[0].shape[1]
+    views = [g[:-1] for g in grads]  # the spare rows stay out of adam
     last = None
     for epoch in range(n_epochs):
         losses = []
         for b in range(ub.shape[0]):
-            gu, gi, loss = _row_grads(tables, ub[b], ib[b], rb[b], wb[b],
-                                      reg, denoms[b])
-            rows = clock.time(lambda: ctx.all_gather(torch.cat((gu, gi), 1)))
-            rows = rows.reshape(-1, 2 * k1)
-            _scatter_rows(grads[0], gub[b], rows[:, :k1])
-            _scatter_rows(grads[1], gib[b], rows[:, k1:])
-            adam_apply(tables, grads, state, lr)
+            mine = torch.cat((_owned_rows(blocks[0], ub[b], lows[0]),
+                              _owned_rows(blocks[1], ib[b], lows[1])), 1)
+            rows = clocks[0].time(
+                lambda: ctx.all_reduce_sum(mine, axis="model"))
+            # the gradients are written over the rows
+            _, _, loss = _grads_of_rows(rows[:, :k1], rows[:, k1:], rb[b],
+                                        wb[b], reg, denoms[b])
+            out = clocks[1].time(lambda: ctx.all_gather(rows, axis="data"))
+            out = out.reshape(-1, 2 * k1)
+            _scatter_rows(grads[0], owners[0][b], out[:, :k1])
+            _scatter_rows(grads[1], owners[1][b], out[:, k1:])
+            adam_apply(blocks, views, state, lr)
             losses.append(loss)
         if epoch == n_epochs - 1:
-            last = clock.time(
-                lambda: ctx.all_reduce_sum(torch.stack(losses))).mean()
+            last = clocks[1].time(lambda: ctx.all_reduce_sum(
+                torch.stack(losses), axis="data")).mean()
     return last
 
 

@@ -44,21 +44,25 @@ def stage_sharded_batches(
     for a in arrays:
         if len(a) != n_local:
             raise ValueError("staged arrays must share the leading dim")
-    if n_global is None:
-        from incubator_predictionio_tpu_torch.data.sharded import global_row_count
+    from incubator_predictionio_tpu_torch.data.sharded import (
+        data_shard,
+        gather_data,
+        global_row_count,
+    )
 
+    if n_global is None:
         n_global = global_row_count(ctx, n_local)
-    procs = ctx.process_count
+    shard, procs = data_shard(ctx)
     global_batch = ctx.pad_to_batch_multiple(min(batch_size, max(n_global, 1)))
     if global_batch % procs:
         raise ValueError(
-            f"global batch {global_batch} not divisible by {procs} processes")
+            f"global batch {global_batch} not divisible by {procs} data shards")
     b_local = global_batch // procs
     # every process needs the same n_batches: size for the largest shard
-    max_local = int(max(ctx.allgather_obj(n_local)))
+    max_local = int(max(gather_data(ctx, n_local)))
     n_batches = max(1, (max_local + b_local - 1) // b_local)
     n_pad = n_batches * b_local
-    rng = np.random.default_rng(seed + ctx.process_index)
+    rng = np.random.default_rng(seed + shard)
     if n_local:
         order = np.concatenate([
             rng.permutation(n_local),

@@ -1,4 +1,5 @@
-"""Sharded serving of embedding tables (ROADMAP.md Queue 1, item 4.4).
+"""Sharded embedding tables: serving (ROADMAP.md Queue 1, item 4.4) and
+model-axis training (item 4.5).
 
 Counterpart of ``incubator_predictionio_tpu/sharding/``:
 
@@ -15,8 +16,8 @@ Counterpart of ``incubator_predictionio_tpu/sharding/``:
 - :mod:`shard_metrics <incubator_predictionio_tpu_torch.sharding.shard_metrics>`
   — the ``pio_shard_*`` counters and histograms.
 
-``ShardedTable`` is the layout record only: its model-axis training init
-waits for item 4.5.
+``ShardedTable.init_train`` builds the row block a process owns on a
+``model`` mesh axis (model-axis training, ``models/two_tower.py``).
 """
 
 from incubator_predictionio_tpu_torch.sharding.table import (

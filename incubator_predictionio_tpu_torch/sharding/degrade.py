@@ -10,9 +10,9 @@ degrades and keeps training, and the degradation lands here:
 - every occurrence is COUNTED, and :func:`degradations` returns the
   machine-readable list.
 
-The reference's callers are the transformer's parallel axes, which come
-with ROADMAP.md Queue 1, item 4.5; until then the registry is held by its
-tests alone.
+Its caller is the transformer's fit (``tensor_parallel`` without a
+``model`` axis, as the reference's); the other parallel axes come with
+the rest of ROADMAP.md Queue 1, item 4.5.
 """
 
 from __future__ import annotations

@@ -14,16 +14,19 @@ arithmetic and error texts:
   doesn't-fit-one-card case.
 
 The reference's ``ShardedTable`` places a table row-sharded over a
-``model`` mesh axis and initializes it with per-shard ``fold_in`` keys:
-that is model-axis training, which the port does not have yet (it trains
-one card a process; ROADMAP.md Queue 1, item 4.5). Here it is the layout
-record only, and its ``init_train`` raises. Serving places its own
+``model`` mesh axis and initializes it with per-shard ``fold_in`` keys.
+The port's counterpart (:meth:`ShardedTable.init_train`) builds, on each
+process, only the block its ``model`` coordinate owns, drawn from a
+``torch.Generator`` of its own whose seed is :func:`fold_in` of the fit's
+seed, the table's name and the shard; one shard keeps the one-card draw
+(``models/two_tower.py:_init_tables``, the one-card draw), bitwise. Serving places its own
 per-shard blocks (``sharding/serve.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 import re
 from typing import Any, Optional
@@ -177,36 +180,86 @@ def check_budget(spec: ShardSpec, moments_dtype: str = "float32",
             f"{budget}{hint}")
 
 
-#: what raises for the model-axis training this slice does not port
-MODEL_AXIS_SLICE = ("model-axis training in the PyTorch port (ROADMAP.md "
-                    "Queue 1, item 4.5)")
+def fold_in(seed: int, *data) -> int:
+    """A 63-bit generator seed from ``seed`` and ``data`` (the port's
+    counterpart of ``jax.random.fold_in``): the first 8 bytes of the
+    blake2b digest of ``"seed/d0/d1/..."``, little-endian, top bit
+    cleared. Any process computes the same seed for the same inputs."""
+    text = "/".join(str(x) for x in (int(seed), *data)).encode()
+    digest = hashlib.blake2b(text, digest_size=8).digest()
+    return int.from_bytes(digest, "little") & ((1 << 63) - 1)
+
+
+def draw_block(rows: int, rank: int, generator, scale: float, device):
+    """``[rows, rank+1]`` fp32 on ``device``: columns ``:rank`` normal ×
+    ``scale`` from ``generator``, the bias column zero (the reference's
+    table.py:247-270 block)."""
+    import torch
+
+    t = torch.zeros(rows, rank + 1, dtype=torch.float32, device=device)
+    t[:, :rank] = torch.randn(rows, rank, generator=generator, device=device,
+                              dtype=torch.float32) * scale
+    return t
+
+
+def init_block(spec: ShardSpec, shard: int, rank: int, seed: int,
+               scale: float, device):
+    """Block ``shard`` of a table laid out by ``spec`` (``rows_per_shard``
+    rows, the padding rows included), drawn from a generator seeded
+    ``fold_in(seed, spec.name, shard)``: what the process owning that
+    block builds, and what a one-process replay rebuilds."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(
+        fold_in(seed, spec.name, shard))
+    return draw_block(spec.rows_per_shard, rank, gen, scale, device)
 
 
 @dataclasses.dataclass
 class ShardedTable:
-    """A placed table: layout + its rows (the reference's global
-    ``jax.Array`` row-sharded over the ``model`` axis). Only the record is
-    ported: :meth:`init_train` raises until model-axis training lands."""
+    """A placed table: layout + the rows this process holds — the whole
+    table with one shard, else the block its ``model`` coordinate owns
+    (the reference's global ``jax.Array`` row-sharded over ``model``)."""
 
     spec: ShardSpec
-    array: Any
-    axis: Optional[str]
+    array: Any                 # torch.Tensor [rows_per_shard, width]
+    axis: Optional[str]        # mesh axis the rows shard over (None = one)
+    shard: int = 0             # the block ``array`` is
 
     @staticmethod
     def init_train(ctx, name: str, n_rows: int, rank: int, key,
                    scale: float, moments_dtype: str = "float32",
                    ) -> "ShardedTable":
-        """The reference's per-shard ``fold_in`` init over a ``model``
-        axis (table.py:239-282). The port trains one card a process; its
-        fit checks the budget on a one-shard :class:`ShardSpec`."""
-        raise NotImplementedError(
-            f"ShardedTable.init_train comes with {MODEL_AXIS_SLICE}")
+        """A training table in its sharded layout (reference
+        table.py:239-282), on ``ctx.device``. ``key`` is the fit's
+        ``torch.Generator``. With one shard (no ``model`` axis) the table
+        is drawn from ``key`` itself, advancing it: the fit's two tables
+        come from one stream in order, as ``_init_tables`` draws them.
+        With ``n`` shards this process builds only the block of its
+        ``model`` coordinate, from its own generator
+        (:func:`init_block`, seeded ``fold_in(key.initial_seed(), name,
+        shard)``). ``PIO_SHARD_HBM_BUDGET`` is enforced on the per-shard
+        spec first — the simulated equivalent of a card's out-of-memory
+        error."""
+        n_shards = ctx.axis_size_or("model")
+        spec = ShardSpec(name, n_rows, rank + 1, n_shards)
+        check_budget(spec, moments_dtype)
+        if n_shards == 1:
+            return ShardedTable(spec, draw_block(
+                spec.rows_per_shard, rank, key, scale, ctx.device), None)
+        shard = ctx.axis_index("model")
+        return ShardedTable(spec, init_block(
+            spec, shard, rank, key.initial_seed(), scale, ctx.device),
+            "model", shard)
 
 
 def array_model_shards(arr) -> int:
-    """How many shards hold a placed table's rows: the length of a list of
+    """How many shards hold a placed table's rows: a training table's
+    shard count (:class:`ShardedTable`), the length of a list of
     per-shard serving blocks (``sharding/serve.py``), 1 for a tensor on one
     device. The reference reads the count off a ``jax.Array``'s sharding."""
+    if isinstance(arr, ShardedTable):
+        return arr.spec.n_shards
     if isinstance(arr, (list, tuple)):
         return len(arr)
     return 1

@@ -50,6 +50,7 @@ from incubator_predictionio_tpu_torch.core import (
     SanityCheck,
 )
 from incubator_predictionio_tpu_torch.data.sharded import (
+    data_shard,
     global_row_count,
     global_sum,
     union_label_set,
@@ -132,7 +133,7 @@ class DataSource(PDataSource):
         )
 
     def read_training(self, ctx: DeviceContext) -> TrainingData:
-        if ctx.process_count > 1:
+        if data_shard(ctx)[1] > 1:
             return self._read_sharded(ctx)
         return self._read()
 
@@ -141,13 +142,12 @@ class DataSource(PDataSource):
         events of 1/P of the users (property snapshots are per-entity, so a
         shard's fold is exact; reference counterpart: RDD partition reads)."""
         t0 = time.perf_counter()
-        td = self._read(n_shards=ctx.process_count,
-                        shard_index=ctx.process_index)
+        pid, procs = data_shard(ctx)
+        td = self._read(n_shards=procs, shard_index=pid)
         n_global = global_row_count(ctx, len(td.x))
         logger.info(
             "sharded read: %d of %d rows (shard %d/%d) in %.3f s",
-            len(td.x), n_global, ctx.process_index, ctx.process_count,
-            time.perf_counter() - t0)
+            len(td.x), n_global, pid, procs, time.perf_counter() - t0)
         return TrainingData(td.x, td.y, rows_are_local=True,
                             n_rows_global=n_global)
 

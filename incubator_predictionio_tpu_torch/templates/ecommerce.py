@@ -43,6 +43,7 @@ from incubator_predictionio_tpu_torch.core import (
 )
 from incubator_predictionio_tpu_torch.data.bimap import BiMap
 from incubator_predictionio_tpu_torch.data.sharded import (
+    data_shard,
     global_row_count,
     global_sum,
     union_label_set,
@@ -138,7 +139,7 @@ class DataSource(PDataSource):
         over the processes in process order (popularity is global)."""
         t0 = time.perf_counter()
         app = self.params.app_name
-        procs, pid = ctx.process_count, ctx.process_index
+        pid, procs = data_shard(ctx)
         sharded = procs > 1
         item_props = self._store.aggregate_properties(app, "item")
         items = BiMap.string_int(item_props.keys())

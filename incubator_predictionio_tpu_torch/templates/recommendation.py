@@ -149,7 +149,9 @@ class DataSource(PDataSource):
         return TrainingData(user_idx, item_idx, ratings, user_vocab, item_vocab)
 
     def read_training(self, ctx: DeviceContext) -> TrainingData:
-        if ctx.process_count > 1:
+        from incubator_predictionio_tpu_torch.data.sharded import data_shard
+
+        if data_shard(ctx)[1] > 1:
             return self._read_sharded(ctx)
         return self._read()
 
@@ -157,6 +159,8 @@ class DataSource(PDataSource):
         """Per-process entity-disjoint read (reference recommendation.py:
         153-196; its counterpart: RDD partition reads, JDBCPEvents.scala:91):
         each process reads ~1/P of the store instead of replicating it.
+        A shard is a data coordinate: the processes of one ``model`` line
+        read the same shard (``data/sharded.py:data_shard``).
 
         Users are entity-sharded, so the global user vocabulary is the
         concatenation of the per-shard vocabularies (one offset exchange).
@@ -167,12 +171,13 @@ class DataSource(PDataSource):
 
         from incubator_predictionio_tpu_torch.data.sharded import (
             concat_vocab,
+            data_shard,
             global_row_count,
             union_vocab,
         )
 
         t0 = time.perf_counter()
-        procs, pid = ctx.process_count, ctx.process_index
+        pid, procs = data_shard(ctx)
         uv, iv, ui, ii, vals = self._store.assemble_triples(
             self.params.app_name,
             entity_type="user",
@@ -251,6 +256,8 @@ class DataSource(PDataSource):
 
         from incubator_predictionio_tpu_torch.data.sharded import (
             concat_vocab,
+            data_shard,
+            gather_data,
             global_row_count,
             union_vocab,
         )
@@ -284,9 +291,9 @@ class DataSource(PDataSource):
                 rows_are_local=True, n_rows_global=n_global,
             )
             local_qa = self._fold_qa(td, test_mask)
-            parts = ctx.allgather_obj(
-                [(q.user, q.num, [(ir.item, ir.rating) for ir in a.ratings])
-                 for q, a in local_qa])
+            parts = gather_data(ctx, [
+                (q.user, q.num, [(ir.item, ir.rating) for ir in a.ratings])
+                for q, a in local_qa])
             qa = [
                 (Query(user=u, num=num),
                  ActualResult(tuple(ItemRating(i, r) for i, r in pairs)))
@@ -295,8 +302,8 @@ class DataSource(PDataSource):
             logger.info(
                 "sharded eval fold %d of %d: %d of %d train rows (shard "
                 "%d/%d), %d held-out queries, query digest %s", fold, k,
-                int(train_mask.sum()), n_global, ctx.process_index,
-                ctx.process_count, len(qa), query_digest(parts))
+                int(train_mask.sum()), n_global, *data_shard(ctx), len(qa),
+                query_digest(parts))
             folds.append((train, {"fold": fold}, qa))
         return folds
 

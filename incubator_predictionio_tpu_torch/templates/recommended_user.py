@@ -42,6 +42,7 @@ from incubator_predictionio_tpu_torch.core import (
 )
 from incubator_predictionio_tpu_torch.data.bimap import BiMap
 from incubator_predictionio_tpu_torch.data.sharded import (
+    data_shard,
     global_row_count,
     union_label_set,
 )
@@ -133,7 +134,7 @@ class DataSource(PDataSource):
         users (followed ids can live outside this follower shard)."""
         t0 = time.perf_counter()
         app = self.params.app_name
-        procs, pid = ctx.process_count, ctx.process_index
+        pid, procs = data_shard(ctx)
         sharded = procs > 1
         user_props = self._store.aggregate_properties(app, "user")
         if sharded:

@@ -46,6 +46,8 @@ from incubator_predictionio_tpu_torch.core import (
 )
 from incubator_predictionio_tpu_torch.data.bimap import BiMap
 from incubator_predictionio_tpu_torch.data.sharded import (
+    data_shard,
+    gather_data,
     global_row_count,
     union_vocab,
 )
@@ -142,7 +144,7 @@ class DataSource(PDataSource):
         and users are entity-sharded, so a session never splits across
         processes). Returns (sessions, sharded)."""
         p = self.params
-        procs, pid = ctx.process_count, ctx.process_index
+        pid, procs = data_shard(ctx)
         sharded = procs > 1
         sessions: dict[str, list[str]] = {}
         if sharded:
@@ -179,8 +181,7 @@ class DataSource(PDataSource):
         if sharded:
             n_rows_global = global_row_count(ctx, len(rows))
             logger.info("sharded read: %d of %d rows (shard %d/%d)",
-                        len(rows), n_rows_global, ctx.process_index,
-                        ctx.process_count)
+                        len(rows), n_rows_global, *data_shard(ctx))
         return TrainingData(
             sequences=np.stack(rows) if rows else np.zeros((0, width), np.int32),
             item_map=item_map,
@@ -226,7 +227,7 @@ class DataSource(PDataSource):
                 for items in held if len(items) >= 3
             ]
             if sharded:
-                parts = ctx.allgather_obj([
+                parts = gather_data(ctx, [
                     (list(q.recent_items), q.num, a.next_item)
                     for q, a in local_qa
                 ])

@@ -47,6 +47,7 @@ from incubator_predictionio_tpu_torch.core import (
 )
 from incubator_predictionio_tpu_torch.data.bimap import BiMap
 from incubator_predictionio_tpu_torch.data.sharded import (
+    data_shard,
     global_row_count,
     global_sum,
     union_label_set,
@@ -152,7 +153,7 @@ class DataSource(PDataSource):
         vocabulary-sized allgather)."""
         t0 = time.perf_counter()
         app = self.params.app_name
-        procs, pid = ctx.process_count, ctx.process_index
+        pid, procs = data_shard(ctx)
         sharded = procs > 1
         # item properties → catalog + categories (DataSource.scala itemsRDD)
         item_props = self._store.aggregate_properties(app, "item")

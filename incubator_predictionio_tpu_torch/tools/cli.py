@@ -16,6 +16,7 @@ arguments, so a caller can run a verb in-process.
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import sys
@@ -76,6 +77,11 @@ def _resolve_channel(args, storage: Storage) -> Optional[int]:
     return channel.id
 
 
+def _mesh_axes(args) -> Optional[dict]:
+    """``--mesh-axes`` as a dict (reference cli.py:237), or None."""
+    return json.loads(args.mesh_axes) if args.mesh_axes else None
+
+
 def cmd_train(args, storage: Storage) -> int:
     from incubator_predictionio_tpu_torch.core.workflow.create_workflow import (
         WorkflowConfig,
@@ -91,6 +97,7 @@ def cmd_train(args, storage: Storage) -> int:
         stop_after_prepare=args.stop_after_prepare,
         device=args.device,
         distributed=args.distributed,
+        mesh_axes=_mesh_axes(args),
     )
     instance_id = create_workflow(config, storage)
     if instance_id == "<secondary>":
@@ -116,6 +123,7 @@ def cmd_eval(args, storage: Storage) -> int:
         device=args.device,
         fast_eval=not args.no_fast_eval,
         distributed=args.distributed,
+        mesh_axes=_mesh_axes(args),
     )
     instance_id = create_workflow(config, storage)
     if instance_id == "<secondary>":
@@ -157,7 +165,8 @@ def cmd_batchpredict(args, storage: Storage) -> int:
 
     # under `launch -n N batchpredict` each process scores a slice and
     # writes <output>.part-<pid>
-    ctx = DeviceContext.create(args.device, distributed=args.distributed)
+    ctx = DeviceContext.create(args.device, distributed=args.distributed,
+                               axes=_mesh_axes(args))
     try:
         n = run_batch_predict(
             BatchPredictConfig(
@@ -388,6 +397,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--distributed", action="store_true",
                    help="join a torch.distributed job (see the launch verb / "
                         "PIO_DIST_* env)")
+    p.add_argument("--mesh-axes", help='JSON mesh axes over the launched '
+                   'processes, e.g. \'{"data": 2, "model": 2}\' (default: '
+                   'every process on the data axis)')
 
     # launch (Runner.runOnSpark counterpart: N coordinated local processes)
     p = sub.add_parser("launch")
@@ -415,6 +427,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--distributed", action="store_true",
                    help="join a torch.distributed job (see the launch verb / "
                         "PIO_DIST_* env); process 0 writes the instance")
+    p.add_argument("--mesh-axes", help='JSON mesh axes over the launched '
+                   'processes, e.g. \'{"data": 2, "model": 2}\' (default: '
+                   'every process on the data axis)')
 
     p = sub.add_parser("deploy")
     p.add_argument("-v", "--engine-variant", default="engine.json")
@@ -435,6 +450,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="score a per-process slice under `launch -n N`; "
                         "writes <output>.part-<pid> files (the reference's "
                         "saveAsTextFile layout)")
+    p.add_argument("--mesh-axes", help='JSON mesh axes over the launched '
+                   'processes, e.g. \'{"data": 2, "model": 2}\' (default: '
+                   'every process on the data axis)')
 
     p = sub.add_parser("import")
     p.add_argument("--appid", type=int, required=True)

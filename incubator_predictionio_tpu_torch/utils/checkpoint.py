@@ -34,6 +34,17 @@ between two barriers, and a restore is used only when it loaded and
 checked on every process. So every process resumes from the same step,
 and none can read a step the primary has not finished writing.
 
+**A model-axis fit** (``models/two_tower.py``: each process holds row
+blocks of the tables and moments) passes a :class:`RowBlocks` layout.
+The plain path then writes whole leaves in the layout above, the blocks
+gathered over ``model`` first, and a restore reads the whole leaves on
+every process and copies each process's block rows into its template.
+Member slices follow the reference's rule that a block's
+``replica_id == 0`` holder writes it: the process at data coordinate 0 of
+each model line writes its block's rows (``index`` ``[[lo, hi], None]``),
+member 0 the whole leaves (the epoch, adam's count); a restore places
+each block back on its owner.
+
 **Member-slice checkpoints** (reference :245-453): the filesystem
 protocol of ``distributed/checkpoint.py:DistSliceCheckpointer``, byte for
 byte the reference's layout, so a directory written by either package
@@ -174,15 +185,105 @@ def _first_device(tree: Any) -> Optional[torch.device]:
     return None
 
 
+class RowBlocks:
+    """The layout of a model-axis fit's state (module docstring): every
+    tensor leaf with a dimension is this process's row block of a leaf
+    whose rows are the blocks of its ``model`` line in axis order (block
+    ``s`` holds rows ``[s·R, (s+1)·R)``); the other leaves (the epoch,
+    adam's count) are whole on every process."""
+
+    def __init__(self, ctx, axis: str = "model"):
+        self.ctx = ctx
+        self.axis = axis
+        self.shard = ctx.axis_index(axis)
+        self.n_shards = ctx.axis_size(axis)
+        # the block's replica_id == 0 holder: data coordinate 0
+        self.writes_blocks = ctx.data_index == 0
+
+    @staticmethod
+    def is_block(leaf: Any) -> bool:
+        return isinstance(leaf, torch.Tensor) and leaf.dim() >= 1
+
+    def global_shape(self, leaf: Any) -> tuple:
+        shape = tuple(getattr(leaf, "shape", np.shape(leaf)))
+        if not self.is_block(leaf):
+            return shape
+        return (shape[0] * self.n_shards, *shape[1:])
+
+    def bounds(self, leaf: torch.Tensor) -> tuple[int, int]:
+        """``[lo, hi)``: the rows of the whole leaf this block holds."""
+        rows = int(leaf.shape[0])
+        return self.shard * rows, (self.shard + 1) * rows
+
+    def gather(self, state: Any) -> Any:
+        """The whole state: every block gathered over the axis (a
+        collective: every process of the job calls it)."""
+        return _map_leaves(lambda leaf: self.ctx.all_gather(
+            leaf, axis=self.axis).reshape(self.global_shape(leaf))
+            if self.is_block(leaf) else leaf, state)
+
+    def whole_like(self, like: Any) -> Any:
+        """A template of the whole state: host tensors of the whole
+        leaves' shapes and dtypes."""
+        return _map_leaves(lambda leaf: torch.empty(
+            self.global_shape(leaf), dtype=leaf.dtype)
+            if self.is_block(leaf) else leaf, like)
+
+    def cut(self, whole_leaves: list, like: Any) -> Any:
+        """``whole_leaves`` (numpy, in :func:`state_leaves` order) placed
+        into ``like``: each block takes its rows of the whole leaf
+        (:func:`place_leaves` checks every leaf before it writes)."""
+        out = []
+        for slot, leaf in zip(state_leaves(like), whole_leaves):
+            leaf = np.asarray(leaf)
+            if self.is_block(slot):
+                if leaf.shape[:1] != self.global_shape(slot)[:1]:
+                    raise ValueError(
+                        f"a whole leaf of {leaf.shape[0] if leaf.ndim else 0} "
+                        f"rows does not hold {self.n_shards} blocks of "
+                        f"{slot.shape[0]}")
+                lo, hi = self.bounds(slot)
+                leaf = leaf[lo:hi]
+            out.append(leaf)
+        return place_leaves(like, out)
+
+    def member_blocks(self, leaf: Any, member: int) -> list:
+        """The blocks of ``leaf`` a member writes in a member slice:
+        ``[(host_array, index)]``."""
+        if not self.is_block(leaf):
+            return [(leaf_to_numpy(leaf), None)] if member == 0 else []
+        if not self.writes_blocks:
+            return []
+        lo, hi = self.bounds(leaf)
+        return [(leaf_to_numpy(leaf), [[lo, hi]] + [None] * (leaf.dim() - 1))]
+
+
+def _map_leaves(fn, tree: Any) -> Any:
+    """``tree`` with ``fn`` applied to every leaf (the containers of
+    :func:`_walk`; a dataclass's unchecked fields are kept as they are)."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(
+            tree, **{f: _map_leaves(fn, getattr(tree, f)) for f in _fields(tree)})
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(fn, v) for v in tree)
+    return fn(tree)
+
+
 class TrainCheckpointer:
     """Step-indexed state checkpoints in ``directory`` (created on demand).
     With a multi-process ``ctx``, the plain path of a multi-process fit
-    (module docstring): the primary writes, the others wait."""
+    (module docstring): the primary writes, the others wait; with a
+    :class:`RowBlocks` ``layout``, of whole leaves gathered from the
+    processes' blocks."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3, ctx=None):
+    def __init__(self, directory: str, max_to_keep: int = 3, ctx=None,
+                 layout: Optional[RowBlocks] = None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self._ctx = ctx if ctx is not None and ctx.process_count > 1 else None
+        self._layout = layout
         os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
@@ -201,6 +302,8 @@ class TrainCheckpointer:
         fsynced. Then the oldest steps past ``max_to_keep`` are dropped.
         With a multi-process ``ctx`` the primary writes and every process
         returns only once it has."""
+        if self._layout is not None:
+            state = self._layout.gather(state)
         if self._writes:
             plain = _to_plain(state)
             atomic_write_with(self._path(step), lambda f: torch.save(plain, f))
@@ -248,6 +351,13 @@ class TrainCheckpointer:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
+        if self._layout is not None and like is not None:
+            whole = self._restore(step, self._layout.whole_like(like))
+            return self._layout.cut(
+                [leaf_to_numpy(x) for x in state_leaves(whole)], like)
+        return self._restore(step, like)
+
+    def _restore(self, step: int, like: Any) -> Any:
         device = _first_device(like) if like is not None else None
         error = None
         try:
@@ -292,6 +402,7 @@ def maybe_resume(
     epochs: int,
     factory=None,
     ctx=None,
+    layout: Optional[RowBlocks] = None,
 ) -> tuple[Optional[TrainCheckpointer], Any, Any, int]:
     """Open a checkpointer and resume an interrupted run if one is
     recoverable: ``(ckpt, params, opt_state, start_epoch)``. Three outcomes
@@ -305,11 +416,16 @@ def maybe_resume(
 
     The caller owns ``ckpt.close()``. ``factory`` (default
     :class:`TrainCheckpointer`, given ``ctx``) swaps the checkpointer
-    implementation."""
+    implementation; ``layout`` (a :class:`RowBlocks`) goes to either."""
     if not directory or every <= 0:
         return None, params, opt_state, 0
-    ck = (factory(directory, max_to_keep=keep) if factory is not None
-          else TrainCheckpointer(directory, max_to_keep=keep, ctx=ctx))
+    if factory is None:
+        ck = TrainCheckpointer(directory, max_to_keep=keep, ctx=ctx,
+                               layout=layout)
+    elif layout is not None:
+        ck = factory(directory, max_to_keep=keep, layout=layout)
+    else:
+        ck = factory(directory, max_to_keep=keep)
     latest = ck.latest_step()
     if latest is None:
         return ck, params, opt_state, 0
@@ -349,6 +465,7 @@ def checkpointed_epochs(
     factory=None,
     on_chunk=None,
     ctx=None,
+    layout: Optional[RowBlocks] = None,
 ) -> tuple[Any, Any, Any]:
     """The shared epoch driver both trainers run: resume through
     :func:`maybe_resume`, then ``train_epochs(params, opt_state, n) ->
@@ -356,11 +473,12 @@ def checkpointed_epochs(
     checkpointing is off, else ``every`` epochs a call with a save after
     each. ``on_chunk(epoch)`` runs at each chunk boundary; ``ctx`` is the
     fit's context (a multi-process fit without ``factory`` takes the plain
-    path, module docstring). Returns ``(params, opt_state, loss)``;
+    path, module docstring); ``layout`` describes a model-axis fit's row
+    blocks (:class:`RowBlocks`). Returns ``(params, opt_state, loss)``;
     ``loss`` is None when no epoch ran."""
     ckpt, params, opt_state, start_epoch = maybe_resume(
         directory, every, keep, params, opt_state, epochs, factory=factory,
-        ctx=ctx)
+        ctx=ctx, layout=layout)
     loss = None
     try:
         e = start_epoch

@@ -199,8 +199,16 @@ def test_resumed_two_tower_fit_is_in_the_jax_bands(tmp_path, monkeypatch, moment
     want = jtt.TwoTowerMF(jtt.TwoTowerConfig(**cfg)).fit(
         MeshContext.create(devices=__import__("jax").devices()[:1]),
         users, items, ratings, nu, ni)
-    monkeypatch.setattr(ttt, "_init_tables", lambda c, a, b, device, gen: (
-        convert.two_tower_tables_from_jax(seen["init"], device)))
+    real = ttt._init_blocks
+
+    def inject(c, ctx, a, b, gen):  # the whole tables: one block each
+        placed = real(c, ctx, a, b, gen)
+        for t, x in zip(placed, convert.two_tower_tables_from_jax(
+                seen["init"], ctx.device)):
+            t.array = x
+        return placed
+
+    monkeypatch.setattr(ttt, "_init_blocks", inject)
     d = str(tmp_path / "tt")
     ttt.TwoTowerMF(ttt.TwoTowerConfig(**dict(
         cfg, epochs=1, checkpoint_dir=d, checkpoint_every=1))).fit(

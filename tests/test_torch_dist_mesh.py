@@ -34,6 +34,25 @@ from incubator_predictionio_tpu_torch.resilience.clock import FakeClock  # noqa:
 
 from tests.fixtures.fake_dist import FaultyShardCtx  # noqa: E402
 
+
+class ShardCtx(FaultyShardCtx):
+    """The fixture's context with the data-axis surface the port's
+    sharded reads call (its data axis is every process); the JAX
+    package's calls take no axis."""
+
+    @property
+    def data_index(self):
+        return self.process_index
+
+    @property
+    def data_size(self):
+        return self.process_count
+
+    def allgather_obj(self, obj, axis=None):
+        assert axis in (None, "data"), axis
+        return super().allgather_obj(obj)
+
+
 PKG = {"jax": (jmd, jctx, jsh, JFakeClock), "torch": (tmd, tctx, tsh, FakeClock)}
 BOTH_WAYS = [("torch", "jax"), ("jax", "torch")]
 
@@ -142,7 +161,7 @@ def _dist_ctx(pkg, tmp_path, inner, clock, heartbeat_ms=100, generation=0,
 @pytest.mark.parametrize("pkg", ["jax", "torch"])
 def test_member_dies_inside_concat_vocab_aborts_step(tmp_path, pkg):
     clock = PKG[pkg][3]()
-    inner = FaultyShardCtx([["u0"], ["u1"]], 0, die_in_collective=True)
+    inner = ShardCtx([["u0"], ["u1"]], 0, die_in_collective=True)
     ctx, _md = _dist_ctx(pkg, tmp_path, inner, clock)
     before = dist_metrics.DIST_STEP_ABORTS.value
     with pytest.raises(PKG[pkg][1].MemberLostError, match="collective allgather_obj"):
@@ -156,7 +175,7 @@ def test_member_stalls_inside_global_sum_detected_via_lease(tmp_path, pkg):
     """The stalled collective never returns; the guard sees the silent
     peer's lease expire on VIRTUAL time and aborts."""
     clock = PKG[pkg][3]()
-    inner = FaultyShardCtx([3, 4], 0, stall_in_collective=True)
+    inner = ShardCtx([3, 4], 0, stall_in_collective=True)
     ctx, md = _dist_ctx(pkg, tmp_path, inner, clock, heartbeat_ms=100)
     md.heartbeat(1, 0)  # the peer beat once, then went silent
     try:
@@ -172,7 +191,7 @@ def test_stalled_collective_hits_hard_deadline(tmp_path, pkg):
     """Peers look alive (frozen mesh time) but the collective never
     completes: the hard deadline aborts the step."""
     clock = PKG[pkg][3]()
-    inner = FaultyShardCtx([1, 2], 0, stall_in_collective=True)
+    inner = ShardCtx([1, 2], 0, stall_in_collective=True)
     ctx, md = _dist_ctx(pkg, tmp_path, inner, clock, heartbeat_ms=20,
                         commit_timeout_ms=100, now_fn=lambda: 0.0)
     md.heartbeat(1, 0)
@@ -188,7 +207,7 @@ def test_stalled_collective_hits_hard_deadline(tmp_path, pkg):
 @pytest.mark.parametrize("pkg", ["jax", "torch"])
 def test_generation_bump_fences_collective_and_on_chunk(tmp_path, pkg):
     clock = PKG[pkg][3]()
-    inner = FaultyShardCtx([["a"], ["b"]], 0, stall_in_collective=True)
+    inner = ShardCtx([["a"], ["b"]], 0, stall_in_collective=True)
     ctx, md = _dist_ctx(pkg, tmp_path, inner, clock)
     md.heartbeat(1, 0)
     md.bump_generation(2)  # the supervisor re-formed the mesh without us
@@ -207,7 +226,7 @@ def test_generation_bump_fences_collective_and_on_chunk(tmp_path, pkg):
 @pytest.mark.parametrize("pkg", ["jax", "torch"])
 def test_healthy_guarded_collective_passes_through(tmp_path, pkg):
     clock = PKG[pkg][3]()
-    inner = FaultyShardCtx([["u0"], ["u1"]], 0)
+    inner = ShardCtx([["u0"], ["u1"]], 0)
     ctx, md = _dist_ctx(pkg, tmp_path, inner, clock, heartbeat_ms=10_000_000)
     md.heartbeat(1, 0)
     vocab, offset = PKG[pkg][2].concat_vocab(ctx, ["u0"])
@@ -219,7 +238,7 @@ def test_healthy_guarded_collective_passes_through(tmp_path, pkg):
 @pytest.mark.parametrize("pkg", ["jax", "torch"])
 def test_on_chunk_heartbeats_with_progress(tmp_path, pkg):
     clock = PKG[pkg][3]()
-    inner = FaultyShardCtx([[1], [2]], 0)
+    inner = ShardCtx([[1], [2]], 0)
     ctx, md = _dist_ctx(pkg, tmp_path, inner, clock)
     md.heartbeat(1, 0)
     ctx.on_chunk(7)
@@ -234,7 +253,7 @@ def test_stop_drops_the_lease_and_leaves_the_group(tmp_path):
     group, then drops its lease (the heartbeat and watchdog threads run
     only in real multi-process mode)."""
     clock = FakeClock()
-    inner = FaultyShardCtx([[1], [2]], 1)
+    inner = ShardCtx([[1], [2]], 1)
     stopped = []
     inner.stop = lambda: stopped.append(True)
     ctx, md = _dist_ctx("torch", tmp_path, inner, clock)
@@ -314,3 +333,52 @@ def test_dist_status_is_the_references(tmp_path, capsys, monkeypatch):
     from incubator_predictionio_tpu_torch.tools import cli
 
     assert cli.main(["dist"]) == 1
+
+
+WATCHDOG_CHILD = r"""
+import sys, time
+from incubator_predictionio_tpu_torch.distributed import context as tctx
+from incubator_predictionio_tpu_torch.distributed import meshdir as tmd
+
+class Inner:
+    process_index, process_count = 0, 2
+    def stop(self):
+        pass
+
+state, case = sys.argv[1], sys.argv[2]
+md = tmd.MeshDirectory(state)
+md.announce_generation(1, 2)
+md.heartbeat(1, 1)  # the peer beat once, then went silent
+ctx = tctx.DistContext(Inner(), tctx.DistConfig(state_dir=state,
+                                                heartbeat_ms=200,
+                                                generation=1), meshdir=md)
+if case != "in-step":
+    ctx.collectives_done()
+if case == "fenced":
+    md.bump_generation(2)
+time.sleep(1.5)
+ctx.stop()
+print("gap", ctx.beat_gap_max_s)
+"""
+
+
+@pytest.mark.parametrize("case,rc", [("in-step", tctx.ABORT_RC),
+                                     ("done", 0), ("fenced", tctx.FENCED_RC)])
+def test_watchdog_after_the_last_collective(tmp_path, case, rc):
+    """The real watchdog thread (wall clock, its own process): a silent
+    peer aborts the member while it may still be in a collective, not
+    once ``collectives_done`` said none follows; a generation bump still
+    fences it then."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-c", WATCHDOG_CHILD, str(tmp_path), case],
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": root})
+    assert out.returncode == rc, out.stderr[-2000:]
+    if rc == 0:
+        gap = float(out.stdout.split("gap")[-1])
+        assert 0.0 < gap < 1.5, out.stdout
+        assert [m.rank for m in tmd.MeshDirectory(str(tmp_path)).members()] == [1]

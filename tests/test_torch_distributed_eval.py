@@ -103,8 +103,8 @@ class Lockstep:
         group = self
 
         class Ctx:
-            process_index = index
-            process_count = group.n
+            process_index = data_index = index
+            process_count = data_size = group.n
             is_primary = index == 0
             device = torch.device("cpu")
             backend = "lockstep"
@@ -112,7 +112,7 @@ class Lockstep:
             def pad_to_batch_multiple(self, n):
                 return ((n + group.n - 1) // group.n) * group.n
 
-            def allgather_obj(self, obj):
+            def allgather_obj(self, obj, axis=None):
                 group._slots[index] = obj
                 group._barrier.wait()
                 out = list(group._slots)

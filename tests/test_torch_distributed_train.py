@@ -85,11 +85,11 @@ class ShardStub:
     numpy arrays back (the reference's ``_stage_local`` calls it)."""
 
     def __init__(self, index, script):
-        self.process_index = index
-        self.process_count = len(script[0])
+        self.process_index = self.data_index = index
+        self.process_count = self.data_size = len(script[0])
         self._script = list(script)
 
-    def allgather_obj(self, obj):
+    def allgather_obj(self, obj, axis=None):
         parts = self._script.pop(0)
         assert repr(parts[self.process_index]) == repr(obj)
         return list(parts)
@@ -106,16 +106,16 @@ class MirrorContext(DeviceContext):
     """Process 0 of ``process_count`` on the CPU whose peers hold the same
     rows as it: every collective sees that many copies of this process's
     object — a stub group for single-process tests of the data-parallel
-    fit."""
+    fit (the data axis is every process; any other axis is one)."""
 
-    def allgather_obj(self, obj):
-        return [obj] * self.process_count
+    def allgather_obj(self, obj, axis=None):
+        return [obj] * self._line(axis)[1]
 
-    def all_gather(self, t):
-        return torch.stack([t] * self.process_count)
+    def all_gather(self, t, axis=None):
+        return torch.stack([t] * self._line(axis)[1])
 
-    def all_reduce_sum(self, t):
-        return t * self.process_count
+    def all_reduce_sum(self, t, axis=None):
+        return t * self._line(axis)[1]
 
 
 def mirror(count=2):
@@ -394,8 +394,15 @@ FIT_CHILD = textwrap.dedent("""
     ctx = DeviceContext.create("cpu", distributed=True)
     p = ctx.process_index
     init = {"ue": data["init_ue"], "ie": data["init_ie"]}
-    ttt._init_tables = lambda cfg, nu, ni, device, gen: (
-        convert.two_tower_tables_from_jax(init, device))
+    real = ttt._init_blocks
+
+    def inject(cfg, ctx, nu, ni, gen):  # the whole tables: one block each
+        placed = real(cfg, ctx, nu, ni, gen)
+        for t, a in zip(placed, convert.two_tower_tables_from_jax(init, ctx.device)):
+            t.array = a
+        return placed
+
+    ttt._init_blocks = inject
     cfg = ttt.TwoTowerConfig(rank=int(data["rank"]), epochs=int(data["epochs"]),
                              batch_size=int(data["batch"]), seed=int(data["seed"]),
                              gather="host")

@@ -319,10 +319,18 @@ def test_unported_stages_raise_and_name_the_roadmap(tmp_path):
     for field, value, what in (("n_experts", 4, "mixture-of-experts"),
                                ("attention", "ring", "ring attention"),
                                ("pipeline_stages", 2, "pipeline parallelism"),
-                               ("tensor_parallel", True, "tensor parallelism")):
+                               ("tensor_parallel", True,
+                                "tensor parallelism with checkpoints")):
         c = dataclasses.replace(cfg, **{"n_experts": 0, field: value})
+        ctx = CPU
+        if field == "tensor_parallel":
+            # ported on a 'model' axis (tests/test_torch_tensor_parallel.py)
+            # but for checkpoints
+            ctx = DeviceContext(torch.device("cpu"), 0, 2, axes={"model": 2})
+            c = dataclasses.replace(c, checkpoint_dir=str(tmp_path / "ck"),
+                                    checkpoint_every=1)
         with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
-            ttr.TransformerRecommender(c).fit(CPU, rows, None)
+            ttr.TransformerRecommender(c).fit(ctx, rows, None)
     algo = tseq.TransformerAlgorithm(tseq.TransformerAlgorithmParams(
         max_len=32, num_experts=2))
     with pytest.raises(NotImplementedError, match="mixture-of-experts.*ROADMAP"):

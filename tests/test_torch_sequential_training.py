@@ -24,6 +24,7 @@ Tolerances, with their reasons:
   layout rather than the gradients.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -288,6 +289,22 @@ def test_fit_refuses_what_is_not_ported(field, value, match):
         assert np.isfinite(ttr.TransformerRecommender(cfg).fit(
             CPU, _rows(), None).final_loss)
         assert not os.path.exists(value)
+        return
+    if field == "tensor_parallel":
+        # ported (tests/test_torch_tensor_parallel.py): without a 'model'
+        # axis the fit trains replicated, as the reference's does; with one
+        # and checkpoints it raises and names what is left of item 4.5
+        assert np.isfinite(ttr.TransformerRecommender(cfg).fit(
+            CPU, _rows(), None).final_loss)
+        model_axis = DeviceContext(torch.device("cpu"), 0, 2,
+                                   axes={"model": 2})
+        cfg = dataclasses.replace(cfg, checkpoint_dir="/nonexistent",
+                                  checkpoint_every=1)
+        match = "tensor parallelism with checkpoints"
+        with pytest.raises(NotImplementedError,
+                           match=f"{match}.*ROADMAP.md Queue 1, item 4"):
+            ttr.TransformerRecommender(cfg).fit(model_axis, _rows(), None)
+        assert not os.path.exists("/nonexistent")
         return
     with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP.md Queue 1, item 4"):
         ttr.TransformerRecommender(cfg).fit(CPU, _rows(), None)

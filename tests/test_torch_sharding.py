@@ -227,10 +227,17 @@ def test_fit_under_budget_raises_like_reference(shard_env):
 
 
 def test_sharded_table_waits_for_model_axis_training():
+    """Model-axis training is ported (tests/test_torch_model_axis.py):
+    init_train builds the block of the process's model coordinate."""
     assert ttable.array_model_shards(torch.zeros(4, 3)) == 1
     assert ttable.array_model_shards([torch.zeros(2, 3)] * 3) == 3
-    with pytest.raises(NotImplementedError, match="item 4.5"):
-        ttable.ShardedTable.init_train(None, "ue", 10, RANK, 0, 0.25)
+    from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext
+
+    ctx = DeviceContext(torch.device("cpu"), 1, 2, axes={"model": 2})
+    t = ttable.ShardedTable.init_train(ctx, "ue", 10, RANK,
+                                       torch.Generator().manual_seed(0), 0.25)
+    assert (t.shard, t.axis, tuple(t.array.shape)) == (1, "model", (5, RANK + 1))
+    assert ttable.array_model_shards(t) == 2
 
 
 # -- host-sharded exact ------------------------------------------------------

@@ -7,7 +7,7 @@ tests/conftest.py's 8), so both packages stage the same batches: the
 permutation and the padding come from ``default_rng(seed)`` in numpy. The
 port starts from the reference's own initial tables (captured from its
 ``_train_epochs`` and injected through ``convert.two_tower_tables_from_jax``
-and ``_init_tables``): from different draws the planted fit's final loss
+into ``_init_blocks``' one block of each): from different draws the planted fit's final loss
 spreads widely across seeds in either package, so only a shared init can
 hold it to a band.
 
@@ -85,9 +85,17 @@ def _jax_fit(monkeypatch, cfg, users, items, ratings, n_users=N_USERS,
 
 
 def _inject(monkeypatch, init):
-    """The port's fit starts from the reference's initial tables."""
-    monkeypatch.setattr(ttt, "_init_tables", lambda cfg, nu, ni, device, gen: (
-        convert.two_tower_tables_from_jax(init, device)))
+    """The port's fit starts from the reference's initial tables (its one
+    block of each, the whole table)."""
+    real = ttt._init_blocks
+
+    def inject(cfg, ctx, nu, ni, gen):
+        placed = real(cfg, ctx, nu, ni, gen)
+        for t, a in zip(placed, convert.two_tower_tables_from_jax(init, ctx.device)):
+            t.array = a
+        return placed
+
+    monkeypatch.setattr(ttt, "_init_blocks", inject)
 
 
 def test_sort_batches_by_entity_is_the_reference():
