@@ -128,14 +128,14 @@ classification template through the CLI (``mlp``; ``nb`` + ``mlp`` under
 ``pio eval`` runs through the CLI's ``eval`` verb on three of those
 phases' stored events, each in its phase's directory: ``rec-eval`` after
 ``rec-workflow`` (RecommendationEvaluation over half the reference grid,
-rank 16/32 × 10 iterations, 3 folds: 6 fits on the card, FastEvalEngine's
+rank 16/32 × 5 iterations, 3 folds: 6 fits on the card, FastEvalEngine's
 one read and one prepare, Precision@10 beside chance, variant 0 again on
 the CPU), ``seq-eval`` after ``seq-workflow`` (SequentialEvaluation at the
 sequential training width, 1 epoch × learning rate 1e-3/5e-3: K4
 forward and backward in every fold's fit, the held-out queries checked
 against the sessions, 16 queries with the kernels against the plain
 attention) and ``cls-eval`` after ``cls-workflow`` (CompleteEvaluation
-over the reference grid at 20 of its 60 epochs: accuracy and each label's
+over the reference grid at 10 of its 60 epochs: accuracy and each label's
 precision, ``best.json``, variant 0 on the CPU).
 
 ``rec-launch`` trains the recommendation template in two processes through
@@ -156,7 +156,7 @@ process and under ``launch -n 2 batchpredict`` (part files), K1 at B 1024
 held against its plain version first; the parts concatenated must equal
 the one-process output. ``rec-supervised`` trains on rec-launch's store
 under the fault-tolerant tier: a ``Supervisor`` runs ``train
---distributed`` as 2 members (gloo on one card; 4 epochs, a member-slice
+--distributed`` as 2 members (gloo on one card; 3 epochs, a member-slice
 checkpoint after each) as a control, then again with a new checkpoint
 directory, SIGKILLing the highest rank once 2 epochs are committed: one
 recovery, generation 2, the resumed fit's last leaves bitwise the
@@ -187,6 +187,22 @@ width: ``launch -n 2 train --mesh-axes '{"model": 2}'`` with
 projections and 4 of the 8 heads through K4 forward and backward, 4
 steps; its step losses held to a replicated fit in this process from the
 same initial parameters, then a deploy and bursts through K4.
+``seq-moe``, after it, trains a mixture of experts on the same app at the
+full width with Switch-Base-8's routing (8 experts, capacity factor 1.25,
+auxiliary weight 1e-2): one step with K4 against one with the plain
+attention, the MoE layer on the card against the CPU, the layer over a
+two-process ``expert`` line where the capacity drops tokens (factor 0.5)
+held to the plain layer of the whole batch, a one-process fit
+(4 steps, K4 forward and backward), then ``launch -n 2 train
+--mesh-axes '{"expert": 2}'``: each process 4 of the 8 experts and 32 rows
+of each batch (K4 at (32, 8, 512, 64) forward and backward), the kept
+tokens' rows exchanged by two all-to-alls a layer over gloo; its step
+losses and persisted parameters held to the one-process fit beside a
+planted fault (one member's returned rows dropped) that the band must
+catch (with two cards, the launch again over NCCL, bitwise the gloo
+run); then a deploy and bursts through K4, each batch the server formed
+held to the plain attention's forward of that batch (a mixture of
+experts routes over its batch).
 
 ``tpl-launch``, after ``cls-eval``, runs ``launch -n 2 train`` of the
 similar-product (``als``, ``likealgo``, ``cooccurrence``),
@@ -655,10 +671,12 @@ def topk_tie_check(dev) -> dict:
 
 
 #: (B, H, L, D) of each attention case: the serving batches (1, 8, 64) at
-#: the sequential phases' lengths, the reference's other shapes, and
-#: seq-tp's training shape (a process's 4 of the 8 heads)
+#: the sequential phases' lengths, the reference's other shapes,
+#: seq-tp's training shape (a process's 4 of the 8 heads) and seq-moe's
+#: (an expert line's member: 32 of the batch's 64 rows)
 K4_SHAPES = ((1, 8, 512, 64), (8, 8, 512, 64), (64, 8, 512, 64),
-             (3, 8, 128, 128), (8, 8, 192, 64), (64, 4, 512, 64))
+             (3, 8, 128, 128), (8, 8, 192, 64), (64, 4, 512, 64),
+             (32, 8, 512, 64))
 #: K5's also (B, H, L, D, block) where the block is not the reference's
 #: flash block: L 576 gives the kernel a ragged last 128-row query tile
 K5_SHAPES = ((64, 8, 1024, 64), (8, 8, 768, 64), (8, 8, 640, 32),
@@ -749,9 +767,9 @@ def attention_checks(A):
 #: K5 one: the training shapes at max_len 512 and 1024, and the
 #: reference's other head width; L 192 (K4) and 576 (K5) give the kernels
 #: a ragged last 128-row query tile; H 4 is seq-tp's, a process's half of
-#: the heads
+#: the heads; B 32 is seq-moe's, an expert line's member's half of the rows
 K4_BWD_SHAPES = ((64, 8, 512, 64), (3, 8, 128, 128), (8, 8, 192, 64),
-                 (64, 4, 512, 64))
+                 (64, 4, 512, 64), (32, 8, 512, 64))
 K5_BWD_SHAPES = ((64, 8, 1024, 64, 512), (2, 8, 256, 128, 256),
                  (8, 8, 576, 64, 64))
 
@@ -1185,7 +1203,7 @@ def bf16_ulp(x: float) -> float:
     return float(np.spacing(np.float32(abs(x)))) * 2.0 ** 16
 
 
-def check_against_plain(model, payloads, bodies):
+def check_against_plain(model, payloads, bodies, plain=None, tag=""):
     """The served answers (kernel attention) against the same model's
     forward with the plain attention version, on the card: every served
     score within :data:`SEQ_SCORE_TOL` of the plain score of that item, and
@@ -1193,8 +1211,11 @@ def check_against_plain(model, payloads, bodies):
     values, so ties are common). Where one bf16 step at the score's
     magnitude is larger than :data:`SEQ_SCORE_TOL` (scores of 4 and more,
     0.03125), one step is the band: the two fp32 sums then round to
-    neighbouring bf16 values. Returns the largest score difference and the
-    counts of equal id sets and orders."""
+    neighbouring bf16 values. ``plain`` holds each payload's plain score
+    row where the caller computed it (by default the plain forward of the
+    payloads as one batch); ``tag`` starts each failure's message. Returns
+    the largest score difference and the counts of equal id sets and
+    orders."""
     from incubator_predictionio_tpu_torch.models.transformer import (
         TransformerRecommender,
     )
@@ -1205,10 +1226,11 @@ def check_against_plain(model, payloads, bodies):
         encode_session,
     )
 
-    rows = np.stack([encode_session(p["recentItems"], model.item_map,
-                                    model.config.max_len) for p in payloads])
-    plain = TransformerRecommender.next_item_scores(
-        model, rows, attention=causal_attention_reference)
+    if plain is None:
+        rows = np.stack([encode_session(p["recentItems"], model.item_map,
+                                        model.config.max_len) for p in payloads])
+        plain = TransformerRecommender.next_item_scores(
+            model, rows, attention=causal_attention_reference)
     inv = model.item_map.inverse()
     worst, same_set, same_order = 0.0, 0, 0
     for p, body, s in zip(payloads, bodies, plain):
@@ -1226,14 +1248,14 @@ def check_against_plain(model, payloads, bodies):
         for iid in set(got) ^ set(want):
             check(abs(float(s[model.item_map[iid]]) - last)
                   <= max(SEQ_SCORE_TOL, bf16_ulp(last)),
-                  f"top-{num} differs from the plain path beyond a near-tie: "
-                  f"{got} vs {want}")
+                  f"{tag}top-{num} differs from the plain path beyond a "
+                  f"near-tie: {got} vs {want}")
         for x in body["itemScores"]:
-            plain = float(s[model.item_map[x["item"]]])
-            diff = abs(x["score"] - plain)
+            plain_score = float(s[model.item_map[x["item"]]])
+            diff = abs(x["score"] - plain_score)
             worst = max(worst, diff)
-            check(diff <= max(SEQ_SCORE_TOL, bf16_ulp(plain)),
-                  f"score {x} vs plain {plain}")
+            check(diff <= max(SEQ_SCORE_TOL, bf16_ulp(plain_score)),
+                  f"{tag}score {x} vs plain {plain_score}")
         same_set += set(got) == set(want)
         same_order += got == want
     return worst, same_set, same_order
@@ -3610,12 +3632,15 @@ def rec_shard_phase(R, ctx, tmp, persisted):
 #: view events: the session count is the cut, for the import's time at
 #: ~58 µs an event)
 SEQ_WF_USERS, SEQ_WF_LENGTHS, SEQ_WF_MAX_LEN = 2048, (16, 128), 512
+#: seq-workflow's variant's epochs (32 steps), which seq-launch trains too
+#: (cut from 2 for the script's time: PERF.md §4)
+SEQ_WF_EPOCHS = 1
 
 
 async def seq_workflow_body(sessions_, session, url, server):
     """16 ``{"user": U}`` singles against 16 ``recentItems`` singles of the
     same users' last 512 items: the same top-10, scores within 1e-4; then a
-    burst of 64 user queries. The trained loss falls over the 2 epochs."""
+    burst of 64 user queries. The trained loss falls over its epoch."""
     model = server.deployed.models[0]
     info = model.serving_info()
     check(info["device"].startswith("cuda"), f"[seq-workflow] not on the card: {info}")
@@ -3660,7 +3685,7 @@ def seq_workflow_phase(ctx, tmp):
     """The sequential template through the normal entry points, in-process,
     on sqlite: CLI ``app new``, ``import`` of the sessions' ``view`` events,
     ``train`` on the card at bench_sequential's widths (``max_len`` 512,
-    batch 64, 2 epochs), the sessions read back from the store held against
+    batch 64, 1 epoch), the sessions read back from the store held against
     the same sessions folded directly, a deploy and queries over a socket.
     Returns (launches of the attention kernels, record)."""
     import datetime as dt
@@ -3699,7 +3724,7 @@ def seq_workflow_phase(ctx, tmp):
     params = {"appName": "seq", "maxLen": SEQ_WF_MAX_LEN, "dModel": SEQ_D,
               "nHeads": SEQ_HEADS, "nLayers": SEQ_LAYERS,
               "learningRate": TRAIN_LR, "batchSize": TRAIN_BATCH,
-              "epochs": TRAIN_EPOCHS}
+              "epochs": SEQ_WF_EPOCHS}
     variant_path = os.path.join(wf, "engine.json")
     with open(variant_path, "w") as f:
         json.dump({"id": "seq-workflow", "version": "1",
@@ -3717,7 +3742,7 @@ def seq_workflow_phase(ctx, tmp):
 
     rec = {"users": SEQ_WF_USERS, "events": n_events,
            "session_lengths": SEQ_WF_LENGTHS, "max_len": SEQ_WF_MAX_LEN,
-           "batch": TRAIN_BATCH, "epochs": TRAIN_EPOCHS}
+           "batch": TRAIN_BATCH, "epochs": SEQ_WF_EPOCHS}
     prev = registry.use_storage(None)
     try:
         with env_vars(**env):
@@ -5142,11 +5167,17 @@ CLS_EVALUATION = ("incubator_predictionio_tpu_torch.templates.classification."
                   "CompleteEvaluation")
 
 
+#: the recommendation grids' iterations in rec-eval and rec-launch-eval
+#: (the reference grid's 10, cut for the script's time: PERF.md §4)
+REC_EVAL_ITERATIONS = 5
+
+
 class RecEvalGrid:
     """rec-eval's EngineParamsGenerator (the CLI loads it by class path):
     the reference RecommendationEvaluation's grid cut to its 10-iteration
-    half, rank 16 / 32, on rec-workflow's app ``ml1m`` (the 20-iteration
-    half runs the same path; cut for the script's time)."""
+    half, rank 16 / 32, on rec-workflow's app ``ml1m``, each at 5
+    iterations (the 20-iteration half runs the same path; depth cut for
+    the script's time: PERF.md §4)."""
 
     def __init__(self):
         from incubator_predictionio_tpu_torch.core import EngineParams
@@ -5156,7 +5187,7 @@ class RecEvalGrid:
             EngineParams.create(
                 data_source=trec.DataSourceParams(app_name="ml1m", eval_k=EVAL_K),
                 algorithms=[("als", trec.ALSAlgorithmParams(
-                    rank=rank, num_iterations=10))])
+                    rank=rank, num_iterations=REC_EVAL_ITERATIONS))])
             for rank in (16, 32)]
 
 
@@ -5182,9 +5213,10 @@ class SeqEvalGrid:
             for epochs in (1,) for lr in (1e-3, 5e-3)]
 
 
-#: cls-eval's MLP epochs: the reference grid trains 60; 20 run the same
-#: path at a third of the fits' time (cut for the script's time)
-CLS_EVAL_EPOCHS = 20
+#: cls-eval's MLP epochs: the reference grid trains 60; 10 run the same
+#: path at a sixth of the fits' time (cut for the script's time: PERF.md
+#: §4)
+CLS_EVAL_EPOCHS = 10
 
 
 def cls_eval_grid() -> list:
@@ -5378,7 +5410,7 @@ def rec_eval_phase(ctx, tmp):
                 "best_idx": res["bestIdx"], "chance": float(np.mean(chance)),
                 "answers": n_q, "one_liner": inst.evaluator_results})
     log(eval_line("rec-eval", rec))
-    log(f"[rec-eval] Precision@10 of rank 16/32 × 10 iterations "
+    log(f"[rec-eval] Precision@10 of rank 16/32 × {REC_EVAL_ITERATIONS} iterations "
         f"{[round(x, 4) for x in rec['scores']]} (best {rec['best_idx']}) against "
         f"chance {rec['chance']:.4f}; positives a query "
         f"{rec['positive_count'][0]:.2f}; {n_q} answers, none over num, none "
@@ -6125,10 +6157,10 @@ def rec_batchpredict_phase(R, ctx, persisted):
 # -- phase: fault-tolerant multi-process training (rec-supervised) -----------
 
 #: rec-supervised: rec-launch's store and widths (100,000 x 100,000, rank
-#: 128, 400,000 events, batch 65,536), 4 epochs, a slice checkpoint after
+#: 128, 400,000 events, batch 65,536), 3 epochs, a slice checkpoint after
 #: each (the reference's chaos test's variant, tests/test_chaos_procs.py:
 #: 2191-2201, and bench.py:3532 bench_distributed_training)
-SUP_EPOCHS = 4  # cut from 10 for the script's time (PERF.md §4)
+SUP_EPOCHS = 3  # cut from 10 for the script's time (PERF.md §4)
 SUP_KILL_AFTER = 2   # SIGKILL the highest live rank once this step commits
 SUP_HEARTBEAT_MS = 2000
 SUP_TIMEOUT_S = 600
@@ -6714,8 +6746,9 @@ def rec_model_phase(R, ctx, tmp):
 
 class RecLaunchEvalGrid:
     """rec-launch-eval's EngineParamsGenerator (each launched process loads
-    it as ``chip_smoke:RecLaunchEvalGrid``): rank 16 / 32, 10 iterations,
-    on rec-workflow's app ``ml1m``, 3 folds."""
+    it as ``chip_smoke:RecLaunchEvalGrid``): rank 16 / 32, 5 iterations
+    (10 before the depth was cut for the script's time: PERF.md §4), on
+    rec-workflow's app ``ml1m``, 3 folds."""
 
     def __init__(self):
         from incubator_predictionio_tpu_torch.core import EngineParams
@@ -6725,7 +6758,7 @@ class RecLaunchEvalGrid:
             EngineParams.create(
                 data_source=trec.DataSourceParams(app_name="ml1m", eval_k=EVAL_K),
                 algorithms=[("als", trec.ALSAlgorithmParams(
-                    rank=rank, num_iterations=10))])
+                    rank=rank, num_iterations=REC_EVAL_ITERATIONS))])
             for rank in (16, 32)]
 
 
@@ -6823,13 +6856,15 @@ def rec_launch_eval_phase(ctx, tmp):
         check(got == want, f"[rec-launch-eval] process {p['process']}: the folds' "
               f"query sets {got} differ from the events' {want}")
     fits = [p["fit"] for p in procs]
-    check(len(fits[0]) == len(fits[1]) == 2 * EVAL_K,
-          f"[rec-launch-eval] {[len(f) for f in fits]} fits, want {2 * EVAL_K}")
+    variants = len(RecLaunchEvalGrid().engine_params_list)
+    check(len(fits[0]) == len(fits[1]) == variants * EVAL_K,
+          f"[rec-launch-eval] {[len(f) for f in fits]} fits, want "
+          f"{variants * EVAL_K}")
     check(all(a[3] == b[3] for a, b in zip(*fits)),
           "[rec-launch-eval] a fit's replica digests differ across processes")
     res = json.loads(inst.evaluator_results_json)
     scores = [r["score"] for r in res["results"]]
-    check(len(scores) == 2 and all(np.isfinite(scores))
+    check(len(scores) == variants and all(np.isfinite(scores))
           and res["bestIdx"] == int(np.argmax(scores)),
           f"[rec-launch-eval] scores {scores}, bestIdx {res['bestIdx']}")
     rec = {"wall_s": wall, "fits": len(fits[0]),
@@ -7051,7 +7086,7 @@ def seq_launch_train(registry, variant_path, backend, **env):
 def seq_launch_phase(ctx, tmp):
     """``launch -n 2 train`` of the sequential template on seq-workflow's
     stored sessions at its full width (``max_len`` 512, d_model 512, 6
-    layers of 8 heads of 64, batch 64: 32 a process, 2 epochs), both
+    layers of 8 heads of 64, batch 64: 32 a process, 1 epoch), both
     processes on the card over gloo, each reading its user shard and
     running the data-parallel fit (K4 forward and backward, one
     all-reduce of the gradients a step). Held: proper shard reads whose
@@ -7420,6 +7455,789 @@ def seq_tp_phase(ctx, tmp):
     return launches, rec
 
 
+# -- phase: the expert mesh axis, mixture-of-experts training and serving ----
+
+#: Switch-Base-8's routing (Fedus et al. 2021), the reference's defaults
+#: (TransformerConfig, transformer.py:58-60): top-1 over 8 experts,
+#: capacity factor 1.25, auxiliary weight 1e-2
+SEQ_MOE_EXPERTS = 8
+SEQ_MOE_AXES = '{"expert": 2}'
+#: rows of the first training batch through the MoE layer on the card and
+#: on the CPU (the CPU's bf16 products at the full batch would take the
+#: script tens of seconds)
+SEQ_MOE_LAYER_ROWS = 16
+#: the launched expert-parallel fit's step losses against the one-process
+#: fit from the same initial parameters, relative: the members' products
+#: run at other shapes (32 rows, 4 experts) than the one process's, so
+#: their fp32 sums round to other bf16 values now and then, and a token
+#: whose router logits are a near-tie may pick another expert. Set from
+#: readings on the H100: 1.193e-4, against the planted fault's 7.945e-3
+#: (PERF.md §6)
+SEQ_MOE_LOSS_RTOL = 1e-3
+#: the persisted (gathered) parameters against the one-process fit's, per
+#: leaf, ``‖p_ep − p_1‖ / ‖p_1 − p_0‖``, the largest leaf's. Set from
+#: readings on the H100 between the launched fit's, 0.209 (an expert's
+#: ``we2``: adam's first steps move an element by about lr·sign(g), and a
+#: token routed elsewhere moves its expert's gradient by its share), and
+#: the planted fault's, 1.191 (PERF.md §6)
+SEQ_MOE_PARAM_RTOL = 0.5
+SEQ_MOE_LINE = {
+    "dist": LAUNCH_LINE["dist"],
+    "fit": re.compile(
+        r"expert-parallel fit: process (\d+) of (\d+) at (\{.*?\}) \(backend "
+        r"(\w+), (\S+)\): experts \[(\d+), (\d+)\) of (\d+); we1 (\[.*?\]), "
+        r"be1 (\[.*?\]), we2 (\[.*?\]), be2 (\[.*?\]); (\d+) steps of (\d+) "
+        r"rows a member \(local batch (\d+)\); stage ([\d.]+) s, train "
+        r"([\d.]+) s, all-to-all ([\d.]+) ms a step \((\d+) bytes a step\), "
+        r"counts ([\d.]+) ms a step, data all-reduce ([\d.]+) ms a step; kept "
+        r"and dropped tokens a layer in the last step (\[\[.*?\]\]); loss "
+        r"(\S+); model digest (\w+), equal on every process; peak device "
+        r"memory (\d+) bytes; attention launches (\{.*\})"),
+}
+
+
+def seq_moe_train(registry, variant_path, backend, **env):
+    """``launch -n 2 train -v <variant> --mesh-axes '{"expert": 2}'`` of
+    the sequential template with ``numExperts`` through the CLI,
+    in-process; every process's lines held (exit 0, the backend, on the
+    card, its half of the experts and their shapes, rows a member, K4
+    forward and backward launched, bytes sent, equal losses and model
+    digests), then the new COMPLETED instance and its model."""
+    from incubator_predictionio_tpu_torch.utils.serialization import (
+        deserialize_model,
+    )
+
+    tag = f"seq-moe {backend}"
+    insts = registry.get_storage().get_meta_data_engine_instances()
+    before = {i.id for i in insts.get_all()}
+    with env_vars(PYTHONPATH=str(Path(__file__).resolve().parent), **env):
+        t0 = time.perf_counter()
+        out = cli_run(tag, ["launch", "-n", str(LAUNCH_PROCS), "--timeout",
+                            str(LAUNCH_TIMEOUT_S), "train", "-v", variant_path,
+                            "--mesh-axes", SEQ_MOE_AXES])
+        wall = time.perf_counter() - t0
+    OUT.parent.mkdir(parents=True, exist_ok=True)
+    (OUT.parent / f"seq_moe_{backend}.log").write_text(out)
+    d, dh, e, ep = SEQ_D, 4 * SEQ_D, SEQ_MOE_EXPERTS, LAUNCH_PROCS
+    shapes = [[e // ep, d, dh], [e // ep, dh], [e // ep, dh, d], [e // ep, d]]
+    per = []
+    for p in launch_sections(out, SEQ_MOE_LINE, tag):
+        dist, f = p["dist"], p["fit"]
+        k = p["process"]
+        got = [json.loads(x) for x in f[8:12]]
+        att = json.loads(f[25])
+        check(dist[2] == backend == f[3] and dist[3].startswith("cuda")
+              and (int(f[5]), int(f[6]), int(f[7])) == (k * e // ep,
+                                                        (k + 1) * e // ep, e)
+              and got == shapes and int(f[13]) == TRAIN_BATCH // ep
+              and int(f[18]) > 0,
+              f"[{tag}] process {k}: {dist} {f[:19]}")
+        for w in ("causal_mha_small_head", "causal_mha_small_head_bwd"):
+            check(att.get(w, 0) > 0, f"[{tag}] process {k}: {w} never "
+                  f"launched: {att}")
+        per.append({"process": k, "device": dist[3],
+                    "coords": json.loads(f[2]),
+                    "experts": [int(f[5]), int(f[6])], "we1": got[0],
+                    "be1": got[1], "we2": got[2], "be2": got[3],
+                    "steps": int(f[12]), "member_rows": int(f[13]),
+                    "local_batch": int(f[14]), "stage_s": float(f[15]),
+                    "train_s": float(f[16]),
+                    "all_to_all_ms_per_step": float(f[17]),
+                    "all_to_all_bytes_per_step": int(f[18]),
+                    "counts_ms_per_step": float(f[19]),
+                    "data_all_reduce_ms_per_step": float(f[20]),
+                    "kept_dropped_last_step": json.loads(f[21]),
+                    "loss": float(f[22]), "digest": f[23],
+                    "peak_bytes": int(f[24]), "attention_launches": att})
+    check(len({q["digest"] for q in per}) == 1 and len({q["loss"] for q in per}) == 1,
+          f"[{tag}] model digests or losses differ: {per}")
+    new = [i for i in insts.get_all() if i.id not in before]
+    check([i.status for i in new] == ["COMPLETED"],
+          f"[{tag}] new instances {[(i.id, i.status) for i in new]}")
+    blob = registry.get_storage().get_model_data_models().get(new[0].id)
+    check(blob is not None, f"[{tag}] no model blob")
+    return {"processes": per, "wall_s": wall,
+            "model": deserialize_model(blob.models)[0]}
+
+
+def moe_layer_check(ttr, cfg, td, dev) -> dict:
+    """The MoE layer (``moe_ffn``, layer 0's initial weights) on the card
+    against the port's CPU path on the same input: the first
+    :data:`SEQ_MOE_LAYER_ROWS` rows of the training data, their embeddings
+    through layer 0's second norm. Held: the share of real tokens whose
+    expert or keep differs (printed; a near-tie of the router's bf16 logits
+    may flip); where the routing agrees, ``y`` within :data:`ATT_TOL`
+    (absolute and relative, the reference's band for the bf16 products);
+    the auxiliary loss 1e-3 relative. Its forward's time on the card at
+    the training batch (64 rows) beside it."""
+    init = ttr._init_params(cfg, torch.Generator(device=dev).manual_seed(cfg.seed), dev)
+    layer = init["layers"][0]
+    weights = [layer[k] for k in ("wr", "we1", "be1", "we2", "be2")]
+
+    def inputs(rows):
+        tokens = torch.from_numpy(np.ascontiguousarray(
+            td.sequences[:rows, :-1], np.int64)).to(dev)
+        positions = torch.arange(cfg.max_len, device=dev).expand(rows, cfg.max_len)
+        h = init["item_emb"][tokens] + init["pos_emb"][positions]
+        return ttr._ln(h, layer["ln2"]["g"], layer["ln2"]["b"]), tokens != 0
+
+    factor = cfg.expert_capacity_factor
+    with torch.no_grad():
+        x, mask = inputs(SEQ_MOE_LAYER_ROWS)
+        y, aux, (chosen, keep) = ttr.moe_ffn(x, mask, *weights, factor)
+        yc, auxc, (cc, kc) = ttr.moe_ffn(x.cpu(), mask.cpu(),
+                                         *(w.cpu() for w in weights), factor)
+        m = mask.cpu().reshape(-1)
+        differ = ((chosen.cpu() != cc) | (keep.cpu() != kc)) & m
+        agree = (~differ).reshape(SEQ_MOE_LAYER_ROWS, cfg.max_len)
+        d = (y.cpu() - yc).abs()[agree]
+        ok = bool((d <= ATT_TOL + ATT_TOL * yc.abs()[agree]).all())
+        xb, mb = inputs(TRAIN_BATCH)
+        layer_ms = time_ms(lambda: ttr.moe_ffn(xb, mb, *weights, factor),
+                           reps=5, inner=3)
+    # one forward and backward of the layer at the training batch, by op
+    xg = xb.detach().requires_grad_(True)
+    params = [w.detach().clone().requires_grad_(True) for w in weights]
+
+    def fwd_bwd():
+        y_, aux_, _ = ttr.moe_ffn(xg, mb, *params, factor)
+        torch.autograd.grad(y_.sum() + aux_, [xg, *params])
+
+    fwd_bwd()
+    torch.cuda.synchronize()
+    with cuda_profile() as by_name:
+        t0 = time.perf_counter()
+        fwd_bwd()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    profile = busy_record(by_name, wall, 8)
+    out = {"rows": SEQ_MOE_LAYER_ROWS, "real_tokens": int(m.sum()),
+           "routing_differs": int(differ.sum()),
+           "routing_differs_share": float(differ.sum()) / max(int(m.sum()), 1),
+           "kept": int(keep.sum()), "y_max_abs_diff": float(d.max()),
+           "aux_card": float(aux), "aux_cpu": float(auxc),
+           "aux_rel": abs(float(aux) - float(auxc)) / abs(float(auxc)),
+           "forward_ms_batch64": layer_ms, "fwd_bwd_profile_batch64": profile}
+    check(torch.isfinite(y).all().item(), "[seq-moe] non-finite MoE output")
+    check(ok, f"[seq-moe] the MoE layer on the card differs from the CPU "
+          f"beyond {ATT_TOL} where the routing agrees: {out}")
+    check(out["aux_rel"] <= 1e-3, f"[seq-moe] aux on the card {out}")
+    del init
+    return out
+
+
+#: the dropped-token check: seq-moe's MoE layer at its full shape (batch
+#: 64, max_len 512, d_model 512, 8 experts) over a two-process ``expert``
+#: line, at capacity factor 0.5 on inputs with 128-512 real tokens a row:
+#: capacity int(0.5·32,768/8) = 2,048 an expert against ~2,560 real tokens
+#: an expert, so every expert drops (seq-moe's own data drops none)
+SEQ_MOE_DROP_FACTOR = 0.5
+SEQ_MOE_DROP_SHAPE = (TRAIN_BATCH, 512, SEQ_D, SEQ_MOE_EXPERTS)
+SEQ_MOE_DROP_SEED = 47
+#: the members' routing against the plain router's on the whole batch:
+#: the share of real tokens that may pick another expert (a near-tie of
+#: bf16 logits summed in another order; routing the wrong rows moves 7 of
+#: 8)
+SEQ_MOE_DROP_FLIPS = 1e-2
+MOE_DROP_MEMBER = """
+import sys
+import chip_smoke
+chip_smoke.moe_drop_member(sys.argv[1], sys.argv[2],
+                           [int(v) for v in sys.argv[3].split(",")])
+"""
+
+
+def moe_drop_case(dev, shape):
+    """The dropped-token check's inputs from :data:`SEQ_MOE_DROP_SEED`:
+    ``x`` ``[B, L, d]`` N(0, 1) (a normed activation), the real tokens the
+    last 1/4 to all of each row, and the layer's weights at the
+    reference's init scales with random biases (an expert's bias shows in
+    every slot it runs, empty or not)."""
+    b, l, d, e = shape
+    g = torch.Generator().manual_seed(SEQ_MOE_DROP_SEED)
+    x = torch.randn(b, l, d, generator=g)
+    lengths = torch.randint(l // 4, l + 1, (b,), generator=g)
+    mask = torch.arange(l)[None, :] >= (l - lengths)[:, None]
+    weights = (torch.randn(d, e, generator=g) * d ** -0.5,
+               torch.randn(e, d, 4 * d, generator=g) * d ** -0.5,
+               torch.randn(e, 4 * d, generator=g) * 0.1,
+               torch.randn(e, 4 * d, d, generator=g) * (4 * d) ** -0.5,
+               torch.randn(e, d, generator=g) * 0.1)
+    return x.to(dev), mask.to(dev), [w.to(dev) for w in weights]
+
+
+def moe_drop_member(out_path, device, shape):
+    """One member of the dropped-token check (a process of the job that
+    ``PIO_DIST_*`` describes, on ``device``): the MoE layer over an
+    ``expert`` line of the job's processes, this member's rows of the
+    batch and its experts, at :data:`SEQ_MOE_DROP_FACTOR`; its output,
+    routing and kept/dropped counts saved to ``out_path``."""
+    from incubator_predictionio_tpu_torch.models.transformer import (
+        ExpertParallel,
+        moe_ffn,
+    )
+    from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext
+
+    world = int(os.environ["PIO_DIST_NUM_PROCESSES"])
+    ctx = DeviceContext.create(device, distributed=True, axes={"expert": world})
+    try:
+        b, l, _, e = shape
+        x, mask, (wr, we1, be1, we2, be2) = moe_drop_case(ctx.device, shape)
+        experts = ExpertParallel(ctx, e, b * l)
+        lo, hi = experts.rank * b // experts.size, (experts.rank + 1) * b // experts.size
+        own = slice(experts.first, experts.first + experts.local)
+        with torch.no_grad():
+            y, aux, (chosen, keep) = moe_ffn(
+                x[lo:hi], mask[lo:hi], wr, we1[own], be1[own], we2[own],
+                be2[own], SEQ_MOE_DROP_FACTOR, experts)
+        torch.save({"y": y.cpu(), "aux": float(aux), "chosen": chosen.cpu(),
+                    "keep": keep.cpu(), "kept_dropped": experts.stats[0],
+                    "bytes": experts.bytes, "backend": ctx.backend,
+                    "device": str(ctx.device), "experts": [own.start, own.stop]},
+                   out_path)
+    finally:
+        ctx.stop()
+
+
+def plain_kept(chosen, real, n_experts, capacity):
+    """Each real token kept when fewer than ``capacity`` real tokens of its
+    expert precede it (numpy, token order)."""
+    pos = np.zeros(len(chosen), np.int64)
+    for k in range(n_experts):
+        mine = np.flatnonzero((chosen == k) & real)
+        pos[mine] = np.arange(len(mine))
+    return real & (pos < capacity)
+
+
+def moe_drop_reference(x, mask, weights, chosen, factor):
+    """The plain MoE layer on the whole batch with the given routing
+    ``chosen`` ``[S]``: each expert's real tokens counted in token order
+    (numpy), those below the capacity kept; each kept token's row through
+    its expert alone (bf16 products as the reference's), times its bf16
+    gate; the auxiliary loss over the real tokens. Returns (y ``[S, d]``,
+    keep, aux, the router's own choice)."""
+    wr, we1, be1, we2, be2 = weights
+    b, l, d = x.shape
+    e, s = wr.shape[1], b * l
+    xf, m = x.reshape(s, d), mask.reshape(s).cpu().numpy()
+    probs = torch.softmax((xf.bfloat16() @ wr.bfloat16()).float(), dim=-1)
+    ch = chosen.numpy()
+    keep = plain_kept(ch, m, e, max(1, int(factor * s / e)))
+    y = torch.zeros(s, d, device=x.device)
+    for k in range(e):
+        rows = torch.from_numpy(np.flatnonzero(keep & (ch == k))).to(x.device)
+        h = torch.nn.functional.gelu(
+            (xf[rows].bfloat16() @ we1[k].bfloat16()).float() + be1[k],
+            approximate="tanh")
+        out = ((h.bfloat16() @ we2[k].bfloat16()).float() + be2[k]).bfloat16().float()
+        gate = probs[rows, k].bfloat16().float()
+        y[rows] = (gate[:, None] * out).bfloat16().float()
+    mt = torch.from_numpy(m).to(x.device)
+    n_real = max(int(m.sum()), 1)
+    frac = torch.from_numpy(np.bincount(ch[m], minlength=e) / n_real).to(x.device)
+    aux = e * float((frac * ((probs * mt[:, None]).sum(0) / n_real)).sum())
+    return y, keep, aux, torch.argmax(probs, dim=-1).cpu().numpy()
+
+
+def moe_drop_check(dev, shape=SEQ_MOE_DROP_SHAPE, procs=LAUNCH_PROCS) -> dict:
+    """The MoE layer over a ``procs``-process ``expert`` line where the
+    capacity binds (:data:`SEQ_MOE_DROP_FACTOR`): the members (fresh
+    processes, gloo, on ``dev``; on the card all on its first) run
+    :func:`moe_drop_member`, and their rows joined in member order are
+    held to :func:`moe_drop_reference` on the whole batch with the members'
+    routing — the kept tokens equal, each member's kept and dropped counts
+    those of the global batch, tokens dropped, ``y`` 0 where a token is
+    dropped or padding and within :data:`ATT_TOL` where kept, the aux
+    shares' sum 1e-3 relative; the members' routing against the plain
+    router's within :data:`SEQ_MOE_DROP_FLIPS`. Beside it, the tokens a
+    local capacity (each member's own count against its own S) would keep
+    otherwise: what the check sees of that fault. Returns the record."""
+    from incubator_predictionio_tpu_torch.parallel.launcher import free_port
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent),
+               PIO_DIST_COORDINATOR=f"127.0.0.1:{free_port()}",
+               PIO_DIST_NUM_PROCESSES=str(procs))
+    if torch.device(dev).type == "cuda":
+        env["CUDA_VISIBLE_DEVICES"] = os.environ.get(
+            "CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"member{i}.pt") for i in range(procs)]
+        members = [subprocess.Popen(
+            [sys.executable, "-c", MOE_DROP_MEMBER, paths[i],
+             "cuda:0" if torch.device(dev).type == "cuda" else str(dev),
+             ",".join(map(str, shape))],
+            env=dict(env, PIO_DIST_PROCESS_ID=str(i)), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for i in range(procs)]
+        try:
+            logs = [p.communicate(timeout=300)[0] for p in members]
+        finally:
+            for p in members:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for i, p in enumerate(members):
+            check(p.returncode == 0, f"[seq-moe drops] member {i} exited "
+                  f"{p.returncode}: {logs[i][-2000:]}")
+        got = [torch.load(q) for q in paths]
+    wall = time.perf_counter() - t0
+    b, l, d, e = shape
+    x, mask, weights = moe_drop_case(dev, shape)
+    chosen = torch.cat([g["chosen"] for g in got])
+    keep = torch.cat([g["keep"] for g in got]).numpy()
+    y = torch.cat([g["y"] for g in got]).reshape(b * l, d)
+    with torch.no_grad():
+        y_ref, keep_ref, aux_ref, own = moe_drop_reference(
+            x, mask, weights, chosen, SEQ_MOE_DROP_FACTOR)
+    y_ref = y_ref.cpu()
+    m = mask.reshape(-1).cpu().numpy()
+    real, kept = int(m.sum()), int(keep_ref.sum())
+    flips = int(((own != chosen.numpy()) & m).sum())
+    # a local capacity: each member counts from 0 against its own S
+    per = b * l // procs
+    local = np.concatenate([plain_kept(
+        chosen.numpy()[i * per:(i + 1) * per], m[i * per:(i + 1) * per], e,
+        max(1, int(SEQ_MOE_DROP_FACTOR * per / e))) for i in range(procs)])
+    off = ~keep_ref
+    diff = (y - y_ref).abs()[torch.from_numpy(keep_ref)]
+    y_ok = bool((diff <= ATT_TOL + ATT_TOL * y_ref.abs()[torch.from_numpy(keep_ref)]).all())
+    aux = sum(g["aux"] for g in got)
+    rec = {"shape": list(shape), "factor": SEQ_MOE_DROP_FACTOR,
+           "capacity": max(1, int(SEQ_MOE_DROP_FACTOR * b * l / e)),
+           "real_tokens": real, "kept": kept, "dropped": real - kept,
+           "members": [{k: g[k] for k in ("kept_dropped", "bytes", "backend",
+                                          "device", "experts")} for g in got],
+           "routing_flips": flips,
+           "keep_equal": bool((keep == keep_ref).all()),
+           "y_max_abs_diff_kept": float(diff.max()) if diff.numel() else 0.0,
+           "y_zero_elsewhere": bool((y[torch.from_numpy(off)] == 0).all()),
+           "aux": aux, "aux_ref": aux_ref,
+           "aux_rel": abs(aux - aux_ref) / abs(aux_ref),
+           "local_capacity_differs": int((local != keep_ref).sum()),
+           "wall_s": wall}
+    check(rec["dropped"] > 0, f"[seq-moe drops] no token dropped: {rec}")
+    check(flips <= SEQ_MOE_DROP_FLIPS * real,
+          f"[seq-moe drops] the members route {flips} of {real} real tokens "
+          f"elsewhere than the plain router: {rec}")
+    check(rec["keep_equal"], f"[seq-moe drops] the members keep other "
+          f"tokens than the global batch's capacity: {rec}")
+    check(all(tuple(q["kept_dropped"]) == (kept, real - kept)
+              for q in rec["members"]),
+          f"[seq-moe drops] a member's kept/dropped counts: {rec}")
+    check(rec["y_zero_elsewhere"] and y_ok and torch.isfinite(y).all().item(),
+          f"[seq-moe drops] y against the plain layer beyond {ATT_TOL} where "
+          f"kept, or not 0 elsewhere: {rec}")
+    check(rec["aux_rel"] <= 1e-3, f"[seq-moe drops] aux shares: {rec}")
+    check(rec["local_capacity_differs"] > 0, f"[seq-moe drops] a local "
+          f"capacity would keep the same tokens: the case cannot see it: {rec}")
+    return rec
+
+
+def planted_route_fault(ttr, cfg, ctx, td):
+    """The one-process MoE fit with one member's returned rows dropped (a
+    control the parameter band must catch): in each layer, the tokens of
+    the batch's second half routed to the first half of the experts (what
+    the second member of ``{"expert": 2}`` gets back from the first) keep
+    the residual alone. Returns its parameters and step losses."""
+    real = ttr.moe_ffn
+
+    def dropped(x, token_mask, *args, **kw):
+        y, aux, (chosen, keep) = real(x, token_mask, *args, **kw)
+        b = x.shape[0]
+        lost = (chosen.reshape(b, -1) < args[0].shape[1] // 2)
+        lost[: b // 2] = False
+        return y * (~lost)[..., None], aux, (chosen, keep)
+
+    ttr.moe_ffn = dropped
+    try:
+        bad = ttr.TransformerRecommender(cfg).fit(ctx, td.sequences,
+                                                  td.item_map)
+    finally:
+        ttr.moe_ffn = real
+    return bad.params, np.asarray(bad.step_losses)
+
+
+class PinnedRouting:
+    """The router of ``models.transformer`` (``_route``) wrapped: in each
+    layer's first call it records its tokens' experts, and every later
+    call routes with them, the gate staying the router's probability of
+    that expert (a step with the kernels, then one with the plain
+    attention on the same routing: a token whose router logits are a
+    near-tie may pick another expert under the other attention's
+    roundings, and then its expert's gradient moves by that token's share,
+    which is not the kernels' error). ``moe_ffn`` is wrapped only to learn
+    the layer of each call. ``pin=False`` records each call's routing
+    only."""
+
+    def __init__(self, ttr, pin: bool = True):
+        self.ttr, self.pin = ttr, pin
+        self.real, self.real_route = ttr.moe_ffn, ttr._route
+        self.routes: dict = {}
+        self.calls: list = []
+
+    def __enter__(self):
+        layer = {}
+
+        def ffn(x, token_mask, *args, index=0, **kw):
+            layer["index"], layer["mask"] = index, token_mask.reshape(-1)
+            return self.real(x, token_mask, *args, index=index, **kw)
+
+        def route(x, wr):
+            probs, chosen = self.real_route(x, wr)
+            index = layer["index"]
+            if self.pin and index in self.routes:
+                chosen = self.routes[index]
+            self.routes.setdefault(index, chosen.detach())
+            self.calls.append((index, chosen.detach(), layer["mask"]))
+            return probs, chosen
+
+        self.ttr.moe_ffn, self.ttr._route = ffn, route
+        return self
+
+    def __exit__(self, *exc):
+        self.ttr.moe_ffn, self.ttr._route = self.real, self.real_route
+
+
+def moe_step_parity(ttr, cfg, batch, dev) -> dict:
+    """:func:`step_parity` for a mixture of experts: the step with the
+    plain attention routes each token to the expert the kernels' step
+    chose (:class:`PinnedRouting`), so that the gradients hold what the
+    attention kernels compute; beside it, the real tokens each layer routes
+    elsewhere when the plain attention's forward routes for itself."""
+    from incubator_predictionio_tpu_torch.parallel.ring import (
+        causal_attention_reference,
+    )
+
+    with PinnedRouting(ttr):
+        out = step_parity(cfg, batch, dev)
+    init = ttr._init_params(cfg, torch.Generator(device=dev).manual_seed(cfg.seed), dev)
+    net = ttr.TransformerNet(init, cfg, dev)
+    flips = []
+    with torch.no_grad(), PinnedRouting(ttr, pin=False) as rec:
+        net(batch[0], batch[1], ttr.causal_attention)
+        net(batch[0], batch[1], causal_attention_reference)
+    n = cfg.n_layers
+    for (i, a, m), (_, b, _) in zip(rec.calls[:n], rec.calls[n:]):
+        flips.append(int(((a != b) & m).sum()))
+    out["unpinned_routing_flips_by_layer"] = flips
+    out["real_tokens"] = int(batch[0].ne(0).sum())
+    del net, init
+    return out
+
+
+class ScoreSpy:
+    """Records each ``next_item_scores`` call of the served model (the rows
+    of a served batch and its scores), so that a burst's answers can be
+    held to the plain attention's on the very batches the server formed:
+    a mixture of experts' capacity, and so its routing, is the batch's."""
+
+    def __init__(self, ttr):
+        self.ttr, self.calls = ttr, []
+        self.real = ttr.TransformerRecommender.next_item_scores
+
+    def __enter__(self):
+        real, calls = self.real, self.calls
+
+        def spy(model, rows, attention=self.ttr.causal_attention):
+            scores = real(model, rows, attention)
+            calls.append((np.array(rows), scores))
+            return scores
+
+        self.ttr.TransformerRecommender.next_item_scores = staticmethod(spy)
+        return self
+
+    def __exit__(self, *exc):
+        self.ttr.TransformerRecommender.next_item_scores = staticmethod(self.real)
+
+
+def check_same_batches(model, calls, payloads, bodies):
+    """Every served answer against the plain attention's forward of the
+    batch it was served in (:class:`ScoreSpy`), on the card, by
+    :func:`check_against_plain`. Returns the largest difference, the
+    counts of equal sets and orders, and the batch sizes."""
+    from incubator_predictionio_tpu_torch.models.transformer import (
+        TransformerRecommender,
+    )
+    from incubator_predictionio_tpu_torch.parallel.ring import (
+        causal_attention_reference,
+    )
+    from incubator_predictionio_tpu_torch.templates.sequential import (
+        encode_session,
+    )
+
+    where = {}
+    for rows, _ in calls:
+        plain = TransformerRecommender.next_item_scores(
+            model, rows, attention=causal_attention_reference)
+        for i, row in enumerate(rows):
+            where[row.tobytes()] = plain[i]
+    keys = [encode_session(p["recentItems"], model.item_map,
+                           model.config.max_len).astype(calls[0][0].dtype).tobytes()
+            for p in payloads]
+    check(all(k in where for k in keys),
+          "[seq-moe] a query's row was not among the served batches")
+    worst, same_set, same_order = check_against_plain(
+        model, payloads, bodies, [where[k] for k in keys], "[seq-moe] ")
+    return worst, same_set, same_order, [len(r) for r, _ in calls]
+
+
+async def seq_moe_body(sessions_, session, url, server, lat):
+    """Bursts of 64 ``recentItems`` queries through the MoE model's K4
+    forward, each recorded batch held to the plain attention's."""
+    from incubator_predictionio_tpu_torch.models import transformer as ttr
+
+    rng = np.random.default_rng(43)
+    lat["burst64"] = []
+    with ScoreSpy(ttr) as spy:
+        for _ in range(3):
+            pick = rng.choice(len(sessions_), 64, replace=False)
+            payloads = [{"recentItems": list(sessions_[int(j)][:-1]), "num": 10}
+                        for j in pick]
+            spy.calls.clear()
+            t0 = time.perf_counter()
+            bodies, _ = await post_all(session, url, payloads, True)
+            lat["burst64"].append(time.perf_counter() - t0)
+    check_answers(payloads, bodies)
+    worst, same_set, same_order, sizes = check_same_batches(
+        server.deployed.models[0], spy.calls, payloads, bodies)
+    return {"max_score_diff": worst, "same_set": same_set,
+            "same_order": same_order, "served_batches": sizes}
+
+
+def seq_moe_phase(ctx, tmp):
+    """Mixture-of-experts training and serving of the sequential template
+    at its full width with Switch-Base-8's routing (``numExperts`` 8,
+    capacity factor 1.25, auxiliary weight 1e-2), on seq-tp's app
+    ``seqtp`` (256 users, 4 steps of 64): (a) a one-process MoE fit in this
+    process (the degradation recorded: no ``expert`` axis), after one step
+    with K4 against one with the plain attention from the same init, the
+    MoE layer on the card against the CPU, and the layer over a two-process
+    ``expert`` line where tokens drop (:func:`moe_drop_check`); (b)
+    ``launch -n 2 train --mesh-axes '{"expert": 2}'``, two processes on
+    ``cuda:0`` (gloo),
+    each holding 4 of the 8 experts and 32 rows of each batch (K4 at (32,
+    8, 512, 64) forward and backward), the kept tokens' rows exchanged by
+    two all-to-alls a layer: its step losses within
+    :data:`SEQ_MOE_LOSS_RTOL` of (a)'s, its persisted parameters within
+    :data:`SEQ_MOE_PARAM_RTOL` of (a)'s update, and a planted fault (one
+    member's returned rows dropped) beyond it; with two cards the same
+    launch over NCCL, bitwise the gloo run; (c) a deploy of the persisted
+    model and bursts through K4, each served batch held to the plain
+    attention's forward of that batch. Returns (launches of the attention
+    kernels in this process's fit and serving, record)."""
+    from incubator_predictionio_tpu_torch.models import transformer as ttr
+    from incubator_predictionio_tpu_torch.ops import attention as A
+    from incubator_predictionio_tpu_torch.sharding import degrade
+    from incubator_predictionio_tpu_torch.templates import sequential as tseq
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "seq-workflow")
+    sessions_ = cycle_sessions(np.random.default_rng(31), SEQ_WF_USERS,
+                               SEQ_WF_MAX_LEN, SEQ_WF_LENGTHS)[:SEQ_TP_USERS]
+    params = {"maxLen": SEQ_WF_MAX_LEN, "dModel": SEQ_D, "nHeads": SEQ_HEADS,
+              "nLayers": SEQ_LAYERS, "learningRate": TRAIN_LR,
+              "batchSize": TRAIN_BATCH, "epochs": SEQ_TP_EPOCHS,
+              "numExperts": SEQ_MOE_EXPERTS}
+    with cli_storage(root) as registry:
+        variant_path = os.path.join(root, "engine-moe.json")
+        with open(variant_path, "w") as f:
+            json.dump({"id": "seq-moe", "version": "1",
+                       "engineFactory": SEQ_FACTORY,
+                       "datasource": {"params": {"appName": "seqtp",
+                                                 "maxLen": SEQ_WF_MAX_LEN}},
+                       "algorithms": [{"name": "transformer",
+                                       "params": params}]}, f)
+        ds = tseq.DataSource(tseq.DataSourceParams(app_name="seqtp",
+                                                   max_len=SEQ_WF_MAX_LEN))
+        td = ds.read_training(ctx)
+        cfg = ttr.TransformerConfig(
+            vocab_size=len(td.item_map) + 1, max_len=SEQ_WF_MAX_LEN,
+            d_model=SEQ_D, n_heads=SEQ_HEADS, n_layers=SEQ_LAYERS,
+            learning_rate=TRAIN_LR, batch_size=TRAIN_BATCH,
+            epochs=SEQ_TP_EPOCHS, n_experts=SEQ_MOE_EXPERTS)
+        check((cfg.expert_capacity_factor, cfg.router_aux_weight) == (1.25, 1e-2),
+              f"[seq-moe] not Switch-Base-8's routing: {cfg}")
+        # (a) one process: the kernels against the plain attention on one
+        # step, the layer on the card against the CPU, then the fit
+        seqs = td.sequences[:TRAIN_BATCH]
+        tokens = torch.from_numpy(np.ascontiguousarray(seqs[:, :-1], np.int64)).to(ctx.device)
+        targets = torch.from_numpy(np.ascontiguousarray(seqs[:, 1:], np.int64)).to(ctx.device)
+        weights = ((targets != 0) & (tokens != 0)).float()
+        positions = torch.arange(cfg.max_len, device=ctx.device).expand(
+            tokens.shape[0], cfg.max_len)
+        parity = moe_step_parity(ttr, cfg, (tokens, positions, targets, weights),
+                                 ctx.device)
+        del tokens, targets, weights, positions
+        layer = moe_layer_check(ttr, cfg, td, ctx.device)
+        drops = moe_drop_check(ctx.device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        degrade.reset()
+        A.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = ttr.TransformerRecommender(cfg).fit(ctx, td.sequences, td.item_map)
+        one_s = time.perf_counter() - t0
+        fit_launches = {w.__name__: w.launches for w in A.KERNEL_WRAPPERS}
+        one_peak = torch.cuda.max_memory_allocated()
+        check([d["axis"] for d in degrade.degradations()] == ["expert"],
+              f"[seq-moe] the one-process fit's degradation: "
+              f"{degrade.degradations()}")
+        check(np.isfinite(one.final_loss) and one.params["layers"][0]["we1"].shape
+              == (SEQ_MOE_EXPERTS, SEQ_D, 4 * SEQ_D),
+              f"[seq-moe] the one-process fit: loss {one.final_loss}")
+        for w in ("causal_mha_small_head", "causal_mha_small_head_bwd"):
+            check(fit_launches[w] > 0, f"[seq-moe] {w} never launched in the "
+                  f"one-process fit: {fit_launches}")
+        # (b) expert-parallel over two processes on this card
+        first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+        launched = seq_moe_train(registry, variant_path, "gloo",
+                                 CUDA_VISIBLE_DEVICES=first)
+        per, model, wall = (launched["processes"], launched["model"],
+                            launched["wall_s"])
+        check(model.config.n_experts == SEQ_MOE_EXPERTS and all(
+            np.shape(model.params["layers"][i][n]) == shape
+            for i in range(SEQ_LAYERS)
+            for n, shape in (("we1", (SEQ_MOE_EXPERTS, SEQ_D, 4 * SEQ_D)),
+                             ("be1", (SEQ_MOE_EXPERTS, 4 * SEQ_D)),
+                             ("we2", (SEQ_MOE_EXPERTS, 4 * SEQ_D, SEQ_D)),
+                             ("be2", (SEQ_MOE_EXPERTS, SEQ_D)),
+                             ("wr", (SEQ_D, SEQ_MOE_EXPERTS)))),
+              "[seq-moe] the persisted model is not in the canonical layout")
+        check(dict(td.item_map.items()) == dict(model.item_map.items()),
+              "[seq-moe] the launched fit's item map differs")
+        got, want = np.asarray(model.step_losses), np.asarray(one.step_losses)
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        check(got.shape == want.shape and rel <= SEQ_MOE_LOSS_RTOL,
+              f"[seq-moe] step losses {got.tolist()} against the one-process "
+              f"fit's {want.tolist()}: {rel:.3e} relative (band "
+              f"{SEQ_MOE_LOSS_RTOL})")
+        p0 = _tree_numpy(ttr._init_params(
+            cfg, torch.Generator(device=ctx.device).manual_seed(cfg.seed),
+            ctx.device))
+        param_rel, param_leaf = update_rel(model.params, one.params, p0)
+        fault, fault_losses = planted_route_fault(ttr, cfg, ctx, td)
+        fault_loss_rel = float(np.max(np.abs(fault_losses - want) / np.abs(want)))
+        fault_rel, fault_leaf = update_rel(fault, one.params, p0)
+        del fault, p0
+        check(param_rel <= SEQ_MOE_PARAM_RTOL,
+              f"[seq-moe] the persisted parameters are {param_rel:.3e} of the "
+              f"one-process fit's update apart at {param_leaf} (band "
+              f"{SEQ_MOE_PARAM_RTOL})")
+        check(fault_rel > SEQ_MOE_PARAM_RTOL,
+              f"[seq-moe] the band {SEQ_MOE_PARAM_RTOL} does not see one "
+              f"member's returned rows dropped: the planted fault's "
+              f"parameters {fault_rel:.3e} apart at {fault_leaf}")
+        nccl = None
+        if torch.cuda.device_count() >= LAUNCH_PROCS:
+            again = seq_moe_train(registry, variant_path, "nccl")
+            nccl = {"processes": again["processes"], "wall_s": again["wall_s"],
+                    "bitwise_gloo": bitwise_trees(again["model"].params,
+                                                  model.params)}
+            check(nccl["bitwise_gloo"], "[seq-moe] the NCCL launch's "
+                  "parameters differ from the gloo launch's")
+            del again
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (c) the persisted model served through K4
+        lat = {}
+        A.reset_launches()
+        served = asyncio.run(serve_phase(
+            "seq-moe", variant_path, registry.get_storage(), ctx,
+            lambda s, u, srv: seq_moe_body(sessions_, s, u, srv, lat)))
+        serve_launches = {w.__name__: w.launches for w in A.KERNEL_WRAPPERS}
+    check(serve_launches["causal_mha_small_head"] > 0,
+          f"[seq-moe] K4 never launched serving the model: {serve_launches}")
+    launches = {k: fit_launches[k] + serve_launches[k] for k in fit_launches}
+    train_wall = max(q["train_s"] for q in per)
+    rec = {"launch_wall_s": wall, "processes": per, "nccl": nccl,
+           "card_count": torch.cuda.device_count(), "rows": len(td.sequences),
+           "step_parity": parity, "moe_layer": layer, "drops": drops,
+           "one_process": {"train_s": one_s, "peak_bytes": one_peak,
+                           "step_losses": want.tolist(),
+                           "launches": fit_launches,
+                           "train_tokens_per_s": want.size * TRAIN_BATCH
+                           * SEQ_WF_MAX_LEN / one_s},
+           "steps": per[0]["steps"], "step_losses": got.tolist(),
+           "step_loss_max_rel": rel, "step_loss_band": SEQ_MOE_LOSS_RTOL,
+           "param_update_rel": param_rel, "param_update_rel_leaf": param_leaf,
+           "param_update_rel_band": SEQ_MOE_PARAM_RTOL,
+           "planted_fault": {"param_update_rel": fault_rel,
+                             "param_update_rel_leaf": fault_leaf,
+                             "step_loss_max_rel": fault_loss_rel},
+           "train_tokens_per_s": per[0]["steps"] * TRAIN_BATCH
+           * SEQ_WF_MAX_LEN / train_wall,
+           "burst64_ms": [x * 1e3 for x in lat["burst64"]],
+           "burst64_p50_ms": pct(lat["burst64"], 50),
+           "kernels_vs_plain": served, "serve_launches": serve_launches,
+           "phase_s": time.perf_counter() - t_phase}
+    smi = smi_name_power()
+    log(f"[seq-moe] ({smi}) {SEQ_MOE_EXPERTS} experts, capacity factor "
+        f"{cfg.expert_capacity_factor}, aux {cfg.router_aux_weight}, at "
+        f"max_len {cfg.max_len}, d_model {cfg.d_model}, {cfg.n_layers} layers "
+        f"of {cfg.n_heads} heads, batch {cfg.batch_size}, {len(td.sequences)} "
+        f"rows: kernels vs plain one step (the plain step on the kernels' "
+        f"routing): loss rel {parity['loss_rel_diff']:.3e}, worst gradient "
+        f"{parity['grad_worst']} {parity['grad_worst_rel_err']:.3e}; the plain "
+        f"forward routing for itself moves "
+        f"{parity['unpinned_routing_flips_by_layer']} of "
+        f"{parity['real_tokens']} real tokens a layer")
+    log(f"[seq-moe] ({smi}) the MoE layer on the card vs the CPU ({layer['rows']} "
+        f"rows, {layer['real_tokens']} real tokens): routing differs for "
+        f"{layer['routing_differs']} ({layer['routing_differs_share']:.2e}), y max "
+        f"abs diff {layer['y_max_abs_diff']:.3e} where it agrees, aux rel "
+        f"{layer['aux_rel']:.2e}; forward at batch 64 {layer['forward_ms_batch64']:.3f} ms; "
+        f"forward and backward {layer['fwd_bwd_profile_batch64']['wall_ms']:.3f} ms wall, "
+        f"device busy {layer['fwd_bwd_profile_batch64']['device_busy_ms']:.3f} ms, top "
+        f"{json.dumps(layer['fwd_bwd_profile_batch64']['top_device_ms'])}")
+    log(f"[seq-moe] ({smi}) dropped tokens over a 2-process expert line "
+        f"(gloo, {drops['members'][0]['device']}) at factor "
+        f"{drops['factor']}, shape {drops['shape']}: capacity "
+        f"{drops['capacity']}, {drops['kept']} kept and {drops['dropped']} "
+        f"dropped of {drops['real_tokens']} real tokens, as the global "
+        f"batch's plain count (a local capacity would differ on "
+        f"{drops['local_capacity_differs']}); routing flips "
+        f"{drops['routing_flips']}; y max abs diff "
+        f"{drops['y_max_abs_diff_kept']:.3e} where kept, 0 elsewhere; aux rel "
+        f"{drops['aux_rel']:.2e}; {drops['members'][0]['bytes']} bytes sent a "
+        f"member; wall {drops['wall_s']:.1f} s")
+    log(f"[seq-moe] ({smi}) one process: {want.size} steps in {one_s:.2f} s, "
+        f"{rec['one_process']['train_tokens_per_s']:.1f} train tokens/s, peak "
+        f"{one_peak / 2**30:.3f} GiB, attention launches {fit_launches}")
+    log(f"[seq-moe] ({smi}) launch -n 2 train --mesh-axes {SEQ_MOE_AXES}: "
+        f"{rec['steps']} steps, wall {wall:.2f} s, "
+        f"{rec['train_tokens_per_s']:.1f} train tokens/s")
+    for q in per:
+        log(f"[seq-moe] ({smi}) process {q['process']} at {q['coords']} on "
+            f"{q['device']}: experts {q['experts']}, we1 {q['we1']}, we2 "
+            f"{q['we2']}, {q['member_rows']} rows a member; train "
+            f"{q['train_s']:.3f} s; all-to-all {q['all_to_all_ms_per_step']:.3f} "
+            f"ms a step ({q['all_to_all_bytes_per_step']} bytes), counts "
+            f"{q['counts_ms_per_step']:.3f} ms, data all-reduce "
+            f"{q['data_all_reduce_ms_per_step']:.3f} ms; kept/dropped "
+            f"{q['kept_dropped_last_step']}; peak {q['peak_bytes'] / 2**30:.3f} "
+            f"GiB; attention launches {q['attention_launches']}")
+    log(f"[seq-moe] ({smi}) against the one-process fit: step losses max "
+        f"relative {rel:.3e} (band {SEQ_MOE_LOSS_RTOL}), parameters "
+        f"{param_rel:.3e} of its update at {param_leaf} (band "
+        f"{SEQ_MOE_PARAM_RTOL}); the planted fault (member 1's returned rows "
+        f"dropped): parameters {fault_rel:.3e} at {fault_leaf}, step losses "
+        f"{fault_loss_rel:.3e}; NCCL {nccl and nccl['bitwise_gloo']}")
+    log(f"[seq-moe] ({smi}) burst of 64 p50 {rec['burst64_p50_ms']:.2f} ms "
+        f"(served batches {served['served_batches']}), against the plain "
+        f"attention of the same batches max score diff "
+        f"{served['max_score_diff']:.2e} (sets {served['same_set']}/64, orders "
+        f"{served['same_order']}/64); serve launches {serve_launches}; phase "
+        f"{rec['phase_s']:.1f} s")
+    return launches, rec
+
+
+def bitwise_trees(a, b) -> bool:
+    return all(np.array_equal(x, y) for _, x, y in _tree_pairs(a, b))
+
+
 def _tree_numpy(tree):
     """A parameter tree of tensors as numpy arrays on the host."""
     if isinstance(tree, dict):
@@ -7776,12 +8594,14 @@ class ClsLaunchEvalGrid:
 
 def tpl_launch_specs():
     """(tag, the workflow phase's store, app, factory, algorithms, serving,
-    16 queries) of each template's launch, at the workflow phases' widths."""
+    16 queries) of each template's launch, at the workflow phases' widths
+    and half their depth (5 iterations, 10 MLP epochs; cut for the
+    script's time: PERF.md §4)."""
     rng = np.random.default_rng(43)
     item_ids = [f"i{j}" for j in range(SIM_ITEMS)]
     cls_rows = np.random.default_rng(44).normal(size=(80, 3)) * [1.0, 2.0, 0.5] \
         + [0.0, 3.0, -1.0]
-    two = {"numIterations": 10, "seed": 1}
+    two = {"numIterations": 5, "seed": 1}
     return [
         ("sim", "sim-workflow", "simwf", SIM_FACTORY,
          [{"name": "als", "params": {"rank": SIM_RANK, **two}},
@@ -7796,7 +8616,7 @@ def tpl_launch_specs():
          None, [ecomm_query(rng, j) for j in range(1, 17)]),
         ("cls", "cls-workflow", "cls", CLS_FACTORY,
          [{"name": "nb", "params": {}},
-          {"name": "mlp", "params": {"hiddenDims": [64, 64], "epochs": 20}}],
+          {"name": "mlp", "params": {"hiddenDims": [64, 64], "epochs": 10}}],
          "vote", [{"features": [float(v) for v in r]} for r in cls_rows]),
     ]
 
@@ -8334,6 +9154,7 @@ def main() -> int:
                             ("seq_eval", seq_eval_phase),
                             ("seq_launch", seq_launch_phase),
                             ("seq_tp", seq_tp_phase),
+                            ("seq_moe", seq_moe_phase),
                             ("ckpt_resume", ckpt_resume_phase)):
             t0 = time.perf_counter()
             counts, main[name] = phase(ctx, tmp)
@@ -8376,6 +9197,7 @@ def main() -> int:
     seq_children = [q["attention_launches"]
                     for q in main["seq_launch"]["processes"]]
     tp_children = [q["attention_launches"] for q in main["seq_tp"]["processes"]]
+    moe_children = [q["attention_launches"] for q in main["seq_moe"]["processes"]]
     kernels = [
         {**entry("score_catalog_quantized", "retrieval.cu",
                  "incubator_predictionio_tpu/ops/retrieval.py:97", k1,
@@ -8411,13 +9233,17 @@ def main() -> int:
          "seq_launch_process_launches": [
              c["causal_mha_small_head"] for c in seq_children],
          "seq_tp_process_launches": [
-             c["causal_mha_small_head"] for c in tp_children]},
+             c["causal_mha_small_head"] for c in tp_children],
+         "seq_moe_process_launches": [
+             c["causal_mha_small_head"] for c in moe_children]},
         {**bwd_entry("causal_mha_small_head_bwd", "attention.cu",
                      "incubator_predictionio_tpu/ops/attention.py:136", k4b),
          "seq_launch_process_launches": [
              c["causal_mha_small_head_bwd"] for c in seq_children],
          "seq_tp_process_launches": [
-             c["causal_mha_small_head_bwd"] for c in tp_children]},
+             c["causal_mha_small_head_bwd"] for c in tp_children],
+         "seq_moe_process_launches": [
+             c["causal_mha_small_head_bwd"] for c in moe_children]},
         entry("flash_causal_attention", "flash_attention.cu",
               "incubator_predictionio_tpu/parallel/ring.py:201", k5,
               next(c for c in k5 if c["B"] == 64)),

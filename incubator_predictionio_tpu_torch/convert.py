@@ -37,6 +37,7 @@ from incubator_predictionio_tpu_torch.data.bimap import BiMap
 from incubator_predictionio_tpu_torch.models.transformer import (
     TransformerConfig,
     TransformerModel,
+    layer_leaf_names,
 )
 from incubator_predictionio_tpu_torch.models.two_tower import (
     TwoTowerConfig,
@@ -90,22 +91,22 @@ def rec_model_from_arrays(
     )
 
 
-_LAYER_MATRICES = ("wq", "wk", "wv", "wo", "w1", "w2")
-
-
 def transformer_model_from_params(params: dict, item_ids: Sequence[str],
                                   **config) -> TransformerModel:
-    """The port's TransformerModel over the reference's dense parameter
-    pytree (``models/transformer.py:84 _init_params``: ``item_emb``,
-    ``pos_emb``, ``ln_f{g,b}`` and ``layers[i]{ln1, wq, wk, wv, wo, ln2, w1,
-    b1, w2, b2}``) as numpy arrays. ``item_ids[j]`` is the item of token
-    ``j + 1`` (token 0 is padding). ``vocab_size``, ``max_len``, ``d_model``
-    and ``n_layers`` come from the arrays; ``config`` gives the rest of
-    :class:`TransformerConfig` (``n_heads`` at least)."""
+    """The port's TransformerModel over the reference's parameter pytree
+    (``models/transformer.py:84 _init_params``: ``item_emb``, ``pos_emb``,
+    ``ln_f{g,b}`` and ``layers[i]{ln1, wq, wk, wv, wo, ln2}`` with a dense
+    FFN ``{w1, b1, w2, b2}`` or, with ``n_experts``, the router and experts
+    ``{wr [d, E], we1 [E, d, 4d], be1 [E, 4d], we2 [E, 4d, d], be2 [E,
+    d]}``) as numpy arrays. ``item_ids[j]`` is the item of token ``j + 1``
+    (token 0 is padding). ``vocab_size``, ``max_len``, ``d_model``,
+    ``n_layers`` and ``n_experts`` come from the arrays; ``config`` gives the
+    rest of :class:`TransformerConfig` (``n_heads`` at least)."""
     f32 = np.float32
     item_emb = np.ascontiguousarray(params["item_emb"], f32)
     pos_emb = np.ascontiguousarray(params["pos_emb"], f32)
     vocab, d = item_emb.shape
+    dh = 4 * d
     if vocab != len(item_ids) + 1:
         raise ValueError(f"item_emb has {vocab} rows; {len(item_ids)} item "
                          f"ids + the padding token make {len(item_ids) + 1}")
@@ -116,19 +117,33 @@ def transformer_model_from_params(params: dict, item_ids: Sequence[str],
         return {"g": np.ascontiguousarray(p["g"], f32),
                 "b": np.ascontiguousarray(p["b"], f32)}
 
+    moe = "we1" in params["layers"][0] if params["layers"] else False
+    n_experts = np.shape(params["layers"][0]["wr"])[1] if moe else 0
+    e = n_experts
+    shapes = ({"wr": (d, e), "we1": (e, d, dh), "be1": (e, dh),
+               "we2": (e, dh, d), "be2": (e, d)} if moe else
+              {"w1": (d, dh), "b1": (dh,), "w2": (dh, d), "b2": (d,)})
+    shapes.update({name: (d, d) for name in ("wq", "wk", "wv", "wo")})
     layers = []
     for i, layer in enumerate(params["layers"]):
-        if "w1" not in layer:
-            raise ValueError(f"layer {i} has no dense FFN (w1/w2): "
-                             "mixture-of-experts layers are not ported yet")
+        missing = [name for name in shapes if name not in layer]
+        if missing:
+            raise ValueError(
+                f"layer {i} lacks {missing} of a "
+                f"{'mixture-of-experts' if moe else 'dense'} layer (layer 0's "
+                "kind: w1/b1/w2/b2, or wr/we1/be1/we2/be2 with n_experts)")
         out = {name: np.ascontiguousarray(layer[name], f32)
-               for name in (*_LAYER_MATRICES, "b1", "b2")}
+               for name in layer_leaf_names(moe)}
         out["ln1"], out["ln2"] = norm(layer["ln1"]), norm(layer["ln2"])
-        for name in ("wq", "wk", "wv", "wo"):
-            if out[name].shape != (d, d):
+        for name, shape in shapes.items():
+            if out[name].shape != shape:
                 raise ValueError(f"layer {i} {name} shape {out[name].shape} "
-                                 f"!= ({d}, {d})")
+                                 f"!= {shape}")
         layers.append(out)
+    if config.get("n_experts", n_experts) != n_experts:
+        raise ValueError(f"n_experts={config['n_experts']} but the layers "
+                         f"hold {n_experts} experts")
+    config = {**config, "n_experts": n_experts}
     cfg = TransformerConfig(vocab_size=vocab, max_len=pos_emb.shape[0],
                             d_model=d, n_layers=len(layers), **config)
     if d % cfg.n_heads:

@@ -26,9 +26,30 @@ over ``model`` after each row-parallel projection in the forward and one
 before each column-parallel input in the backward; the gradients are
 all-reduced over ``data`` only; at the end the slices are gathered back
 to the canonical per-layer layout (:func:`gather_params`), so persistence,
-deploy and serving are unchanged. MoE, ring attention, pipeline
-parallelism and tensor parallelism with checkpoints are the rest of the
-parallel-axes slice (ROADMAP.md Queue 1, item 4.5) and raise until then.
+deploy and serving are unchanged.
+
+With ``n_experts`` a layer's FFN is the reference's Switch-style top-1
+mixture of experts (:func:`moe_ffn`, reference :133-193): the router's
+bf16 logits, an fp32 softmax, each real token sent to its argmax expert
+up to the capacity ``max(1, int(factor · S / E))`` of the global batch's
+S tokens, in token order; the overflow and the padding fall through on
+the residual. The dispatch and the combine are one-to-one row moves
+(:class:`_Rows`), so their backwards repeat no index and need no atomics.
+Under several processes the routing is the global batch's
+(:class:`ExpertParallel`): one all-gather of each process's per-expert
+counts a layer gives every process its tokens' global positions, the
+capacity's drops and the auxiliary loss's statistics. With an ``expert``
+mesh axis (reference :375-392) the members of an expert line split each
+local batch by rows and each holds ``E / ep`` of the experts and their
+adam moments (:func:`shard_experts`); the kept tokens' rows go to their
+expert's owner and back by two all-to-alls over ``expert`` a layer
+(:class:`_AllToAll`, whose backward is the reverse exchange); the
+experts' gradients are summed over ``data``, the other leaves' over
+``data`` and ``expert``; at the end the experts are gathered back to the
+canonical layout (:func:`gather_experts`). Ring attention, pipeline
+parallelism and checkpoints of a fit whose weights are split (tensor or
+expert) are the rest of the parallel-axes slice (ROADMAP.md Queue 1, item
+4.5) and raise until then.
 
 Numerics follow the reference: every matmul rounds both operands and the
 product to bf16 (``_bf16_matmul``), so served scores are bf16 values and
@@ -66,16 +87,18 @@ logger = logging.getLogger(__name__)
 
 #: what raises in the training options this slice does not port
 SHARDING_SLICE = ("the parallel-axes slice of the PyTorch port (ROADMAP.md "
-                  "Queue 1, item 4.5: the expert axis with MoE, the seq "
-                  "axis, the pipe axis, tensor parallelism with checkpoints)")
+                  "Queue 1, item 4.5: the seq axis, the pipe axis, "
+                  "sharded-weight checkpoints (tensor and expert))")
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Copy of the reference's config (transformer.py:44), every field, so a
     variant or a persisted config binds unchanged. Of the parallelism
-    fields, ``tensor_parallel`` is ported; the others wait for the rest
-    of the parallel-axes slice (ROADMAP.md Queue 1, item 4.5)."""
+    fields, ``tensor_parallel`` and the mixture of experts (``n_experts``,
+    ``expert_capacity_factor``, ``router_aux_weight``) are ported; the
+    others wait for the rest of the parallel-axes slice (ROADMAP.md Queue
+    1, item 4.5)."""
 
     vocab_size: int = 1024        # items + 1 (0 is padding)
     max_len: int = 64
@@ -101,63 +124,70 @@ class TransformerConfig:
 
 
 def init_params_numpy(cfg: TransformerConfig, seed: int) -> dict:
-    """A dense parameter pytree at the reference's init scales
+    """A parameter pytree at the reference's init scales
     (transformer.py:84 ``_init_params``: normal × 0.02 for the embeddings,
     × fan_in^-0.5 for the projections, ones/zeros for the norms and
-    biases), drawn from ``numpy.random.default_rng(seed)`` — random
+    biases; with ``n_experts`` each layer's router and experts in place of
+    the dense FFN), drawn from ``numpy.random.default_rng(seed)`` — random
     weights for smoke runs and tests, the same arrays for both packages."""
     rng = np.random.default_rng(seed)
-    d, dh = cfg.d_model, cfg.d_model * 4
 
     def init(shape, scale):
         return (rng.standard_normal(shape, dtype=np.float32)
                 * np.float32(scale))
 
-    def norm():
-        return {"g": np.ones(d, np.float32), "b": np.zeros(d, np.float32)}
-
-    params = {"item_emb": init((cfg.vocab_size, d), 0.02),
-              "pos_emb": init((cfg.max_len, d), 0.02),
-              "ln_f": norm(), "layers": []}
-    for _ in range(cfg.n_layers):
-        params["layers"].append({
-            "ln1": norm(),
-            "wq": init((d, d), d ** -0.5), "wk": init((d, d), d ** -0.5),
-            "wv": init((d, d), d ** -0.5), "wo": init((d, d), d ** -0.5),
-            "ln2": norm(),
-            "w1": init((d, dh), d ** -0.5), "b1": np.zeros(dh, np.float32),
-            "w2": init((dh, d), dh ** -0.5), "b2": np.zeros(d, np.float32),
-        })
-    return params
+    return _param_tree(cfg, init, lambda shape: np.zeros(shape, np.float32),
+                       lambda shape: np.ones(shape, np.float32))
 
 
 def _init_params(cfg: TransformerConfig, generator: torch.Generator,
                  device) -> dict:
-    """transformer.py:84 ``_init_params``, dense: the reference's tree and
-    init scales (normal × 0.02 for the embeddings, × fan_in^-0.5 for the
+    """transformer.py:84 ``_init_params``: the reference's tree and init
+    scales (normal × 0.02 for the embeddings, × fan_in^-0.5 for the
     projections, ones/zeros for the norms and biases), drawn from
     ``generator`` on ``device`` in the reference's key order."""
-    d, dh = cfg.d_model, cfg.d_model * 4
-
     def init(shape, scale):
         return torch.randn(shape, generator=generator, device=device) * scale
 
+    return _param_tree(cfg, init, lambda shape: torch.zeros(shape, device=device),
+                       lambda shape: torch.ones(shape, device=device))
+
+
+def _param_tree(cfg: TransformerConfig, init, zeros, ones) -> dict:
+    """The reference's tree (transformer.py:84-120) with ``init(shape,
+    scale)`` drawing the random leaves in its key order: the embeddings,
+    then each layer's ``wq wk wv wo`` and its FFN's ``w1 w2`` (dense) or
+    ``wr we1 we2`` (``n_experts``: the router ``[d, E]``, the experts
+    ``[E, d, 4d]`` and ``[E, 4d, d]``, their biases ``[E, 4d]``, ``[E,
+    d]``)."""
+    d, dh = cfg.d_model, cfg.d_model * 4
+
     def norm():
-        return {"g": torch.ones(d, device=device),
-                "b": torch.zeros(d, device=device)}
+        return {"g": ones(d), "b": zeros(d)}
 
     params = {"item_emb": init((cfg.vocab_size, d), 0.02),
               "pos_emb": init((cfg.max_len, d), 0.02),
               "ln_f": norm(), "layers": []}
     for _ in range(cfg.n_layers):
-        params["layers"].append({
+        layer = {
             "ln1": norm(),
             "wq": init((d, d), d ** -0.5), "wk": init((d, d), d ** -0.5),
             "wv": init((d, d), d ** -0.5), "wo": init((d, d), d ** -0.5),
             "ln2": norm(),
-            "w1": init((d, dh), d ** -0.5), "b1": torch.zeros(dh, device=device),
-            "w2": init((dh, d), dh ** -0.5), "b2": torch.zeros(d, device=device),
-        })
+        }
+        e = cfg.n_experts
+        if e:
+            layer.update({
+                "wr": init((d, e), d ** -0.5),
+                "we1": init((e, d, dh), d ** -0.5), "be1": zeros((e, dh)),
+                "we2": init((e, dh, d), dh ** -0.5), "be2": zeros((e, d)),
+            })
+        else:
+            layer.update({
+                "w1": init((d, dh), d ** -0.5), "b1": zeros(dh),
+                "w2": init((dh, d), dh ** -0.5), "b2": zeros(d),
+            })
+        params["layers"].append(layer)
     return params
 
 
@@ -196,31 +226,50 @@ class _Norm(nn.Module):
 
 
 _LAYER_MATRICES = ("wq", "wk", "wv", "wo", "w1", "w2")
+#: a mixture-of-experts layer's projections (reference transformer.py:103-111)
+_MOE_MATRICES = ("wq", "wk", "wv", "wo", "wr", "we1", "we2")
+#: the leaves whose first dim is the expert: split over an ``expert`` axis
+EXPERT_LEAVES = ("we1", "be1", "we2", "be2")
+
+
+def layer_leaf_names(moe: bool) -> tuple[str, ...]:
+    """A layer's projections and biases, dense or mixture-of-experts, in
+    the order the nets keep them (after its two norms)."""
+    return (*_MOE_MATRICES, "be1", "be2") if moe else (*_LAYER_MATRICES, "b1", "b2")
 
 
 class _Layer(nn.Module):
-    """One dense transformer block's weights, the reference's
-    ``layers[i]`` dict and names. Serving keeps them as buffers, the
-    projections pre-rounded to bf16 (``_bf16_matmul`` rounds them on every
-    call; rounding once at deploy gives the same values); training keeps
-    fp32 parameters."""
+    """One transformer block's weights, the reference's ``layers[i]`` dict
+    and names: a dense FFN (``w1 b1 w2 b2``) or a mixture of experts (``wr
+    we1 be1 we2 be2``; the expert leaves may be this process's slice).
+    Serving keeps them as buffers, the projections pre-rounded to bf16
+    (``_bf16_matmul`` rounds them on every call; rounding once at deploy
+    gives the same values); training keeps fp32 parameters."""
 
-    def __init__(self, layer: dict, device, trainable: bool = False):
+    def __init__(self, layer: dict, device, trainable: bool = False,
+                 index: int = 0):
         super().__init__()
+        self.index = index
+        self.moe = "we1" in layer
         self.ln1 = _Norm(layer["ln1"], device, trainable)
         self.ln2 = _Norm(layer["ln2"], device, trainable)
-        for name in _LAYER_MATRICES:
+        names = layer_leaf_names(self.moe)
+        for name in names[:-2]:
             _put(self, name, layer[name], device, trainable, torch.bfloat16)
-        _put(self, "b1", layer["b1"], device, trainable)
-        _put(self, "b2", layer["b2"], device, trainable)
+        for name in names[-2:]:
+            _put(self, name, layer[name], device, trainable)
 
     def forward(self, h, n_heads: int, attention: Callable,
-                tp: Optional["TensorParallel"] = None):
-        """transformer.py:196 ``_apply_layer``, the dense branch. With
-        ``tp`` the block holds its slices (:func:`shard_params`): its
-        ``n_heads / tp`` heads attend, the row-parallel products are
-        summed over the ``model`` axis, and ``b2`` is added once, after
-        that sum."""
+                tp: Optional["TensorParallel"] = None, mask=None,
+                capacity_factor: float = 1.25,
+                experts: Optional["ExpertParallel"] = None):
+        """transformer.py:196 ``_apply_layer``: ``(h, aux)``, ``aux`` the
+        router's auxiliary loss (None for a dense block). With ``tp`` the
+        block holds its slices (:func:`shard_params`): its ``n_heads / tp``
+        heads attend, the row-parallel products are summed over the
+        ``model`` axis, and ``b2`` is added once, after that sum. A
+        mixture-of-experts block routes the real tokens (``mask``) through
+        :func:`moe_ffn`, over ``experts`` when the routing spans processes."""
         b, l, d = h.shape
         dh = d // n_heads
         x = _ln(h, self.ln1.g, self.ln1.b)
@@ -234,11 +283,237 @@ class _Layer(nn.Module):
         o = _bf16_matmul(att.reshape(b, l, n_heads * dh), self.wo)
         h = h + (o if tp is None else tp.reduce(o))
         x = _ln(h, self.ln2.g, self.ln2.b)
+        if self.moe:
+            y, aux, _ = moe_ffn(x, mask, self.wr, self.we1, self.be1, self.we2,
+                                self.be2, capacity_factor, experts,
+                                index=self.index)
+            return h + y, aux
         if tp is not None:
             x = tp.copy(x)
         x = F.gelu(_bf16_matmul(x, self.w1) + self.b1, approximate="tanh")
         y = _bf16_matmul(x, self.w2)
-        return h + (y if tp is None else tp.reduce(y)) + self.b2
+        return h + (y if tp is None else tp.reduce(y)) + self.b2, None
+
+
+class _Rows(torch.autograd.Function):
+    """A one-to-one move of rows: ``_Rows.apply(src, idx, n)`` scatters
+    (``out = zeros(n, ...)``, ``out[idx] = src``) and ``_Rows.apply(src,
+    idx, None)`` gathers (``src[idx]``); each one's backward is the other
+    on the gradient. No index repeats but a discarded dump row's, so the
+    backwards need no accumulation: the same bytes every run, no atomics
+    (a MoE layer's dispatch and combine)."""
+
+    @staticmethod
+    def forward(ctx, src, idx, n):
+        ctx.save_for_backward(idx)
+        ctx.scatter, ctx.rows = n is not None, src.shape[0]
+        if n is None:
+            return src[idx]
+        out = src.new_zeros((n, *src.shape[1:]))
+        out[idx] = src
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        if ctx.scatter:
+            return g[idx], None, None
+        out = g.new_zeros((ctx.rows, *g.shape[1:]))
+        out[idx] = g
+        return out, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """Rows exchanged over the ``expert`` axis (:meth:`ExpertParallel.all_to_all`);
+    the backward sends each row's gradient back the way it came."""
+
+    @staticmethod
+    def forward(ctx, t, experts, send, recv):
+        ctx.experts, ctx.send, ctx.recv = experts, send, recv
+        return experts.all_to_all(t, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.experts.all_to_all(g, ctx.recv, ctx.send), None, None, None
+
+
+class ExpertParallel:
+    """The routing of a mixture-of-experts fit over several processes.
+
+    The global batch's tokens are in the order the reference's jit sees
+    them: the data shards' local batches in data order (the order
+    ``stage_sharded_batches`` builds), each split by rows over its expert
+    line in axis order (member ``i`` of ``ep`` takes rows ``[i·b/ep,
+    (i+1)·b/ep)``), each member's rows in row-major token order.
+    :meth:`gather_counts` gathers every process's per-expert counts of real
+    tokens in that order (over ``data``, then ``expert``: the processes of
+    a ``model`` line hold the same rows and stay apart). This process holds
+    experts ``[first, first + local)`` (all of them without an ``expert``
+    axis); :meth:`all_to_all` moves rows over its expert line, timed by
+    ``clock``, the bytes it sends to the other members counted in
+    ``bytes``; ``count_clock`` times the counts' gathers. ``tokens`` is the
+    global batch's token count, the capacity's S."""
+
+    def __init__(self, ctx, n_experts: int, tokens: int,
+                 clock: Optional[CollectiveClock] = None,
+                 count_clock: Optional[CollectiveClock] = None):
+        self.ctx = ctx
+        self.size = ctx.axis_size_or("expert")  # divides n_experts (the fit checks)
+        self.rank = ctx.axis_index("expert")
+        self.local = n_experts // self.size
+        self.first = self.rank * self.local
+        self.tokens = tokens
+        self.order = ctx.data_index * self.size + self.rank
+        self.clock, self.count_clock = clock, count_clock
+        self.bytes = 0
+        #: layer index -> (kept, dropped) tokens of the global batch in the
+        #: last forward over an expert axis (the fit's log line)
+        self.stats: dict = {}
+
+    def _timed(self, clock, fn):
+        return fn() if clock is None else clock.time(fn)
+
+    def gather_counts(self, counts: torch.Tensor) -> torch.Tensor:
+        """``[processes, E]``: every rows-holding process's ``counts``
+        ``[E]``, in token order (row :attr:`order` is this process's)."""
+        def run():
+            t = self.ctx.all_gather(counts, axis="data")
+            return self.ctx.all_gather(t, axis="expert")  # [ep, dp, E]
+
+        return self._timed(self.count_clock, run).transpose(0, 1).reshape(
+            -1, counts.shape[0])
+
+    def all_to_all(self, t: torch.Tensor, send, recv) -> torch.Tensor:
+        # the bytes sent to the other members (its own rows stay)
+        self.bytes += ((sum(send) - send[self.rank]) * t[0:1].numel()
+                       * t.element_size())
+        return self._timed(self.clock, lambda: self.ctx.all_to_all(
+            t, send, recv, axis="expert"))
+
+    def plan(self, table: np.ndarray, capacity: int) -> dict:
+        """The all-to-alls of one layer from the gathered counts ``table``
+        ``[processes, E]`` (token order): with ``off`` the tokens of expert
+        e routed before a process's and ``kept = clip(capacity − off, 0,
+        count)`` its tokens that fit, this process sends its kept rows
+        ordered by expert then token (``base[e]`` the first row of expert
+        e), and receives from each member j of its expert line the kept
+        rows of its own experts, which land at slots ``e_local·C + off +
+        0, 1, …`` of ``expert_in`` — no size needs exchanging."""
+        off = np.cumsum(table, 0) - table
+        kept = np.clip(capacity - off, 0, table)
+        mine = kept[self.order]
+        line = [self.order - self.rank + j for j in range(self.size)]
+        owned = slice(self.first, self.first + self.local)
+        slots = [el * capacity + off[t, self.first + el]
+                 + np.arange(kept[t, self.first + el])
+                 for t in line for el in range(self.local)]
+        return {"base": np.cumsum(mine) - mine,
+                "send": [int(mine[j * self.local:(j + 1) * self.local].sum())
+                         for j in range(self.size)],
+                "recv": [int(kept[t, owned].sum()) for t in line],
+                "slots": np.concatenate(slots).astype(np.int64),
+                "kept": int(kept.sum()), "dropped": int((table - kept).sum())}
+
+
+def _experts_out(expert_in, we1, be1, we2, be2) -> torch.Tensor:
+    """The experts on their slots, ``expert_in`` ``[E, C, d]`` bf16 →
+    ``[E·C, d]`` bf16: ``gelu(expert_in·we1 + be1)·we2 + be2``, each
+    product over bf16 operands rounded to bf16 (reference :179-184)."""
+    hidden = F.gelu(_bf16_matmul(expert_in, we1) + be1[:, None, :],
+                    approximate="tanh")
+    out = _bf16_matmul(hidden, we2) + be2[:, None, :]
+    return out.to(torch.bfloat16).reshape(-1, out.shape[-1])
+
+
+def _route(x, wr):
+    """The router (reference :150-152): the fp32 softmax over the bf16
+    logits ``x·wr`` ``[S, E]``, and each token's expert, the first maximum
+    (as ``jnp.argmax``)."""
+    probs = torch.softmax(_bf16_matmul(x, wr), dim=-1)
+    return probs, torch.argmax(probs, dim=-1)
+
+
+def moe_ffn(x, token_mask, wr, we1, be1, we2, be2, capacity_factor: float,
+            experts: Optional[ExpertParallel] = None, index: int = 0):
+    """transformer.py:133 ``_moe_ffn``: x ``[B, L, d]`` → ``(y [B, L, d],
+    aux, (chosen, keep))``, the reference's values without its ``[S, E,
+    C]`` one-hot tensors. ``token_mask`` ``[B, L]`` (True = a real token)
+    keeps the padding out of the router. Each real token goes to the
+    argmax of its fp32 softmax over the bf16 router logits (the first
+    maximum, as ``jnp.argmax``), at its position among the tokens of that
+    expert in token order (an int64 running count); a position below the
+    capacity ``max(1, int(factor · S / E))`` keeps it. Slot ``(e, pos)``
+    receives ``bf16(x)``; the experts run on their ``[E, C, d]`` slots
+    (empty slots zero, as the reference's einsum leaves them); a kept
+    token's output is ``bf16(bf16(gate) · bf16(out[slot]))``, the one
+    non-zero term of the reference's combine, and 0 otherwise. ``aux`` is
+    ``E · Σ_e frac_e · mean_prob_e`` over the real tokens (Switch
+    Transformer's eq. 4-6).
+
+    Without ``experts`` the batch is the whole batch (one device: serving,
+    where a query's answer depends on the batch it is served with, as in
+    the reference, since the capacity does). With ``experts`` the routing
+    is the global batch's: S is ``experts.tokens``; the positions start
+    after the tokens of the processes before this one in token order;
+    ``aux`` is this process's share, ``E · Σ_e frac_e · Σ_local probs_e /
+    n_real``, so that the shares sum to the global value and their
+    gradients to its gradient; with an ``expert`` axis the kept rows go to
+    their expert's owner and back by two all-to-alls. ``we1 be1 we2 be2``
+    are the experts this process holds; ``index`` is the layer's (the
+    kept and dropped counts of :attr:`ExpertParallel.stats`)."""
+    b, l, d = x.shape
+    e = wr.shape[1]
+    s = b * l
+    xf = x.reshape(s, d)
+    probs, chosen = _route(xf, wr)
+    mask = token_mask.reshape(s)
+    # each expert's running count down the tokens, an int64 scan along the
+    # rows of [E, S]: down the 8 columns of [S, E] it took 5.5 of a layer's
+    # 10 device ms on the H100 (forward and backward, batch 64)
+    running = torch.cumsum((F.one_hot(chosen, e) * mask[:, None]).T.contiguous(), 1)
+    counts = running[:, -1]
+    local = running.gather(0, chosen[None, :])[0] - 1
+    gate = probs.gather(1, chosen[:, None])[:, 0]
+    if experts is None:
+        table, order, s_all = counts[None], 0, s
+    else:
+        table, order, s_all = experts.gather_counts(counts), experts.order, experts.tokens
+    capacity = max(1, int(capacity_factor * s_all / e))
+    before = table[:order].sum(0)
+    pos = before[chosen] + local
+    keep = mask & (pos < capacity)
+    xb = xf.to(torch.bfloat16)
+    if experts is None or experts.size == 1:
+        # every expert here: slots straight from the positions, no host sync
+        n_slots = e * capacity
+        slot = torch.where(keep, chosen * capacity + pos, n_slots)  # dump
+        expert_in = _Rows.apply(xb, slot, n_slots + 1)[:n_slots]
+        out = _experts_out(expert_in.view(e, capacity, d), we1, be1, we2, be2)
+        rows = _Rows.apply(torch.cat([out, out.new_zeros(1, d)]), slot, None)
+    else:
+        plan = experts.plan(table.cpu().numpy(), capacity)
+        experts.stats[index] = (plan["kept"], plan["dropped"])
+        n_send = sum(plan["send"])
+        base = torch.from_numpy(plan["base"]).to(x.device)
+        row = torch.where(keep, base[chosen] + local, n_send)  # dump
+        slots = torch.from_numpy(plan["slots"]).to(x.device)
+        sent = _Rows.apply(xb, row, n_send + 1)[:n_send]
+        got = _AllToAll.apply(sent, experts, plan["send"], plan["recv"])
+        n_slots = experts.local * capacity
+        expert_in = _Rows.apply(got, slots, n_slots)
+        out = _experts_out(expert_in.view(experts.local, capacity, d),
+                           we1, be1, we2, be2)
+        back = _AllToAll.apply(_Rows.apply(out, slots, None), experts,
+                               plan["recv"], plan["send"])
+        rows = _Rows.apply(torch.cat([back, back.new_zeros(1, d)]), row, None)
+    gate_b = gate.to(torch.bfloat16).float()
+    y = (gate_b[:, None] * rows.float()).to(torch.bfloat16).float()
+    # the load-balancing loss over the real tokens (reference :187-192)
+    n_real = torch.clamp(table.sum().float(), min=1.0)
+    frac = table.sum(0).float() / n_real
+    mean_prob = (probs * mask[:, None].float()).sum(0) / n_real
+    aux = e * torch.sum(frac * mean_prob)
+    return y.reshape(b, l, d), aux, (chosen, keep)
 
 
 #: Megatron's placement (reference transformer.py:347-372): split on the
@@ -320,6 +595,14 @@ def shard_params(params: dict, shard: int, tp: int) -> dict:
     return out
 
 
+def _gather_host(ctx, a: np.ndarray, axis: str) -> np.ndarray:
+    """``[size, *a.shape]``: the host array ``a`` of every process of this
+    process's ``axis`` line, in axis order. The gather runs on
+    ``ctx.device``: an NCCL group takes no host tensor."""
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(ctx.device)
+    return ctx.all_gather(t, axis=axis).cpu().numpy()
+
+
 def gather_params(ctx, params: dict) -> dict:
     """The canonical tree from every process's slices
     (:func:`shard_params`): each split leaf all-gathered over ``model``
@@ -327,10 +610,39 @@ def gather_params(ctx, params: dict) -> dict:
     def join(name, a):
         if name not in COLUMN_PARALLEL + ROW_PARALLEL:
             return a
-        parts = ctx.all_gather(torch.from_numpy(np.ascontiguousarray(a)),
-                               axis="model").numpy()
-        return np.concatenate(list(parts),
+        return np.concatenate(list(_gather_host(ctx, a, "model")),
                               axis=-1 if name in COLUMN_PARALLEL else 0)
+
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: join(k, v) for k, v in layer.items()}
+                     for layer in params["layers"]]
+    return out
+
+
+def shard_experts(params: dict, shard: int, ep: int) -> dict:
+    """Process ``shard``'s experts under an ``ep``-way ``expert`` axis (the
+    reference's ``_place_params_expert_sharded``, :375-392): each expert
+    leaf (:data:`EXPERT_LEAVES`) cut on its first dim, the rest whole."""
+    def cut(name, a):
+        if name not in EXPERT_LEAVES:
+            return a
+        n = a.shape[0] // ep
+        return a[shard * n:(shard + 1) * n]
+
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: cut(k, v) for k, v in layer.items()}
+                     for layer in params["layers"]]
+    return out
+
+
+def gather_experts(ctx, params: dict) -> dict:
+    """The canonical tree from every process's experts
+    (:func:`shard_experts`): each expert leaf all-gathered over ``expert``
+    and joined in axis order (a collective), the rest as they are."""
+    def join(name, a):
+        if name not in EXPERT_LEAVES:
+            return a
+        return np.concatenate(list(_gather_host(ctx, a, "expert")), axis=0)
 
     out = {k: v for k, v in params.items() if k != "layers"}
     out["layers"] = [{k: join(k, v) for k, v in layer.items()}
@@ -410,48 +722,68 @@ def _lookup(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 
 class TransformerNet(nn.Module):
-    """The dense layer stack on one explicit device: buffers to serve, or
+    """The layer stack on one explicit device: buffers to serve, or
     (``trainable=True``) fp32 parameters to train. ``params`` is the
-    reference's tree, of numpy arrays or tensors."""
+    reference's tree, of numpy arrays or tensors; with ``tp`` its split
+    leaves are this process's slices (:func:`shard_params`), with
+    ``experts`` an expert axis's process's experts (:func:`shard_experts`)
+    and the routing over the processes (:class:`ExpertParallel`)."""
 
     def __init__(self, params: dict, cfg: TransformerConfig, device,
                  trainable: bool = False,
-                 tp: Optional[TensorParallel] = None):
+                 tp: Optional[TensorParallel] = None,
+                 experts: Optional[ExpertParallel] = None):
         super().__init__()
         self.cfg = cfg
         self.tp = tp  # set: ``params`` are this process's slices
+        self.experts = experts
         _put(self, "item_emb", params["item_emb"], device, trainable)
         _put(self, "pos_emb", params["pos_emb"], device, trainable)
         self.ln_f = _Norm(params["ln_f"], device, trainable)
-        self.layers = nn.ModuleList(_Layer(p, device, trainable)
-                                    for p in params["layers"])
+        self.layers = nn.ModuleList(_Layer(p, device, trainable, i)
+                                    for i, p in enumerate(params["layers"]))
         if not trainable:
             self.register_buffer("item_emb_bf16", self.item_emb.to(torch.bfloat16))
 
     def forward(self, tokens, positions, attention: Callable = causal_attention):
         """transformer.py:218 ``_forward``: tokens, positions ``[B, L]``
-        int → hidden ``[B, L, D]`` fp32 after the final norm. With
-        ``cfg.remat`` and a gradient wanted, each block recomputes its
-        activations in the backward (``jax.checkpoint``, :225-229). The
-        lookups are :func:`_lookup`: its backward sums the rows of a
-        repeated index (the padding token, every position) as one sorted
-        float64 scan, the same bytes every run, where indexing's backward
-        walks a repeated index's rows one by one."""
+        int → hidden ``[B, L, D]`` fp32 after the final norm
+        (:meth:`forward_with_aux` without the auxiliary loss)."""
+        return self.forward_with_aux(tokens, positions, attention)[0]
+
+    def forward_with_aux(self, tokens, positions,
+                         attention: Callable = causal_attention):
+        """transformer.py:218 ``_forward``: ``(hidden, aux)``, ``aux`` the
+        routers' auxiliary losses summed over the layers (0 without
+        experts). With ``cfg.remat`` and a gradient wanted, each block
+        recomputes its activations in the backward (``jax.checkpoint``,
+        :225-229). The lookups are :func:`_lookup`: its backward sums the
+        rows of a repeated index (the padding token, every position) as
+        one sorted float64 scan, the same bytes every run, where indexing's
+        backward walks a repeated index's rows one by one. Pad tokens
+        (token 0) do not route (reference :223)."""
         h = _lookup(tokens, self.item_emb) + _lookup(positions, self.pos_emb)
         remat = self.cfg.remat and torch.is_grad_enabled()
+        mask = tokens != 0 if self.cfg.n_experts else None
+        aux = h.new_zeros(())
         for layer in self.layers:
+            args = (h, self.cfg.n_heads, attention, self.tp, mask,
+                    self.cfg.expert_capacity_factor, self.experts)
             if remat:
-                h = checkpoint(layer, h, self.cfg.n_heads, attention,
-                               self.tp, use_reentrant=False)
+                h, a = checkpoint(layer, *args, use_reentrant=False)
             else:
-                h = layer(h, self.cfg.n_heads, attention, self.tp)
-        return _ln(h, self.ln_f.g, self.ln_f.b)
+                h, a = layer(*args)
+            if a is not None:
+                aux = aux + a
+        return _ln(h, self.ln_f.g, self.ln_f.b), aux
 
     def serve_scores(self, tokens, attention: Callable = causal_attention):
         """transformer.py:624 ``_serve_scores``: the newest (last) position's
         hidden state against the tied item embedding → ``[B, vocab]`` fp32
         (bf16 values). ``attention`` is the attention function; the default
-        is the serving one, and a check may pass the plain version."""
+        is the serving one, and a check may pass the plain version. A
+        mixture-of-experts model routes over the served batch (its
+        capacity is the batch's), as the reference's does."""
         b, l = tokens.shape
         positions = torch.arange(l, device=tokens.device).expand(b, l)
         last = self.forward(tokens, positions, attention)[:, -1, :]
@@ -473,50 +805,70 @@ class TransformerNet(nn.Module):
 
         out = {"item_emb": next(it), "pos_emb": next(it), "ln_f": norm(),
                "layers": []}
-        for _ in self.layers:
-            layer = {"ln1": norm(), "ln2": norm()}
-            layer.update({n: next(it) for n in (*_LAYER_MATRICES, "b1", "b2")})
-            out["layers"].append(layer)
+        for layer in self.layers:
+            leaves = {"ln1": norm(), "ln2": norm()}
+            leaves.update({n: next(it) for n in layer_leaf_names(layer.moe)})
+            out["layers"].append(leaves)
         return out
 
     def _tree_tensors(self) -> list:
         out = [self.item_emb, self.pos_emb, self.ln_f.g, self.ln_f.b]
         for layer in self.layers:
             out += [layer.ln1.g, layer.ln1.b, layer.ln2.g, layer.ln2.b]
-            out += [getattr(layer, n) for n in (*_LAYER_MATRICES, "b1", "b2")]
+            out += [getattr(layer, n) for n in layer_leaf_names(layer.moe)]
         return out
+
+    def expert_params(self) -> list:
+        """The experts' leaves (:data:`EXPERT_LEAVES`) of every layer."""
+        return [getattr(layer, n) for layer in self.layers if layer.moe
+                for n in EXPERT_LEAVES]
 
 
 def train_loss(net: TransformerNet, tokens, positions, targets, weights,
                attention: Callable = causal_attention, denom=None):
-    """transformer.py:285 ``loss_fn``, dense: ``Σ w·xent / max(Σw, 1)``
-    over the tied item embedding (the router's auxiliary loss is 0 without
-    experts). ``denom`` replaces ``max(Σw, 1)``: a data-parallel step
-    divides its local sum by the global batch's."""
-    h = net(tokens, positions, attention)
+    """transformer.py:285 ``loss_fn``: ``Σ w·xent / max(Σw, 1)`` over the
+    tied item embedding plus ``router_aux_weight`` × the routers'
+    auxiliary loss (0 without experts). ``denom`` replaces ``max(Σw, 1)``:
+    a data-parallel step divides its local sum by the global batch's (and
+    adds its share of the auxiliary loss, :func:`moe_ffn`)."""
+    h, aux = net.forward_with_aux(tokens, positions, attention)
     loss_sum = weighted_xent_sum(h.reshape(-1, h.shape[-1]), net.item_emb,
                                  targets.reshape(-1), weights.reshape(-1))
     if denom is None:
         denom = torch.clamp(weights.sum(), min=1.0)
-    return loss_sum / denom
+    loss = loss_sum / denom
+    if net.cfg.n_experts:
+        loss = loss + net.cfg.router_aux_weight * aux
+    return loss
 
 
 def train_step(net: TransformerNet, opt_state, batch, lr: float,
                attention: Callable = causal_attention, denom=None,
-               all_reduce: Optional[Callable] = None):
+               all_reduce: Optional[Callable] = None,
+               expert_all_reduce: Optional[Callable] = None):
     """One step (transformer.py:306 ``step``): loss, gradients, adam in
     place. ``batch`` is (tokens, positions, targets, weights) on the net's
     device. Returns the loss as a device scalar — no host sync. A
     data-parallel step passes the global batch's ``denom`` and
     ``all_reduce``, which sums the flattened gradients over the processes
-    (the gradient of the global batch, the same bytes on every replica)."""
+    (the gradient of the global batch, the same bytes on every replica);
+    an expert-parallel one also ``expert_all_reduce``, which sums the
+    experts' gradients (each process's own experts) apart from the rest."""
     params = list(net.parameters())
     loss = train_loss(net, *batch, attention=attention, denom=denom)
-    grads = torch.autograd.grad(loss, params)
+    grads = list(torch.autograd.grad(loss, params))
     if all_reduce is not None:
-        flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]))
-        grads = [g.view_as(p) for g, p in
-                 zip(flat.split([p.numel() for p in params]), params)]
+        split = ({id(p) for p in net.expert_params()}
+                 if expert_all_reduce is not None else set())
+        for fn, idx in ((all_reduce, [i for i, p in enumerate(params)
+                                      if id(p) not in split]),
+                        (expert_all_reduce, [i for i, p in enumerate(params)
+                                             if id(p) in split])):
+            if not idx:
+                continue
+            flat = fn(torch.cat([grads[i].reshape(-1) for i in idx]))
+            for i, g in zip(idx, flat.split([params[i].numel() for i in idx])):
+                grads[i] = g.view_as(params[i])
     adam_update(params, grads, opt_state, lr)
     return loss.detach()
 
@@ -557,13 +909,10 @@ class TransformerModel:
         return None if self._net is None else self._net.item_emb.device
 
     def prepare_for_serving(self, ctx: DeviceContext) -> "TransformerModel":
-        """Build the layer stack on ``ctx.device``; on a card, build (or
-        load) the attention kernels now, so that no query pays for nvcc."""
-        if self.config.n_experts:
-            raise NotImplementedError(
-                f"serving a mixture-of-experts transformer (n_experts="
-                f"{self.config.n_experts}) is not ported yet (ROADMAP.md "
-                "Queue 1, item 4.5: expert parallelism and MoE serving)")
+        """Build the layer stack on ``ctx.device`` (a mixture of experts'
+        tables as bf16 buffers there too, every expert); on a card, build
+        (or load) the attention kernels now, so that no query pays for
+        nvcc."""
         if ctx.device.type == "cuda":
             from incubator_predictionio_tpu_torch.ops import _build
 
@@ -582,7 +931,8 @@ class TransformerModel:
         return {"path": "device-params",
                 "device": str(self.device),
                 "vocab": self.config.vocab_size,
-                "max_len": self.config.max_len}
+                "max_len": self.config.max_len,
+                "n_experts": self.config.n_experts}
 
 
 class TransformerRecommender:
@@ -619,16 +969,42 @@ class TransformerRecommender:
                     "pipeline or MoE placements")
         return engaged
 
-    def _refuse_unported(self, tensor_parallel: bool):
+    def _expert_parallel(self, ctx: DeviceContext) -> int:
+        """How many processes the experts split over, with the reference's
+        checks and texts (transformer.py:526-541): ``n_experts`` on a mesh
+        without an ``expert`` axis records a degradation (once a key) and
+        keeps the experts replicated (1); on one, ``n_experts`` must split
+        evenly over it. 1 also for a dense model."""
         cfg = self.config
+        if not cfg.n_experts:
+            return 1
+        if "expert" not in ctx.axis_names:
+            from incubator_predictionio_tpu_torch.sharding.degrade import (
+                record_axis_degradation,
+            )
+
+            record_axis_degradation(
+                "transformer.moe", "expert", f"n_experts={cfg.n_experts}",
+                ctx.axis_names, "expert tables stay replicated")
+            return 1
+        ep = ctx.axis_size("expert")
+        if cfg.n_experts % ep:
+            raise ValueError(
+                f"n_experts={cfg.n_experts} must divide evenly over the "
+                f"expert axis ({ep} devices)")
+        return ep
+
+    def _refuse_unported(self, tensor_parallel: bool, expert_parallel: bool):
+        cfg = self.config
+        checkpoints = bool(cfg.checkpoint_dir) and cfg.checkpoint_every > 0
         unported = [
             (cfg.attention == "ring", "ring attention (attention='ring')"),
-            (cfg.n_experts > 0, f"mixture-of-experts (n_experts={cfg.n_experts})"),
             (cfg.pipeline_stages > 0,
              f"pipeline parallelism (pipeline_stages={cfg.pipeline_stages})"),
-            (tensor_parallel and bool(cfg.checkpoint_dir)
-             and cfg.checkpoint_every > 0,
+            (tensor_parallel and checkpoints,
              "tensor parallelism with checkpoints (checkpoint_dir)"),
+            (expert_parallel and checkpoints,
+             "expert parallelism with checkpoints (checkpoint_dir)"),
         ]
         for hit, what in unported:
             if hit:
@@ -659,14 +1035,25 @@ class TransformerRecommender:
         every replica. The replicas are proven equal at the end
         (:func:`~incubator_predictionio_tpu_torch.parallel.mesh.check_replicas`).
         The data-parallel axis is the mesh's ``data`` axis: the processes
-        of a ``model`` line hold the same batches. With
+        of a ``model`` or an ``expert`` line hold the same batches. With
         ``tensor_parallel`` on a ``model`` axis they split the weights
-        (module docstring; :meth:`_tensor_parallel`)."""
+        (module docstring; :meth:`_tensor_parallel`). With ``n_experts`` the
+        routing is the global batch's; on an ``expert`` axis the members of
+        a line split each local batch by rows and the experts between them
+        (module docstring; :meth:`_expert_parallel`)."""
         cfg = self.config
+        if (cfg.pipeline_stages and "pipe" in ctx.axis_names
+                and (cfg.attention == "ring" or cfg.n_experts)):
+            # the reference's check (transformer.py:455-458)
+            raise ValueError(
+                "pipeline parallelism composes with dp (and local "
+                "attention), not with ring attention or MoE")
+        ep = self._expert_parallel(ctx)
         tensor_parallel = self._tensor_parallel(ctx)
-        self._refuse_unported(tensor_parallel)
+        self._refuse_unported(tensor_parallel, ep > 1)
         multi = ctx.process_count > 1
         dp = ctx.data_size > 1  # gradients all-reduced over the data axis
+        split = ep > 1  # the expert line's members split the local batch
         sequences = np.asarray(sequences)
         tokens, targets = sequences[:, :-1], sequences[:, 1:]
         weights = (targets != 0).astype(np.float32) * (tokens != 0).astype(np.float32)
@@ -707,29 +1094,49 @@ class TransformerRecommender:
             wb = stage(weights, torch.float32)
             staged_real = None
         n_batches, b_rows = tb.shape[0], tb.shape[1]
-        positions = torch.arange(l, device=dev).expand(b_rows, l)
+        # an expert line's member i takes rows [i·b/ep, (i+1)·b/ep)
+        member = ctx.axis_index("expert") if split else 0
+        lo, hi = member * b_rows // ep, (member + 1) * b_rows // ep
+        positions = torch.arange(l, device=dev).expand(hi - lo, l)
+        reduce = dp or split  # the gradients are summed over processes
         # each global batch's loss denominator, max(Σ w, 1), once: a sum of
         # 0/1 weights, exact in fp32 in any order
         denoms = (ctx.all_reduce_sum(wb.sum((1, 2)), axis="data")
-                  .clamp(min=1.0) if dp else None)
+                  .clamp(min=1.0) if reduce else None)
         t_stage = time.perf_counter() - t_stage
 
         generator = torch.Generator(device=dev).manual_seed(cfg.seed)
         init = _init_params(cfg, generator, dev)
         clock = CollectiveClock(dev)
         tp_clock = CollectiveClock(dev)
-        tp = None
+        a2a_clock, count_clock = CollectiveClock(dev), CollectiveClock(dev)
+        tp = experts = None
         if tensor_parallel:  # every process draws the whole init, keeps its slice
             tp = TensorParallel(ctx, tp_clock)
             init = shard_params(init, tp.rank, tp.size)
-        net = TransformerNet(init, cfg, dev, trainable=True, tp=tp)
+        if cfg.n_experts and multi:  # the global batch's routing
+            experts = ExpertParallel(ctx, cfg.n_experts,
+                                     b_rows * ctx.data_size * l, a2a_clock,
+                                     count_clock)
+            if split:
+                init = shard_experts(init, experts.rank, ep)
+        net = TransformerNet(init, cfg, dev, trainable=True, tp=tp,
+                             experts=experts)
         del init
         params = list(net.parameters())
         opt_state = adam_init(params, cfg.adam_moments_dtype)
         chunks = []  # [epochs, n_batches] step losses of each chunk run
 
         def all_reduce(t):
-            return clock.time(lambda: ctx.all_reduce_sum(t, axis="data"))
+            # over every process with rows of its own: data, then expert
+            def run():
+                out = ctx.all_reduce_sum(t, axis="data") if dp else t
+                return ctx.all_reduce_sum(out, axis="expert") if split else out
+
+            return clock.time(run)
+
+        def all_reduce_experts(t):  # each expert's replicas: the data line
+            return clock.time(lambda: ctx.all_reduce_sum(t, axis="data")) if dp else t
 
         def train_epochs(p, o, n_epochs):
             # p is `params`: a restore copies into the net's own tensors
@@ -737,13 +1144,14 @@ class TransformerRecommender:
             for epoch in range(n_epochs):
                 for i in range(n_batches):
                     losses[epoch, i] = train_step(
-                        net, o, (tb[i], positions, yb[i], wb[i]),
+                        net, o, (tb[i, lo:hi], positions, yb[i, lo:hi],
+                                 wb[i, lo:hi]),
                         cfg.learning_rate,
-                        denom=denoms[i] if dp else None,
-                        all_reduce=all_reduce if dp else None)
-            if dp:  # the global step losses: the local ones summed once
-                losses = clock.time(
-                    lambda: ctx.all_reduce_sum(losses, axis="data"))
+                        denom=denoms[i] if reduce else None,
+                        all_reduce=all_reduce if reduce else None,
+                        expert_all_reduce=all_reduce_experts if split else None)
+            if reduce:  # the global step losses: the local ones summed once
+                losses = all_reduce(losses)
             chunks.append(losses)
             # the mean of the last epoch's step losses (transformer.py:314)
             return p, o, losses[-1].mean()
@@ -764,16 +1172,17 @@ class TransformerRecommender:
         t_gather = time.perf_counter()
         params = net.params_numpy()
         digest = None
-        if tensor_parallel:
+        if tensor_parallel or split:
             # the replicated leaves equal on every process, each slice on
             # its data line; then the canonical layout from the slices
-            split = [layer[k] for layer in params["layers"]
-                     for k in COLUMN_PARALLEL + ROW_PARALLEL]
+            names = COLUMN_PARALLEL + ROW_PARALLEL if tensor_parallel else EXPERT_LEAVES
+            sliced = [layer[k] for layer in params["layers"] for k in names]
             whole = [a for a in _leaves(params)
-                     if not any(a is b for b in split)]
-            check_replicas(ctx, split, axis="data")
+                     if not any(a is b for b in sliced)]
+            check_replicas(ctx, sliced, axis="data")
             check_replicas(ctx, whole)
-            params = gather_params(ctx, params)
+            params = (gather_params(ctx, params) if tensor_parallel
+                      else gather_experts(ctx, params))
             digest = check_replicas(ctx, list(_leaves(params)))
         elif multi:
             digest = check_replicas(ctx, list(_leaves(params)))
@@ -785,7 +1194,8 @@ class TransformerRecommender:
         model.timings = {"train_sec": round(t_train, 4),
                          "gather_sec": round(time.perf_counter() - t_gather, 4)}
         if multi:
-            exchange = clock.seconds() + tp_clock.seconds()
+            exchange = (clock.seconds() + tp_clock.seconds()
+                        + a2a_clock.seconds() + count_clock.seconds())
             n_steps = sum(len(c) for c in chunks) * n_batches  # epochs run
             model.timings.update(stage_sec=round(t_stage, 4),
                                  exchange_sec=round(exchange, 4))
@@ -797,7 +1207,34 @@ class TransformerRecommender:
                     if dev.type == "cuda" else 0)
             launches = json.dumps({w.__name__: w.launches
                                    for w in KERNEL_WRAPPERS})
-            if tensor_parallel:
+            if split:
+                layer = net.layers[0]
+                model.timings["all_to_all_sec"] = round(a2a_clock.seconds(), 4)
+                stats = [[int(x) for x in experts.stats[i]]
+                         for i in sorted(experts.stats)]
+                logger.info(
+                    "expert-parallel fit: process %d of %d at %s (backend "
+                    "%s, %s): experts [%d, %d) of %d; we1 %s, be1 %s, we2 %s, "
+                    "be2 %s; %d steps of %d rows a member (local batch %d); "
+                    "stage %.3f s, train %.3f s, all-to-all %.3f ms a step "
+                    "(%d bytes a step), counts %.3f ms a step, data "
+                    "all-reduce %.3f ms a step; kept and dropped tokens a "
+                    "layer in the last step %s; loss %.6f; model digest %s, "
+                    "equal on every process; peak device memory %d bytes; "
+                    "attention launches %s",
+                    ctx.process_index, ctx.process_count,
+                    json.dumps({n: ctx.axis_index(n) for n in ctx.axis_names}),
+                    ctx.backend, dev, experts.first,
+                    experts.first + experts.local, cfg.n_experts,
+                    list(layer.we1.shape), list(layer.be1.shape),
+                    list(layer.we2.shape), list(layer.be2.shape), n_steps,
+                    hi - lo, b_rows, t_stage, t_train,
+                    a2a_clock.seconds() / max(n_steps, 1) * 1e3,
+                    experts.bytes // max(n_steps, 1),
+                    count_clock.seconds() / max(n_steps, 1) * 1e3,
+                    clock.seconds() / max(n_steps, 1) * 1e3, json.dumps(stats),
+                    final_loss, digest, peak, launches)
+            elif tensor_parallel:
                 layer = net.layers[0]
                 model.timings["exchange_model_sec"] = round(
                     tp_clock.seconds(), 4)

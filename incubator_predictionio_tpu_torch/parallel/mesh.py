@@ -17,12 +17,14 @@ line, 0 and 2 one ``data`` line. Each axis line that is neither one
 process nor the whole job has its own ``torch.distributed`` subgroup,
 made with ``dist.new_group`` in the same order on every process
 (:meth:`DeviceContext._init_groups`); the collectives take an axis name
-(``all_gather(t, axis="model")``) and, with none named, span the job.
+(``all_gather(t, axis="model")``, ``all_to_all(t, send, recv,
+axis="expert")``) and, with none named, span the job.
 
 A single process is ``{"data": 1}``; a launch without ``axes`` is
 ``{"data": N}``. The batch axis is always ``data`` (size 1 when the
-request names none): the processes of a ``model`` line hold the same
-batch, where the reference's mesh falls back to its first axis.
+request names none): the processes of a ``model`` or an ``expert`` line
+hold the same batch, where the reference's mesh falls back to its first
+axis.
 
 :func:`init_distributed_from_env` joins the job the launcher
 (``parallel/launcher.py``) or an operator's per-host script describes with
@@ -347,6 +349,36 @@ class DeviceContext:
         host = self._through_host(t)
         out = t.cpu() if host else t.clone()
         dist.all_reduce(out, group=group)
+        return out.to(t.device) if host else out
+
+    def all_to_all(self, t: torch.Tensor, send_splits, recv_splits,
+                   axis: Optional[str] = None) -> torch.Tensor:
+        """Rows of ``t`` exchanged along ``axis`` (the whole job when none
+        is named): the first ``send_splits[0]`` rows go to the line's first
+        process, the next ``send_splits[1]`` to the second, and so on in
+        axis order; the result holds ``recv_splits[j]`` rows from process
+        ``j`` of the line, in that order, on ``t``'s device. The splits are
+        host integers, one a process of the line, and may be uneven or 0
+        (the receiver's ``recv_splits[j]`` is the sender's
+        ``send_splits[i]``). One process: a copy."""
+        group, size = self._line(axis)
+        send, recv = [int(x) for x in send_splits], [int(x) for x in recv_splits]
+        if len(send) != size or len(recv) != size or sum(send) != t.shape[0]:
+            raise ValueError(
+                f"all_to_all: splits {send} / {recv} for {t.shape[0]} rows "
+                f"over a line of {size}")
+        if size == 1:
+            return t.clone()
+        self._group_ready()
+        import torch.distributed as dist
+
+        src = t.contiguous()
+        host = self._through_host(src)
+        if host:
+            src = src.cpu()
+        out = torch.empty((sum(recv), *src.shape[1:]), dtype=src.dtype,
+                          device=src.device)
+        dist.all_to_all_single(out, src, recv, send, group=group)
         return out.to(t.device) if host else out
 
     def stop(self) -> None:

@@ -10,9 +10,10 @@ degrades and keeps training, and the degradation lands here:
 - every occurrence is COUNTED, and :func:`degradations` returns the
   machine-readable list.
 
-Its caller is the transformer's fit (``tensor_parallel`` without a
-``model`` axis, as the reference's); the other parallel axes come with
-the rest of ROADMAP.md Queue 1, item 4.5.
+Its callers are the transformer's fit, as the reference's:
+``tensor_parallel`` without a ``model`` axis and ``n_experts`` without an
+``expert`` axis; the other parallel axes come with the rest of ROADMAP.md
+Queue 1, item 4.5.
 """
 
 from __future__ import annotations

@@ -310,31 +310,52 @@ def test_unported_stages_raise_and_name_the_roadmap(tmp_path):
     cfg = ttr.TransformerConfig(vocab_size=N_ITEMS + 1, max_len=32,
                                 d_model=D, n_heads=HEADS, n_layers=LAYERS,
                                 n_experts=4)
-    moe = ttr.TransformerModel(_params(32), tseq.BiMap({}), cfg)
-    with pytest.raises(NotImplementedError, match="mixture-of-experts.*ROADMAP"):
-        moe.prepare_for_serving(CPU)
+    # a mixture-of-experts model serves (ported: tests/test_torch_moe.py),
+    # as the JAX package's does, over the same arrays
+    moe_params = ttr.init_params_numpy(cfg, 0)
+    moe = ttr.TransformerModel(moe_params, tseq.BiMap({}), cfg)
+    assert moe.prepare_for_serving(CPU) is moe
+    assert moe.serving_info()["n_experts"] == 4
     rows = np.zeros((2, 33), np.int32)
+    hist = np.asarray(jax.random.randint(jax.random.key(3), (4, 32), 0, N_ITEMS + 1),
+                      np.int32)
+    want = jtr.TransformerRecommender.next_item_scores(jtr.TransformerModel(
+        jax.tree.map(jnp.asarray, moe_params), None, jtr.TransformerConfig(
+            vocab_size=N_ITEMS + 1, max_len=32, d_model=D, n_heads=HEADS,
+            n_layers=LAYERS, n_experts=4)), hist)
+    np.testing.assert_allclose(
+        ttr.TransformerRecommender.next_item_scores(moe, hist), want,
+        rtol=0, atol=TOL)
     # training options of the sharding slice raise in fit, and never train
     # without them
-    for field, value, what in (("n_experts", 4, "mixture-of-experts"),
-                               ("attention", "ring", "ring attention"),
+    for field, value, what in (("attention", "ring", "ring attention"),
                                ("pipeline_stages", 2, "pipeline parallelism"),
                                ("tensor_parallel", True,
-                                "tensor parallelism with checkpoints")):
+                                "tensor parallelism with checkpoints"),
+                               ("n_experts", 4,
+                                "expert parallelism with checkpoints")):
         c = dataclasses.replace(cfg, **{"n_experts": 0, field: value})
         ctx = CPU
-        if field == "tensor_parallel":
+        if field in ("tensor_parallel", "n_experts"):
             # ported on a 'model' axis (tests/test_torch_tensor_parallel.py)
-            # but for checkpoints
-            ctx = DeviceContext(torch.device("cpu"), 0, 2, axes={"model": 2})
+            # and an 'expert' axis (tests/test_torch_moe.py) but for
+            # checkpoints
+            axis = "model" if field == "tensor_parallel" else "expert"
+            ctx = DeviceContext(torch.device("cpu"), 0, 2, axes={axis: 2})
             c = dataclasses.replace(c, checkpoint_dir=str(tmp_path / "ck"),
                                     checkpoint_every=1)
         with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
             ttr.TransformerRecommender(c).fit(ctx, rows, None)
+    # the template's numExperts trains a mixture of experts on one device
+    # (the degradation recorded: no 'expert' axis) and serves it
     algo = tseq.TransformerAlgorithm(tseq.TransformerAlgorithmParams(
-        max_len=32, num_experts=2))
-    with pytest.raises(NotImplementedError, match="mixture-of-experts.*ROADMAP"):
-        algo.train(CPU, tseq.TrainingData(rows, tseq.BiMap({"i0": 1})))
+        max_len=32, num_experts=2, epochs=1))
+    trained = algo.train(CPU, tseq.TrainingData(rows, tseq.BiMap({"i0": 1})))
+    assert trained.config.n_experts == 2
+    assert trained.params["layers"][0]["we1"].shape == (2, 64, 256)
+    assert np.isfinite(trained.final_loss)
+    assert ttr.TransformerRecommender.next_item_scores(
+        trained, rows[:, 1:]).shape == (2, 2)
     # the event-store reads are ported (tests/test_torch_event_store_reads.py),
     # the sharded read of the sessions too (tests/test_torch_distributed_eval.py):
     # two processes read the store as one does, and an app the store does
@@ -362,11 +383,31 @@ def test_convert_checks_the_arrays():
         convert.transformer_model_from_params(params, ITEM_IDS[:-1], n_heads=HEADS)
     with pytest.raises(ValueError, match="heads"):
         convert.transformer_model_from_params(params, ITEM_IDS, n_heads=3)
-    moe_layer = {k: v for k, v in params["layers"][0].items()
-                 if k not in ("w1", "b1", "w2", "b2")}
-    with pytest.raises(ValueError, match="mixture-of-experts"):
+    # a layer with neither FFN still raises; a mixture-of-experts tree
+    # (ported) converts with its shapes checked and n_experts from the arrays
+    no_ffn = {k: v for k, v in params["layers"][0].items()
+              if k not in ("w1", "b1", "w2", "b2")}
+    with pytest.raises(ValueError, match="lacks.*dense"):
         convert.transformer_model_from_params(
-            {**params, "layers": [moe_layer]}, ITEM_IDS, n_heads=HEADS)
+            {**params, "layers": [no_ffn]}, ITEM_IDS, n_heads=HEADS)
+    moe_params = ttr.init_params_numpy(ttr.TransformerConfig(
+        vocab_size=N_ITEMS + 1, max_len=32, d_model=D, n_heads=HEADS,
+        n_layers=LAYERS, n_experts=3), 1)
+    moe = convert.transformer_model_from_params(moe_params, ITEM_IDS,
+                                                n_heads=HEADS)
+    assert moe.config.n_experts == 3
+    np.testing.assert_array_equal(moe.params["layers"][1]["we2"],
+                                  moe_params["layers"][1]["we2"])
+    with pytest.raises(ValueError, match="n_experts=4 but the layers hold 3"):
+        convert.transformer_model_from_params(moe_params, ITEM_IDS,
+                                              n_heads=HEADS, n_experts=4)
+    bad = jax.tree.map(np.array, moe_params)
+    bad["layers"][1]["be1"] = bad["layers"][1]["be1"][:, :-1]
+    with pytest.raises(ValueError, match="layer 1 be1 shape"):
+        convert.transformer_model_from_params(bad, ITEM_IDS, n_heads=HEADS)
+    mixed = {**params, "layers": [params["layers"][0], moe_params["layers"][1]]}
+    with pytest.raises(ValueError, match="layer 1 lacks"):
+        convert.transformer_model_from_params(mixed, ITEM_IDS, n_heads=HEADS)
     m = convert.transformer_model_from_params(params, ITEM_IDS, n_heads=HEADS)
     assert (m.config.vocab_size, m.config.max_len, m.config.d_model,
             m.config.n_layers, m.config.n_heads) == (N_ITEMS + 1, 32, D, LAYERS, HEADS)

@@ -44,6 +44,7 @@ from incubator_predictionio_tpu.templates import sequential as jseq  # noqa: E40
 from incubator_predictionio_tpu_torch.models import transformer as ttr  # noqa: E402
 from incubator_predictionio_tpu_torch.ops import xent as txent  # noqa: E402
 from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext  # noqa: E402
+from incubator_predictionio_tpu_torch.sharding import degrade  # noqa: E402
 from incubator_predictionio_tpu_torch.templates import sequential as tseq  # noqa: E402
 from incubator_predictionio_tpu_torch.utils import optim as toptim  # noqa: E402
 
@@ -305,6 +306,19 @@ def test_fit_refuses_what_is_not_ported(field, value, match):
                            match=f"{match}.*ROADMAP.md Queue 1, item 4"):
             ttr.TransformerRecommender(cfg).fit(model_axis, _rows(), None)
         assert not os.path.exists("/nonexistent")
+        return
+    if field == "n_experts":
+        # ported (tests/test_torch_moe.py): without an 'expert' axis the fit
+        # records the reference's degradation and trains replicated
+        degrade.reset()
+        model = ttr.TransformerRecommender(cfg).fit(CPU, _rows(), None)
+        assert np.isfinite(model.final_loss)
+        assert model.params["layers"][0]["we1"].shape == (
+            4, FIT["d_model"], 4 * FIT["d_model"])
+        recs = [d for d in degrade.degradations() if d["axis"] == "expert"]
+        assert len(recs) == 1 and recs[0]["count"] == 1
+        assert recs[0]["detail"] == "expert tables stay replicated"
+        degrade.reset()
         return
     with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP.md Queue 1, item 4"):
         ttr.TransformerRecommender(cfg).fit(CPU, _rows(), None)
