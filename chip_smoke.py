@@ -202,7 +202,23 @@ planted fault (one member's returned rows dropped) that the band must
 catch (with two cards, the launch again over NCCL, bitwise the gloo
 run); then a deploy and bursts through K4, each batch the server formed
 held to the plain attention's forward of that batch (a mixture of
-experts routes over its batch).
+experts routes over its batch). ``seq-axes``, after it, trains over the
+``seq`` and ``pipe`` mesh axes: two fresh processes over ``{"seq": 2}``
+(both on the card over gloo; with two cards each on its own over NCCL)
+run ring attention at ``bench_sequential``'s width and ``max_len``
+1,024, 512 positions a process — the ring layer at (32, 1024, 8, 64)
+held to the plain attention of the whole sequence on the card (output
+and gradients), then a 2-step ring fit of seeded cycle sessions (batch
+32, whole rows) held to a one-process fit in this process with local
+attention on the plain attention from the same init, beside a planted
+fault (the own chunk masked fully) the band must see, the replicas'
+digests equal —; and, while those processes run, ``launch -n 2 train
+--mesh-axes '{"pipe": 2}'`` on the first 128 of seq-workflow's users'
+sessions (2 steps of 64) with ``pipelineStages`` 2 and 4 microbatches:
+each process 3 of the 6 layers, K4 at (16, 8, 512, 64) forward and
+backward, the handoffs through the port's point-to-point exchange; its
+step losses and persisted parameters held to a one-process replay from
+the same init on the same batches, then a deploy and a burst through K4.
 
 ``tpl-launch``, after ``cls-eval``, runs ``launch -n 2 train`` of the
 similar-product (``als``, ``likealgo``, ``cooccurrence``),
@@ -672,11 +688,12 @@ def topk_tie_check(dev) -> dict:
 
 #: (B, H, L, D) of each attention case: the serving batches (1, 8, 64) at
 #: the sequential phases' lengths, the reference's other shapes,
-#: seq-tp's training shape (a process's 4 of the 8 heads) and seq-moe's
-#: (an expert line's member: 32 of the batch's 64 rows)
+#: seq-tp's training shape (a process's 4 of the 8 heads), seq-moe's
+#: (an expert line's member: 32 of the batch's 64 rows) and seq-axes'
+#: pipe (a microbatch: 16 of the batch's 64 rows)
 K4_SHAPES = ((1, 8, 512, 64), (8, 8, 512, 64), (64, 8, 512, 64),
              (3, 8, 128, 128), (8, 8, 192, 64), (64, 4, 512, 64),
-             (32, 8, 512, 64))
+             (32, 8, 512, 64), (16, 8, 512, 64))
 #: K5's also (B, H, L, D, block) where the block is not the reference's
 #: flash block: L 576 gives the kernel a ragged last 128-row query tile
 K5_SHAPES = ((64, 8, 1024, 64), (8, 8, 768, 64), (8, 8, 640, 32),
@@ -767,9 +784,10 @@ def attention_checks(A):
 #: K5 one: the training shapes at max_len 512 and 1024, and the
 #: reference's other head width; L 192 (K4) and 576 (K5) give the kernels
 #: a ragged last 128-row query tile; H 4 is seq-tp's, a process's half of
-#: the heads; B 32 is seq-moe's, an expert line's member's half of the rows
+#: the heads; B 32 is seq-moe's, an expert line's member's half of the
+#: rows; B 16 is seq-axes' pipe microbatch
 K4_BWD_SHAPES = ((64, 8, 512, 64), (3, 8, 128, 128), (8, 8, 192, 64),
-                 (64, 4, 512, 64), (32, 8, 512, 64))
+                 (64, 4, 512, 64), (32, 8, 512, 64), (16, 8, 512, 64))
 K5_BWD_SHAPES = ((64, 8, 1024, 64, 512), (2, 8, 256, 128, 256),
                  (8, 8, 576, 64, 64))
 
@@ -6166,9 +6184,6 @@ SUP_HEARTBEAT_MS = 2000
 SUP_TIMEOUT_S = 600
 SUP_MTTR_LIMIT_S = 60.0
 SUP_SERVE_USERS = 16
-#: a member whose lease renewal is this late dumps its threads' stacks into
-#: its log (PIO_DIST_STALL_DUMP_MS; the lease expires at SUP_HEARTBEAT_MS)
-SUP_STALL_DUMP_MS = 1000
 SUP_LINE = {
     "resume": re.compile(r"resuming from epoch (\d+) \(of (\d+)\)"),
     "slice": re.compile(r"dist checkpoint: member (\d+) step (\d+): slice of "
@@ -6238,7 +6253,6 @@ def supervised_run(tag, variant_path, state_dir, ckpt_dir, env, kill,
               f"[{tag}] member {rank}'s role:\n{text[-2000:]}")
         rec["iid"] = (text.split("Engine instance ID: ")[-1].split()[0]
                       if rank == 0 else None)
-        rec["stall_dumps"] = text.count("Timeout (")
         members[rank] = rec
     return {"res": res, "wall_s": wall, "killed": killed, "members": members}
 
@@ -6265,9 +6279,7 @@ def supervised_record(tag, run, resumed) -> dict:
             "train_events_per_sec": int(read[1]) * epochs_run / train_s,
             "iid": m0["iid"],
             "lease_gap_ms": [float(m["gap"][0]) if m["gap"] else None
-                             for _, m in sorted(run["members"].items())],
-            "stall_dumps": sum(m["stall_dumps"]
-                               for m in run["members"].values())}
+                             for _, m in sorted(run["members"].items())]}
 
 
 def rec_supervised_phase(R, ctx, tmp, cpu_devices_per_process=None):
@@ -6299,8 +6311,7 @@ def rec_supervised_phase(R, ctx, tmp, cpu_devices_per_process=None):
     root = os.path.join(tmp, "rec-launch")  # rec-launch's store
     first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
     gloo_env = {"PYTHONPATH": str(Path(__file__).resolve().parent),
-                "CUDA_VISIBLE_DEVICES": first,
-                "PIO_DIST_STALL_DUMP_MS": str(SUP_STALL_DUMP_MS)}
+                "CUDA_VISIBLE_DEVICES": first}
     rec = {"epochs": SUP_EPOCHS, "heartbeat_ms": SUP_HEARTBEAT_MS,
            "processes": LAUNCH_PROCS, "card_count": torch.cuda.device_count()}
     runs, leaves, models = {}, {}, {}
@@ -6455,8 +6466,7 @@ def rec_supervised_phase(R, ctx, tmp, cpu_devices_per_process=None):
             f"exchange {r['exchange_ms_per_step']:.3f} ms a step): "
             f"{r['train_events_per_sec']:.1f} train events/s; the members' "
             f"leases renewed at most {r['lease_gap_ms']} ms apart (expiry "
-            f"{SUP_HEARTBEAT_MS} ms; {r['stall_dumps']} stack dumps past "
-            f"{SUP_STALL_DUMP_MS} ms)"
+            f"{SUP_HEARTBEAT_MS} ms)"
             + (f"; step-{SUP_EPOCHS} leaves bitwise the control's"
                if r.get("bitwise_control") else ""))
     log(f"[rec-supervised] ({smi}) zombie of generation 1 fenced; dist status: "
@@ -7009,14 +7019,14 @@ def param_distance(a, b) -> dict:
     return out
 
 
-async def seq_launch_body(sessions_, session, url, server, lat):
-    """Bursts of 64 ``recentItems`` queries (prefixes of the stored
-    sessions) through the launched model's K4 forward; the last burst held
-    against the plain attention forward on the card."""
+async def seq_launch_body(sessions_, session, url, server, lat, bursts=3):
+    """``bursts`` bursts of 64 ``recentItems`` queries (prefixes of the
+    stored sessions) through the launched model's K4 forward; the last
+    burst held against the plain attention forward on the card."""
     rng = np.random.default_rng(41)
     bodies = payloads = None
     lat["burst64"] = []
-    for _ in range(3):
+    for _ in range(bursts):
         pick = rng.choice(len(sessions_), 64, replace=False)
         payloads = [{"recentItems": list(sessions_[int(j)][:-1]), "num": 10}
                     for j in pick]
@@ -7305,6 +7315,23 @@ def seq_tp_train(registry, variant_path, backend, **env):
             "model": deserialize_model(blob.models)[0]}
 
 
+def session_events(sessions_) -> list:
+    """``view`` events of user ``u<k>`` on each item of session ``k``, one
+    second apart (seq-tp's and seq-axes' apps)."""
+    import datetime as dt
+
+    t0 = dt.datetime(2026, 3, 1, tzinfo=dt.timezone.utc)
+    dicts, j = [], 0
+    for k, items in enumerate(sessions_):
+        for item in items:
+            dicts.append({"event": "view", "entityType": "user",
+                          "entityId": f"u{k}", "targetEntityType": "item",
+                          "targetEntityId": item,
+                          "eventTime": (t0 + dt.timedelta(seconds=j)).isoformat()})
+            j += 1
+    return dicts
+
+
 def seq_tp_phase(ctx, tmp):
     """Tensor parallelism over a ``model`` axis of two processes on
     ``cuda:0`` (gloo): the first :data:`SEQ_TP_USERS` of seq-workflow's
@@ -7327,17 +7354,7 @@ def seq_tp_phase(ctx, tmp):
     root = os.path.join(tmp, "seq-workflow")
     sessions_ = cycle_sessions(np.random.default_rng(31), SEQ_WF_USERS,
                                SEQ_WF_MAX_LEN, SEQ_WF_LENGTHS)[:SEQ_TP_USERS]
-    import datetime as dt
-
-    t0 = dt.datetime(2026, 3, 1, tzinfo=dt.timezone.utc)
-    dicts, j = [], 0
-    for k, items in enumerate(sessions_):
-        for item in items:
-            dicts.append({"event": "view", "entityType": "user",
-                          "entityId": f"u{k}", "targetEntityType": "item",
-                          "targetEntityId": item,
-                          "eventTime": (t0 + dt.timedelta(seconds=j)).isoformat()})
-            j += 1
+    dicts = session_events(sessions_)
     params = {"maxLen": SEQ_WF_MAX_LEN, "dModel": SEQ_D, "nHeads": SEQ_HEADS,
               "nLayers": SEQ_LAYERS, "learningRate": TRAIN_LR,
               "batchSize": TRAIN_BATCH, "epochs": SEQ_TP_EPOCHS}
@@ -7365,10 +7382,11 @@ def seq_tp_phase(ctx, tmp):
                                    ("w2", (4 * SEQ_D, SEQ_D)))),
               "[seq-tp] the persisted model is not in the canonical layout")
         # the replicated fit in this process from the same initial
-        # parameters (the same seed on the same card) on the same rows
+        # parameters (the same seed on the same card) on the same rows, in
+        # the launched fit's order
         ds = tseq.DataSource(tseq.DataSourceParams(app_name="seqtp",
                                                    max_len=SEQ_WF_MAX_LEN))
-        td = ds.read_training(ctx)
+        td = launched_rows(ds.read_training(ctx), cfg)
         check(dict(td.item_map.items()) == dict(model.item_map.items()),
               "[seq-tp] the replicated fit's item map differs")
         torch.cuda.synchronize()
@@ -8057,6 +8075,9 @@ def seq_moe_phase(ctx, tmp):
             epochs=SEQ_TP_EPOCHS, n_experts=SEQ_MOE_EXPERTS)
         check((cfg.expert_capacity_factor, cfg.router_aux_weight) == (1.25, 1e-2),
               f"[seq-moe] not Switch-Base-8's routing: {cfg}")
+        # the rows in the launched fit's order: the one-process fit is its
+        # reference
+        td = launched_rows(td, cfg)
         # (a) one process: the kernels against the plain attention on one
         # step, the layer on the card against the CPU, then the fit
         seqs = td.sequences[:TRAIN_BATCH]
@@ -8234,6 +8255,533 @@ def seq_moe_phase(ctx, tmp):
     return launches, rec
 
 
+# -- phase: the seq and pipe mesh axes: ring attention, the GPipe schedule ---
+
+#: the ring: bench_sequential's long width (bench.py:897-899: vocab 10,000,
+#: d_model 512, 6 layers of 8 heads of 64) at max_len 1,024 over a
+#: two-process seq line, 512 positions a process; whole rows, batch 32, 2
+#: steps (4 took 11.8 s of train a member on an NVIDIA H100 80GB HBM3 at
+#: 700.00 W: cut for the time limit, PERF.md §4) of the cycle sessions of
+#: SEQ_RING_SEED (256 to 1,025 items)
+SEQ_RING_AXES = {"seq": 2}
+SEQ_RING_MAX_LEN, SEQ_RING_BATCH, SEQ_RING_ROWS = 1024, 32, 64
+SEQ_RING_SEED = 53
+#: the ring fit's step losses against a one-process fit with local
+#: attention on the plain attention, from the same init on the same
+#: batches, relative: the ring rounds p to bf16 unnormalised, the plain
+#: attention normalised (tests/test_torch_ring_attention.py's band for the
+#: same comparison; 5.2e-5 there). A ring that masks its own chunk fully
+#: (the planted fault) gives NaN: a row with nothing to attend
+SEQ_RING_LOSS_RTOL = 1e-3
+RING_MEMBER = """
+import json
+import sys
+import chip_smoke
+chip_smoke.seq_ring_member(sys.argv[1], sys.argv[2], json.loads(sys.argv[3]))
+"""
+#: the pipe: the first SEQ_PIPE_USERS of seq-workflow's users (app
+#: ``seqpipe``; max_len 512, full width, batch 64) over a two-process pipe
+#: line, 3 of the 6 layers a stage, 4 microbatches of 16 rows (K4 at (16,
+#: 8, 512, 64)), 2 steps (seq-tp's 256 users, 4 steps, took 18.2 s of
+#: train a process on an NVIDIA H100 80GB HBM3 at 700.00 W: cut for the
+#: time limit, PERF.md §4)
+SEQ_PIPE_AXES = '{"pipe": 2}'
+SEQ_PIPE_MICROBATCHES = 4
+SEQ_PIPE_USERS = 128
+#: the launched pipelined fit against a one-process replay from the same
+#: init on the same batches (tests/test_torch_pipeline.py's bands for the
+#: same comparison: measured 3.3e-6 in loss and 0.062 of the update there;
+#: a pipeline that counts the logits' gradient once a stage, 2.98e-4 and
+#: 0.488): step losses relative, and ``‖p − p_1‖ / ‖p_1 − p_0‖`` of the
+#: largest leaf
+SEQ_PIPE_LOSS_RTOL = 1e-4
+SEQ_PIPE_PARAM_RTOL = 0.3
+SEQ_PIPE_LINE = {
+    "dist": LAUNCH_LINE["dist"],
+    "fit": re.compile(
+        r"pipeline fit: process (\d+) of (\d+) at (\{.*?\}) \(backend (\w+), "
+        r"(\S+)\): pipe stage (\d+) of (\d+), layers \[(\d+), (\d+)\) of "
+        r"(\d+); (\d+) microbatches of (\d+) rows; (\d+) steps of (\d+) local "
+        r"rows; stage ([\d.]+) s, train ([\d.]+) s, handoff ([\d.]+) ms a step "
+        r"\((\d+) bytes a step\), gradients ([\d.]+) ms a step; loss (\S+); "
+        r"model digest (\w+), equal on every process; peak device memory "
+        r"(\d+) bytes; attention launches (\{.*\})"),
+}
+
+
+def ring_sizes() -> dict:
+    """The ring check's sizes, handed to its member processes."""
+    return {"vocab": SEQ_VOCAB, "max_len": SEQ_RING_MAX_LEN,
+            "batch": SEQ_RING_BATCH, "rows": SEQ_RING_ROWS, "d": SEQ_D,
+            "heads": SEQ_HEADS, "layers": SEQ_LAYERS, "lr": TRAIN_LR}
+
+
+def seq_ring_cfg(z: dict):
+    from incubator_predictionio_tpu_torch.models.transformer import (
+        TransformerConfig,
+    )
+
+    return TransformerConfig(
+        vocab_size=z["vocab"], max_len=z["max_len"], d_model=z["d"],
+        n_heads=z["heads"], n_layers=z["layers"], learning_rate=z["lr"],
+        batch_size=z["batch"], epochs=1)
+
+
+def seq_ring_rows(z: dict) -> np.ndarray:
+    """``[rows, max_len + 1]`` token rows: the cycle sessions of
+    :data:`SEQ_RING_SEED` (a quarter to all of ``max_len + 1`` items),
+    item ``i<n>`` as token ``n + 1`` (below ``vocab``), left-padded."""
+    width = z["max_len"] + 1
+    sessions = cycle_sessions(np.random.default_rng(SEQ_RING_SEED),
+                              z["rows"], z["max_len"], (width // 4, width))
+    rows = np.zeros((len(sessions), width), np.int32)
+    for r, items in enumerate(sessions):
+        rows[r, width - len(items):] = [int(i[1:]) % (z["vocab"] - 1) + 1
+                                        for i in items]
+    return rows
+
+
+def ring_layer_case(dev, z: dict):
+    """The ring layer's check inputs: q, k, v and the output's cotangent,
+    ``[batch, max_len, heads, d / heads]`` fp32 from a seed on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(SEQ_RING_SEED)
+    return [torch.randn((z["batch"], z["max_len"], z["heads"],
+                         z["d"] // z["heads"]), generator=g, device=dev)
+            for _ in range(4)]
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def own_chunk_masked(real):
+    """``_chunk_attend`` with the own chunk's causal mask made all -inf (the
+    planted fault of the ring's checks)."""
+    def attend(q, k, v, mask, m, l, o):
+        inf = torch.isinf(mask)
+        if bool(inf.any()) and not bool(inf.all()):
+            mask = torch.full_like(mask, -torch.inf)
+        return real(q, k, v, mask, m, l, o)
+
+    return attend
+
+
+def seq_ring_member(out_path, device, z: dict):
+    """One member of the ring's check (a process of the job ``PIO_DIST_*``
+    describes, on ``device``; ``{"seq": 2}``): the ring layer on its chunk
+    of :func:`ring_layer_case` forward and backward, then the ring fit of
+    :func:`seq_ring_rows` (whole rows: each process stages its 512
+    positions of every row), then one step of the planted fault; saves
+    what the parent checks to ``out_path``."""
+    from incubator_predictionio_tpu_torch.models import transformer as ttr
+    from incubator_predictionio_tpu_torch.ops import attention as A
+    from incubator_predictionio_tpu_torch.parallel import ring as tring
+    from incubator_predictionio_tpu_torch.parallel.mesh import (
+        DeviceContext,
+        check_replicas,
+    )
+
+    ctx = DeviceContext.create(device, distributed=True, axes=SEQ_RING_AXES)
+    try:
+        dev = ctx.device
+        cuda = dev.type == "cuda"
+        lc = z["max_len"] // ctx.axis_size("seq")
+        cols = slice(ctx.axis_index("seq") * lc, (ctx.axis_index("seq") + 1) * lc)
+        q, k, v, do = ring_layer_case(dev, z)
+        qc, kc, vc = (x[:, cols].contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = tring.ring_attention_sharded(qc, kc, vc, ctx)
+        out.backward(do[:, cols])
+        _sync(dev)
+        layer_s = time.perf_counter() - t0
+        layer = {"out": out.detach().cpu(), "s": layer_s,
+                 "grads": [x.grad.cpu() for x in (qc, kc, vc)]}
+        del q, k, v, do, qc, kc, vc, out
+        rows, cfg = seq_ring_rows(z), seq_ring_cfg(z)
+        A.reset_launches()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        model = ttr.TransformerRecommender(cfg).fit(ctx, rows, None)
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+        launches = {w.__name__: w.launches for w in A.KERNEL_WRAPPERS}
+        # equal on both members, or the fit's own check raised
+        digest = check_replicas(ctx, list(ttr._leaves(model.params)))
+        # the planted fault, one step: the replicas' check would compare
+        # NaN parameters, so it is skipped for this fit alone
+        real_attend, real_check = tring._chunk_attend, ttr.check_replicas
+        tring._chunk_attend = own_chunk_masked(real_attend)
+        ttr.check_replicas = lambda *a, **kw: ""
+        try:
+            bad = ttr.TransformerRecommender(cfg).fit(
+                ctx, rows[:z["batch"]], None)
+        finally:
+            tring._chunk_attend, ttr.check_replicas = real_attend, real_check
+        torch.save({"layer": layer, "step_losses": model.step_losses,
+                    "timings": model.timings, "digest": digest,
+                    "peak_bytes": peak, "launches": launches,
+                    "fault_losses": bad.step_losses, "backend": ctx.backend,
+                    "device": str(dev), "positions": [cols.start, cols.stop]},
+                   out_path)
+    finally:
+        ctx.stop()
+
+
+def seq_ring_check(ctx, meanwhile=None) -> tuple[dict, object]:
+    """(a) of :func:`seq_axes_phase`: two fresh processes
+    (:func:`seq_ring_member`; on one card both on it over gloo, with two
+    or more each on its own over NCCL) run the ring layer and the ring fit
+    over ``{"seq": 2}``; held: the layer's output within :data:`ATT_TOL`
+    of ``causal_attention_reference`` on the card and each gradient
+    within :data:`GRAD_TOL` of its max abs; the fit's step losses within
+    :data:`SEQ_RING_LOSS_RTOL` of a one-process fit in this process with
+    local attention on the plain attention (same init, same batches), the
+    planted fault outside it; the replicas' digests equal. ``meanwhile()``
+    runs in this process while the members start and run (the phase's
+    other half: the script's time limit); returns (the record, what
+    ``meanwhile`` returned)."""
+    from incubator_predictionio_tpu_torch.models import transformer as ttr
+    from incubator_predictionio_tpu_torch.parallel import ring as tring
+    from incubator_predictionio_tpu_torch.parallel.launcher import free_port
+
+    dev = ctx.device
+    z = ring_sizes()
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent),
+               PIO_DIST_COORDINATOR=f"127.0.0.1:{free_port()}",
+               PIO_DIST_NUM_PROCESSES=str(LAUNCH_PROCS))
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"member{i}.pt") for i in range(LAUNCH_PROCS)]
+        members = [subprocess.Popen(
+            [sys.executable, "-c", RING_MEMBER, paths[i],
+             "cuda:0" if dev.type == "cuda" else str(dev), json.dumps(z)],
+            env=dict(env, PIO_DIST_PROCESS_ID=str(i)), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for i in range(LAUNCH_PROCS)]
+        try:
+            other = meanwhile() if meanwhile is not None else None
+            # the plain attention of the whole sequence, and the
+            # one-process fit with local attention on the plain attention
+            q, k, v, do = ring_layer_case(dev, z)
+            qr, kr, vr = (x.requires_grad_(True) for x in (q, k, v))
+            want = tring.causal_attention_reference(qr, kr, vr)
+            want.backward(do)
+            want = want.detach().cpu()
+            refs = [x.grad.cpu() for x in (qr, kr, vr)]
+            del q, k, v, do, qr, kr, vr
+            cfg = dataclasses.replace(seq_ring_cfg(z), attention="local")
+            real = ttr.causal_attention
+            ttr.causal_attention = tring.causal_attention_reference
+            try:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                local = ttr.TransformerRecommender(cfg).fit(
+                    ctx, seq_ring_rows(z), None)
+                local_s = time.perf_counter() - t1
+            finally:
+                ttr.causal_attention = real
+            gc.collect()
+            torch.cuda.empty_cache()
+            logs = [p.communicate(timeout=300)[0] for p in members]
+        finally:
+            for p in members:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for i, p in enumerate(members):
+            check(p.returncode == 0, f"[seq-axes ring] member {i} exited "
+                  f"{p.returncode}: {logs[i][-3000:]}")
+        got = [torch.load(q, weights_only=False) for q in paths]
+    wall = time.perf_counter() - t0
+    out = torch.cat([g["layer"]["out"] for g in got], 1)
+    err = float((out - want).abs().max())
+    ok = bool(((out - want).abs() <= ATT_TOL + ATT_TOL * want.abs()).all())
+    grad_err = {}
+    for j, (name, ref) in enumerate(zip(("dq", "dk", "dv"), refs)):
+        g = torch.cat([m["layer"]["grads"][j] for m in got], 1)
+        grad_err[name] = float((g - ref).abs().max() / ref.abs().max())
+    del want, refs
+    want_l = np.asarray(local.step_losses)
+    got_l = np.asarray(got[0]["step_losses"])
+    rel = float(np.max(np.abs(got_l - want_l) / np.abs(want_l)))
+    fault = np.asarray(got[0]["fault_losses"])
+    fault_rel = float(np.max(np.abs(fault - want_l[:1, :1]) / np.abs(want_l[:1, :1])))
+    del local
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_steps = got_l.size
+    members = []
+    for m in got:
+        t = m["timings"]
+        members.append({
+            "backend": m["backend"], "device": m["device"],
+            "positions": m["positions"], "layer_s": m["layer"]["s"],
+            "train_s": t["train_sec"],
+            "rotation_ms_per_step": t["rotation_sec"] / n_steps * 1e3,
+            "rotation_bytes_per_step": t["rotation_bytes"] // n_steps,
+            "gradient_ms_per_step": (t["exchange_sec"] - t["rotation_sec"])
+            / n_steps * 1e3,
+            "peak_bytes": m["peak_bytes"], "launches": m["launches"],
+            "digest": m["digest"]})
+    rec = {"wall_s": wall, "members": members,
+           "layer": {"shape": [z["batch"], z["max_len"], z["heads"],
+                               z["d"] // z["heads"]],
+                     "max_abs_err": err, "grad_err_rel_max": grad_err},
+           "step_losses": got_l.tolist(), "local_step_losses": want_l.tolist(),
+           "local_train_s": local_s, "step_loss_max_rel": rel,
+           "step_loss_band": SEQ_RING_LOSS_RTOL,
+           "planted_fault": {"step_losses": fault.tolist(),
+                             "step_loss_rel": fault_rel},
+           "train_tokens_per_s": n_steps * z["batch"] * z["max_len"]
+           / max(m["train_s"] for m in members), "concurrent": meanwhile is not None}
+    check(ok, f"[seq-axes ring] the ring layer's output differs from the plain "
+          f"attention by {err} (band {ATT_TOL})")
+    check(max(grad_err.values()) <= GRAD_TOL,
+          f"[seq-axes ring] the ring layer's gradients {grad_err} (band {GRAD_TOL})")
+    check(len({m["digest"] for m in members}) == 1,
+          f"[seq-axes ring] replica digests differ: {members}")
+    check(got_l.shape == want_l.shape and np.isfinite(got_l).all()
+          and rel <= SEQ_RING_LOSS_RTOL,
+          f"[seq-axes ring] step losses {got_l.tolist()} against the local "
+          f"fit's {want_l.tolist()}: {rel:.3e} relative (band "
+          f"{SEQ_RING_LOSS_RTOL})")
+    check(not (fault_rel <= SEQ_RING_LOSS_RTOL),
+          f"[seq-axes ring] the band {SEQ_RING_LOSS_RTOL} does not see the "
+          f"own chunk masked: {fault.tolist()}")
+    check(all(m["rotation_bytes_per_step"] > 0 for m in members),
+          f"[seq-axes ring] no rotation: {members}")
+    return rec, other
+
+
+def seq_pipe_train(registry, variant_path, backend, **env):
+    """``launch -n 2 train -v <variant> --mesh-axes '{"pipe": 2}'`` of the
+    sequential template with ``pipelineStages`` 2 through the CLI,
+    in-process; every process's lines held (exit 0, the backend, on the
+    card, its stage and its 3 of the 6 layers, 4 microbatches of 16 rows,
+    K4 forward and backward launched, handoff bytes, equal losses and
+    model digests), then the new COMPLETED instance and its model."""
+    from incubator_predictionio_tpu_torch.utils.serialization import (
+        deserialize_model,
+    )
+
+    tag = f"seq-axes pipe {backend}"
+    insts = registry.get_storage().get_meta_data_engine_instances()
+    before = {i.id for i in insts.get_all()}
+    with env_vars(PYTHONPATH=str(Path(__file__).resolve().parent), **env):
+        t0 = time.perf_counter()
+        out = cli_run(tag, ["launch", "-n", str(LAUNCH_PROCS), "--timeout",
+                            str(LAUNCH_TIMEOUT_S), "train", "-v", variant_path,
+                            "--mesh-axes", SEQ_PIPE_AXES])
+        wall = time.perf_counter() - t0
+    OUT.parent.mkdir(parents=True, exist_ok=True)
+    (OUT.parent / f"seq_pipe_{backend}.log").write_text(out)
+    k = SEQ_LAYERS // LAUNCH_PROCS
+    mb = TRAIN_BATCH // SEQ_PIPE_MICROBATCHES
+    per = []
+    for p in launch_sections(out, SEQ_PIPE_LINE, tag):
+        dist, f = p["dist"], p["fit"]
+        s = p["process"]
+        att = json.loads(f[22])
+        check(dist[2] == backend == f[3] and dist[3].startswith("cuda")
+              and [int(x) for x in f[5:13]] == [s, LAUNCH_PROCS, s * k,
+                                                (s + 1) * k, SEQ_LAYERS,
+                                                SEQ_PIPE_MICROBATCHES, mb,
+                                                int(f[12])]
+              and int(f[13]) == TRAIN_BATCH and int(f[17]) > 0,
+              f"[{tag}] process {s}: {dist} {f[:19]}")
+        for w in ("causal_mha_small_head", "causal_mha_small_head_bwd"):
+            check(att.get(w, 0) > 0, f"[{tag}] process {s}: {w} never "
+                  f"launched: {att}")
+        per.append({"process": s, "device": dist[3], "coords": json.loads(f[2]),
+                    "stage": s, "layers": [int(f[7]), int(f[8])],
+                    "microbatches": int(f[10]), "microbatch_rows": int(f[11]),
+                    "steps": int(f[12]), "stage_s": float(f[14]),
+                    "train_s": float(f[15]),
+                    "handoff_ms_per_step": float(f[16]),
+                    "handoff_bytes_per_step": int(f[17]),
+                    "gradient_ms_per_step": float(f[18]), "loss": float(f[19]),
+                    "digest": f[20], "peak_bytes": int(f[21]),
+                    "attention_launches": att})
+    check(len({q["digest"] for q in per}) == 1 and len({q["loss"] for q in per}) == 1,
+          f"[{tag}] model digests or losses differ: {per}")
+    new = [i for i in insts.get_all() if i.id not in before]
+    check([i.status for i in new] == ["COMPLETED"],
+          f"[{tag}] new instances {[(i.id, i.status) for i in new]}")
+    blob = registry.get_storage().get_model_data_models().get(new[0].id)
+    check(blob is not None, f"[{tag}] no model blob")
+    return {"processes": per, "wall_s": wall,
+            "model": deserialize_model(blob.models)[0]}
+
+
+def launched_rows(td, cfg):
+    """``td`` with its rows in the order a launched fit stages them on a
+    mesh of one data shard (``parallel/staging.py``: the shard's rows
+    shuffled by ``default_rng(seed)``; every process of the line stages
+    all of them so): what a one-process replay of that fit trains on. The
+    rows must fill whole batches (no resampled padding)."""
+    n = len(td.sequences)
+    check(n % cfg.batch_size == 0, f"{n} rows do not fill batches of "
+          f"{cfg.batch_size}: the launched fit pads by resampling")
+    order = np.random.default_rng(cfg.seed).permutation(n)
+    return dataclasses.replace(td, sequences=td.sequences[order])
+
+
+def seq_pipe_check(ctx, tmp) -> tuple[dict, dict]:
+    """(b) of :func:`seq_axes_phase`: ``launch -n 2 train --mesh-axes
+    '{"pipe": 2}'`` on the first :data:`SEQ_PIPE_USERS` of seq-workflow's
+    users (app ``seqpipe``) at the full width, batch 64,
+    ``pipelineStages`` 2, ``pipelineMicrobatches`` 4; held: each process's
+    stage, layers and K4 launches, the canonical layout persisted, the
+    step losses and parameters against a one-process replay from the same
+    init on the same batches; then a deploy and one burst of 64 through K4
+    held to the plain attention. Returns (this process's attention
+    launches while serving, record)."""
+    from incubator_predictionio_tpu_torch.models import transformer as ttr
+    from incubator_predictionio_tpu_torch.ops import attention as A
+    from incubator_predictionio_tpu_torch.templates import sequential as tseq
+
+    root = os.path.join(tmp, "seq-workflow")
+    sessions_ = cycle_sessions(np.random.default_rng(31), SEQ_WF_USERS,
+                               SEQ_WF_MAX_LEN, SEQ_WF_LENGTHS)[:SEQ_PIPE_USERS]
+    params = {"maxLen": SEQ_WF_MAX_LEN, "dModel": SEQ_D, "nHeads": SEQ_HEADS,
+              "nLayers": SEQ_LAYERS, "learningRate": TRAIN_LR,
+              "batchSize": TRAIN_BATCH, "epochs": SEQ_TP_EPOCHS,
+              "pipelineStages": LAUNCH_PROCS,
+              "pipelineMicrobatches": SEQ_PIPE_MICROBATCHES}
+    with cli_storage(root) as registry:
+        cli_app_import("seq-axes pipe", root, "seqpipe",
+                       session_events(sessions_))
+        variant_path = os.path.join(root, "engine-pipe.json")
+        with open(variant_path, "w") as f:
+            json.dump({"id": "seq-pipe", "version": "1",
+                       "engineFactory": SEQ_FACTORY,
+                       "datasource": {"params": {"appName": "seqpipe",
+                                                 "maxLen": SEQ_WF_MAX_LEN}},
+                       "algorithms": [{"name": "transformer",
+                                       "params": params}]}, f)
+        first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+        launched = seq_pipe_train(registry, variant_path, "gloo",
+                                  CUDA_VISIBLE_DEVICES=first)
+        per, model, wall = (launched["processes"], launched["model"],
+                            launched["wall_s"])
+        cfg = model.config
+        check(len(model.params["layers"]) == SEQ_LAYERS and all(
+            np.shape(model.params["layers"][i][n]) == shape
+            for i in range(SEQ_LAYERS)
+            for n, shape in (("wq", (SEQ_D, SEQ_D)), ("w1", (SEQ_D, 4 * SEQ_D)),
+                             ("w2", (4 * SEQ_D, SEQ_D)))),
+              "[seq-axes pipe] the persisted model is not in the canonical layout")
+        ds = tseq.DataSource(tseq.DataSourceParams(app_name="seqpipe",
+                                                   max_len=SEQ_WF_MAX_LEN))
+        td = launched_rows(ds.read_training(ctx), cfg)
+        check(dict(td.item_map.items()) == dict(model.item_map.items()),
+              "[seq-axes pipe] the replay's item map differs")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = ttr.TransformerRecommender(dataclasses.replace(
+            cfg, pipeline_stages=0, pipeline_microbatches=0)).fit(
+            ctx, td.sequences, td.item_map)
+        one_s = time.perf_counter() - t0
+        got, want = np.asarray(model.step_losses), np.asarray(one.step_losses)
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        p0 = _tree_numpy(ttr._init_params(
+            cfg, torch.Generator(device=ctx.device).manual_seed(cfg.seed),
+            ctx.device))
+        param_rel, param_leaf = update_rel(model.params, one.params, p0)
+        del one, p0
+        check(got.shape == want.shape and rel <= SEQ_PIPE_LOSS_RTOL,
+              f"[seq-axes pipe] step losses {got.tolist()} against the "
+              f"one-process replay's {want.tolist()}: {rel:.3e} relative "
+              f"(band {SEQ_PIPE_LOSS_RTOL})")
+        check(param_rel <= SEQ_PIPE_PARAM_RTOL,
+              f"[seq-axes pipe] the persisted parameters are {param_rel:.3e} "
+              f"of the replay's update apart at {param_leaf} (band "
+              f"{SEQ_PIPE_PARAM_RTOL})")
+        gc.collect()
+        torch.cuda.empty_cache()
+        lat = {}
+        A.reset_launches()
+        served = asyncio.run(serve_phase(
+            "seq-axes pipe", variant_path, registry.get_storage(), ctx,
+            lambda s, u, srv: seq_launch_body(sessions_, s, u, srv, lat,
+                                              bursts=1)))
+        launches = {w.__name__: w.launches for w in A.KERNEL_WRAPPERS}
+    check(launches["causal_mha_small_head"] > 0,
+          f"[seq-axes pipe] K4 never launched serving the model: {launches}")
+    train_wall = max(q["train_s"] for q in per)
+    rec = {"launch_wall_s": wall, "processes": per,
+           "steps": per[0]["steps"], "step_losses": got.tolist(),
+           "replay_step_losses": want.tolist(), "replay_train_s": one_s,
+           "step_loss_max_rel": rel, "step_loss_band": SEQ_PIPE_LOSS_RTOL,
+           "param_update_rel": param_rel, "param_update_rel_leaf": param_leaf,
+           "param_update_rel_band": SEQ_PIPE_PARAM_RTOL,
+           "train_tokens_per_s": per[0]["steps"] * TRAIN_BATCH
+           * SEQ_WF_MAX_LEN / train_wall,
+           "burst64_ms": [x * 1e3 for x in lat["burst64"]],
+           "kernels_vs_plain": served, "serve_launches": launches}
+    return launches, rec
+
+
+def seq_axes_phase(ctx, tmp):
+    """The ``seq`` and ``pipe`` mesh axes: (a) ring attention over a
+    two-process ``seq`` line (:func:`seq_ring_check`) at max_len 1,024,
+    (b) the GPipe schedule over a two-process ``pipe`` line through the CLI
+    (:func:`seq_pipe_check`) on 128 of seq-workflow's users, launched while
+    (a)'s processes run, so the two share the card. Returns (launches of the
+    attention kernels in this process's serving, record)."""
+    t_phase = time.perf_counter()
+    # the pipe's launch runs while the ring's members run: each half is
+    # mostly its processes' start-up, and the script has a time limit
+    ring, (launches, pipe) = seq_ring_check(
+        ctx, lambda: seq_pipe_check(ctx, tmp))
+    rec = {"ring": ring, "pipe": pipe, "card_count": torch.cuda.device_count(),
+           "phase_s": time.perf_counter() - t_phase}
+    smi = smi_name_power()
+    log(f"[seq-axes] ({smi}) ring over {SEQ_RING_AXES} at max_len "
+        f"{SEQ_RING_MAX_LEN}, d_model {SEQ_D}, {SEQ_LAYERS} layers of "
+        f"{SEQ_HEADS} heads, batch {SEQ_RING_BATCH}: the layer at "
+        f"{ring['layer']['shape']} against the plain attention max abs "
+        f"{ring['layer']['max_abs_err']:.3e}, gradients "
+        f"{json.dumps(ring['layer']['grad_err_rel_max'])} of their max abs; "
+        f"{len(ring['step_losses'][0])} steps, losses max relative "
+        f"{ring['step_loss_max_rel']:.3e} against the local fit (band "
+        f"{SEQ_RING_LOSS_RTOL}; the planted fault's losses "
+        f"{ring['planted_fault']['step_losses']}); "
+        f"{ring['train_tokens_per_s']:.1f} train tokens/s; the ring's wall "
+        f"{ring['wall_s']:.1f} s (the pipe's launch beside it), the local "
+        f"fit {ring['local_train_s']:.2f} s")
+    for i, m in enumerate(ring["members"]):
+        log(f"[seq-axes] ({smi}) ring process {i} ({m['backend']}, "
+            f"{m['device']}) positions {m['positions']}: train "
+            f"{m['train_s']:.3f} s; rotation {m['rotation_ms_per_step']:.3f} "
+            f"ms a step ({m['rotation_bytes_per_step']} bytes), gradient "
+            f"all-reduce {m['gradient_ms_per_step']:.3f} ms a step; peak "
+            f"{m['peak_bytes'] / 2**30:.3f} GiB; launches {m['launches']}")
+    log(f"[seq-axes] ({smi}) launch -n 2 train --mesh-axes {SEQ_PIPE_AXES}: "
+        f"{pipe['steps']} steps, wall {pipe['launch_wall_s']:.2f} s, "
+        f"{pipe['train_tokens_per_s']:.1f} train tokens/s; against the "
+        f"one-process replay: losses {pipe['step_loss_max_rel']:.3e} (band "
+        f"{SEQ_PIPE_LOSS_RTOL}), parameters {pipe['param_update_rel']:.3e} of "
+        f"its update at {pipe['param_update_rel_leaf']} (band "
+        f"{SEQ_PIPE_PARAM_RTOL}); replay {pipe['replay_train_s']:.2f} s")
+    for q in pipe["processes"]:
+        log(f"[seq-axes] ({smi}) pipe process {q['process']} on {q['device']}: "
+            f"stage {q['stage']}, layers {q['layers']}, {q['microbatches']} "
+            f"microbatches of {q['microbatch_rows']} rows; train "
+            f"{q['train_s']:.3f} s; handoff {q['handoff_ms_per_step']:.3f} ms a "
+            f"step ({q['handoff_bytes_per_step']} bytes), gradients "
+            f"{q['gradient_ms_per_step']:.3f} ms a step; peak "
+            f"{q['peak_bytes'] / 2**30:.3f} GiB; attention launches "
+            f"{q['attention_launches']}")
+    log(f"[seq-axes] ({smi}) burst of 64 {pipe['burst64_ms'][0]:.2f} ms against "
+        f"the plain attention max score diff "
+        f"{pipe['kernels_vs_plain']['max_score_diff']:.2e}; serve launches "
+        f"{launches}; phase {rec['phase_s']:.1f} s")
+    return launches, rec
+
+
 def bitwise_trees(a, b) -> bool:
     return all(np.array_equal(x, y) for _, x, y in _tree_pairs(a, b))
 
@@ -8273,7 +8821,7 @@ def planted_head_fault(ttr, cfg, ctx, td):
         keep[0] = 0
         return out * keep
 
-    ttr.train_step = lambda *a, **kw: real(*a, attention=zero_head, **kw)
+    ttr.train_step = lambda *a, **kw: real(*a, **{**kw, "attention": zero_head})
     try:
         bad = ttr.TransformerRecommender(cfg).fit(ctx, td.sequences,
                                                   td.item_map)
@@ -9155,6 +9703,7 @@ def main() -> int:
                             ("seq_launch", seq_launch_phase),
                             ("seq_tp", seq_tp_phase),
                             ("seq_moe", seq_moe_phase),
+                            ("seq_axes", seq_axes_phase),
                             ("ckpt_resume", ckpt_resume_phase)):
             t0 = time.perf_counter()
             counts, main[name] = phase(ctx, tmp)
@@ -9198,6 +9747,8 @@ def main() -> int:
                     for q in main["seq_launch"]["processes"]]
     tp_children = [q["attention_launches"] for q in main["seq_tp"]["processes"]]
     moe_children = [q["attention_launches"] for q in main["seq_moe"]["processes"]]
+    pipe_children = [q["attention_launches"]
+                     for q in main["seq_axes"]["pipe"]["processes"]]
     kernels = [
         {**entry("score_catalog_quantized", "retrieval.cu",
                  "incubator_predictionio_tpu/ops/retrieval.py:97", k1,
@@ -9235,7 +9786,9 @@ def main() -> int:
          "seq_tp_process_launches": [
              c["causal_mha_small_head"] for c in tp_children],
          "seq_moe_process_launches": [
-             c["causal_mha_small_head"] for c in moe_children]},
+             c["causal_mha_small_head"] for c in moe_children],
+         "seq_axes_pipe_process_launches": [
+             c["causal_mha_small_head"] for c in pipe_children]},
         {**bwd_entry("causal_mha_small_head_bwd", "attention.cu",
                      "incubator_predictionio_tpu/ops/attention.py:136", k4b),
          "seq_launch_process_launches": [
@@ -9243,7 +9796,9 @@ def main() -> int:
          "seq_tp_process_launches": [
              c["causal_mha_small_head_bwd"] for c in tp_children],
          "seq_moe_process_launches": [
-             c["causal_mha_small_head_bwd"] for c in moe_children]},
+             c["causal_mha_small_head_bwd"] for c in moe_children],
+         "seq_axes_pipe_process_launches": [
+             c["causal_mha_small_head_bwd"] for c in pipe_children]},
         entry("flash_causal_attention", "flash_attention.cu",
               "incubator_predictionio_tpu/parallel/ring.py:201", k5,
               next(c for c in k5 if c["B"] == 64)),

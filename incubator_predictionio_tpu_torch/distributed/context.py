@@ -42,7 +42,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import faulthandler
 import logging
 import os
 import threading
@@ -267,12 +266,8 @@ class DistContext:
 
     def _heartbeat_loop(self) -> None:
         """Renew the lease every third of the heartbeat and keep the
-        longest gap between two renewals. With ``PIO_DIST_STALL_DUMP_MS``
-        set, a renewal later than that dumps every thread's stack into the
-        member's log (``faulthandler``, from a C thread: it shows what held
-        the interpreter while the lease aged)."""
+        longest gap between two renewals (logged at :meth:`stop`)."""
         period = self.conf.heartbeat_ms / 3000.0
-        dump_s = float(os.environ.get("PIO_DIST_STALL_DUMP_MS", "0")) / 1000.0
         last = None
         while not self._stop.is_set():
             with contextlib.suppress(OSError):  # transient fs trouble
@@ -282,11 +277,7 @@ class DistContext:
             if last is not None:
                 self.beat_gap_max_s = max(self.beat_gap_max_s, now - last)
             last = now
-            if dump_s > 0:
-                faulthandler.dump_traceback_later(dump_s)
             self._clock.sleep(period)
-        if dump_s > 0:
-            faulthandler.cancel_dump_traceback_later()
 
     def _watchdog_loop(self) -> None:
         period = self.conf.heartbeat_ms / 3000.0

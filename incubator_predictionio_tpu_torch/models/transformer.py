@@ -46,10 +46,24 @@ expert's owner and back by two all-to-alls over ``expert`` a layer
 (:class:`_AllToAll`, whose backward is the reverse exchange); the
 experts' gradients are summed over ``data``, the other leaves' over
 ``data`` and ``expert``; at the end the experts are gathered back to the
-canonical layout (:func:`gather_experts`). Ring attention, pipeline
-parallelism and checkpoints of a fit whose weights are split (tensor or
-expert) are the rest of the parallel-axes slice (ROADMAP.md Queue 1, item
-4.5) and raise until then.
+canonical layout (:func:`gather_experts`).
+
+With ring attention (reference :416-421: ``attention="ring"``, or
+``"auto"`` on a ``seq`` axis larger than 1) the members of a ``seq`` line
+each hold one chunk of every row's positions and run every layer's
+attention through
+:func:`~incubator_predictionio_tpu_torch.parallel.ring.ring_attention_sharded`
+(:class:`SeqRing` times its rotations); the embeddings, norms and FFN are
+position-wise and stay local; the parameters are replicated along ``seq``,
+so their gradients are summed over ``data`` and ``seq`` (a mixture of
+experts with the ring is not ported and raises). On a ``pipe``
+axis (reference :236-265, :324-335) each member holds its stage's
+contiguous layers (:func:`stage_params`) and :func:`pipeline_step` runs
+the GPipe schedule of ``parallel/pipeline.py``; the stages' layers are
+gathered back to the canonical layout at the end (:func:`gather_stages`).
+Checkpoints of a fit whose weights are split (tensor, expert or pipe) are
+the rest of the parallel-axes slice (ROADMAP.md Queue 1, item 4.5 (d)) and
+raise until then.
 
 Numerics follow the reference: every matmul rounds both operands and the
 product to bf16 (``_bf16_matmul``), so served scores are bf16 values and
@@ -80,25 +94,27 @@ from incubator_predictionio_tpu_torch.parallel.mesh import (
     DeviceContext,
     check_replicas,
 )
-from incubator_predictionio_tpu_torch.parallel.ring import causal_attention
+from incubator_predictionio_tpu_torch.parallel.pipeline import GPipe, stage_slice
+from incubator_predictionio_tpu_torch.parallel.ring import (
+    causal_attention,
+    ring_attention_sharded,
+)
 from incubator_predictionio_tpu_torch.utils.optim import adam_init, adam_update
 
 logger = logging.getLogger(__name__)
 
 #: what raises in the training options this slice does not port
 SHARDING_SLICE = ("the parallel-axes slice of the PyTorch port (ROADMAP.md "
-                  "Queue 1, item 4.5: the seq axis, the pipe axis, "
-                  "sharded-weight checkpoints (tensor and expert))")
+                  "Queue 1, item 4.5 (d): sharded-weight checkpoints "
+                  "(tensor, expert and pipe))")
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Copy of the reference's config (transformer.py:44), every field, so a
-    variant or a persisted config binds unchanged. Of the parallelism
-    fields, ``tensor_parallel`` and the mixture of experts (``n_experts``,
-    ``expert_capacity_factor``, ``router_aux_weight``) are ported; the
-    others wait for the rest of the parallel-axes slice (ROADMAP.md Queue
-    1, item 4.5)."""
+    variant or a persisted config binds unchanged. Every parallelism field
+    is ported; checkpoints of split weights wait for item 4.5 (d)
+    (ROADMAP.md Queue 1)."""
 
     vocab_size: int = 1024        # items + 1 (0 is padding)
     max_len: int = 64
@@ -755,16 +771,23 @@ class TransformerNet(nn.Module):
                          attention: Callable = causal_attention):
         """transformer.py:218 ``_forward``: ``(hidden, aux)``, ``aux`` the
         routers' auxiliary losses summed over the layers (0 without
-        experts). With ``cfg.remat`` and a gradient wanted, each block
-        recomputes its activations in the backward (``jax.checkpoint``,
-        :225-229). The lookups are :func:`_lookup`: its backward sums the
-        rows of a repeated index (the padding token, every position) as
-        one sorted float64 scan, the same bytes every run, where indexing's
-        backward walks a repeated index's rows one by one. Pad tokens
-        (token 0) do not route (reference :223)."""
+        experts); the blocks are :meth:`blocks`. The lookups are
+        :func:`_lookup`: its backward sums the rows of a repeated index
+        (the padding token, every position) as one sorted float64 scan, the
+        same bytes every run, where indexing's backward walks a repeated
+        index's rows one by one. Pad tokens (token 0) do not route
+        (reference :223)."""
         h = _lookup(tokens, self.item_emb) + _lookup(positions, self.pos_emb)
-        remat = self.cfg.remat and torch.is_grad_enabled()
         mask = tokens != 0 if self.cfg.n_experts else None
+        h, aux = self.blocks(h, attention, mask)
+        return _ln(h, self.ln_f.g, self.ln_f.b), aux
+
+    def blocks(self, h, attention: Callable = causal_attention, mask=None):
+        """The net's layers on ``h`` ``[B, L, D]`` → ``(h, aux)``: every
+        block, or a pipeline stage's (:func:`stage_params`). With
+        ``cfg.remat`` and a gradient wanted, each block recomputes its
+        activations in the backward (reference :225-229, :251-253)."""
+        remat = self.cfg.remat and torch.is_grad_enabled()
         aux = h.new_zeros(())
         for layer in self.layers:
             args = (h, self.cfg.n_heads, attention, self.tp, mask,
@@ -775,7 +798,7 @@ class TransformerNet(nn.Module):
                 h, a = layer(*args)
             if a is not None:
                 aux = aux + a
-        return _ln(h, self.ln_f.g, self.ln_f.b), aux
+        return h, aux
 
     def serve_scores(self, tokens, attention: Callable = causal_attention):
         """transformer.py:624 ``_serve_scores``: the newest (last) position's
@@ -873,6 +896,135 @@ def train_step(net: TransformerNet, opt_state, batch, lr: float,
     return loss.detach()
 
 
+def stage_params(params: dict, stage: int, n_stages: int) -> dict:
+    """Pipeline stage ``stage``'s tree (the reference's
+    ``_place_params_pipe_sharded``, :324-335): its contiguous
+    ``n_layers / n_stages`` layers and the shared leaves."""
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers"] = params["layers"][stage_slice(
+        len(params["layers"]), n_stages, stage)]
+    return out
+
+
+def gather_stages(ctx, params: dict) -> dict:
+    """The canonical tree from every stage's (:func:`stage_params`): each
+    stage's layers all-gathered over ``pipe`` and listed in stage order (a
+    collective; the reference's ``_unstack_layers``), the rest as they are."""
+    out = {k: v for k, v in params.items() if k != "layers"}
+    per = [{k: _gather_host_tree(ctx, v) for k, v in layer.items()}
+           for layer in params["layers"]]
+    n_stages = ctx.axis_size("pipe")
+    out["layers"] = [_index_tree(layer, s) for s in range(n_stages)
+                     for layer in per]
+    return out
+
+
+def _gather_host_tree(ctx, tree):
+    if isinstance(tree, dict):
+        return {k: _gather_host_tree(ctx, v) for k, v in tree.items()}
+    return _gather_host(ctx, tree, "pipe")
+
+
+def _index_tree(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index_tree(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def pipeline_grads(net: TransformerNet, tokens, positions, pipe,
+                   head: Callable, attention: Callable = causal_attention):
+    """The forward and backward of one batch through a pipeline (reference
+    :236-265) on this process's stage ``net`` (:func:`stage_params`):
+    stage 0 embeds the batch, :class:`~incubator_predictionio_tpu_torch.parallel.pipeline.GPipe`
+    runs the stages' layers on its microbatches, and the last stage, which
+    holds the hidden states, takes the final norm and ``head(hidden) ->
+    loss`` over the whole local batch, then its backward; the schedule's
+    backward brings the gradient back to stage 0, which backpropagates it
+    into the embeddings. The parameters' ``.grad`` hold this stage's
+    gradients after it: the embeddings and the final norm stay outside the
+    pipeline, whole on every stage, and each stage's gradients of them are
+    only the parts it computed (the item table's lookup at stage 0, its
+    logits at the last stage; None elsewhere). Returns the loss on the last
+    stage, 0 on the others."""
+    b, l = tokens.shape
+    if pipe.stage == 0:
+        h0 = _lookup(tokens, net.item_emb) + _lookup(positions, net.pos_emb)
+    else:  # only the shape: the inputs arrive from the previous stage
+        h0 = torch.empty((b, l, net.cfg.d_model), device=tokens.device)
+    outs = pipe.forward(h0, lambda x: net.blocks(x, attention)[0])
+    loss, grads_out = torch.zeros((), device=tokens.device), None
+    if pipe.last:
+        h = torch.cat(outs).detach().requires_grad_(True)
+        loss = head(_ln(h, net.ln_f.g, net.ln_f.b))
+        loss.backward()
+        grads_out = list(h.grad.split(b // pipe.m))
+    g0 = pipe.backward(grads_out)
+    if pipe.stage == 0:
+        torch.autograd.backward(h0, g0)
+    return loss.detach()
+
+
+def pipeline_step(net: TransformerNet, opt_state, batch, lr: float, pipe,
+                  denom, stage_all_reduce: Callable,
+                  shared_all_reduce: Callable,
+                  attention: Callable = causal_attention):
+    """One step of a pipelined fit (reference :285-306):
+    :func:`pipeline_grads` with the loss over the global batch's ``denom``;
+    the shared leaves' gradients (the embeddings and the final norm, each
+    stage's parts) summed over ``pipe`` and ``data`` by
+    ``shared_all_reduce``, the stage's layers' over ``data`` by
+    ``stage_all_reduce``; then the same adam. Returns the loss on the last
+    stage, 0 on the others, as a device scalar."""
+    tokens, positions, targets, weights = batch
+    params = list(net.parameters())
+    for p in params:
+        p.grad = None
+    d = net.cfg.d_model
+
+    def head(hidden):
+        return weighted_xent_sum(hidden.reshape(-1, d), net.item_emb,
+                                 targets.reshape(-1), weights.reshape(-1)) / denom
+
+    loss = pipeline_grads(net, tokens, positions, pipe, head, attention)
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    for p in params:
+        p.grad = None
+    shared = {id(p) for p in (net.item_emb, net.pos_emb, net.ln_f.g, net.ln_f.b)}
+    for fn, idx in ((shared_all_reduce, [i for i, p in enumerate(params)
+                                         if id(p) in shared]),
+                    (stage_all_reduce, [i for i, p in enumerate(params)
+                                        if id(p) not in shared])):
+        flat = fn(torch.cat([grads[i].reshape(-1) for i in idx]))
+        for i, g in zip(idx, flat.split([params[i].numel() for i in idx])):
+            grads[i] = g.view_as(params[i])
+    adam_update(params, grads, opt_state, lr)
+    return loss
+
+
+class SeqRing:
+    """The ``seq`` line of a ring-attention fit as the ring sees its mesh
+    (:func:`~incubator_predictionio_tpu_torch.parallel.ring.ring_attention`
+    reads ``axis_size_or``, ``axis_index`` and ``ppermute``): each K/V
+    rotation, forward and backward, timed by ``clock`` and its bytes sent
+    counted in :attr:`bytes`."""
+
+    def __init__(self, ctx, clock: CollectiveClock):
+        self.ctx, self.clock = ctx, clock
+        self.bytes = 0
+        self.axis_names = ctx.axis_names
+
+    def axis_size_or(self, name, default=1):
+        return self.ctx.axis_size_or(name, default)
+
+    def axis_index(self, name):
+        return self.ctx.axis_index(name)
+
+    def ppermute(self, t, axis, shift=1, cyclic=True):
+        self.bytes += t.numel() * t.element_size()
+        return self.clock.time(lambda: self.ctx.ppermute(t, axis, shift, cyclic))
+
+
 def _leaves(tree):
     """The arrays of a parameter tree (dicts and lists) in its order."""
     if isinstance(tree, dict):
@@ -939,7 +1091,44 @@ class TransformerRecommender:
     def __init__(self, config: TransformerConfig):
         self.config = config
 
-    def _tensor_parallel(self, ctx: DeviceContext) -> bool:
+    def _use_ring(self, ctx: DeviceContext) -> bool:
+        """transformer.py:416: ring attention for ``"ring"``, never for
+        ``"local"``, and for ``"auto"`` on a ``seq`` axis larger than 1."""
+        if self.config.attention == "ring":
+            return True
+        if self.config.attention == "local":
+            return False
+        return ctx.axis_size_or("seq") > 1
+
+    def _use_pipeline(self, ctx: DeviceContext, use_ring: bool) -> bool:
+        """Whether the fit is pipelined, with the reference's checks and
+        texts (transformer.py:437-458): ``pipeline_stages`` on a mesh
+        without a ``pipe`` axis warns and trains without pipelining; on
+        one, the stage count must be the axis's size and divide the
+        layers, and neither ring attention nor MoE may be asked for."""
+        cfg = self.config
+        use = bool(cfg.pipeline_stages) and "pipe" in ctx.axis_names
+        if cfg.pipeline_stages and not use:
+            logger.warning(
+                "pipeline_stages=%d requested but the mesh has no 'pipe' "
+                "axis (mesh axes: %s) — training runs without pipeline "
+                "parallelism", cfg.pipeline_stages, ctx.axis_names)
+        if use:
+            if cfg.pipeline_stages != ctx.axis_size("pipe"):
+                raise ValueError(
+                    f"pipeline_stages={cfg.pipeline_stages} must equal the "
+                    f"pipe axis size ({ctx.axis_size('pipe')})")
+            if cfg.n_layers % cfg.pipeline_stages:
+                raise ValueError(
+                    f"n_layers={cfg.n_layers} must divide into "
+                    f"{cfg.pipeline_stages} pipeline stages")
+            if use_ring or cfg.n_experts:
+                raise ValueError(
+                    "pipeline parallelism composes with dp (and local "
+                    "attention), not with ring attention or MoE")
+        return use
+
+    def _tensor_parallel(self, ctx: DeviceContext, use_pipeline: bool) -> bool:
         """Whether the fit is tensor-parallel, with the reference's checks
         and texts (transformer.py:542-565): ``tensor_parallel`` on a mesh
         without a ``model`` axis records a degradation (once a key) and
@@ -963,7 +1152,7 @@ class TransformerRecommender:
                     f"tensor parallelism needs n_heads ({cfg.n_heads}) and "
                     f"the FFN hidden dim ({4 * cfg.d_model}) divisible by "
                     f"the model axis ({tp})")
-            if cfg.pipeline_stages or cfg.n_experts:
+            if use_pipeline or cfg.n_experts:
                 raise ValueError(
                     "tensor parallelism composes with dp/sp, not with the "
                     "pipeline or MoE placements")
@@ -994,13 +1183,13 @@ class TransformerRecommender:
                 f"expert axis ({ep} devices)")
         return ep
 
-    def _refuse_unported(self, tensor_parallel: bool, expert_parallel: bool):
+    def _refuse_unported(self, use_pipeline: bool, tensor_parallel: bool,
+                         expert_parallel: bool):
         cfg = self.config
         checkpoints = bool(cfg.checkpoint_dir) and cfg.checkpoint_every > 0
         unported = [
-            (cfg.attention == "ring", "ring attention (attention='ring')"),
-            (cfg.pipeline_stages > 0,
-             f"pipeline parallelism (pipeline_stages={cfg.pipeline_stages})"),
+            (use_pipeline and checkpoints,
+             "pipeline parallelism with checkpoints (checkpoint_dir)"),
             (tensor_parallel and checkpoints,
              "tensor parallelism with checkpoints (checkpoint_dir)"),
             (expert_parallel and checkpoints,
@@ -1035,31 +1224,70 @@ class TransformerRecommender:
         every replica. The replicas are proven equal at the end
         (:func:`~incubator_predictionio_tpu_torch.parallel.mesh.check_replicas`).
         The data-parallel axis is the mesh's ``data`` axis: the processes
-        of a ``model`` or an ``expert`` line hold the same batches. With
-        ``tensor_parallel`` on a ``model`` axis they split the weights
-        (module docstring; :meth:`_tensor_parallel`). With ``n_experts`` the
-        routing is the global batch's; on an ``expert`` axis the members of
-        a line split each local batch by rows and the experts between them
-        (module docstring; :meth:`_expert_parallel`)."""
+        of a ``model``, ``expert``, ``seq`` or ``pipe`` line hold the same
+        batches. With ``tensor_parallel`` on a ``model`` axis they split the
+        weights (module docstring; :meth:`_tensor_parallel`). With
+        ``n_experts`` the routing is the global batch's; on an ``expert``
+        axis the members of a line split each local batch by rows and the
+        experts between them (module docstring; :meth:`_expert_parallel`).
+        With ring attention (:meth:`_use_ring`; whole rows only, as the
+        reference) the members of a ``seq`` line split the positions: each
+        stages its chunk of every row and runs every layer's attention
+        through the ring (reference :505-514); the position-wise rest stays
+        local, and the gradients are summed over ``data`` and ``seq``. On a
+        ``pipe`` axis (:meth:`_use_pipeline`) each member holds its stage's
+        layers and :func:`pipeline_step` runs the GPipe schedule on
+        ``pipeline_microbatches`` (default: the stage count) microbatches
+        of the local batch; the stages' layers are gathered back to the
+        canonical layout at the end (:func:`gather_stages`)."""
         cfg = self.config
-        if (cfg.pipeline_stages and "pipe" in ctx.axis_names
-                and (cfg.attention == "ring" or cfg.n_experts)):
-            # the reference's check (transformer.py:455-458)
-            raise ValueError(
-                "pipeline parallelism composes with dp (and local "
-                "attention), not with ring attention or MoE")
+        use_ring = self._use_ring(ctx)
+        use_pipeline = self._use_pipeline(ctx, use_ring)
+        pipe_m = cfg.pipeline_microbatches or cfg.pipeline_stages
         ep = self._expert_parallel(ctx)
-        tensor_parallel = self._tensor_parallel(ctx)
-        self._refuse_unported(tensor_parallel, ep > 1)
+        tensor_parallel = self._tensor_parallel(ctx, use_pipeline)
+        self._refuse_unported(use_pipeline, tensor_parallel, ep > 1)
+        if use_ring and cfg.n_experts:
+            # the reference routes the global batch's tokens in [B, L]
+            # order; split over seq they interleave across processes,
+            # which ExpertParallel's per-process prefix counts do not cover
+            raise NotImplementedError(
+                "TransformerRecommender.fit: a mixture of experts with ring "
+                "attention (a 'seq' axis) is not ported")
+        if use_ring and "seq" not in ctx.axis_names:
+            # the reference's sharding raises here (a PartitionSpec over an
+            # axis the mesh lacks): ValueError, naming the axis
+            raise ValueError(
+                f"attention='ring' shards the sequence over the mesh's 'seq' "
+                f"axis, which the mesh lacks (mesh axes {list(ctx.axis_names)})")
         multi = ctx.process_count > 1
+        if multi and rows_are_local:
+            if use_ring:
+                # the reference's refusal and text (transformer.py:467-474)
+                raise ValueError(
+                    "rows_are_local training does not compose with ring "
+                    "(sequence-parallel) attention; use attention='local'")
+            if use_pipeline and cfg.batch_size % (pipe_m * ctx.data_size):
+                raise ValueError(
+                    f"batch_size={cfg.batch_size} must be a multiple of "
+                    f"pipeline_microbatches × data axis "
+                    f"({pipe_m} × {ctx.data_size})")
         dp = ctx.data_size > 1  # gradients all-reduced over the data axis
         split = ep > 1  # the expert line's members split the local batch
+        seq = ctx.axis_size_or("seq") if use_ring else 1
+        pp = ctx.axis_size("pipe") if use_pipeline else 1
         sequences = np.asarray(sequences)
         tokens, targets = sequences[:, :-1], sequences[:, 1:]
         weights = (targets != 0).astype(np.float32) * (tokens != 0).astype(np.float32)
         n, l = tokens.shape
         if l != cfg.max_len:
             raise ValueError(f"sequences must be max_len+1 = {cfg.max_len + 1} wide")
+        if l % seq:
+            raise ValueError(
+                f"max_len={l} must divide over the seq axis ({seq} devices)")
+        # this process's chunk of the positions (all of them off a ring)
+        lc = l // seq
+        c0 = ctx.axis_index("seq") * lc if seq > 1 else 0
         dev = ctx.device
         t_stage = time.perf_counter()
         if multi and rows_are_local:
@@ -1077,6 +1305,11 @@ class TransformerRecommender:
             staged_real = int(w_pad.sum())
         else:
             global_batch = ctx.pad_to_batch_multiple(min(cfg.batch_size, max(n, 1)))
+            if use_pipeline:
+                # the schedule needs batch % (microbatches × data) == 0;
+                # round up, the extra rows zero-weight padding (:498-502)
+                mult = pipe_m * ctx.data_size
+                global_batch = -(-global_batch // mult) * mult
             n_batches = max(1, -(-n // global_batch))
             pad = n_batches * global_batch - n
             cols = slice(None)
@@ -1087,7 +1320,7 @@ class TransformerRecommender:
 
             def stage(a, dtype):
                 a = np.concatenate([a, np.zeros((pad, l), a.dtype)])
-                a = a.reshape(n_batches, global_batch, l)[:, cols]
+                a = a.reshape(n_batches, global_batch, l)[:, cols, c0:c0 + lc]
                 return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
             tb, yb = stage(tokens, torch.int64), stage(targets, torch.int64)
@@ -1097,12 +1330,23 @@ class TransformerRecommender:
         # an expert line's member i takes rows [i·b/ep, (i+1)·b/ep)
         member = ctx.axis_index("expert") if split else 0
         lo, hi = member * b_rows // ep, (member + 1) * b_rows // ep
-        positions = torch.arange(l, device=dev).expand(hi - lo, l)
-        reduce = dp or split  # the gradients are summed over processes
+        positions = torch.arange(c0, c0 + lc, device=dev).expand(hi - lo, lc)
+        # the axes whose processes hold other rows or positions: each
+        # global batch's loss sums over them (and a replicated leaf's
+        # gradients; a pipeline's shared leaves add 'pipe')
+        row_axes = [a for a, on in (("data", dp), ("expert", split),
+                                    ("seq", seq > 1)) if on]
+        reduce = bool(row_axes) or pp > 1  # sums over processes
+
+        def sum_over(t, axes):
+            for a in axes:
+                t = ctx.all_reduce_sum(t, axis=a)
+            return t
+
         # each global batch's loss denominator, max(Σ w, 1), once: a sum of
         # 0/1 weights, exact in fp32 in any order
-        denoms = (ctx.all_reduce_sum(wb.sum((1, 2)), axis="data")
-                  .clamp(min=1.0) if reduce else None)
+        denoms = (sum_over(wb.sum((1, 2)), [a for a in row_axes if a != "expert"])
+                  .clamp(min=1.0) if reduce or use_pipeline else None)
         t_stage = time.perf_counter() - t_stage
 
         generator = torch.Generator(device=dev).manual_seed(cfg.seed)
@@ -1110,7 +1354,9 @@ class TransformerRecommender:
         clock = CollectiveClock(dev)
         tp_clock = CollectiveClock(dev)
         a2a_clock, count_clock = CollectiveClock(dev), CollectiveClock(dev)
-        tp = experts = None
+        p2p_clock = CollectiveClock(dev)  # the ring's rotations, the pipe's handoffs
+        tp = experts = ring = pipe = None
+        attention = causal_attention
         if tensor_parallel:  # every process draws the whole init, keeps its slice
             tp = TensorParallel(ctx, tp_clock)
             init = shard_params(init, tp.rank, tp.size)
@@ -1120,6 +1366,14 @@ class TransformerRecommender:
                                      count_clock)
             if split:
                 init = shard_experts(init, experts.rank, ep)
+        if use_ring:
+            ring = SeqRing(ctx, p2p_clock)
+
+            def attention(q, k, v):
+                return ring_attention_sharded(q, k, v, ring)
+        if use_pipeline:
+            pipe = GPipe(ctx, pipe_m, "pipe", p2p_clock)
+            init = stage_params(init, pipe.stage, pp)
         net = TransformerNet(init, cfg, dev, trainable=True, tp=tp,
                              experts=experts)
         del init
@@ -1128,30 +1382,33 @@ class TransformerRecommender:
         chunks = []  # [epochs, n_batches] step losses of each chunk run
 
         def all_reduce(t):
-            # over every process with rows of its own: data, then expert
-            def run():
-                out = ctx.all_reduce_sum(t, axis="data") if dp else t
-                return ctx.all_reduce_sum(out, axis="expert") if split else out
-
-            return clock.time(run)
+            # over every process with rows or positions of its own
+            return clock.time(lambda: sum_over(t, row_axes))
 
         def all_reduce_experts(t):  # each expert's replicas: the data line
             return clock.time(lambda: ctx.all_reduce_sum(t, axis="data")) if dp else t
+
+        def all_reduce_shared(t):  # a pipeline's embeddings and final norm
+            return clock.time(lambda: sum_over(t, row_axes + ["pipe"]))
 
         def train_epochs(p, o, n_epochs):
             # p is `params`: a restore copies into the net's own tensors
             losses = torch.zeros((n_epochs, n_batches), device=dev)
             for epoch in range(n_epochs):
                 for i in range(n_batches):
+                    batch = (tb[i, lo:hi], positions, yb[i, lo:hi], wb[i, lo:hi])
+                    if pipe is not None:
+                        losses[epoch, i] = pipeline_step(
+                            net, o, batch, cfg.learning_rate, pipe,
+                            denoms[i], all_reduce, all_reduce_shared)
+                        continue
                     losses[epoch, i] = train_step(
-                        net, o, (tb[i, lo:hi], positions, yb[i, lo:hi],
-                                 wb[i, lo:hi]),
-                        cfg.learning_rate,
+                        net, o, batch, cfg.learning_rate, attention=attention,
                         denom=denoms[i] if reduce else None,
                         all_reduce=all_reduce if reduce else None,
                         expert_all_reduce=all_reduce_experts if split else None)
             if reduce:  # the global step losses: the local ones summed once
-                losses = all_reduce(losses)
+                losses = sum_over(losses, row_axes + (["pipe"] if pp > 1 else []))
             chunks.append(losses)
             # the mean of the last epoch's step losses (transformer.py:314)
             return p, o, losses[-1].mean()
@@ -1172,16 +1429,20 @@ class TransformerRecommender:
         t_gather = time.perf_counter()
         params = net.params_numpy()
         digest = None
-        if tensor_parallel or split:
+        if tensor_parallel or split or use_pipeline:
             # the replicated leaves equal on every process, each slice on
             # its data line; then the canonical layout from the slices
-            names = COLUMN_PARALLEL + ROW_PARALLEL if tensor_parallel else EXPERT_LEAVES
-            sliced = [layer[k] for layer in params["layers"] for k in names]
+            if use_pipeline:
+                sliced = list(_leaves(params["layers"]))
+            else:
+                names = COLUMN_PARALLEL + ROW_PARALLEL if tensor_parallel else EXPERT_LEAVES
+                sliced = [layer[k] for layer in params["layers"] for k in names]
             whole = [a for a in _leaves(params)
                      if not any(a is b for b in sliced)]
             check_replicas(ctx, sliced, axis="data")
             check_replicas(ctx, whole)
-            params = (gather_params(ctx, params) if tensor_parallel
+            params = (gather_stages(ctx, params) if use_pipeline
+                      else gather_params(ctx, params) if tensor_parallel
                       else gather_experts(ctx, params))
             digest = check_replicas(ctx, list(_leaves(params)))
         elif multi:
@@ -1194,9 +1455,10 @@ class TransformerRecommender:
         model.timings = {"train_sec": round(t_train, 4),
                          "gather_sec": round(time.perf_counter() - t_gather, 4)}
         if multi:
-            exchange = (clock.seconds() + tp_clock.seconds()
-                        + a2a_clock.seconds() + count_clock.seconds())
+            exchange = (clock.seconds() + tp_clock.seconds() + a2a_clock.seconds()
+                        + count_clock.seconds() + p2p_clock.seconds())
             n_steps = sum(len(c) for c in chunks) * n_batches  # epochs run
+            per_step = 1e3 / max(n_steps, 1)  # ms a step from seconds
             model.timings.update(stage_sec=round(t_stage, 4),
                                  exchange_sec=round(exchange, 4))
             from incubator_predictionio_tpu_torch.ops.attention import (
@@ -1207,6 +1469,7 @@ class TransformerRecommender:
                     if dev.type == "cuda" else 0)
             launches = json.dumps({w.__name__: w.launches
                                    for w in KERNEL_WRAPPERS})
+            coords = json.dumps({a: ctx.axis_index(a) for a in ctx.axis_names})
             if split:
                 layer = net.layers[0]
                 model.timings["all_to_all_sec"] = round(a2a_clock.seconds(), 4)
@@ -1222,17 +1485,16 @@ class TransformerRecommender:
                     "layer in the last step %s; loss %.6f; model digest %s, "
                     "equal on every process; peak device memory %d bytes; "
                     "attention launches %s",
-                    ctx.process_index, ctx.process_count,
-                    json.dumps({n: ctx.axis_index(n) for n in ctx.axis_names}),
+                    ctx.process_index, ctx.process_count, coords,
                     ctx.backend, dev, experts.first,
                     experts.first + experts.local, cfg.n_experts,
                     list(layer.we1.shape), list(layer.be1.shape),
                     list(layer.we2.shape), list(layer.be2.shape), n_steps,
                     hi - lo, b_rows, t_stage, t_train,
-                    a2a_clock.seconds() / max(n_steps, 1) * 1e3,
+                    a2a_clock.seconds() * per_step,
                     experts.bytes // max(n_steps, 1),
-                    count_clock.seconds() / max(n_steps, 1) * 1e3,
-                    clock.seconds() / max(n_steps, 1) * 1e3, json.dumps(stats),
+                    count_clock.seconds() * per_step,
+                    clock.seconds() * per_step, json.dumps(stats),
                     final_loss, digest, peak, launches)
             elif tensor_parallel:
                 layer = net.layers[0]
@@ -1245,15 +1507,46 @@ class TransformerRecommender:
                     "exchange model %.3f ms a step, data %.3f ms a step; "
                     "loss %.6f; model digest %s, equal on every process; "
                     "peak device memory %d bytes; attention launches %s",
-                    ctx.process_index, ctx.process_count,
-                    json.dumps({n: ctx.axis_index(n) for n in ctx.axis_names}),
+                    ctx.process_index, ctx.process_count, coords,
                     ctx.backend, dev, cfg.n_heads // tp.size, cfg.n_heads,
                     list(layer.wq.shape), list(layer.w1.shape),
                     list(layer.wo.shape), list(layer.w2.shape), n_steps,
-                    b_rows, t_stage, t_train,
-                    tp_clock.seconds() / max(n_steps, 1) * 1e3,
-                    clock.seconds() / max(n_steps, 1) * 1e3, final_loss,
+                    b_rows, t_stage, t_train, tp_clock.seconds() * per_step,
+                    clock.seconds() * per_step, final_loss,
                     digest, peak, launches)
+            elif ring is not None:
+                model.timings.update(rotation_sec=round(p2p_clock.seconds(), 4),
+                                     rotation_bytes=ring.bytes)
+                logger.info(
+                    "ring-attention fit: process %d of %d at %s (backend %s, "
+                    "%s): positions [%d, %d) of %d; %d steps of %d local "
+                    "rows; stage %.3f s, train %.3f s, rotation %.3f ms a "
+                    "step (%d bytes a step), gradients %.3f ms a step; loss "
+                    "%.6f; model digest %s, equal on every process; peak "
+                    "device memory %d bytes; attention launches %s",
+                    ctx.process_index, ctx.process_count, coords, ctx.backend,
+                    dev, c0, c0 + lc, l, n_steps, b_rows, t_stage, t_train,
+                    p2p_clock.seconds() * per_step,
+                    ring.bytes // max(n_steps, 1), clock.seconds() * per_step,
+                    final_loss, digest, peak, launches)
+            elif pipe is not None:
+                k = cfg.n_layers // pp
+                model.timings.update(handoff_sec=round(p2p_clock.seconds(), 4),
+                                     handoff_bytes=pipe.bytes)
+                logger.info(
+                    "pipeline fit: process %d of %d at %s (backend %s, %s): "
+                    "pipe stage %d of %d, layers [%d, %d) of %d; %d "
+                    "microbatches of %d rows; %d steps of %d local rows; "
+                    "stage %.3f s, train %.3f s, handoff %.3f ms a step (%d "
+                    "bytes a step), gradients %.3f ms a step; loss %.6f; "
+                    "model digest %s, equal on every process; peak device "
+                    "memory %d bytes; attention launches %s",
+                    ctx.process_index, ctx.process_count, coords, ctx.backend,
+                    dev, pipe.stage, pp, pipe.stage * k, (pipe.stage + 1) * k,
+                    cfg.n_layers, pipe_m, b_rows // pipe_m, n_steps, b_rows,
+                    t_stage, t_train, p2p_clock.seconds() * per_step,
+                    pipe.bytes // max(n_steps, 1), clock.seconds() * per_step,
+                    final_loss, digest, peak, launches)
             else:
                 logger.info(
                     "data-parallel fit: process %d of %d (backend %s, %s): "
@@ -1262,9 +1555,8 @@ class TransformerRecommender:
                     "equal on every process; staged %d rows (%s real); peak "
                     "device memory %d bytes; attention launches %s",
                     ctx.process_index, ctx.process_count, ctx.backend, dev,
-                    n_steps, b_rows, t_stage, t_train,
-                    exchange / max(n_steps, 1) * 1e3, final_loss, digest,
-                    n_batches * b_rows,
+                    n_steps, b_rows, t_stage, t_train, exchange * per_step,
+                    final_loss, digest, n_batches * b_rows,
                     staged_real if staged_real is not None else "all", peak,
                     launches)
         return model

@@ -18,7 +18,11 @@ process nor the whole job has its own ``torch.distributed`` subgroup,
 made with ``dist.new_group`` in the same order on every process
 (:meth:`DeviceContext._init_groups`); the collectives take an axis name
 (``all_gather(t, axis="model")``, ``all_to_all(t, send, recv,
-axis="expert")``) and, with none named, span the job.
+axis="expert")``) and, with none named, span the job. One point-to-point
+exchange, ``ppermute(t, axis, shift)`` (the reference's
+``jax.lax.ppermute`` along an axis line; :class:`PPermute` is its
+differentiable form), carries ring attention's K/V rotation over ``seq``
+and the pipeline's handoffs over ``pipe``.
 
 A single process is ``{"data": 1}``; a launch without ``axes`` is
 ``{"data": N}``. The batch axis is always ``data`` (size 1 when the
@@ -381,6 +385,56 @@ class DeviceContext:
         dist.all_to_all_single(out, src, recv, send, group=group)
         return out.to(t.device) if host else out
 
+    def ppermute_peers(self, axis: str, shift: int = 1, cyclic: bool = True):
+        """``(to, from)``: the global ranks this process sends to and
+        receives from under :meth:`ppermute`, None where it does not."""
+        size = self.axis_size_or(axis)
+        me = self.axis_index(axis)
+        line = next(ln for ln in axis_lines(self.axes, axis)
+                    if self.process_index in ln) if size > 1 else [self.process_index]
+
+        def at(i):
+            if cyclic:
+                return line[i % size]
+            return line[i] if 0 <= i < size else None
+
+        return at(me + shift), at(me - shift)
+
+    def ppermute(self, t: torch.Tensor, axis: str, shift: int = 1,
+                 cyclic: bool = True) -> torch.Tensor:
+        """``jax.lax.ppermute`` along one line of ``axis``: the member at
+        position ``i`` of the line sends ``t`` to the member at ``i +
+        shift`` and returns what the member at ``i − shift`` sent, on
+        ``t``'s device. ``cyclic`` (the ring ``[(i, (i + shift) % s)]``)
+        wraps around the line; otherwise the pairs that fall off it are
+        dropped, a member that receives nothing gets zeros, as ppermute's
+        partial permutations give. Every member of the line calls it with a
+        tensor of one shape and dtype. One point-to-point exchange a pair
+        (``dist.batch_isend_irecv``: NCCL on the card, gloo through the
+        host); one process (or a shift of the whole line): a copy. Its
+        transpose is ``shift=-shift`` (:class:`PPermute`)."""
+        size = self.axis_size_or(axis)
+        to, frm = self.ppermute_peers(axis, shift, cyclic)
+        if size == 1 or (cyclic and shift % size == 0):
+            return t.clone()
+        self._group_ready()
+        import torch.distributed as dist
+
+        src = t.contiguous()
+        host = self._through_host(src)
+        if host:
+            src = src.cpu()
+        out = torch.zeros_like(src)
+        group = self._line(axis)[0]
+        ops = []
+        if to is not None:
+            ops.append(dist.P2POp(dist.isend, src, to, group))
+        if frm is not None:
+            ops.append(dist.P2POp(dist.irecv, out, frm, group))
+        for work in dist.batch_isend_irecv(ops) if ops else ():
+            work.wait()
+        return out.to(t.device) if host else out
+
     def stop(self) -> None:
         """Leave the process group (the reference's ``sc.stop()`` hook)."""
         if self.backend is not None:
@@ -428,6 +482,30 @@ class DeviceContext:
             conf = MeshConf.from_dict(conf)
         return DeviceContext.create(device, distributed=conf.distributed,
                                     axes=conf.axes)
+
+
+class PPermute(torch.autograd.Function):
+    """:meth:`DeviceContext.ppermute` with its transpose as the backward:
+    each gradient goes back the way its value came (``shift=-shift``), as
+    ``jax.lax.ppermute``'s transpose does. Every member of the line runs
+    the backward exchange, so every member's output must reach the loss
+    (each process builds the same graph)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, shift, cyclic):
+        ctx.args = (mesh, axis, shift, cyclic)
+        return mesh.ppermute(t, axis, shift, cyclic)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, shift, cyclic = ctx.args
+        return mesh.ppermute(g, axis, -shift, cyclic), None, None, None, None
+
+
+def ppermute(mesh: DeviceContext, t: torch.Tensor, axis: str, shift: int = 1,
+             cyclic: bool = True) -> torch.Tensor:
+    """The differentiable form of :meth:`DeviceContext.ppermute`."""
+    return PPermute.apply(t, mesh, axis, shift, cyclic)
 
 
 class CollectiveClock:

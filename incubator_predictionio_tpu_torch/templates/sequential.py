@@ -182,10 +182,13 @@ class DataSource(PDataSource):
             n_rows_global = global_row_count(ctx, len(rows))
             logger.info("sharded read: %d of %d rows (shard %d/%d)",
                         len(rows), n_rows_global, *data_shard(ctx))
+        # a launched read's rows are the process's (reference :170: every
+        # process of a launch, whatever its mesh axes); the processes of a
+        # model, expert, seq or pipe line read the same data shard
         return TrainingData(
             sequences=np.stack(rows) if rows else np.zeros((0, width), np.int32),
             item_map=item_map,
-            rows_are_local=sharded,
+            rows_are_local=sharded or ctx.process_count > 1,
             n_rows_global=n_rows_global)
 
     def read_training(self, ctx: DeviceContext) -> TrainingData:

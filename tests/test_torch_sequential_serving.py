@@ -326,24 +326,27 @@ def test_unported_stages_raise_and_name_the_roadmap(tmp_path):
     np.testing.assert_allclose(
         ttr.TransformerRecommender.next_item_scores(moe, hist), want,
         rtol=0, atol=TOL)
-    # training options of the sharding slice raise in fit, and never train
-    # without them
-    for field, value, what in (("attention", "ring", "ring attention"),
-                               ("pipeline_stages", 2, "pipeline parallelism"),
+    # training options of the sharding slice: ring attention without a
+    # 'seq' axis raises the reference's ValueError (tests/
+    # test_torch_ring_attention.py); the pipeline, tensor and expert
+    # parallelism are ported on their axes (tests/test_torch_pipeline.py,
+    # test_torch_tensor_parallel.py, test_torch_moe.py) but for checkpoints,
+    # which raise and never train without them
+    with pytest.raises(ValueError, match="'seq' axis"):
+        ttr.TransformerRecommender(dataclasses.replace(
+            cfg, n_experts=0, attention="ring")).fit(CPU, rows, None)
+    for field, value, what in (("pipeline_stages", 2,
+                                "pipeline parallelism with checkpoints"),
                                ("tensor_parallel", True,
                                 "tensor parallelism with checkpoints"),
                                ("n_experts", 4,
                                 "expert parallelism with checkpoints")):
         c = dataclasses.replace(cfg, **{"n_experts": 0, field: value})
-        ctx = CPU
-        if field in ("tensor_parallel", "n_experts"):
-            # ported on a 'model' axis (tests/test_torch_tensor_parallel.py)
-            # and an 'expert' axis (tests/test_torch_moe.py) but for
-            # checkpoints
-            axis = "model" if field == "tensor_parallel" else "expert"
-            ctx = DeviceContext(torch.device("cpu"), 0, 2, axes={axis: 2})
-            c = dataclasses.replace(c, checkpoint_dir=str(tmp_path / "ck"),
-                                    checkpoint_every=1)
+        axis = {"pipeline_stages": "pipe", "tensor_parallel": "model",
+                "n_experts": "expert"}[field]
+        ctx = DeviceContext(torch.device("cpu"), 0, 2, axes={axis: 2})
+        c = dataclasses.replace(c, checkpoint_dir=str(tmp_path / "ck"),
+                                checkpoint_every=1)
         with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
             ttr.TransformerRecommender(c).fit(ctx, rows, None)
     # the template's numExperts trains a mixture of experts on one device

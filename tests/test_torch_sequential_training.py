@@ -307,6 +307,31 @@ def test_fit_refuses_what_is_not_ported(field, value, match):
             ttr.TransformerRecommender(cfg).fit(model_axis, _rows(), None)
         assert not os.path.exists("/nonexistent")
         return
+    if field == "attention":
+        # ported (tests/test_torch_ring_attention.py): the ring shards the
+        # sequence over a 'seq' axis; without one it raises ValueError
+        # naming the axis, as the reference's sharding does, and on a
+        # one-process 'seq' axis it is a ring of one
+        with pytest.raises(ValueError, match="'seq' axis"):
+            ttr.TransformerRecommender(cfg).fit(CPU, _rows(), None)
+        seq = DeviceContext(torch.device("cpu"), axes={"seq": 1})
+        assert np.isfinite(ttr.TransformerRecommender(cfg).fit(
+            seq, _rows(), None).final_loss)
+        return
+    if field == "pipeline_stages":
+        # ported (tests/test_torch_pipeline.py): without a 'pipe' axis the
+        # fit warns and trains without pipelining, as the reference's does;
+        # with one and checkpoints it raises and names item 4.5 (d)
+        assert np.isfinite(ttr.TransformerRecommender(cfg).fit(
+            CPU, _rows(), None).final_loss)
+        pipe = DeviceContext(torch.device("cpu"), 0, 2, axes={"pipe": 2})
+        cfg = dataclasses.replace(cfg, checkpoint_dir="/nonexistent",
+                                  checkpoint_every=1)
+        with pytest.raises(NotImplementedError,
+                           match=f"{match}.*ROADMAP.md Queue 1, item 4"):
+            ttr.TransformerRecommender(cfg).fit(pipe, _rows(), None)
+        assert not os.path.exists("/nonexistent")
+        return
     if field == "n_experts":
         # ported (tests/test_torch_moe.py): without an 'expert' axis the fit
         # records the reference's degradation and trains replicated

@@ -133,6 +133,18 @@ class ThreadMesh:
             def all_reduce_sum(self, t, axis=None):
                 return group._meet(index, t, axis, total)
 
+            def ppermute(self, t, axis, shift=1, cyclic=True):
+                # what the member ``shift`` places back on the line sent
+                def take(parts):
+                    line = group._line(index, axis)
+                    src = line.index(index) - shift
+                    if cyclic:
+                        return parts[src % len(line)].clone()
+                    return (parts[src].clone() if 0 <= src < len(line)
+                            else torch.zeros_like(t))
+
+                return group._meet(index, t.contiguous(), axis, take)
+
         return Member(torch.device("cpu"), index, self.n, "threads",
                       self.axes)
 
