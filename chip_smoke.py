@@ -248,10 +248,12 @@ import asyncio
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import logging
 import os
 import re
+import shutil
 import socket
 import statistics
 import subprocess
@@ -8782,6 +8784,419 @@ def seq_axes_phase(ctx, tmp):
     return launches, rec
 
 
+# -- phase: checkpoints of split weights (tensor, expert, pipe) ---------------
+
+#: seq-ckpt: seq-workflow's full width (max_len 512, d_model 512, 8 heads
+#: of 64, batch 64) on the first SEQ_CKPT_USERS of seq-tp's users'
+#: sessions (one step an epoch), 2 epochs with a checkpoint after each, in
+#: three layouts over a two-process line, each on ``cuda:0`` over gloo:
+#: Megatron's slices over ``model`` (K4 on 4 heads), Switch-Base-8's
+#: experts over ``expert`` (K4 at B 32), GPipe's stages over ``pipe`` (4
+#: microbatches, K4 at (16, 8, 512, 64)). Depth cut to SEQ_CKPT_LAYERS of
+#: the 6 layers for the script's time limit: all 6 took 96.8–137.4 s of
+#: phase on an NVIDIA H100 80GB HBM3 at 700.00 W, a third of it the
+#: experts' 1,349,971,968-byte state saved 3 times and restored (PERF.md §4)
+SEQ_CKPT_USERS, SEQ_CKPT_EPOCHS, SEQ_CKPT_LAYERS = 64, 2, 2
+SEQ_CKPT_LAYOUTS = {
+    "model": ({"model": 2}, {"tensor_parallel": True}),
+    "expert": ({"expert": 2}, {"n_experts": SEQ_MOE_EXPERTS}),
+    "pipe": ({"pipe": 2}, {"pipeline_stages": 2,
+                           "pipeline_microbatches": SEQ_PIPE_MICROBATCHES}),
+}
+SEQ_CKPT_RESUMED = "checkpoint: resuming from epoch 1 (of 2)"
+CKPT_MEMBER = """
+import json
+import sys
+import chip_smoke
+chip_smoke.seq_ckpt_member(sys.argv[1], sys.argv[2], json.loads(sys.argv[3]))
+"""
+
+
+def seq_ckpt_sizes(directory: str) -> dict:
+    """The checkpoint check's sizes and directory, handed to its members."""
+    return {"vocab": SEQ_VOCAB, "max_len": SEQ_WF_MAX_LEN, "d": SEQ_D,
+            "heads": SEQ_HEADS, "layers": SEQ_CKPT_LAYERS, "lr": TRAIN_LR,
+            "batch": TRAIN_BATCH, "users": SEQ_CKPT_USERS, "dir": directory}
+
+
+def seq_ckpt_cfg(z: dict, layout: str, directory: str, **kw):
+    from incubator_predictionio_tpu_torch.models.transformer import (
+        TransformerConfig,
+    )
+
+    return TransformerConfig(
+        vocab_size=z["vocab"], max_len=z["max_len"], d_model=z["d"],
+        n_heads=z["heads"], n_layers=z["layers"], learning_rate=z["lr"],
+        batch_size=z["batch"], epochs=SEQ_CKPT_EPOCHS,
+        checkpoint_dir=directory, checkpoint_every=1,
+        **{**SEQ_CKPT_LAYOUTS[layout][1], **kw})
+
+
+def seq_ckpt_rows(z: dict) -> np.ndarray:
+    """``[users, max_len + 1]`` token rows: the first ``users`` of seq-tp's
+    users' sessions (seq-workflow's ``cycle_sessions`` of
+    ``default_rng(31)``), item ``i<n>`` as token ``n + 1``, left-padded."""
+    width = z["max_len"] + 1
+    sessions = cycle_sessions(np.random.default_rng(31), SEQ_WF_USERS,
+                              SEQ_WF_MAX_LEN, SEQ_WF_LENGTHS)[:z["users"]]
+    rows = np.zeros((len(sessions), width), np.int32)
+    for r, items in enumerate(sessions):
+        items = items[-width:]
+        rows[r, width - len(items):] = [int(i[1:]) % (z["vocab"] - 1) + 1
+                                        for i in items]
+    return rows
+
+
+class CkptRecords(logging.Handler):
+    """The checkpoint module's records (``utils/checkpoint.py`` logs each
+    save's and restore's seconds and bytes, and the resume)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def take(self, start: str) -> list:
+        """The arguments of the records whose message starts ``start``."""
+        return [r.args for r in self.records if r.msg.startswith(start)]
+
+    def messages(self) -> list:
+        return [r.getMessage() for r in self.records]
+
+
+def equal_states(a: list, b: list) -> bool:
+    """Two checkpointed states' leaves (:func:`state_leaves` order) equal
+    bit for bit: tensors compared on the first one's device, ints as ints."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if isinstance(x, torch.Tensor) != isinstance(y, torch.Tensor):
+            return False
+        if not isinstance(x, torch.Tensor):
+            if x != y:
+                return False
+        elif (x.shape != y.shape or x.dtype != y.dtype
+              or not torch.equal(x, y.to(x.device))):
+            return False
+    return True
+
+
+class NextSlice:
+    """The planted fault of seq-ckpt: a context whose coordinate on every
+    axis is the next member's, so a layout's ``cut`` hands each member the
+    other's slice."""
+
+    def __init__(self, ctx):
+        self.ctx = ctx
+
+    def axis_size(self, axis):
+        return self.ctx.axis_size(axis)
+
+    def axis_index(self, axis):
+        return (self.ctx.axis_index(axis) + 1) % self.ctx.axis_size(axis)
+
+
+def seq_ckpt_layout(ctx, rows, z: dict, layout: str, records) -> dict:
+    """One layout of :func:`seq_ckpt_member` on ``ctx`` (its axes
+    :data:`SEQ_CKPT_LAYOUTS`'): the uninterrupted fit saving steps 1 and
+    2; step 2 removed (a kill after epoch 1's save); the fit again, which
+    must resume; the state it restored gathered whole again and held
+    bitwise to step 1's file; then step 1's leaves cut again with each
+    member handed the other's slice (the planted fault) and held the same
+    way. What the parent checks."""
+    from incubator_predictionio_tpu_torch.models import transformer as ttr
+    from incubator_predictionio_tpu_torch.ops import attention as A
+    from incubator_predictionio_tpu_torch.utils import checkpoint as ckpt
+
+    dev = ctx.device
+    cuda = dev.type == "cuda"
+    d = os.path.join(z["dir"], layout)
+    cfg = seq_ckpt_cfg(z, layout, d)
+    A.reset_launches()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    records.records.clear()
+    t0 = time.perf_counter()
+    straight = ttr.TransformerRecommender(cfg).fit(ctx, rows, None)
+    straight_s = time.perf_counter() - t0
+    steps = ckpt.TrainCheckpointer(d).all_steps()
+    saves = records.take("checkpoint: step %d saved")
+    ctx.allgather_obj("straight")  # both members done with the directory
+    if ctx.is_primary:
+        os.remove(os.path.join(d, "step-2.pt"))
+    ctx.allgather_obj("killed")
+    # the restore the fit makes, gathered whole again, and its template
+    seen = {}
+    real_restore = ckpt.TrainCheckpointer.restore
+
+    def spy(self, step=None, like=None):
+        state = real_restore(self, step, like)
+        if like is not None and "whole" not in seen:
+            # copies: the whole leaves go on training in place
+            seen.update(layout=self._layout, like=like, whole=[
+                t.clone() if isinstance(t, torch.Tensor) else t
+                for t in ckpt.state_leaves(self._layout.gather(state))])
+        return state
+
+    records.records.clear()
+    ckpt.TrainCheckpointer.restore = spy
+    try:
+        t0 = time.perf_counter()
+        resumed = ttr.TransformerRecommender(cfg).fit(ctx, rows, None)
+        resumed_s = time.perf_counter() - t0
+    finally:
+        ckpt.TrainCheckpointer.restore = real_restore
+    messages = records.messages()
+    restores = records.take("checkpoint: step %d restored")
+    resaves = records.take("checkpoint: step %d saved")
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    launches = {w.__name__: w.launches for w in A.KERNEL_WRAPPERS}
+    saved = ckpt.state_leaves(ckpt.TrainCheckpointer(d).restore(1))
+    restored_bitwise = equal_states(seen.pop("whole"), saved)
+    # the planted fault: step 1's leaves cut with the slices swapped
+    lay = seen["layout"]
+    real_ctx, lay.ctx = lay.ctx, NextSlice(lay.ctx)
+    try:
+        swapped = lay.cut([ckpt.leaf_to_numpy(x) for x in saved], seen["like"])
+    finally:
+        lay.ctx = real_ctx
+    fault_bitwise = equal_states(ckpt.state_leaves(lay.gather(swapped)), saved)
+    same = [bool(np.array_equal(a, b)) for a, b in zip(
+        ttr._leaves(resumed.params), ttr._leaves(straight.params))]
+    return {"steps": steps, "straight_s": straight_s, "resumed_s": resumed_s,
+            "timings": [straight.timings, resumed.timings],
+            "resumed_logged": any(SEQ_CKPT_RESUMED in m for m in messages),
+            "params_bitwise": all(same) and len(same) > 0,
+            "loss_bitwise": (resumed.final_loss == straight.final_loss
+                             and np.array_equal(resumed.step_losses[-1],
+                                                straight.step_losses[-1])),
+            "straight_losses": np.asarray(straight.step_losses).tolist(),
+            "resumed_losses": np.asarray(resumed.step_losses).tolist(),
+            "restored_bitwise": restored_bitwise,
+            "fault_bitwise": fault_bitwise,
+            "state_bytes": sum(t.numel() * t.element_size() for t in saved
+                               if isinstance(t, torch.Tensor)),
+            "saves": [{"step": a[0], "s": a[1], "gather_s": a[2],
+                       "bytes_written": a[3]} for a in saves + resaves],
+            "restores": [{"s": a[1], "read_s": a[2]} for a in restores],
+            "peak_bytes": peak, "launches": launches,
+            "digest": hashlib.sha256(b"".join(
+                np.ascontiguousarray(a).tobytes()
+                for a in ttr._leaves(resumed.params))).hexdigest()[:16]}
+
+
+def seq_ckpt_member(out_path, device, z: dict):
+    """One member of seq-ckpt (a process of the job ``PIO_DIST_*``
+    describes, on ``device``): the three layouts of
+    :data:`SEQ_CKPT_LAYOUTS` in turn (:func:`seq_ckpt_layout`), each a
+    context over the one group of the job with that layout's axis (a line
+    of two is the whole job); saves what the parent checks to
+    ``out_path``."""
+    from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext
+
+    clock = {"entered": time.time()}  # the epoch clock, as the parent's
+    ctx = DeviceContext.create(device, distributed=True,
+                               axes=SEQ_CKPT_LAYOUTS["model"][0])
+    clock["joined"] = time.time()
+    records = CkptRecords()
+    log_ = logging.getLogger("incubator_predictionio_tpu_torch.utils.checkpoint")
+    log_.addHandler(records)
+    log_.setLevel(logging.INFO)
+    try:
+        rows = seq_ckpt_rows(z)
+        out = {"backend": ctx.backend, "device": str(ctx.device),
+               "layouts": {}, "clock": clock}
+        for name, (axes, _) in SEQ_CKPT_LAYOUTS.items():
+            clock[name] = time.time()
+            out["layouts"][name] = seq_ckpt_layout(
+                dataclasses.replace(ctx, axes=axes), rows, z, name, records)
+        clock["done"] = time.time()
+        torch.save(out, out_path)
+    finally:
+        ctx.stop()
+
+
+def seq_ckpt_cross(ctx, z: dict, members) -> dict:
+    """The cross-layout resume of seq-ckpt, in this process while the
+    members go on: as soon as the tensor-parallel fit has written step 1
+    (an atomic rename: complete once it is there), a copy of it alone is
+    resumed by a one-process replicated fit of the same config. Returns
+    its epoch-2 loss, whether it logged the resume, its seconds and this
+    process's attention launches."""
+    from incubator_predictionio_tpu_torch.models import transformer as ttr
+    from incubator_predictionio_tpu_torch.ops import attention as A
+
+    first = os.path.join(z["dir"], "model", "step-1.pt")
+    while not os.path.exists(first) and all(p.poll() is None for p in members):
+        time.sleep(0.05)
+    cross = os.path.join(z["dir"], "cross")
+    os.makedirs(cross, exist_ok=True)
+    if os.path.exists(first):
+        shutil.copy(first, cross)
+    records = CkptRecords()
+    log_ = logging.getLogger("incubator_predictionio_tpu_torch.utils.checkpoint")
+    log_.addHandler(records)
+    level = log_.level
+    log_.setLevel(logging.INFO)
+    A.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        one = ttr.TransformerRecommender(seq_ckpt_cfg(
+            z, "model", cross, tensor_parallel=False)).fit(
+            ctx, seq_ckpt_rows(z), None)
+        train_s = time.perf_counter() - t0
+    finally:
+        log_.removeHandler(records)
+        log_.setLevel(level)
+    return {"loss": one.final_loss, "train_s": train_s,
+            "resumed": any(SEQ_CKPT_RESUMED in m for m in records.messages()),
+            "messages": records.messages(),
+            "launches": {w.__name__: w.launches for w in A.KERNEL_WRAPPERS}}
+
+
+def seq_ckpt_phase(ctx, tmp, meanwhile=None):
+    """Checkpoints of split weights on the card: two fresh processes
+    (:func:`seq_ckpt_member`, both on ``cuda:0`` over gloo) fit
+    seq-workflow's widths (:data:`SEQ_CKPT_LAYERS` layers) on 64 rows in
+    three layouts: tensor parallelism over
+    ``{"model": 2}``, Switch-Base-8's experts over ``{"expert": 2}``, two
+    pipeline stages with 4 microbatches over ``{"pipe": 2}``. Held, each
+    layout on both members: steps 1 and 2 saved; after step 2 is removed
+    the fit logs its resume from epoch 1; its parameters and epoch-2 loss
+    bitwise the uninterrupted fit's; the state it restored bitwise step
+    1's file; a restore that hands each member the other's slice not.
+    Beside them, the cross-layout resume in this process: the
+    tensor-parallel step 1 resumed by a one-process replicated fit, which
+    must log the
+    resume and land within :data:`SEQ_TP_LOSS_RTOL` of the
+    tensor-parallel epoch-2 loss (:func:`seq_ckpt_cross`, as soon as that
+    step is written). ``meanwhile()`` runs in this process first, while
+    the members start. Returns (this process's attention launches,
+    record) and what ``meanwhile`` returned."""
+    from incubator_predictionio_tpu_torch.parallel.launcher import free_port
+
+    t_phase, t_launch = time.perf_counter(), time.time()
+    base = os.path.join(tmp, "seq-ckpt")
+    os.makedirs(base, exist_ok=True)
+    z = seq_ckpt_sizes(base)
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent),
+               PIO_DIST_COORDINATOR=f"127.0.0.1:{free_port()}",
+               PIO_DIST_NUM_PROCESSES=str(LAUNCH_PROCS))
+    paths = [os.path.join(base, f"member{i}.pt") for i in range(LAUNCH_PROCS)]
+    members = [subprocess.Popen(
+        [sys.executable, "-c", CKPT_MEMBER, paths[i],
+         "cuda:0" if ctx.device.type == "cuda" else str(ctx.device),
+         json.dumps(z)],
+        env=dict(env, PIO_DIST_PROCESS_ID=str(i)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for i in range(LAUNCH_PROCS)]
+    try:
+        other = meanwhile() if meanwhile is not None else None
+        t_wait = time.perf_counter()
+        cross = seq_ckpt_cross(ctx, z, members)
+        logs = [p.communicate(timeout=600)[0] for p in members]
+    finally:
+        for p in members:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    members_s = time.perf_counter() - t_phase
+    OUT.parent.mkdir(parents=True, exist_ok=True)
+    (OUT.parent / "seq_ckpt_members.log").write_text(
+        "\n".join(f"--- member {i} ---\n{t}" for i, t in enumerate(logs)))
+    for i, p in enumerate(members):
+        check(p.returncode == 0, f"[seq-ckpt] member {i} exited "
+              f"{p.returncode}: {logs[i][-3000:]}")
+    got = [torch.load(q, weights_only=False) for q in paths]
+    per = {}
+    for name in SEQ_CKPT_LAYOUTS:
+        ms = [m["layouts"][name] for m in got]
+        for i, m in enumerate(ms):
+            tag = f"[seq-ckpt {name}] member {i}"
+            check(m["steps"] == [1, 2], f"{tag}: the uninterrupted fit saved "
+                  f"steps {m['steps']}")
+            check(m["resumed_logged"], f"{tag}: no \"{SEQ_CKPT_RESUMED}\"")
+            check(m["params_bitwise"] and m["loss_bitwise"],
+                  f"{tag}: the resumed fit is not bitwise the uninterrupted "
+                  f"one: losses {m['resumed_losses']} against "
+                  f"{m['straight_losses']}")
+            check(m["restored_bitwise"], f"{tag}: the restored state is not "
+                  f"bitwise step 1's file")
+            check(not m["fault_bitwise"], f"{tag}: the check does not see "
+                  f"each member handed the other's slice")
+            for w in ("causal_mha_small_head", "causal_mha_small_head_bwd"):
+                check(m["launches"][w] > 0,
+                      f"{tag}: {w} never launched: {m['launches']}")
+        check(len({m["digest"] for m in ms}) == 1,
+              f"[seq-ckpt {name}] the members' models differ: "
+              f"{[m['digest'] for m in ms]}")
+        per[name] = {
+            "axes": SEQ_CKPT_LAYOUTS[name][0],
+            "state_bytes": ms[0]["state_bytes"],
+            "saves": [m["saves"] for m in ms],
+            "restores": [m["restores"] for m in ms],
+            "straight_s": [m["straight_s"] for m in ms],
+            "resumed_s": [m["resumed_s"] for m in ms],
+            "fit_timings": [m["timings"] for m in ms],
+            "peak_bytes": [m["peak_bytes"] for m in ms],
+            "launches": [m["launches"] for m in ms],
+            "epoch2_loss": ms[0]["straight_losses"][-1],
+            "checks": {k: [m[k] for m in ms] for k in (
+                "resumed_logged", "params_bitwise", "loss_bitwise",
+                "restored_bitwise", "fault_bitwise")}}
+    want = float(np.mean(per["model"]["epoch2_loss"]))
+    one_loss, launches = cross["loss"], cross["launches"]
+    rel = abs(one_loss - want) / abs(want)
+    check(cross["resumed"], f"[seq-ckpt cross] the one-process replicated "
+          f"fit did not resume the tensor-parallel step 1: {cross['messages']}")
+    check(np.isfinite(one_loss) and rel <= SEQ_TP_LOSS_RTOL,
+          f"[seq-ckpt cross] epoch-2 loss {one_loss} against the "
+          f"tensor-parallel {want}: {rel:.3e} relative (band "
+          f"{SEQ_TP_LOSS_RTOL})")
+    for w in ("causal_mha_small_head", "causal_mha_small_head_bwd"):
+        check(launches[w] > 0, f"[seq-ckpt cross] {w} never launched: "
+              f"{launches}")
+    one_s = cross["train_s"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(base, ignore_errors=True)
+    rec = {"layouts": per, "members_wall_s": members_s,
+           "wait_after_meanwhile_s": time.perf_counter() - t_wait,
+           "concurrent": meanwhile is not None,
+           "backend": got[0]["backend"], "device": got[0]["device"],
+           # each member's clock, seconds after the launch: entered its
+           # code, joined the group, began each layout, done
+           "member_clock_s": [{k: v - t_launch for k, v in m["clock"].items()}
+                              for m in got],
+           "cross": {"loss": one_loss, "tp_loss": want, "epoch2_loss_rel": rel,
+                     "band": SEQ_TP_LOSS_RTOL, "train_s": one_s,
+                     "launches": launches},
+           "phase_s": time.perf_counter() - t_phase}
+    smi = smi_name_power()
+    for name, r in per.items():
+        save = r["saves"][0]
+        log(f"[seq-ckpt] ({smi}) {name} over {r['axes']}: whole state "
+            f"{r['state_bytes']} bytes; saves (member 0) "
+            + ", ".join(f"step {s['step']} {s['s']:.3f} s (gather "
+                        f"{s['gather_s']:.3f} s, {s['bytes_written']} bytes "
+                        f"written)" for s in save)
+            + f"; restores {[[round(x['s'], 3) for x in m] for m in r['restores']]} "
+            f"s (read {[[round(x['read_s'], 3) for x in m] for m in r['restores']]} "
+            f"s); fits {r['straight_s']} s, "
+            f"resumed {r['resumed_s']} s; peak "
+            f"{[round(b / 2**30, 3) for b in r['peak_bytes']]} GiB; K4 "
+            f"launches {[m['causal_mha_small_head'] for m in r['launches']]}, "
+            f"backward {[m['causal_mha_small_head_bwd'] for m in r['launches']]}; "
+            f"checks {r['checks']}")
+    log(f"[seq-ckpt] ({smi}) cross-layout: the {{\"model\": 2}} step 1 resumed "
+        f"by a one-process replicated fit: epoch-2 loss {rec['cross']['loss']} "
+        f"against {want}, {rel:.3e} relative (band {SEQ_TP_LOSS_RTOL}); "
+        f"members' wall {members_s:.1f} s; phase {rec['phase_s']:.1f} s")
+    return (launches, rec), other
+
+
 def bitwise_trees(a, b) -> bool:
     return all(np.array_equal(x, y) for _, x, y in _tree_pairs(a, b))
 
@@ -9703,13 +10118,28 @@ def main() -> int:
                             ("seq_launch", seq_launch_phase),
                             ("seq_tp", seq_tp_phase),
                             ("seq_moe", seq_moe_phase),
-                            ("seq_axes", seq_axes_phase),
-                            ("ckpt_resume", ckpt_resume_phase)):
+                            ("seq_axes", seq_axes_phase)):
             t0 = time.perf_counter()
             counts, main[name] = phase(ctx, tmp)
             main[name]["phase_s"] = time.perf_counter() - t0
             log(f"[{name}] phase {main[name]['phase_s']:.1f} s")
             add(counts)
+
+        # interrupted fits resumed in this process while seq-ckpt's members
+        # (split weights saved and resumed) start and run beside it
+        def ckpt_resume():
+            t0 = time.perf_counter()
+            counts, rec = ckpt_resume_phase(ctx, tmp)
+            rec["phase_s"] = time.perf_counter() - t0
+            log(f"[ckpt_resume] phase {rec['phase_s']:.1f} s")
+            return counts, rec
+
+        (counts, main["seq_ckpt"]), (resume_counts, main["ckpt_resume"]) = (
+            seq_ckpt_phase(ctx, tmp, meanwhile=ckpt_resume))
+        log(f"[seq_ckpt] phase {main['seq_ckpt']['phase_s']:.1f} s (ckpt_resume "
+            f"beside it)")
+        add(resume_counts)
+        add(counts)
     launches.update(att_launches)
     for name, count in launches.items():
         check(count > 0, f"{name} never launched on the main path")
@@ -9749,6 +10179,8 @@ def main() -> int:
     moe_children = [q["attention_launches"] for q in main["seq_moe"]["processes"]]
     pipe_children = [q["attention_launches"]
                      for q in main["seq_axes"]["pipe"]["processes"]]
+    ckpt_children = {name: r["launches"]
+                     for name, r in main["seq_ckpt"]["layouts"].items()}
     kernels = [
         {**entry("score_catalog_quantized", "retrieval.cu",
                  "incubator_predictionio_tpu/ops/retrieval.py:97", k1,
@@ -9788,7 +10220,10 @@ def main() -> int:
          "seq_moe_process_launches": [
              c["causal_mha_small_head"] for c in moe_children],
          "seq_axes_pipe_process_launches": [
-             c["causal_mha_small_head"] for c in pipe_children]},
+             c["causal_mha_small_head"] for c in pipe_children],
+         "seq_ckpt_process_launches": {
+             name: [c["causal_mha_small_head"] for c in cs]
+             for name, cs in ckpt_children.items()}},
         {**bwd_entry("causal_mha_small_head_bwd", "attention.cu",
                      "incubator_predictionio_tpu/ops/attention.py:136", k4b),
          "seq_launch_process_launches": [
@@ -9798,7 +10233,10 @@ def main() -> int:
          "seq_moe_process_launches": [
              c["causal_mha_small_head_bwd"] for c in moe_children],
          "seq_axes_pipe_process_launches": [
-             c["causal_mha_small_head_bwd"] for c in pipe_children]},
+             c["causal_mha_small_head_bwd"] for c in pipe_children],
+         "seq_ckpt_process_launches": {
+             name: [c["causal_mha_small_head_bwd"] for c in cs]
+             for name, cs in ckpt_children.items()}},
         entry("flash_causal_attention", "flash_attention.cu",
               "incubator_predictionio_tpu/parallel/ring.py:201", k5,
               next(c for c in k5 if c["B"] == 64)),

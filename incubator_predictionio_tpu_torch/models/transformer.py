@@ -56,14 +56,18 @@ attention through
 (:class:`SeqRing` times its rotations); the embeddings, norms and FFN are
 position-wise and stay local; the parameters are replicated along ``seq``,
 so their gradients are summed over ``data`` and ``seq`` (a mixture of
-experts with the ring is not ported and raises). On a ``pipe``
-axis (reference :236-265, :324-335) each member holds its stage's
+experts with the ring raises: the reference cannot place it either). On a
+``pipe`` axis (reference :236-265, :324-335) each member holds its stage's
 contiguous layers (:func:`stage_params`) and :func:`pipeline_step` runs
 the GPipe schedule of ``parallel/pipeline.py``; the stages' layers are
 gathered back to the canonical layout at the end (:func:`gather_stages`).
-Checkpoints of a fit whose weights are split (tensor, expert or pipe) are
-the rest of the parallel-axes slice (ROADMAP.md Queue 1, item 4.5 (d)) and
-raise until then.
+A fit whose weights are split (tensor, expert or pipe) checkpoints whole
+leaves, its slices gathered over their axis (:func:`checkpoint_layout`,
+reference :587-596 and its orbax global arrays): a tensor- or
+expert-parallel checkpoint is the state the one-process fit of the same
+config saves, and resumes it; a pipelined one holds the stacked layers
+(reference ``stack_layers``), which a fit without the pipeline refuses
+and trains afresh.
 
 Numerics follow the reference: every matmul rounds both operands and the
 product to bf16 (``_bf16_matmul``), so served scores are bf16 values and
@@ -94,7 +98,12 @@ from incubator_predictionio_tpu_torch.parallel.mesh import (
     DeviceContext,
     check_replicas,
 )
-from incubator_predictionio_tpu_torch.parallel.pipeline import GPipe, stage_slice
+from incubator_predictionio_tpu_torch.parallel.pipeline import (
+    GPipe,
+    backward_with,
+    stack_layers,
+    stage_slice,
+)
 from incubator_predictionio_tpu_torch.parallel.ring import (
     causal_attention,
     ring_attention_sharded,
@@ -103,18 +112,11 @@ from incubator_predictionio_tpu_torch.utils.optim import adam_init, adam_update
 
 logger = logging.getLogger(__name__)
 
-#: what raises in the training options this slice does not port
-SHARDING_SLICE = ("the parallel-axes slice of the PyTorch port (ROADMAP.md "
-                  "Queue 1, item 4.5 (d): sharded-weight checkpoints "
-                  "(tensor, expert and pipe))")
-
-
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Copy of the reference's config (transformer.py:44), every field, so a
     variant or a persisted config binds unchanged. Every parallelism field
-    is ported; checkpoints of split weights wait for item 4.5 (d)
-    (ROADMAP.md Queue 1)."""
+    is ported, with checkpoints."""
 
     vocab_size: int = 1024        # items + 1 (0 is padding)
     max_len: int = 64
@@ -931,6 +933,75 @@ def _index_tree(tree, i):
     return tree[i]
 
 
+def checkpoint_layout(ctx, net: TransformerNet, tensor_parallel: bool,
+                      expert_parallel: bool, pipelined: bool):
+    """The layout of a fit's checkpoints whose weights are split
+    (``utils/checkpoint.py:SplitLeaves``), None when every process holds
+    the whole state. Tensor parallelism: :data:`COLUMN_PARALLEL` on their
+    last dim and :data:`ROW_PARALLEL` on their first over ``model``, as
+    :func:`shard_params` cuts them; experts: :data:`EXPERT_LEAVES` on their
+    first dim over ``expert``, as :func:`shard_experts` cuts them; the
+    rest whole, so the whole state is the one-process fit's. A pipeline:
+    the reference's stacked layers (``stack_layers``, one ``[n_layers,
+    …]`` leaf a layer name; each stage's :func:`stage_params` layers its
+    rows over ``pipe``) beside the whole shared leaves."""
+    from incubator_predictionio_tpu_torch.utils.checkpoint import SplitLeaves
+
+    names = [n.split(".") for n, _ in net.named_parameters()]
+    if pipelined:
+        return SplitLeaves(
+            ctx, lambda path: ("pipe", 0) if path[0] == "layers" else None,
+            view=lambda leaves: _stacked(names, leaves),
+            unview=lambda tree: _unstacked(names, tree))
+    if not (tensor_parallel or expert_parallel):
+        return None
+
+    def split(name, p):
+        leaf = name[-1] if name[0] == "layers" else None
+        if tensor_parallel and leaf in COLUMN_PARALLEL:
+            return "model", p.dim() - 1
+        if tensor_parallel and leaf in ROW_PARALLEL:
+            return "model", 0
+        if expert_parallel and leaf in EXPERT_LEAVES:
+            return "expert", 0
+        return None
+
+    splits = [split(n, p) for n, p in zip(names, net.parameters())]
+    return SplitLeaves(ctx, lambda path: splits[path[0]])
+
+
+def _stacked(names: list, leaves: list) -> dict:
+    """The parameter list ``leaves`` (named ``names``, split on the dots)
+    as the reference's stacked tree: the layers through ``stack_layers``,
+    the other leaves at their own keys."""
+    out, layers = {}, {}
+    for name, leaf in zip(names, leaves):
+        if name[0] == "layers":
+            _nest(layers.setdefault(int(name[1]), {}), name[2:], leaf)
+        else:
+            _nest(out, name, leaf)
+    out["layers"] = stack_layers([layers[i] for i in sorted(layers)])
+    return out
+
+
+def _unstacked(names: list, tree: dict) -> list:
+    """:func:`_stacked`'s inverse: the parameter list from the tree."""
+    out = []
+    for name in names:
+        layer = name[0] == "layers"
+        leaf = tree
+        for k in (["layers", *name[2:]] if layer else name):
+            leaf = leaf[k]
+        out.append(leaf[int(name[1])] if layer else leaf)
+    return out
+
+
+def _nest(tree: dict, keys, leaf) -> None:
+    for k in keys[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[keys[-1]] = leaf
+
+
 def pipeline_grads(net: TransformerNet, tokens, positions, pipe,
                    head: Callable, attention: Callable = causal_attention):
     """The forward and backward of one batch through a pipeline (reference
@@ -960,7 +1031,7 @@ def pipeline_grads(net: TransformerNet, tokens, positions, pipe,
         grads_out = list(h.grad.split(b // pipe.m))
     g0 = pipe.backward(grads_out)
     if pipe.stage == 0:
-        torch.autograd.backward(h0, g0)
+        backward_with(h0, g0)
     return loss.detach()
 
 
@@ -1183,24 +1254,6 @@ class TransformerRecommender:
                 f"expert axis ({ep} devices)")
         return ep
 
-    def _refuse_unported(self, use_pipeline: bool, tensor_parallel: bool,
-                         expert_parallel: bool):
-        cfg = self.config
-        checkpoints = bool(cfg.checkpoint_dir) and cfg.checkpoint_every > 0
-        unported = [
-            (use_pipeline and checkpoints,
-             "pipeline parallelism with checkpoints (checkpoint_dir)"),
-            (tensor_parallel and checkpoints,
-             "tensor parallelism with checkpoints (checkpoint_dir)"),
-            (expert_parallel and checkpoints,
-             "expert parallelism with checkpoints (checkpoint_dir)"),
-        ]
-        for hit, what in unported:
-            if hit:
-                raise NotImplementedError(
-                    f"TransformerRecommender.fit: {what} is not ported yet; "
-                    f"it comes with {SHARDING_SLICE}")
-
     def fit(self, ctx: DeviceContext, sequences: np.ndarray, item_map,
             rows_are_local: bool = False) -> TransformerModel:
         """transformer.py:423 ``fit`` on ``ctx.device``. sequences: ``[N,
@@ -1246,14 +1299,15 @@ class TransformerRecommender:
         pipe_m = cfg.pipeline_microbatches or cfg.pipeline_stages
         ep = self._expert_parallel(ctx)
         tensor_parallel = self._tensor_parallel(ctx, use_pipeline)
-        self._refuse_unported(use_pipeline, tensor_parallel, ep > 1)
         if use_ring and cfg.n_experts:
-            # the reference routes the global batch's tokens in [B, L]
-            # order; split over seq they interleave across processes,
-            # which ExpertParallel's per-process prefix counts do not cover
+            # the reference cannot place it either: its fit fails in
+            # placement (DuplicateSpecError, PartitionSpec(None, 'seq',
+            # 'seq')) on {"seq": 2} and {"seq": 2, "expert": 2}
             raise NotImplementedError(
                 "TransformerRecommender.fit: a mixture of experts with ring "
-                "attention (a 'seq' axis) is not ported")
+                "attention (a 'seq' axis) is not ported: the reference "
+                "refuses it too, its placement raising DuplicateSpecError "
+                "(PartitionSpec(None, 'seq', 'seq'))")
         if use_ring and "seq" not in ctx.axis_names:
             # the reference's sharding raises here (a PartitionSpec over an
             # axis the mesh lacks): ValueError, naming the axis
@@ -1420,10 +1474,13 @@ class TransformerRecommender:
         t_train = time.perf_counter()
         # chunks of checkpoint_every epochs, resumed from checkpoint_dir's
         # latest step (transformer.py:587-596, which passes no dist hooks:
-        # a multi-process fit, supervised or not, takes the plain path)
+        # a multi-process fit, supervised or not, takes the plain path);
+        # split weights are saved whole, gathered over their axis
         _, _, loss = checkpointed_epochs(
             cfg.checkpoint_dir, cfg.checkpoint_every, cfg.checkpoint_keep,
-            cfg.epochs, params, opt_state, train_epochs, ctx=ctx)
+            cfg.epochs, params, opt_state, train_epochs, ctx=ctx,
+            layout=checkpoint_layout(ctx, net, tensor_parallel, split,
+                                     use_pipeline))
         final_loss = float(loss) if loss is not None else math.nan  # a sync
         t_train = time.perf_counter() - t_train
         t_gather = time.perf_counter()

@@ -17,8 +17,8 @@ Where the reference differentiates the whole scan with one ``jax.grad``,
 the port runs the backward as an explicit schedule (:meth:`GPipe.backward`):
 microbatches in reverse order, each stage taking its output's gradient
 from the next stage (the reverse shift, ppermute's transpose), running
-``torch.autograd.backward`` on that microbatch's graph and handing its
-input's gradient to the previous stage. No collective runs inside
+that microbatch's graph backward from it (:func:`backward_with`) and
+handing its input's gradient to the previous stage. No collective runs inside
 autograd, so the order of the exchanges never depends on the engine's.
 """
 
@@ -32,13 +32,29 @@ import torch
 
 def stack_layers(layers: list[dict]) -> dict:
     """pipeline.py:37: a list of layer trees → one tree whose leaves have
-    a leading ``[n_layers]`` dim (numpy, on the host)."""
+    a leading ``[n_layers]`` dim: numpy arrays on the host, or tensors
+    (the stack of meta tensors is made as its shape alone, without the
+    decompositions PyTorch loads for a meta op's first call)."""
     def stack(*xs):
         if isinstance(xs[0], dict):
             return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
-        return np.stack([np.asarray(x) for x in xs])
+        if not isinstance(xs[0], torch.Tensor):
+            return np.stack([np.asarray(x) for x in xs])
+        if xs[0].device.type == "meta":
+            return torch.empty((len(xs), *xs[0].shape), dtype=xs[0].dtype,
+                               device="meta")
+        return torch.stack(xs)
 
     return stack(*layers)
+
+
+def backward_with(t: torch.Tensor, grad: torch.Tensor) -> None:
+    """Backpropagate ``grad``, the gradient of ``t``, into the graph that
+    made ``t``: the backward of ``Σ t·grad``, whose gradient at ``t`` is
+    ``1·grad``, bit for bit ``grad``. (``torch.autograd.backward(t, grad)``
+    gives the same, but its check of ``grad``'s shape imports sympy on its
+    first call in a process: seconds of a launched stage's first step.)"""
+    torch.autograd.backward((t * grad.detach()).sum())
 
 
 def stage_slice(n_layers: int, n_stages: int, stage: int) -> slice:
@@ -135,7 +151,7 @@ class GPipe:
             if 0 <= j < self.m:
                 i = self.m - 1 - j
                 g = grads[i] if self.last else received
-                torch.autograd.backward(self._outs[i], g)
+                backward_with(self._outs[i], g)
                 g_in = gin[i] = self._ins[i].grad
                 self._outs[i] = self._ins[i] = None  # the graph is spent
             if t < steps - 1:

@@ -34,12 +34,25 @@ between two barriers, and a restore is used only when it loaded and
 checked on every process. So every process resumes from the same step,
 and none can read a step the primary has not finished writing.
 
-**A model-axis fit** (``models/two_tower.py``: each process holds row
-blocks of the tables and moments) passes a :class:`RowBlocks` layout.
-The plain path then writes whole leaves in the layout above, the blocks
-gathered over ``model`` first, and a restore reads the whole leaves on
-every process and copies each process's block rows into its template.
-Member slices follow the reference's rule that a block's
+**A fit whose processes split the state** passes a :class:`SplitLeaves`
+layout: each leaf whole, or this process's slice of a whole leaf split
+over one mesh axis on one dim, adam's moments as their parameter. The
+transformer's tensor-parallel fit splits its Megatron projections over
+``model``, its expert-parallel fit the experts over ``expert``, its
+pipelined fit each stage's layers over ``pipe`` (``models/transformer.py:
+checkpoint_layout``); the model-axis two-tower fit (``models/two_tower.py``)
+passes :class:`RowBlocks`, every table's and moment's rows over
+``model``. The plain path then writes whole leaves in the layout above,
+the slices gathered over their axis first (on the leaves' device: an NCCL
+group takes no host tensor), and a restore reads and checks the whole
+leaves on every process and copies each process's slice into its
+template. The whole state is what the reference's orbax manager saves of
+the same fit, global arrays: for tensor and expert parallelism exactly
+the state a one-process fit of the same config checkpoints, so each
+resumes the other; for a pipeline the reference's stacked layers, one
+``[n_layers, …]`` leaf a layer name, which a fit without the pipeline
+fails to check and so trains afresh, as the reference's does. A
+model-axis fit's member slices follow the reference's rule that a block's
 ``replica_id == 0`` holder writes it: the process at data coordinate 0 of
 each model line writes its block's rows (``index`` ``[[lo, hi], None]``),
 member 0 the whole leaves (the epoch, adam's count); a restore places
@@ -85,7 +98,7 @@ import os
 import re
 import shutil
 import time
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -121,6 +134,18 @@ def _to_plain(tree: Any) -> Any:
     return tree
 
 
+def _kind(value: Any) -> str:
+    """A short description of a checkpoint's subtree, for an error: its
+    keys, its length, its shape, or its type (not its values)."""
+    if isinstance(value, dict):
+        return f"keys {sorted(value)}"
+    if isinstance(value, (list, tuple)):
+        return f"{len(value)} entries"
+    if isinstance(value, torch.Tensor):
+        return f"{tuple(value.shape)} {value.dtype}"
+    return type(value).__name__
+
+
 def _check(like: Any, value: Any, path: str = "state") -> None:
     """Raise ``ValueError`` where ``value`` (a plain tree) does not fit the
     template ``like``."""
@@ -128,28 +153,26 @@ def _check(like: Any, value: Any, path: str = "state") -> None:
         names = _fields(like)
         if not isinstance(value, dict) or sorted(value) != sorted(names):
             raise ValueError(f"{path}: fields {names}, checkpoint has "
-                             f"{sorted(value) if isinstance(value, dict) else value!r}")
+                             f"{_kind(value)}")
         for f in names:
             _check(getattr(like, f), value[f], f"{path}.{f}")
     elif isinstance(like, dict):
         if not isinstance(value, dict) or sorted(value) != sorted(like):
             raise ValueError(f"{path}: keys {sorted(like)}, checkpoint has "
-                             f"{sorted(value) if isinstance(value, dict) else value!r}")
+                             f"{_kind(value)}")
         for k in like:
             _check(like[k], value[k], f"{path}[{k!r}]")
     elif isinstance(like, (list, tuple)):
         if not isinstance(value, (list, tuple)) or len(value) != len(like):
             raise ValueError(f"{path}: {len(like)} entries, checkpoint has "
-                             f"{len(value) if isinstance(value, (list, tuple)) else value!r}")
+                             f"{_kind(value)}")
         for i, (a, b) in enumerate(zip(like, value)):
             _check(a, b, f"{path}[{i}]")
     elif isinstance(like, torch.Tensor):
         if not isinstance(value, torch.Tensor) or value.shape != like.shape \
                 or value.dtype != like.dtype:
-            raise ValueError(
-                f"{path}: {tuple(like.shape)} {like.dtype}, checkpoint has "
-                + (f"{tuple(value.shape)} {value.dtype}"
-                   if isinstance(value, torch.Tensor) else repr(value)))
+            raise ValueError(f"{path}: {tuple(like.shape)} {like.dtype}, "
+                             f"checkpoint has {_kind(value)}")
     elif type(value) is not type(like):
         raise ValueError(f"{path}: {type(like).__name__}, checkpoint has "
                          f"{type(value).__name__}")
@@ -185,15 +208,116 @@ def _first_device(tree: Any) -> Optional[torch.device]:
     return None
 
 
-class RowBlocks:
+class SplitLeaves:
+    """The layout of a fit whose state holds slices of whole leaves
+    (module docstring): every leaf is whole on every process, or this
+    process's slice of a whole leaf split over one mesh axis on one dim,
+    the slices of the axis's line joined on that dim in axis order.
+    ``split(path)`` gives a parameter's ``(axis, dim)``, or None for a
+    whole one; ``path`` is its keys in the parameter tree the whole state
+    keeps, and adam's moments follow their parameter. ``view`` (with its
+    inverse ``unview``) maps the fit's parameter list, and each moment
+    list, to that tree (a pipeline's stacked layers); without it the whole
+    state has the fit's own structure, the state a fit of the same
+    config on one process checkpoints."""
+
+    def __init__(self, ctx, split: Optional[Callable] = None,
+                 view: Optional[Callable] = None,
+                 unview: Optional[Callable] = None):
+        self.ctx = ctx
+        self._split = split
+        self._view, self._unview = view, unview
+
+    def split_of(self, path: tuple, leaf: Any) -> Optional[tuple[str, int]]:
+        """The ``(axis, dim)`` of the state leaf at ``path``: a
+        parameter's (``("params", *p)``) and each of its moments'
+        (``("opt", field, *p)``) is ``split(p)``; the rest is whole."""
+        if path[:1] == ("params",):
+            return self._split(path[1:])
+        if path[:1] == ("opt",) and len(path) > 2:
+            return self._split(path[2:])
+        return None
+
+    def _pieces(self, state: Any) -> Any:
+        """``state`` in the whole state's structure, each leaf this
+        process's piece of its whole leaf."""
+        return state if self._view is None else _map_params(self._view, state)
+
+    def _whole_shape(self, path: tuple, leaf: Any) -> tuple:
+        shape = tuple(leaf.shape)
+        split = self.split_of(path, leaf)
+        if split is None:
+            return shape
+        axis, dim = split
+        return (*shape[:dim], shape[dim] * self.ctx.axis_size(axis),
+                *shape[dim + 1:])
+
+    def gather(self, state: Any) -> Any:
+        """The whole state: every slice gathered over its axis on the
+        leaf's device (a collective: every process of the job calls it;
+        NCCL takes no host tensor) and joined on its dim."""
+        def join(path, leaf):
+            split = self.split_of(path, leaf)
+            if split is None:
+                return leaf
+            axis, dim = split
+            bits = leaf.detach().contiguous()
+            if bits.dtype == torch.bfloat16:  # the bits through any backend
+                bits = bits.view(torch.int16)
+            parts = self.ctx.all_gather(bits, axis=axis)
+            return torch.cat(tuple(parts), dim=dim).view(leaf.dtype)
+
+        return _map_paths(join, self._pieces(state))
+
+    def whole_like(self, like: Any) -> Any:
+        """A template of the whole state: host tensors of the whole
+        leaves' shapes and dtypes."""
+        def whole(path, leaf):
+            if not isinstance(leaf, torch.Tensor):
+                return leaf
+            return torch.empty(self._whole_shape(path, leaf), dtype=leaf.dtype)
+
+        return _map_paths(whole, self._pieces(_meta(like)))
+
+    def cut(self, whole_leaves: list, like: Any) -> Any:
+        """``whole_leaves`` (numpy, in :func:`state_leaves` order of the
+        whole state) placed into ``like``: each slice takes its part of
+        its whole leaf (:func:`place_leaves` checks every leaf before it
+        writes)."""
+        pieces = self._pieces(_meta(like))
+        slots = list(_walk_paths(pieces))
+        if len(slots) != len(whole_leaves):
+            raise ValueError(f"the checkpoint has {len(whole_leaves)} leaves, "
+                             f"the whole template {len(slots)}")
+        out = []
+        for (path, slot), leaf in zip(slots, whole_leaves):
+            leaf = np.asarray(leaf)
+            split = self.split_of(path, slot)
+            if split is not None:
+                axis, dim = split
+                n, size = int(slot.shape[dim]), self.ctx.axis_size(axis)
+                if leaf.ndim != slot.dim() or leaf.shape[dim] != n * size:
+                    raise ValueError(
+                        f"a whole leaf of shape {leaf.shape} does not hold "
+                        f"{size} blocks of {n} on dim {dim}")
+                lo = self.ctx.axis_index(axis) * n
+                leaf = leaf[(slice(None),) * dim + (slice(lo, lo + n),)]
+            out.append(leaf)
+        local = _fill(pieces, iter(out))
+        if self._unview is not None:
+            local = _map_params(self._unview, local)
+        return place_leaves(like, state_leaves(local))
+
+
+class RowBlocks(SplitLeaves):
     """The layout of a model-axis fit's state (module docstring): every
     tensor leaf with a dimension is this process's row block of a leaf
     whose rows are the blocks of its ``model`` line in axis order (block
-    ``s`` holds rows ``[s·R, (s+1)·R)``); the other leaves (the epoch,
-    adam's count) are whole on every process."""
+    ``s`` holds rows ``[s·R, (s+1)·R)``: dim 0 over ``model``); the other
+    leaves (the epoch, adam's count) are whole on every process."""
 
     def __init__(self, ctx, axis: str = "model"):
-        self.ctx = ctx
+        super().__init__(ctx)
         self.axis = axis
         self.shard = ctx.axis_index(axis)
         self.n_shards = ctx.axis_size(axis)
@@ -203,6 +327,9 @@ class RowBlocks:
     @staticmethod
     def is_block(leaf: Any) -> bool:
         return isinstance(leaf, torch.Tensor) and leaf.dim() >= 1
+
+    def split_of(self, path: tuple, leaf: Any) -> Optional[tuple[str, int]]:
+        return (self.axis, 0) if self.is_block(leaf) else None
 
     def global_shape(self, leaf: Any) -> tuple:
         shape = tuple(getattr(leaf, "shape", np.shape(leaf)))
@@ -215,38 +342,6 @@ class RowBlocks:
         rows = int(leaf.shape[0])
         return self.shard * rows, (self.shard + 1) * rows
 
-    def gather(self, state: Any) -> Any:
-        """The whole state: every block gathered over the axis (a
-        collective: every process of the job calls it)."""
-        return _map_leaves(lambda leaf: self.ctx.all_gather(
-            leaf, axis=self.axis).reshape(self.global_shape(leaf))
-            if self.is_block(leaf) else leaf, state)
-
-    def whole_like(self, like: Any) -> Any:
-        """A template of the whole state: host tensors of the whole
-        leaves' shapes and dtypes."""
-        return _map_leaves(lambda leaf: torch.empty(
-            self.global_shape(leaf), dtype=leaf.dtype)
-            if self.is_block(leaf) else leaf, like)
-
-    def cut(self, whole_leaves: list, like: Any) -> Any:
-        """``whole_leaves`` (numpy, in :func:`state_leaves` order) placed
-        into ``like``: each block takes its rows of the whole leaf
-        (:func:`place_leaves` checks every leaf before it writes)."""
-        out = []
-        for slot, leaf in zip(state_leaves(like), whole_leaves):
-            leaf = np.asarray(leaf)
-            if self.is_block(slot):
-                if leaf.shape[:1] != self.global_shape(slot)[:1]:
-                    raise ValueError(
-                        f"a whole leaf of {leaf.shape[0] if leaf.ndim else 0} "
-                        f"rows does not hold {self.n_shards} blocks of "
-                        f"{slot.shape[0]}")
-                lo, hi = self.bounds(slot)
-                leaf = leaf[lo:hi]
-            out.append(leaf)
-        return place_leaves(like, out)
-
     def member_blocks(self, leaf: Any, member: int) -> list:
         """The blocks of ``leaf`` a member writes in a member slice:
         ``[(host_array, index)]``."""
@@ -258,17 +353,41 @@ class RowBlocks:
         return [(leaf_to_numpy(leaf), [[lo, hi]] + [None] * (leaf.dim() - 1))]
 
 
+def _meta(tree: Any) -> Any:
+    """``tree`` with every tensor replaced by a meta tensor of its shape
+    and dtype (shapes to compute with, no storage)."""
+    return _map_leaves(lambda leaf: torch.empty_like(leaf, device="meta")
+                       if isinstance(leaf, torch.Tensor) else leaf, tree)
+
+
+def _map_params(fn, state: dict) -> dict:
+    """``state`` (``{"params", "opt", ...}``) with ``fn`` applied to its
+    parameters and to each of the optimizer's moments (the containers
+    among its checkpointed fields)."""
+    opt = state["opt"]
+    moments = {f: fn(getattr(opt, f)) for f in _fields(opt)
+               if isinstance(getattr(opt, f), (list, tuple, dict))}
+    return {**state, "params": fn(state["params"]),
+            "opt": dataclasses.replace(opt, **moments)}
+
+
 def _map_leaves(fn, tree: Any) -> Any:
     """``tree`` with ``fn`` applied to every leaf (the containers of
     :func:`_walk`; a dataclass's unchecked fields are kept as they are)."""
+    return _map_paths(lambda _, leaf: fn(leaf), tree)
+
+
+def _map_paths(fn, tree: Any, path: tuple = ()) -> Any:
+    """``tree`` with ``fn(path, leaf)`` applied to every leaf, ``path``
+    the leaf's keys (dict keys, list indices, dataclass field names)."""
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return dataclasses.replace(
-            tree, **{f: _map_leaves(fn, getattr(tree, f)) for f in _fields(tree)})
+        return dataclasses.replace(tree, **{
+            f: _map_paths(fn, getattr(tree, f), (*path, f)) for f in _fields(tree)})
     if isinstance(tree, dict):
-        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+        return {k: _map_paths(fn, v, (*path, k)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_leaves(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(_map_paths(fn, v, (*path, i)) for i, v in enumerate(tree))
+    return fn(path, tree)
 
 
 class TrainCheckpointer:
@@ -276,10 +395,11 @@ class TrainCheckpointer:
     With a multi-process ``ctx``, the plain path of a multi-process fit
     (module docstring): the primary writes, the others wait; with a
     :class:`RowBlocks` ``layout``, of whole leaves gathered from the
-    processes' blocks."""
+    processes' blocks; with a :class:`SplitLeaves` one, of whole leaves
+    gathered from the processes' slices."""
 
     def __init__(self, directory: str, max_to_keep: int = 3, ctx=None,
-                 layout: Optional[RowBlocks] = None):
+                 layout: Optional[SplitLeaves] = None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self._ctx = ctx if ctx is not None and ctx.process_count > 1 else None
@@ -302,10 +422,15 @@ class TrainCheckpointer:
         fsynced. Then the oldest steps past ``max_to_keep`` are dropped.
         With a multi-process ``ctx`` the primary writes and every process
         returns only once it has."""
+        t0 = time.perf_counter()
         if self._layout is not None:
             state = self._layout.gather(state)
+        t_gather = time.perf_counter() - t0
+        written = 0
         if self._writes:
             plain = _to_plain(state)
+            written = sum(t.numel() * t.element_size() for t in _walk(plain)
+                          if isinstance(t, torch.Tensor))
             atomic_write_with(self._path(step), lambda f: torch.save(plain, f))
             steps = self.all_steps()
             if self.max_to_keep and len(steps) > self.max_to_keep:
@@ -316,6 +441,9 @@ class TrainCheckpointer:
         if seen and len(set(seen)) != 1:
             raise RuntimeError(f"checkpoint save: the processes saved "
                                f"different steps {seen}")
+        logger.info("checkpoint: step %d saved in %.3f s (layout gather "
+                    "%.3f s; %d bytes written by this process) in %s", step,
+                    time.perf_counter() - t0, t_gather, written, self.directory)
 
     def latest_step(self) -> Optional[int]:
         """The newest step (the primary's answer under a multi-process
@@ -351,11 +479,19 @@ class TrainCheckpointer:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
+        t0 = time.perf_counter()
         if self._layout is not None and like is not None:
             whole = self._restore(step, self._layout.whole_like(like))
-            return self._layout.cut(
+            t_read = time.perf_counter() - t0
+            out = self._layout.cut(
                 [leaf_to_numpy(x) for x in state_leaves(whole)], like)
-        return self._restore(step, like)
+        else:
+            out = self._restore(step, like)
+            t_read = time.perf_counter() - t0
+        logger.info("checkpoint: step %d restored in %.3f s (read and "
+                    "checked %.3f s) from %s", step, time.perf_counter() - t0,
+                    t_read, self.directory)
+        return out
 
     def _restore(self, step: int, like: Any) -> Any:
         device = _first_device(like) if like is not None else None
@@ -402,7 +538,7 @@ def maybe_resume(
     epochs: int,
     factory=None,
     ctx=None,
-    layout: Optional[RowBlocks] = None,
+    layout: Optional[SplitLeaves] = None,
 ) -> tuple[Optional[TrainCheckpointer], Any, Any, int]:
     """Open a checkpointer and resume an interrupted run if one is
     recoverable: ``(ckpt, params, opt_state, start_epoch)``. Three outcomes
@@ -416,7 +552,8 @@ def maybe_resume(
 
     The caller owns ``ckpt.close()``. ``factory`` (default
     :class:`TrainCheckpointer`, given ``ctx``) swaps the checkpointer
-    implementation; ``layout`` (a :class:`RowBlocks`) goes to either."""
+    implementation; ``layout`` (a :class:`SplitLeaves`: a fit whose
+    processes hold slices of the state) goes to either."""
     if not directory or every <= 0:
         return None, params, opt_state, 0
     if factory is None:
@@ -465,7 +602,7 @@ def checkpointed_epochs(
     factory=None,
     on_chunk=None,
     ctx=None,
-    layout: Optional[RowBlocks] = None,
+    layout: Optional[SplitLeaves] = None,
 ) -> tuple[Any, Any, Any]:
     """The shared epoch driver both trainers run: resume through
     :func:`maybe_resume`, then ``train_epochs(params, opt_state, n) ->
@@ -473,8 +610,9 @@ def checkpointed_epochs(
     checkpointing is off, else ``every`` epochs a call with a save after
     each. ``on_chunk(epoch)`` runs at each chunk boundary; ``ctx`` is the
     fit's context (a multi-process fit without ``factory`` takes the plain
-    path, module docstring); ``layout`` describes a model-axis fit's row
-    blocks (:class:`RowBlocks`). Returns ``(params, opt_state, loss)``;
+    path, module docstring); ``layout`` describes the slices of a fit whose
+    processes split the state (:class:`SplitLeaves`, :class:`RowBlocks`
+    for a model-axis fit's row blocks). Returns ``(params, opt_state, loss)``;
     ``loss`` is None when no epoch ran."""
     ckpt, params, opt_state, start_epoch = maybe_resume(
         directory, every, keep, params, opt_state, epochs, factory=factory,
@@ -502,17 +640,38 @@ def checkpointed_epochs(
 def _walk(tree: Any):
     """The leaves of ``tree`` in the module docstring's order: tensors and
     Python ints (anything else that is not a container is a leaf too)."""
+    for _, leaf in _walk_paths(tree):
+        yield leaf
+
+
+def _walk_paths(tree: Any, path: tuple = ()):
+    """``(path, leaf)`` of every leaf of ``tree``, in :func:`_walk`'s order."""
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         for f in _fields(tree):
-            yield from _walk(getattr(tree, f))
+            yield from _walk_paths(getattr(tree, f), (*path, f))
     elif isinstance(tree, dict):
         for k in sorted(tree):
-            yield from _walk(tree[k])
+            yield from _walk_paths(tree[k], (*path, k))
     elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _walk(v)
+        for i, v in enumerate(tree):
+            yield from _walk_paths(v, (*path, i))
     else:
-        yield tree
+        yield path, tree
+
+
+def _fill(tree: Any, leaves, put=lambda slot, leaf: leaf) -> Any:
+    """``tree``'s structure with each slot replaced by ``put(slot, leaf)``,
+    the leaves taken from the iterator ``leaves`` in :func:`_walk`'s order
+    (a dict filled in sorted order, kept in its own)."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f: _fill(getattr(tree, f), leaves, put) for f in _fields(tree)})
+    if isinstance(tree, dict):
+        vals = {k: _fill(tree[k], leaves, put) for k in sorted(tree)}
+        return {k: vals[k] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_fill(v, leaves, put) for v in tree)
+    return put(tree, next(leaves))
 
 
 def leaf_to_numpy(leaf: Any) -> np.ndarray:
@@ -568,30 +727,21 @@ def place_leaves(like: Any, leaves: list) -> Any:
                          f"template {len(slots)}")
     for i, (a, b) in enumerate(zip(slots, leaves)):
         _fits(a, np.asarray(b), i)
-    it = iter(leaves)
 
-    def build(tree):
-        if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-            return dataclasses.replace(
-                tree, **{f: build(getattr(tree, f)) for f in _fields(tree)})
-        if isinstance(tree, dict):  # filled in sorted order, kept in its own
-            vals = {k: build(tree[k]) for k in sorted(tree)}
-            return {k: vals[k] for k in tree}
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(build(v) for v in tree)
-        leaf = np.asarray(next(it))
-        if isinstance(tree, torch.Tensor):
-            if tree.dtype == torch.bfloat16:
+    def put(slot, leaf):
+        leaf = np.asarray(leaf)
+        if isinstance(slot, torch.Tensor):
+            if slot.dtype == torch.bfloat16:
                 src = torch.from_numpy(np.ascontiguousarray(leaf).view(
                     np.int16).copy()).view(torch.bfloat16)
             else:
                 src = torch.from_numpy(np.array(leaf, copy=True))
-            return tree.copy_(src)
-        if isinstance(tree, (int, np.integer)) and not isinstance(tree, bool):
+            return slot.copy_(src)
+        if isinstance(slot, (int, np.integer)) and not isinstance(slot, bool):
             return int(leaf)
         return leaf
 
-    return build(like)
+    return _fill(like, iter(leaves), put)
 
 
 # -- member-slice checkpoints: the filesystem protocol (reference :245-453) --

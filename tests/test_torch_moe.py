@@ -301,10 +301,9 @@ def test_expert_count_must_divide_axis():
             ctx, np.ones((8, 9), np.int32), None)
 
 
-def test_moe_refusals_keep_the_reference_texts(tmp_path):
+def test_moe_refusals_keep_the_reference_texts():
     """Tensor parallelism with MoE and the pipeline with MoE raise the
-    reference's ValueErrors; an expert-parallel fit with checkpoints raises
-    and names item 4.5 (sharded-weight checkpoints), before any collective."""
+    reference's ValueErrors, before any collective."""
     rows = np.ones((8, 9), np.int32)
     tp = DeviceContext(torch.device("cpu"), 0, 2, axes={"model": 2})
     with pytest.raises(ValueError, match="not with the pipeline or MoE"):
@@ -314,13 +313,6 @@ def test_moe_refusals_keep_the_reference_texts(tmp_path):
     with pytest.raises(ValueError, match="not with ring attention or MoE"):
         ttr.TransformerRecommender(ttr.TransformerConfig(**_cfg(
             n_experts=2, pipeline_stages=2, n_layers=2))).fit(pipe, rows, None)
-    ep = DeviceContext(torch.device("cpu"), 0, 2, axes={"expert": 2})
-    with pytest.raises(NotImplementedError,
-                       match="expert parallelism with checkpoints.*item 4.5"):
-        ttr.TransformerRecommender(ttr.TransformerConfig(**_cfg(
-            n_experts=2, checkpoint_dir=str(tmp_path / "ck"),
-            checkpoint_every=1))).fit(ep, rows, None)
-    assert not (tmp_path / "ck").exists()
 
 
 class _NcclStub:

@@ -316,11 +316,10 @@ def test_indivisible_dataset_is_padded():
     assert np.isfinite(models[0].final_loss)
 
 
-def test_pipeline_validations(tmp_path, caplog):
+def test_pipeline_validations(caplog):
     """test_pipeline.py:153's texts, before any collective; without a
     ``pipe`` axis ``pipeline_stages`` warns (the reference's text) and
-    trains without pipelining; a pipelined fit with checkpoints raises and
-    names item 4.5 (d)."""
+    trains without pipelining."""
     ctx = DeviceContext(torch.device("cpu"), 0, 8, axes=AXES)
     rows = np.ones((8, 9), np.int32)
     rec = ttr.TransformerRecommender
@@ -336,11 +335,6 @@ def test_pipeline_validations(tmp_path, caplog):
                        r"pipeline_microbatches × data axis \(4 × 2\)"):
         rec(ttr.TransformerConfig(**_cfg(batch_size=12))).fit(
             ctx, rows, None, rows_are_local=True)
-    with pytest.raises(NotImplementedError,
-                       match=r"pipeline parallelism with checkpoints.*item 4\.5 \(d\)"):
-        rec(ttr.TransformerConfig(**_cfg(checkpoint_dir=str(tmp_path / "ck"),
-                                         checkpoint_every=1))).fit(ctx, rows, None)
-    assert not (tmp_path / "ck").exists()
     with caplog.at_level(logging.WARNING,
                          logger="incubator_predictionio_tpu_torch.models.transformer"):
         model = rec(ttr.TransformerConfig(**_cfg(

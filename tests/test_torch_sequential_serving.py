@@ -330,25 +330,24 @@ def test_unported_stages_raise_and_name_the_roadmap(tmp_path):
     # 'seq' axis raises the reference's ValueError (tests/
     # test_torch_ring_attention.py); the pipeline, tensor and expert
     # parallelism are ported on their axes (tests/test_torch_pipeline.py,
-    # test_torch_tensor_parallel.py, test_torch_moe.py) but for checkpoints,
-    # which raise and never train without them
+    # test_torch_tensor_parallel.py, test_torch_moe.py), checkpoints
+    # included (tests/test_torch_sharded_checkpoint.py): on a context with
+    # no process group behind it such a fit goes as far as its first
+    # collective, the checkpoint's
     with pytest.raises(ValueError, match="'seq' axis"):
         ttr.TransformerRecommender(dataclasses.replace(
             cfg, n_experts=0, attention="ring")).fit(CPU, rows, None)
-    for field, value, what in (("pipeline_stages", 2,
-                                "pipeline parallelism with checkpoints"),
-                               ("tensor_parallel", True,
-                                "tensor parallelism with checkpoints"),
-                               ("n_experts", 4,
-                                "expert parallelism with checkpoints")):
+    for field, value in (("pipeline_stages", 2), ("tensor_parallel", True),
+                         ("n_experts", 4)):
         c = dataclasses.replace(cfg, **{"n_experts": 0, field: value})
         axis = {"pipeline_stages": "pipe", "tensor_parallel": "model",
                 "n_experts": "expert"}[field]
         ctx = DeviceContext(torch.device("cpu"), 0, 2, axes={axis: 2})
-        c = dataclasses.replace(c, checkpoint_dir=str(tmp_path / "ck"),
+        c = dataclasses.replace(c, checkpoint_dir=str(tmp_path / field),
                                 checkpoint_every=1)
-        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
+        with pytest.raises(RuntimeError, match="no process group was joined"):
             ttr.TransformerRecommender(c).fit(ctx, rows, None)
+        assert (tmp_path / field).is_dir()  # the checkpointer opened it
     # the template's numExperts trains a mixture of experts on one device
     # (the degradation recorded: no 'expert' axis) and serves it
     algo = tseq.TransformerAlgorithm(tseq.TransformerAlgorithmParams(

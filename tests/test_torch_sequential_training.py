@@ -24,7 +24,6 @@ Tolerances, with their reasons:
   layout rather than the gradients.
 """
 
-import dataclasses
 import os
 
 import numpy as np
@@ -294,18 +293,10 @@ def test_fit_refuses_what_is_not_ported(field, value, match):
     if field == "tensor_parallel":
         # ported (tests/test_torch_tensor_parallel.py): without a 'model'
         # axis the fit trains replicated, as the reference's does; with one
-        # and checkpoints it raises and names what is left of item 4.5
+        # and checkpoints it saves and resumes
+        # (tests/test_torch_sharded_checkpoint.py)
         assert np.isfinite(ttr.TransformerRecommender(cfg).fit(
             CPU, _rows(), None).final_loss)
-        model_axis = DeviceContext(torch.device("cpu"), 0, 2,
-                                   axes={"model": 2})
-        cfg = dataclasses.replace(cfg, checkpoint_dir="/nonexistent",
-                                  checkpoint_every=1)
-        match = "tensor parallelism with checkpoints"
-        with pytest.raises(NotImplementedError,
-                           match=f"{match}.*ROADMAP.md Queue 1, item 4"):
-            ttr.TransformerRecommender(cfg).fit(model_axis, _rows(), None)
-        assert not os.path.exists("/nonexistent")
         return
     if field == "attention":
         # ported (tests/test_torch_ring_attention.py): the ring shards the
@@ -321,16 +312,10 @@ def test_fit_refuses_what_is_not_ported(field, value, match):
     if field == "pipeline_stages":
         # ported (tests/test_torch_pipeline.py): without a 'pipe' axis the
         # fit warns and trains without pipelining, as the reference's does;
-        # with one and checkpoints it raises and names item 4.5 (d)
+        # with one and checkpoints it saves and resumes
+        # (tests/test_torch_sharded_checkpoint.py)
         assert np.isfinite(ttr.TransformerRecommender(cfg).fit(
             CPU, _rows(), None).final_loss)
-        pipe = DeviceContext(torch.device("cpu"), 0, 2, axes={"pipe": 2})
-        cfg = dataclasses.replace(cfg, checkpoint_dir="/nonexistent",
-                                  checkpoint_every=1)
-        with pytest.raises(NotImplementedError,
-                           match=f"{match}.*ROADMAP.md Queue 1, item 4"):
-            ttr.TransformerRecommender(cfg).fit(pipe, _rows(), None)
-        assert not os.path.exists("/nonexistent")
         return
     if field == "n_experts":
         # ported (tests/test_torch_moe.py): without an 'expert' axis the fit

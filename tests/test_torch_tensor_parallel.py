@@ -370,11 +370,6 @@ def test_validations():
     with pytest.raises(ValueError, match="not with the pipeline or MoE"):
         ttr.TransformerRecommender(ttr.TransformerConfig(**_cfg(n_experts=2))).fit(
             ctx, rows, None)
-    # what is left of item 4.5 raises and names it
-    with pytest.raises(NotImplementedError, match="checkpoints.*item 4.5"):
-        ttr.TransformerRecommender(ttr.TransformerConfig(**_cfg(
-            checkpoint_dir="/nonexistent", checkpoint_every=1))).fit(
-            ctx, rows, None)
 
 
 def test_warns_when_mesh_axis_missing(caplog):
