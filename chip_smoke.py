@@ -48,6 +48,29 @@ plain CPU path (exact) and the exact answers (two-stage), and the
 replica's exactly-once checks. It measures the card's launch floor (the
 device time of the smallest launch) beside the kernels.
 
+Then ``rec-reload`` runs the query server's safety tier on the same
+persisted instance A (exact, K1), through a sqlite copy of the store: a
+deploy with 4 smoke queries on a ``FakeClock``; ``POST /reload`` to an
+instance B (A's towers perturbed from ``default_rng(61)``) loaded beside
+the live one, its answers held against the plain CPU path, A pinned for
+probation; ``POST /rollback`` (A's answers bitwise, 409 once the window
+has passed); a planted instance C whose algorithm raises, refused by the
+smoke gate (409, the live answers bitwise unchanged); B again with its
+dispatch failing, the serving breaker tripping inside probation and A
+restored; a burst of 256 against an admission queue of 8 (429s with
+``Retry-After``, every 200 A's live answer), 504 sheds past a budget on the
+fake clock, a brownout in and out (each answer the last good one plus
+``"degraded": true``); a drain begun by SIGTERM through
+``install_signal_drain`` with a burst held in flight (those finish 200, new
+queries 503); then ``python -m incubator_predictionio_tpu_torch.tools.cli
+stream --once`` in its own process under ``PIO_STREAM_FUSED=device`` on a
+backlog of 2,000 events from ``default_rng(67)`` (K3 in that process), its
+delta gated, applied and pinned, the touched users' answers held against
+the plain CPU path of the tables the updater's state holds. It prints
+``torch.cuda.memory_allocated()`` before the reload, in probation and after
+the rollback. Every serving phase ends with ``/health``'s serving and
+algorithm breakers closed and no degraded answer besides the planted ones.
+
 Then it trains the recommendation template on the card. ``rec-train``
 runs the repo's ``bench_recommendation_scaled`` configuration, not cut
 (1,000,000 users, 100,000 items, rank 128, 4,000,000 events from
@@ -956,12 +979,16 @@ def free_port() -> int:
 
 
 async def post_all(session, url, payloads, concurrent: bool):
-    """POST each payload; returns (bodies, latencies in s). All must be 200."""
+    """POST each payload; returns (bodies, latencies in s). All must be 200
+    live answers: a degraded one (the server's fallback when the predict
+    path fails, e.g. a kernel that does not launch) fails the check."""
     async def one(p):
         t0 = time.perf_counter()
         async with session.post(url, json=p) as resp:
             body = await resp.json()
             check(resp.status == 200, f"status {resp.status} for {p}: {body}")
+            check(not (isinstance(body, dict) and body.get("degraded")),
+                  f"a degraded answer for {p}: {body}")
         return body, time.perf_counter() - t0
 
     if concurrent:
@@ -997,6 +1024,25 @@ def ids_of(body) -> list[str]:
     return [s["item"] for s in body["itemScores"]]
 
 
+async def serving_verdict(session, base, tag, planted=0) -> int:
+    """``GET /health`` at the end of a phase that serves: the serving and
+    every algorithm breaker closed, and no degraded answer beyond the
+    ``planted`` ones (a kernel that fails to launch trips the algorithm
+    breaker, and the server would answer degraded 200s). Returns the
+    degraded count."""
+    async with session.get(f"{base}/health") as resp:
+        h = await resp.json()
+    states = {"serving": h["servingBreaker"]["state"],
+              **{k: v["state"] for k, v in h["algorithmBreakers"].items()}}
+    check(all(v == "closed" for v in states.values()),
+          f"[{tag}] breakers at the phase's end: {states}")
+    n = h["degradedResponses"]
+    check(n == planted, f"[{tag}] {n} degraded answers ({planted} planted)")
+    log(f"[{tag}] degraded answers: {n} ({planted} planted); breakers "
+        f"closed: {sorted(states)}")
+    return n
+
+
 async def serve_phase(name, variant_path, storage, ctx, body_fn):
     """Deploy a QueryServer (prepare + warmup run in its constructor), run
     ``body_fn(session, url, server)``, shut it down."""
@@ -1021,6 +1067,8 @@ async def serve_phase(name, variant_path, storage, ctx, body_fn):
         async with aiohttp.ClientSession() as session:
             url = f"http://127.0.0.1:{server.config.port}/queries.json"
             result = await body_fn(session, url, server)
+            result["degraded"] = await serving_verdict(
+                session, url.rsplit("/", 1)[0], name)
     finally:
         await server.shutdown()
     result["deploy_s"] = deploy_s
@@ -2206,6 +2254,7 @@ async def stream_phase(R, S, variant_path, storage, ctx, tmp, feed, *,
                 f"on the card {w['wall_ms']:.1f} ms wall, {w['device_busy_ms']:.3f} "
                 "ms device: " + ", ".join(f"{k[:40]}={v:.3f}"
                                           for k, v in w["top_device_ms"].items()))
+            rec["degraded"] = await serving_verdict(s, url, name)
     finally:
         gc.unfreeze()
         await server.shutdown()
@@ -2261,6 +2310,534 @@ async def stream_phase(R, S, variant_path, storage, ctx, tmp, feed, *,
         f"ms max {rec['delta_apply_ms']['max']:.1f} ms; the updater model's "
         f"table pull (ensure_host) {rec['ensure_host_s']:.3f} s, "
         f"{rec['ensure_host_bytes']} bytes; launches {launches}")
+    return launches, rec
+
+
+# -- rec-reload: the query server's safety tier on the main path's model ------
+
+#: rec-reload: 16 users' answers held through every swap, 4 smoke queries of
+#: known users, the overload burst and its admission queue, the budget of
+#: the 504 server (fake clock), the stream verb's backlog
+#: (``default_rng(67)``), the probation window (the reference's default)
+RELOAD_USERS, RELOAD_SMOKE = 16, 4
+RELOAD_BURST, RELOAD_QUEUE = 256, 8
+RELOAD_TIMEOUT_S = 1.0
+RELOAD_STREAM_EVENTS = 2000
+RELOAD_PROBATION_S = 30.0
+
+
+def planted_engine():
+    """The recommendation engine with an algorithm whose ``predict``
+    raises: rec-reload's instance C, which the smoke gate must refuse. The
+    variant file names this function as its engine factory while C is the
+    newest instance."""
+    from incubator_predictionio_tpu_torch.core.controller import Engine
+    from incubator_predictionio_tpu_torch.templates import recommendation as rec
+
+    class PlantedALS(rec.ALSAlgorithm):
+        def predict(self, model, query):
+            raise RuntimeError(f"planted fault for {query.user}")
+
+    return Engine(rec.DataSource, rec.IdentityPreparator,
+                  {"als": PlantedALS}, rec.FirstServing)
+
+
+def same_bodies(tag, got, want) -> None:
+    """Served answers bitwise earlier ones: ids and scores (the JSON
+    floats of the same fp32 values)."""
+    for g, w in zip(got, want, strict=True):
+        check(g == w, f"[{tag}] answer {g} differs from {w}")
+
+
+async def until(cond, what: str, timeout_s: float = 30.0) -> None:
+    t_end = time.perf_counter() + timeout_s
+    while not cond():
+        check(time.perf_counter() < t_end, f"timed out waiting for {what}")
+        await asyncio.sleep(0.002)
+
+
+async def reload_phase(R, towers_, eval_users, storage_a, ctx, tmp, smi):
+    """The query server's safety tier on the main path's persisted
+    instance A (1,000,000 items at rank 32, the int8 K1 path, exact), every
+    count at 0 just before and read just after, on a sqlite copy of the
+    store that the ``stream`` verb's process reads too: (a) deploy A with 4
+    smoke queries and a ``FakeClock``; (b) ``/reload`` to B (A's towers
+    perturbed from ``default_rng(61)``), B's answers against the plain CPU
+    path, A pinned; (c) ``/rollback``, A's answers bitwise, 409 once the
+    window has passed; (d) a planted instance C refused by the smoke gate;
+    (e) B again, its dispatch failing: the serving breaker trips inside
+    probation and A comes back; (f) a burst of 256 against an admission
+    queue of 8 (429s), 504 sheds, a brownout in and out on the fake clock;
+    (g) a drain begun by SIGTERM through ``install_signal_drain``; (h) the
+    CLI ``stream --once`` in its own process under
+    ``PIO_STREAM_FUSED=device`` on a backlog of 2,000 events (started once
+    (e) is done, so that its start-up overlaps (f) and (g), which run on
+    other servers over A's engine). Returns (launches, record)."""
+    import datetime as dt
+    import pickle
+    import signal
+    import threading
+
+    import aiohttp
+
+    from incubator_predictionio_tpu_torch import convert
+    from incubator_predictionio_tpu_torch.data.storage import (
+        EngineInstance,
+        Model,
+    )
+    from incubator_predictionio_tpu_torch.resilience.clock import FakeClock
+    from incubator_predictionio_tpu_torch.resilience.policy import (
+        ServingUnavailable,
+    )
+    from incubator_predictionio_tpu_torch.server.lifecycle import (
+        install_signal_drain,
+    )
+    from incubator_predictionio_tpu_torch.server.query_server import (
+        QueryServer,
+        ServerConfig,
+    )
+    from incubator_predictionio_tpu_torch.utils.serialization import (
+        serialize_model,
+    )
+
+    tag = "rec-reload"
+    t_phase = time.perf_counter()
+    steps: dict = {}
+    user, item, user_bias, item_bias = towers_
+    users = [int(u) for u in eval_users[:RELOAD_USERS]]
+    payloads = [{"user": f"u{u}", "num": 10} for u in users]
+    smoke = tuple({"user": f"u{int(u)}", "num": 10} for u in
+                  eval_users[RELOAD_USERS:RELOAD_USERS + RELOAD_SMOKE])
+    (a_src,) = storage_a.get_meta_data_engine_instances().get_all()
+    blob_a = storage_a.get_model_data_models().get(a_src.id).models
+    root = os.path.join(tmp, "reload")
+    loop = asyncio.get_running_loop()
+    rec = {"card": smi}
+    R.reset_launches()
+    with cli_storage(root) as registry, retrieval_mode("exact"):
+        storage = registry.get_storage()
+        insts = storage.get_meta_data_engine_instances()
+        variant = os.path.join(root, "engine.json")
+
+        def write_variant(factory):
+            with open(variant, "w") as f:
+                json.dump({"id": "reload", "version": "1",
+                           "engineFactory": factory,
+                           "algorithms": [{"name": "als",
+                                           "params": {"rank": RANK}}]}, f)
+
+        def insert(blob, seconds):
+            when = a_src.start_time + dt.timedelta(seconds=seconds)
+            iid = insts.insert(EngineInstance(
+                id="", status="COMPLETED", start_time=when, end_time=when,
+                engine_id="reload", engine_version="1",
+                engine_variant=os.path.abspath(variant),
+                engine_factory=FACTORY))
+            storage.get_model_data_models().insert(Model(iid, blob))
+            return iid
+
+        def retire(iid):
+            insts.update(dataclasses.replace(insts.get(iid), status="FAILED"))
+
+        def mem(collect: bool = False) -> int:
+            """``torch.cuda.memory_allocated()``; after a rollback, once
+            the dropped engine's cycles are collected."""
+            if collect:
+                gc.collect()
+            torch.cuda.synchronize()
+            return torch.cuda.memory_allocated()
+
+        write_variant(FACTORY)
+        a_id = insert(blob_a, 0)
+        del blob_a
+        clk = FakeClock()
+        cfg = ServerConfig(engine_variant=variant, ip="127.0.0.1",
+                           port=free_port(), smoke_queries=smoke,
+                           reload_probation_sec=RELOAD_PROBATION_S)
+        t0 = time.perf_counter()
+        server = QueryServer(cfg, storage=storage, ctx=ctx, clock=clk)
+        torch.cuda.synchronize()
+        steps["deploy_a"] = time.perf_counter() - t0
+        info = server.deployed.models[0].serving_info()
+        check(info["path"] == "device-int8" and info["retrieval_mode"] == "exact"
+              and info["device"].startswith("cuda"), f"[{tag}] A serves {info}")
+        servers = [server]
+        proc = None  # the stream verb's process, once started
+        await server.start()
+        base = f"http://127.0.0.1:{cfg.port}"
+        q = f"{base}/queries.json"
+        try:
+            async with aiohttp.ClientSession(
+                    connector=aiohttp.TCPConnector(limit=0)) as s:
+                async def post(url, payload=None):
+                    async with s.post(url, json=payload) as r:
+                        return r.status, await r.json(), r.headers.get(
+                            "Retry-After")
+
+                async def deployment():
+                    async with s.get(f"{base}/health") as r:
+                        return (await r.json())["deployment"]
+
+                # (a) A's answers, the reference for every swap back to A
+                t0 = time.perf_counter()
+                answers_a, _ = await post_all(s, q, payloads, False)
+                want_of = {p["user"]: w for p, w in zip(payloads, answers_a)}
+                # (b) B: A's towers perturbed, persisted as the newer instance
+                rng = np.random.default_rng(61)
+                bu = user + 0.1 * rng.standard_normal(user.shape, dtype=np.float32)
+                bi = item + 0.1 * rng.standard_normal(item.shape, dtype=np.float32)
+                blob_b = serialize_model([convert.rec_model_from_arrays(
+                    bu, bi, user_bias, item_bias, 3.0, RANK,
+                    [f"u{i}" for i in range(N_USERS)],
+                    [f"i{i}" for i in range(N_ITEMS)])])
+                b_id = insert(blob_b, 1)
+                steps["persist_b"] = time.perf_counter() - t0
+                m_before = mem()
+                t0 = time.perf_counter()
+                st, body, _ = await post(f"{base}/reload")
+                steps["reload_b"] = time.perf_counter() - t0
+                check(st == 200 and body["engineInstanceId"] == b_id,
+                      f"[{tag}] /reload answered {st} {body}")
+                dep = await deployment()
+                check(dep["instanceId"] == b_id and dep["probationActive"]
+                      and dep["previousInstanceId"] == a_id,
+                      f"[{tag}] after the reload: {dep}")
+                m_probation = mem()
+                answers_b, _ = await post_all(s, q, payloads, False)
+                check(answers_b != answers_a, f"[{tag}] B answers as A does")
+                t0 = time.perf_counter()
+                b_same = check_vs_cpu(f"{tag} B", (bu, bi, user_bias, item_bias,
+                                                   3.0), users, answers_b)
+                steps["b_vs_cpu"] = time.perf_counter() - t0
+                # (c) by hand: A comes back bitwise; no pin once the window passed
+                st, body, _ = await post(f"{base}/rollback")
+                check(st == 200 and body["engineInstanceId"] == a_id,
+                      f"[{tag}] /rollback answered {st} {body}")
+                same_bodies(f"{tag} rollback",
+                            (await post_all(s, q, payloads, False))[0], answers_a)
+                m_after = mem(collect=True)
+                engine_bytes = m_probation - m_before
+                check(engine_bytes > 0 and m_after - m_before < engine_bytes / 2,
+                      f"[{tag}] device memory {m_before} before the reload, "
+                      f"{m_probation} in probation, {m_after} after the rollback")
+                clk.advance(RELOAD_PROBATION_S + 1.0)
+                st, body, _ = await post(f"{base}/rollback")
+                check(st == 409, f"[{tag}] /rollback past the window: {st} {body}")
+                # (d) C's algorithm raises: the smoke gate refuses it (its
+                # tables are small: the gate, not the load, is under test)
+                crng = np.random.default_rng(62)
+                c_id = insert(serialize_model([convert.rec_model_from_arrays(
+                    crng.standard_normal((64, RANK), dtype=np.float32),
+                    crng.standard_normal((4096, RANK), dtype=np.float32),
+                    np.zeros(64, np.float32), np.zeros(4096, np.float32), 3.0,
+                    RANK, [f"u{i}" for i in range(64)],
+                    [f"i{i}" for i in range(4096)])]), 2)
+                write_variant(f"{__name__}.planted_engine")
+                t0 = time.perf_counter()
+                try:
+                    st, body, _ = await post(f"{base}/reload")
+                finally:
+                    write_variant(FACTORY)
+                    retire(c_id)
+                steps["reload_c"] = time.perf_counter() - t0
+                check(st == 409 and "planted fault" in body.get("error", ""),
+                      f"[{tag}] the planted instance's reload: {st} {body}")
+                dep = await deployment()
+                check(dep["instanceId"] == a_id
+                      and dep["lastReload"]["status"] == "rejected"
+                      and dep["lastReload"]["instanceId"] == c_id,
+                      f"[{tag}] after the smoke gate: {dep}")
+                same_bodies(f"{tag} smoke gate",
+                            (await post_all(s, q, payloads, False))[0], answers_a)
+                # (e) B again, its dispatch failing: the serving breaker trips
+                # inside probation and A is restored
+                t0 = time.perf_counter()
+                st, body, _ = await post(f"{base}/reload")
+                steps["reload_b_again"] = time.perf_counter() - t0
+                check(st == 200 and body["engineInstanceId"] == b_id,
+                      f"[{tag}] the second /reload answered {st} {body}")
+                m_probation2 = mem()
+
+                def boom(batch):
+                    raise ServingUnavailable("planted fault: B's dispatch fails")
+
+                server.deployed.predict_batch = boom
+                planted = []
+                for p in payloads[:cfg.algo_breaker_threshold]:
+                    st, body, _ = await post(q, p)
+                    check(st == 200 and body == {**want_of[p["user"]],
+                                                 "degraded": True},
+                          f"[{tag}] planted failure answered {st} {body}")
+                    planted.append(body)
+                dep = await deployment()
+                check(dep["instanceId"] == a_id
+                      and dep["lastReload"]["status"] == "rolled_back"
+                      and dep["lastReload"]["rolledBackFrom"] == b_id
+                      and dep["rollbacks"] == 3,
+                      f"[{tag}] after the breaker trip: {dep}")
+                del boom
+                same_bodies(f"{tag} probation rollback",
+                            (await post_all(s, q, payloads, False))[0], answers_a)
+                m_after2 = mem(collect=True)
+                check(m_after2 - m_before < engine_bytes / 2,
+                      f"[{tag}] device memory {m_after2} after the probation "
+                      f"rollback, {m_before} before the reloads")
+                steps["a_to_e"] = time.perf_counter() - t_phase
+                # (h) starts here: the stream verb's process reaches the
+                # card while (f) and (g) run on other servers over A's engine
+                t_h = time.perf_counter()
+                retire(b_id)  # the newest COMPLETED instance is A again
+                log_path = os.path.join(root, "reload.piolog")
+                CodecLog(log_path).append(live_events(
+                    np.random.default_rng(67), RELOAD_STREAM_EVENTS,
+                    N_USERS, N_ITEMS))
+                state = os.path.join(root, "stream-state")
+                before = server.deployed
+                proc = await asyncio.create_subprocess_exec(
+                    sys.executable, "-m",
+                    "incubator_predictionio_tpu_torch.tools.cli", "stream",
+                    "--once", "-v", variant, "--state-dir", state,
+                    "--replica", base, "--feed-path", log_path, "--from-start",
+                    "--batch-events", str(RELOAD_STREAM_EVENTS),
+                    env=dict(os.environ, PIO_STREAM_FUSED="device",
+                             PYTHONPATH=str(Path(__file__).resolve().parent)),
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+                # (f) overload, on two more servers over the live engine (A)
+                t_f = time.perf_counter()
+
+                async def one(url, p):
+                    return await post(f"{url}/queries.json", p)
+
+                clk2 = FakeClock()
+                server2 = QueryServer(
+                    ServerConfig(ip="127.0.0.1", port=free_port(),
+                                 admission_max_queue=RELOAD_QUEUE),
+                    storage=storage, ctx=ctx, deployed=server.deployed,
+                    clock=clk2)
+                servers.append(server2)
+                await server2.start()
+                base2 = f"http://127.0.0.1:{server2.config.port}"
+                same_bodies(f"{tag} overload server", (await post_all(
+                    s, f"{base2}/queries.json", payloads, False))[0], answers_a)
+                burst = [payloads[i % RELOAD_USERS] for i in range(RELOAD_BURST)]
+                got = await asyncio.gather(*[one(base2, p) for p in burst])
+                outcomes = {"200": 0, "429": 0}
+                for p, (st, body, ra) in zip(burst, got):
+                    if st == 200:
+                        check(body == want_of[p["user"]],
+                              f"[{tag}] a burst answer is not A's live answer: {body}")
+                    else:
+                        check(st == 429 and ra is not None and int(ra) >= 1,
+                              f"[{tag}] burst answered {st} {body} (Retry-After {ra})")
+                    outcomes[str(st)] += 1
+                check(outcomes["200"] > 0 and outcomes["429"] > 0,
+                      f"[{tag}] burst outcomes {outcomes}")
+                # brownout, on server2's fake clock: degraded = last good
+                ctrl = server2._admission
+                ctrl.decide(RELOAD_QUEUE - 2)
+                clk2.advance(1.1)
+                check(ctrl.decide(RELOAD_QUEUE - 2)[0] == "brownout",
+                      f"[{tag}] no brownout: {ctrl.snapshot(0)}")
+                brown = await asyncio.gather(*[one(base2, p) for p in payloads])
+                clk2.advance(0.1)
+                brown.append(await one(base2, payloads[0]))
+                for p, (st, body, _) in zip(payloads + payloads[:1], brown):
+                    check(st == 200 and body == {**want_of[p["user"]],
+                                                 "degraded": True},
+                          f"[{tag}] brownout answered {st} {body}")
+                clk2.advance(2.1)
+                st, body, _ = await one(base2, payloads[0])
+                check(st == 200 and body == want_of[payloads[0]["user"]]
+                      and not ctrl.brownout_active,
+                      f"[{tag}] after the brownout: {st} {body}")
+                outcomes["brownout_200"] = len(brown)
+                rec["overload_degraded"] = await serving_verdict(
+                    s, base2, f"{tag} overload", planted=len(brown))
+                # 504: a dispatch held while RELOAD_USERS - 1 queue behind
+                # it; their budget (fake clock) passes before assembly
+                clk3 = FakeClock()
+                server3 = QueryServer(
+                    ServerConfig(ip="127.0.0.1", port=free_port(),
+                                 query_timeout_sec=RELOAD_TIMEOUT_S,
+                                 max_in_flight=1),
+                    storage=storage, ctx=ctx, deployed=server.deployed,
+                    clock=clk3)
+                servers.append(server3)
+                await server3.start()
+                base3 = f"http://127.0.0.1:{server3.config.port}"
+                live = server.deployed
+                gate = threading.Event()
+
+                def gated(batch, real=live.predict_batch):
+                    gate.wait(timeout=30.0)
+                    return real(batch)
+
+                live.predict_batch = gated
+                try:
+                    first = asyncio.create_task(one(base3, payloads[0]))
+                    await until(lambda: server3.batcher._inflight,
+                                "the held dispatch")
+                    rest = [asyncio.create_task(one(base3, p))
+                            for p in payloads[1:]]
+                    await until(lambda: server3.batcher.queue.qsize()
+                                >= len(rest), "the queue behind it")
+                    clk3.advance(1.5 * RELOAD_TIMEOUT_S)
+                finally:
+                    gate.set()
+                st, body, _ = await first
+                check(st == 200 and body == answers_a[0],
+                      f"[{tag}] the held dispatch answered {st} {body}")
+                for st, body, ra in await asyncio.gather(*rest):
+                    check(st == 504 and ra is not None,
+                          f"[{tag}] a queued query past its budget: {st} {body}")
+                outcomes["504"] = len(rest)
+                await serving_verdict(s, base3, f"{tag} shed")
+                steps["overload"] = time.perf_counter() - t_f
+                # (g) drain: SIGTERM through install_signal_drain while a
+                # burst is held in flight (one dispatch, the rest queued)
+                t_g = time.perf_counter()
+                server4 = QueryServer(
+                    ServerConfig(ip="127.0.0.1", port=free_port(),
+                                 max_in_flight=1),
+                    storage=storage, ctx=ctx, deployed=live, clock=FakeClock())
+                servers.append(server4)
+                await server4.start()
+                base4 = f"http://127.0.0.1:{server4.config.port}"
+                install_signal_drain(loop, server4._stop_event, "rec-reload")
+                check(signal.getsignal(signal.SIGTERM) not in (signal.SIG_DFL,
+                                                               None),
+                      f"[{tag}] the drain's SIGTERM handler is not installed")
+                waiter = asyncio.create_task(server4.wait_stopped())
+                gate.clear()
+                try:
+                    inflight = [asyncio.create_task(one(base4, p))
+                                for p in payloads]
+                    # one held dispatch (the batch that coalesced first),
+                    # the rest queued behind it
+                    b4 = server4.batcher
+                    await until(lambda: b4._inflight and b4.batches_served == 1
+                                and b4.max_batch_seen + b4.queue.qsize()
+                                == RELOAD_USERS, "the burst in flight")
+                    await serving_verdict(s, base4, f"{tag} drain")
+                    os.kill(os.getpid(), signal.SIGTERM)
+                    await until(lambda: server4._drain_state.draining,
+                                "the drain")
+                    refused = await asyncio.gather(
+                        *[one(base4, p) for p in payloads[:RELOAD_SMOKE]])
+                finally:
+                    gate.set()
+                    loop.remove_signal_handler(signal.SIGTERM)
+                    loop.remove_signal_handler(signal.SIGINT)
+                finished = await asyncio.gather(*inflight)
+                await asyncio.wait_for(waiter, 60)
+                del live.predict_batch, gated, live
+                for st, body, ra in refused:
+                    check(st == 503 and ra is not None,
+                          f"[{tag}] a query during the drain: {st} {body}")
+                same_bodies(f"{tag} drained", [b for _, b, _ in finished],
+                            answers_a)
+                check(all(st == 200 for st, _, _ in finished),
+                      f"[{tag}] in-flight statuses {[x[0] for x in finished]}")
+                outcomes["drain_200"] = len(finished)
+                outcomes["drain_503"] = len(refused)
+                steps["drain"] = time.perf_counter() - t_g
+                # (h) the stream verb's delta, applied to A on server 1
+                out, err = await asyncio.wait_for(proc.communicate(), 600)
+                out, err = out.decode(), err.decode()
+                OUT.parent.mkdir(parents=True, exist_ok=True)
+                (OUT.parent / "rec_reload_stream.log").write_text(out + err)
+                check(proc.returncode == 0,
+                      f"[{tag}] stream --once exited {proc.returncode}:\n"
+                      f"{err[-4000:]}")
+                steps["stream_verb"] = time.perf_counter() - t_h
+                res = json.loads(out.strip().splitlines()[-1])
+                check(res["status"] == "applied"
+                      and res["events"] == RELOAD_STREAM_EVENTS
+                      and res["ships"][0].get("shipped") == 1,
+                      f"[{tag}] stream --once: {res}")
+                m = re.search(r"stream: kernel launches (\{.*\})", err)
+                check(m is not None, f"[{tag}] no launch line:\n{err[-4000:]}")
+                child = json.loads(m.group(1))
+                check(child["adam_rows"] == -(-RELOAD_STREAM_EVENTS // STREAM_MICRO),
+                      f"[{tag}] K3 launched {child['adam_rows']} times in the "
+                      "stream verb's process")
+                dep = await deployment()
+                check(dep["lastReload"]["status"] == "delta"
+                      and dep["probationActive"] and server._previous is before
+                      and dep["streaming"]["lastDeltaSeq"] == res["toSeq"],
+                      f"[{tag}] after the stream verb's delta: {dep}")
+                del before
+                # the updater's state: its rows over A's tables
+                with open(os.path.join(state, "trainer.pkl"), "rb") as f:
+                    rows = pickle.load(f)["trainer"]["rows"]
+                tu, ti = user.copy(), item.copy()
+                tub, tib = user_bias.copy(), item_bias.copy()
+                for (kind, idx), row in rows.items():
+                    if kind == "u":
+                        tu[idx], tub[idx] = row[:RANK], row[RANK]
+                    elif kind == "i":
+                        ti[idx], tib[idx] = row[:RANK], row[RANK]
+                touched = sorted(i for k, i in rows if k == "u")[:RELOAD_USERS]
+                bodies, _ = await post_all(s, q, [{"user": f"u{u}", "num": 10}
+                                                  for u in touched], False)
+                stream_same = check_vs_cpu(f"{tag} stream", (tu, ti, tub, tib,
+                                                             3.0), touched, bodies)
+                del tu, ti, tub, tib
+                # --status reads the state dir alone (cli_run: exit 0)
+                st_info = json.loads(cli_run(f"{tag} status", [
+                    "stream", "--state-dir", state, "--status"]))
+                check(st_info["archivedDeltas"] == 1
+                      and st_info["cursor"]["seq"] == res["toSeq"],
+                      f"[{tag}] stream --status: {st_info}")
+                # the window passes: the delta's pin is released and there
+                # is nothing left to roll back to
+                clk.advance(RELOAD_PROBATION_S + 1.0)
+                dep = await deployment()
+                check(not dep["probationActive"] and server._previous is None,
+                      f"[{tag}] past the delta's window: {dep}")
+                # (the first read names the pin it released, as the
+                # reference's /health does)
+                dep = await deployment()
+                check(dep["previousInstanceId"] is None,
+                      f"[{tag}] past the delta's window: {dep}")
+                st, body, _ = await post(f"{base}/rollback")
+                check(st == 409, f"[{tag}] /rollback past the delta's window: "
+                      f"{st} {body}")
+                steps["stream_checks"] = time.perf_counter() - t_h - steps[
+                    "stream_verb"]
+                rec["degraded"] = await serving_verdict(
+                    s, base, tag, planted=len(planted))
+        finally:
+            if proc is not None and proc.returncode is None:
+                proc.kill()
+                await proc.wait()
+            for srv in servers:
+                await srv.shutdown()
+    launches = {"score_catalog_quantized": R.score_catalog_quantized.launches}
+    check(launches["score_catalog_quantized"] > 0,
+          f"[{tag}] K1 never launched in the phase")
+    phase_s = time.perf_counter() - t_phase
+    mib = 2 ** 20
+    rec.update({
+        "phase_s": phase_s, "steps_s": steps, "outcomes": outcomes,
+        "memory_allocated_bytes": {
+            "before_reload": m_before, "in_probation": m_probation,
+            "after_rollback": m_after, "in_probation_again": m_probation2,
+            "after_probation_rollback": m_after2},
+        "b_vs_cpu_same_ids_order": b_same, "stream_vs_cpu_same_ids_order": stream_same,
+        "stream_verb": {"events": res["events"], "rows": res["rows"],
+                        "process_launches": child, "toSeq": res["toSeq"]},
+        "launches": launches})
+    log(f"[{tag}] device memory allocated ({smi}): {m_before / mib:.1f} MiB "
+        f"before the reload, {m_probation / mib:.1f} MiB in probation (A "
+        f"pinned beside B), {m_after / mib:.1f} MiB after the rollback; "
+        f"{m_probation2 / mib:.1f} / {m_after2 / mib:.1f} MiB around the "
+        "probation rollback")
+    log(f"[{tag}] outcomes {outcomes}; the stream verb's process: K3 "
+        f"{child['adam_rows']} launches, {res['events']} events, {res['rows']} "
+        f"rows; K1 {launches['score_catalog_quantized']} launches in the phase")
+    log(f"[{tag}] phase {phase_s:.1f} s on {smi}: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in steps.items()))
     return launches, rec
 
 
@@ -3533,6 +4110,7 @@ async def shard_trained(R, ctx, persisted, tag="rec-shard") -> dict:
                                 "bitwise_fresh_prepare": True}
                 del fresh, old_sh, new_sh, new_mf
                 lat_after, _ = await bursts(session, url, lat_users)
+                rec["degraded"] = await serving_verdict(session, base, tag)
         finally:
             await server.shutdown()
         rec["full_gathers"] = M.FULL_GATHERS.value - gathers0
@@ -3556,6 +4134,9 @@ async def shard_trained(R, ctx, persisted, tag="rec-shard") -> dict:
                 lat_int8, _ = await bursts(
                     session, f"http://127.0.0.1:{server.config.port}/queries.json",
                     lat_users)
+                await serving_verdict(
+                    session, f"http://127.0.0.1:{server.config.port}",
+                    f"{tag} int8")
         finally:
             await server.shutdown()
         del server
@@ -10021,6 +10602,14 @@ def main() -> int:
                 CodecLog(os.path.join(tmp, "live.piolog"))))
         for k, c in counts.items():
             launches[k] = launches.get(k, 0) + c
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the query server's safety tier on the same persisted instance
+        counts, main["rec_reload"] = asyncio.run(reload_phase(
+            R, (user, item, user_bias, item_bias), eval_users, storage, ctx,
+            tmp, smi))
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
     del user, item, user_bias, item_bias, ivf, storage
     gc.collect()
     torch.cuda.empty_cache()
@@ -10193,6 +10782,8 @@ def main() -> int:
              "launches": main["rec_batchpredict"]["launches"][
                  "score_catalog_quantized"]},
          "rec_model_launches": main["rec_model"]["launches"][
+             "score_catalog_quantized"],
+         "rec_reload_launches": main["rec_reload"]["launches"][
              "score_catalog_quantized"]},
         {**entry("score_centroids_quantized", "retrieval.cu",
                  "incubator_predictionio_tpu/ops/retrieval.py:188", k2,
@@ -10205,6 +10796,8 @@ def main() -> int:
          "host_fused_ms": next(c for c in k3 if "ms" in c)["host_fused_ms"],
          "device_engine_ms": next(c for c in k3 if "ms" in c)["device_engine_ms"],
          "k3b_device_ms": k3b["device_ms"], "k3b_plain_ms": k3b["plain_ms"],
+         "rec_reload_stream_process_launches": main["rec_reload"][
+             "stream_verb"]["process_launches"]["adam_rows"],
          "d129": {k: v for k, v in next(
              c for c in k3 if (c["R"], c["D"]) == K3_REC).items()
              if k in ("max_abs_err", "max_ulps", "bitwise_plain", "ms",

@@ -2,11 +2,14 @@
 
 Counterpart of ``incubator_predictionio_tpu/tools/cli.py`` (reference
 tools/console/Console.scala): the verbs ``app new``, ``import``, ``train``,
-``eval``, ``deploy``, ``batchpredict``, ``launch``, ``dist status`` and
-``shards``, with the reference's argument names (its cli.py:58, :231,
-:267, :295, :366, :631, :3786, :3604, :3533).
-``train``, ``eval``, ``deploy``, ``batchpredict`` and ``shards`` run on
-the card unless ``--device cpu`` asks for the CPU. ``launch -n N <verb> …`` runs N
+``eval``, ``deploy``, ``undeploy``, ``stream``, ``batchpredict``,
+``launch``, ``dist status`` and ``shards``, with the reference's argument
+names (its cli.py:58, :231, :267, :295, :349, :824, :366, :631, :3786,
+:3604, :3533). ``stream`` leaves out the reference's ``--obs-port`` (the
+telemetry half of ROADMAP.md item 6).
+``train``, ``eval``, ``deploy``, ``stream``, ``batchpredict`` and
+``shards`` run on the card unless ``--device cpu`` asks for the CPU.
+``launch -n N <verb> …`` runs N
 coordinated ``<verb> --distributed`` processes of ``train``, ``eval`` or
 ``batchpredict`` (``parallel/launcher.py``). Run it as ``python -m
 incubator_predictionio_tpu_torch.tools.cli <verb>``; :func:`main` takes the
@@ -149,9 +152,125 @@ def cmd_deploy(args, storage: Storage) -> int:
         ip=args.ip,
         port=args.port,
         server_access_key=args.server_access_key,
+        query_timeout_sec=args.query_timeout_sec,
+        algo_deadline_sec=args.algo_deadline_sec,
+        algo_breaker_threshold=args.algo_breaker_threshold,
+        algo_breaker_reset_sec=args.algo_breaker_reset_sec,
+        smoke_queries=tuple(
+            json.loads(q) for q in (args.smoke_query or ())),
+        reload_probation_sec=args.reload_probation_sec,
+        # unset flags keep the PIO_ADMISSION_* environment defaults
+        **{k: v for k, v in (
+            ("admission_max_queue", args.admission_max_queue),
+            ("admission_target_ms", args.admission_target_ms),
+        ) if v is not None},
+        **({"admission_adaptive": False}
+           if args.no_adaptive_admission else {}),
     )
     serve_forever(config, storage, DeviceContext.create(args.device))
     return 0
+
+
+def cmd_undeploy(args, storage: Storage) -> int:
+    """``POST /stop`` to a deployed engine server (reference cli.py:349):
+    it drains, then exits."""
+    import urllib.request
+
+    url = f"http://{args.ip}:{args.port}/stop"
+    if args.server_access_key:
+        url += f"?accessKey={args.server_access_key}"
+    try:
+        with urllib.request.urlopen(
+            urllib.request.Request(url, method="POST"), timeout=10
+        ) as resp:
+            _out(resp.read().decode())
+        return 0
+    except Exception as e:  # noqa: BLE001
+        _err(f"Undeploy failed: {e}")
+        return 1
+
+
+def cmd_stream(args, storage: Storage) -> int:
+    """Streaming incremental updates (reference cli.py:824): tail the
+    event-log change feed, fold events into embedding-row deltas on the
+    card (``--device`` elsewhere), and ship them to the ``--replica``
+    servers' ``POST /delta``, crash-safe and exactly-once (cursor and delta
+    archive live in ``--state-dir``).
+
+    ``--status`` prints the stream state (cursor, quarantine, dead letters)
+    without folding; ``--dead-letter`` prints the dead-lettered events as
+    JSON lines; ``--once`` runs one poll → fold → ship → commit round and
+    exits. After start-up the process's heap is frozen out of the garbage
+    collector's reach (``gc.freeze()``), so no full collection of it lands
+    inside a fold."""
+    import gc
+
+    from incubator_predictionio_tpu_torch.parallel.mesh import DeviceContext
+    from incubator_predictionio_tpu_torch.streaming.feed import (
+        resolve_feed_path,
+    )
+    from incubator_predictionio_tpu_torch.streaming.updater import (
+        DEAD_LETTER_FILE,
+        StreamUpdater,
+        UpdaterConfig,
+        inspect_state_dir,
+        load_base_model,
+    )
+
+    if args.status:
+        # strictly read-only: no model load, no cursor creation
+        info = inspect_state_dir(args.state_dir)
+        _out(json.dumps(info, indent=2, default=str))
+        return 1 if info["quarantine"] else 0
+    if args.dead_letter:
+        from incubator_predictionio_tpu_torch.resilience.wal import tail_frames
+
+        path = os.path.join(args.state_dir, DEAD_LETTER_FILE)
+        if not os.path.exists(path):
+            _out("No dead letters.")
+            return 0
+        records, _, status = tail_frames(path)
+        for _, rec in records:
+            _out(json.dumps(rec))
+        if status == "corrupt":
+            _err("dead-letter file has a corrupt frame past the listed "
+                 "records")
+            return 1
+        return 0
+    ctx = DeviceContext.create(args.device)
+    model, instance_id, event_names, defaults = load_base_model(
+        args.engine_variant, storage, ctx)
+    feed_path = args.feed_path or resolve_feed_path(
+        storage, args.app, args.channel)
+    cfg = UpdaterConfig(
+        state_dir=args.state_dir,
+        feed_path=feed_path,
+        replicas=tuple(args.replica or ()),
+        access_key=args.server_access_key,
+        batch_events=args.batch_events,
+        poll_interval=args.interval,
+        from_start=args.from_start,
+    )
+    updater = StreamUpdater(cfg, model, instance_id,
+                            event_names=event_names,
+                            default_values=defaults, ctx=ctx)
+    gc.collect()
+    gc.freeze()
+    try:
+        if args.once:
+            out = updater.run_once()
+            _out(json.dumps(out, default=str))
+            return 1 if out["status"] == "quarantined" else 0
+        updater.run_forever(max_batches=args.max_batches)
+        return 1 if updater.quarantined else 0
+    finally:
+        from incubator_predictionio_tpu_torch.ops import retrieval, sparse_update
+
+        logging.getLogger(__name__).info(
+            "stream: kernel launches %s", json.dumps({
+                w.__name__: w.launches for w in (
+                    *sparse_update.KERNEL_WRAPPERS,
+                    *retrieval.KERNEL_WRAPPERS)}))
 
 
 def cmd_batchpredict(args, storage: Storage) -> int:
@@ -374,7 +493,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="pio-tpu",
         description="PredictionIO-capability ML server framework "
                     "(PyTorch/CUDA port: app new, import, train, eval, "
-                    "deploy, batchpredict, launch, dist status, shards)",
+                    "deploy, undeploy, stream, batchpredict, launch, dist "
+                    "status, shards)",
     )
     sub = parser.add_subparsers(dest="command")
 
@@ -435,8 +555,90 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-v", "--engine-variant", default="engine.json")
     p.add_argument("--ip", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
-    p.add_argument("--server-access-key")
+    p.add_argument("--server-access-key",
+                   help="guards /reload, /rollback, /stop and /delta")
     p.add_argument("--device", help="torch device to serve on (default: "
+                                    "the card, cuda:0; 'cpu' for the CPU)")
+    p.add_argument("--query-timeout", type=float, dest="query_timeout_sec",
+                   help="total per-query budget in seconds; blown budgets "
+                        "answer degraded-200 from the last-good cache "
+                        "instead of 500, queries that expire while queued "
+                        "answer 504 (docs/resilience.md)")
+    p.add_argument("--algo-deadline", type=float, dest="algo_deadline_sec",
+                   help="per-algorithm deadline in seconds; slower answers "
+                        "count as circuit-breaker failures")
+    p.add_argument("--algo-breaker-threshold", type=int, default=3,
+                   help="consecutive failures before an algorithm's "
+                        "breaker opens (default 3)")
+    p.add_argument("--algo-breaker-reset", type=float, default=10.0,
+                   dest="algo_breaker_reset_sec",
+                   help="seconds an open algorithm breaker waits before a "
+                        "half-open probe (default 10)")
+    p.add_argument("--smoke-query", action="append",
+                   help="JSON query payload the /reload and /delta gate "
+                        "runs against a NEW engine before it may serve "
+                        "(repeatable; any failure keeps the live one)")
+    p.add_argument("--reload-probation", type=float, default=30.0,
+                   dest="reload_probation_sec",
+                   help="seconds after a swap during which a serving-"
+                        "breaker trip rolls back to the previous instance "
+                        "(default 30; 0 disables)")
+    p.add_argument("--admission-max-queue", type=int,
+                   help="bounded admission queue depth; waiting queries "
+                        "beyond it answer 429 + Retry-After "
+                        "(PIO_ADMISSION_MAX_QUEUE env, default 256)")
+    p.add_argument("--admission-target-ms", type=float,
+                   help="explicit latency target (ms) for the adaptive "
+                        "concurrency limiter; unset = gradient mode "
+                        "(PIO_ADMISSION_TARGET_MS env)")
+    p.add_argument("--no-adaptive-admission", action="store_true",
+                   help="disable the AIMD concurrency limiter "
+                        "(PIO_ADMISSION_ADAPTIVE=0 env)")
+
+    p = sub.add_parser("undeploy")
+    p.add_argument("--ip", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--server-access-key")
+
+    # stream: incremental model updates from the live event feed
+    p = sub.add_parser(
+        "stream",
+        help="streaming incremental updates: tail the eventlog change "
+             "feed, fold events into embedding-row deltas, ship them to "
+             "replicas as exactly-once delta deploys")
+    p.add_argument("-v", "--engine-variant", default="engine.json")
+    p.add_argument("--app", default="recommendation",
+                   help="app whose eventlog to tail")
+    p.add_argument("--channel", help="channel name (default: none)")
+    p.add_argument("--state-dir", required=True,
+                   help="cursor + trainer state + delta archive + dead "
+                        "letters (crash-safe; single-writer)")
+    p.add_argument("--feed-path",
+                   help="explicit .piolog path (default: resolved from "
+                        "the configured eventlog backend and --app)")
+    p.add_argument("--replica", action="append",
+                   help="query-server base URL to ship deltas to "
+                        "(repeatable)")
+    p.add_argument("--server-access-key",
+                   help="the replicas' --server-access-key (guards "
+                        "POST /delta)")
+    p.add_argument("--batch-events", type=int, default=512,
+                   help="max events folded per delta")
+    p.add_argument("--interval", type=float, default=1.0,
+                   help="seconds between idle polls")
+    p.add_argument("--once", action="store_true",
+                   help="one poll→fold→ship→commit round, then exit")
+    p.add_argument("--max-batches", type=int,
+                   help="exit after this many applied deltas")
+    p.add_argument("--from-start", action="store_true",
+                   help="start a fresh cursor at the BEGINNING of the log "
+                        "instead of its current end (fold history too)")
+    p.add_argument("--status", action="store_true",
+                   help="print stream state (cursor, quarantine, dead "
+                        "letters) and exit; non-zero when quarantined")
+    p.add_argument("--dead-letter", action="store_true",
+                   help="print dead-lettered poison events as JSON lines")
+    p.add_argument("--device", help="torch device to fold on (default: "
                                     "the card, cuda:0; 'cpu' for the CPU)")
 
     p = sub.add_parser("batchpredict")
@@ -486,6 +688,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 _COMMANDS = {"train": cmd_train, "eval": cmd_eval, "deploy": cmd_deploy,
+             "undeploy": cmd_undeploy, "stream": cmd_stream,
              "batchpredict": cmd_batchpredict, "import": cmd_import,
              "launch": cmd_launch, "shards": cmd_shards}
 _APP_COMMANDS = {"new": cmd_app_new}

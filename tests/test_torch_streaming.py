@@ -478,6 +478,11 @@ def test_delta_endpoint_exactly_once(tmp_path):
             assert status == 200 and body["status"] == "applied"
             assert body["lastDeltaSeq"] == 50 and server.deployed is not before
             assert server.batcher.deployed is server.deployed
+            # an applied delta pins the engine it replaced for probation
+            assert server._previous is before and server._probation_active()
+            assert server._last_reload == {"status": "delta",
+                                           "instanceId": inst,
+                                           "deltaRange": [8, 50]}
             q = await (await client.post(
                 "/queries.json", json={"user": "u2", "num": 3})).json()
             assert q["itemScores"][0]["item"] == "i7"
