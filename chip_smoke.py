@@ -71,6 +71,25 @@ the plain CPU path of the tables the updater's state holds. It prints
 the rollback. Every serving phase ends with ``/health``'s serving and
 algorithm breakers closed and no degraded answer besides the planted ones.
 
+Then ``rec-obs`` reads the telemetry on the same instance A (exact, K1),
+on the real clock: 4 bursts of 64 over the socket, 16 queries with a
+seeded ``X-PIO-Trace`` (each echoed, each span found in
+``/traces.json``), ``/metrics`` scraped before and after and parsed with
+the port's strict parser (``pio_http_requests_total`` and the latency
+histogram count every 200 sent; ``serve.batch`` counts one scope a batch
+served and its four phases sum to within 10% of the scopes' wall), the
+answers against the plain CPU path, ``pio_device_bytes_peak`` between
+``torch.cuda.memory_allocated()`` and the card's total, one burst inside
+``utils/tracing.py``'s ``profile_trace`` (K1's kernel and the
+``serve.batch`` range in the written trace, K1's device time from it),
+and the CLI ``metrics``, ``profile`` and ``status`` as processes against
+the server. The other phase buckets are read where they run:
+``train.fit`` and ``pio_training_mfu`` (equal to this script's MFU) after
+rec-train's timed fit, ``stream.fold`` after the ``stream`` phase's
+``device`` backlog, ``shard.search`` after ``rec-shard``, and
+rec-workflow's CLI ``train`` runs with ``--profile-dir`` (its trace holds
+the card's kernels).
+
 Then it trains the recommendation template on the card. ``rec-train``
 runs the repo's ``bench_recommendation_scaled`` configuration, not cut
 (1,000,000 users, 100,000 items, rank 128, 4,000,000 events from
@@ -268,6 +287,7 @@ main path, its error against the plain version and its times.
 from __future__ import annotations
 
 import asyncio
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -2153,6 +2173,9 @@ async def stream_phase(R, S, variant_path, storage, ctx, tmp, feed, *,
             # the same traffic again, fresh events, through the device
             # engine: one K3 launch a micro-batch
             await loop.run_in_executor(None, append, backlog_dev)
+            from incubator_predictionio_tpu_torch.obs import profile as P
+
+            snap = P.phase_snapshot()
             os.environ["PIO_STREAM_FUSED"] = "device"
             try:
                 t0 = time.perf_counter()
@@ -2160,6 +2183,10 @@ async def stream_phase(R, S, variant_path, storage, ctx, tmp, feed, *,
                 device_s = time.perf_counter() - t0
             finally:
                 del os.environ["PIO_STREAM_FUSED"]
+            # rec-obs (e): the fold's phases under device, K3 inside compute
+            rec["obs_stream_fold"] = check_phases(
+                name, "stream.fold", phase_delta(snap, "stream.fold"),
+                ("assemble", "compute", "gather"))
             check(out["status"] == "applied" and out["events"] == STREAM_BACKLOG,
                   f"device backlog: {out}")
             check((await health())["lastDeltaSeq"] == out["toSeq"],
@@ -2841,6 +2868,385 @@ async def reload_phase(R, towers_, eval_users, storage_a, ctx, tmp, smi):
     return launches, rec
 
 
+# -- rec-obs: the telemetry that reads the card ------------------------------
+
+#: rec-obs: 4 bursts of 64 queries (the same 64 users in each), 16 of the
+#: 256 carrying a seeded X-PIO-Trace; the phase's budget in seconds
+OBS_BURSTS, OBS_BURST, OBS_TRACED, OBS_BUDGET_S = 4, 64, 16, 15.0
+#: traced runs of a block whose trace misses the kernels it ran, in all:
+#: on the H100 machine a torch.profiler trace came back, now and then,
+#: without the record of a kernel that had run (``device_ms_of``), once
+#: rec-obs's traced burst without its K1 launch; each repeat is logged
+TRACE_TRIES = 3
+#: a scope's phase buckets sum to within this share of its wall (the
+#: reference's conservation contract, obs/profile.py)
+CONSERVE_TOL = 0.10
+#: PERF.md's K1 row: device ms at (B 64, N 1,000,448, D 32)
+K1_PERF_ROW_MS = 0.1113
+#: earlier readings on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6), to
+#: print beside this run's: rec-workflow's CLI train without a profiler
+#: (s), rec-shard's sharded exact and exact lanes without the fences at
+#: shard.search's phase edges, shard_ab.py's sharded lane on one and four
+#: cards (q/s)
+WF_TRAIN_UNPROFILED_S = 2.52
+SHARD_LANES_UNFENCED_QPS = {"sharded_exact": 13_395.8, "exact": 14_765.3,
+                            "shard_ab_one_card": 13_975.1,
+                            "shard_ab_four_cards": 2_911.8}
+
+
+def phase_delta(before: dict, scope: str) -> dict:
+    """``scope``'s profiler aggregates since ``before`` (an earlier
+    ``obs/profile.py`` ``phase_snapshot()``): wall seconds, scope count, and
+    each phase that moved (seconds, count)."""
+    from incubator_predictionio_tpu_torch.obs import profile as P
+
+    empty = {"wall_seconds": 0.0, "count": 0, "phases": {}}
+    now, was = P.phase_snapshot().get(scope, empty), before.get(scope, empty)
+    phases = {}
+    for p, v in now["phases"].items():
+        old = was["phases"].get(p, {"seconds": 0.0, "count": 0})
+        if v["count"] > old["count"]:
+            phases[p] = {"seconds": v["seconds"] - old["seconds"],
+                         "count": v["count"] - old["count"]}
+    return {"wall_seconds": now["wall_seconds"] - was["wall_seconds"],
+            "count": now["count"] - was["count"], "phases": phases}
+
+
+def check_phases(tag: str, scope: str, d: dict, names) -> dict:
+    """The scope ran, every phase in ``names`` was recorded, and the phases
+    sum to within :data:`CONSERVE_TOL` of the scope's wall; logs the
+    breakdown and returns it with the covered share."""
+    check(d["count"] > 0, f"[{tag}] no {scope} scope was recorded")
+    check(set(names) <= set(d["phases"]),
+          f"[{tag}] {scope} phases {sorted(d['phases'])}, want {sorted(names)}")
+    wall = d["wall_seconds"]
+    covered = sum(v["seconds"] for v in d["phases"].values())
+    check(abs(covered - wall) <= CONSERVE_TOL * wall,
+          f"[{tag}] {scope} phases sum to {covered:.6f} s of a {wall:.6f} s "
+          "wall")
+    log(f"[{tag}] {scope}: {d['count']} scope(s), wall {wall * 1e3:.3f} ms; "
+        + ", ".join(f"{p} {v['seconds'] * 1e3:.3f} ms "
+                    f"({v['seconds'] / wall:.1%}, {v['count']}x)"
+                    for p, v in sorted(d["phases"].items(),
+                                       key=lambda kv: -kv[1]["seconds"]))
+        + f"; covered {covered / wall:.4f} of the wall")
+    return {**d, "covered_share": covered / wall}
+
+
+def sample(page: dict, name: str, **labels):
+    """The value of one sample of a parsed exposition (None if absent)."""
+    for sname, lab, value in page.get(name, {"samples": []})["samples"]:
+        if sname == name and lab == labels:
+            return value
+    sub = name.rsplit("_", 1)[0]
+    for sname, lab, value in page.get(sub, {"samples": []})["samples"]:
+        if sname == name and lab == labels:
+            return value
+    return None
+
+
+def close_bodies(tag: str, got, want, tol: float = 1e-4) -> None:
+    """Answers of the same users in another batch: every score within
+    ``tol`` of the earlier answer's, and an id may differ only through a
+    near-tie at the last place (K1's two kernels, B ≤ 8 and B > 8, sum in
+    other orders)."""
+    for g, w in zip(got, want, strict=True):
+        gs = {x["item"]: x["score"] for x in g["itemScores"]}
+        ws = {x["item"]: x["score"] for x in w["itemScores"]}
+        last = min(ws.values())
+        for k in gs.keys() & ws.keys():
+            check(abs(gs[k] - ws[k]) <= tol, f"[{tag}] {k}: {gs[k]} vs {ws[k]}")
+        for k in gs.keys() ^ ws.keys():
+            check(abs(gs.get(k, ws.get(k)) - last) <= tol,
+                  f"[{tag}] {sorted(gs)} vs {sorted(ws)} beyond a near-tie")
+
+
+def trace_events(log_dir: str) -> tuple[list, int]:
+    """The events of the one ``*.pt.trace.json`` ``profile_trace`` wrote
+    under ``log_dir``, and its size in bytes."""
+    paths = sorted(Path(log_dir).glob("*.pt.trace.json"))
+    check(len(paths) == 1, f"trace files under {log_dir}: {paths}")
+    return json.loads(paths[0].read_text())["traceEvents"], paths[0].stat().st_size
+
+
+async def obs_cli(tag: str, argv) -> tuple[int, str]:
+    """One CLI verb in a fresh process from the repo root (the server it
+    reads runs on this process's event loop)."""
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root, *filter(None, [os.environ.get("PYTHONPATH")])]))
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", "incubator_predictionio_tpu_torch.tools.cli",
+        *argv, cwd=root, env=env, stdout=asyncio.subprocess.PIPE,
+        stderr=asyncio.subprocess.STDOUT)
+    try:
+        out, _ = await asyncio.wait_for(proc.communicate(), 120)
+    except asyncio.TimeoutError:
+        proc.kill()
+        await proc.wait()
+        raise
+    text = out.decode()
+    check(proc.returncode == 0, f"[{tag}] {argv} exited {proc.returncode}: "
+          f"{text[-2000:]}")
+    return proc.returncode, text
+
+
+async def obs_phase(R, towers_, eval_users, storage, variant_path, ctx, tmp,
+                    smi):
+    """The telemetry that reads the card, on the main path's persisted
+    instance A (1,000,448 × 32, int8 K1, exact), on the real clock, every
+    count at 0 just before and read just after: (a) 4 bursts of 64 over
+    the socket, 16 of them with a seeded ``X-PIO-Trace``, ``/metrics``
+    scraped before and after and parsed with the port's strict parser
+    (requests and the latency histogram count the 200s sent, ``serve.batch``
+    a scope a batch and its four phases conserving the wall, each traced
+    request's span in ``/traces.json``, ``serve.batch`` in
+    ``/profile.json``, the answers the plain CPU path's); (b) the device
+    memory watermark between ``memory_allocated`` and the card's total, the
+    in-use gauge, ``jitCompileKeys``; (c) a burst of 64 traced by
+    ``torch.profiler`` (K1's kernel and the ``serve.batch`` range in the
+    file); (f) the CLI ``metrics``, ``profile`` and ``status`` as processes
+    against the server. Returns (launches, record)."""
+    import aiohttp
+
+    from incubator_predictionio_tpu_torch.obs import profile as P
+    from incubator_predictionio_tpu_torch.obs.metrics import (
+        parse_prometheus_text,
+    )
+    from incubator_predictionio_tpu_torch.server.query_server import (
+        QueryServer,
+        ServerConfig,
+    )
+    from incubator_predictionio_tpu_torch.utils import tracing
+
+    tag = "rec-obs"
+    t_phase = time.perf_counter()
+    steps: dict = {}
+    user, item, user_bias, item_bias = towers_
+    users = [int(u) for u in eval_users[:OBS_BURST]]
+    payloads = [{"user": f"u{u}", "num": 10} for u in users]
+    rng = np.random.default_rng(71)
+    n = OBS_BURSTS * OBS_BURST
+    picks = sorted(int(i) for i in rng.choice(n, OBS_TRACED, replace=False))
+    traced = {i: (f"{int(rng.integers(1, 1 << 62)):016x}",
+                  f"{int(rng.integers(1, 1 << 62)):016x}") for i in picks}
+    http_200 = {"service": "query_server", "route": "/queries.json",
+                "method": "POST", "status": "200"}
+    rec = {"card": smi, "traced": len(traced)}
+    R.reset_launches()
+    with retrieval_mode("exact"):
+        cfg = ServerConfig(engine_variant=variant_path, ip="127.0.0.1",
+                           port=free_port())
+        t0 = time.perf_counter()
+        server = QueryServer(cfg, storage=storage, ctx=ctx)
+        torch.cuda.synchronize()
+        steps["deploy"] = time.perf_counter() - t0
+        info = server.deployed.models[0].serving_info()
+        check(info["path"] == "device-int8" and info["retrieval_mode"] == "exact"
+              and info["device"].startswith("cuda"), f"[{tag}] A serves {info}")
+        await server.start()
+        base = f"http://127.0.0.1:{cfg.port}"
+        try:
+            async with aiohttp.ClientSession(
+                    connector=aiohttp.TCPConnector(limit=0)) as s:
+                async def scrape() -> dict:
+                    async with s.get(f"{base}/metrics") as r:
+                        check(r.status == 200, f"[{tag}] /metrics {r.status}")
+                        return parse_prometheus_text(await r.text())
+
+                async def get_json(path):
+                    async with s.get(f"{base}{path}") as r:
+                        check(r.status == 200, f"[{tag}] {path} {r.status}")
+                        return await r.json()
+
+                async def one(i, p):
+                    hdr = ({"X-PIO-Trace": f"{traced[i][0]}:{traced[i][1]}:s=1"}
+                           if i in traced else {})
+                    async with s.post(f"{base}/queries.json", json=p,
+                                      headers=hdr) as r:
+                        body = await r.json()
+                        echo = r.headers.get("X-PIO-Trace")
+                    check(r.status == 200 and not body.get("degraded"),
+                          f"[{tag}] query {i}: {r.status} {body}")
+                    want = traced[i][0] if i in traced else echo
+                    check(echo is not None and echo == want and len(echo) == 16,
+                          f"[{tag}] query {i} echoed {echo!r}, sent {traced.get(i)}")
+                    return body
+
+                # (a) the server's counts against the requests sent
+                t0 = time.perf_counter()
+                snap = P.phase_snapshot()
+                batches0 = server.batcher.batches_served
+                before = await scrape()
+                bursts = []
+                for b in range(OBS_BURSTS):
+                    bursts.append(await asyncio.gather(*[
+                        one(b * OBS_BURST + j, p) for j, p in enumerate(payloads)]))
+                after = await scrape()
+                batches = server.batcher.batches_served - batches0
+                steps["bursts"] = time.perf_counter() - t0
+
+                def moved(name, **labels):
+                    return ((sample(after, name, **labels) or 0.0)
+                            - (sample(before, name, **labels) or 0.0))
+
+                sent = n
+                got_200 = moved("pio_http_requests_total", **http_200)
+                got_hist = moved("pio_http_request_seconds_count",
+                                 service="query_server", route="/queries.json")
+                check(got_200 == sent and got_hist == sent,
+                      f"[{tag}] {sent} 200s sent; pio_http_requests_total "
+                      f"moved {got_200}, the latency histogram {got_hist}")
+                scopes = moved("pio_profile_scopes_total", scope="serve.batch")
+                serve = phase_delta(snap, "serve.batch")
+                check(scopes == batches == serve["count"],
+                      f"[{tag}] serve.batch scopes {scopes} (aggregates "
+                      f"{serve['count']}) for {batches} batches served")
+                rec["serve_batch"] = check_phases(
+                    tag, "serve.batch", serve,
+                    ("assemble", "mask", "dispatch", "merge"))
+                for i, (tid, sid) in traced.items():
+                    doc = await get_json(f"/traces.json?traceId={tid}")
+                    spans = [(x["name"], x["parentId"], x["attrs"].get("status"))
+                             for x in doc["spans"]]
+                    check(("POST /queries.json", sid, 200) in spans,
+                          f"[{tag}] trace {tid}: spans {spans}")
+                prof = await get_json("/profile.json")
+                check("serve.batch" in prof["phases"],
+                      f"[{tag}] /profile.json phases {sorted(prof['phases'])}")
+                for b in range(1, OBS_BURSTS):
+                    close_bodies(f"{tag} burst {b}", bursts[b], bursts[0])
+                t0 = time.perf_counter()
+                same = check_vs_cpu(tag, (user, item, user_bias, item_bias, 3.0),
+                                    users, bursts[0])
+                steps["vs_cpu"] = time.perf_counter() - t0
+                rec.update({"sent": sent, "http_200": got_200,
+                            "latency_count": got_hist, "batches": batches,
+                            "cpu_same_ids_order": same})
+
+                # (b) the card's memory
+                torch.cuda.synchronize()
+                allocated = torch.cuda.memory_allocated()
+                total = torch.cuda.mem_get_info()[1]
+                page = await scrape()
+                peak = sample(page, "pio_device_bytes_peak", device="cuda:0")
+                in_use = sample(page, "pio_device_bytes_in_use", device="cuda:0")
+                check(peak is not None and allocated <= peak <= total,
+                      f"[{tag}] pio_device_bytes_peak {peak} outside "
+                      f"[{allocated}, {total}]")
+                check(in_use is not None and in_use > 0,
+                      f"[{tag}] pio_device_bytes_in_use {in_use}")
+                health = await get_json("/health")
+                check(health["jitCompileKeys"] >= 1,
+                      f"[{tag}] jitCompileKeys {health['jitCompileKeys']}")
+                rec["memory"] = {"memory_allocated": allocated, "total": total,
+                                 "peak_gauge": peak, "in_use_gauge": in_use,
+                                 "jit_compile_keys": health["jitCompileKeys"]}
+                log(f"[{tag}] device memory ({smi}): watermark {peak} B, in "
+                    f"use {in_use} B, memory_allocated {allocated} B, card "
+                    f"total {total} B; jitCompileKeys {health['jitCompileKeys']}")
+                if torch.cuda.device_count() > 1:
+                    mem = subprocess.run(
+                        ["nvidia-smi", "--query-gpu=index,memory.used",
+                         "--format=csv,noheader"], capture_output=True,
+                        text=True, timeout=60).stdout.strip()
+                    log(f"[{tag}] per-card memory after a scrape: {mem}")
+                    rec["per_card_memory"] = mem
+
+                # (c) one burst traced by torch.profiler, repeated (up to
+                # TRACE_TRIES bursts in all) where its trace misses K1
+                sym = RETRIEVAL_SYMBOLS["score_catalog_quantized"]
+                t0 = time.perf_counter()
+                for attempt in range(1, TRACE_TRIES + 1):
+                    tdir = tempfile.mkdtemp(prefix="rec-obs-trace-", dir=tmp)
+                    k1_before = R.score_catalog_quantized.launches
+                    with tracing.profile_trace(tdir):
+                        with tracing.annotate("serve.batch"):
+                            traced_burst = await asyncio.gather(*[
+                                one(-1 - j, p) for j, p in enumerate(payloads)])
+                        torch.cuda.synchronize()
+                    close_bodies(f"{tag} traced burst", traced_burst, bursts[0])
+                    events, size = trace_events(tdir)
+                    k1 = [e for e in events if e.get("cat") == "kernel"
+                          and sym in e.get("name", "")]
+                    ranges = [e for e in events if e.get("name") == "serve.batch"]
+                    if k1:
+                        break
+                    cats = collections.Counter(e.get("cat") for e in events)
+                    log(f"[{tag}] traced burst {attempt} of {TRACE_TRIES}: no "
+                        f"K1 kernel in its trace ({size} B; events by category "
+                        f"{dict(cats)}; K1 launched "
+                        f"{R.score_catalog_quantized.launches - k1_before} "
+                        "times in the burst)")
+                steps["profiled_burst"] = time.perf_counter() - t0
+                check(k1 and ranges, f"[{tag}] the trace holds {len(k1)} K1 "
+                      f"kernels and {len(ranges)} serve.batch ranges "
+                      f"(traced burst {attempt} of {TRACE_TRIES})")
+                k1_ms = sum(e["dur"] for e in k1) / len(k1) / 1e3 if k1 else None
+                rec["trace"] = {"bytes": size, "k1_kernels": len(k1),
+                                "k1_device_ms": k1_ms, "tries": attempt}
+                log(f"[{tag}] traced burst of {OBS_BURST}: {size} B of trace, "
+                    f"{len(k1)} K1 kernels "
+                    f"({sorted({e['name'][:40] for e in k1})}), {fmt(k1_ms)} "
+                    f"ms a launch (PERF.md's K1 row: {K1_PERF_ROW_MS} at B "
+                    "64, N 1,000,448, D 32)")
+
+                # (f) the CLI against this server, three processes at once
+                t0 = time.perf_counter()
+                outs = await asyncio.gather(
+                    obs_cli(tag, ["metrics", base, "--filter", "pio_http"]),
+                    obs_cli(tag, ["profile", base]), obs_cli(tag, ["status"]))
+                steps["cli"] = time.perf_counter() - t0
+                (_, m_out), (_, p_out), (_, s_out) = outs
+                check("pio_http_requests_total" in m_out,
+                      f"[{tag}] metrics printed {m_out[-500:]}")
+                check("serve.batch" in p_out,
+                      f"[{tag}] profile printed {p_out[-500:]}")
+                check("  cuda:0: " in s_out, f"[{tag}] status printed {s_out}")
+                rec["cli_status"] = s_out.strip().splitlines()
+                await serving_verdict(s, base, tag)
+        finally:
+            await server.shutdown()
+    launches = {"score_catalog_quantized": R.score_catalog_quantized.launches}
+    check(launches["score_catalog_quantized"] > 0,
+          f"[{tag}] K1 never launched in the phase")
+    rec.update({"launches": launches, "steps_s": steps,
+                "phase_s": time.perf_counter() - t_phase})
+    log(f"[{tag}] phase {rec['phase_s']:.1f} s (budget {OBS_BUDGET_S:.0f} s) "
+        f"on {smi}: " + ", ".join(f"{k} {v:.2f} s" for k, v in steps.items())
+        + f"; K1 {launches['score_catalog_quantized']} launches")
+    return launches, rec
+
+
+def mfu_check(tag: str, snap: dict, model, flops: float, smi: str) -> dict:
+    """After a timed fit: ``train.fit``'s four phases are recorded, and the
+    ``pio_training_mfu`` gauge equals this script's MFU of the fit (the
+    same flops, the fit's own unrounded train seconds, the bf16 peak)."""
+    from incubator_predictionio_tpu_torch.obs import profile as P
+    from incubator_predictionio_tpu_torch.obs.metrics import (
+        REGISTRY,
+        parse_prometheus_text,
+    )
+
+    fit = check_phases(tag, "train.fit", phase_delta(snap, "train.fit"),
+                       ("h2d", "init", "compute", "gather"))
+    check(fit["count"] == 1, f"[{tag}] {fit['count']} train.fit scopes")
+    train_s = fit["phases"]["compute"]["seconds"]
+    check(round(train_s, 4) == model.timings["train_sec"],
+          f"[{tag}] train.fit compute {train_s} vs timings "
+          f"{model.timings['train_sec']}")
+    peak = P.detected_peak_flops()
+    check(peak is not None, f"[{tag}] no bf16 peak known for the card ({smi})")
+    gauge = sample(parse_prometheus_text(REGISTRY.expose()), "pio_training_mfu")
+    mfu = flops / train_s / BF16_OPS_PER_S
+    check(gauge is not None and abs(gauge - mfu) <= 1e-6 * mfu,
+          f"[{tag}] pio_training_mfu {gauge} vs the script's {mfu}")
+    log(f"[{tag}] pio_training_mfu {gauge:.6e} = the script's {mfu:.6e} "
+        f"({flops:.4e} FLOPs over {train_s:.4f} s at {peak:.4g} FLOP/s; "
+        f"{smi})")
+    return {"train_fit": fit, "mfu_gauge": gauge, "mfu": mfu, "peak": peak}
+
+
 # -- phases 11 and 12: training the recommendation template on the card -------
 
 #: bench.py bench_recommendation_scaled's full configuration (:196-207):
@@ -3239,16 +3645,22 @@ def rec_train_phase(R, ctx, tmp):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    from incubator_predictionio_tpu_torch.obs import profile as P
+
+    snap = P.phase_snapshot()
     t0 = time.perf_counter()
     model = rec_fit(ctx, data, seed=1)
     fit_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    one = rec_fit(ctx, data, seed=1, epochs=1)
-    loss_1 = one.final_loss
-    del one
     steps, flops, nbytes = two_tower_flops_bytes(
         REC_EVENTS, REC_RANK, REC_BATCH, REC_EPOCHS, REC_USERS, REC_ITEMS,
         moment_bytes=2 if REC_MOMENTS == "bfloat16" else 4)
+    # rec-obs (d): the timed fit's phases and the MFU gauge, read before
+    # the next fit moves them
+    obs = mfu_check("rec-train", snap, model, flops, smi_name_power())
+    one = rec_fit(ctx, data, seed=1, epochs=1)
+    loss_1 = one.final_loss
+    del one
     t_train = model.timings["train_sec"]
     bound_step_ms = nbytes / steps / HBM_BYTES_PER_S * 1e3
     rec = {"users": REC_USERS, "items": REC_ITEMS, "rank": REC_RANK,
@@ -3264,7 +3676,7 @@ def rec_train_phase(R, ctx, tmp):
            "bound_train_events_per_sec": REC_EPOCHS * REC_EVENTS
            / (bound_step_ms * steps / 1e3),
            "final_loss": model.final_loss, "one_epoch_loss": loss_1,
-           "peak_device_bytes": peak}
+           "peak_device_bytes": peak, "obs": obs}
     check(model.device_resident, "[rec-train] the trained tables are not resident")
     check(np.isfinite(model.final_loss) and np.isfinite(loss_1),
           f"[rec-train] final loss {model.final_loss}, 1-epoch {loss_1}")
@@ -3488,9 +3900,29 @@ def rec_workflow_phase(R, ctx, tmp):
             rec["import_s"] = time.perf_counter() - s0
             check(f"Imported {WF_EVENTS + WF_BUYS} events." in out,
                   f"[rec-workflow] import: {out}")
-            s0 = time.perf_counter()
-            out = run(["train", "-v", variant_path, "--device", str(ctx.device)])
-            rec["train_s"] = time.perf_counter() - s0
+            # rec-obs (f): the profiled train's trace holds the card's
+            # kernels; a train whose trace has none is run again (up to
+            # TRACE_TRIES trains in all), the last one's instance kept
+            for attempt in range(1, TRACE_TRIES + 1):
+                s0 = time.perf_counter()
+                tdir = os.path.join(wf, f"train-trace-{attempt}")
+                out = run(["train", "-v", variant_path, "--device",
+                           str(ctx.device), "--profile-dir", tdir])
+                rec["train_s"] = time.perf_counter() - s0
+                events, size = trace_events(tdir)
+                kernels = sum(e.get("cat") == "kernel" for e in events)
+                if kernels:
+                    break
+                log(f"[rec-workflow] profiled train {attempt} of {TRACE_TRIES}: "
+                    f"no kernel event in its trace ({size} B; events by "
+                    f"category {dict(collections.Counter(e.get('cat') for e in events))})")
+            check(kernels > 0, f"[rec-workflow] the train trace ({size} B) "
+                  f"holds no CUDA kernel event (train {attempt} of {TRACE_TRIES})")
+            rec["train_trace"] = {"bytes": size, "kernel_events": kernels,
+                                  "tries": attempt}
+            log(f"[rec-workflow] train --profile-dir: {rec['train_s']:.2f} s "
+                f"(without it: {WF_TRAIN_UNPROFILED_S} s), a trace of "
+                f"{size} B with {kernels} kernel events ({smi_name_power()})")
             iid = out.split("Engine instance ID: ")[-1].strip()
             storage = registry.get_storage()
             inst = storage.get_meta_data_engine_instances().get(iid)
@@ -3633,10 +4065,11 @@ def shard_series() -> dict:
     from incubator_predictionio_tpu_torch.sharding import shard_metrics as M
 
     out = {}
-    for s in M.ALL:
-        if hasattr(s, "observe"):
-            out[f"{s.name}_count"] = s.count
-            out[f"{s.name}_sum"] = s.sum
+    for s in (M.SHARD_BATCHES, M.SHARD_FALLBACKS, M.FULL_GATHERS,
+              M.DELTA_ROUTED, M.TOPK_SEC, M.MERGE_SEC, M.MERGE_FANIN):
+        if s.kind == "histogram":
+            _, out[f"{s.name}_sum"], out[f"{s.name}_count"] = (
+                s.children()[0][1].snapshot())
         else:
             out[s.name] = s.value
     return out
@@ -4199,11 +4632,20 @@ def rec_shard_phase(R, ctx, tmp, persisted):
     PIO_SHARD_SERVE=1 (:func:`shard_trained`); with ≥ 2 cards both again
     over ``min(4, cards)`` cards with each card's scoring time. Returns
     (launches, record)."""
+    from incubator_predictionio_tpu_torch.obs import profile as P
+
     t0 = time.perf_counter()
     cards = torch.cuda.device_count()
     R.reset_launches()
+    snap = P.phase_snapshot()
     rec = {"cards": cards}
     rec["lanes"] = shard_lanes(R, ctx, min(8, cards), "rec-shard", full=True)
+    # the fences at shard.search's phase edges against the lanes' speed
+    lanes = rec["lanes"]["lanes"]
+    log(f"[rec-shard] lanes with shard.search's fences ({smi_name_power()}): "
+        f"sharded exact {lanes['sharded_exact']['qps']:.1f} q/s, exact "
+        f"{lanes['exact']['qps']:.1f} q/s (earlier, without the fences: "
+        f"{SHARD_LANES_UNFENCED_QPS})")
     gc.collect()
     torch.cuda.empty_cache()
     rec["trained"] = asyncio.run(shard_trained(R, ctx, persisted))
@@ -4221,6 +4663,11 @@ def rec_shard_phase(R, ctx, tmp, persisted):
     for name, count in launches.items():
         check(count > 0, f"[rec-shard] {name} never launched")
     rec["launches"] = launches
+    # rec-obs (e): the device-sharded searches' fenced phases (h2d,
+    # compute, gather) and the per-shard IVF searches' (compute, merge)
+    rec["obs_shard_search"] = check_phases(
+        "rec-shard", "shard.search", phase_delta(snap, "shard.search"),
+        ("h2d", "compute", "gather", "merge"))
     rec["phase_s"] = time.perf_counter() - t0
     log(f"[rec-shard] phase {rec['phase_s']:.1f} s; launches {launches}")
     gc.collect()
@@ -10610,6 +11057,12 @@ def main() -> int:
             tmp, smi))
         for k, c in counts.items():
             launches[k] = launches.get(k, 0) + c
+        # the telemetry that reads the card, on the same instance A
+        counts, main["rec_obs"] = asyncio.run(obs_phase(
+            R, (user, item, user_bias, item_bias), eval_users, storage,
+            variant_path, ctx, tmp, smi))
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
     del user, item, user_bias, item_bias, ivf, storage
     gc.collect()
     torch.cuda.empty_cache()
@@ -10784,7 +11237,10 @@ def main() -> int:
          "rec_model_launches": main["rec_model"]["launches"][
              "score_catalog_quantized"],
          "rec_reload_launches": main["rec_reload"]["launches"][
-             "score_catalog_quantized"]},
+             "score_catalog_quantized"],
+         "rec_obs_launches": main["rec_obs"]["launches"][
+             "score_catalog_quantized"],
+         "rec_obs_trace_device_ms": main["rec_obs"]["trace"]["k1_device_ms"]},
         {**entry("score_centroids_quantized", "retrieval.cu",
                  "incubator_predictionio_tpu/ops/retrieval.py:188", k2,
                  next(c for c in k2 if c["B"] == 64)),

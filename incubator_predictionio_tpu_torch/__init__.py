@@ -11,3 +11,5 @@ Ported so far: the recommendation engine's deploy → query path
 the two retrieval kernels of ``ops/retrieval.py`` written by hand in CUDA
 (``csrc/retrieval.cu``). ROADMAP.md lists what is still to come.
 """
+
+__version__ = "0.1.0"

@@ -821,7 +821,8 @@ class TwoTowerMF:
             layout=RowBlocks(ctx) if sharded else None)
         loss = np.inf if loss is None else float(loss)  # the one sync
         t_train = time.perf_counter() - t_train
-        n_steps = sum(epochs_run) * int(ub.shape[0])
+        n_b = int(ub.shape[0])
+        n_steps = sum(epochs_run) * n_b
         b_local = int(ub.shape[1])
         del grads, state, ub, ib, rb, wb
 
@@ -867,6 +868,21 @@ class TwoTowerMF:
             "train_sec": round(t_train, 4),
             "gather_sec": round(t_gather, 4),
         }
+        # the same four timers feed the profiler's train.fit phase buckets
+        # (h2d staging, device init, the train loop, the gather) and the
+        # analytic-flops MFU gauge (reference two_tower.py:839-852); the
+        # batch in the flops is the global one, over the data axis
+        from incubator_predictionio_tpu_torch.obs import profile as _profile
+
+        _profile.record_phases("train.fit", {
+            "h2d": t_stage, "init": t_init,
+            "compute": t_train, "gather": t_gather,
+        })
+        g_batch = b_local * ctx.data_size
+        n_params = (n_users + n_items) * (cfg.rank + 1)
+        _profile.record_training_step(
+            cfg.epochs * n_b * (12 * cfg.rank * g_batch + 12 * n_params),
+            t_train)
         if multi:
             rows_s, grads_s = clock.seconds(), grad_clock.seconds()
             model.timings.update(
@@ -1059,18 +1075,27 @@ class TwoTowerMF:
             rm = _row_mask_pad_buffer(bucket, n_cols)
             rm[:b, : row_mask.shape[1]] = row_mask
             rmask = torch.from_numpy(rm).to(dev)
-        if quantized:
-            idx, scores = _topk_quantized(
-                uidx_t, ue_tab, ub_tab, items_q, scales, bias, mask, rmask,
-                model.mean, k, model.n_items)
-        else:
-            idx, scores = _topk_scores(
-                uidx_t, ue_tab, ub_tab, item_t, item_b, model.mean, mask,
-                rmask, k)
-        # ONE device→host copy for both results: the scores' bits and the
-        # indices ride together as int32 columns
-        packed = torch.cat([scores.view(torch.int32), idx.to(torch.int32)],
-                           dim=1).cpu().numpy()
+        from incubator_predictionio_tpu_torch.utils import jitstats
+
+        # the reference's dispatch keys (two_tower.py:1004-1010): the int8
+        # path by its own name, so a first dispatch of each shape books
+        # its wall time (launch, and the library's load the first time)
+        with jitstats.dispatch_timer((
+            "two_tower_topk_int8" if quantized else "two_tower_topk",
+            bucket, k, model.n_items, ue_tab.shape[0], rmask is not None,
+        )):
+            if quantized:
+                idx, scores = _topk_quantized(
+                    uidx_t, ue_tab, ub_tab, items_q, scales, bias, mask,
+                    rmask, model.mean, k, model.n_items)
+            else:
+                idx, scores = _topk_scores(
+                    uidx_t, ue_tab, ub_tab, item_t, item_b, model.mean, mask,
+                    rmask, k)
+            # ONE device→host copy for both results: the scores' bits and
+            # the indices ride together as int32 columns
+            packed = torch.cat([scores.view(torch.int32),
+                                idx.to(torch.int32)], dim=1).cpu().numpy()
         scores_h = packed[:, :k].view(np.float32)
         idx_h = packed[:, k:].astype(np.int64)
         return idx_h[:b, :num], scores_h[:b, :num]

@@ -4,13 +4,11 @@ Counterpart of ``incubator_predictionio_tpu/obs/metrics.py``, whole:
 :data:`REGISTRY` (:class:`MetricsRegistry`), its counter, gauge and
 fixed-bucket histogram families, :class:`LatencyReservoir`,
 :func:`nearest_rank_percentiles`, :func:`timed`,
-:func:`parse_prometheus_text` and :func:`bucket_quantiles`. The breakers,
-the admission controller, the drain state and the query server register
-their signals here. The ``GET /metrics`` route that exposes the registry,
-and the request traces whose ids histogram exemplars carry, come with the
-telemetry half of the tooling slice (ROADMAP.md item 6): until then
-``observe_exemplar`` keeps an exemplar only when the caller names the
-trace id.
+:func:`parse_prometheus_text` and :func:`bucket_quantiles`. Every subsystem
+(servers, the resilience layer, the profiler, the dispatch accounting, the
+streaming, sharding and distributed tiers) registers its signals here, and
+each server exposes the whole registry at ``GET /metrics`` (``obs/http.py``)
+in the Prometheus text format.
 
 Design:
 
@@ -222,9 +220,14 @@ class _Histogram:
 
     def observe_exemplar(self, value: float,
                          trace_id: Optional[str] = None) -> None:
-        """``observe()`` plus: when ``trace_id`` is given, remember (value,
-        trace id, now) as the bucket's exemplar. (The reference also reads
-        the active trace's id; request traces are not ported yet.)"""
+        """``observe()`` plus: when a trace is active (or ``trace_id`` is
+        given), remember (value, trace id, now) as the bucket's exemplar."""
+        if trace_id is None:
+            # lazy import: metrics must stay importable without the trace
+            # module's contextvars machinery in minimal tools
+            from incubator_predictionio_tpu_torch.obs import trace as _trace
+
+            trace_id = _trace.current_trace_id()
         self.observe(value)
         if trace_id is None:
             return

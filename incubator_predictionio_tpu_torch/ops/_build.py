@@ -7,7 +7,9 @@ build takes seconds. A source may include the shared headers of ``csrc/``
 a hash of the source, every shared header and the compiler flags: an edited
 source or header builds anew, an unchanged one loads what is there. Nothing here runs at
 import time, and a failed build raises (the port never falls back to the
-plain PyTorch version on a card).
+plain PyTorch version on a card). Each build's wall time is booked under
+the library's name in ``utils/jitstats.py`` (``pio_jit_compile_seconds_total``,
+``status``'s compile table): the port's counterpart of an XLA compile.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -94,27 +97,31 @@ def library_path(name: str) -> Path:
 
 
 def _start(name: str):
-    """Start ``nvcc`` for one source; returns (process, temp path, final path)
-    or None when the library is already built."""
+    """Start ``nvcc`` for one source; returns (process, temp path, final
+    path, start time) or None when the library is already built."""
     out = library_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    return proc, tmp, out, t0
 
 
 def _finish(name: str, started) -> None:
-    proc, tmp, out = started
+    from incubator_predictionio_tpu_torch.utils import jitstats
+
+    proc, tmp, out, t0 = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent builder loads a whole file
+    jitstats.observe_compile(name, time.perf_counter() - t0)
 
 
 def build_all() -> list[str]:

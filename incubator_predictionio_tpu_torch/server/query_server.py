@@ -18,6 +18,8 @@ per-algorithm circuit breakers and an algorithm deadline),
   back); ``POST /rollback`` restores the pinned instance by hand;
 - ``POST /delta`` — streaming deltas through the same discipline;
 - ``POST /stop`` (graceful drain) and ``GET /plugins.json``;
+- ``GET /metrics``, ``/traces.json``, ``/profile.json``
+  (``obs/http.py``), every route behind the telemetry middleware;
 
 and :func:`serve_forever` (the CLI ``deploy`` verb, SIGTERM → drain).
 
@@ -25,10 +27,10 @@ Models become device-resident once at deploy: ``prepare_for_serving(ctx)``
 receives the server's :class:`DeviceContext`, so the served tables land on
 its device (the reference's models ask JAX for the platform instead).
 Predictions come back as host objects, so the wall clocks the adaptive
-limiter and ``X-PIO-Server-Timing`` read around ``predict_batch`` cover
-the device work. Not ported here: the SLO block, the profiler's phase
-timers, the ``/metrics`` and trace routes and the HTML status page (the
-telemetry half of ROADMAP.md item 6), feedback events, TLS and
+limiter, ``X-PIO-Server-Timing`` and the ``serve.batch`` profiler phases
+read around ``predict_batch`` cover the device work with no fence. Not
+ported here: the span spool, the performance plane and the SLO block of
+``/health`` (the next part of ROADMAP.md item 6), feedback events, TLS and
 ``--log-url`` shipping (the rest of item 6), the shard-owner routes, the
 native HTTP front and tenants (item 7).
 """
@@ -39,6 +41,7 @@ import asyncio
 import collections
 import contextvars
 import dataclasses
+import datetime as _dt
 import hashlib
 import json
 import logging
@@ -59,6 +62,11 @@ from incubator_predictionio_tpu_torch.data.storage.base import EngineInstance
 from incubator_predictionio_tpu_torch.data.storage.registry import (
     Storage,
     get_storage,
+)
+from incubator_predictionio_tpu_torch.obs import profile as _profile
+from incubator_predictionio_tpu_torch.obs.http import (
+    add_observability_routes,
+    telemetry_middleware,
 )
 from incubator_predictionio_tpu_torch.obs.metrics import (
     REGISTRY,
@@ -96,6 +104,16 @@ from incubator_predictionio_tpu_torch.server.lifecycle import (
 from incubator_predictionio_tpu_torch.server.plugins import (
     apply_output_plugins,
 )
+from incubator_predictionio_tpu_torch.streaming.stream_metrics import (
+    APPLIED as _STREAM_APPLIED,
+)
+from incubator_predictionio_tpu_torch.streaming.stream_metrics import (
+    DEDUPED as _STREAM_DEDUPED,
+)
+from incubator_predictionio_tpu_torch.streaming.stream_metrics import (
+    STALENESS as _STREAM_STALENESS,
+)
+from incubator_predictionio_tpu_torch.utils import jitstats
 from incubator_predictionio_tpu_torch.utils.json_util import (
     bind_query,
     to_jsonable,
@@ -127,6 +145,10 @@ _G_LATENCY_Q = REGISTRY.gauge(
     "pio_serving_latency_seconds",
     "Serving latency split into its terms (exact reservoir quantiles)",
     labels=("stage", "quantile"))
+_G_DEV_MEM = REGISTRY.gauge(
+    "pio_device_bytes_in_use",
+    "Accelerator memory in use (the device_memory_report fold)",
+    labels=("device",))
 _ROLLBACKS = REGISTRY.counter(
     "pio_deploy_rollbacks_total",
     "Reloads rejected by the smoke-query gate or auto-rolled back during "
@@ -531,6 +553,7 @@ class MicroBatcher:
                 except asyncio.CancelledError:
                     sem.release()
                     raise
+                t_phase = time.perf_counter()
                 while len(batch) < self.max_batch:
                     try:
                         batch.append(self.queue.get_nowait())
@@ -539,7 +562,9 @@ class MicroBatcher:
                 now = time.perf_counter()
                 for entry in batch:
                     self.queue_delay.record(now - entry[2])
+                t_assemble, t_phase = now - t_phase, now
                 batch = self._evict_expired(batch)
+                t_mask = time.perf_counter() - t_phase
                 if not batch:
                     # the whole assembly was dead on arrival: hand the slot
                     # back and keep draining
@@ -547,7 +572,8 @@ class MicroBatcher:
                     continue
                 self.batches_served += 1
                 self.max_batch_seen = max(self.max_batch_seen, len(batch))
-                task = loop.create_task(self._dispatch(loop, batch))
+                task = loop.create_task(
+                    self._dispatch(loop, batch, t_assemble, t_mask))
                 self._inflight.add(task)
                 task.add_done_callback(self._inflight.discard)
                 task.add_done_callback(lambda _t: sem.release())
@@ -584,7 +610,8 @@ class MicroBatcher:
                 self._admission.on_shed_expired(shed)
         return live
 
-    async def _dispatch(self, loop, batch) -> None:
+    async def _dispatch(self, loop, batch,
+                        t_assemble: float = 0.0, t_mask: float = 0.0) -> None:
         t0 = time.perf_counter()
         payloads = [entry[0] for entry in batch]
         # run_in_executor does not copy contextvars: run_with_deadline
@@ -602,11 +629,22 @@ class MicroBatcher:
             raise
         except Exception as e:  # noqa: BLE001 - keep serving
             results = [e] * len(batch)
-        self.dispatch_sec.record(time.perf_counter() - t0)
+        t_dispatch = time.perf_counter() - t0
+        self.dispatch_sec.record(t_dispatch)
         algo_times = ctx.get(_DISPATCH_ALGO_TIMES, [])
+        t_merge = time.perf_counter()
         for entry, r in zip(batch, results):
             if not entry[1].done():
                 entry[1].set_result(_Delivered(r, algo_times))
+        # the profiler's phases of this batch's life (reference
+        # query_server.py:716-723): coalesce (assemble), deadline eviction
+        # (mask), the predict round trip (dispatch: predict_batch returns
+        # host objects, so the card's work is inside it and needs no
+        # fence), future resolution (merge)
+        _profile.record_phases("serve.batch", {
+            "assemble": t_assemble, "mask": t_mask, "dispatch": t_dispatch,
+            "merge": time.perf_counter() - t_merge,
+        })
 
 
 def load_deployed_engine(
@@ -747,8 +785,8 @@ class QueryServer:
         REGISTRY.add_collector(name, self._collect_metrics)
 
     def _collect_metrics(self) -> None:
-        """Exposition-time fold: this server's breakers, counters and
-        latency reservoirs."""
+        """Exposition-time fold: this server's breakers, counters, latency
+        reservoirs, streaming staleness and the cards' memory."""
         breakers = {b.name: b.snapshot() for b in self.deployed.algo_breakers}
         breakers["serving"] = self._serving_breaker.snapshot()
         publish_breaker_metrics(breakers)
@@ -761,12 +799,30 @@ class QueryServer:
                            ("dispatch", self.batcher.dispatch_sec)):
             for q, v in res.percentiles().items():
                 _G_LATENCY_Q.labels(stage=stage, quantile=q).set(v)
+        stream = self._streaming_health()
+        if stream is not None and stream.get("stalenessSeconds") is not None:
+            _STREAM_STALENESS.set(stream["stalenessSeconds"])
+        try:
+            # the cards this process initialized (none on a CPU server:
+            # the report never starts CUDA)
+            from incubator_predictionio_tpu_torch.utils.tracing import (
+                device_memory_report,
+            )
+
+            for row in device_memory_report():
+                if row["bytes_in_use"] is not None:
+                    _G_DEV_MEM.labels(device=row["device"]).set(
+                        row["bytes_in_use"])
+        except Exception:  # noqa: BLE001 - stats are best-effort
+            logger.debug("device memory fold failed", exc_info=True)
 
     # -- routes -------------------------------------------------------------
     def make_app(self) -> web.Application:
-        app = web.Application()
+        app = web.Application(
+            middlewares=[telemetry_middleware("query_server")])
         app.router.add_get("/", self.handle_status)
         app.router.add_get("/health", self.handle_health)
+        add_observability_routes(app)
         app.router.add_post("/queries.json", self.handle_query)
         app.router.add_post("/reload", self.handle_reload)
         app.router.add_post("/delta", self.handle_delta)
@@ -795,6 +851,10 @@ class QueryServer:
             "backendBreakers": backends,
             "degradedResponses": self.degraded_count,
             "admission": self._admission.snapshot(self.batcher.queue.qsize()),
+            # distinct dispatch shapes served so far (utils/jitstats.py):
+            # flat after warmup; a count growing under load is unbounded
+            # shapes
+            "jitCompileKeys": jitstats.count(),
             "deployment": {
                 "instanceId": inst.id,
                 "engineId": inst.engine_id,
@@ -839,6 +899,9 @@ class QueryServer:
 
     async def handle_status(self, request: web.Request) -> web.Response:
         inst = self.deployed.instance
+        if "text/html" in request.headers.get("Accept", ""):
+            return web.Response(
+                text=self._status_html(), content_type="text/html")
         return web.json_response({
             "status": "alive",
             "engineInstance": {
@@ -858,13 +921,90 @@ class QueryServer:
             "requestCount": self.request_count,
             "avgServingSec": self.avg_serving_sec,
             "lastServingSec": self.last_serving_sec,
+            "servingSecPercentiles": self.latency.percentiles(),
+            # the tail split: time spent waiting for a batch slot against
+            # the time the dispatch itself took
+            "queueDelaySecPercentiles": self.batcher.queue_delay.percentiles(),
+            "dispatchSecPercentiles": self.batcher.dispatch_sec.percentiles(),
             "batchesServed": self.batcher.batches_served,
             "maxBatchSeen": self.batcher.max_batch_seen,
             # queued-past-deadline evictions and the live dispatch bound
             "shedExpired": self.batcher.shed_expired,
             "maxInFlight": self.batcher.max_in_flight,
+            # distinct dispatch shapes served so far (utils/jitstats.py)
+            "jitCompileKeys": jitstats.count(),
             "uptimeSec": self._clock.monotonic() - self._start_time,
         })
+
+    def _status_html(self) -> str:
+        """Human status page on ``/`` (reference query_server.py:1155; the
+        twirl template of CreateServer.scala:437-462): engine info, server
+        info, per-stage params, algorithms and models; the feedback-loop
+        section comes with feedback events (ROADMAP.md item 6).
+        Self-contained CSS (serving hosts may have no egress)."""
+        import html as _html
+
+        inst = self.deployed.instance
+        cfg = self.config
+
+        def esc(v) -> str:
+            return _html.escape(str(v))
+
+        def table(rows: list[tuple[str, object]]) -> str:
+            return "<table>" + "".join(
+                f"<tr><th>{esc(k)}</th><td>{esc(v)}</td></tr>"
+                for k, v in rows) + "</table>"
+
+        algo_rows = "".join(
+            f"<tr><th rowspan=\"3\">{i + 1}</th>"
+            f"<th>Class</th><td>{esc(type(a).__name__)}</td></tr>"
+            f"<tr><th>Parameters</th><td>{esc(p)}</td></tr>"
+            f"<tr><th>Model</th><td>{esc(m)}</td></tr>"
+            for i, (a, p, m) in enumerate(zip(
+                self.deployed.algorithms,
+                json.loads(inst.algorithms_params or "[]")
+                + [""] * len(self.deployed.algorithms),
+                [type(m).__name__ for m in self.deployed.models]))
+        )
+        title = (f"{inst.engine_factory} ({inst.engine_variant}) - "
+                 f"Engine Server at {cfg.ip}:{cfg.port}")
+        return f"""<!DOCTYPE html>
+<html lang="en">
+<head><title>{esc(title)}</title>
+<style>
+ body {{ font-family: sans-serif; margin: 2em; }}
+ table {{ border-collapse: collapse; margin-bottom: 1.5em; }}
+ th, td {{ border: 1px solid #ccc; padding: 4px 10px; text-align: left; }}
+ td {{ font-family: Menlo, Monaco, Consolas, monospace; }}
+</style></head>
+<body>
+<h1>Engine Server at {esc(cfg.ip)}:{esc(cfg.port)}</h1>
+<p>{esc(inst.engine_factory)} ({esc(inst.engine_variant)})</p>
+<h2>Engine Information</h2>
+{table([
+    ("Training Start Time", inst.start_time),
+    ("Training End Time", inst.end_time),
+    ("Variant ID", inst.engine_variant),
+    ("Instance ID", inst.id),
+])}
+<h2>Server Information</h2>
+{table([
+    ("Start Time", _dt.datetime.fromtimestamp(self._start_time)),
+    ("Request Count", self.request_count),
+    ("Average Serving Time", f"{self.avg_serving_sec:.4f} seconds"),
+    ("Last Serving Time", f"{self.last_serving_sec:.4f} seconds"),
+    ("Engine Factory Class", inst.engine_factory),
+])}
+<h2>Data Source</h2>
+{table([("Parameters", inst.data_source_params)])}
+<h2>Data Preparator</h2>
+{table([("Parameters", inst.preparator_params)])}
+<h2>Algorithms and Models</h2>
+<table><tr><th>#</th><th colspan="2">Information</th></tr>{algo_rows}</table>
+<h2>Serving</h2>
+{table([("Parameters", inst.serving_params)])}
+</body>
+</html>"""
 
     async def handle_query(self, request: web.Request) -> web.Response:
         if self._drain_state.draining:
@@ -1258,6 +1398,7 @@ class QueryServer:
             # already applied (the updater crashed between ship and cursor
             # commit and is replaying): idempotent ack, counted
             st["deduped"] += 1
+            _STREAM_DEDUPED.inc()
             return web.json_response(
                 {"status": "duplicate", "lastDeltaSeq": last})
         expected = last if last is not None else delta.chain_base
@@ -1341,6 +1482,7 @@ class QueryServer:
             "applied": (st["applied"] if st else 0) + 1,
             "deduped": st["deduped"] if st else 0,
         }
+        _STREAM_APPLIED.inc()
         self._last_reload = {
             "status": "delta", "instanceId": inst_id,
             "deltaRange": [delta.from_seq, delta.to_seq],

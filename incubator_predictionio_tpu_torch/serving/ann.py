@@ -380,10 +380,12 @@ class IVFIndex:
         from incubator_predictionio_tpu_torch.ops.retrieval import (
             pack_probe_queries,
             pad_centroids,
+            probe_bucket,
             probe_packed_bytes,
             score_centroids_quantized,
             unpack_probe_queries,
         )
+        from incubator_predictionio_tpu_torch.utils import jitstats
 
         dev = self._cent_device
         if dev is None:
@@ -412,12 +414,17 @@ class IVFIndex:
                 stage = self._probe_stage = torch.empty(
                     1 << (nbytes - 1).bit_length(), dtype=torch.uint8,
                     pin_memory=self.device.type == "cuda")
-            packed = pack_probe_queries(q_q, q_scales, stage)
-            packed = packed.to(self.device, non_blocking=True)
-            out = score_centroids_quantized(
-                *unpack_probe_queries(packed, b, d), cq, cs, cb)
-            # whole leading rows: one contiguous copy down
-            return out[:b].cpu().numpy()[:, : self.n_partitions]
+            # the reference's dispatch key (ann.py:475): a first probe of
+            # each bucket books its wall time
+            with jitstats.dispatch_timer(
+                    ("ivf_coarse_int8", probe_bucket(b), int(cq.shape[0]))):
+                packed = pack_probe_queries(q_q, q_scales, stage)
+                packed = packed.to(self.device, non_blocking=True)
+                out = score_centroids_quantized(
+                    *unpack_probe_queries(packed, b, d), cq, cs, cb)
+                # whole leading rows: one contiguous copy down
+                out = out[:b].cpu().numpy()
+            return out[:, : self.n_partitions]
 
     def _int8_partition_scores(
         self, probe: np.ndarray, q_quant: tuple,

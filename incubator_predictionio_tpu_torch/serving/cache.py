@@ -17,57 +17,30 @@ most ``ttl`` seconds later. ``PIO_SERVING_CONSTRAINT_TTL_MS=0`` disables
 caching entirely and restores the reference's read-per-query semantics
 (every ``get`` invokes the loader and counts a miss). See docs/serving.md.
 
-Copy of ``incubator_predictionio_tpu/serving/cache.py``. The port has no
-metrics registry and no ambient deadline scope yet (the tooling slice,
-ROADMAP.md Queue 1 item 6): the hit and miss counts are plain counters
-(:data:`HITS`, :data:`MISSES`), and a follower of a cold key waits for its
-leader at most ``leader_timeout_sec`` before it reads on its own (the
-reference waits for the lesser of that and its caller's deadline).
+Copy of ``incubator_predictionio_tpu/serving/cache.py``: the hit and miss
+counts on the process-wide registry, and a follower of a cold key bounded
+by its caller's ambient deadline (``resilience/policy.py``).
 """
 
 from __future__ import annotations
 
 import os
 import threading
-import time
-from typing import Any, Callable, Protocol, TypeVar
+from typing import Any, Callable, TypeVar
+
+from incubator_predictionio_tpu_torch.obs.metrics import REGISTRY
+from incubator_predictionio_tpu_torch.resilience.clock import (
+    SYSTEM_CLOCK,
+    Clock,
+)
 
 T = TypeVar("T")
 
-
-class Clock(Protocol):
-    """The time source the cache reads (tests pass a fake one)."""
-
-    def monotonic(self) -> float: ...
-
-
-class _SystemClock:
-    def monotonic(self) -> float:
-        return time.monotonic()
-
-
-SYSTEM_CLOCK = _SystemClock()
-
-
-class _Counter:
-    """A named monotonic counter (``value``, ``inc()``), thread-safe."""
-
-    def __init__(self, name: str, help_text: str):
-        self.name = name
-        self.help = help_text
-        self.value = 0
-        self._lock = threading.Lock()
-
-    def inc(self, n: int = 1) -> None:
-        with self._lock:
-            self.value += n
-
-
-HITS = _Counter(
+_HITS = REGISTRY.counter(
     "pio_serving_store_read_cache_hits_total",
     "Serving-time store reads answered from the TTL constraint cache "
     "(single-flight followers count as hits — they performed no read)")
-MISSES = _Counter(
+_MISSES = REGISTRY.counter(
     "pio_serving_store_read_cache_misses_total",
     "Serving-time store reads that went to the backend (TTL expired, first "
     "read, or caching disabled via PIO_SERVING_CONSTRAINT_TTL_MS=0)")
@@ -150,13 +123,13 @@ class TTLCache:
 
     def get(self, key: Any, loader: Callable[[], T]) -> T:
         if self.ttl_sec <= 0:
-            MISSES.inc()
+            _MISSES.inc()
             return loader()
         now = self.clock.monotonic()
         with self._lock:
             entry = self._entries.get(key)
             if entry is not None and entry[1] > now:
-                HITS.inc()
+                _HITS.inc()
                 return entry[0]
             load = self._loads.get(key)
             if load is not None and \
@@ -174,22 +147,34 @@ class TTLCache:
                     # head-of-line-block every concurrent query past its
                     # own deadline; the leader runs under ITS caller's
                     # deadline scope and staleness is bounded by that)
-                    HITS.inc()
+                    _HITS.inc()
                     return entry[0]
         if not leader:
-            # cold key (no previous value): join the in-flight read, but
-            # never park forever on a hung leader's Event (takeover
-            # replaces the slot for LATER callers only — already-parked
-            # waiters time out on their own and fall through to a direct
-            # read)
+            # cold key (no previous value): join the in-flight read — but
+            # only for as long as THIS caller's ambient deadline allows. A
+            # slow leader must not hold a tighter-budgeted follower past
+            # its own budget; on timeout the follower falls through to its
+            # own read, which fails fast under its own deadline_scope.
+            from incubator_predictionio_tpu_torch.resilience.policy import (
+                current_deadline,
+            )
+
+            ambient = current_deadline()
+            budget = ambient.remaining() if ambient is not None else None
+            if budget is None:
+                # no ambient deadline: still never park forever on a hung
+                # leader's Event (takeover replaces the slot for LATER
+                # callers only — already-parked waiters must time out on
+                # their own and fall through to a direct read)
+                budget = self.leader_timeout_sec
             try:
-                value = load.wait(self.leader_timeout_sec)
+                value = load.wait(budget)
             except TimeoutError:
-                MISSES.inc()
+                _MISSES.inc()
                 return loader()
-            HITS.inc()  # no storage call happened on this caller's behalf
+            _HITS.inc()  # no storage call happened on this caller's behalf
             return value
-        MISSES.inc()
+        _MISSES.inc()
         try:
             value = loader()
         except BaseException as e:

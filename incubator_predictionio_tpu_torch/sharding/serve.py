@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from incubator_predictionio_tpu_torch.serving.topk import merge_topk
+from incubator_predictionio_tpu_torch.obs import profile as _profile
 from incubator_predictionio_tpu_torch.sharding import shard_metrics as M
 from incubator_predictionio_tpu_torch.sharding.table import (
     ShardSpec,
@@ -521,13 +522,13 @@ class ShardedServing:
     def _search_device(self, user_idx, num, exclude, row_mask,
                        events=None):
         from incubator_predictionio_tpu_torch.models.two_tower import (
-            _exact_scores,
             _row_mask_pad_buffer,
-            _top_k,
             serve_bucket,
         )
+        from incubator_predictionio_tpu_torch.utils import jitstats
 
         dev = self.device
+        t_phase = time.perf_counter()
         d0 = dev.devices[0]
         rps, k_rank = self.spec.rows_per_shard, self.rank
         b = len(user_idx)
@@ -559,6 +560,44 @@ class ShardedServing:
             if rm is not None:
                 rms = torch.from_numpy(rm[:, s * rps:(s + 1) * rps]).to(d)
             inputs.append((q.to(d, non_blocking=True), mask, rms))
+        # phase edge (reference serve.py:593-596): the masks' and query
+        # rows' uploads are h2d; each card's own stream, never the whole
+        # device
+        _profile.fence(inputs)
+        t_h2d, t_phase = time.perf_counter() - t_phase, time.perf_counter()
+        with jitstats.dispatch_timer((
+            "two_tower_topk_sharded", self.n_shards, bucket, k,
+            self.spec.n_rows, rm is not None,
+        )):
+            packed = self._score_shards(inputs, k, kl, events)
+            # phase edge: the per-card scoring, local top-k, candidate
+            # moves and merge are compute (the merged tensor depends on
+            # every card's work); the host copy after it is gather
+            _profile.fence(packed)
+            t_compute, t_phase = (time.perf_counter() - t_phase,
+                                  time.perf_counter())
+            packed = packed.cpu().numpy()
+        _profile.record_phases("shard.search", {
+            "h2d": t_h2d, "compute": t_compute,
+            "gather": time.perf_counter() - t_phase,
+        })
+        scores_h = packed[:, :k].view(np.float32)
+        idx_h = packed[:, k:].astype(np.int64)
+        return idx_h[:b, :num], scores_h[:b, :num]
+
+    def _score_shards(self, inputs, k, kl, events):
+        """Queue every shard's scoring and local top-k on its own card, then
+        the cross-shard merge on the first card; returns the merged
+        ``[bucket, 2k]`` int32 tensor (scores' bits, then ids), on the
+        device."""
+        from incubator_predictionio_tpu_torch.models.two_tower import (
+            _exact_scores,
+            _top_k,
+        )
+
+        dev = self.device
+        d0 = dev.devices[0]
+        rps, k_rank = self.spec.rows_per_shard, self.rank
         timed = events is not None and d0.type == "cuda"
         cand_v, cand_i = [], []
         # every shard's work is queued on its own card's current stream
@@ -597,10 +636,7 @@ class ShardedServing:
         packed = torch.cat([v.view(torch.int32), idx.to(torch.int32)], dim=1)
         if timed:
             ev[1].record(torch.cuda.current_stream(d0))
-        packed = packed.cpu().numpy()
-        scores_h = packed[:, :k].view(np.float32)
-        idx_h = packed[:, k:].astype(np.int64)
-        return idx_h[:b, :num], scores_h[:b, :num]
+        return packed
 
     def _search_host(self, q, ub, num, exclude, row_mask):
         """Per-shard numpy blocks + serial-parity merge — bitwise the
@@ -613,6 +649,7 @@ class ShardedServing:
         if exclude is not None and len(exclude):
             excl_sorted = np.sort(np.asarray(exclude, np.int64))
         ids_parts, sc_parts = [], []
+        t_phase = time.perf_counter()
         row = np.arange(b)[:, None]
         for blk in self.blocks:
             n_s = blk.hi - blk.lo
@@ -640,6 +677,9 @@ class ShardedServing:
         t0 = time.perf_counter()
         idx, scores = merge_topk(cand_ids, cand_sc, num)
         M.MERGE_SEC.observe(time.perf_counter() - t0)
+        _profile.record_phases("shard.search", {
+            "compute": t0 - t_phase, "merge": time.perf_counter() - t0,
+        })
         return idx, scores
 
     def search_ivf(self, q, ub, num: int, exclude=None, row_mask=None,
@@ -657,6 +697,7 @@ class ShardedServing:
         if exclude is not None and len(exclude):
             excl_sorted = np.sort(np.asarray(exclude, np.int64))
         ids_parts, sc_parts = [], []
+        t_phase = time.perf_counter()
         for s, idx_s in enumerate(self.ivf):
             lo, hi = self.spec.shard_bounds(s)
             n_s = hi - lo
@@ -689,6 +730,11 @@ class ShardedServing:
         t0 = time.perf_counter()
         idx, scores = merge_topk(cand_ids, cand_sc, num)
         M.MERGE_SEC.observe(time.perf_counter() - t0)
+        # the per-shard searches run host code around the coarse kernel,
+        # whose scores come back as host arrays: no fence
+        _profile.record_phases("shard.search", {
+            "compute": t0 - t_phase, "merge": time.perf_counter() - t0,
+        })
         M.SHARD_BATCHES.inc()
         return idx, scores
 

@@ -23,10 +23,10 @@ micro-batch adam step runs where ``PIO_STREAM_FUSED`` says, as in the
 reference: ``auto`` (the default) and ``1`` the host fused pass
 (``ops/sparse_update.py`` ``fused_adam_rows``), ``0`` the per-row loop,
 and ``device`` kernel K3 on the trainer's device
-(``fused_adam_rows_device``). The phase timings of the last
-fold (assemble / compute / gather, seconds) are kept in
-:attr:`DeltaTrainer.last_phases`; the performance plane that records them
-in the reference comes with the tooling slice.
+(``fused_adam_rows_device``). Each fold's phases (assemble / compute /
+gather, seconds) go to the profiler's ``stream.fold`` buckets
+(``obs/profile.py``), as in the reference; the last fold's are also kept
+in :attr:`DeltaTrainer.last_phases`.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from incubator_predictionio_tpu_torch.data.event import Event, epoch_micros
+from incubator_predictionio_tpu_torch.obs import profile as _profile
 from incubator_predictionio_tpu_torch.ops import sparse_update
 from incubator_predictionio_tpu_torch.streaming import stream_metrics
 from incubator_predictionio_tpu_torch.streaming.coldstart import (
@@ -242,6 +243,10 @@ class DeltaTrainer:
             batch = triples[lo:lo + self.micro_batch]
             touched.update(self._step(batch))
         self.n_folded += len(triples)
+        # no fence needed: under PIO_STREAM_FUSED=device each micro-batch's
+        # K3 rows come back through the staged host copy inside _step
+        # (fused_adam_rows_device waits for it), so the kernel's time is
+        # already in compute when the clock is read
         t_compute, t_phase = _time.perf_counter() - t_phase, _time.perf_counter()
         result = FoldResult(
             user_rows={}, item_rows={}, cold_user_rows={}, cold_item_rows={},
@@ -252,10 +257,13 @@ class DeltaTrainer:
                 "cu": result.cold_user_rows, "ci": result.cold_item_rows}
         for key in touched:
             dest[key[0]][key[1]] = self.rows[key].copy()
+        # the profiler's phases: event translation (assemble), micro-batch
+        # adam steps (compute), touched-row copy-out (gather)
         self.last_phases = {
             "assemble": t_assemble, "compute": t_compute,
             "gather": _time.perf_counter() - t_phase,
         }
+        _profile.record_phases("stream.fold", self.last_phases)
         return result, poison
 
     def _step(self, batch: list[tuple[tuple, tuple, float, int]]) -> set:

@@ -27,8 +27,10 @@ adopts the state's position.
 
 Fault injection: ``PIO_STREAM_FAULT=kill:<point>`` SIGKILLs this process at
 the named point (``after_archive``, ``after_ship``). The reference's trace
-spans, span spool and performance plane come with the tooling slice
-(ROADMAP.md Queue 1 item 6).
+spans here, its span spool and its performance plane come with the
+updater's plane (the next part of ROADMAP.md Queue 1 item 6); the fold's
+``stream.fold`` phases and ``pio_stream_*`` counters are recorded now, and
+``stream --obs-port`` serves them.
 """
 
 from __future__ import annotations

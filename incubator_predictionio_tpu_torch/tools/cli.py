@@ -3,10 +3,12 @@
 Counterpart of ``incubator_predictionio_tpu/tools/cli.py`` (reference
 tools/console/Console.scala): the verbs ``app new``, ``import``, ``train``,
 ``eval``, ``deploy``, ``undeploy``, ``stream``, ``batchpredict``,
-``launch``, ``dist status`` and ``shards``, with the reference's argument
-names (its cli.py:58, :231, :267, :295, :349, :824, :366, :631, :3786,
-:3604, :3533). ``stream`` leaves out the reference's ``--obs-port`` (the
-telemetry half of ROADMAP.md item 6).
+``launch``, ``dist status``, ``shards``, ``status``, ``metrics`` and
+``profile``, with the reference's argument names (its cli.py:58, :231,
+:267, :295, :349, :824, :366, :631, :3786, :3604, :3533, :650, :1683,
+:1742). Not yet here: ``status``'s jobs rows and ``metrics --fleet`` (item
+7), and the ``history``, ``slo``, ``top`` and ``trace`` verbs (the next
+part of ROADMAP.md item 6).
 ``train``, ``eval``, ``deploy``, ``stream``, ``batchpredict`` and
 ``shards`` run on the card unless ``--device cpu`` asks for the CPU.
 ``launch -n N <verb> …`` runs N
@@ -19,6 +21,7 @@ arguments, so a caller can run a verb in-process.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
@@ -102,7 +105,19 @@ def cmd_train(args, storage: Storage) -> int:
         distributed=args.distributed,
         mesh_axes=_mesh_axes(args),
     )
-    instance_id = create_workflow(config, storage)
+    if args.profile_dir:
+        from incubator_predictionio_tpu_torch.utils.tracing import (
+            profile_trace,
+        )
+
+        trace = profile_trace(args.profile_dir)
+    else:
+        trace = contextlib.nullcontext()
+    with trace:
+        instance_id = create_workflow(config, storage)
+    if args.profile_dir:
+        _out(f"Profiler trace written to {args.profile_dir} "
+             "(torch.profiler, TensorBoard's PyTorch profiler layout).")
     if instance_id == "<secondary>":
         _out("Training completed (secondary process; the primary wrote the "
              "engine instance).")
@@ -254,6 +269,15 @@ def cmd_stream(args, storage: Storage) -> int:
     updater = StreamUpdater(cfg, model, instance_id,
                             event_names=event_names,
                             default_values=defaults, ctx=ctx)
+    obs_handle = None
+    if args.obs_port:
+        # the updater has no HTTP surface of its own; this thread serves
+        # the shared /metrics, /traces.json and /profile.json, so
+        # pio_stream_* and the stream.fold phases are scrapeable
+        from incubator_predictionio_tpu_torch.obs.http import start_obs_server
+
+        obs_handle = start_obs_server("stream_updater", args.obs_port,
+                                      ip=args.obs_ip)
     gc.collect()
     gc.freeze()
     try:
@@ -264,6 +288,8 @@ def cmd_stream(args, storage: Storage) -> int:
         updater.run_forever(max_batches=args.max_batches)
         return 1 if updater.quarantined else 0
     finally:
+        if obs_handle is not None:
+            obs_handle.close()
         from incubator_predictionio_tpu_torch.ops import retrieval, sparse_update
 
         logging.getLogger(__name__).info(
@@ -384,6 +410,314 @@ def cmd_dist_status(args, storage: Storage) -> int:
              f"{mrec['generation']} step {mrec['step']} "
              f"beat {mrec['ageMs']:.0f}ms ago [{state}]")
     return 1 if snap["degraded"] else 0
+
+
+def cmd_status(args, storage: Storage) -> int:
+    """(commands/Management.scala:99-181; reference cli.py:650): the
+    version, the devices, each card's memory and the kernel builds' and
+    first dispatches' wall times. Like the reference's backend start, it
+    opens a context on every visible card, so that each gets a memory row."""
+    import torch
+
+    import incubator_predictionio_tpu_torch as port
+    from incubator_predictionio_tpu_torch.utils.tracing import (
+        device_memory_report,
+    )
+
+    _out(f"incubator_predictionio_tpu_torch {port.__version__}")
+    if torch.cuda.is_available():
+        n = torch.cuda.device_count()
+        for d in range(n):
+            torch.zeros(1, device=f"cuda:{d}")
+        _out(f"Devices: {n} × gpu ({torch.cuda.get_device_name(0)})")
+    else:
+        _out("Devices: 1 × cpu (cpu)")
+    for row in device_memory_report():
+        if row["bytes_in_use"] is not None:
+            _out(f"  {row['device']}: {row['bytes_in_use'] / 2**20:.1f} MiB in use"
+                 + (f" / {row['bytes_limit'] / 2**20:.0f} MiB"
+                    if row["bytes_limit"] else ""))
+    _print_jit_status()
+    _out("Your system is all ready to go.")
+    return 0
+
+
+def _print_jit_status() -> None:
+    """The compile section of ``status`` (reference cli.py:683): wall time
+    per executable name, the kernels' nvcc builds and the first dispatches
+    of each serving shape (utils/jitstats.py), as seen in this process."""
+    from incubator_predictionio_tpu_torch.utils import jitstats
+
+    top = jitstats.top_compiles()
+    if not top:
+        return
+    total = jitstats.compile_seconds_total()
+    _out(f"JIT compiles: {total:.2f}s first-dispatch wall across "
+         f"{jitstats.count()} cached key(s)")
+    for name, sec, n in top:
+        _out(f"  {name}: {sec:.3f}s over {n} compile(s)")
+
+
+def _fetch_metrics_text(url: str, timeout: float = 10.0,
+                        exemplars: bool = False) -> str:
+    """GET one /metrics page. The pretty-printer asks for exemplars
+    explicitly (``?exemplars=1``); ``--raw`` output stays strict 0.0.4."""
+    import urllib.request
+
+    if exemplars:
+        url = f"{url}{'&' if '?' in url else '?'}exemplars=1"
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.read().decode()
+
+
+def _metrics_url(url: str) -> str:
+    url = url.rstrip("/")
+    return url if url.endswith("/metrics") else url + "/metrics"
+
+
+def _hist_by_labelset(samples) -> dict:
+    """Histogram samples → {labelset_key: {"buckets": [(le, cum)],
+    "sum": x, "count": n}}."""
+    by_key: dict[tuple, dict] = {}
+    for sname, labels, value in samples:
+        key = tuple(sorted((k, v) for k, v in labels.items() if k != "le"))
+        slot = by_key.setdefault(key, {"buckets": [], "sum": 0.0,
+                                       "count": 0.0})
+        if sname.endswith("_bucket"):
+            slot["buckets"].append((float(labels["le"]), value))
+        elif sname.endswith("_sum"):
+            slot["sum"] = value
+        elif sname.endswith("_count"):
+            slot["count"] = value
+    return by_key
+
+
+def _label_str(key: tuple) -> str:
+    return ",".join(f"{k}={v}" for k, v in key) or "(no labels)"
+
+
+def _number(v):
+    """A sample value as an int when it is a whole number."""
+    return int(v) if float(v).is_integer() else v
+
+
+def _render_metrics_single(families, args) -> None:
+    from incubator_predictionio_tpu_torch.obs.metrics import bucket_quantiles
+
+    for name in sorted(families):
+        fam = families[name]
+        kind, samples = fam["type"] or "untyped", fam["samples"]
+        if args.filter and args.filter not in name:
+            continue
+        _out(f"{name} ({kind})" + (f" — {fam['help']}" if fam["help"] else ""))
+        if kind == "histogram":
+            ex_by_key: dict[tuple, list] = {}
+            for sname, labels, ex in fam.get("exemplars", []):
+                k = tuple(sorted((lk, lv) for lk, lv in labels.items()
+                                 if lk != "le"))
+                ex_by_key.setdefault(k, []).append((labels.get("le", "?"),
+                                                    ex))
+            # per label-set: count, sum, mean, estimated quantiles
+            for key, slot in sorted(_hist_by_labelset(samples).items()):
+                count = slot.get("count", 0)
+                mean = (slot.get("sum", 0.0) / count) if count else 0.0
+                qs = bucket_quantiles(slot["buckets"])
+                _out(f"  {_label_str(key)}: count={int(count)} "
+                     f"mean={mean * 1e3:.3f}ms "
+                     + " ".join(f"~{k}={v * 1e3:.3f}ms"
+                                for k, v in qs.items()))
+                for le, ex in ex_by_key.get(key, []):
+                    # the bucket's exemplar names the request's trace
+                    # (GET /traces.json?traceId=<id>)
+                    tid = ex.get("labels", {}).get("trace_id", "?")
+                    _out(f"    exemplar le={le}: "
+                         f"{ex['value'] * 1e3:.3f}ms trace={tid}")
+        else:
+            for sname, labels, value in sorted(
+                    samples, key=lambda s: sorted(s[1].items())):
+                label = ",".join(f"{k}={v}" for k, v in sorted(labels.items()))
+                _out(f"  {label or '(no labels)'}: {_number(value)}")
+
+
+def _render_metrics_fleet(pages: dict, args) -> None:
+    """Several servers' pages merged (reference cli.py:1597): one row a
+    sample with a column a server and an aggregate (sum for counters and
+    histogram count/sum, max for gauges; histogram quantiles re-estimated
+    from the bucket-merged distribution)."""
+    from incubator_predictionio_tpu_torch.obs.metrics import bucket_quantiles
+
+    urls = list(pages)
+    aliases = {url: f"s{i + 1}" for i, url in enumerate(urls)}
+    _out("servers:")
+    for url in urls:
+        _out(f"  {aliases[url]} = {url}")
+    names = sorted({n for fams in pages.values() for n in fams})
+    for name in names:
+        if args.filter and args.filter not in name:
+            continue
+        kinds = [pages[u][name]["type"] for u in urls
+                 if name in pages[u] and pages[u][name]["type"]]
+        kind = kinds[0] if kinds else "untyped"
+        helps = [pages[u][name]["help"] for u in urls
+                 if name in pages[u] and pages[u][name]["help"]]
+        _out(f"{name} ({kind})" + (f" — {helps[0]}" if helps else ""))
+        if kind == "histogram":
+            per_server = {u: _hist_by_labelset(pages[u][name]["samples"])
+                          for u in urls if name in pages[u]}
+            keys = sorted({k for slots in per_server.values() for k in slots})
+            for key in keys:
+                cols = []
+                merged_buckets: dict[float, float] = {}
+                total_count = total_sum = 0.0
+                for url in urls:
+                    slot = per_server.get(url, {}).get(key)
+                    if slot is None:
+                        cols.append(f"{aliases[url]}=-")
+                        continue
+                    count = slot.get("count", 0)
+                    p99 = bucket_quantiles(slot["buckets"],
+                                           qs=(0.99,))["p99"]
+                    cols.append(f"{aliases[url]} count={int(count)} "
+                                f"~p99={p99 * 1e3:.3f}ms")
+                    total_count += count
+                    total_sum += slot.get("sum", 0.0)
+                    for le, cum in slot["buckets"]:
+                        merged_buckets[le] = merged_buckets.get(le, 0) + cum
+                p99_all = bucket_quantiles(sorted(merged_buckets.items()),
+                                           qs=(0.99,))["p99"]
+                mean = (total_sum / total_count) if total_count else 0.0
+                cols.append(f"all count={int(total_count)} "
+                            f"mean={mean * 1e3:.3f}ms "
+                            f"~p99={p99_all * 1e3:.3f}ms")
+                _out(f"  {_label_str(key)}: " + " | ".join(cols))
+        else:
+            # counters sum across servers; gauges take the max (a depth or
+            # a limit summed across servers is not a meaningful number)
+            agg = max if kind == "gauge" else sum
+            keys = sorted({tuple(sorted(labels.items()))
+                           for u in urls if name in pages[u]
+                           for _, labels, _ in pages[u][name]["samples"]})
+            for key in keys:
+                cols, values = [], []
+                for url in urls:
+                    vals = [
+                        v for _, labels, v
+                        in pages.get(url, {}).get(name, {}).get("samples", [])
+                        if tuple(sorted(labels.items())) == key]
+                    if not vals:
+                        cols.append(f"{aliases[url]}=-")
+                        continue
+                    values.append(vals[0])
+                    cols.append(f"{aliases[url]}={_number(vals[0])}")
+                label = "max" if kind == "gauge" else "sum"
+                cols.append(f"{label}={_number(agg(values) if values else 0)}")
+                _out(f"  {_label_str(key)}: " + " ".join(cols))
+
+
+def cmd_metrics(args, storage: Storage) -> int:
+    """Fetch and pretty-print one or more servers' ``/metrics`` pages
+    (reference cli.py:1683). Several URLs render a merged table with a
+    column a server and a summed/max aggregate; the fetches run
+    concurrently, so one dead server costs one timeout."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from incubator_predictionio_tpu_torch.obs.metrics import (
+        MetricError,
+        parse_prometheus_text,
+    )
+
+    urls = [_metrics_url(u) for u in args.urls]
+    texts: dict[str, str] = {}
+    failures: list[str] = []
+    with ThreadPoolExecutor(max_workers=min(16, len(urls))) as pool:
+        futures = {url: pool.submit(_fetch_metrics_text, url, args.timeout,
+                                    not args.raw)
+                   for url in urls}
+        for url, fut in futures.items():
+            try:
+                texts[url] = fut.result()
+            except Exception as e:  # noqa: BLE001 - a dead server is a row
+                failures.append(f"{url}: {e}")
+    for f in failures:
+        _err(f"Unable to fetch {f}")
+    if not texts:
+        return 1
+    if args.raw:
+        for url, text in texts.items():
+            if len(texts) > 1:
+                _out(f"# ---- {url} ----")
+            _out(text.rstrip())
+        return 1 if failures else 0
+    pages: dict[str, dict] = {}
+    for url, text in texts.items():
+        try:
+            pages[url] = parse_prometheus_text(text)
+        except MetricError as e:
+            _err(f"{url} served malformed metrics: {e}")
+            failures.append(url)
+    if not pages:
+        return 1
+    if len(pages) == 1:
+        _render_metrics_single(next(iter(pages.values())), args)
+    else:
+        _render_metrics_fleet(pages, args)
+    return 1 if failures else 0
+
+
+def _fetch_json(url: str, timeout: float = 10.0) -> dict:
+    """GET one JSON document."""
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return json.loads(resp.read().decode())
+
+
+def cmd_profile(args, storage: Storage) -> int:
+    """Fetch and render a server's ``GET /profile.json`` (reference
+    cli.py:1742): per-scope phase attribution (where the time goes), the
+    wall-stack sampler's top-N (when ``PIO_PROFILE_HZ`` > 0), training MFU
+    and device-memory watermarks."""
+    url = args.url.rstrip("/") + "/profile.json"
+    try:
+        doc = _fetch_json(url, args.timeout)
+    except Exception as e:  # noqa: BLE001 - a dead server is the answer
+        _err(f"Unable to fetch {url}: {e}")
+        return 1
+    if args.json:
+        _out(json.dumps(doc, indent=2))
+        return 0
+    _out(f"service: {doc.get('service', '?')}")
+    phases = doc.get("phases") or {}
+    if not phases:
+        _out("phases: none recorded yet")
+    for scope in sorted(phases):
+        e = phases[scope]
+        wall = e.get("wall_seconds", 0.0)
+        _out(f"{scope}: wall {wall:.3f}s over {e.get('count', 0)} scope(s)")
+        for p, ph in sorted((e.get("phases") or {}).items(),
+                            key=lambda kv: -kv[1]["seconds"]):
+            pct = 100.0 * ph["seconds"] / wall if wall else 0.0
+            _out(f"  {p:<12} {ph['seconds']:9.3f}s  {pct:5.1f}%  "
+                 f"({ph['count']} interval(s))")
+    tr = doc.get("training") or {}
+    if tr.get("mfu"):
+        peak = tr.get("peak_flops")
+        _out(f"training MFU: {tr['mfu'] * 100:.1f}%"
+             + (f" of {peak:.3g} FLOP/s peak" if peak else ""))
+    for dev, v in sorted((doc.get("deviceWatermark") or {}).items()):
+        _out(f"device {dev}: peak {v / 2**20:.1f} MiB")
+    sampler = doc.get("sampler")
+    if sampler is None:
+        _out("sampler: off (set PIO_PROFILE_HZ to enable the wall-stack "
+             "profiler)")
+        return 0
+    _out(f"sampler: {sampler['hz']:g} Hz, {sampler['samples']} sample(s)")
+    for i, row in enumerate(sampler.get("top") or [], 1):
+        stack = row.get("stack") or ["?"]
+        _out(f"  #{i:<3}{row['pct']:5.1f}%  ({row['samples']})  {stack[0]}")
+        for frame in stack[1:]:
+            _out(f"          {frame}")
+    return 0
 
 
 def _fmt_bytes(n) -> str:
@@ -520,6 +854,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh-axes", help='JSON mesh axes over the launched '
                    'processes, e.g. \'{"data": 2, "model": 2}\' (default: '
                    'every process on the data axis)')
+    p.add_argument("--profile-dir",
+                   help="capture a torch.profiler trace of the training "
+                        "run into this directory (TensorBoard's PyTorch "
+                        "profiler layout)")
 
     # launch (Runner.runOnSpark counterpart: N coordinated local processes)
     p = sub.add_parser("launch")
@@ -640,6 +978,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print dead-lettered poison events as JSON lines")
     p.add_argument("--device", help="torch device to fold on (default: "
                                     "the card, cuda:0; 'cpu' for the CPU)")
+    p.add_argument("--obs-port", type=int, default=0,
+                   help="serve /metrics, /traces.json and /profile.json on "
+                        "this port from a background thread (the updater "
+                        "has no HTTP surface of its own; 0 = off)")
+    p.add_argument("--obs-ip", default="127.0.0.1",
+                   help="bind address for --obs-port (default loopback)")
 
     p = sub.add_parser("batchpredict")
     p.add_argument("--input", default="batchpredict-input.json")
@@ -684,13 +1028,41 @@ def build_parser() -> argparse.ArgumentParser:
                    help="coordination directory (default: "
                         "PIO_DIST_STATE_DIR)")
     p.add_argument("--json", action="store_true")
+
+    sub.add_parser("status")
+
+    # metrics: scrape and pretty-print servers' /metrics (reference :3401)
+    p = sub.add_parser(
+        "metrics",
+        help="fetch and pretty-print one or more servers' Prometheus "
+             "/metrics pages (several URLs merge into a table with a "
+             "column a server and a summed/max aggregate)")
+    p.add_argument("urls", nargs="+",
+                   help="server base URL(s), e.g. http://127.0.0.1:8000")
+    p.add_argument("--raw", action="store_true",
+                   help="print the raw exposition text instead")
+    p.add_argument("--filter", help="only families whose name contains this")
+    p.add_argument("--timeout", type=float, default=10.0,
+                   help="per-server fetch timeout in seconds (default 10)")
+
+    # profile: the continuous profiler's live document (reference :3419)
+    p = sub.add_parser(
+        "profile",
+        help="fetch and render a server's /profile.json: phase attribution, "
+             "wall-stack sampler top-N (PIO_PROFILE_HZ), training MFU, "
+             "device-memory watermarks")
+    p.add_argument("url", help="server base URL, e.g. http://127.0.0.1:8000")
+    p.add_argument("--timeout", type=float, default=10.0)
+    p.add_argument("--json", action="store_true")
     return parser
 
 
 _COMMANDS = {"train": cmd_train, "eval": cmd_eval, "deploy": cmd_deploy,
              "undeploy": cmd_undeploy, "stream": cmd_stream,
              "batchpredict": cmd_batchpredict, "import": cmd_import,
-             "launch": cmd_launch, "shards": cmd_shards}
+             "launch": cmd_launch, "shards": cmd_shards,
+             "status": cmd_status, "metrics": cmd_metrics,
+             "profile": cmd_profile}
 _APP_COMMANDS = {"new": cmd_app_new}
 _DIST_COMMANDS = {"status": cmd_dist_status}
 

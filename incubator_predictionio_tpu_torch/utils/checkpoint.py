@@ -613,7 +613,11 @@ def checkpointed_epochs(
     path, module docstring); ``layout`` describes the slices of a fit whose
     processes split the state (:class:`SplitLeaves`, :class:`RowBlocks`
     for a model-axis fit's row blocks). Returns ``(params, opt_state, loss)``;
-    ``loss`` is None when no epoch ran."""
+    ``loss`` is None when no epoch ran. Each chunk runs inside a
+    ``train_epochs#<epoch>`` profiler range (reference checkpoint.py:212).
+    """
+    from incubator_predictionio_tpu_torch.utils.tracing import step_annotation
+
     ckpt, params, opt_state, start_epoch = maybe_resume(
         directory, every, keep, params, opt_state, epochs, factory=factory,
         ctx=ctx, layout=layout)
@@ -624,7 +628,8 @@ def checkpointed_epochs(
             if on_chunk is not None:
                 on_chunk(e)
             chunk = min(every, epochs - e) if ckpt is not None else epochs - e
-            params, opt_state, loss = train_epochs(params, opt_state, chunk)
+            with step_annotation("train_epochs", e):
+                params, opt_state, loss = train_epochs(params, opt_state, chunk)
             e += chunk
             if ckpt is not None:
                 ckpt.save(e, {"params": params, "opt": opt_state,

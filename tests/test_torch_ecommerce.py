@@ -233,17 +233,17 @@ def test_constraint_cache_under_a_fake_clock(stores, models):
     _, ta = _algos(False)
     clock = FakeClock()
     ta._constraint_cache = TTTLCache(1.0, clock=clock)
-    m0 = tcache.MISSES.value
+    m0 = tcache._MISSES.value
     for _ in range(5):
         ta.predict(tm, tec.Query(user="u0", num=3))
-    assert tcache.MISSES.value - m0 == 1
+    assert tcache._MISSES.value - m0 == 1
     clock.advance(1.5)
     ta.batch_predict(tm, [(0, tec.Query(user="u0", num=3))])
-    assert tcache.MISSES.value - m0 == 2
+    assert tcache._MISSES.value - m0 == 2
     _, ta0 = _algos(False, ttl=0.0)
     for _ in range(3):
         ta0.predict(tm, tec.Query(user="u0", num=3))
-    assert tcache.MISSES.value - m0 == 5
+    assert tcache._MISSES.value - m0 == 5
 
 
 def test_pickled_model_serves_the_same_and_holds_no_tensor(stores, models):

@@ -45,6 +45,15 @@ def test_importing_every_module_loads_no_jax():
     assert "BAD []" in out.stdout, out.stdout
 
 
+def test_the_telemetry_modules_are_among_those_checked():
+    """The telemetry slice's modules are imported by the fresh-interpreter
+    check above and scanned by the source check below."""
+    mods = set(_modules())
+    assert {f"incubator_predictionio_tpu_torch.{m}" for m in (
+        "obs", "obs.trace", "obs.profile", "obs.http", "obs.metrics",
+        "utils.jitstats", "utils.tracing")} <= mods
+
+
 def test_no_source_names_jax_or_the_jax_package():
     pattern = re.compile(
         r"^\s*(import jax|from jax|import incubator_predictionio_tpu\b(?!_torch)"
